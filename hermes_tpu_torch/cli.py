@@ -2,6 +2,7 @@
 
     python -m hermes_tpu_torch --replicas 8 --keys $((1<<20)) \\
         --sessions 1024 --arb-mode sort --chain-writes 128 --check
+    python -m hermes_tpu_torch --arb-mode sort --mega-round --check
 
 The default fast-backend drive of ``hermes_tpu/cli.py``: with ``--steps
 0`` (the default) the run drains every session's op stream; ``--check``
@@ -34,6 +35,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--chain-writes", type=int, default=0,
                     help="intra-round same-key write chain length (needs "
                          "--arb-mode sort)")
+    ap.add_argument("--mega-round", action="store_true",
+                    help="the mega round: route-back, arbiter apply and "
+                         "replay scan as three CUDA kernels (needs "
+                         "--arb-mode sort)")
     ap.add_argument("--steps", type=int, default=0, help="0 = run until drained")
     ap.add_argument("--check", action="store_true",
                     help="record history + linearizability gate")
@@ -52,6 +57,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.chain_writes and args.arb_mode != "sort":
         ap.error("--chain-writes needs --arb-mode sort")
+    if args.mega_round and args.arb_mode != "sort":
+        ap.error("--mega-round needs --arb-mode sort (the mega route "
+                 "kernel consumes the fused sort's verdicts)")
     cfg = HermesConfig(
         n_replicas=args.replicas,
         n_keys=args.keys,
@@ -61,6 +69,7 @@ def main(argv=None) -> int:
         ops_per_session=args.ops_per_session,
         arb_mode=args.arb_mode,
         chain_writes=args.chain_writes,
+        mega_round=args.mega_round,
     )
     rt = FastRuntime(cfg, record=default_record(args.check),
                      device=args.device)

@@ -5,8 +5,7 @@ A copy of ``hermes_tpu/config.py``'s ``WorkloadConfig`` and
 built for one package can be rebuilt field for field in the other
 (``HermesConfig(**dataclasses.asdict(ref_cfg))``).  The knobs of
 subsystems the port does not have yet stay declared; the modules that
-would read them refuse loudly when they are set (``kvs.KVS``), and
-``mega_round=True`` raises here until the mega-round kernels are ported.
+would read them refuse loudly when they are set (``kvs.KVS``).
 
 ``bench_cfg`` is the port's copy of ``bench.py:_cfg`` — the flagship
 bench shape that ``chip_smoke.py`` and the CLI drive.
@@ -18,6 +17,13 @@ import dataclasses
 from typing import Literal, Optional
 
 from hermes_tpu_torch.core import layouts
+
+#: The reference's mega-round budget for the (K,) vpts arbiter column
+#: (4 bytes per key), sized there for a TPU core's VMEM.  The card has no
+#: VMEM and its kernel keeps the column in device memory (4 MB at 2^20
+#: keys fits the 50 MB L2), but the limit stays so that both packages
+#: accept and refuse the same mega_round configs.
+MEGA_VPTS_VMEM_BYTES = 8 << 20
 
 # The declared chain-rank field must hold every legal chain_writes value.
 assert 4096 < layouts.LANE_WORD.field("chain_rank").cap
@@ -65,8 +71,8 @@ class HermesConfig:
     arb_slots_cfg: Optional[int] = None
     arb_mode: Literal["race", "sort"] = "race"
     fused_sort: bool = True
-    # The mega-round kernels (hermes_tpu/core/megaround.py) are not ported
-    # yet: True raises NotImplementedError (ROADMAP A7).
+    # the mega round (core/megaround.py): route-back, arbiter apply and
+    # replay scan as three CUDA kernels; needs the fused sort arbiter
     mega_round: bool = False
     chain_writes: int = 0
     auto_rebase: bool = True
@@ -124,10 +130,17 @@ class HermesConfig:
                 "the sorted equal-key runs)"
             )
         if self.mega_round:
-            raise NotImplementedError(
-                "mega_round=True needs the mega-round kernels (mega_route, "
-                "mega_apply, mega_replay), which are not ported to "
-                "hermes_tpu_torch yet (ROADMAP A7)")
+            if self.arb_mode != "sort" or not self.fused_sort:
+                raise ValueError(
+                    "mega_round needs arb_mode='sort' and fused_sort=True "
+                    "(the mega route kernel consumes the fused sort's "
+                    "sorted-order verdicts)")
+            if 4 * self.n_keys > MEGA_VPTS_VMEM_BYTES:
+                raise ValueError(
+                    f"mega_round needs the vpts arbiter column VMEM-"
+                    f"resident: 4*n_keys = {4 * self.n_keys} bytes exceeds "
+                    f"the {MEGA_VPTS_VMEM_BYTES}-byte budget "
+                    f"(config.MEGA_VPTS_VMEM_BYTES)")
         if not (0 <= self.rmw_retries <= (1 << 20)):
             raise ValueError("rmw_retries must be in [0, 2^20]")
         if self.op_timeout_rounds < 0:
@@ -220,6 +233,14 @@ class HermesConfig:
         runs the split two-sort program."""
         return (self.arb_mode == "sort" and self.fused_sort
                 and self.n_lanes <= layouts.FUSED_KEY.field("sub").cap)
+
+    @property
+    def use_mega_round(self) -> bool:
+        """The mega-round switch: the knob is on and the fused sort
+        resolves (the route kernel consumes its sorted-order verdicts).
+        It alone decides; there is no build-time refusal and no
+        fallback."""
+        return self.mega_round and self.use_fused_sort
 
     @property
     def use_heap(self) -> bool:

@@ -37,9 +37,14 @@ tests/test_torch_faststep.py, round by round, bit for bit):
   explicitly; the bank's byte order is defined by arithmetic
   (``_bank_to_i32``), never by a ``view``.
 
-The kernel on this path is ``kernels.stats_block`` (once per round, in
-``_collect_acks``); ``jax.jit`` has no counterpart — the round runs
-eagerly — and ``lax.scan`` in ``build_fast_scan`` is a Python loop.
+The kernels on this path: ``kernels.stats_block`` (once per round, in
+``_collect_acks``) and, with ``cfg.use_mega_round``, the three mega-round
+kernels of ``core/megaround.py`` at the reference's three sites —
+``mega_replay`` for the gated replay scan, ``mega_route`` for the fused
+sort's route-back scatter, ``mega_apply`` for the arbiter scatter-max and
+the verdict gather of ``_derived_acks``.  ``jax.jit`` has no counterpart —
+the round runs eagerly — and ``lax.scan`` in ``build_fast_scan`` is a
+Python loop.
 """
 
 from __future__ import annotations
@@ -50,7 +55,7 @@ import numpy as np
 import torch
 
 from hermes_tpu_torch.config import HermesConfig
-from hermes_tpu_torch.core import kernels, layouts
+from hermes_tpu_torch.core import kernels, layouts, megaround
 from hermes_tpu_torch.core import state as st
 from hermes_tpu_torch.core import types as t
 from hermes_tpu_torch.workload import ycsb
@@ -568,7 +573,16 @@ def _coordinate(cfg: HermesConfig, ctl: FastCtl, fs: FastState, stream):
 
     # --- replay scan, gated on the host step mirror ------------------------
     if ctl.host_step % cfg.replay_scan_every == 0:
-        table, replay = _replay_scan(cfg, ctl, table, replay)
+        if cfg.use_mega_round:
+            # the scan as one kernel over the table's K rows (the drop row
+            # left out): marks in place, new replay leaves
+            _bank, (act, rkey, rpts, racks, rval) = megaround.mega_replay(
+                cfg, step, ctl.frozen, table.vpts[:K], table.bank[:K],
+                replay)
+            replay = FastReplay(active=act, key=rkey, pts=rpts, val=rval,
+                                acks=racks)
+        else:
+            table, replay = _replay_scan(cfg, ctl, table, replay)
 
     # --- outbound INV compaction --------------------------------------------
     L, C = cfg.n_lanes, cfg.lane_budget
@@ -612,16 +626,21 @@ def _coordinate(cfg: HermesConfig, ctl: FastCtl, fs: FastState, stream):
         srank = torch.where(slot_elig, cum - 1, cum[:, -1:] + pos - cum)
         word = ((staken.to(I32) << LANE_TAKEN_SHIFT)
                 | (issue.to(I32) << LANE_ISSUE_SHIFT) | rank_word)
-        # ONE scatter into an (R, L+C) target (+1 drop column): the
-        # per-lane verdict word through the permutation, and each slot's
-        # owning lane id at L+srank.  Targets are unique outside the drop
-        # column, so max == set.
-        tgt = torch.cat([si, torch.where(srank < C, L + srank, L + C)],
-                        dim=1).long()
-        flat = torch.zeros((R, L + C + 1), dtype=I32, device=dev)
-        flat.scatter_reduce_(1, tgt, torch.cat([word, si], dim=1), "amax")
-        lane_word = flat[:, :L]
-        slot_lane = flat[:, L:L + C]
+        if cfg.use_mega_round:
+            # the route-back as one kernel (unique targets: set == max)
+            lane_word, slot_lane = megaround.mega_route(cfg, si, word, srank)
+        else:
+            # ONE scatter into an (R, L+C) target (+1 drop column): the
+            # per-lane verdict word through the permutation, and each
+            # slot's owning lane id at L+srank.  Targets are unique outside
+            # the drop column, so max == set.
+            tgt = torch.cat([si, torch.where(srank < C, L + srank, L + C)],
+                            dim=1).long()
+            flat = torch.zeros((R, L + C + 1), dtype=I32, device=dev)
+            flat.scatter_reduce_(1, tgt, torch.cat([word, si], dim=1),
+                                 "amax")
+            lane_word = flat[:, :L]
+            slot_lane = flat[:, L:L + C]
         taken_lane = (lane_word & (1 << LANE_TAKEN_SHIFT)) != 0
         win = want & ((lane_word[:, :S] & (1 << LANE_ISSUE_SHIFT)) != 0)
         if cfg.chain_writes:
@@ -735,16 +754,25 @@ def _winner_row_scatter(ctl: FastCtl, table: FastTable, keys, pts, vals,
 def _apply_inv_lanes(cfg: HermesConfig, ctl: FastCtl, fs: FastState,
                      lanes: LaneBlock, taken_lane):
     """Batched ``apply_inv`` straight from the lane block: the arbiter
-    scatter-max plus the heartbeat fold."""
+    scatter-max plus the heartbeat fold.  Returns ``(fs, post_lane)``: on
+    the mega path the apply kernel also reads back the settled per-lane
+    verdict, so ``_derived_acks`` skips its gather; otherwise None."""
     v_ok = taken_lane & (ctl.epoch == ctl.epoch[0])[:, None]
-    table = _ts_scatter_max(fs.table, lanes.key, lanes.pts, v_ok)
+    table = fs.table
+    if cfg.use_mega_round:
+        _vpts, post = megaround.mega_apply(cfg, table.vpts[:cfg.n_keys],
+                                           lanes.key, lanes.pts, v_ok)
+        post_lane = post.reshape(lanes.key.shape)
+    else:
+        table = _ts_scatter_max(table, lanes.key, lanes.pts, v_ok)
+        post_lane = None
     meta = fs.meta._replace(
         last_seen=torch.where(
             ~ctl.frozen[None, :] & ~ctl.frozen[:, None], ctl.step,
             fs.meta.last_seen,
         )
     )
-    return fs._replace(table=table, meta=meta)
+    return fs._replace(table=table, meta=meta), post_lane
 
 
 def _apply_commit_lanes(cfg: HermesConfig, ctl: FastCtl, fs: FastState,
@@ -757,16 +785,18 @@ def _apply_commit_lanes(cfg: HermesConfig, ctl: FastCtl, fs: FastState,
 
 
 def _derived_acks(ctl: FastCtl, table: FastTable, taken_lane, pend_key,
-                  pend_pts):
+                  pend_pts, post_lane=None):
     """Lockstep-batched ACK derivation: the gathered-ack bitmap of a
     broadcast lane is the unfrozen-replica mask, and its conflict verdict
-    is whether its ts survived the scatter-max.  Returns (gained, nacked,
-    win_lane, post_lane), all (R, L)."""
+    is whether its ts survived the scatter-max (``post_lane``, gathered
+    here unless the mega apply kernel delivered it).  Returns (gained,
+    nacked, win_lane, post_lane), all (R, L)."""
     R = taken_lane.shape[0]
     ar = torch.arange(R, dtype=I32, device=taken_lane.device)
     abits = torch.where(~ctl.frozen, torch.ones_like(ar) << ar, 0).sum(
         dtype=I32)
-    post_lane = table.vpts[pend_key.long()]  # (R, L) post-scatter arbiter
+    if post_lane is None:
+        post_lane = table.vpts[pend_key.long()]  # (R, L) post-scatter arbiter
     survived = post_lane == pend_pts
     gained = torch.where(taken_lane, abits, 0)
     nacked = taken_lane & ~survived & (abits != 0)
@@ -882,9 +912,9 @@ def fast_round_batched(cfg: HermesConfig, ctl: FastCtl, fs: FastState, stream):
     tuple of per-sub-step Completions when cfg.read_unroll > 1."""
     (fs, lanes, slot_lane, taken_lane, read_done,
      read_extra, sub_comps, pre_comm) = _coordinate(cfg, ctl, fs, stream)
-    fs = _apply_inv_lanes(cfg, ctl, fs, lanes, taken_lane)
+    fs, post_lane = _apply_inv_lanes(cfg, ctl, fs, lanes, taken_lane)
     gained, nacked, win_lane, post_lane = _derived_acks(
-        ctl, fs.table, taken_lane, lanes.key, lanes.pts)
+        ctl, fs.table, taken_lane, lanes.key, lanes.pts, post_lane)
     fs, commit_lane, comp = _collect_acks(cfg, ctl, fs, gained, nacked,
                                           taken_lane, read_done,
                                           read_extra, pre_comm,

@@ -1,0 +1,331 @@
+"""The mega round's three kernels: ``mega_route``, ``mega_apply`` and
+``mega_replay``.
+
+Port of ``hermes_tpu/core/megaround.py``.  With ``cfg.use_mega_round`` the
+batched round (core/faststep.py) swaps three of its parts for them:
+
+* the fused sort's route-back scatter -> ``mega_route``;
+* the arbiter scatter-max into ``vpts`` and the post-arbiter verdict
+  gather of ``_derived_acks`` -> ``mega_apply``;
+* the gated stuck-key replay scan -> ``mega_replay``.
+
+Each replaces a Pallas kernel with a CUDA kernel written for Hopper
+(``csrc/mega_route.cu``, ``csrc/mega_apply.cu``, ``csrc/mega_replay.cu``,
+built by ``build.py`` and loaded with ctypes); the source notes there and
+the docstrings below say what bounds each one on the card and what its
+design does about it.  The results are the reference's bit for bit: all
+state is integer, and the only atomics are integer maxima.
+
+Dispatch, as for ``kernels.stats_block``: a CPU tensor goes to the
+function's plain version (``mega_*_plain``), a CUDA tensor launches the
+kernel or raises.  ``cfg.use_mega_round`` alone decides whether the round
+calls these: the port has no counterpart of the reference's ``resolve``
+(kernel self-test, analyzer verdict) and no fallback to the fused-sort
+program.  ``.launches`` on each wrapper counts the calls that launched its
+kernel, one per call (a ``mega_apply`` call is two device launches, a
+``mega_replay`` call three).
+
+The engine's table carries one trailing drop row (core/faststep.py); the
+round passes its first ``cfg.n_keys`` rows (``vpts[:K]``, ``bank[:K]``,
+contiguous views), so ``K`` here is the reference's and the in-place
+updates land in the table.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from hermes_tpu_torch import build
+from hermes_tpu_torch.core import layouts
+from hermes_tpu_torch.core import types as t
+
+I32 = torch.int32
+I32_MIN = -(1 << 31)
+
+# bank row byte offsets of [pts | sst | val words] (faststep's BANK_* word
+# indices times 4; importing faststep here would cycle)
+_SST_OFF, _VAL_OFF = 4, 8
+_STEP_SHIFT = layouts.SST.field("step").shift
+_STATE_MASK = layouts.SST.field("state").mask
+#: rows per block of mega_replay.cu's scan (its kRowsPerBlock)
+REPLAY_ROWS_PER_BLOCK = 1024
+
+
+def _on_card(name: str, *xs) -> bool:
+    """True for CUDA tensors, False for CPU tensors; raises on a mix of
+    devices or any other device."""
+    dev = xs[0].device
+    for x in xs[1:]:
+        if x.device != dev:
+            raise ValueError(f"{name}: tensors on {dev} and {x.device}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {dev}")
+    if dev.type == "cuda" and not all(x.is_contiguous() for x in xs):
+        raise ValueError(f"{name}: the CUDA kernel takes contiguous tensors "
+                         "only")
+    return dev.type == "cuda"
+
+
+def _need(name: str, what: str, x, dtype, shape=None) -> None:
+    if not isinstance(x, torch.Tensor) or x.dtype != dtype:
+        got = x.dtype if isinstance(x, torch.Tensor) else type(x).__name__
+        raise TypeError(f"{name}: {what} must be a {dtype} tensor, got {got}")
+    if shape is not None and tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: {what} has shape {tuple(x.shape)}, want "
+                         f"{tuple(shape)}")
+
+
+def _step_tensor(name: str, step, dev):
+    if not isinstance(step, torch.Tensor):
+        step = torch.tensor(step, dtype=I32, device=dev)
+    if step.dtype != I32 or step.numel() != 1 or step.device != dev:
+        raise TypeError(f"{name}: step must be a one-element int32 tensor on "
+                        f"{dev}, got {step.dtype} {tuple(step.shape)} on "
+                        f"{step.device}")
+    return step
+
+
+_entry: dict = {}  # kernel name -> its typed C entry point
+
+
+def _launch(name: str, dev, *args) -> None:
+    """Call ``hermes_<name>`` of ``csrc/<name>.cu`` (built at first use)
+    with the tensors' pointers and the ints as they are, on the current
+    stream; raise on a CUDA error."""
+    fn = _entry.get(name)
+    if fn is None:
+        fn = getattr(build.load_cuda(name), f"hermes_{name}")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int if isinstance(a, int) else ctypes.c_void_p
+                       for a in args] + [ctypes.c_void_p]
+        _entry[name] = fn
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*(a if isinstance(a, int) else a.data_ptr() for a in args),
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+# --------------------------------------------------------------------------
+# mega_route: the fused sort's route-back scatter
+# --------------------------------------------------------------------------
+
+
+def mega_route_plain(cfg, si, word, srank):
+    """``lane_word[r, clip(si)] = word`` and, where ``0 <= srank < C``,
+    ``slot_lane[r, srank] = clip(si)``, over zeros.  Exact on the inputs
+    the round gives it: ``si`` a permutation of each row, ``srank`` a
+    bijection, so no target is written twice."""
+    R, L = si.shape
+    C = cfg.lane_budget
+    lane = si.clamp(0, L - 1)
+    lane_word = torch.zeros((R, L), dtype=I32, device=si.device).scatter_(
+        1, lane.long(), word)
+    tgt = torch.where((srank >= 0) & (srank < C), srank, C).long()
+    slot_lane = torch.zeros((R, C + 1), dtype=I32, device=si.device).scatter_(
+        1, tgt, lane)
+    return lane_word, slot_lane[:, :C].contiguous()
+
+
+def mega_route(cfg, si, word, srank):
+    """Per-lane verdict route-back and slot ownership of the fused sort:
+    returns ``(lane_word (R, L), slot_lane (R, C))`` from the (R, L) int32
+    sorted lane ids ``si``, verdict words ``word`` and slot ranks
+    ``srank``.
+
+    Replaces ``hermes_tpu/core/megaround.py:mega_route`` (Pallas
+    ``_route_kernel``).  Bound by memory: three int32 reads per lane and
+    one or two int32 stores, ~10 MB at the bench shape.  The Pallas kernel
+    walks the lanes serially; the CUDA kernel gives each (r, p) a thread
+    with coalesced loads and plain stores, exact because the targets are
+    unique (see ``mega_route_plain``), after zero-filling both outputs on
+    the stream as the reference does."""
+    name = "mega_route"
+    _need(name, "si", si, I32)
+    R, L = si.shape
+    _need(name, "word", word, I32, (R, L))
+    _need(name, "srank", srank, I32, (R, L))
+    if not _on_card(name, si, word, srank):
+        return mega_route_plain(cfg, si, word, srank)
+    C = cfg.lane_budget
+    lane_word = torch.empty((R, L), dtype=I32, device=si.device)
+    slot_lane = torch.empty((R, C), dtype=I32, device=si.device)
+    if R and L:
+        _launch(name, si.device, si, word, srank, lane_word, slot_lane,
+                R, L, C)
+        mega_route.launches += 1
+    return lane_word, slot_lane
+
+
+mega_route.launches = 0
+
+
+# --------------------------------------------------------------------------
+# mega_apply: arbiter scatter-max + verdict read-back
+# --------------------------------------------------------------------------
+
+
+def mega_apply_plain(cfg, vpts, keys, pts, mask):
+    """Scatter-max of every masked row's ``pts`` into ``vpts[key]`` for
+    keys in [0, K) (others are dropped), in place; then ``post[m] =
+    vpts[clip(key, 0, K-1)]`` for every row.  Returns ``(vpts, post)``."""
+    K = vpts.shape[0]
+    k = keys.reshape(-1)
+    kc = k.clamp(0, K - 1).long()
+    ok = mask.reshape(-1) & (k >= 0) & (k < K)
+    # a dropped row contributes I32_MIN, which no max can pick
+    vpts.scatter_reduce_(0, kc, torch.where(ok, pts.reshape(-1), I32_MIN),
+                         "amax")
+    return vpts, vpts[kc]
+
+
+def mega_apply(cfg, vpts, keys, pts, mask):
+    """The arbiter core: phase 0 scatter-MAXes every masked (key, pts) row
+    into the (K,) int32 column ``vpts`` (in place), phase 1 reads the
+    settled ``vpts[key]`` verdict for every row.  ``keys``/``pts`` are
+    int32 and ``mask`` bool, all of N elements in any shape.  Returns
+    ``(vpts, post (N,))``.  A key outside [0, K) drops from the max and is
+    clamped for the read.
+
+    Replaces ``hermes_tpu/core/megaround.py:mega_apply`` (Pallas
+    ``_apply_kernel``, grid ``(2,)``).  Bound by memory: keys, pts and
+    mask in, ``post`` out, and the 4 MB ``vpts`` column (2^20 keys), which
+    fits in the card's 50 MB L2 between the phases.  The CUDA design is
+    two launches on one stream: one thread per row does an integer
+    ``atomicMax`` (exact in any order), and the second launch, which sees
+    every update of the first, does the clamped read-back."""
+    name = "mega_apply"
+    _need(name, "vpts", vpts, I32)
+    _need(name, "keys", keys, I32)
+    _need(name, "pts", pts, I32, keys.shape)
+    _need(name, "mask", mask, torch.bool, keys.shape)
+    if vpts.dim() != 1 or vpts.shape[0] < 1:
+        raise ValueError(f"{name}: vpts must be a non-empty (K,) column, got "
+                         f"{tuple(vpts.shape)}")
+    if not _on_card(name, vpts, keys, pts, mask):
+        return mega_apply_plain(cfg, vpts, keys, pts, mask)
+    N = keys.numel()
+    post = torch.empty((N,), dtype=I32, device=vpts.device)
+    if N:
+        _launch(name, vpts.device, vpts, keys, pts, mask, post,
+                vpts.shape[0], N)
+        mega_apply.launches += 1
+    return vpts, post
+
+
+mega_apply.launches = 0
+
+
+# --------------------------------------------------------------------------
+# mega_replay: the gated stuck-key replay scan
+# --------------------------------------------------------------------------
+
+
+def mega_replay_plain(cfg, step, frozen, table_vpts, table_bank, replay):
+    """The replay scan over the ``rows`` rows of the table: the stuck rows
+    (state INVALID, TRANS or REPLAY, and ``step - sst_step > replay_age``,
+    from the pre-mark bytes) in ascending row order, at most RS of them,
+    are the candidates; candidate i goes to replica r's i-th free slot
+    unless r is frozen (a frozen replica's free slot is consumed all the
+    same); every candidate some replica took gets its sst re-stamped
+    ``(step << shift) | REPLAY`` in ``table_bank``, in place.  Returns
+    ``(table_bank, (active, key, pts, acks, val))``, the replay fields new
+    tensors."""
+    from hermes_tpu_torch.core.faststep import _bank_to_i32, _i32_to_bank
+
+    rows = table_vpts.shape[0]
+    R, RS = replay.active.shape
+    dev = table_bank.device
+    sst = _bank_to_i32(table_bank[:, _SST_OFF:_SST_OFF + 4])[:, 0]
+    state = sst & _STATE_MASK
+    age = step - (sst >> _STEP_SHIFT)
+    stuck = (((state == t.INVALID) | (state == t.TRANS)
+              | (state == t.REPLAY)) & (age > cfg.replay_age))
+    # candidate i = the i-th stuck row; cand is -1 past the last one
+    rank = torch.cumsum(stuck.to(I32), 0, dtype=I32) - 1
+    tgt = torch.where(stuck & (rank < RS), rank, RS).long()
+    cand = torch.full((RS + 1,), -1, dtype=I32, device=dev).scatter_(
+        0, tgt, torch.arange(rows, dtype=I32, device=dev))[:RS]
+    free = ~replay.active
+    free_rank = torch.cumsum(free.to(I32), 1, dtype=I32) - 1
+    c_at = cand[free_rank.clamp(0, RS - 1).long()]  # (R, RS)
+    take = free & (c_at >= 0) & ~frozen[:, None]
+    row = c_at.clamp(min=0).long()
+    new_replay = (
+        take | replay.active,
+        torch.where(take, torch.remainder(row, cfg.n_keys).to(I32),
+                    replay.key),
+        torch.where(take, table_vpts[row], replay.pts),
+        torch.where(take, 0, replay.acks),
+        torch.where(take[..., None], table_bank[row][..., _VAL_OFF:],
+                    replay.val),
+    )
+    # marked rows: max over duplicate indices is order-free
+    marked = torch.zeros((rows,), dtype=I32, device=dev).scatter_reduce_(
+        0, row.reshape(-1), take.reshape(-1).to(I32), "amax")
+    mark = _i32_to_bank(((step << _STEP_SHIFT) | t.REPLAY).reshape(1, 1))
+    sst8 = table_bank[:, _SST_OFF:_SST_OFF + 4]
+    sst8.copy_(torch.where(marked[:, None] != 0, mark, sst8))
+    return table_bank, new_replay
+
+
+def mega_replay(cfg, step, frozen, table_vpts, table_bank, replay):
+    """The gated replay scan (run every ``replay_scan_every`` rounds):
+    ``step`` the round as a one-element int32 tensor on the table's device
+    (or a Python int), ``frozen`` (R,) bool, ``table_vpts`` (rows,) int32,
+    ``table_bank`` (rows, 4(2+V)) int8 (updated in place: the REPLAY
+    marks), ``replay`` a FastReplay of (R, RS) slots.  Returns
+    ``(table_bank, (active, key, pts, acks, val))``; see
+    ``mega_replay_plain`` for the function.
+
+    Replaces ``hermes_tpu/core/megaround.py:mega_replay`` (Pallas
+    ``_replay_kernel``, a sequential grid over VMEM-sized table blocks
+    with a candidate cursor carried in SMEM).  Bound by memory: every
+    row's 4-byte sst word must be read (4 MB at 2^20 keys); in the
+    40-byte bank row each read costs a 32-byte sector, ~34 MB.  Hopper
+    blocks run in no order, so the streaming cursor becomes three
+    launches: (a) per 1024-row block, stuck flags and a block count;
+    (b) each block with stuck rows sums the earlier counts and ranks its
+    stuck rows, the first RS go to their candidate slot; (c) one block per
+    replica ranks its free slots and fills the new slot tensors (copies
+    of the old where nothing is taken), and one more block re-stamps the
+    marked rows.  The round's step is read from a device pointer, so the
+    round needs no host sync."""
+    name = "mega_replay"
+    dev = table_bank.device
+    step = _step_tensor(name, step, dev)
+    _need(name, "active", replay.active, torch.bool)
+    R, RS = replay.active.shape
+    rows, W4 = table_bank.shape
+    V4 = W4 - _VAL_OFF
+    _need(name, "frozen", frozen, torch.bool, (R,))
+    _need(name, "table_vpts", table_vpts, I32, (rows,))
+    _need(name, "table_bank", table_bank, torch.int8,
+          (rows, 4 * (2 + cfg.value_words)))
+    for what in ("key", "pts", "acks"):
+        _need(name, f"replay.{what}", getattr(replay, what), I32, (R, RS))
+    _need(name, "replay.val", replay.val, torch.int8, (R, RS, V4))
+    leaves = (replay.active, replay.key, replay.pts, replay.acks, replay.val)
+    if not _on_card(name, step, frozen, table_vpts, table_bank, *leaves):
+        return mega_replay_plain(cfg, step, frozen, table_vpts, table_bank,
+                                 replay)
+    if rows < 1 or R < 1 or RS < 1:
+        raise ValueError(f"{name}: needs rows, R and RS >= 1, got "
+                         f"{rows}, {R}, {RS}")
+    out = tuple(torch.empty_like(x) for x in leaves)
+    # one count per row block, then the RS candidate rows (the .cu file
+    # checks the length against its block size)
+    n_scratch = -(-rows // REPLAY_ROWS_PER_BLOCK) + RS
+    scratch = torch.empty((n_scratch,), dtype=I32, device=dev)
+    _launch(name, dev, step, frozen, table_vpts, table_bank, *leaves, *out,
+            scratch, n_scratch, rows, W4, R, RS, cfg.n_keys, cfg.replay_age,
+            _STEP_SHIFT, _STATE_MASK, t.INVALID, t.TRANS, t.REPLAY,
+            _SST_OFF, _VAL_OFF)
+    mega_replay.launches += 1
+    return table_bank, out
+
+
+mega_replay.launches = 0

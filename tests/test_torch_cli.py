@@ -24,10 +24,12 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 WALL_FIELDS = ("wall_s", "writes_per_sec", "ops_per_sec", "step_us")
 
 
-def test_torch_cli_check_drive_matches_reference_summary():
+def _check_drive(extra_argv, **extra_cfg):
+    """Run the port's CLI check drive on the CPU and the reference's
+    FastRuntime on the same config: equal summaries, checker PASS."""
     argv = ["--replicas", "3", "--keys", "64", "--sessions", "8",
             "--replay-slots", "4", "--ops-per-session", "12",
-            "--arb-mode", "sort", "--chain-writes", "2"]
+            "--arb-mode", "sort", "--chain-writes", "2", *extra_argv]
     env = dict(os.environ, OMP_NUM_THREADS="1")
     r = subprocess.run(
         [sys.executable, "-m", "hermes_tpu_torch", *argv, "--device", "cpu",
@@ -41,11 +43,19 @@ def test_torch_cli_check_drive_matches_reference_summary():
 
     ref = RefRuntime(RefConfig(n_replicas=3, n_keys=64, n_sessions=8,
                                replay_slots=4, ops_per_session=12,
-                               arb_mode="sort", chain_writes=2))
+                               arb_mode="sort", chain_writes=2, **extra_cfg))
     assert ref.drain()
     want = ref_stats.summarize(ref.fs.meta, None, ref.step_idx)
     assert {k: v for k, v in got.items() if k not in WALL_FIELDS} == want
     assert got["n_read"] + got["n_write"] + got["n_rmw"] == 3 * 8 * 12
+
+
+def test_torch_cli_check_drive_matches_reference_summary():
+    _check_drive([])
+
+
+def test_torch_cli_mega_round_check_drive_matches_reference_summary():
+    _check_drive(["--mega-round"], mega_round=True)
 
 
 def test_torch_cli_defaults_to_the_card_and_refuses_bad_flags():
@@ -55,3 +65,11 @@ def test_torch_cli_defaults_to_the_card_and_refuses_bad_flags():
          "--chain-writes", "2"], cwd=ROOT, capture_output=True, text=True,
         timeout=300)
     assert r.returncode == 2 and "--arb-mode sort" in r.stderr
+
+
+def test_torch_cli_refuses_mega_round_without_sort_arbiter():
+    r = subprocess.run(
+        [sys.executable, "-m", "hermes_tpu_torch", "--device", "cpu",
+         "--mega-round"], cwd=ROOT, capture_output=True, text=True,
+        timeout=300)
+    assert r.returncode == 2 and "--mega-round needs --arb-mode sort" in r.stderr

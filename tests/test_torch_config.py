@@ -37,7 +37,8 @@ def test_config_fields_and_properties_equal_reference():
     cfg = config.HermesConfig(**dataclasses.asdict(ref))
     assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
     for p in ("full_mask", "n_lanes", "use_fused_sort", "lane_budget",
-              "max_key_versions", "arb_slots", "use_heap", "use_wal"):
+              "max_key_versions", "arb_slots", "use_heap", "use_wal",
+              "use_mega_round"):
         assert getattr(cfg, p) == getattr(ref, p), p
 
 
@@ -52,9 +53,38 @@ def test_config_validation_matches_reference(bad):
         config.HermesConfig(**bad)
 
 
+MEGA_REFUSED = [dict(arb_mode="race"),
+                dict(arb_mode="sort", fused_sort=False),
+                dict(arb_mode="sort",
+                     n_keys=(ref_config.MEGA_VPTS_VMEM_BYTES // 4) * 2)]
+
+
 def test_mega_round_refused_loudly():
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        config.HermesConfig(arb_mode="sort", mega_round=True)
+    """The mega_round configs the reference refuses, the port refuses
+    too, with the same message."""
+    assert config.MEGA_VPTS_VMEM_BYTES == ref_config.MEGA_VPTS_VMEM_BYTES
+    for bad in MEGA_REFUSED:
+        with pytest.raises(ValueError, match="mega_round") as ref_err:
+            ref_config.HermesConfig(mega_round=True, **bad)
+        with pytest.raises(ValueError, match="mega_round") as err:
+            config.HermesConfig(mega_round=True, **bad)
+        assert str(err.value) == str(ref_err.value)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(arb_mode="sort", mega_round=True),
+    dict(arb_mode="sort", mega_round=True, n_sessions=1 << 29,
+         ops_per_session=1),
+    dict(arb_mode="sort", mega_round=False),
+    dict(arb_mode="sort", mega_round=True,
+         n_keys=ref_config.MEGA_VPTS_VMEM_BYTES // 4)])
+def test_mega_round_config_parity(kw):
+    """Accepted mega configs: the same use_mega_round in both packages
+    (off when the fused sort does not resolve, as with too many lanes)."""
+    ref = ref_config.HermesConfig(**kw)
+    cfg = config.HermesConfig(**dataclasses.asdict(ref))
+    assert cfg.use_mega_round == ref.use_mega_round
+    assert cfg.use_mega_round == (ref.mega_round and ref.use_fused_sort)
 
 
 def test_bench_cfg_equals_bench_py():

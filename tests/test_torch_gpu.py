@@ -13,6 +13,7 @@ kernel's atomics are integer adds, so their order cannot change a bit.
 import pytest
 import torch
 
+import chip_smoke
 from hermes_tpu_torch.core import kernels
 
 
@@ -55,6 +56,51 @@ def test_stats_block_cuda_rejects_strided_input():
                             op, inv, z, z, z)
 
 
+MEGA_CASES = {"mega_route": (chip_smoke.ROUTE_SHAPES, chip_smoke.route_case),
+              "mega_apply": (chip_smoke.APPLY_SHAPES, chip_smoke.apply_case),
+              "mega_replay": (chip_smoke.REPLAY_SHAPES,
+                              chip_smoke.replay_case)}
+
+
+def _mega_call(name, shape):
+    """(wrapper, plain, CPU arguments) of one mega kernel at one of
+    chip_smoke.py's shapes (bench, the reference's cells, ragged)."""
+    from types import SimpleNamespace
+
+    from hermes_tpu_torch import config
+    from hermes_tpu_torch.core import faststep as fst
+    from hermes_tpu_torch.core import megaround as mega
+
+    port = SimpleNamespace(config=config, fst=fst, mega=mega)
+    args, _timing, _info = MEGA_CASES[name][1](torch, port, shape, seed=1)
+    return getattr(mega, name), getattr(mega, f"{name}_plain"), args
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,shape", [
+    (name, shape) for name, (shapes, _case) in MEGA_CASES.items()
+    for shape in shapes])
+def test_mega_kernel_cuda_matches_plain(name, shape):
+    dev = _card()
+    wrapper, plain, args = _mega_call(name, shape)
+    want = chip_smoke._flat(plain(*chip_smoke._to(torch, args, "cpu")))
+    before = wrapper.launches
+    got = chip_smoke._flat(wrapper(*chip_smoke._to(torch, args, dev)))
+    torch.cuda.synchronize(dev)
+    assert wrapper.launches == before + 1
+    for w, x in zip(want, got):
+        assert torch.equal(w, x.cpu())
+
+
+@pytest.mark.gpu
+def test_mega_kernels_reject_strided_input():
+    dev = _card()
+    wrapper, _plain, (cfg, *args) = _mega_call("mega_route", (2, 12, 12))
+    si, word, srank = (x.to(dev)[:, ::2] for x in args)
+    with pytest.raises(ValueError):
+        wrapper(cfg, si, word, srank)
+
+
 def _tree_np(tree):
     if hasattr(tree, "_fields"):
         return type(tree)(*(_tree_np(x) for x in tree))
@@ -74,21 +120,23 @@ def _assert_equal_trees(a, b, path):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arb_mode", ["race", "sort"])
+@pytest.mark.parametrize("arb_mode", ["race", "sort", "sort-mega"])
 def test_round_on_card_matches_cpu(arb_mode):
-    """The whole round on the card (sorts, scatters, the kernel) is
+    """The whole round on the card (sorts, scatters, the kernels) is
     bit-identical to the round on the CPU, which the CPU suite holds
     against the JAX reference — through a freeze and a removal, with the
-    replay scan firing."""
+    replay scan firing; "sort-mega" runs the mega round."""
     from hermes_tpu_torch import convert
     from hermes_tpu_torch.config import HermesConfig, WorkloadConfig
     from hermes_tpu_torch.core import faststep as fst
     from hermes_tpu_torch.workload import ycsb
 
     dev = _card()
+    mega_round = arb_mode == "sort-mega"
+    arb_mode = arb_mode.split("-")[0]
     cfg = HermesConfig(
         n_replicas=4, n_keys=256, n_sessions=32, replay_slots=8,
-        ops_per_session=16, arb_mode=arb_mode,
+        ops_per_session=16, arb_mode=arb_mode, mega_round=mega_round,
         chain_writes=4 if arb_mode == "sort" else 0, wrap_stream=True,
         device_stream=True, lane_budget_cfg=24, read_unroll=2, replay_age=2,
         replay_scan_every=2, workload=WorkloadConfig(read_frac=0.4,

@@ -1,0 +1,342 @@
+"""The port's mega round (hermes_tpu_torch/core/megaround.py and its three
+sites in core/faststep.py) against the reference's (hermes_tpu/core/
+megaround.py, whose Pallas kernels run in interpret mode on the CPU, as
+tests/test_megaround.py runs them).
+
+* Each plain version against the JAX function called directly, at the
+  reference's kernel cells (analysis/diffcheck.py: mega_route/r2l6,
+  mega_apply/k16n16, mega_replay/k16b1, mega_replay/k22b3) and on seeded
+  inputs that reach the edges: keys outside [0, K) for mega_apply; more
+  stuck rows than replay slots, a frozen replica, partly active slots, a
+  replica with no free slot and a ragged multi-block JAX grid for
+  mega_replay.
+* The port's mega round against the JAX mega round, round by round
+  through a freeze and a thaw with the replay scan taking slots, and
+  against the port's own fused round (the reference's contract,
+  tests/test_megaround.py).
+* FastRuntime with mega_round=True in both packages at pipeline depths 1
+  and 2.
+* The wrappers' dispatch: a CPU tensor takes the plain version and no
+  kernel launch is counted; a wrong dtype raises.
+
+Tolerance: exact equality (all state is integer).  The CUDA kernels are
+held against the plain versions on the card by tests/test_torch_gpu.py
+and chip_smoke.py.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from hermes_tpu.config import HermesConfig as RefConfig, WorkloadConfig as RefWL
+from hermes_tpu.core import faststep as ref_fst
+from hermes_tpu.core import megaround as ref_mega
+from hermes_tpu.runtime import FastRuntime as RefRuntime
+from hermes_tpu_torch import convert
+from hermes_tpu_torch.config import HermesConfig
+from hermes_tpu_torch.core import faststep as fst
+from hermes_tpu_torch.core import megaround as mega
+from hermes_tpu_torch.runtime import FastRuntime
+from hermes_tpu_torch.workload import ycsb
+from test_torch_faststep import Pair, assert_tree_equal, port_ctl
+from test_torch_runtime import CFG as RT_CFG, _assert_same, _script
+
+torch.set_num_threads(1)
+CPU = torch.device("cpu")
+I32_MAX = (1 << 31) - 1
+
+
+def _kernel_cfg(n_keys=16, **kw):
+    """diffcheck._mega_cfg: the config of the reference's kernel cells."""
+    base = dict(n_replicas=2, n_keys=n_keys, n_sessions=4, replay_slots=2,
+                ops_per_session=4, arb_mode="sort", mega_round=True)
+    base.update(kw)
+    return RefConfig(**base)
+
+
+def _port(rc):
+    return HermesConfig(**dataclasses.asdict(rc))
+
+
+def _np(x):
+    return np.asarray(jax.device_get(x))
+
+
+# --------------------------------------------------------------------------
+# plain versions against the JAX functions
+# --------------------------------------------------------------------------
+
+
+def _route_inputs(R, L, seed):
+    rng = np.random.default_rng(seed)
+    si = np.stack([rng.permutation(L) for _ in range(R)]).astype(np.int32)
+    srank = np.stack([rng.permutation(L) for _ in range(R)]).astype(np.int32)
+    word = rng.integers(0, 1 << 22, (R, L), dtype=np.int32)
+    return si, word, srank
+
+
+@pytest.mark.parametrize("cell", ["r2l6", "r3l40c25"])
+def test_torch_mega_route_plain_matches_reference(cell):
+    rc = (_kernel_cfg() if cell == "r2l6"
+          else _kernel_cfg(n_replicas=3, n_sessions=32, replay_slots=8,
+                           lane_budget_cfg=25))
+    R, L = rc.n_replicas, rc.n_lanes
+    assert rc.lane_budget == (6 if cell == "r2l6" else 25)
+    args = _route_inputs(R, L, seed=R * 100 + L)
+    want = ref_mega.mega_route(rc, *(jnp.asarray(a) for a in args))
+    got = mega.mega_route_plain(_port(rc), *(torch.from_numpy(a) for a in args))
+    for name, w, g in zip(("lane_word", "slot_lane"), want, got):
+        np.testing.assert_array_equal(_np(w), g.numpy(), err_msg=name)
+
+
+def _apply_inputs(K, N, seed):
+    rng = np.random.default_rng(seed)
+    vpts = rng.integers(0, 1 << 24, (K,), dtype=np.int32)
+    # keys across the untrusted wire field: negative and >= K included
+    keys = rng.integers(-K, 2 * K, (N,), dtype=np.int32)
+    keys[:3] = (-1, K, (1 << 29) - 1)
+    pts = rng.integers(-(1 << 30), 1 << 30, (N,), dtype=np.int32)
+    mask = rng.random(N) < 0.7
+    return vpts, keys, pts, mask
+
+
+@pytest.mark.parametrize("K,N", [(16, 16), (37, 300)])
+def test_torch_mega_apply_plain_matches_reference(K, N):
+    rc = _kernel_cfg(n_keys=K)
+    vpts, keys, pts, mask = _apply_inputs(K, N, seed=K + N)
+    want_v, want_p = ref_mega.mega_apply(
+        rc, jnp.asarray(vpts), jnp.asarray(keys), jnp.asarray(pts),
+        jnp.asarray(mask.astype(np.int32)))
+    tv = torch.from_numpy(vpts.copy())
+    got_v, got_p = mega.mega_apply_plain(
+        _port(rc), tv, torch.from_numpy(keys), torch.from_numpy(pts),
+        torch.from_numpy(mask))
+    assert got_v is tv  # in place
+    np.testing.assert_array_equal(_np(want_v), got_v.numpy())
+    np.testing.assert_array_equal(_np(want_p), got_p.numpy())
+    # the edges were reached: a dropped key, a raised max
+    assert (keys < 0).any() and (keys >= K).any()
+    assert (got_v.numpy() != vpts).any()
+
+
+def _replay_inputs(rc, step, seed, frozen=(), full=()):
+    """A table of rows = n_keys rows with states and sst steps drawn so
+    that many rows are stuck, and replay slots partly active."""
+    rng = np.random.default_rng(seed)
+    R, RS, K, V = rc.n_replicas, rc.replay_slots, rc.n_keys, rc.value_words
+    state = rng.integers(0, 5, K)
+    sst_step = rng.integers(0, step + 1, K)
+    words = rng.integers(-(1 << 31), I32_MAX, (K, 2 + V), dtype=np.int64)
+    words[:, 1] = (sst_step << 3) | state
+    bank = words.astype("<i4").view(np.int8).reshape(K, 4 * (2 + V))
+    vpts = rng.integers(0, 1 << 24, (K,), dtype=np.int32)
+    active = rng.random((R, RS)) < 0.4
+    active[list(full)] = True
+    fz = np.zeros(R, bool)
+    fz[list(frozen)] = True
+    rep = dict(active=active,
+               key=rng.integers(0, K, (R, RS), dtype=np.int32),
+               pts=rng.integers(0, 1 << 24, (R, RS), dtype=np.int32),
+               acks=rng.integers(0, 8, (R, RS), dtype=np.int32),
+               val=rng.integers(-128, 128, (R, RS, 4 * V), dtype=np.int8))
+    return fz, vpts, np.ascontiguousarray(bank), rep
+
+
+def _replay_pair(rc, step, fz, vpts, bank, rep, block_bytes):
+    want_bank, want = ref_mega.mega_replay(
+        rc, jnp.int32(step), jnp.asarray(fz), jnp.asarray(vpts),
+        jnp.asarray(bank),
+        ref_fst.FastReplay(**{k: jnp.asarray(v) for k, v in rep.items()}),
+        block_bytes=block_bytes)
+    tbank = torch.from_numpy(bank.copy())
+    trep = fst.FastReplay(**{k: torch.from_numpy(v.copy())
+                             for k, v in rep.items()})
+    got_bank, got = mega.mega_replay_plain(
+        _port(rc), torch.tensor(step, dtype=torch.int32),
+        torch.from_numpy(fz), torch.from_numpy(vpts), tbank, trep)
+    assert got_bank is tbank  # marks in place
+    np.testing.assert_array_equal(_np(want_bank), got_bank.numpy())
+    for name, w, g in zip(("active", "key", "pts", "acks", "val"), want, got):
+        np.testing.assert_array_equal(_np(w), g.numpy(), err_msg=name)
+    return got
+
+
+REPLAY_CASES = {
+    # the reference's two kernel cells (one block; a ragged 3-block grid)
+    "k16b1": dict(n_keys=16, block_bytes=1 << 20),
+    "k22b3": dict(n_keys=22, block_bytes=8 * 40),
+    # more stuck rows than slots, replica 1 frozen, replica 2 without a
+    # free slot, a ragged 8-block JAX grid (7 rows a block over 50 rows)
+    "k50_frozen_full": dict(n_keys=50, n_replicas=4, replay_slots=8,
+                            value_words=3, frozen=(1,), full=(2,),
+                            block_bytes=7 * 20),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REPLAY_CASES))
+def test_torch_mega_replay_plain_matches_reference(case):
+    kw = dict(REPLAY_CASES[case])
+    frozen, full = kw.pop("frozen", ()), kw.pop("full", ())
+    block_bytes = kw.pop("block_bytes")
+    rc = _kernel_cfg(replay_age=3, **kw)
+    step = 40
+    fz, vpts, bank, rep = _replay_inputs(rc, step, seed=rc.n_keys,
+                                         frozen=frozen, full=full)
+    got = _replay_pair(rc, step, fz, vpts, bank, rep, block_bytes)
+    took = got[0].numpy() & ~rep["active"]
+    assert took.any(), "no slot was taken: the take path did not run"
+    if case == "k50_frozen_full":
+        sst = bank[:, 4:8].copy().view("<i4")[:, 0]
+        stuck = np.isin(sst & 7, (1, 3, 4)) & (step - (sst >> 3) > 3)
+        assert stuck.sum() > rc.replay_slots
+        assert not took[1].any() and not took[2].any()
+        # the engine's own top-k form of the scan (the table with its drop
+        # row) gives the same slots
+        pad = lambda a: np.concatenate([a, np.zeros((1,) + a.shape[1:],
+                                                    a.dtype)])
+        table = fst.FastTable(vpts=torch.from_numpy(pad(vpts)),
+                              bank=torch.from_numpy(pad(bank)))
+        replay = fst.FastReplay(**{k: torch.from_numpy(v.copy())
+                                   for k, v in rep.items()})
+        _table, replay = fst._replay_scan(
+            _port(rc), port_ctl(_port(rc), step, frozen=frozen), table,
+            replay)
+        for w, g in zip(got, (replay.active, replay.key, replay.pts,
+                              replay.acks, replay.val)):
+            assert torch.equal(w, g)
+
+
+# --------------------------------------------------------------------------
+# the mega round against the JAX mega round and the port's fused round
+# --------------------------------------------------------------------------
+
+
+def _mega_cfg(**kw):
+    """tests/test_megaround.py:_cfg with the mega round on."""
+    base = dict(n_replicas=3, n_keys=32, n_sessions=8, replay_slots=4,
+                ops_per_session=24, arb_mode="sort", chain_writes=2,
+                replay_scan_every=4, replay_age=4, rebroadcast_every=2,
+                mega_round=True,
+                workload=RefWL(read_frac=0.3, rmw_frac=0.2, seed=7))
+    base.update(kw)
+    return RefConfig(**base)
+
+
+def _faults(s):
+    """Replica 1 frozen for rounds 8-27: its missing acks strand writes,
+    their keys age past replay_age and the scan takes them."""
+    return dict(frozen=(1,)) if 8 <= s < 28 else {}
+
+
+@pytest.mark.parametrize("n_keys", [32, 37])
+def test_torch_mega_round_identical_to_reference(n_keys, monkeypatch):
+    # 37 keys over 13-row blocks: the reference's replay grid is ragged
+    monkeypatch.setattr(ref_mega, "REPLAY_BLOCK_BYTES", 13 * 16)
+    rc = _mega_cfg(n_keys=n_keys)
+    assert ref_mega.resolve(rc), "the JAX round would not run its kernels"
+    launches = (mega.mega_route.launches, mega.mega_apply.launches,
+                mega.mega_replay.launches)
+    p = Pair(rc)
+    for s in range(48):
+        p.round(s, **_faults(s))
+    assert int(p.fs.meta.replay_peak.max()) > 0, \
+        "the replay kernel's take path did not run"
+    assert int(p.fs.meta.n_write.sum() + p.fs.meta.n_rmw.sum()) > 0
+    # CPU tensors: plain versions only
+    assert (mega.mega_route.launches, mega.mega_apply.launches,
+            mega.mega_replay.launches) == launches
+
+
+def test_torch_mega_round_matches_fused_round():
+    """The reference's own contract for the port: mega on and off give the
+    same state and completions every round."""
+    cfgs = {m: _port(_mega_cfg(mega_round=m)) for m in (False, True)}
+    assert cfgs[True].use_mega_round and not cfgs[False].use_mega_round
+    stream = fst.prep_stream(ycsb.make_streams(cfgs[True]), CPU)
+    fs = {m: fst.init_fast_state(c, CPU) for m, c in cfgs.items()}
+    for s in range(60):
+        comps = {}
+        for m, c in cfgs.items():
+            fs[m], comps[m] = fst.fast_round_batched(
+                c, port_ctl(c, s, **_faults(s)), fs[m], stream)
+        assert_tree_equal(convert.fast_state_to_numpy(fs[False]),
+                          convert.fast_state_to_numpy(fs[True]), f"r{s}.fs")
+        assert_tree_equal(tuple(x.numpy() for x in comps[False]),
+                          comps[True], f"r{s}.comp")
+    assert int(fs[True].meta.replay_peak.max()) > 0
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_torch_mega_runtime_identical_to_reference(depth):
+    """FastRuntime with mega_round=True in both packages: the same
+    harvested completions every step through a freeze, a thaw and a
+    rebase, the same Meta after the drain, and a green checker."""
+    rc = RefConfig(pipeline_depth=depth, mega_round=True, **RT_CFG)
+    cfg = _port(rc)
+    assert cfg.use_mega_round and ref_mega.resolve(rc)
+    ref = RefRuntime(rc, record=True)
+    rt = FastRuntime(cfg, record=True, device="cpu")
+    got = _script(rt, 24)
+    want = _script(ref, 24, settle=lambda: jax.block_until_ready(ref.fs))
+    for s, (a, b) in enumerate(zip(want, got)):
+        _assert_same(a, b, f"step {s}")
+    for f, x in zip(rt.fs.meta._fields, rt.fs.meta):
+        np.testing.assert_array_equal(_np(getattr(ref.fs.meta, f)),
+                                      x.numpy(), err_msg=f)
+    assert int(rt.fs.meta.replay_peak.max()) > 0
+    assert rt.check().ok
+
+
+# --------------------------------------------------------------------------
+# dispatch
+# --------------------------------------------------------------------------
+
+
+def _wrapper_calls():
+    rc = _kernel_cfg()
+    cfg = _port(rc)
+    si, word, srank = (torch.from_numpy(a) for a in _route_inputs(2, 6, 1))
+    vpts, keys, pts, mask = (torch.from_numpy(a)
+                             for a in _apply_inputs(16, 16, 2))
+    fz, rv, bank, rep = _replay_inputs(rc, 40, 3)
+    trep = fst.FastReplay(**{k: torch.from_numpy(v) for k, v in rep.items()})
+    return {
+        "mega_route": (mega.mega_route, mega.mega_route_plain,
+                       (cfg, si, word, srank), 1),
+        "mega_apply": (mega.mega_apply, mega.mega_apply_plain,
+                       (cfg, vpts, keys, pts, mask), 2),
+        "mega_replay": (mega.mega_replay, mega.mega_replay_plain,
+                        (cfg, torch.tensor(40, dtype=torch.int32),
+                         torch.from_numpy(fz), torch.from_numpy(rv),
+                         torch.from_numpy(bank), trep), 3),
+    }
+
+
+def _clone(args):
+    return chip_smoke._to(torch, args, CPU)
+
+
+@pytest.mark.parametrize("name", ["mega_route", "mega_apply", "mega_replay"])
+def test_torch_mega_wrapper_takes_plain_path_on_cpu(name):
+    wrapper, plain, args, _ = _wrapper_calls()[name]
+    before = wrapper.launches
+    got = wrapper(*_clone(args))
+    want = plain(*_clone(args))
+    assert wrapper.launches == before  # no kernel on the CPU
+    for g, w in zip(chip_smoke._flat(got), chip_smoke._flat(want)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("name", ["mega_route", "mega_apply", "mega_replay"])
+def test_torch_mega_wrapper_rejects_wrong_dtype(name):
+    wrapper, _plain, args, i = _wrapper_calls()[name]
+    args = list(_clone(args))
+    x = args[i]
+    args[i] = x.to(torch.int64) if x.dtype != torch.int64 else x.to(torch.int32)
+    with pytest.raises(TypeError):
+        wrapper(*args)

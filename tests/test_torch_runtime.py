@@ -48,11 +48,16 @@ def _assert_same(a, b, what):
         np.testing.assert_array_equal(x, y, err_msg=what)
 
 
-def _script(rt, steps):
+def _script(rt, steps, settle=None):
     """The same scripted run: faults, a rebase, and the harvested
-    completions of every step."""
+    completions of every step.  ``settle`` (the reference's) waits for
+    the rounds in flight before a fault hook rewrites the host's frozen
+    row: on the CPU backend ``jnp.asarray`` may alias that numpy array,
+    so an in-flight round could read the new value (ROADMAP C)."""
     out = []
     for s in range(steps):
+        if settle is not None and s in (5, 11):
+            settle()
         if s == 5:
             rt.freeze(2)
         if s == 11:
@@ -76,7 +81,8 @@ def test_torch_runtime_identical_to_reference(depth):
     cfg = HermesConfig(**dataclasses.asdict(rc))
     ref = RefRuntime(rc, record=True)
     rt = FastRuntime(cfg, record=True, device="cpu")
-    got, want = _script(rt, 24), _script(ref, 24)
+    got = _script(rt, 24)
+    want = _script(ref, 24, settle=lambda: jax.block_until_ready(ref.fs))
     assert len(got) == len(want)
     assert (got[0] is None) == (depth > 1)
     for s, (a, b) in enumerate(zip(want, got)):
