@@ -11,13 +11,21 @@ prints no result):
 1. device  — the card (nvidia-smi name and power limit), torch and CUDA.
 2. build   — nvcc of every ``hermes_tpu_torch/csrc/*.cu``, all at once.
 3. kernels — every ported kernel (``stats_block``, ``mega_route``,
-   ``mega_apply``, ``mega_replay``) against its plain PyTorch version on
-   the same inputs, bit-exact (integer outputs: tolerance 0), at the
-   reference's kernel-matrix shapes, the bench shape and a ragged one,
-   with the kernel's and the plain version's times beside the least time
-   the card could take: per call on the stream (CUDA events, median of 25
-   samples of 10 calls) and on the device (torch.profiler, the kernels
-   one call enqueues, mean of 20 calls).
+   ``mega_apply``, ``mega_replay``, ``probe_serial``, ``probe_vgather``)
+   against its plain PyTorch version on the same inputs, bit-exact
+   (integer outputs: tolerance 0), at the reference's kernel-matrix
+   shapes, the bench shape and a ragged one, with the kernel's and the
+   plain version's times beside the least time the card could take: per
+   call on the stream (CUDA events, median of 25 samples of 10 calls) and
+   on the device (torch.profiler, the kernels one call enqueues, mean of
+   20 calls in one trace); for the probe kernels also the
+   library call that computes the same function (``index_put_``,
+   ``index_select``) at the bench shape.
+   probe — the table-step probe (``hermes_tpu_torch.table_probe``): every
+   cell of its ``main`` on the card, each candidate's state after three
+   chained steps held against the CPU port's on the same inputs, then
+   timed; the probe kernels' launches over the phase must equal the calls
+   it made.
 4. reference — the whole round on the card against the same round on the
    CPU (which the CPU tests hold bit-exact against the JAX reference) at
    a small shape, through a freeze and a removal: identical every round.
@@ -74,6 +82,10 @@ APPLY_SHAPES = ((1 << 20, 8 * 65792), (16, 16), (100003, 77777))  # K, N
 REPLAY_SHAPES = ((1 << 20, 8, 256, 8, 4096),  # K, R, RS, V, stuck rows
                  (16, 2, 2, 2, 6), (22, 2, 2, 2, 9), (5003, 3, 7, 3, 300))
 REPLAY_STEP, REPLAY_AGE = 1000, 16
+# K table rows, M messages: the bench table and lanes, the probe's cell,
+# almost all duplicates, ragged (with keys outside [0, K))
+PROBE_SHAPES = ((1 << 20, 49152), (4096, 4096), (8, 256), (1000, 777))
+PROBE_OUT_OF_RANGE = 3  # the index of the shape with keys outside [0, K)
 
 
 def emit(obj):
@@ -181,6 +193,21 @@ def replay_inputs(torch, fst, K, R, RS, V, n_stuck, seed):
     return step, frozen, vpts, fst._i32_to_bank(words), replay
 
 
+def probe_inputs(torch, K, M, W, seed, out_of_range):
+    """A (K, W) table, M keys in [0, K) (with ``out_of_range`` also -1,
+    K, K+5, -K-3 and the int32 extremes) and M rows, all int32."""
+    g = torch.Generator().manual_seed(seed)
+    table = torch.randint(-(1 << 31), 1 << 31, (K, W), generator=g,
+                          dtype=torch.int64).to(torch.int32)
+    keys = torch.randint(0, K, (M,), generator=g, dtype=torch.int32)
+    if out_of_range:
+        keys[:6] = torch.tensor([-1, K, K + 5, -K - 3, -(1 << 31),
+                                 (1 << 31) - 1])
+    rows = torch.randint(-(1 << 31), 1 << 31, (M, W), generator=g,
+                         dtype=torch.int64).to(torch.int32)
+    return table, keys, rows
+
+
 def mega_cfg(config, R, K=16, L=6, RS=2, V=2, C=None):
     """A mega_round config with R replicas, K keys, L lanes of which RS
     replay slots, V value words and lane budget C."""
@@ -254,6 +281,51 @@ def replay_case(torch, port, shape, seed):
     return args, timing, info
 
 
+def _probe_case(torch, port, shape, seed):
+    """Inputs of a probe kernel at (K, M), the table's W and the number D
+    of distinct rows the keys land on."""
+    K, M = shape
+    W = port.probe.W
+    table, keys, rows = probe_inputs(torch, K, M, W, seed,
+                                     shape == PROBE_SHAPES[PROBE_OUT_OF_RANGE])
+    D = len(port.pk.row_index(keys, K).unique())
+    return table, keys, rows, W, dict(K=K, M=M, distinct_rows=D)
+
+
+def serial_case(torch, port, shape, seed):
+    """probe_serial: every key read; only the last message on each of the
+    D distinct rows decides it, so D rows read and D rows written; a few
+    operations per word."""
+    table, keys, rows, W, info = _probe_case(torch, port, shape, seed)
+    M, D = info["M"], info["distinct_rows"]
+    info.update(bound(4 * M + 2 * 4 * D * W, 4 * M * W))
+    return (table, keys, rows), None, info
+
+
+def vgather_case(torch, port, shape, seed):
+    """probe_vgather: every key read and every output row written; each
+    of the D distinct table rows read once; a few operations per word."""
+    table, keys, _rows, W, info = _probe_case(torch, port, shape, seed)
+    M, D = info["M"], info["distinct_rows"]
+    info.update(bound(4 * M + 4 * M * W + 4 * D * W, 3 * M * W))
+    return (keys, table), None, info
+
+
+def serial_library(table, keys, rows):
+    """``index_put_`` of the rows at the keys (int64, made before the
+    timed calls): the serial scatter but for the order on duplicate keys,
+    which it leaves unspecified — a yardstick of time only."""
+    k = keys.long()
+    return lambda: table.index_put_((k,), rows)
+
+
+def vgather_library(keys, table):
+    """``index_select`` of the table rows at the keys (int64, made before
+    the timed calls)."""
+    k = keys.long()
+    return lambda: table.index_select(0, k)
+
+
 def _flat(tree):
     if hasattr(tree, "data_ptr"):
         return [tree]
@@ -272,12 +344,18 @@ def _to(torch, args, dev):
     return [one(x) for x in args]
 
 
-def check_kernel(torch, wrapper, plain, args, label, timing_args=None):
+def check_kernel(torch, wrapper, plain, args, label, timing_args=None,
+                 library=None):
     """The kernel against its plain version on the same inputs (on the
     CPU and on the card), bit-exact, and its times: per call on the
     stream (CUDA events) and on the device (torch.profiler, the kernels
-    one call enqueues).  ``timing_args`` (default ``args``) are the inputs
-    of the repeated timed calls, which must do the same work every call."""
+    one call enqueues, ``profiling.device_per_call``).  ``timing_args``
+    (default ``args``) are the inputs of the repeated timed calls, which
+    must do the same work every call.  ``library(*card_args)``, if given,
+    returns a call of one PyTorch operation computing the same function,
+    whose device time is taken the same way."""
+    from hermes_tpu_torch.profiling import device_per_call
+
     want = _flat(plain(*_to(torch, args, "cpu")))
     before = wrapper.launches
     got = _flat(wrapper(*_to(torch, args, "cuda")))
@@ -295,37 +373,49 @@ def check_kernel(torch, wrapper, plain, args, label, timing_args=None):
     dev_args = _to(torch, timing_args or args, "cuda")
     call = lambda: wrapper(*dev_args)
     plain_call = lambda: plain(*dev_args)
-    kdev = device_busy(torch, lambda: [call() for _ in range(20)])
-    pdev = device_busy(torch, lambda: [plain_call() for _ in range(20)])
-    return dict(exact=True, max_abs_err=err, counted_launches=counted,
-                call_us=cuda_ms(torch, call) * 1e3,
-                device_us=kdev["busy_s"] / 20 * 1e6,
-                device_launches=kdev["launches"] / 20,
-                plain_call_us=cuda_ms(torch, plain_call) * 1e3,
-                plain_device_us=pdev["busy_s"] / 20 * 1e6,
-                plain_device_launches=pdev["launches"] / 20)
+    k_s, k_n = device_per_call(call)
+    p_s, p_n = device_per_call(plain_call)
+    out = dict(exact=True, max_abs_err=err, counted_launches=counted,
+               call_us=cuda_ms(torch, call) * 1e3, device_us=k_s * 1e6,
+               device_launches=k_n,
+               plain_call_us=cuda_ms(torch, plain_call) * 1e3,
+               plain_device_us=p_s * 1e6, plain_device_launches=p_n)
+    if library is not None:
+        l_s, l_n = device_per_call(library(*dev_args))
+        out.update(library_device_us=l_s * 1e6, library_device_launches=l_n)
+    return out
 
 
 def phase_kernels(torch, port, kernels):
     """Every ported kernel against its plain version at each of its
     shapes; returns each kernel's row of the summary line, its times from
     the bench shape."""
-    mega = port.mega
-    specs = (  # name, wrapper, plain, file:line it replaces, shapes, case
+    mega, pk = port.mega, port.pk
+    specs = (  # name, wrapper, plain, file:line it replaces, shapes, case,
+        #        the library call of the same function
         ("stats_block", kernels.stats_block, kernels.stats_block_plain,
-         "hermes_tpu/core/kernels.py:96", STATS_SHAPES, stats_case),
+         "hermes_tpu/core/kernels.py:96", STATS_SHAPES, stats_case, None),
         ("mega_route", mega.mega_route, mega.mega_route_plain,
-         "hermes_tpu/core/megaround.py:157", ROUTE_SHAPES, route_case),
+         "hermes_tpu/core/megaround.py:157", ROUTE_SHAPES, route_case, None),
         ("mega_apply", mega.mega_apply, mega.mega_apply_plain,
-         "hermes_tpu/core/megaround.py:230", APPLY_SHAPES, apply_case),
+         "hermes_tpu/core/megaround.py:230", APPLY_SHAPES, apply_case, None),
         ("mega_replay", mega.mega_replay, mega.mega_replay_plain,
-         "hermes_tpu/core/megaround.py:363", REPLAY_SHAPES, replay_case))
+         "hermes_tpu/core/megaround.py:363", REPLAY_SHAPES, replay_case,
+         None),
+        ("probe_serial", pk.probe_serial, pk.probe_serial_plain,
+         "scripts/pallas_probe.py:162", PROBE_SHAPES, serial_case,
+         serial_library),
+        ("probe_vgather", pk.probe_vgather, pk.probe_vgather_plain,
+         "scripts/pallas_probe.py:204", PROBE_SHAPES, vgather_case,
+         vgather_library))
     out = {}
-    for k, (name, wrapper, plain, replaces, shapes, case) in enumerate(specs):
+    for k, (name, wrapper, plain, replaces, shapes, case,
+            library) in enumerate(specs):
         rows = []
         for i, shape in enumerate(shapes):
             args, timing, info = case(torch, port, shape, seed=10 * k + i)
-            row = check_kernel(torch, wrapper, plain, args, name, timing)
+            row = check_kernel(torch, wrapper, plain, args, name, timing,
+                               library if i == BENCH_INDEX else None)
             rows.append(dict(info, **row))
         emit({"phase": "kernels", name: rows})
         bench = rows[BENCH_INDEX]
@@ -336,8 +426,42 @@ def phase_kernels(torch, port, kernels):
             ms=bench["device_us"] / 1e3,
             plain_ms=bench["plain_device_us"] / 1e3,
             bound_ms=bench["bound_us"] / 1e3, bound_by=bench["bound_by"],
-            library_ms=None)
+            library_ms=(bench["library_device_us"] / 1e3
+                        if library else None))
     return out
+
+
+def phase_probe(torch, probe, card):
+    """Every cell of ``table_probe.main`` on the card: each candidate's
+    state after three chained steps held against the CPU port's on the
+    same inputs (``table_probe.check_state``: bit-exact, but for the
+    ``torch`` bank at duplicated keys, whose rows mixed from several
+    messages are counted), then the cell timed.  The probe kernels'
+    counts are set to 0 before and must equal, after, the calls of their
+    candidates.  Returns each probe kernel's launches."""
+    for w in probe.KERNEL.values():
+        w.launches = 0
+    calls = {cand: 0 for cand in probe.KERNEL}
+    cells = []
+    for cand, K, M in probe.CELLS:
+        fn, args = probe.candidate_step(cand, K, M, "cuda")
+        got = probe.run_chain(fn, args)
+        fn_cpu, args_cpu = probe.candidate_step(cand, K, M, "cpu")
+        mixed = probe.check_state(cand, got, probe.run_chain(fn_cpu, args_cpu),
+                                  args_cpu)
+        cells.append(probe.cell(cand, K, M, "cuda"))
+        if cand == "torch":
+            cells[-1]["mixed_dup_rows"] = mixed
+        if cand in calls:
+            calls[cand] += 3 + cells[-1]["calls"]
+    launches = {w.__name__: w.launches for w in probe.KERNEL.values()}
+    want = {probe.KERNEL[c].__name__: n for c, n in calls.items()}
+    emit({"phase": "probe", "card": card, "cells": cells,
+          "matches_cpu": True, "launches": launches})
+    if launches != want:
+        raise AssertionError(f"probe kernel launches {launches}, want the "
+                             f"calls made {want}")
+    return launches
 
 
 def phase_reference(torch, config, fst, convert, ycsb, card_device="cuda",
@@ -391,32 +515,6 @@ def phase_reference(torch, config, fst, convert, ycsb, card_device="cuda",
           "replay_slots_peak": replayed})
 
 
-def device_busy(torch, run):
-    """Device busy time (sum of CUDA kernel time), kernel count and wall
-    time of ``run()``, from torch.profiler; raises when the trace shows no
-    device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy_us, n, top = 0.0, 0, []
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total", 0.0)
-            busy_us += us
-            n += e.count
-            top.append((us, e.count, e.key[:60]))
-    if busy_us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    top.sort(reverse=True)
-    return dict(wall_s=wall, busy_s=busy_us / 1e6, launches=n, top=top[:8])
-
-
 def expected_launches(cfg, first, last):
     """Launches each kernel of the round makes over steps [first, last):
     one a round, ``mega_replay`` only on the replay scan's rounds."""
@@ -451,6 +549,8 @@ def phase_main(torch, counters, config, FastRuntime, card, mega_round=False,
                fused=None):
     """Throughput window of bench-a; returns its numbers (with the launch
     count of each kernel over the timed window) and the runtime."""
+    from hermes_tpu_torch.profiling import device_busy
+
     cfg = config.bench_cfg("a", over=dict(mega_round=mega_round))
     rt = FastRuntime(cfg, device="cuda")
     rt.fetch_completions = False  # throughput drive: counters only
@@ -466,7 +566,7 @@ def phase_main(torch, counters, config, FastRuntime, card, mega_round=False,
         raise AssertionError(f"kernel launches {launches} in {rounds} "
                              f"main-path rounds, want {want}")
     prof_rounds = 5
-    busy = device_busy(torch, lambda: rt.run(prof_rounds))
+    busy = device_busy(lambda: rt.run(prof_rounds))
     out = {"phase": "main-mega" if mega_round else "main", "card": card,
            "rounds": rounds, "writes_per_s": commits / wall,
            "us_per_round": wall / rounds * 1e6, "commits": commits,
@@ -615,10 +715,11 @@ def main():
         return 2
     sys.path.insert(0, HERE)
     try:
-        from hermes_tpu_torch import build, config, convert
+        from hermes_tpu_torch import build, config, convert, table_probe
         from hermes_tpu_torch.core import faststep as fst
         from hermes_tpu_torch.core import kernels, types
         from hermes_tpu_torch.core import megaround as mega
+        from hermes_tpu_torch.core import probe_kernels as pk
         from hermes_tpu_torch.workload import ycsb
         from hermes_tpu_torch.kvs import KVS
         from hermes_tpu_torch.runtime import FastRuntime
@@ -640,8 +741,10 @@ def main():
                     "mega_route": mega.mega_route,
                     "mega_apply": mega.mega_apply,
                     "mega_replay": mega.mega_replay}
-        port = SimpleNamespace(config=config, fst=fst, mega=mega)
+        port = SimpleNamespace(config=config, fst=fst, mega=mega, pk=pk,
+                               probe=table_probe)
         rows = phase_kernels(torch, port, kernels)
+        probe_launches = phase_probe(torch, table_probe, card)
         phase_reference(torch, config, fst, convert, ycsb)
         phase_reference(torch, config, fst, convert, ycsb, mega_round=True)
         main, fused_rt = phase_main(torch, counters, config, FastRuntime,
@@ -652,8 +755,10 @@ def main():
         phase_ab(torch, main, fused_rt, main_mega, mega_rt)
         del fused_rt, mega_rt
         for name, row in rows.items():
-            row["launches"] = (main if name == "stats_block"
-                               else main_mega)["launches"][name]
+            row["launches"] = (
+                probe_launches[name] if name in probe_launches
+                else (main if name == "stats_block"
+                      else main_mega)["launches"][name])
         phase_checked(torch, counters, config, FastRuntime, types)
         phase_checked(torch, counters, config, FastRuntime, types,
                       mega_round=True)

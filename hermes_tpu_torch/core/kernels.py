@@ -31,6 +31,7 @@ from hermes_tpu_torch import build
 from hermes_tpu_torch.core import layouts
 from hermes_tpu_torch.core import state as st
 from hermes_tpu_torch.core import types as t
+from hermes_tpu_torch.core.dispatch import launch
 
 CTR_READ = layouts.STATS_CTR.row("read")
 CTR_WRITE = layouts.STATS_CTR.row("write")
@@ -72,13 +73,14 @@ def stats_block_plain(step, sess_op, invoke_step, commit, abort, read_done):
     return code, ctr, hist
 
 
-_loaded = None
+_abi_checked = False
 
 
-def _lib() -> ctypes.CDLL:
-    """The built kernel library, its compiled-in constants checked once."""
-    global _loaded
-    if _loaded is None:
+def _check_abi() -> None:
+    """Raise unless the built kernel library's compiled-in constants are
+    ``_ABI``; checked once."""
+    global _abi_checked
+    if not _abi_checked:
         lib = build.load_cuda("stats_block")
         n = len(_ABI)
         buf = (ctypes.c_int32 * n)()
@@ -89,12 +91,7 @@ def _lib() -> ctypes.CDLL:
             raise RuntimeError(
                 f"stats_block.cu was built with constants {tuple(buf)[:got]}"
                 f", but core/types.py and core/layouts.py say {_ABI}")
-        lib.hermes_stats_block.restype = ctypes.c_int
-        lib.hermes_stats_block.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_void_p])
-        _loaded = lib
-    return _loaded
+        _abi_checked = True
 
 
 def _check_args(step, sess_op, invoke_step, commit, abort, read_done):
@@ -132,14 +129,8 @@ def _stats_block_cuda(step, sess_op, invoke_step, commit, abort, read_done):
     hist = torch.zeros((R, st.LAT_BINS), dtype=I32, device=dev)
     if R == 0 or S == 0:
         return code, ctr, hist
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.hermes_stats_block(
-            *(x.data_ptr() for x in (*args, code, ctr, hist)), R, S, stream)
-    if err != 0:
-        raise RuntimeError(f"stats_block kernel launch failed: CUDA error "
-                           f"{err} (R={R}, S={S})")
+    _check_abi()
+    launch("stats_block", dev, *args, code, ctr, hist, R, S)
     stats_block.launches += 1
     return code, ctr, hist
 

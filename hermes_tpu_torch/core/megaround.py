@@ -33,13 +33,11 @@ updates land in the table.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from hermes_tpu_torch import build
 from hermes_tpu_torch.core import layouts
 from hermes_tpu_torch.core import types as t
+from hermes_tpu_torch.core.dispatch import launch, need, on_card
 
 I32 = torch.int32
 I32_MIN = -(1 << 31)
@@ -53,30 +51,6 @@ _STATE_MASK = layouts.SST.field("state").mask
 REPLAY_ROWS_PER_BLOCK = 1024
 
 
-def _on_card(name: str, *xs) -> bool:
-    """True for CUDA tensors, False for CPU tensors; raises on a mix of
-    devices or any other device."""
-    dev = xs[0].device
-    for x in xs[1:]:
-        if x.device != dev:
-            raise ValueError(f"{name}: tensors on {dev} and {x.device}")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} runs on cuda or cpu tensors, got {dev}")
-    if dev.type == "cuda" and not all(x.is_contiguous() for x in xs):
-        raise ValueError(f"{name}: the CUDA kernel takes contiguous tensors "
-                         "only")
-    return dev.type == "cuda"
-
-
-def _need(name: str, what: str, x, dtype, shape=None) -> None:
-    if not isinstance(x, torch.Tensor) or x.dtype != dtype:
-        got = x.dtype if isinstance(x, torch.Tensor) else type(x).__name__
-        raise TypeError(f"{name}: {what} must be a {dtype} tensor, got {got}")
-    if shape is not None and tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name}: {what} has shape {tuple(x.shape)}, want "
-                         f"{tuple(shape)}")
-
-
 def _step_tensor(name: str, step, dev):
     if not isinstance(step, torch.Tensor):
         step = torch.tensor(step, dtype=I32, device=dev)
@@ -85,28 +59,6 @@ def _step_tensor(name: str, step, dev):
                         f"{dev}, got {step.dtype} {tuple(step.shape)} on "
                         f"{step.device}")
     return step
-
-
-_entry: dict = {}  # kernel name -> its typed C entry point
-
-
-def _launch(name: str, dev, *args) -> None:
-    """Call ``hermes_<name>`` of ``csrc/<name>.cu`` (built at first use)
-    with the tensors' pointers and the ints as they are, on the current
-    stream; raise on a CUDA error."""
-    fn = _entry.get(name)
-    if fn is None:
-        fn = getattr(build.load_cuda(name), f"hermes_{name}")
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int if isinstance(a, int) else ctypes.c_void_p
-                       for a in args] + [ctypes.c_void_p]
-        _entry[name] = fn
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*(a if isinstance(a, int) else a.data_ptr() for a in args),
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 # --------------------------------------------------------------------------
@@ -144,18 +96,18 @@ def mega_route(cfg, si, word, srank):
     unique (see ``mega_route_plain``), after zero-filling both outputs on
     the stream as the reference does."""
     name = "mega_route"
-    _need(name, "si", si, I32)
+    need(name, "si", si, I32)
     R, L = si.shape
-    _need(name, "word", word, I32, (R, L))
-    _need(name, "srank", srank, I32, (R, L))
-    if not _on_card(name, si, word, srank):
+    need(name, "word", word, I32, (R, L))
+    need(name, "srank", srank, I32, (R, L))
+    if not on_card(name, si, word, srank):
         return mega_route_plain(cfg, si, word, srank)
     C = cfg.lane_budget
     lane_word = torch.empty((R, L), dtype=I32, device=si.device)
     slot_lane = torch.empty((R, C), dtype=I32, device=si.device)
     if R and L:
-        _launch(name, si.device, si, word, srank, lane_word, slot_lane,
-                R, L, C)
+        launch(name, si.device, si, word, srank, lane_word, slot_lane,
+               R, L, C)
         mega_route.launches += 1
     return lane_word, slot_lane
 
@@ -198,20 +150,20 @@ def mega_apply(cfg, vpts, keys, pts, mask):
     ``atomicMax`` (exact in any order), and the second launch, which sees
     every update of the first, does the clamped read-back."""
     name = "mega_apply"
-    _need(name, "vpts", vpts, I32)
-    _need(name, "keys", keys, I32)
-    _need(name, "pts", pts, I32, keys.shape)
-    _need(name, "mask", mask, torch.bool, keys.shape)
+    need(name, "vpts", vpts, I32)
+    need(name, "keys", keys, I32)
+    need(name, "pts", pts, I32, keys.shape)
+    need(name, "mask", mask, torch.bool, keys.shape)
     if vpts.dim() != 1 or vpts.shape[0] < 1:
         raise ValueError(f"{name}: vpts must be a non-empty (K,) column, got "
                          f"{tuple(vpts.shape)}")
-    if not _on_card(name, vpts, keys, pts, mask):
+    if not on_card(name, vpts, keys, pts, mask):
         return mega_apply_plain(cfg, vpts, keys, pts, mask)
     N = keys.numel()
     post = torch.empty((N,), dtype=I32, device=vpts.device)
     if N:
-        _launch(name, vpts.device, vpts, keys, pts, mask, post,
-                vpts.shape[0], N)
+        launch(name, vpts.device, vpts, keys, pts, mask, post,
+               vpts.shape[0], N)
         mega_apply.launches += 1
     return vpts, post
 
@@ -297,19 +249,19 @@ def mega_replay(cfg, step, frozen, table_vpts, table_bank, replay):
     name = "mega_replay"
     dev = table_bank.device
     step = _step_tensor(name, step, dev)
-    _need(name, "active", replay.active, torch.bool)
+    need(name, "active", replay.active, torch.bool)
     R, RS = replay.active.shape
     rows, W4 = table_bank.shape
     V4 = W4 - _VAL_OFF
-    _need(name, "frozen", frozen, torch.bool, (R,))
-    _need(name, "table_vpts", table_vpts, I32, (rows,))
-    _need(name, "table_bank", table_bank, torch.int8,
-          (rows, 4 * (2 + cfg.value_words)))
+    need(name, "frozen", frozen, torch.bool, (R,))
+    need(name, "table_vpts", table_vpts, I32, (rows,))
+    need(name, "table_bank", table_bank, torch.int8,
+         (rows, 4 * (2 + cfg.value_words)))
     for what in ("key", "pts", "acks"):
-        _need(name, f"replay.{what}", getattr(replay, what), I32, (R, RS))
-    _need(name, "replay.val", replay.val, torch.int8, (R, RS, V4))
+        need(name, f"replay.{what}", getattr(replay, what), I32, (R, RS))
+    need(name, "replay.val", replay.val, torch.int8, (R, RS, V4))
     leaves = (replay.active, replay.key, replay.pts, replay.acks, replay.val)
-    if not _on_card(name, step, frozen, table_vpts, table_bank, *leaves):
+    if not on_card(name, step, frozen, table_vpts, table_bank, *leaves):
         return mega_replay_plain(cfg, step, frozen, table_vpts, table_bank,
                                  replay)
     if rows < 1 or R < 1 or RS < 1:
@@ -320,10 +272,10 @@ def mega_replay(cfg, step, frozen, table_vpts, table_bank, replay):
     # checks the length against its block size)
     n_scratch = -(-rows // REPLAY_ROWS_PER_BLOCK) + RS
     scratch = torch.empty((n_scratch,), dtype=I32, device=dev)
-    _launch(name, dev, step, frozen, table_vpts, table_bank, *leaves, *out,
-            scratch, n_scratch, rows, W4, R, RS, cfg.n_keys, cfg.replay_age,
-            _STEP_SHIFT, _STATE_MASK, t.INVALID, t.TRANS, t.REPLAY,
-            _SST_OFF, _VAL_OFF)
+    launch(name, dev, step, frozen, table_vpts, table_bank, *leaves, *out,
+           scratch, n_scratch, rows, W4, R, RS, cfg.n_keys, cfg.replay_age,
+           _STEP_SHIFT, _STATE_MASK, t.INVALID, t.TRANS, t.REPLAY,
+           _SST_OFF, _VAL_OFF)
     mega_replay.launches += 1
     return table_bank, out
 

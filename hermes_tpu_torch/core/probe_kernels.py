@@ -1,0 +1,133 @@
+"""The table-step probe's two kernels: ``probe_serial`` and
+``probe_vgather``.
+
+Port of the two Pallas kernels of ``scripts/pallas_probe.py``, the probe
+behind the reference's decision to keep the key-state table step in
+library scatter/gather (``table_probe.py`` drives them):
+
+* ``probe_serial`` — ``_serial_kernel``: ``table[keys[i]] = rows[i]`` in
+  message order, in place, the last writer on a key winning;
+* ``probe_vgather`` — ``_vgather_kernel``: ``out = table[keys]``.
+
+Each replaces a Pallas kernel with a CUDA kernel written for Hopper
+(``csrc/probe_serial.cu``, ``csrc/probe_vgather.cu``, built by
+``build.py`` and loaded with ctypes); the source notes there and the
+docstrings below say what bounds each one on the card and what its design
+does about it.  Both are the reference's bit for bit, keys outside
+[0, K) included (``row_index``).
+
+Dispatch, as for ``core/megaround.py``: a CPU tensor goes to the plain
+version (``probe_*_plain``), a CUDA tensor launches the kernel or raises.
+``.launches`` on each wrapper counts the calls that launched its kernel,
+one per call (a ``probe_serial`` call is a memset and two device
+launches).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from hermes_tpu_torch.core.dispatch import launch, need, on_card
+
+I32 = torch.int32
+
+
+def row_index(keys, K: int):
+    """The table row a key lands on, as the reference's interpret mode
+    places it (both kernels alike): a negative key counts from the end
+    (``k + K``), then the index is clamped to [0, K-1]."""
+    return torch.where(keys < 0, keys + K, keys).clamp(0, K - 1)
+
+
+def _check(name, table, keys):
+    need(name, "table", table, I32)
+    if table.dim() != 2 or table.shape[0] < 1:
+        raise ValueError(f"{name}: table must be a (K, W) table with K >= 1, "
+                         f"got {tuple(table.shape)}")
+    need(name, "keys", keys, I32)
+    if keys.dim() != 1:
+        raise ValueError(f"{name}: keys must be (M,), got {tuple(keys.shape)}")
+    return table.shape[0], keys.shape[0], table.shape[1]
+
+
+# --------------------------------------------------------------------------
+# probe_serial: the ordered scatter of message rows into the table
+# --------------------------------------------------------------------------
+
+
+def probe_serial_plain(table, keys, rows):
+    """``table[row_index(keys[i])] = rows[i]`` for i in message order, in
+    place: the winner on each row is resolved explicitly (the last message
+    on it) and only winners are stored, so no two stores share a row —
+    ``index_put_`` leaves the order of duplicates unspecified."""
+    K = table.shape[0]
+    k = row_index(keys, K).long()
+    order = torch.arange(keys.shape[0], device=keys.device)
+    last = torch.full((K,), -1, dtype=torch.long, device=keys.device)
+    last.scatter_reduce_(0, k, order, "amax")
+    won = last[k] == order
+    table[k[won]] = rows[won]
+    return table
+
+
+def probe_serial(table, keys, rows):
+    """The serial probe step: writes ``rows`` (M, W) int32 into ``table``
+    (K, W) int32 at ``keys`` (M,) int32, in place, as the ordered loop
+    ``for i in range(M): table[row_index(keys[i])] = rows[i]`` does.
+    Returns ``table``.
+
+    Replaces ``scripts/pallas_probe.py:candidate_step.serial_fn`` (Pallas
+    ``_serial_kernel``).  Bound by memory: a key read per message, and
+    per distinct key the winning row read and written, ~4 MB at the bench
+    table shape.  The Pallas loop's order becomes data on the card: after a
+    memset of an int32 (K,) scratch column to -1, phase 0 takes an integer
+    ``atomicMax`` of the message index per key (order-free, so exact) and
+    phase 1, one thread per (message, word), stores only the winning
+    message's row."""
+    name = "probe_serial"
+    K, M, W = _check(name, table, keys)
+    need(name, "rows", rows, I32, (M, W))
+    if not on_card(name, table, keys, rows):
+        return probe_serial_plain(table, keys, rows)
+    if M and W:
+        win = torch.empty((K,), dtype=I32, device=table.device)
+        launch(name, table.device, table, keys, rows, win, K, M, W)
+        probe_serial.launches += 1
+    return table
+
+
+probe_serial.launches = 0
+
+
+# --------------------------------------------------------------------------
+# probe_vgather: the row gather
+# --------------------------------------------------------------------------
+
+
+def probe_vgather_plain(keys, table):
+    """``table[row_index(keys)]``: the (M, W) rows of the keys."""
+    return table[row_index(keys, table.shape[0]).long()]
+
+
+def probe_vgather(keys, table):
+    """The gather probe step: ``out[m] = table[row_index(keys[m])]`` from
+    ``keys`` (M,) int32 and ``table`` (K, W) int32; returns ``out`` (M, W)
+    int32.
+
+    Replaces ``scripts/pallas_probe.py:candidate_step.vgather_fn`` (Pallas
+    ``_vgather_kernel``, which Mosaic would not lower on the TPU).  Bound
+    by memory: a key read and a row written per message, a row read per
+    distinct key, ~4 MB at the bench table shape.  One launch, one thread
+    per (message, word), neighbouring threads on neighbouring words."""
+    name = "probe_vgather"
+    K, M, W = _check(name, table, keys)
+    if not on_card(name, keys, table):
+        return probe_vgather_plain(keys, table)
+    out = torch.empty((M, W), dtype=I32, device=table.device)
+    if M and W:
+        launch(name, table.device, keys, table, out, K, M, W)
+        probe_vgather.launches += 1
+    return out
+
+
+probe_vgather.launches = 0

@@ -101,6 +101,48 @@ def test_mega_kernels_reject_strided_input():
         wrapper(cfg, si, word, srank)
 
 
+PROBE_CASES = {"probe_serial": chip_smoke.serial_case,
+               "probe_vgather": chip_smoke.vgather_case}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,shape", [
+    (name, shape) for name in PROBE_CASES for shape in chip_smoke.PROBE_SHAPES])
+def test_probe_kernel_cuda_matches_plain(name, shape):
+    """The table-step probe's kernels at chip_smoke.py's shapes (the bench
+    table, the probe's cell, almost all duplicates, ragged with keys
+    outside [0, K)): equal to the plain version, one launch per call."""
+    from types import SimpleNamespace
+
+    from hermes_tpu_torch import table_probe
+    from hermes_tpu_torch.core import probe_kernels as pk
+
+    dev = _card()
+    port = SimpleNamespace(pk=pk, probe=table_probe)
+    args, _timing, _info = PROBE_CASES[name](torch, port, shape, seed=2)
+    wrapper, plain = getattr(pk, name), getattr(pk, f"{name}_plain")
+    want = plain(*chip_smoke._to(torch, args, "cpu"))
+    before = wrapper.launches
+    got = wrapper(*chip_smoke._to(torch, args, dev))
+    torch.cuda.synchronize(dev)
+    assert wrapper.launches == before + 1
+    assert torch.equal(want, got.cpu())
+
+
+@pytest.mark.gpu
+def test_probe_kernels_reject_strided_input():
+    from hermes_tpu_torch.core import probe_kernels as pk
+
+    dev = _card()
+    table = torch.zeros((16, 20), dtype=torch.int32, device=dev)[:, ::2]
+    keys = torch.zeros((4,), dtype=torch.int32, device=dev)
+    rows = torch.zeros((4, 10), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        pk.probe_serial(table, keys, rows)
+    with pytest.raises(ValueError):
+        pk.probe_vgather(keys, table)
+
+
 def _tree_np(tree):
     if hasattr(tree, "_fields"):
         return type(tree)(*(_tree_np(x) for x in tree))

@@ -1,8 +1,8 @@
 """Import boundary of the port: hermes_tpu_torch imports torch, never jax
 and nothing of hermes_tpu (a module named ``hermes_tpu`` or starting with
 ``hermes_tpu.`` — not the string prefix, which the port's own name has).
-Checked in a fresh interpreter that runs one round and one KVS put/get
-on the CPU."""
+Checked in a fresh interpreter that runs one round, one KVS put/get and
+one cell of the table-step probe on the CPU."""
 
 import pathlib
 import subprocess
@@ -28,6 +28,8 @@ p = kvs.put(0, 0, 5, [1, 2])
 assert kvs.run_until([p])
 g = kvs.get(1, 0, 5)
 assert kvs.run_until([g]) and g.result().value == [1, 2]
+from hermes_tpu_torch import table_probe
+assert table_probe.cell("serial", 64, 256, "cpu")["calls"] == 4
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "hermes_tpu" or m.startswith("hermes_tpu."))
