@@ -9,23 +9,38 @@ Phases, each printing one JSON line (any failure exits non-zero and
 prints no result):
 
 1. device  — the card (nvidia-smi name and power limit), torch and CUDA.
-2. build   — nvcc of every ``hermes_tpu_torch/csrc/*.cu``, all at once.
+2. build   — nvcc of every ``hermes_tpu_torch/csrc/*.cu``, all at once:
+   the release library of each source, its bound-checked one
+   (``-DHERMES_CHECKED``, ``csrc/guard.cuh``) and the test-only broken one.
 3. kernels — every ported kernel (``stats_block``, ``mega_route``,
-   ``mega_apply``, ``mega_replay``, ``probe_serial``, ``probe_vgather``)
+   ``mega_apply``, ``mega_replay``, ``probe_serial``, ``probe_vgather``,
+   the sentinel ``scan_acc`` and the seven analysis fixtures ``fx_*``)
    against its plain PyTorch version on the same inputs, bit-exact
    (integer outputs: tolerance 0), at the reference's kernel-matrix
    shapes, the bench shape and a ragged one, with the kernel's and the
    plain version's times beside the least time the card could take: per
    call on the stream (CUDA events, median of 25 samples of 10 calls) and
    on the device (torch.profiler, the kernels one call enqueues, mean of
-   20 calls in one trace); for the probe kernels also the
-   library call that computes the same function (``index_put_``,
-   ``index_select``) at the bench shape.
+   20 calls in one trace); where one PyTorch call computes the same
+   function (``index_put_``, ``index_select``, ``sum``, ``clone``,
+   ``new_full``) that call's time; and the kernel in the bound-checked
+   build, held against the plain version again and timed.
+   sanitizer — the kernel matrix (``hermes_tpu_torch.analysis``): every
+   cell analyzed in the checked build and sanitized on 3 draws, in the
+   release and in the checked build (every output inside its declared
+   bound and equal to the plain version's on the CPU), all green; a cell
+   whose plain version is made to differ must turn red; every fixture
+   green in the checked build on inputs in bounds; then the red fixtures,
+   each of which must give its finding (an index, an offset or a key out
+   of extent, a dropped initialisation, ``mega_apply`` built without its
+   clamp, the undeclarable asynchronous copy), and after each a release
+   launch that must still be right: the guard records and skips, the
+   context lives.
    probe — the table-step probe (``hermes_tpu_torch.table_probe``): every
    cell of its ``main`` on the card, each candidate's state after three
    chained steps held against the CPU port's on the same inputs, then
-   timed; the probe kernels' launches over the phase must equal the calls
-   it made.
+   timed and analyzed in the checked build (``analysis_clean``); the probe
+   kernels' launches over the phase must equal the calls it made.
 4. reference — the whole round on the card against the same round on the
    CPU (which the CPU tests hold bit-exact against the JAX reference) at
    a small shape, through a freeze and a removal: identical every round.
@@ -80,12 +95,26 @@ STATS_SHAPES = ((8, 65536), (4, 512), (1024, 600), (512, 2000),
 ROUTE_SHAPES = ((8, 65792, 49152), (2, 6, 6), (3, 1001, 700))  # R, L, C
 APPLY_SHAPES = ((1 << 20, 8 * 65792), (16, 16), (100003, 77777))  # K, N
 REPLAY_SHAPES = ((1 << 20, 8, 256, 8, 4096),  # K, R, RS, V, stuck rows
-                 (16, 2, 2, 2, 6), (22, 2, 2, 2, 9), (5003, 3, 7, 3, 300))
+                 (16, 2, 2, 2, 6), (22, 2, 2, 2, 9), (5003, 3, 7, 3, 300),
+                 (2500, 2, 2, 2, 40))  # the matrix's three ragged blocks
 REPLAY_STEP, REPLAY_AGE = 1000, 16
 # K table rows, M messages: the bench table and lanes, the probe's cell,
 # almost all duplicates, ragged (with keys outside [0, K))
 PROBE_SHAPES = ((1 << 20, 49152), (4096, 4096), (8, 256), (1000, 777))
 PROBE_OUT_OF_RANGE = 3  # the index of the shape with keys outside [0, K)
+# the analysis kernels: the fixture's shape first (what the kernel matrix
+# and the red tests give them), then a larger, ragged one
+SCAN_ACC_SHAPES = ((16, 8), (4096, 256))  # M, W
+FX_SHAPES = {  # rows, columns (fx_serial_scan: K, M; W = 10)
+    "fx_pack": ((8, 128), (1000, 77)),
+    "fx_store_at": ((8, 128), (64, 10)),
+    "fx_acc_revisit": ((8, 256), (20, 1000)),
+    "fx_block_copy": ((8, 256), (5, 1000)),
+    "fx_serial_scan": ((64, 32), (1000, 777)),
+    "fx_async_copy": ((8, 128), (64, 1024)),
+    "fx_loop_inc": ((8, 128), (1000, 77)),
+}
+FX_W = 10
 
 
 def emit(obj):
@@ -286,10 +315,11 @@ def _probe_case(torch, port, shape, seed):
     of distinct rows the keys land on."""
     K, M = shape
     W = port.probe.W
-    table, keys, rows = probe_inputs(torch, K, M, W, seed,
-                                     shape == PROBE_SHAPES[PROBE_OUT_OF_RANGE])
+    outside = shape == PROBE_SHAPES[PROBE_OUT_OF_RANGE]
+    table, keys, rows = probe_inputs(torch, K, M, W, seed, outside)
     D = len(port.pk.row_index(keys, K).unique())
-    return table, keys, rows, W, dict(K=K, M=M, distinct_rows=D)
+    return table, keys, rows, W, dict(K=K, M=M, distinct_rows=D,
+                                      keys_out_of_range=outside)
 
 
 def serial_case(torch, port, shape, seed):
@@ -309,6 +339,80 @@ def vgather_case(torch, port, shape, seed):
     M, D = info["M"], info["distinct_rows"]
     info.update(bound(4 * M + 4 * M * W + 4 * D * W, 3 * M * W))
     return (keys, table), None, info
+
+
+def _i32(torch, g, shape, lo, hi):
+    return torch.randint(lo, hi, shape, generator=g, dtype=torch.int64).to(
+        torch.int32)
+
+
+def scan_acc_case(torch, port, shape, seed):
+    """scan_acc: every element read, every column sum written; one add
+    an element."""
+    M, W = shape
+    g = torch.Generator().manual_seed(seed)
+    x = _i32(torch, g, (M, W), 0, 101)
+    return (x,), None, dict(M=M, W=W, **bound(4 * M * W + 4 * W, M * W))
+
+
+def fx_case(name):
+    """The case maker of one analysis fixture: inputs in bounds at
+    (rows, columns), and the least bytes (each input read once, each
+    output written once) and operations."""
+    def case(torch, port, shape, seed):
+        r, c = shape
+        n = r * c
+        g = torch.Generator().manual_seed(seed)
+        x = _i32(torch, g, (r, c), 0, 4)
+        if name == "fx_pack":
+            args = (_i32(torch, g, (r, c), 0, 3),
+                    _i32(torch, g, (r, c), 0, 1 << 29))
+            cost = bound(12 * n, 2 * n)
+        elif name == "fx_store_at":  # index, row 0 of v read; out written
+            args = (torch.tensor([[r - 1]], dtype=torch.int32), x)
+            cost = bound(4 + 4 * c + 4 * n, n)
+        elif name == "fx_acc_revisit":
+            args = (x, True)
+            cost = bound(4 * n + 4 * r, n)
+        elif name == "fx_block_copy":
+            args = (x, 0)
+            cost = bound(8 * n, n)
+        elif name == "fx_serial_scan":  # keys read; winners' rows moved
+            K, M = shape
+            keys = _i32(torch, g, (M,), 0, K)
+            args = (_i32(torch, g, (K, FX_W), -(1 << 31), 1 << 31), keys,
+                    _i32(torch, g, (M, FX_W), -(1 << 31), 1 << 31))
+            D = len(keys.unique())
+            cost = bound(4 * M + 8 * D * FX_W, 4 * M * FX_W)
+        elif name == "fx_async_copy":
+            args = (x,)
+            cost = bound(8 * n, n)
+        else:  # fx_loop_inc: x is not read
+            args = (x, 10)
+            cost = bound(4 * n, 10 * n)
+        return args, None, dict(rows=r, cols=c, **cost)
+    return case
+
+
+def sum_library(x, *_):
+    """``torch.sum`` over the rows: scan_acc's function in one call."""
+    return lambda: x.sum(dim=0, keepdim=True, dtype=x.dtype)
+
+
+def row_sum_library(x, *_):
+    """``torch.sum`` over the columns: fx_acc_revisit's function."""
+    return lambda: x.sum(dim=1, keepdim=True, dtype=x.dtype)
+
+
+def full_library(x, times):
+    """``full_like``: the constant fx_loop_inc's loop arrives at."""
+    return lambda: x.new_full(x.shape, times)
+
+
+def clone_library(x, *_):
+    """``clone``: the copy fx_block_copy (offset 0) and fx_async_copy
+    make."""
+    return lambda: x.clone()
 
 
 def serial_library(table, keys, rows):
@@ -353,7 +457,11 @@ def check_kernel(torch, wrapper, plain, args, label, timing_args=None,
     (default ``args``) are the inputs of the repeated timed calls, which
     must do the same work every call.  ``library(*card_args)``, if given,
     returns a call of one PyTorch operation computing the same function,
-    whose device time is taken the same way."""
+    whose device time is taken the same way.  The call also runs in the
+    bound-checked build, where its outputs must again be the
+    plain version's and no guard may fire, and times it there (the poison
+    fills of its outputs and the report's pointer copy included)."""
+    from hermes_tpu_torch.core import dispatch
     from hermes_tpu_torch.profiling import device_per_call
 
     want = _flat(plain(*_to(torch, args, "cpu")))
@@ -383,51 +491,79 @@ def check_kernel(torch, wrapper, plain, args, label, timing_args=None,
     if library is not None:
         l_s, l_n = device_per_call(library(*dev_args))
         out.update(library_device_us=l_s * 1e6, library_device_launches=l_n)
+    with dispatch.checked_build() as chk:
+        got = _flat(wrapper(*_to(torch, args, "cuda")))
+        c_s, c_n = device_per_call(call)
+    if not all(torch.equal(g.cpu(), w) for w, g in zip(want, got)):
+        raise AssertionError(f"{label} in the checked build disagrees with "
+                             "its plain version")
+    if chk.violations:
+        raise AssertionError(f"{label}: the guard fired on inputs in "
+                             f"bounds: {chk.violations[:2]}")
+    out.update(checked_device_us=c_s * 1e6, checked_device_launches=c_n)
     return out
 
 
 def phase_kernels(torch, port, kernels):
     """Every ported kernel against its plain version at each of its
     shapes; returns each kernel's row of the summary line, its times from
-    the bench shape."""
-    mega, pk = port.mega, port.pk
+    its first shape (the bench shape, or the fixture's own).  The library
+    call is timed at every shape but the one whose keys leave the table,
+    where ``index_put_`` and ``index_select`` would fault."""
+    mega, pk, fk = port.mega, port.pk, port.fk
+    fx_library = {"fx_loop_inc": full_library,
+                  "fx_acc_revisit": row_sum_library,
+                  "fx_block_copy": clone_library,
+                  "fx_serial_scan": serial_library,
+                  "fx_async_copy": clone_library}
+    fixtures = tuple(
+        (name, wrapper, plain, replaces,
+         SCAN_ACC_SHAPES if name == "scan_acc" else FX_SHAPES[name],
+         scan_acc_case if name == "scan_acc" else fx_case(name),
+         sum_library if name == "scan_acc" else fx_library.get(name), lib)
+        for name, (wrapper, plain, lib, replaces) in fk.KERNELS.items())
     specs = (  # name, wrapper, plain, file:line it replaces, shapes, case,
-        #        the library call of the same function
+        #        the library call of the same function, the csrc source
         ("stats_block", kernels.stats_block, kernels.stats_block_plain,
-         "hermes_tpu/core/kernels.py:96", STATS_SHAPES, stats_case, None),
+         "hermes_tpu/core/kernels.py:96", STATS_SHAPES, stats_case, None,
+         "stats_block"),
         ("mega_route", mega.mega_route, mega.mega_route_plain,
-         "hermes_tpu/core/megaround.py:157", ROUTE_SHAPES, route_case, None),
+         "hermes_tpu/core/megaround.py:157", ROUTE_SHAPES, route_case, None,
+         "mega_route"),
         ("mega_apply", mega.mega_apply, mega.mega_apply_plain,
-         "hermes_tpu/core/megaround.py:230", APPLY_SHAPES, apply_case, None),
+         "hermes_tpu/core/megaround.py:230", APPLY_SHAPES, apply_case, None,
+         "mega_apply"),
         ("mega_replay", mega.mega_replay, mega.mega_replay_plain,
          "hermes_tpu/core/megaround.py:363", REPLAY_SHAPES, replay_case,
-         None),
+         None, "mega_replay"),
         ("probe_serial", pk.probe_serial, pk.probe_serial_plain,
          "scripts/pallas_probe.py:162", PROBE_SHAPES, serial_case,
-         serial_library),
+         serial_library, "probe_serial"),
         ("probe_vgather", pk.probe_vgather, pk.probe_vgather_plain,
          "scripts/pallas_probe.py:204", PROBE_SHAPES, vgather_case,
-         vgather_library))
+         vgather_library, "probe_vgather")) + fixtures
     out = {}
-    for k, (name, wrapper, plain, replaces, shapes, case,
-            library) in enumerate(specs):
+    for k, (name, wrapper, plain, replaces, shapes, case, library,
+            lib) in enumerate(specs):
         rows = []
         for i, shape in enumerate(shapes):
             args, timing, info = case(torch, port, shape, seed=10 * k + i)
             row = check_kernel(torch, wrapper, plain, args, name, timing,
-                               library if i == BENCH_INDEX else None)
+                               None if info.get("keys_out_of_range")
+                               else library)
             rows.append(dict(info, **row))
         emit({"phase": "kernels", name: rows})
         bench = rows[BENCH_INDEX]
         out[name] = dict(
             name=name, route="cuda",
-            source=f"hermes_tpu_torch/csrc/{name}.cu", replaces=replaces,
+            source=f"hermes_tpu_torch/csrc/{lib}.cu", replaces=replaces,
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=bench["device_us"] / 1e3,
             plain_ms=bench["plain_device_us"] / 1e3,
             bound_ms=bench["bound_us"] / 1e3, bound_by=bench["bound_by"],
             library_ms=(bench["library_device_us"] / 1e3
-                        if library else None))
+                        if library else None),
+            checked_ms=bench["checked_device_us"] / 1e3)
     return out
 
 
@@ -452,8 +588,13 @@ def phase_probe(torch, probe, card):
         cells.append(probe.cell(cand, K, M, "cuda"))
         if cand == "torch":
             cells[-1]["mixed_dup_rows"] = mixed
+        if not cells[-1]["analysis_clean"] or (
+                cells[-1]["analysis_build"] != "checked"):
+            raise AssertionError(f"probe cell {cand} K={K} M={M} is not "
+                                 f"clean in the checked build: {cells[-1]}")
         if cand in calls:
-            calls[cand] += 3 + cells[-1]["calls"]
+            calls[cand] += (3 + cells[-1]["calls"]
+                            + cells[-1]["analysis_calls"])
     launches = {w.__name__: w.launches for w in probe.KERNEL.values()}
     want = {probe.KERNEL[c].__name__: n for c, n in calls.items()}
     emit({"phase": "probe", "card": card, "cells": cells,
@@ -461,6 +602,151 @@ def phase_probe(torch, probe, card):
     if launches != want:
         raise AssertionError(f"probe kernel launches {launches}, want the "
                              f"calls made {want}")
+    return launches
+
+
+def _codes(findings):
+    return sorted({f.code for f in findings})
+
+
+def phase_sanitizer(torch, port):
+    """The kernel matrix in both builds, the fixtures green in the checked
+    build, then the red fixtures.  The analysis kernels' counts are set to
+    0 before and read after: each must have launched.  Returns them."""
+    from hermes_tpu_torch import analysis as ana
+    from hermes_tpu_torch.analysis import diffcheck as dc
+    from hermes_tpu_torch.analysis.domain import iv
+    from hermes_tpu_torch.core import dispatch
+
+    fk, mega = port.fk, port.mega
+    for wrapper, _plain, _lib, _replaces in fk.KERNELS.values():
+        wrapper.launches = 0
+    dev = torch.device("cuda")
+    out = {"phase": "sanitizer", "matrix": {}}
+    for build_name, checked in (("release", False), ("checked", True)):
+        t0 = time.perf_counter()
+        reports = ana.run_kernel_matrix(n_draws=3, device="cuda",
+                                        checked=checked)
+        bad = [(r["engine"], _codes(r["findings"]),
+                r["sanitizer"]["violations"][:2]) for r in reports
+               if r["findings"] or not r["sanitizer"]["ok"]
+               or r["build"] != "checked"
+               or r["proved"]["refhazard"] != r["n_sites"]]
+        out["matrix"][build_name] = dict(
+            cells=len(reports), draws=3, seconds=time.perf_counter() - t0,
+            sanitizer_ok=all(r["sanitizer"]["ok"] for r in reports),
+            findings=sum(len(r["findings"]) for r in reports),
+            guard_sites={r["engine"]: r["n_sites"] for r in reports})
+        if bad or len(reports) < 8:
+            raise AssertionError(f"kernel matrix ({build_name} sanitizer) "
+                                 f"is not green: {bad}")
+
+    # the comparison with the plain version must be able to fail: a plain
+    # version made to differ in one output turns the cell red in both builds
+    cell = dc.cell_by_name("mega_replay/k2500b3")
+    wrong = dataclasses.replace(
+        cell, plain=lambda *a: tuple(o + 1 if i == 2 else o
+                                     for i, o in enumerate(cell.plain(*a))))
+    for checked in (False, True):
+        r = dc.diff_check(wrong, n_draws=1, device="cuda", checked=checked)
+        if {(v["kind"], v["out"]) for v in r["violations"]} != {("plain", 2)}:
+            raise AssertionError(f"a differing plain version stayed green: "
+                                 f"{r}")
+    out["matrix"]["differing_plain_is_red"] = True
+
+    def alive(after):
+        """A release launch after a red fixture, held against its plain
+        version: the context must have survived the guard."""
+        x = torch.arange(16 * 8, dtype=torch.int32).reshape(16, 8)
+        got = fk.scan_acc(x.to(dev))
+        torch.cuda.synchronize()
+        if not torch.equal(got.cpu(), fk.scan_acc_plain(x)):
+            raise AssertionError(f"release launch wrong after {after}")
+
+    # every fixture in the checked build on inputs in bounds: no finding,
+    # and the result its plain version's
+    green = {}
+    for k, (name, (wrapper, plain, lib, _r)) in enumerate(fk.KERNELS.items()):
+        shape = (SCAN_ACC_SHAPES if name == "scan_acc" else FX_SHAPES[name])[0]
+        case = scan_acc_case if name == "scan_acc" else fx_case(name)
+        args, _t, _info = case(torch, port, shape, seed=500 + k)
+        want = _flat(plain(*_to(torch, args, "cpu")))
+        top = [ana.domain.top("int32")] * len(want)
+        got, found = dc.analyze_call(
+            lambda: _flat(wrapper(*_to(torch, args, dev))), top, name, lib)
+        if [f for f in found if f.severity in ana.GATING] or not all(
+                (w.numpy() == g).all() for w, g in zip(want, got)):
+            raise AssertionError(f"{name} is not green in the checked "
+                                 f"build: {[f.message for f in found]}")
+        green[name] = _codes(found)
+        alive(name)
+    out["fixtures_green"] = green
+
+    g = torch.Generator().manual_seed(9)
+    v = _i32(torch, g, (8, 128), 0, 101).to(dev)
+    x = _i32(torch, g, (8, 256), 0, 4).to(dev)
+    table = _i32(torch, g, (64, FX_W), 0, 101).to(dev)
+    keys = _i32(torch, g, (32,), 0, 64).to(dev)
+    keys[5] = 64  # one key past the table
+    rows = _i32(torch, g, (32, FX_W), 0, 1 << 20).to(dev)
+    idx = torch.tensor([[100]], dtype=torch.int32, device=dev)
+    cfg = mega_cfg(port.config, 2)
+    a_vpts, a_keys, a_pts, a_mask = (t.to(dev) for t in apply_inputs(
+        torch, 16, 16, seed=3))
+    a_mask[:] = True  # the wire keys past the column are masked in
+    pts_hi = iv(0, 1 << 25)
+    LIB = fk.LIB
+    red = (  # name, library, call, declared output bounds, broken, finding
+        ("fx_store_at idx=100 rows=8", LIB, lambda: (fk.fx_store_at(idx, v),),
+         [iv(0, 100)], False, "oob-block-store"),
+        ("fx_block_copy offset=1", LIB, lambda: (fk.fx_block_copy(x, 1),),
+         [ana.domain.top("int32")], False, "oob-block-store"),
+        ("fx_serial_scan key=64", LIB,
+         lambda: (fk.fx_serial_scan(table.clone(), keys, rows),),
+         [iv(0, 1 << 20)], False, "oob-block-store"),
+        ("fx_acc_revisit init=False", LIB,
+         lambda: (fk.fx_acc_revisit(x, init=False),), [iv(0, 3 * 256)], False,
+         "ref-read-before-init"),
+        ("mega_apply without its clamp", "mega_apply",
+         lambda: mega.mega_apply(cfg, a_vpts.clone(), a_keys, a_pts, a_mask),
+         [pts_hi, pts_hi], True, "oob-block-store"),
+        ("fx_async_copy", LIB, lambda: (fk.fx_async_copy(v),), [iv(0, 100)],
+         False, "guard-skipped"))
+    out["red"] = {}
+    for name, lib, call, out_avs, broken, want in red:
+        _outs, found = dc.analyze_call(call, out_avs, name.split()[0], lib,
+                                    broken=broken)
+        hit = [f for f in found if f.code == want]
+        out["red"][name] = dict(want=want, codes=_codes(found), site=(
+            f"{hit[0].site} in {hit[0].fn}" if hit else None),
+            message=hit[0].message if hit else None)
+        if not hit:
+            raise AssertionError(f"red fixture {name!r} stayed green: want "
+                                 f"{want}, got {_codes(found)}")
+        f = hit[0]
+        if want.startswith("oob") and not (
+                f.file.endswith(f"csrc/{lib}.cu") and f.line > 0
+                and f.fn.endswith("_kernel") and f.severity == "error"):
+            raise AssertionError(f"{name!r}: finding without its site: {f}")
+        if want == "guard-skipped" and ("cp.async" not in f.message
+                                        or f.severity != "info"):
+            raise AssertionError(f"{name!r}: the info finding does not name "
+                                 f"the asynchronous copy: {f}")
+        alive(name)
+    # the same mega_apply inputs in the sound checked build: clean
+    _outs, found = dc.analyze_call(
+        lambda: mega.mega_apply(cfg, a_vpts.clone(), a_keys, a_pts, a_mask),
+        [pts_hi, pts_hi], "mega_apply", "mega_apply")
+    if found:
+        raise AssertionError(f"mega_apply with its clamp is not clean: "
+                             f"{[f.message for f in found]}")
+    launches = {name: w.launches
+                for name, (w, _p, _l, _r) in fk.KERNELS.items()}
+    out["launches"] = launches
+    emit(out)
+    idle = [name for name, n in launches.items() if n == 0]
+    if idle:
+        raise AssertionError(f"the sanitizer phase never launched {idle}")
     return launches
 
 
@@ -716,6 +1002,7 @@ def main():
     sys.path.insert(0, HERE)
     try:
         from hermes_tpu_torch import build, config, convert, table_probe
+        from hermes_tpu_torch.analysis import fixture_kernels as fk
         from hermes_tpu_torch.core import faststep as fst
         from hermes_tpu_torch.core import kernels, types
         from hermes_tpu_torch.core import megaround as mega
@@ -735,16 +1022,19 @@ def main():
               "cuda": torch.version.cuda, "python": sys.version.split()[0]})
         t0 = time.perf_counter()
         secs = build.build_cuda_all()
-        emit({"phase": "build", "sources": secs,
+        emit({"phase": "build", "sources": secs["release"],
+              "checked_sources": secs["checked"],
+              "broken_sources": secs["broken"],
               "seconds": time.perf_counter() - t0})
         counters = {"stats_block": kernels.stats_block,
                     "mega_route": mega.mega_route,
                     "mega_apply": mega.mega_apply,
                     "mega_replay": mega.mega_replay}
         port = SimpleNamespace(config=config, fst=fst, mega=mega, pk=pk,
-                               probe=table_probe)
+                               probe=table_probe, fk=fk)
         rows = phase_kernels(torch, port, kernels)
-        probe_launches = phase_probe(torch, table_probe, card)
+        path_launches = phase_sanitizer(torch, port)
+        path_launches.update(phase_probe(torch, table_probe, card))
         phase_reference(torch, config, fst, convert, ycsb)
         phase_reference(torch, config, fst, convert, ycsb, mega_round=True)
         main, fused_rt = phase_main(torch, counters, config, FastRuntime,
@@ -756,7 +1046,7 @@ def main():
         del fused_rt, mega_rt
         for name, row in rows.items():
             row["launches"] = (
-                probe_launches[name] if name in probe_launches
+                path_launches[name] if name in path_launches
                 else (main if name == "stats_block"
                       else main_mega)["launches"][name])
         phase_checked(torch, counters, config, FastRuntime, types)

@@ -1,0 +1,357 @@
+"""The kernel analysis's own kernels: the scan-accumulate sentinel
+``scan_acc`` and the seven fixtures ``fx_*`` that its red tests are built
+on.
+
+Each replaces a Pallas kernel with a CUDA kernel written for Hopper
+(``csrc/scan_acc.cu`` and ``csrc/analysis_fixtures.cu``, built by
+``build.py`` and loaded with ctypes; the source notes there say what each
+computes and what its design does):
+
+* ``scan_acc`` — ``hermes_tpu/analysis/diffcheck.py:_scan_acc_cell._kern``
+  (pallas_call at :99): the column sums of an (M, W) int32 array;
+* the fixtures of ``tests/test_pallas_analysis.py``: ``fx_pack`` (:128,
+  :146), ``fx_store_at`` (:174), ``fx_acc_revisit`` (:215),
+  ``fx_block_copy`` (:249), ``fx_serial_scan`` (:279, :315),
+  ``fx_async_copy`` (:350), ``fx_loop_inc`` (:405).
+
+Dispatch, as for ``core/megaround.py``: a CPU tensor goes to the plain
+version (``*_plain``), a CUDA tensor launches the kernel or raises.
+``.launches`` on each wrapper counts the calls that launched its kernel,
+one per call.
+
+Three fixtures take an argument that can leave the tensor
+(``fx_store_at``'s index, ``fx_serial_scan``'s keys, ``fx_block_copy``'s
+offset).  The CUDA kernels do not clamp it: launch such an argument only
+inside ``dispatch.checked_build()``, where the guard records and skips the
+access; the release build would write outside the tensor.  The plain
+versions place such an argument where the reference's interpret mode
+does (an index counted from the end when negative, then clamped), so the
+CPU tests can hold them against the Pallas fixtures there too.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from hermes_tpu_torch.core.dispatch import launch, need, on_card, out
+from hermes_tpu_torch.core.probe_kernels import (probe_serial_plain,
+                                                 row_index)
+
+I32 = torch.int32
+LIB = "analysis_fixtures"
+BLOCK_COLS = 128  # analysis_fixtures.cu's kBlockCols
+
+
+def _need2(name, what, x):
+    need(name, what, x, I32)
+    if x.dim() != 2 or x.numel() == 0:
+        raise ValueError(f"{name}: {what} must be a non-empty 2-d tensor, got "
+                         f"{tuple(x.shape)}")
+    return x.shape
+
+
+# --------------------------------------------------------------------------
+# scan_acc: the scan-accumulate sentinel
+# --------------------------------------------------------------------------
+
+
+def scan_acc_plain(x):
+    """The (1, W) column sums of ``x`` (M, W) int32, wrapping as int32."""
+    return x.sum(dim=0, keepdim=True, dtype=torch.int64).to(I32)
+
+
+def scan_acc(x):
+    """``out[0, w] = sum_i x[i, w]`` for ``x`` (M, W) int32; returns the
+    (1, W) int32 sums.
+
+    Replaces ``_scan_acc_cell._kern``, a zero-fill and a 16-step loop that
+    adds row i into the output block.  Bound by memory (each element read
+    once, each column written once; at the sentinel's (16, 8) the launch is
+    all of its time).  One thread a column sums its rows in a register and
+    stores once."""
+    name = "scan_acc"
+    M, W = _need2(name, "x", x)
+    if not on_card(name, x):
+        return scan_acc_plain(x)
+    sums = out((1, W), I32, x.device)
+    launch(name, x.device, x, sums, M, W)
+    scan_acc.launches += 1
+    return sums
+
+
+scan_acc.launches = 0
+
+
+# --------------------------------------------------------------------------
+# fx_pack: a shift-or pack
+# --------------------------------------------------------------------------
+
+
+def fx_pack_plain(a, b):
+    """``(a << 29) | b`` on int32, the shift wrapping."""
+    return (a << 29) | b
+
+
+def fx_pack(a, b):
+    """``(a << 29) | b`` elementwise on two int32 tensors of one shape:
+    the pack whose fields overlap when ``b`` reaches 2^29.  Replaces
+    ``_pack_kernel``.  One thread an element."""
+    name = "fx_pack"
+    need(name, "a", a, I32)
+    need(name, "b", b, I32, a.shape)
+    if not on_card(name, a, b):
+        return fx_pack_plain(a, b)
+    packed = out(a.shape, I32, a.device)
+    if a.numel():
+        launch(name, a.device, a, b, packed, a.numel(), lib=LIB)
+        fx_pack.launches += 1
+    return packed
+
+
+fx_pack.launches = 0
+
+
+# --------------------------------------------------------------------------
+# fx_store_at: one row stored at an index read from device memory
+# --------------------------------------------------------------------------
+
+
+def fx_store_at_plain(idx, v):
+    """Zeros shaped as ``v`` with ``v[0]`` stored at row
+    ``row_index(idx)``: where interpret mode puts any index."""
+    stored = torch.zeros_like(v)
+    stored[row_index(idx.reshape(()), v.shape[0]).long()] = v[0]
+    return stored
+
+
+def fx_store_at(idx, v):
+    """``out = 0; out[idx] = v[0]`` for ``v`` (rows, W) int32 and ``idx``
+    a one-element int32 tensor on ``v``'s device (the counterpart of the
+    Pallas kernel's scalar in SMEM).  Replaces ``_store_at_idx._kern``.
+    A memset, then one warp stores the row.  An ``idx`` outside
+    [0, rows) only inside ``dispatch.checked_build()``."""
+    name = "fx_store_at"
+    rows, W = _need2(name, "v", v)
+    need(name, "idx", idx, I32)
+    if idx.numel() != 1:
+        raise ValueError(f"{name}: idx must hold one index, got "
+                         f"{tuple(idx.shape)}")
+    if not on_card(name, idx, v):
+        return fx_store_at_plain(idx, v)
+    stored = out((rows, W), I32, v.device)
+    launch(name, v.device, idx, v, stored, rows, W, lib=LIB)
+    fx_store_at.launches += 1
+    return stored
+
+
+fx_store_at.launches = 0
+
+
+# --------------------------------------------------------------------------
+# fx_acc_revisit: partial sums accumulated into one revisited output
+# --------------------------------------------------------------------------
+
+
+def fx_acc_revisit_plain(x, init=True, acc=None):
+    """``acc`` (R, 1) plus the row sums of ``x`` (R, C), block of 128
+    columns by block; ``init`` zeroes ``acc`` first.  Without ``init`` the
+    result keeps what ``acc`` held (an uninitialised output's content)."""
+    if acc is None:
+        acc = out((x.shape[0], 1), I32, x.device)
+    if init:
+        acc.zero_()
+    for c in range(0, x.shape[1], BLOCK_COLS):
+        acc += x[:, c:c + BLOCK_COLS].sum(dim=1, keepdim=True,
+                                          dtype=torch.int64).to(I32)
+    return acc
+
+
+def fx_acc_revisit(x, init=True):
+    """The (R, 1) int32 row sums of ``x`` (R, C) int32, R <= 32, formed by
+    one thread block per 128-column block adding its partial sums into the
+    one output, which ``init`` zero-fills first.  ``init=False`` is the
+    fixture of a dropped initialisation: the sums land on whatever the
+    output held.  Replaces ``TestRefHazards._acc._kern`` (a grid of 2
+    revisiting one output block, with or without its first-visit
+    zero-fill).  Row sums by warp shuffle, one integer atomicAdd a row and
+    block."""
+    name = "fx_acc_revisit"
+    R, C = _need2(name, "x", x)
+    if R > 32:
+        raise ValueError(f"{name}: at most 32 rows (one warp a row), got {R}")
+    acc = out((R, 1), I32, x.device)
+    if not on_card(name, x):
+        return fx_acc_revisit_plain(x, init, acc)
+    launch(name, x.device, x, acc, R, C, int(bool(init)), lib=LIB)
+    fx_acc_revisit.launches += 1
+    return acc
+
+
+fx_acc_revisit.launches = 0
+
+
+# --------------------------------------------------------------------------
+# fx_block_copy: a blocked copy whose output block can be off
+# --------------------------------------------------------------------------
+
+
+def fx_block_copy_plain(x, offset=0, copied=None):
+    """Column block j of ``x`` (R, C) copied to column block j + offset of
+    ``copied``, for j in order; a block index outside the output lands
+    where interpret mode puts it (counted from the end when negative, then
+    clamped, as ``row_index`` places a row).  Blocks nobody writes keep
+    what ``copied`` held."""
+    if copied is None:
+        copied = out(x.shape, I32, x.device)
+    last = (x.shape[1] - 1) // BLOCK_COLS
+    for j in range(last + 1):
+        d = j + offset + (last + 1 if j + offset < 0 else 0)
+        d = min(max(d, 0), last) * BLOCK_COLS
+        src = x[:, j * BLOCK_COLS:(j + 1) * BLOCK_COLS]
+        copied[:, d:d + src.shape[1]] = src
+    return copied
+
+
+def fx_block_copy(x, offset=0):
+    """``out[:, (j + offset) block] = x[:, j block]`` for every 128-column
+    block j of ``x`` (R, C) int32.  Replaces the blocked copy ``_kern``
+    whose output index map is off by one block.  One thread block a column
+    block.  A non-zero ``offset`` only inside
+    ``dispatch.checked_build()``."""
+    name = "fx_block_copy"
+    R, C = _need2(name, "x", x)
+    copied = out((R, C), I32, x.device)
+    if not on_card(name, x):
+        return fx_block_copy_plain(x, offset, copied)
+    launch(name, x.device, x, copied, R, C, int(offset), lib=LIB)
+    fx_block_copy.launches += 1
+    return copied
+
+
+fx_block_copy.launches = 0
+
+
+# --------------------------------------------------------------------------
+# fx_serial_scan: the ordered row scatter
+# --------------------------------------------------------------------------
+
+#: ``table[row_index(keys[i])] = rows[i]`` in message order, in place (the
+#: fixture's kernel body is the table-step probe's)
+fx_serial_scan_plain = probe_serial_plain
+
+
+def fx_serial_scan(table, keys, rows):
+    """``for i: table[keys[i]] = rows[i]`` on ``table`` (K, W), ``keys``
+    (M,) and ``rows`` (M, W), all int32, in place; returns ``table``.
+    Replaces the serial scan ``_kern`` (a loop of dynamic single-row
+    stores).  The winner-column form of ``csrc/probe_serial.cu``: a memset,
+    an ``atomicMax`` of the message index per key, a store where it won;
+    unlike that kernel it does not clamp, so a key outside [0, K) only
+    inside ``dispatch.checked_build()``."""
+    name = "fx_serial_scan"
+    K, W = _need2(name, "table", table)
+    need(name, "keys", keys, I32)
+    if keys.dim() != 1:
+        raise ValueError(f"{name}: keys must be (M,), got {tuple(keys.shape)}")
+    M = keys.shape[0]
+    need(name, "rows", rows, I32, (M, W))
+    if not on_card(name, table, keys, rows):
+        return fx_serial_scan_plain(table, keys, rows)
+    if M:
+        win = out((K,), I32, table.device)
+        launch(name, table.device, table, keys, rows, win, K, M, W, lib=LIB)
+        fx_serial_scan.launches += 1
+    return table
+
+
+fx_serial_scan.launches = 0
+
+
+# --------------------------------------------------------------------------
+# fx_async_copy: a copy through the asynchronous copy unit
+# --------------------------------------------------------------------------
+
+
+def fx_async_copy_plain(x):
+    """A copy of ``x``."""
+    return x.clone()
+
+
+def fx_async_copy(x):
+    """A copy of ``x`` (int32, a multiple of 4 elements, 16-byte aligned)
+    made with the card's asynchronous copy: global to shared memory with
+    ``cp.async``, waited for, then stored.  Replaces the DMA ``_kern``
+    (``pltpu.make_async_copy`` and its semaphore).  The asynchronous copy
+    is the one access of the port no guard wraps; the source declares it
+    and the checked build reports it."""
+    name = "fx_async_copy"
+    need(name, "x", x, I32)
+    if x.numel() < 4 or x.numel() % 4:
+        raise ValueError(f"{name}: x must hold a multiple of 4 elements, got "
+                         f"{x.numel()}")
+    if not on_card(name, x):
+        return fx_async_copy_plain(x)
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: x must be 16-byte aligned")
+    copied = out(x.shape, I32, x.device)
+    launch(name, x.device, x, copied, x.numel(), lib=LIB)
+    fx_async_copy.launches += 1
+    return copied
+
+
+fx_async_copy.launches = 0
+
+
+# --------------------------------------------------------------------------
+# fx_loop_inc: a loop-carried increment
+# --------------------------------------------------------------------------
+
+
+def fx_loop_inc_plain(x, times=10):
+    """Zeros shaped as ``x`` with 1 added ``times`` times."""
+    acc = torch.zeros_like(x)
+    for _ in range(times):
+        acc = acc + 1
+    return acc
+
+
+def fx_loop_inc(x, times=10):
+    """``out = 0``, then ``out += 1`` ``times`` times, shaped as the int32
+    tensor ``x`` (whose values the function, as the Pallas ``_kern`` it
+    replaces, does not read).  One thread an element, the loop in a
+    register."""
+    name = "fx_loop_inc"
+    need(name, "x", x, I32)
+    if times < 0:
+        raise ValueError(f"{name}: times must be >= 0, got {times}")
+    if not on_card(name, x):
+        return fx_loop_inc_plain(x, times)
+    acc = out(x.shape, I32, x.device)
+    if x.numel():
+        launch(name, x.device, acc, x.numel(), int(times), lib=LIB)
+        fx_loop_inc.launches += 1
+    return acc
+
+
+fx_loop_inc.launches = 0
+
+#: every kernel of this module: name -> (wrapper, plain version, library,
+#: the ``file:line`` of the Pallas kernel it replaces)
+KERNELS = {
+    "scan_acc": (scan_acc, scan_acc_plain, "scan_acc",
+                 "hermes_tpu/analysis/diffcheck.py:89"),
+    "fx_pack": (fx_pack, fx_pack_plain, LIB,
+                "tests/test_pallas_analysis.py:124"),
+    "fx_store_at": (fx_store_at, fx_store_at_plain, LIB,
+                    "tests/test_pallas_analysis.py:168"),
+    "fx_acc_revisit": (fx_acc_revisit, fx_acc_revisit_plain, LIB,
+                       "tests/test_pallas_analysis.py:203"),
+    "fx_block_copy": (fx_block_copy, fx_block_copy_plain, LIB,
+                      "tests/test_pallas_analysis.py:245"),
+    "fx_serial_scan": (fx_serial_scan, fx_serial_scan_plain, LIB,
+                       "tests/test_pallas_analysis.py:268"),
+    "fx_async_copy": (fx_async_copy, fx_async_copy_plain, LIB,
+                      "tests/test_pallas_analysis.py:344"),
+    "fx_loop_inc": (fx_loop_inc, fx_loop_inc_plain, LIB,
+                    "tests/test_pallas_analysis.py:395"),
+}

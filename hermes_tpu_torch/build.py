@@ -10,6 +10,12 @@ use, into ``hermes_tpu_torch/_build/`` (listed in ``.gitignore``).
   PyTorch has loaded: with a static runtime of their own, torch.profiler
   missed some of their launches (on an H100, 2 of 30 traces of one
   kernel; none of 150 with the shared runtime).
+* Every source also has a bound-checked build, a second library compiled
+  with ``-DHERMES_CHECKED`` (``csrc/guard.cuh``): each global-memory access
+  is tested against its extent, a violation recorded and the access
+  skipped.  ``core/dispatch.checked_build`` selects it; nothing selects it
+  by itself.  ``BROKEN`` lists the test-only checked builds that leave a
+  kernel's own clamp out, for the red tests of the guard.
 * The checker's C++ witness core (``native/checker_core.cpp``): ``g++``.
 
 Builds write to a temporary name and rename into place, so concurrent
@@ -33,7 +39,10 @@ CSRC = PKG / "csrc"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-cudart", "shared")
+CHECKED_FLAGS = NVCC_FLAGS + ("-DHERMES_CHECKED",)
 CXX_FLAGS = ("-O2", "-shared", "-fPIC")
+#: test-only checked builds: source name -> the define that breaks it
+BROKEN = {"mega_apply": "HERMES_BROKEN_NO_CLAMP"}
 
 _loaded: Dict[pathlib.Path, ctypes.CDLL] = {}
 
@@ -57,8 +66,24 @@ def cuda_sources() -> List[pathlib.Path]:
 
 
 def _lib_path(src: pathlib.Path, flags) -> pathlib.Path:
-    h = hashlib.sha1(src.read_bytes() + " ".join(flags).encode()).hexdigest()
-    return BUILD_DIR / f"lib{src.stem}-{h[:12]}.so"
+    """The library of ``src`` built with ``flags``: named by a hash of the
+    source, the headers it may include (``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha1(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(flags).encode())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
+
+
+def cuda_flags(name: str, checked: bool = False, broken: bool = False):
+    """nvcc flags of ``csrc/<name>.cu``: the release build, the
+    bound-checked one, or (``broken``) the checked one without the
+    kernel's own clamp."""
+    if not broken:
+        return CHECKED_FLAGS if checked else NVCC_FLAGS
+    if not checked:
+        raise ValueError("a broken build exists only as a checked build")
+    return CHECKED_FLAGS + (f"-D{BROKEN[name]}",)
 
 
 def _start(cmd: List[str], out: pathlib.Path) -> subprocess.Popen:
@@ -78,31 +103,44 @@ def _finish(proc: subprocess.Popen, out: pathlib.Path) -> None:
     os.replace(tmp, out)
 
 
-def build_cuda_all() -> Dict[str, float]:
-    """Build every ``csrc/*.cu`` that has no current library: one ``nvcc``
-    per source, all started together.  Returns the seconds each source's
-    build took (0.0 for a source that was already built)."""
-    jobs, secs = [], {}
+def build_cuda_all() -> Dict[str, Dict[str, float]]:
+    """Build every library of every ``csrc/*.cu`` that is not current: the
+    release build, the checked build and the ``BROKEN`` ones, one ``nvcc``
+    per library, all started together.  Returns, per kind of build
+    (``release``, ``checked``, ``broken``), the seconds after which each
+    source's library was there (0.0 for one that was already built)."""
+    jobs = []
+    secs: Dict[str, Dict[str, float]] = {"release": {}, "checked": {},
+                                         "broken": {}}
     t0 = time.perf_counter()
     for src in cuda_sources():
-        out = _lib_path(src, NVCC_FLAGS)
-        if out.exists():
-            secs[src.name] = 0.0
-            continue
-        jobs.append((src, out, _start([nvcc(), *NVCC_FLAGS, str(src)], out)))
-    for src, out, proc in jobs:
+        kinds = [("release", cuda_flags(src.stem)),
+                 ("checked", cuda_flags(src.stem, checked=True))]
+        if src.stem in BROKEN:
+            kinds.append(("broken", cuda_flags(src.stem, True, True)))
+        for kind, flags in kinds:
+            out = _lib_path(src, flags)
+            if out.exists():
+                secs[kind][src.name] = 0.0
+                continue
+            jobs.append((kind, src, out,
+                         _start([nvcc(), *flags, str(src)], out)))
+    for kind, src, out, proc in jobs:
         _finish(proc, out)
-        secs[src.name] = time.perf_counter() - t0
+        secs[kind][src.name] = time.perf_counter() - t0
     return secs
 
 
-def load_cuda(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+def load_cuda(name: str, checked: bool = False,
+              broken: bool = False) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (see ``cuda_flags`` for the
+    three builds), built first if needed."""
     src = CSRC / f"{name}.cu"
-    out = _lib_path(src, NVCC_FLAGS)
+    flags = cuda_flags(name, checked, broken)
+    out = _lib_path(src, flags)
     if out not in _loaded:
         if not out.exists():
-            _finish(_start([nvcc(), *NVCC_FLAGS, str(src)], out), out)
+            _finish(_start([nvcc(), *flags, str(src)], out), out)
         _loaded[out] = ctypes.CDLL(str(out))
     return _loaded[out]
 

@@ -31,7 +31,7 @@ from hermes_tpu_torch import build
 from hermes_tpu_torch.core import layouts
 from hermes_tpu_torch.core import state as st
 from hermes_tpu_torch.core import types as t
-from hermes_tpu_torch.core.dispatch import launch
+from hermes_tpu_torch.core.dispatch import launch, out
 
 CTR_READ = layouts.STATS_CTR.row("read")
 CTR_WRITE = layouts.STATS_CTR.row("write")
@@ -124,9 +124,11 @@ def _stats_block_cuda(step, sess_op, invoke_step, commit, abort, read_done):
                          "tensors only")
     R, S = sess_op.shape
     dev = sess_op.device
-    code = torch.empty((R, S), dtype=I32, device=dev)
-    ctr = torch.zeros((R, CTR_WIDTH), dtype=I32, device=dev)
-    hist = torch.zeros((R, st.LAT_BINS), dtype=I32, device=dev)
+    code = out((R, S), I32, dev)
+    # the kernel adds into ctr and hist: the two zero-fills are their
+    # initialisation
+    ctr = out((R, CTR_WIDTH), I32, dev).zero_()
+    hist = out((R, st.LAT_BINS), I32, dev).zero_()
     if R == 0 or S == 0:
         return code, ctr, hist
     _check_abi()

@@ -37,7 +37,7 @@ import torch
 
 from hermes_tpu_torch.core import layouts
 from hermes_tpu_torch.core import types as t
-from hermes_tpu_torch.core.dispatch import launch, need, on_card
+from hermes_tpu_torch.core.dispatch import launch, need, on_card, out
 
 I32 = torch.int32
 I32_MIN = -(1 << 31)
@@ -103,8 +103,8 @@ def mega_route(cfg, si, word, srank):
     if not on_card(name, si, word, srank):
         return mega_route_plain(cfg, si, word, srank)
     C = cfg.lane_budget
-    lane_word = torch.empty((R, L), dtype=I32, device=si.device)
-    slot_lane = torch.empty((R, C), dtype=I32, device=si.device)
+    lane_word = out((R, L), I32, si.device)
+    slot_lane = out((R, C), I32, si.device)
     if R and L:
         launch(name, si.device, si, word, srank, lane_word, slot_lane,
                R, L, C)
@@ -160,7 +160,7 @@ def mega_apply(cfg, vpts, keys, pts, mask):
     if not on_card(name, vpts, keys, pts, mask):
         return mega_apply_plain(cfg, vpts, keys, pts, mask)
     N = keys.numel()
-    post = torch.empty((N,), dtype=I32, device=vpts.device)
+    post = out((N,), I32, vpts.device)
     if N:
         launch(name, vpts.device, vpts, keys, pts, mask, post,
                vpts.shape[0], N)
@@ -267,17 +267,17 @@ def mega_replay(cfg, step, frozen, table_vpts, table_bank, replay):
     if rows < 1 or R < 1 or RS < 1:
         raise ValueError(f"{name}: needs rows, R and RS >= 1, got "
                          f"{rows}, {R}, {RS}")
-    out = tuple(torch.empty_like(x) for x in leaves)
+    new = tuple(out(x.shape, x.dtype, dev) for x in leaves)
     # one count per row block, then the RS candidate rows (the .cu file
     # checks the length against its block size)
     n_scratch = -(-rows // REPLAY_ROWS_PER_BLOCK) + RS
-    scratch = torch.empty((n_scratch,), dtype=I32, device=dev)
-    launch(name, dev, step, frozen, table_vpts, table_bank, *leaves, *out,
+    scratch = out((n_scratch,), I32, dev)
+    launch(name, dev, step, frozen, table_vpts, table_bank, *leaves, *new,
            scratch, n_scratch, rows, W4, R, RS, cfg.n_keys, cfg.replay_age,
            _STEP_SHIFT, _STATE_MASK, t.INVALID, t.TRANS, t.REPLAY,
            _SST_OFF, _VAL_OFF)
     mega_replay.launches += 1
-    return table_bank, out
+    return table_bank, new
 
 
 mega_replay.launches = 0

@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from hermes_tpu_torch.core.dispatch import launch, need, on_card
+from hermes_tpu_torch.core.dispatch import launch, need, on_card, out
 
 I32 = torch.int32
 
@@ -90,7 +90,7 @@ def probe_serial(table, keys, rows):
     if not on_card(name, table, keys, rows):
         return probe_serial_plain(table, keys, rows)
     if M and W:
-        win = torch.empty((K,), dtype=I32, device=table.device)
+        win = out((K,), I32, table.device)
         launch(name, table.device, table, keys, rows, win, K, M, W)
         probe_serial.launches += 1
     return table
@@ -123,11 +123,11 @@ def probe_vgather(keys, table):
     K, M, W = _check(name, table, keys)
     if not on_card(name, keys, table):
         return probe_vgather_plain(keys, table)
-    out = torch.empty((M, W), dtype=I32, device=table.device)
+    rows = out((M, W), I32, table.device)
     if M and W:
-        launch(name, table.device, keys, table, out, K, M, W)
+        launch(name, table.device, keys, table, rows, K, M, W)
         probe_vgather.launches += 1
-    return out
+    return rows
 
 
 probe_vgather.launches = 0

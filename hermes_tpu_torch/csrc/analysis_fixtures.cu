@@ -1,0 +1,269 @@
+// analysis_fixtures: the seven small kernels the kernel analysis's red
+// tests are built on, for Hopper (sm_90a).
+//
+// Each replaces a Pallas fixture kernel of tests/test_pallas_analysis.py
+// (the line of its pl.pallas_call in brackets) and computes the same
+// function; none is carried over block by block:
+//
+//   fx_pack        [:128, :146]  out = (a << 29) | b, elementwise int32
+//   fx_store_at    [:174]  out = 0, then out[idx, :] = v[0, :], the row
+//                          index read from device memory
+//   fx_acc_revisit [:215]  out[r] = sum of row r of x, formed by one block
+//                          per 128-column block adding its partial sums
+//                          into the one (R, 1) output
+//   fx_block_copy  [:249]  column block j of x copied to column block
+//                          j + offset of out
+//   fx_serial_scan [:279, :315]  table[keys[i], :] = rows[i, :] in message
+//                          order, in place, the last message on a key
+//                          winning
+//   fx_async_copy  [:350]  out = x through an asynchronous copy
+//   fx_loop_inc    [:405]  out = 0, then +1 n times
+//
+// What bounds them: at their fixture shapes (a few KB) nothing but the
+// launch.  Their point is what the bound-checked build (guard.cuh) sees:
+// every global access goes through a guard, so an index, a key or a block
+// offset outside its extent is recorded and skipped, and a kernel that
+// accumulates into an output nobody initialised shows in the poisoned
+// output.  Inputs that leave an extent (fx_store_at's index, fx_serial_scan's
+// keys, fx_block_copy's offset) are for the checked build only: the release
+// build does not clamp and would write outside the tensor.
+//
+// Design notes, where the TPU kernel's shape does not carry over:
+//   * fx_acc_revisit: the Pallas grid revisits one output block in order
+//     and zero-fills it on the first visit.  Blocks here run in no order,
+//     so the zero-fill is a cudaMemsetAsync before the launch (`init`), the
+//     row sums reduce by warp shuffle and land with one integer atomicAdd a
+//     row and block: order-free, so exact.  Without `init` the output keeps
+//     whatever it held: the fixture of a dropped initialisation.
+//   * fx_serial_scan: the ordered loop becomes data, as in probe_serial.cu:
+//     a memset of an int32 (K,) column to -1, an integer atomicMax of the
+//     message index per key, and a store pass in which only the winner of
+//     a key writes its row.
+//   * fx_async_copy: pltpu.make_async_copy and its DMA semaphore become
+//     cp.async (__pipeline_memcpy_async) from global into shared memory,
+//     committed and waited for (__pipeline_wait_prior), then plain stores
+//     to the output.  The hardware forms the asynchronous copy's global
+//     addresses, so no guard wraps it: it is declared HG_UNGUARDED.
+//
+// C interface (ctypes, hermes_tpu_torch/analysis/fixture_kernels.py):
+// pointers and the stream are void*-sized; each entry returns
+// cudaGetLastError() after its launches (0 = launched).
+
+#include <cstdint>
+#include <cuda_pipeline.h>
+#include <cuda_runtime.h>
+
+#include "guard.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kBlockCols = 128;  // the fixtures' column block
+constexpr int kCopyWords = 1024;  // int32 words a block stages (4 KB)
+
+unsigned grid_for(int64_t n) {
+  return static_cast<unsigned>((n + kThreads - 1) / kThreads);
+}
+
+__global__ void __launch_bounds__(kThreads)
+pack_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+            int32_t* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const uint32_t hi = static_cast<uint32_t>(HG_LD(a, i, n)) << 29;
+  HG_ST(out, i, n, static_cast<int32_t>(hi | static_cast<uint32_t>(HG_LD(b, i, n))));
+}
+
+// One warp: lane l stores words l, l + 32, ... of row 0 of v at row idx.
+__global__ void store_at_kernel(const int32_t* __restrict__ idx,
+                                const int32_t* __restrict__ v,
+                                int32_t* __restrict__ out, int rows, int W) {
+  const int64_t n = static_cast<int64_t>(rows) * W;
+  const int64_t row = HG_LD(idx, 0, 1);
+  for (int w = threadIdx.x; w < W; w += blockDim.x)
+    HG_ST(out, row * W + w, n, HG_LD(v, w, n));  // w < W: exact in the row
+}
+
+// Block j: rows of column block j; warp r sums row r and adds it to out[r].
+__global__ void acc_revisit_kernel(const int32_t* __restrict__ x,
+                                   int32_t* __restrict__ out, int R, int C) {
+  const int r = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t n = static_cast<int64_t>(R) * C;
+  uint32_t s = 0;
+  for (int c = blockIdx.x * kBlockCols + lane;
+       c < C && c < (blockIdx.x + 1) * kBlockCols; c += 32)
+    s += static_cast<uint32_t>(HG_LD(x, static_cast<int64_t>(r) * C + c, n));
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
+  if (lane == 0) HG_ATOMIC_ADD(out, r, R, static_cast<int32_t>(s));
+}
+
+// Block j copies column block j of x to column block j + offset of out.
+__global__ void __launch_bounds__(kThreads)
+block_copy_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out,
+                  int R, int C, int offset) {
+  const int64_t n = static_cast<int64_t>(R) * C;
+  const int dst0 = (static_cast<int>(blockIdx.x) + offset) * kBlockCols;
+  for (int t = threadIdx.x; t < R * kBlockCols; t += blockDim.x) {
+    const int r = t / kBlockCols, c = t % kBlockCols;
+    const int src = blockIdx.x * kBlockCols + c, dst = dst0 + c;
+    if (src >= C) continue;  // the ragged last block
+    // guarded in its row: a flat index past the row's end would alias the
+    // next row and pass
+    HG_ST(out + static_cast<int64_t>(r) * C, dst, C, HG_LD(x, static_cast<int64_t>(r) * C + src, n));
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+scan_win_kernel(int32_t* __restrict__ win, const int32_t* __restrict__ keys,
+                int K, int M) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < M) HG_ATOMIC_MAX(win, HG_LD(keys, i, M), K, i);
+}
+
+__global__ void __launch_bounds__(kThreads)
+scan_store_kernel(int32_t* __restrict__ table, const int32_t* __restrict__ keys,
+                  const int32_t* __restrict__ rows,
+                  const int32_t* __restrict__ win, int K, int M, int W) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= M * W) return;
+  const int i = j / W;
+  const int64_t k = HG_LD(keys, i, M);
+  if (HG_LD(win, k, K) == i)
+    HG_ST(table, k * W + (j - i * W), static_cast<int64_t>(K) * W, HG_LD(rows, j, M * W));
+}
+
+// Each block stages kCopyWords words in shared memory, 16 bytes a thread.
+__global__ void __launch_bounds__(kThreads)
+async_copy_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out,
+                  int n) {
+  __shared__ __align__(16) int32_t stage[kCopyWords];
+  const int base = blockIdx.x * kCopyWords;
+  const int w = threadIdx.x * 4;  // n is a multiple of 4
+  if (base + w < n) {
+    HG_UNGUARDED("cp.async (__pipeline_memcpy_async) of 16 bytes from x into shared memory");
+    __pipeline_memcpy_async(stage + w, x + base + w, 16);
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  for (int t = threadIdx.x; t < kCopyWords && base + t < n; t += blockDim.x)
+    HG_ST(out, base + t, n, stage[t]);
+}
+
+__global__ void __launch_bounds__(kThreads)
+loop_inc_kernel(int32_t* __restrict__ out, int n, int times) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  int32_t v = 0;
+  for (int t = 0; t < times; ++t) v += 1;
+  HG_ST(out, i, n, v);
+}
+
+}  // namespace
+
+extern "C" {
+
+// a, b, out: n int32 each.  n >= 1.
+int hermes_fx_pack(const void* a, const void* b, void* out, int n HG_ENTRY_ARG,
+                   void* stream) {
+  if (n < 1) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = HG_BEGIN(st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pack_kernel<<<grid_for(n), kThreads, 0, st>>>(
+      static_cast<const int32_t*>(a), static_cast<const int32_t*>(b),
+      static_cast<int32_t*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// idx: one int32 on the device; v, out: (rows, W) int32.  rows, W >= 1.
+int hermes_fx_store_at(const void* idx, const void* v, void* out, int rows,
+                       int W HG_ENTRY_ARG, void* stream) {
+  if (rows < 1 || W < 1) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = HG_BEGIN(st);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(out, 0, sizeof(int32_t) * rows * W, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  store_at_kernel<<<1, 32, 0, st>>>(static_cast<const int32_t*>(idx),
+                                    static_cast<const int32_t*>(v),
+                                    static_cast<int32_t*>(out), rows, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (R, C) int32; out (R,) int32, zero-filled first when init != 0.
+// 1 <= R <= 32 (one warp a row), C >= 1.
+int hermes_fx_acc_revisit(const void* x, void* out, int R, int C,
+                          int init HG_ENTRY_ARG, void* stream) {
+  if (R < 1 || R > 32 || C < 1) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = HG_BEGIN(st);
+  if (err == cudaSuccess && init)
+    err = cudaMemsetAsync(out, 0, sizeof(int32_t) * R, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  acc_revisit_kernel<<<(C + kBlockCols - 1) / kBlockCols, 32 * R, 0, st>>>(
+      static_cast<const int32_t*>(x), static_cast<int32_t*>(out), R, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x, out: (R, C) int32.  R, C >= 1.
+int hermes_fx_block_copy(const void* x, void* out, int R, int C,
+                         int offset HG_ENTRY_ARG, void* stream) {
+  if (R < 1 || C < 1) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = HG_BEGIN(st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  block_copy_kernel<<<(C + kBlockCols - 1) / kBlockCols, kThreads, 0, st>>>(
+      static_cast<const int32_t*>(x), static_cast<int32_t*>(out), R, C, offset);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// table (K, W) int32, updated in place; keys (M,) int32; rows (M, W)
+// int32; win (K,) int32 scratch.  K, M, W >= 1, M * W < 2^31.
+int hermes_fx_serial_scan(void* table, const void* keys, const void* rows,
+                          void* win, int K, int M, int W HG_ENTRY_ARG,
+                          void* stream) {
+  if (K < 1 || M < 1 || W < 1 || static_cast<int64_t>(M) * W > INT32_MAX)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = HG_BEGIN(st);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(win, 0xFF, sizeof(int32_t) * K, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  scan_win_kernel<<<grid_for(M), kThreads, 0, st>>>(
+      static_cast<int32_t*>(win), static_cast<const int32_t*>(keys), K, M);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  scan_store_kernel<<<grid_for(static_cast<int64_t>(M) * W), kThreads, 0, st>>>(
+      static_cast<int32_t*>(table), static_cast<const int32_t*>(keys),
+      static_cast<const int32_t*>(rows), static_cast<const int32_t*>(win), K,
+      M, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x, out: n int32 each, both 16-byte aligned.  n >= 4, a multiple of 4.
+int hermes_fx_async_copy(const void* x, void* out, int n HG_ENTRY_ARG,
+                         void* stream) {
+  if (n < 4 || n % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = HG_BEGIN(st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  async_copy_kernel<<<(n + kCopyWords - 1) / kCopyWords, kThreads, 0, st>>>(
+      static_cast<const int32_t*>(x), static_cast<int32_t*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out: n int32.  n >= 1, times >= 0.
+int hermes_fx_loop_inc(void* out, int n, int times HG_ENTRY_ARG,
+                       void* stream) {
+  if (n < 1 || times < 0) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = HG_BEGIN(st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  loop_inc_kernel<<<grid_for(n), kThreads, 0, st>>>(static_cast<int32_t*>(out),
+                                                    n, times);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -18,12 +18,25 @@
 // loop's), phase 1 a clamped gather.  The two launches are ordered by the
 // stream, so phase 1 sees every update of phase 0.
 //
+// Every global access goes through guard.cuh's guard (the bare access in
+// this build, bound-checked in the -DHERMES_CHECKED build).  The keys are
+// an untrusted 29-bit wire field, so the drop in phase 0 and the clamp in
+// phase 1 are what keeps them inside the column; a checked build with
+// -DHERMES_BROKEN_NO_CLAMP leaves both out, for the red test that the
+// guard catches exactly that.  It is refused outside the checked build.
+//
 // C interface (ctypes, hermes_tpu_torch/core/megaround.py): pointers and
 // the stream are void*-sized; returns cudaGetLastError() after the
 // launches (0 = launched).
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "guard.cuh"
+
+#if defined(HERMES_BROKEN_NO_CLAMP) && !defined(HERMES_CHECKED)
+#error "HERMES_BROKEN_NO_CLAMP is for the bound-checked build only"
+#endif
 
 namespace {
 
@@ -35,8 +48,13 @@ max_kernel(int32_t* __restrict__ vpts, const int32_t* __restrict__ keys,
            int K, int64_t n) {
   for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
        i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int k = keys[i];
-    if (mask[i] != 0 && k >= 0 && k < K) atomicMax(&vpts[k], pts[i]);
+    const int k = HG_LD(keys, i, n);
+#if defined(HERMES_BROKEN_NO_CLAMP)
+    const bool keep = true;
+#else
+    const bool keep = k >= 0 && k < K;
+#endif
+    if (HG_LD(mask, i, n) != 0 && keep) HG_ATOMIC_MAX(vpts, k, K, HG_LD(pts, i, n));
   }
 }
 
@@ -45,9 +63,11 @@ post_kernel(const int32_t* __restrict__ vpts, const int32_t* __restrict__ keys,
             int32_t* __restrict__ post, int K, int64_t n) {
   for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
        i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    int k = keys[i];
+    int k = HG_LD(keys, i, n);
+#if !defined(HERMES_BROKEN_NO_CLAMP)
     k = k < 0 ? 0 : (k > K - 1 ? K - 1 : k);
-    post[i] = vpts[k];
+#endif
+    HG_ST(post, i, n, HG_LD(vpts, k, K));
   }
 }
 
@@ -58,10 +78,12 @@ extern "C" {
 // vpts (K,) int32, updated in place; keys, pts (N,) int32; mask (N,) bool
 // bytes; post (N,) int32 output.  K >= 1, N >= 1.
 int hermes_mega_apply(void* vpts, const void* keys, const void* pts,
-                      const void* mask, void* post, int K, int N,
-                      void* stream) {
+                      const void* mask, void* post, int K,
+                      int N HG_ENTRY_ARG, void* stream) {
   if (K < 1 || N < 1) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t began = HG_BEGIN(st);
+  if (began != cudaSuccess) return static_cast<int>(began);
   int64_t blocks = (static_cast<int64_t>(N) + kThreads - 1) / kThreads;
   if (blocks > (1 << 20)) blocks = 1 << 20;  // grid-stride beyond this
   const unsigned g = static_cast<unsigned>(blocks);

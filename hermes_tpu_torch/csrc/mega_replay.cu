@@ -38,12 +38,18 @@
 // host sync; bools are read and written as bytes; the sst word is read
 // and written byte by byte, by arithmetic.
 //
+// Every global access goes through guard.cuh's guard (the bare access in
+// this build, bound-checked in the -DHERMES_CHECKED build); a bank byte is
+// guarded by its byte index row * w4 + offset, not by its row.
+//
 // C interface (ctypes, hermes_tpu_torch/core/megaround.py): pointers and
 // the stream are void*-sized; returns cudaGetLastError() after the
 // launches (0 = launched).
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "guard.cuh"
 
 namespace {
 
@@ -71,13 +77,17 @@ struct Scan {
   int32_t* cand;    // RS candidate rows, -1 past the last
   int rows, w4, R, RS, K, age, shift, state_mask, s_invalid, s_trans,
       s_replay, sst_off, val_off;
+  __device__ int64_t bank_bytes() const { return static_cast<int64_t>(rows) * w4; }
+  __device__ int64_t slots() const { return static_cast<int64_t>(R) * RS; }
 };
 
 __device__ __forceinline__ bool stuck(const Scan& p, int row, int32_t step) {
-  const uint8_t* b = p.bank + static_cast<int64_t>(row) * p.w4 + p.sst_off;
+  const int64_t b = static_cast<int64_t>(row) * p.w4 + p.sst_off, nb = p.bank_bytes();
   const int32_t sst = static_cast<int32_t>(
-      static_cast<uint32_t>(b[0]) | (static_cast<uint32_t>(b[1]) << 8) |
-      (static_cast<uint32_t>(b[2]) << 16) | (static_cast<uint32_t>(b[3]) << 24));
+      static_cast<uint32_t>(HG_LD(p.bank, b, nb)) |
+      (static_cast<uint32_t>(HG_LD(p.bank, b + 1, nb)) << 8) |
+      (static_cast<uint32_t>(HG_LD(p.bank, b + 2, nb)) << 16) |
+      (static_cast<uint32_t>(HG_LD(p.bank, b + 3, nb)) << 24));
   const int32_t state = sst & p.state_mask;
   // int32 arithmetic that wraps, as the reference's
   const int32_t age = static_cast<int32_t>(static_cast<uint32_t>(step) -
@@ -120,25 +130,25 @@ __device__ int block_excl_scan(int v, int* total) {
 }
 
 __global__ void __launch_bounds__(kThreads) count_kernel(Scan p) {
-  const int32_t step = __ldg(p.step);
+  const int32_t step = HG_LD(p.step, 0, 1);
   const int base = blockIdx.x * kRowsPerBlock;
   int n = 0;
   for (int k = 0; k < kRowsPerThread; ++k) {
     const int row = base + k * kThreads + threadIdx.x;
     n += __syncthreads_count(row < p.rows && stuck(p, row, step));
   }
-  if (threadIdx.x == 0) p.counts[blockIdx.x] = n;
+  if (threadIdx.x == 0) HG_ST(p.counts, blockIdx.x, gridDim.x, n);
   if (blockIdx.x == 0)
-    for (int i = threadIdx.x; i < p.RS; i += kThreads) p.cand[i] = -1;
+    for (int i = threadIdx.x; i < p.RS; i += kThreads) HG_ST(p.cand, i, p.RS, -1);
 }
 
 __global__ void __launch_bounds__(kThreads) place_kernel(Scan p) {
   const int b = blockIdx.x;
-  if (p.counts[b] == 0) return;  // the same for the whole block
+  if (HG_LD(p.counts, b, gridDim.x) == 0) return;  // the same for the whole block
   int part = 0;
-  for (int i = threadIdx.x; i < b; i += kThreads) part += p.counts[i];
+  for (int i = threadIdx.x; i < b; i += kThreads) part += HG_LD(p.counts, i, gridDim.x);
   int carry = block_sum(part);  // candidates of the earlier blocks
-  const int32_t step = __ldg(p.step);
+  const int32_t step = HG_LD(p.step, 0, 1);
   const int base = b * kRowsPerBlock;
   // carry is the same in every thread, so the loop and its scans are too
   for (int k = 0; k < kRowsPerThread && carry < p.RS; ++k) {
@@ -146,7 +156,7 @@ __global__ void __launch_bounds__(kThreads) place_kernel(Scan p) {
     const int f = (row < p.rows && stuck(p, row, step)) ? 1 : 0;
     int total;
     const int rank = carry + block_excl_scan(f, &total);
-    if (f && rank < p.RS) p.cand[rank] = row;
+    if (f && rank < p.RS) HG_ST(p.cand, rank, p.RS, row);
     carry += total;
   }
 }
@@ -156,38 +166,38 @@ __global__ void __launch_bounds__(kThreads) assign_kernel(Scan p) {
   int ncand = 0;
   for (int i0 = 0; i0 < p.RS; i0 += kThreads) {
     const int i = i0 + threadIdx.x;
-    ncand += __syncthreads_count(i < p.RS && p.cand[i] >= 0);
+    ncand += __syncthreads_count(i < p.RS && HG_LD(p.cand, i, p.RS) >= 0);
   }
   const int v4 = p.w4 - p.val_off;
+  const int64_t ns = p.slots(), nv = ns * v4, nb = p.bank_bytes();
   if (blockIdx.x < p.R) {
     const int r = blockIdx.x;
-    const bool frozen = p.frozen[r] != 0;
+    const bool frozen = HG_LD(p.frozen, r, p.R) != 0;
     int carry = 0;  // free slots before this chunk
     for (int s0 = 0; s0 < p.RS; s0 += kThreads) {
       const int s = s0 + threadIdx.x;
       const int64_t slot = static_cast<int64_t>(r) * p.RS + s;
-      const int is_free = (s < p.RS && p.active[slot] == 0) ? 1 : 0;
+      const int is_free = (s < p.RS && HG_LD(p.active, slot, ns) == 0) ? 1 : 0;
       int total;
       const int i = carry + block_excl_scan(is_free, &total);  // free rank
       carry += total;
       if (s >= p.RS) continue;
-      int8_t* dst = p.nval + slot * v4;
+      const int64_t dst = slot * v4;
       if (is_free && i < ncand && !frozen) {
-        const int row = p.cand[i];
-        p.nact[slot] = 1;
-        p.nkey[slot] = row % p.K;
-        p.npts[slot] = p.vpts[row];
-        p.nacks[slot] = 0;
-        const int8_t* src = reinterpret_cast<const int8_t*>(p.bank) +
-                            static_cast<int64_t>(row) * p.w4 + p.val_off;
-        for (int j = 0; j < v4; ++j) dst[j] = src[j];
+        const int row = HG_LD(p.cand, i, p.RS);
+        HG_ST(p.nact, slot, ns, 1);
+        HG_ST(p.nkey, slot, ns, row % p.K);
+        HG_ST(p.npts, slot, ns, HG_LD(p.vpts, row, p.rows));
+        HG_ST(p.nacks, slot, ns, 0);
+        const int64_t src = static_cast<int64_t>(row) * p.w4 + p.val_off;
+        for (int j = 0; j < v4; ++j)
+          HG_ST(p.nval, dst + j, nv, static_cast<int8_t>(HG_LD(p.bank, src + j, nb)));
       } else {
-        p.nact[slot] = p.active[slot];
-        p.nkey[slot] = p.key[slot];
-        p.npts[slot] = p.pts[slot];
-        p.nacks[slot] = p.acks[slot];
-        const int8_t* src = p.val + slot * v4;
-        for (int j = 0; j < v4; ++j) dst[j] = src[j];
+        HG_ST(p.nact, slot, ns, HG_LD(p.active, slot, ns));
+        HG_ST(p.nkey, slot, ns, HG_LD(p.key, slot, ns));
+        HG_ST(p.npts, slot, ns, HG_LD(p.pts, slot, ns));
+        HG_ST(p.nacks, slot, ns, HG_LD(p.acks, slot, ns));
+        for (int j = 0; j < v4; ++j) HG_ST(p.nval, dst + j, nv, HG_LD(p.val, dst + j, nv));
       }
     }
   } else {
@@ -198,19 +208,19 @@ __global__ void __launch_bounds__(kThreads) assign_kernel(Scan p) {
       for (int s0 = 0; s0 < p.RS; s0 += kThreads) {
         const int s = s0 + threadIdx.x;
         nfree += __syncthreads_count(
-            s < p.RS && p.active[static_cast<int64_t>(r) * p.RS + s] == 0);
+            s < p.RS && HG_LD(p.active, static_cast<int64_t>(r) * p.RS + s, ns) == 0);
       }
-      if (p.frozen[r] == 0 && nfree > ntake) ntake = nfree;
+      if (HG_LD(p.frozen, r, p.R) == 0 && nfree > ntake) ntake = nfree;
     }
     if (ntake > ncand) ntake = ncand;
-    const uint32_t mark = (static_cast<uint32_t>(__ldg(p.step)) << p.shift) |
+    const uint32_t mark = (static_cast<uint32_t>(HG_LD(p.step, 0, 1)) << p.shift) |
                           static_cast<uint32_t>(p.s_replay);
     for (int i = threadIdx.x; i < ntake; i += kThreads) {
-      uint8_t* b = p.bank + static_cast<int64_t>(p.cand[i]) * p.w4 + p.sst_off;
-      b[0] = static_cast<uint8_t>(mark);
-      b[1] = static_cast<uint8_t>(mark >> 8);
-      b[2] = static_cast<uint8_t>(mark >> 16);
-      b[3] = static_cast<uint8_t>(mark >> 24);
+      const int64_t b = static_cast<int64_t>(HG_LD(p.cand, i, p.RS)) * p.w4 + p.sst_off;
+      HG_ST(p.bank, b, nb, static_cast<uint8_t>(mark));
+      HG_ST(p.bank, b + 1, nb, static_cast<uint8_t>(mark >> 8));
+      HG_ST(p.bank, b + 2, nb, static_cast<uint8_t>(mark >> 16));
+      HG_ST(p.bank, b + 3, nb, static_cast<uint8_t>(mark >> 24));
     }
   }
 }
@@ -231,7 +241,8 @@ int hermes_mega_replay(const void* step, const void* frozen, const void* vpts,
                        void* nval, void* scratch, int n_scratch, int rows,
                        int w4, int R, int RS, int K, int replay_age, int shift,
                        int state_mask, int s_invalid, int s_trans,
-                       int s_replay, int sst_off, int val_off, void* stream) {
+                       int s_replay, int sst_off, int val_off HG_ENTRY_ARG,
+                       void* stream) {
   const int nblk = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
   if (rows < 1 || R < 1 || RS < 1 || K < 1 || val_off < sst_off + 4 ||
       w4 < val_off || n_scratch < nblk + RS)
@@ -267,8 +278,10 @@ int hermes_mega_replay(const void* step, const void* frozen, const void* vpts,
   p.s_replay = s_replay;
   p.sst_off = sst_off;
   p.val_off = val_off;
+  cudaError_t err = HG_BEGIN(st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   count_kernel<<<nblk, kThreads, 0, st>>>(p);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   place_kernel<<<nblk, kThreads, 0, st>>>(p);
   err = cudaGetLastError();

@@ -22,12 +22,17 @@
 // cudaMemsetAsync on the same stream, as the reference's kernel does;
 // on permutation inputs every element is then overwritten.
 //
+// Every global access goes through guard.cuh's guard (the bare access in
+// this build, bound-checked in the -DHERMES_CHECKED build).
+//
 // C interface (ctypes, hermes_tpu_torch/core/megaround.py): pointers and
 // the stream are void*-sized; returns cudaGetLastError() after the
 // launches (0 = launched).
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "guard.cuh"
 
 namespace {
 
@@ -40,11 +45,11 @@ route_kernel(const int32_t* __restrict__ si, const int32_t* __restrict__ word,
   for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
        i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
     const int64_t r = i / L;
-    int lane = si[i];
+    int lane = HG_LD(si, i, n);
     lane = lane < 0 ? 0 : (lane > L - 1 ? L - 1 : lane);
-    lane_word[r * L + lane] = word[i];
-    const int s = srank[i];
-    if (s >= 0 && s < C) slot_lane[r * C + s] = lane;
+    HG_ST(lane_word, r * L + lane, n, HG_LD(word, i, n));
+    const int s = HG_LD(srank, i, n);
+    if (s >= 0 && s < C) HG_ST(slot_lane, r * C + s, n / L * C, lane);
   }
 }
 
@@ -55,12 +60,14 @@ extern "C" {
 // si, word, srank: (R, L) int32; lane_word (R, L) and slot_lane (R, C)
 // int32 outputs.  R, L >= 1, C >= 0.
 int hermes_mega_route(const void* si, const void* word, const void* srank,
-                      void* lane_word, void* slot_lane, int R, int L, int C,
-                      void* stream) {
+                      void* lane_word, void* slot_lane, int R, int L,
+                      int C HG_ENTRY_ARG, void* stream) {
   if (R < 1 || L < 1 || C < 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t n = static_cast<int64_t>(R) * L;
-  cudaError_t err = cudaMemsetAsync(lane_word, 0, n * sizeof(int32_t), st);
+  cudaError_t err = HG_BEGIN(st);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(lane_word, 0, n * sizeof(int32_t), st);
   if (err == cudaSuccess && C > 0)
     err = cudaMemsetAsync(slot_lane, 0,
                           static_cast<int64_t>(R) * C * sizeof(int32_t), st);

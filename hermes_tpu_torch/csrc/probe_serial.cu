@@ -31,12 +31,17 @@
 // costs a 4K-byte memset a call (4 MB at 2^20 keys), not counted in the
 // bound, which counts what the function itself must move.
 //
+// Every global access goes through guard.cuh's guard (the bare access in
+// this build, bound-checked in the -DHERMES_CHECKED build).
+//
 // C interface (ctypes, hermes_tpu_torch/core/probe_kernels.py): pointers
 // and the stream are void*-sized; returns cudaGetLastError() after the
 // launches (0 = launched).
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "guard.cuh"
 
 namespace {
 
@@ -58,7 +63,7 @@ win_kernel(int32_t* __restrict__ win, const int32_t* __restrict__ keys,
            int K, int M) {
   for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
        i < M; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    atomicMax(&win[row_of(keys[i], K)], static_cast<int32_t>(i));
+    HG_ATOMIC_MAX(win, row_of(HG_LD(keys, i, M), K), K, static_cast<int32_t>(i));
   }
 }
 
@@ -69,8 +74,9 @@ store_kernel(int32_t* __restrict__ table, const int32_t* __restrict__ keys,
   for (int64_t j = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
        j < n; j += static_cast<int64_t>(gridDim.x) * blockDim.x) {
     const int64_t i = j / W;
-    const int k = row_of(keys[i], K);
-    if (win[k] == i) table[static_cast<int64_t>(k) * W + (j - i * W)] = rows[j];
+    const int k = row_of(HG_LD(keys, i, n / W), K);
+    if (HG_LD(win, k, K) == i)
+      HG_ST(table, static_cast<int64_t>(k) * W + (j - i * W), static_cast<int64_t>(K) * W, HG_LD(rows, j, n));
   }
 }
 
@@ -81,10 +87,13 @@ extern "C" {
 // table (K, W) int32, updated in place; keys (M,) int32; rows (M, W)
 // int32; win (K,) int32 scratch.  K, M, W >= 1.
 int hermes_probe_serial(void* table, const void* keys, const void* rows,
-                        void* win, int K, int M, int W, void* stream) {
+                        void* win, int K, int M, int W HG_ENTRY_ARG,
+                        void* stream) {
   if (K < 1 || M < 1 || W < 1) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(win, 0xFF, sizeof(int32_t) * K, st);
+  cudaError_t err = HG_BEGIN(st);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(win, 0xFF, sizeof(int32_t) * K, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   win_kernel<<<grid_for(M), kThreads, 0, st>>>(
       static_cast<int32_t*>(win), static_cast<const int32_t*>(keys), K, M);

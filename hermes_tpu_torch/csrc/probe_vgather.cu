@@ -18,12 +18,17 @@
 // contiguous bytes.  Rows are 8-byte but not 16-byte aligned, so the
 // kernel moves 4-byte words and no 16-byte vectors.
 //
+// Every global access goes through guard.cuh's guard (the bare access in
+// this build, bound-checked in the -DHERMES_CHECKED build).
+//
 // C interface (ctypes, hermes_tpu_torch/core/probe_kernels.py): pointers
 // and the stream are void*-sized; returns cudaGetLastError() after the
 // launch (0 = launched).
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "guard.cuh"
 
 namespace {
 
@@ -41,8 +46,8 @@ gather_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ keys,
   for (int64_t j = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
        j < n; j += static_cast<int64_t>(gridDim.x) * blockDim.x) {
     const int64_t m = j / W;
-    const int k = row_of(keys[m], K);
-    out[j] = table[static_cast<int64_t>(k) * W + (j - m * W)];
+    const int k = row_of(HG_LD(keys, m, n / W), K);
+    HG_ST(out, j, n, HG_LD(table, static_cast<int64_t>(k) * W + (j - m * W), static_cast<int64_t>(K) * W));
   }
 }
 
@@ -53,8 +58,10 @@ extern "C" {
 // keys (M,) int32; table (K, W) int32; out (M, W) int32 output.
 // K, M, W >= 1.
 int hermes_probe_vgather(const void* keys, const void* table, void* out,
-                         int K, int M, int W, void* stream) {
+                         int K, int M, int W HG_ENTRY_ARG, void* stream) {
   if (K < 1 || M < 1 || W < 1) return cudaErrorInvalidValue;
+  const cudaError_t began = HG_BEGIN(static_cast<cudaStream_t>(stream));
+  if (began != cudaSuccess) return static_cast<int>(began);
   const int64_t n = static_cast<int64_t>(M) * W;
   int64_t blocks = (n + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;

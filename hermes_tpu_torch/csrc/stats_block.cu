@@ -25,12 +25,17 @@
 // needs no host sync.  Counters accumulate as uint32: the same bits as
 // the reference's wrapping int32 sums.
 //
+// Every global access goes through guard.cuh's guard (the bare access in
+// this build, bound-checked in the -DHERMES_CHECKED build).
+//
 // C interface (ctypes, hermes_tpu_torch/core/kernels.py): every pointer
 // and the stream are void*-sized; returns cudaGetLastError() after the
 // launch (0 = launched).
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "guard.cuh"
 
 namespace {
 
@@ -60,23 +65,23 @@ stats_block_kernel(const int32_t* __restrict__ step_ptr,
   __syncthreads();
 
   const int r = blockIdx.y;
-  const uint32_t step = static_cast<uint32_t>(__ldg(step_ptr));
-  const size_t row = static_cast<size_t>(r) * S;
+  const int64_t n = static_cast<int64_t>(gridDim.y) * S;  // lanes: R x S
+  const uint32_t step = static_cast<uint32_t>(HG_LD(step_ptr, 0, 1));
+  const int64_t row = static_cast<int64_t>(r) * S;
   uint32_t v[kNumCtr] = {0, 0, 0, 0, 0, 0};
   for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < S;
        s += gridDim.x * blockDim.x) {
-    const size_t i = row + s;
-    const bool c = commit[i] != 0;
-    const bool a = abort_[i] != 0;
-    const bool rd = read_done[i] != 0;
-    const bool is_rmw = op[i] == kOpRmw;
-    code[i] = a ? kCRmwAbort
-                : (c ? (is_rmw ? kCRmw : kCWrite) : (rd ? kCRead : kCNone));
+    const int64_t i = row + s;
+    const bool c = HG_LD(commit, i, n) != 0;
+    const bool a = HG_LD(abort_, i, n) != 0;
+    const bool rd = HG_LD(read_done, i, n) != 0;
+    const bool is_rmw = HG_LD(op, i, n) == kOpRmw;
+    HG_ST(code, i, n, a ? kCRmwAbort : (c ? (is_rmw ? kCRmw : kCWrite) : (rd ? kCRead : kCNone)));
     v[0] += rd;
     v[3] += a;
     if (c) {
       const int32_t lat = static_cast<int32_t>(
-          step - static_cast<uint32_t>(invoke[i]));
+          step - static_cast<uint32_t>(HG_LD(invoke, i, n)));
       v[1] += !is_rmw;
       v[2] += is_rmw;
       v[4] += static_cast<uint32_t>(lat);
@@ -98,9 +103,9 @@ stats_block_kernel(const int32_t* __restrict__ step_ptr,
   }
   __syncthreads();
   if (threadIdx.x < kNumCtr && sh_ctr[threadIdx.x])
-    atomicAdd(&ctr[r * kCtrWidth + threadIdx.x], sh_ctr[threadIdx.x]);
+    HG_ATOMIC_ADD(ctr, r * kCtrWidth + threadIdx.x, gridDim.y * kCtrWidth, sh_ctr[threadIdx.x]);
   for (int i = threadIdx.x; i < kLatBins; i += blockDim.x)
-    if (sh_hist[i]) atomicAdd(&hist[r * kLatBins + i], sh_hist[i]);
+    if (sh_hist[i]) HG_ATOMIC_ADD(hist, r * kLatBins + i, gridDim.y * kLatBins, sh_hist[i]);
 }
 
 }  // namespace
@@ -122,8 +127,10 @@ int hermes_stats_block_abi(int32_t* out, int n) {
 int hermes_stats_block(const void* step, const void* op, const void* invoke,
                        const void* commit, const void* abort_,
                        const void* read_done, void* code, void* ctr,
-                       void* hist, int R, int S, void* stream) {
+                       void* hist, int R, int S HG_ENTRY_ARG, void* stream) {
   if (R < 1 || S < 1 || R > 65535) return cudaErrorInvalidValue;
+  const cudaError_t began = HG_BEGIN(static_cast<cudaStream_t>(stream));
+  if (began != cudaSuccess) return static_cast<int>(began);
   int dev = 0, sms = 132;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);

@@ -1,9 +1,14 @@
 """Device time on the card from ``torch.profiler``: the busy time of a run
 (the round's device metric) and the device time of one call (the kernels'
-and the probe's)."""
+and the probe's).
+
+    python -m hermes_tpu_torch.profiling [--traces 250] [--calls 80]
+
+counts the traces that lose device records (``lost_records``)."""
 
 from __future__ import annotations
 
+import sys
 import time
 
 import torch
@@ -41,15 +46,70 @@ def device_busy(run):
     return out
 
 
+# torch.profiler on an H100 loses device records in episodes: for some
+# 100 ms, a few seconds to a quarter of a minute apart, consecutive traces
+# come back short or empty (PyTorch's own kernels as well as the port's,
+# with or without a pause inside the trace's ends).  A burst is therefore
+# traced until two traces in a row hold the same whole number of launches
+# per call, with a pause after a refused one to let the episode pass.
+_TRACES = 6
+_PAUSE_S = 0.25
+
+
 def device_per_call(call, n=20):
-    """Device seconds and device launches per call of ``call()``, over one
-    traced burst of ``n`` calls.  Raises if the trace holds no device time
-    or no whole number of launches per call: a trace that missed launches
-    (as it did on an H100 while the port's kernels linked a static CUDA
-    runtime of their own; ``build.py`` links the shared one) is refused,
-    not read."""
-    out = _trace(lambda: [call() for _ in range(n)])
-    if out["busy_s"] <= 0 or out["launches"] % n:
-        raise RuntimeError(f"torch.profiler recorded {out['launches']} "
-                           f"launches and {out['busy_s']} s for {n} calls")
-    return out["busy_s"] / n, out["launches"] // n
+    """Device seconds and device launches per call of ``call()``: a burst
+    of ``n`` calls is traced until two consecutive traces agree on a whole
+    number of launches per call (at most ``_TRACES`` traces; the second
+    one's time is returned).  A trace with no device time or a count that
+    is no multiple of ``n`` missed launches: it is refused, not read, and
+    said so on stderr.  Raises if no two traces agree."""
+    last = None
+    for _ in range(_TRACES):
+        out = _trace(lambda: [call() for _ in range(n)])
+        if out["busy_s"] <= 0 or out["launches"] % n:
+            print(f"profiling: refused a trace of {out['launches']} launches "
+                  f"and {out['busy_s']} s for {n} calls", file=sys.stderr,
+                  flush=True)
+            last = None
+            time.sleep(_PAUSE_S)
+        elif out["launches"] == last:
+            return out["busy_s"] / n, out["launches"] // n
+        else:
+            last = out["launches"]
+    raise RuntimeError(f"torch.profiler gave no two agreeing traces of {n} "
+                       f"calls in {_TRACES}: the last held "
+                       f"{out['launches']} launches and {out['busy_s']} s")
+
+
+def lost_records(traces=250, n=80):
+    """Trace ``traces`` bursts of ``n`` one-kernel calls, of a PyTorch add
+    and of the port's ``fx_pack`` in turns, and list every trace that does
+    not hold ``n`` launches: ``[index, seconds since the start, launches
+    seen]`` under each call's name."""
+    from hermes_tpu_torch.analysis.fixture_kernels import fx_pack
+
+    a = torch.ones((8, 128), dtype=torch.int32, device="cuda")
+    calls = {"torch_add": lambda: a + a, "fx_pack": lambda: fx_pack(a, a)}
+    short = {name: [] for name in calls}
+    t0 = time.perf_counter()
+    for i in range(traces):
+        for name, call in calls.items():
+            seen = _trace(lambda: [call() for _ in range(n)])["launches"]
+            if seen != n:
+                short[name].append([i, round(time.perf_counter() - t0, 3),
+                                    seen])
+    return dict(traces_each=traces, calls_a_trace=n,
+                seconds=time.perf_counter() - t0, short=short)
+
+
+if __name__ == "__main__":
+    import argparse
+    import json
+
+    ap = argparse.ArgumentParser(description=lost_records.__doc__)
+    ap.add_argument("--traces", type=int, default=250)
+    ap.add_argument("--calls", type=int, default=80)
+    ns = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("profiling: this needs a CUDA card")
+    print(json.dumps(lost_records(ns.traces, ns.calls)), flush=True)

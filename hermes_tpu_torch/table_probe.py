@@ -27,8 +27,11 @@ slope between two counts of eager calls, each timed as the median of 5
 runs, host enqueue included) and ``device_s_per_call`` (the device time
 ``torch.profiler`` records, per call).  On the CPU the probe checks
 function only: the host clock and two short runs, and no device time.
-The reference's analyzer fields (``analysis_*``, ``--annotate``) have no
-counterpart here: they walk jaxprs.
+Each cell also carries the reference's analysis fields
+(``analysis_clean``, ``analysis_findings``; ``analyze_step``): one step of
+the candidate in the bound-checked build of its kernel, on the messages'
+concrete values and a resident table of any content.  The reference walks
+the step's jaxpr; the port observes the guards on that run.
 """
 
 from __future__ import annotations
@@ -42,6 +45,8 @@ import time
 import numpy as np
 import torch
 
+from hermes_tpu_torch.analysis import findings as F
+from hermes_tpu_torch.analysis.domain import iv, top
 from hermes_tpu_torch.core.probe_kernels import probe_serial, probe_vgather
 from hermes_tpu_torch.device import resolve
 from hermes_tpu_torch.profiling import device_per_call
@@ -126,6 +131,64 @@ def candidate_step(cand, K, M, device="cuda"):
         keys, _pts, _rows = _msgs(3, K, M, dev)
         return vgather_step, (keys, torch.ones((K, W), dtype=I32, device=dev))
     raise KeyError(cand)
+
+
+def _any_content(state, seed=7):
+    """``state`` (a tensor or a tuple of them) refilled with a seeded draw
+    over its whole type: a resident table of any reachable content."""
+    if isinstance(state, tuple):
+        return tuple(_any_content(x, seed + i) for i, x in enumerate(state))
+    info = torch.iinfo(state.dtype)
+    g = torch.Generator(device=state.device).manual_seed(seed)
+    return torch.randint(info.min, info.max + 1, tuple(state.shape),
+                         dtype=state.dtype, device=state.device, generator=g)
+
+
+def _declared_out(cand, K, args):
+    """The declared bound of each tensor one step of ``cand`` returns,
+    from the messages' concrete bounds and a state of any content:
+    ``torch`` and ``serial`` keep or overwrite table words (any content
+    stays any content); ``onehot`` sums M payloads masked to 7 bits;
+    ``vgather`` masks a table word to [0, K)."""
+    if cand == "torch":
+        return [top(np.int32), top(np.int8)]
+    if cand == "serial":
+        return [top(np.int32)]
+    if cand == "onehot":
+        return [iv(0, 0x7F * args[1].shape[0])]
+    return [iv(0, K - 1)]
+
+
+def analyze_step(cand, K, M, device="cuda"):
+    """The analysis fields of one candidate cell: one step in the
+    bound-checked build (``core/dispatch.checked_build``), the messages as
+    drawn and the resident state refilled with any content.
+    ``analysis_clean`` is true when no guard fired and every output stayed
+    inside its declared bound; ``analysis_findings`` lists what did not, as
+    ``severity:pass/code@file:line``; ``analysis_build`` says what ran:
+    ``checked`` on the card, ``plain`` on the CPU, where the kernels' plain
+    versions are held to the declared bounds only and no access is
+    bound-checked.  ``analysis_calls`` counts the steps it made."""
+    from hermes_tpu_torch.analysis.diffcheck import analyze_call
+
+    fn, args = candidate_step(cand, K, M, device)
+    on_card = args[1].device.type == "cuda"
+    name = KERNEL[cand].__name__ if cand in KERNEL else cand
+
+    def step():
+        outs = fn(_any_content(args[0]), *args[1:])
+        return outs if isinstance(outs, tuple) else (outs,)
+
+    _outs, found = analyze_call(step, _declared_out(cand, K, args), name,
+                                name)
+    gating = [f for f in found if f.severity in F.GATING]
+    skipped = [f.message for f in found if f.code == "guard-skipped"]
+    return dict(
+        analysis_clean=not gating,
+        analysis_findings=[f"{f.severity}:{f.pass_name}/{f.code}@{f.site}"
+                           for f in gating],
+        analysis_build="checked" if on_card else "plain", analysis_calls=1,
+        **({"analysis_skipped": skipped} if skipped else {}))
 
 
 def run_chain(fn, args, reps=3):
@@ -224,6 +287,7 @@ def cell(cand, K, M, device="cuda"):
     out = dict(cand=cand, K=K, M=M, **t, us_per_msg=t["s_per_call"] / M * 1e6)
     if cand == "onehot":
         out["flops_amplification"] = K
+    out.update(analyze_step(cand, K, M, device))
     return out
 
 

@@ -1,0 +1,732 @@
+"""The port's kernel matrix and sanitizer (hermes_tpu_torch/analysis) against
+the reference's (hermes_tpu/analysis/diffcheck.py, seeds.py), on the CPU.
+
+* The port's kernel cells have the reference's names, shapes, dtypes and
+  input bounds, and ``_draw`` gives the reference's arrays byte for byte.
+* For every cell the drawn arguments go through the reference cell's
+  function (its Pallas kernel in interpret mode) and the port's plain
+  version: equal outputs, inside the port's declared output bounds.
+* ``scan_acc_plain`` and every ``fx_*_plain`` against its Pallas original.
+  The fixtures are defined inside test functions of
+  tests/test_pallas_analysis.py, so they are stated again here and run with
+  ``interpret=True``; every one of them runs in interpret mode on this JAX,
+  the DMA one included.  Arguments that leave the tensor (an index, keys, a
+  block offset) are held too: the plain versions place them where interpret
+  mode does.
+* Red: a bound declared too tight, an overlapping pack and a dropped
+  initialisation escape; the guard's arithmetic through a host build of
+  ``csrc/guard.cuh``.
+* The command line, the probe's analysis fields, the layouts tables and
+  seeds the bounds are made from.
+
+Tolerance: exact equality, every value is an integer.  The CUDA kernels and
+their bound-checked build are held on the card by tests/test_torch_gpu.py
+and chip_smoke.py.
+"""
+
+import ctypes
+import json
+import pathlib
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from hermes_tpu.analysis import diffcheck as ref_dc
+from hermes_tpu.analysis import seeds as ref_seeds
+from hermes_tpu.config import HermesConfig as RefConfig
+from hermes_tpu.core import layouts as ref_layouts
+from hermes_tpu_torch import analysis as ana
+from hermes_tpu_torch import build
+from hermes_tpu_torch import table_probe as tp
+from hermes_tpu_torch.analysis import __main__ as cli
+from hermes_tpu_torch.analysis import diffcheck as dc
+from hermes_tpu_torch.analysis import domain as D
+from hermes_tpu_torch.analysis import fixture_kernels as fk
+from hermes_tpu_torch.analysis import seeds
+from hermes_tpu_torch.config import HermesConfig
+from hermes_tpu_torch.core import dispatch, layouts
+
+torch.set_num_threads(1)
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+REF_NAMES = ["stats_block/r4s512", "stats_block/r1024s600",
+             "stats_block/r512s2000", "synthetic/scan-accumulate",
+             "mega_route/r2l6", "mega_apply/k16n16", "mega_replay/k16b1",
+             "mega_replay/k22b3"]
+
+
+def _np(x):
+    return np.asarray(jax.device_get(x))
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _sds(shape, dtype):
+    return jax.ShapeDtypeStruct(shape, dtype)
+
+
+@pytest.fixture(scope="module")
+def ref_cells():
+    return {c.name: c for c in ref_dc.kernel_cells()}
+
+
+def _ref_cell(ref_cells, name):
+    """The reference's cell of that name; for the port's own ninth cell,
+    the reference's mega_replay cell built at its key count."""
+    if name in ref_cells:
+        return ref_cells[name]
+    assert name == "mega_replay/k2500b3"
+    return ref_dc._mega_replay_cell(name, 2500, 1 << 20, "")
+
+
+# --------------------------------------------------------------------------
+# cells, bounds and draws
+# --------------------------------------------------------------------------
+
+
+def test_torch_kernel_cells_have_reference_names():
+    names = [c.name for c in dc.kernel_cells()]
+    assert names[:8] == REF_NAMES
+    assert names[:8] == [c.name for c in ref_dc.kernel_cells()]
+    assert names[8:] == ["mega_replay/k2500b3"]
+    assert dc.cell_by_name("mega_apply/k16n16").name == "mega_apply/k16n16"
+    with pytest.raises(KeyError):
+        dc.cell_by_name("nope")
+
+
+@pytest.mark.parametrize("name", REF_NAMES + ["mega_replay/k2500b3"])
+def test_torch_kernel_cell_matches_reference_cell(ref_cells, name):
+    """Shapes, dtypes and input bounds (lo, hi, ones), argument by
+    argument."""
+    cell, ref = dc.cell_by_name(name), _ref_cell(ref_cells, name)
+    assert [(tuple(s), np.dtype(dt)) for s, dt in cell.shapes] == [
+        (tuple(s.shape), np.dtype(s.dtype)) for s in ref.shapes]
+    assert [(a.lo, a.hi, a.ones) for a in cell.in_avs] == [
+        (a.lo, a.hi, a.ones) for a in ref.in_avs]
+    assert len(cell.out_avs) == len(jax.tree.leaves(
+        jax.eval_shape(ref.fn, *ref.shapes)))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_torch_draws_are_the_reference_draws(ref_cells, seed):
+    """The same generator calls in the same order: byte-identical
+    arguments for every cell, drawn one cell after the other from one
+    generator as ``diff_check`` draws them."""
+    for name in REF_NAMES:
+        cell, ref = dc.cell_by_name(name), ref_cells[name]
+        rng, ref_rng = (np.random.default_rng(seed) for _ in range(2))
+        for _ in range(2):
+            got = dc.draw_args(cell, rng)
+            want = [ref_dc._draw(ref_rng, s, av)
+                    for s, av in zip(ref.shapes, ref.in_avs)]
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and g.shape == w.shape
+                assert g.tobytes() == w.tobytes()
+
+
+@pytest.mark.parametrize("name", REF_NAMES + ["mega_replay/k2500b3"])
+def test_torch_cell_plain_matches_reference_kernel(ref_cells, name):
+    """Three draws through the reference cell's function (interpret mode)
+    and the port's plain version: equal, and inside the declared output
+    bounds; the wrapper on CPU tensors is the plain version."""
+    cell, ref = dc.cell_by_name(name), _ref_cell(ref_cells, name)
+    rng = np.random.default_rng(0)
+    for _ in range(3):
+        args = dc.draw_args(cell, rng)
+        want = [_np(x) for x in jax.tree.leaves(
+            ref.fn(*[jnp.asarray(a) for a in args]))]
+        got = [o.numpy() for o in cell.plain(*[_t(a) for a in args])]
+        via_wrapper = [o.numpy() for o in cell.fn(*[_t(a) for a in args])]
+        assert len(want) == len(got) == len(cell.out_avs)
+        for w, g, v, av in zip(want, got, via_wrapper, cell.out_avs):
+            assert w.dtype == g.dtype and w.shape == g.shape
+            np.testing.assert_array_equal(w, g)
+            np.testing.assert_array_equal(w, v)
+            assert D.contains(av, w) == [] and D.contains(av, g) == []
+
+
+def test_torch_declared_bounds_hold_the_reference_tests_bounds():
+    """What tests/test_pallas_analysis.py states of the derived bounds:
+    ``code`` in [0, 4] and ``hist`` in [0, 512] at the r4s512 cell, the
+    +1 loop reaching 10; and the sums that can wrap are dtype-TOP."""
+    code, ctr, hist = seeds.out_stats_block(512)
+    assert (code.lo, code.hi) == (0, 4) and not D.is_top(code, np.int32)
+    assert (hist.lo, hist.hi) == (0, 512)
+    assert D.is_top(ctr, np.int32)  # lat_sum wraps for S >= 9
+    small = seeds.out_stats_block(8)[1]
+    assert not D.is_top(small, np.int32)
+    assert small.hi == 8 * (layouts.MAX_STEPS - 1) == -small.lo
+    (acc,) = seeds.out_scan_acc(16)
+    assert (acc.lo, acc.hi) == (0, 1600)
+    assert D.is_top(seeds.out_scan_acc(1 << 30)[0], np.int32)
+    assert int(fk.fx_loop_inc_plain(torch.zeros((8, 128), dtype=torch.int32),
+                                    10).max()) == 10
+
+
+def test_torch_lat_sum_wraps_under_the_declared_inputs():
+    """The reason ``ctr`` is TOP: step and invoke_step drawn independently
+    over the step field make a 512-session ``lat_sum`` leave any interval
+    tighter than int32 could state."""
+    cell = dc.cell_by_name("stats_block/r4s512")
+    args = dc.draw_args(cell, np.random.default_rng(0))
+    args[0] = np.asarray(layouts.MAX_STEPS - 1, np.int32)
+    args[2][:] = 0
+    args[3][:] = True
+    _code, ctr, _hist = cell.plain(*[_t(a) for a in args])
+    true_sum = 512 * (layouts.MAX_STEPS - 1)
+    assert true_sum > (1 << 31) - 1
+    row = layouts.STATS_CTR.row("lat_sum")
+    assert int(ctr[0, row]) == ((true_sum + (1 << 31)) % (1 << 32)) - (1 << 31)
+
+
+# --------------------------------------------------------------------------
+# the sentinel and the fixtures against their Pallas originals
+# --------------------------------------------------------------------------
+
+
+def test_torch_scan_acc_plain_matches_reference():
+    ref = ref_dc._scan_acc_cell()
+    rng = np.random.default_rng(3)
+    x = rng.integers(0, 101, (16, 8), dtype=np.int32)
+    want = _np(ref.fn(jnp.asarray(x)))
+    before = fk.scan_acc.launches
+    np.testing.assert_array_equal(want, fk.scan_acc(_t(x)).numpy())
+    assert fk.scan_acc.launches == before  # a CPU tensor: the plain version
+    # general in (M, W), wrapping as int32
+    big = rng.integers(-(1 << 31), 1 << 31, (37, 5), dtype=np.int64).astype(
+        np.int32)
+    np.testing.assert_array_equal(
+        big.astype(np.int64).sum(0, keepdims=True).astype(np.int32),
+        fk.scan_acc_plain(_t(big)).numpy())
+
+
+def _ref_pack(a, b):
+    def _pack_kernel(a_ref, b_ref, o_ref):
+        o_ref[:] = (a_ref[:] << 29) | b_ref[:]
+
+    return pl.pallas_call(_pack_kernel, out_shape=_sds(a.shape, jnp.int32),
+                          interpret=True)(a, b)
+
+
+def _ref_store_at(i, v):
+    blk = v.shape[0]
+
+    def _kern(i_ref, v_ref, o_ref):
+        o_ref[:] = jnp.zeros_like(o_ref)
+        i = i_ref[0, 0]
+        o_ref[pl.dslice(i, 1), :] = v_ref[pl.dslice(0, 1), :]
+
+    return pl.pallas_call(
+        _kern,
+        in_specs=[pl.BlockSpec((1, 1), lambda: (0, 0),
+                               memory_space=pltpu.SMEM),
+                  pl.BlockSpec((blk, 128), lambda: (0, 0))],
+        out_specs=pl.BlockSpec((blk, 128), lambda: (0, 0)),
+        out_shape=_sds((blk, 128), jnp.int32), interpret=True)(i, v)
+
+
+def _ref_acc(x, with_init):
+    def _kern(x_ref, o_ref):
+        if with_init:
+            @pl.when(pl.program_id(0) == 0)
+            def _init():
+                o_ref[:] = jnp.zeros_like(o_ref)
+
+        o_ref[:] += jnp.sum(x_ref[:], axis=1, keepdims=True)
+
+    return pl.pallas_call(
+        _kern, grid=(2,),
+        in_specs=[pl.BlockSpec((8, 128), lambda j: (0, j))],
+        out_specs=pl.BlockSpec((8, 1), lambda j: (0, 0)),
+        out_shape=_sds((8, 1), jnp.int32), interpret=True)(x)
+
+
+def _ref_block_copy(x, offset):
+    def _kern(x_ref, o_ref):
+        o_ref[:] = x_ref[:]
+
+    return pl.pallas_call(
+        _kern, grid=(2,),
+        in_specs=[pl.BlockSpec((8, 128), lambda j: (0, j))],
+        out_specs=pl.BlockSpec((8, 128), lambda j: (0, j + offset)),
+        out_shape=_sds((8, 256), jnp.int32), interpret=True)(x)
+
+
+def _ref_serial_scan(table, keys, rows):
+    K, W = table.shape
+    M = keys.shape[0]
+
+    def _kern(keys_ref, rows_ref, tin_ref, tout_ref):
+        del tin_ref
+
+        def body(i, _):
+            k = keys_ref[i]
+            tout_ref[pl.dslice(k, 1), :] = rows_ref[pl.dslice(i, 1), :]
+            return 0
+
+        jax.lax.fori_loop(0, keys_ref.shape[0], body, 0)
+
+    return pl.pallas_call(
+        _kern,
+        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM),
+                  pl.BlockSpec((M, W), lambda: (0, 0)),
+                  pl.BlockSpec((K, W), lambda: (0, 0))],
+        out_specs=pl.BlockSpec((K, W), lambda: (0, 0)),
+        out_shape=_sds((K, W), jnp.int32), input_output_aliases={2: 0},
+        interpret=True)(keys, rows, table)
+
+
+def _ref_async_copy(x):
+    def _kern(x_ref, o_ref, sem):
+        cp = pltpu.make_async_copy(x_ref, o_ref, sem)
+        cp.start()
+        cp.wait()
+
+    return pl.pallas_call(_kern, out_shape=_sds(x.shape, jnp.int32),
+                          scratch_shapes=[pltpu.SemaphoreType.DMA],
+                          interpret=True)(x)
+
+
+def _ref_loop_inc(x):
+    def _kern(x_ref, o_ref):
+        o_ref[:] = jnp.zeros_like(o_ref)
+
+        def body(i, _):
+            o_ref[:] = o_ref[:] + 1
+            return 0
+
+        jax.lax.fori_loop(0, 10, body, 0)
+
+    return pl.pallas_call(_kern, out_shape=_sds(x.shape, jnp.int32),
+                          interpret=True)(x)
+
+
+def _i32(rng, shape, lo=-(1 << 31), hi=1 << 31):
+    return rng.integers(lo, hi, shape, dtype=np.int64).astype(np.int32)
+
+
+@pytest.mark.parametrize("b_hi", [(1 << 29) - 1, 1 << 31])
+def test_torch_fx_pack_matches_fixture(b_hi):
+    """Disjoint fields, and any int32 operands (the shift wraps)."""
+    rng = np.random.default_rng(b_hi % 97)
+    a = _i32(rng, (8, 128), 0, 3) if b_hi < (1 << 31) else _i32(rng, (8, 128))
+    b = _i32(rng, (8, 128), 0 if b_hi < (1 << 31) else -(1 << 31), b_hi)
+    want = _np(_ref_pack(jnp.asarray(a), jnp.asarray(b)))
+    np.testing.assert_array_equal(want, fk.fx_pack(_t(a), _t(b)).numpy())
+
+
+@pytest.mark.parametrize("idx", [0, 3, 7, 8, 100, -1, -3, -8, -9, -100,
+                                 (1 << 31) - 1, -(1 << 31)])
+def test_torch_fx_store_at_matches_fixture(idx):
+    """In bounds and, index by index, out of bounds: interpret mode counts
+    a negative index from the end and clamps; the plain version copies
+    it."""
+    v = _i32(np.random.default_rng(4), (8, 128), 0, 101)
+    i = np.array([[idx]], np.int32)
+    want = _np(_ref_store_at(jnp.asarray(i), jnp.asarray(v)))
+    np.testing.assert_array_equal(want, fk.fx_store_at(_t(i), _t(v)).numpy())
+
+
+def test_torch_fx_acc_revisit_matches_fixture():
+    """With its initialisation: the row sums.  Without: interpret mode
+    fills an uninitialised output with the type's least value, the port's
+    poison (``dispatch.poison``), and the sums land on it."""
+    x = _i32(np.random.default_rng(5), (8, 256), 0, 4)
+    want = _np(_ref_acc(jnp.asarray(x), True))
+    np.testing.assert_array_equal(want, fk.fx_acc_revisit(_t(x)).numpy())
+    np.testing.assert_array_equal(want, x.sum(1, keepdims=True))
+    poisoned = torch.full((8, 1), dispatch.poison(torch.int32),
+                          dtype=torch.int32)
+    np.testing.assert_array_equal(
+        _np(_ref_acc(jnp.asarray(x), False)),
+        fk.fx_acc_revisit_plain(_t(x), init=False, acc=poisoned).numpy())
+
+
+@pytest.mark.parametrize("offset", [0, 1, -1])
+def test_torch_fx_block_copy_matches_fixture(offset):
+    """Offset 0 in bounds; off by a block, interpret mode clamps the block
+    index and leaves the unwritten block at its fill value."""
+    x = _i32(np.random.default_rng(6), (8, 256), 0, 4)
+    want = _np(_ref_block_copy(jnp.asarray(x), offset))
+    fill = torch.full((8, 256), dispatch.poison(torch.int32),
+                      dtype=torch.int32)
+    got = fk.fx_block_copy_plain(_t(x), offset, fill).numpy()
+    np.testing.assert_array_equal(want, got)
+    if offset == 0:
+        np.testing.assert_array_equal(x, fk.fx_block_copy(_t(x)).numpy())
+
+
+@pytest.mark.parametrize("bad_key", [None, 64, 69, -1, -64, -65, -70,
+                                     (1 << 31) - 1, -(1 << 31)])
+def test_torch_fx_serial_scan_matches_fixture(bad_key):
+    """Duplicate keys (the last message wins), untouched rows kept; one key
+    out of [0, K), key by key, lands where interpret mode puts it."""
+    rng = np.random.default_rng(7)
+    table = _i32(rng, (64, 10), 0, 101)
+    keys = _i32(rng, (32,), 0, 64)
+    rows = _i32(rng, (32, 10), 0, 1 << 20)
+    keys[3] = keys[20]
+    if bad_key is not None:
+        keys[11] = bad_key
+    want = _np(_ref_serial_scan(jnp.asarray(table), jnp.asarray(keys),
+                                jnp.asarray(rows)))
+    t = _t(table)
+    assert fk.fx_serial_scan(t, _t(keys), _t(rows)) is t  # in place
+    np.testing.assert_array_equal(want, t.numpy())
+
+
+def test_torch_fx_async_copy_and_loop_inc_match_fixtures():
+    """The DMA fixture does run in interpret mode on this JAX."""
+    v = _i32(np.random.default_rng(8), (8, 128), 0, 8)
+    np.testing.assert_array_equal(_np(_ref_async_copy(jnp.asarray(v))),
+                                  fk.fx_async_copy(_t(v)).numpy())
+    np.testing.assert_array_equal(_np(_ref_loop_inc(jnp.asarray(v))),
+                                  fk.fx_loop_inc(_t(v)).numpy())
+
+
+@pytest.mark.parametrize("name", sorted(fk.KERNELS))
+def test_torch_analysis_kernels_dispatch(name):
+    """A CPU tensor takes the plain version (no launch counted); a wrong
+    type raises; every kernel names its source and what it replaces."""
+    wrapper, plain, lib, replaces = fk.KERNELS[name]
+    x = torch.ones((8, 256), dtype=torch.int32)
+    args = {"fx_pack": (x, x), "fx_serial_scan": (x.clone(), x[0, :4], x[:4]),
+            "fx_store_at": (torch.tensor([1], dtype=torch.int32), x)}.get(
+                name, (x,))
+    before = wrapper.launches
+    wrapper(*args)
+    assert wrapper.launches == before
+    with pytest.raises(TypeError):
+        wrapper(*[a.long() for a in args])
+    assert (build.CSRC / f"{lib}.cu").exists() and callable(plain)
+    path, line = replaces.split(":")
+    assert "pallas_call" in "".join(
+        (ROOT / path).read_text().splitlines()[int(line) - 1:int(line) + 12])
+
+
+# --------------------------------------------------------------------------
+# red: what must escape does
+# --------------------------------------------------------------------------
+
+
+def test_torch_too_tight_bound_is_an_interval_violation():
+    """The counterpart of the reference's unsound-rule mutation: ``hist``
+    declared [0, 0] and the concrete counts escape."""
+    cell = dc.cell_by_name("stats_block/r4s512")
+    assert dc.diff_check(cell, n_draws=2, device="cpu")["ok"]
+    cell.out_avs[2] = D.iv(0, 0)
+    r = dc.diff_check(cell, n_draws=2, device="cpu")
+    assert not r["ok"] and r["n_draws"] == 2
+    assert any(v["kind"] == "interval" and v["out"] == 2
+               for v in r["violations"])
+    assert {"draw", "out", "concrete", "abstract", "kind"} <= set(
+        r["violations"][0])
+
+
+def test_torch_miscomputing_kernel_inside_its_bound_is_a_plain_violation():
+    """A kernel that stays inside its declared bounds and computes
+    something else: the sanitizer holds it against the plain version on
+    the same draw and reports where they part."""
+    cell = dc.cell_by_name("synthetic/scan-accumulate")
+    assert dc.diff_check(cell, n_draws=2, device="cpu")["ok"]
+    sums = cell.fn
+
+    def off_by_one(x):  # column 3 one too high, still within [0, 1600]
+        (out,) = sums(x)
+        out[0, 3] += 1
+        return (out,)
+
+    cell.fn = off_by_one
+    r = dc.diff_check(cell, n_draws=2, device="cpu")
+    assert not r["ok"]
+    assert [(v["draw"], v["kind"], v["out"], v["index"], v["n_differ"],
+             v["concrete"] - v["abstract"]) for v in r["violations"]] == [
+        (0, "plain", 0, 3, 1, 1), (1, "plain", 0, 3, 1, 1)]
+
+
+def test_torch_route_cell_leaves_repeated_targets_open_and_nothing_else():
+    """The matrix's draws repeat ``mega_route``'s targets, where a kernel
+    whose threads run in no order may keep any writer's value: a
+    first-writer-wins stand-in passes, one wrong word does not."""
+    cell = dc.cell_by_name("mega_route/r2l6")
+    plain = cell.plain
+    args = dc.draw_args(cell, np.random.default_rng(0))
+    assert len(np.unique(args[0][0])) < args[0].shape[1]  # a repeated lane
+    cell.fn = lambda si, w, sr: plain(si.flip(1), w.flip(1), sr.flip(1))
+    assert any(not torch.equal(a, b) for a, b in zip(
+        cell.fn(*map(torch.from_numpy, args)),
+        plain(*map(torch.from_numpy, args))))
+    assert dc.diff_check(cell, n_draws=3, device="cpu")["ok"]
+    first_wins = cell.fn
+
+    def one_wrong_word(si, w, sr):
+        lane_word, slot_lane = first_wins(si, w, sr)
+        lane_word[0, 0] += 1
+        return lane_word, slot_lane
+
+    cell.fn = one_wrong_word
+    r = dc.diff_check(cell, n_draws=3, device="cpu")
+    assert [(v["kind"], v["out"], v["index"], v["n_differ"])
+            for v in r["violations"]] == [("plain", 0, 0, 1)] * 3
+
+
+def test_torch_overlapping_pack_escapes_the_disjoint_bound():
+    """``a`` in [0, 2] and ``b`` below 2^29 pack into [0, 3 * 2^29 - 1];
+    ``b`` at 2^29 overlaps ``a``'s field and leaves it."""
+    av = D.iv(0, (2 << 29) | ((1 << 29) - 1))
+    a = torch.full((8, 128), 2, dtype=torch.int32)
+    ok = fk.fx_pack_plain(a, torch.full_like(a, (1 << 29) - 1))
+    assert D.contains(av, ok.numpy()) == []
+    bad = fk.fx_pack_plain(a, torch.full_like(a, 1 << 29))
+    assert [v["kind"] for v in D.contains(av, bad.numpy())] == ["interval"]
+
+
+def test_torch_dropped_init_escapes_on_a_poisoned_output():
+    """In a checked block every output is poisoned first; without its
+    zero-fill fx_acc_revisit keeps the poison and the analysis reports
+    ``ref-read-before-init`` at the kernel's entry point."""
+    x = torch.randint(0, 4, (8, 256), dtype=torch.int32,
+                      generator=torch.Generator().manual_seed(1))
+    bound = [D.iv(0, 3 * 256)]
+    _outs, found = dc.analyze_call(lambda: (fk.fx_acc_revisit(x, True),),
+                                   bound, "fx_acc_revisit", fk.LIB)
+    assert found == []
+    outs, found = dc.analyze_call(lambda: (fk.fx_acc_revisit(x, False),),
+                                  bound, "fx_acc_revisit", fk.LIB)
+    assert int(outs[0].max()) < 0
+    assert [f.code for f in found] == ["ref-read-before-init"]
+    f = found[0]
+    assert f.severity == ana.ERROR and f.fn == "fx_acc_revisit"
+    assert f.file == "hermes_tpu_torch/csrc/analysis_fixtures.cu"
+    src = (ROOT / f.file).read_text().splitlines()
+    assert "hermes_fx_acc_revisit(" in src[f.line - 1]
+    # outside a checked block nothing is poisoned
+    assert dispatch.out((2,), torch.int32, "cpu").shape == (2,)
+
+
+def test_torch_checked_build_block_poisons_and_does_not_nest():
+    with dispatch.checked_build() as chk:
+        assert int(dispatch.out((3,), torch.int32, "cpu")[0]) == -(1 << 31)
+        assert int(dispatch.out((3,), torch.int8, "cpu")[0]) == -128
+        assert bool(dispatch.out((2,), torch.bool, "cpu")[0])
+        with pytest.raises(RuntimeError):
+            with dispatch.checked_build():
+                pass
+    assert chk.violations == [] and chk.launched == []
+    with dispatch.checked_build():  # the failed nesting left no block open
+        pass
+
+
+def _guard():
+    lib = build.load_cxx(build.PKG / "native" / "guard_host.cpp")
+    lib.hermes_guard_check.restype = ctypes.c_int
+    lib.hermes_guard_check.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int]
+    lib.hermes_guard_words.restype = ctypes.c_int
+    return lib
+
+
+def test_torch_guard_arithmetic_host_build():
+    """``csrc/guard.cuh``'s check through g++: an access in [0, extent)
+    passes and records nothing; the first violation wins the report (site,
+    index, extent, load or store); every violation is counted."""
+    lib = _guard()
+    assert lib.hermes_guard_words() == dispatch.REPORT_WORDS
+    rep = (ctypes.c_longlong * dispatch.REPORT_WORDS)()
+    check = lambda *a: lib.hermes_guard_check(ctypes.addressof(rep), *a)
+    assert check(0, 8, 10, 1) == 1 and check(7, 8, 11, 0) == 1
+    assert list(rep) == [0] * dispatch.REPORT_WORDS
+    assert check(8, 8, 12, 0) == 0       # the extent itself is outside
+    assert check(-1, 8, 13, 1) == 0      # so is a negative index
+    assert check(1 << 40, 1 << 33, 14, 1) == 0  # 64-bit indices
+    assert check(0, 0, 15, 1) == 0       # an empty extent holds nothing
+    assert rep[dispatch.R_COUNT] == 4
+    assert (rep[dispatch.R_LINE], rep[dispatch.R_INDEX],
+            rep[dispatch.R_EXTENT], rep[dispatch.R_STORE]) == (12, 8, 8, 0)
+    assert rep[dispatch.R_UNGUARDED] == 0
+
+
+def test_torch_every_kernel_source_is_guarded():
+    """Every ``csrc/*.cu`` includes the guard, takes the report in its
+    entry points and indexes no global pointer outside a guard site:
+    ``kernel_at`` names the function of every site."""
+    sources = build.cuda_sources()
+    assert len(sources) == 8
+    for src in sources:
+        text = src.read_text()
+        assert '#include "guard.cuh"' in text
+        assert text.count("HG_ENTRY_ARG") == text.count("int hermes_") - (
+            1 if src.stem == "stats_block" else 0)  # its _abi export
+        assert text.count("HG_BEGIN(") == text.count("HG_ENTRY_ARG")
+        assert dispatch.guard_sites(src.stem) >= 2
+        for i, line in enumerate(text.splitlines(), 1):
+            if dispatch._GUARD_SITE.search(line):
+                assert dispatch.kernel_at(src.stem, i) != "<unknown>"
+    assert dispatch.kernel_at("mega_apply", 57) == "max_kernel"
+    flags = build.cuda_flags("mega_apply", checked=True, broken=True)
+    assert "-DHERMES_CHECKED" in flags and "-DHERMES_BROKEN_NO_CLAMP" in flags
+    assert "-DHERMES_CHECKED" not in build.cuda_flags("mega_apply")
+    assert "-cudart" in build.cuda_flags("mega_apply", checked=True)
+    with pytest.raises(ValueError):
+        build.cuda_flags("mega_apply", checked=False, broken=True)
+
+
+# --------------------------------------------------------------------------
+# the reports and the command line
+# --------------------------------------------------------------------------
+
+
+def test_torch_analyze_kernel_report_shape_on_cpu():
+    rep = dc.analyze_kernel(dc.cell_by_name("mega_apply/k16n16"), "cpu")
+    assert rep["engine"] == "kernel/mega_apply/k16n16"
+    assert rep["build"] == "plain" and rep["n_sites"] > 0
+    assert rep["proved"] == {"refhazard": 0}  # nothing was bound-checked
+    (f,) = rep["findings"]
+    assert (f.code, f.severity, f.engine) == ("guard-skipped", ana.INFO,
+                                              rep["engine"])
+    assert f.record()["key"] == f.key and f.site == "<unknown>:0"
+
+
+def test_torch_kernels_flag_runs_matrix(capsys, tmp_path):
+    """The reference's keys (``test_kernels_flag_runs_matrix`` there)."""
+    out = tmp_path / "findings.jsonl"
+    rc = cli.main(["--kernels", "--json", "--draws", "2", "--device", "cpu",
+                   "--out", str(out)])
+    assert rc == 0
+    doc = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert doc["ok"] and doc["config"] == "kernels"
+    assert doc["errors"] == 0 and doc["warnings"] == 0
+    assert list(doc["cells"])[:8] == [f"kernel/{n}" for n in REF_NAMES]
+    for info in doc["cells"].values():
+        assert info["sanitizer_ok"] and info["draws"] == 2
+        assert info["seconds"] >= 0 and info["errors"] == 0
+        assert info["build"] == "plain"
+    recs = [json.loads(x) for x in out.read_text().splitlines()]
+    assert all(r["kind"] == "analysis" and r["config"] == "kernels"
+               and "t" in r for r in recs)
+    assert sum(r["record"] == "program" for r in recs) == len(doc["cells"])
+    assert sum(r["record"] == "finding" for r in recs) == doc["infos"]
+
+
+def test_torch_kernels_cli_red_and_refusals(capsys, monkeypatch):
+    """A violated cell fails the run; without ``--kernels`` the command
+    says what is ported."""
+    cell = dc.cell_by_name("synthetic/scan-accumulate")
+    cell.out_avs[0] = D.iv(0, 100)  # one pass of the loop body, unwidened
+    monkeypatch.setattr(dc, "kernel_cells", lambda: [cell])
+    assert cli.main(["--kernels", "--draws", "2", "--device", "cpu"]) == 1
+    io = capsys.readouterr()
+    assert json.loads(io.out.strip().splitlines()[-1])["ok"] is False
+    assert "ESCAPE" in io.err and "ref-read-before-init" in io.err
+    with pytest.raises(SystemExit):
+        cli.main(["--device", "cpu"])
+
+
+def test_torch_kernels_cli_needs_card():
+    """Without ``--device`` the matrix asks for the card and, on a machine
+    without one, exits non-zero naming it."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the matrix would run on it")
+    r = subprocess.run([sys.executable, "-m", "hermes_tpu_torch.analysis",
+                        "--kernels", "--json"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert "torch.cuda.is_available() is False" in r.stderr
+    assert r.stdout == ""
+
+
+@pytest.mark.parametrize("cand", ["torch", "serial", "onehot", "vgather"])
+def test_torch_probe_cells_carry_analysis_fields(cand):
+    """The analysis fields of scripts/pallas_probe.py's cells; on the CPU
+    they come from the plain versions and say so."""
+    c = tp.cell(cand, 64, 256, "cpu")
+    assert c["analysis_clean"] is True and c["analysis_findings"] == []
+    assert c["analysis_build"] == "plain" and c["analysis_calls"] == 1
+    assert c["calls"] == 4  # the timed calls, as before
+
+
+def test_torch_probe_analysis_flags_an_escape(monkeypatch):
+    """A step whose output leaves its declared bound is not clean."""
+    monkeypatch.setattr(tp, "_declared_out",
+                        lambda cand, K, args: [D.iv(0, 0)])
+    c = tp.analyze_step("vgather", 64, 256, "cpu")
+    assert c["analysis_clean"] is False
+    assert c["analysis_findings"][0].startswith(
+        "error:refhazard/ref-read-before-init@hermes_tpu_torch/csrc/"
+        "probe_vgather.cu:")
+
+
+# --------------------------------------------------------------------------
+# the tables and seeds the bounds are made from
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("table", ["LANE_WORD", "INV_PKF", "SST", "PTS"])
+def test_torch_layout_fields_read_by_the_seeds_equal_reference(table):
+    mine, ref = getattr(layouts, table), getattr(ref_layouts, table)
+    assert mine.word_bits == ref.word_bits
+    assert [tuple(f) for f in mine.fields] == [tuple(f) for f in ref.fields]
+    for f in ref.fields:
+        assert mine.field(f.name).mask == f.mask
+        assert mine.field(f.name).cap == f.cap
+
+
+def test_torch_stats_ctr_and_step_budget_equal_reference():
+    assert layouts.STATS_CTR.rows == ref_layouts.STATS_CTR.rows
+    assert layouts.STATS_CTR.width == ref_layouts.STATS_CTR.width
+    for row in ref_layouts.STATS_CTR.rows:
+        assert layouts.STATS_CTR.row(row) == ref_layouts.STATS_CTR.row(row)
+    assert layouts.MAX_STEPS == ref_layouts.MAX_STEPS
+    assert layouts.MAX_KEY_VERSIONS == ref_layouts.MAX_KEY_VERSIONS
+
+
+def test_torch_seeds_equal_reference_seeds():
+    kw = dict(n_replicas=3, n_keys=40, n_sessions=6, replay_slots=3,
+              ops_per_session=4, arb_mode="sort", mega_round=True)
+    cfg, ref_cfg = HermesConfig(**kw), RefConfig(**kw)
+    same = lambda a, b: [(x.lo, x.hi, x.ones) for x in a] == [
+        (x.lo, x.hi, x.ones) for x in b]
+    assert same([seeds.pts_seed(cfg), seeds.step_seed(cfg)],
+                [ref_seeds.pts_seed(ref_cfg), ref_seeds.step_seed(ref_cfg)])
+    assert same(seeds.seed_stats_block(), ref_seeds.seed_stats_block())
+    assert same(seeds.seed_mega_route(cfg), ref_seeds.seed_mega_route(ref_cfg))
+    assert same(seeds.seed_mega_apply(cfg), ref_seeds.seed_mega_apply(ref_cfg))
+    assert same(seeds.seed_mega_replay(cfg),
+                ref_seeds.seed_mega_replay(ref_cfg))
+    assert same(seeds.seed_scan_acc(), ref_dc._scan_acc_cell().in_avs)
+
+
+def test_torch_domain_matches_reference_domain():
+    from hermes_tpu.analysis import domain as ref_D
+
+    for lo, hi, ones in [(0, 5, -1), (3, 3, -1), (-4, 9, 0xF), (0, 100, 0x55),
+                         (0, (1 << 31) - 1, -1)]:
+        a, b = D.AbsVal(lo, hi, ones), ref_D.AbsVal(lo, hi, ones)
+        assert (a.lo, a.hi, a.ones, repr(a)) == (b.lo, b.hi, b.ones, repr(b))
+    for dt in (np.int32, np.int8, np.bool_):
+        a, b = D.top(dt), ref_D.top(dt)
+        assert (a.lo, a.hi, a.ones) == (b.lo, b.hi, b.ones)
+        assert D.is_top(a, dt) and not D.is_top(D.iv(0, 1), np.int8)
+    arr = np.array([[3, -7], [12, 0]], np.int32)
+    a, b = D.from_concrete(arr), ref_D.from_concrete(arr)
+    assert (a.lo, a.hi, a.ones) == (b.lo, b.hi, b.ones)
+    with pytest.raises(ValueError):
+        D.AbsVal(2, 1)
+    # contains: the interval test and the possible-ones test
+    assert D.contains(D.iv(0, 12), np.array([0, 12])) == []
+    assert [v["kind"] for v in D.contains(D.iv(0, 11), np.array([12]))] == [
+        "interval"]
+    masked = D.AbsVal(0, 12, 0b1100)
+    assert D.contains(masked, np.array([4, 8, 12])) == []
+    assert [v["kind"] for v in D.contains(masked, np.array([5]))] == [
+        "ones-mask"]
+    assert D.contains(D.iv(0, 0), np.zeros((0,), np.int32)) == []

@@ -143,6 +143,167 @@ def test_probe_kernels_reject_strided_input():
         pk.probe_vgather(keys, table)
 
 
+ANALYSIS_KERNELS = ("scan_acc", "fx_pack", "fx_store_at", "fx_acc_revisit",
+                    "fx_block_copy", "fx_serial_scan", "fx_async_copy",
+                    "fx_loop_inc")
+
+
+def _analysis_case(name, index):
+    from types import SimpleNamespace
+
+    from hermes_tpu_torch.analysis import fixture_kernels as fk
+
+    wrapper, plain, _lib, _replaces = fk.KERNELS[name]
+    shapes = (chip_smoke.SCAN_ACC_SHAPES if name == "scan_acc"
+              else chip_smoke.FX_SHAPES[name])
+    case = (chip_smoke.scan_acc_case if name == "scan_acc"
+            else chip_smoke.fx_case(name))
+    args, _timing, _info = case(torch, SimpleNamespace(), shapes[index],
+                                seed=3)
+    return wrapper, plain, args
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("checked", [False, True])
+@pytest.mark.parametrize("index", [0, 1])
+@pytest.mark.parametrize("name", ANALYSIS_KERNELS)
+def test_analysis_kernel_cuda_matches_plain(name, index, checked):
+    """The sentinel and the seven fixtures at chip_smoke.py's shapes (the
+    fixture's own, a larger ragged one), in the release and in the
+    bound-checked build: equal to the plain version, one launch per call,
+    and in the checked build no guard fires on inputs in bounds."""
+    import contextlib
+
+    from hermes_tpu_torch.core import dispatch
+
+    dev = _card()
+    wrapper, plain, args = _analysis_case(name, index)
+    want = chip_smoke._flat(plain(*chip_smoke._to(torch, args, "cpu")))
+    before = wrapper.launches
+    block = dispatch.checked_build() if checked else contextlib.nullcontext()
+    with block as chk:
+        got = chip_smoke._flat(wrapper(*chip_smoke._to(torch, args, dev)))
+        torch.cuda.synchronize(dev)
+    assert wrapper.launches == before + 1
+    for w, x in zip(want, got):
+        assert torch.equal(w, x.cpu())
+    if checked:
+        assert chk.violations == [] and len(chk.launched) == 1
+
+
+@pytest.mark.gpu
+def test_kernel_matrix_green_on_card_in_both_builds():
+    """Every cell of the kernel matrix: analyzed in the checked build with
+    no finding and every guard site proved, sanitized on 3 draws in the
+    release and in the checked build, where ``diff_check`` also holds every
+    output equal to the plain version's on the CPU; a cell whose plain
+    version is made to differ turns red in both builds."""
+    import dataclasses
+
+    from hermes_tpu_torch import analysis as ana
+    from hermes_tpu_torch.analysis import diffcheck as dc
+
+    _card()
+    cell = dc.cell_by_name("mega_replay/k2500b3")
+    wrong = dataclasses.replace(
+        cell, plain=lambda *a: tuple(o + 1 if i == 2 else o
+                                     for i, o in enumerate(cell.plain(*a))))
+    for checked in (False, True):
+        r = dc.diff_check(wrong, n_draws=1, device="cuda", checked=checked)
+        assert {(v["kind"], v["out"]) for v in r["violations"]} == {
+            ("plain", 2)}, r
+        reports = ana.run_kernel_matrix(n_draws=3, device="cuda",
+                                        checked=checked)
+        assert len(reports) == 9
+        for r in reports:
+            assert r["build"] == "checked" and r["findings"] == [], r
+            assert r["proved"]["refhazard"] == r["n_sites"] > 0
+            assert r["sanitizer"]["ok"], r["sanitizer"]["violations"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("red", ["store_at", "block_copy", "serial_scan",
+                                 "acc_revisit", "mega_apply", "async_copy"])
+def test_red_fixture_gives_its_finding_and_context_lives(red):
+    """Each red fixture in the checked build gives its finding, with the
+    kernel's name and the .cu file and line of the guard site; the guard
+    skips the access, so a release launch afterwards is still right.
+    ``mega_apply`` is red only in the test-only build without its clamp
+    (the reference's test_broken_kernel_oob_store_flips_analyzer_red) and
+    clean with it, on the same wire keys."""
+    from hermes_tpu_torch.analysis import fixture_kernels as fk
+    from hermes_tpu_torch.analysis.diffcheck import analyze_call
+    from hermes_tpu_torch.analysis.domain import iv, top
+    from hermes_tpu_torch.core import megaround as mega
+
+    dev = _card()
+    g = torch.Generator().manual_seed(11)
+    i32 = lambda shape, lo, hi: torch.randint(
+        lo, hi, shape, generator=g, dtype=torch.int64).to(torch.int32).to(dev)
+    v, x = i32((8, 128), 0, 101), i32((8, 256), 0, 4)
+    any32 = top("int32")
+    lib, broken = fk.LIB, False
+    if red == "store_at":
+        idx = torch.tensor([[100]], dtype=torch.int32, device=dev)
+        call, avs, want = (lambda: (fk.fx_store_at(idx, v),), [iv(0, 100)],
+                           ("oob-block-store", "store_at_kernel"))
+    elif red == "block_copy":
+        call, avs, want = (lambda: (fk.fx_block_copy(x, 1),), [any32],
+                           ("oob-block-store", "block_copy_kernel"))
+    elif red == "serial_scan":
+        keys = i32((32,), 0, 64)
+        keys[5] = 64
+        table, rows = i32((64, 10), 0, 101), i32((32, 10), 0, 1 << 20)
+        call, avs, want = (lambda: (fk.fx_serial_scan(table, keys, rows),),
+                           [iv(0, 1 << 20)],
+                           ("oob-block-store", "scan_win_kernel"))
+    elif red == "acc_revisit":
+        call, avs, want = (lambda: (fk.fx_acc_revisit(x, init=False),),
+                           [iv(0, 3 * 256)],
+                           ("ref-read-before-init", "fx_acc_revisit"))
+    elif red == "async_copy":
+        call, avs, want = (lambda: (fk.fx_async_copy(v),), [iv(0, 100)],
+                           ("guard-skipped", "async_copy_kernel"))
+    else:
+        from hermes_tpu_torch import config
+
+        cfg = chip_smoke.mega_cfg(config, 2)
+        vpts, keys, pts, mask = (t.to(dev) for t in chip_smoke.apply_inputs(
+            torch, 16, 16, seed=3))
+        mask[:] = True
+        call = lambda: mega.mega_apply(cfg, vpts.clone(), keys, pts, mask)
+        avs, want = [iv(0, 1 << 25)] * 2, ("oob-block-store", "max_kernel")
+        lib, broken = "mega_apply", True
+        _outs, sound = analyze_call(call, avs, "mega_apply", lib)
+        assert sound == []  # with its clamp the same keys are clean
+    _outs, found = analyze_call(call, avs, want[1], lib, broken=broken)
+    hit = [f for f in found if f.code == want[0]]
+    assert hit, [f.code for f in found]
+    f = hit[0]
+    assert f.fn == want[1] and f.file == f"hermes_tpu_torch/csrc/{lib}.cu"
+    assert f.line > 0
+    if red == "async_copy":
+        assert f.severity == "info" and "cp.async" in f.message
+    else:
+        assert f.severity == "error"
+    # the context lives: a release launch, held against its plain version
+    probe = torch.arange(128, dtype=torch.int32).reshape(16, 8)
+    assert torch.equal(fk.scan_acc(probe.to(dev)).cpu(),
+                       fk.scan_acc_plain(probe))
+
+
+@pytest.mark.gpu
+def test_probe_cells_analysis_clean_on_card():
+    """The probe's analysis fields from the checked build of its kernels,
+    a resident table of any content."""
+    from hermes_tpu_torch import table_probe
+
+    _card()
+    for cand in ("torch", "serial", "onehot", "vgather"):
+        c = table_probe.analyze_step(cand, 4096, 4096, "cuda")
+        assert c["analysis_clean"] and c["analysis_build"] == "checked", c
+
+
 def _tree_np(tree):
     if hasattr(tree, "_fields"):
         return type(tree)(*(_tree_np(x) for x in tree))

@@ -1,8 +1,9 @@
 """Import boundary of the port: hermes_tpu_torch imports torch, never jax
 and nothing of hermes_tpu (a module named ``hermes_tpu`` or starting with
 ``hermes_tpu.`` — not the string prefix, which the port's own name has).
-Checked in a fresh interpreter that runs one round, one KVS put/get and
-one cell of the table-step probe on the CPU."""
+Checked in a fresh interpreter that runs one round, one KVS put/get, one
+cell of the table-step probe and the kernel matrix (the analysis
+sub-package, its fixtures and its command line) on the CPU."""
 
 import pathlib
 import subprocess
@@ -30,6 +31,13 @@ g = kvs.get(1, 0, 5)
 assert kvs.run_until([g]) and g.result().value == [1, 2]
 from hermes_tpu_torch import table_probe
 assert table_probe.cell("serial", 64, 256, "cpu")["calls"] == 4
+from hermes_tpu_torch import analysis
+from hermes_tpu_torch.analysis import __main__ as analysis_cli
+from hermes_tpu_torch.analysis import fixture_kernels
+assert len(analysis.run_kernel_matrix(n_draws=1, device="cpu")) == 9
+assert analysis_cli.main(["--kernels", "--json", "--draws", "1",
+                          "--device", "cpu"]) == 0
+assert int(fixture_kernels.fx_loop_inc(torch.zeros(4, dtype=torch.int32))[0]) == 10
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "hermes_tpu" or m.startswith("hermes_tpu."))
@@ -64,3 +72,18 @@ def test_torch_port_sources_name_no_reference_import():
             for n in names:
                 top = n.split(".")[0]
                 assert top not in ("jax", "jaxlib", "hermes_tpu"), (f, n)
+
+
+def test_torch_card_only_tools_name_the_card_without_one():
+    """``host_clock.py`` and ``python -m hermes_tpu_torch.profiling``
+    measure on the card only: without one they exit non-zero and say so."""
+    import pytest
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    for cmd in (["hermes_tpu_torch/host_clock.py", "--root", "."],
+                ["-m", "hermes_tpu_torch.profiling"]):
+        r = subprocess.run([sys.executable, *cmd], cwd=ROOT,
+                           capture_output=True, text=True, timeout=300)
+        assert r.returncode != 0 and "needs a CUDA card" in r.stderr, r
