@@ -21,9 +21,13 @@ prints no result):
    plain version's times beside the least time the card could take: per
    call on the stream (CUDA events, median of 25 samples of 10 calls) and
    on the device (torch.profiler, the kernels one call enqueues, mean of
-   20 calls in one trace); where one PyTorch call computes the same
-   function (``index_put_``, ``index_select``, ``sum``, ``clone``,
-   ``new_full``) that call's time; and the kernel in the bound-checked
+   20 calls in one trace, each device operation of a call listed apart;
+   ``mega_route`` and ``scan_acc`` must be one operation a call, and
+   ``mega_route`` is also timed with clusters of 16 and of 8); where one
+   PyTorch call computes the same function (``index_put_``,
+   ``index_select``, ``sum``, ``clone``, ``new_full``, or for
+   ``mega_route`` the fused round's ``scatter_reduce_``, a yardstick of
+   time only) that call's time; and the kernel in the bound-checked
    build, held against the plain version again and timed.
    sanitizer — the kernel matrix (``hermes_tpu_torch.analysis``): every
    cell analyzed in the checked build and sanitized on 3 draws, in the
@@ -66,6 +70,11 @@ prints no result):
 Then the kernels summary line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Without a card, or without the package
 beside it, the script exits non-zero before any phase.
+
+    python3 chip_smoke.py --kernels mega_route,scan_acc
+
+runs the device, build and kernels phases for the named kernels alone,
+prints their summary line and the card, and no result line.
 """
 
 import dataclasses
@@ -92,7 +101,11 @@ SCALAR_OPS_PER_S = 67e12
 BENCH_INDEX = 0
 STATS_SHAPES = ((8, 65536), (4, 512), (1024, 600), (512, 2000),
                 (2, 40000))  # R, S
-ROUTE_SHAPES = ((8, 65792, 49152), (2, 6, 6), (3, 1001, 700))  # R, L, C
+# R, L, C; the last row (7.3 MB) needs several passes of mega_route's
+# windows
+ROUTE_SHAPES = ((8, 65792, 49152), (2, 6, 6), (3, 1001, 700),
+                (2, 1 << 20, 786432))
+ROUTE_CLUSTERS = (16, 8)  # the cluster sizes mega_route is timed at
 APPLY_SHAPES = ((1 << 20, 8 * 65792), (16, 16), (100003, 77777))  # K, N
 REPLAY_SHAPES = ((1 << 20, 8, 256, 8, 4096),  # K, R, RS, V, stuck rows
                  (16, 2, 2, 2, 6), (22, 2, 2, 2, 9), (5003, 3, 7, 3, 300),
@@ -104,7 +117,9 @@ PROBE_SHAPES = ((1 << 20, 49152), (4096, 4096), (8, 256), (1000, 777))
 PROBE_OUT_OF_RANGE = 3  # the index of the shape with keys outside [0, K)
 # the analysis kernels: the fixture's shape first (what the kernel matrix
 # and the red tests give them), then a larger, ragged one
-SCAN_ACC_SHAPES = ((16, 8), (4096, 256))  # M, W
+SCAN_ACC_SHAPES = ((16, 8), (4096, 256), (4097, 257), (65536, 8))  # M, W
+# the kernels whose call must enqueue exactly one device operation
+ONE_OPERATION = ("mega_route", "scan_acc")
 FX_SHAPES = {  # rows, columns (fx_serial_scan: K, M; W = 10)
     "fx_pack": ((8, 128), (1000, 77)),
     "fx_store_at": ((8, 128), (64, 10)),
@@ -394,6 +409,71 @@ def fx_case(name):
     return case
 
 
+def route_library(cfg, si, word, srank):
+    """The fused round's own route-back (``core/faststep.py``): one
+    ``scatter_reduce_(..., "amax")`` of the words and lane ids into the
+    prepared (R, L + C + 1) target (made before the timed calls).  A
+    yardstick of time only: on repeated targets it keeps the max."""
+    import torch
+
+    R, L = si.shape
+    C = cfg.lane_budget
+    tgt = torch.cat([si, torch.where(srank < C, L + srank, L + C)],
+                    dim=1).long()
+    vals = torch.cat([word, si], dim=1)
+    flat = torch.zeros((R, L + C + 1), dtype=torch.int32, device=si.device)
+    return lambda: flat.scatter_reduce_(1, tgt, vals, "amax")
+
+
+def round_srank(torch, R, L, seed):
+    """Slot ranks shaped as the fused round makes them
+    (``core/faststep.py``): the slot-eligible positions (three quarters
+    here) ranked 0, 1, ... in order, the others after them in order; a
+    bijection onto [0, L) whose stores run in order, unlike a random
+    permutation's."""
+    g = torch.Generator().manual_seed(seed)
+    elig = torch.rand((R, L), generator=g) < 0.75
+    cum = torch.cumsum(elig.to(torch.int32), 1, dtype=torch.int32)
+    pos = torch.arange(L, dtype=torch.int32)
+    return torch.where(elig, cum - 1, cum[:, -1:] + pos - cum)
+
+
+def route_cluster_us(torch, port, shape, seed):
+    """``mega_route`` at ``shape`` with clusters of each of
+    ``ROUTE_CLUSTERS``, on the kernels phase's inputs and on slot ranks
+    shaped as the round's (``round_srank``): exact against the plain
+    version, and the device time of a call.  The module's own setting is
+    restored after."""
+    from hermes_tpu_torch.profiling import device_per_call
+
+    mega = port.mega
+    args, _t, _info = route_case(torch, port, shape, seed)
+    inputs = {"permutation": args,
+              "round": (*args[:3], round_srank(torch, shape[0], shape[1],
+                                               seed))}
+    keep, out = mega.ROUTE_CLUSTER, {}
+    try:
+        for q in ROUTE_CLUSTERS:
+            mega.ROUTE_CLUSTER = q
+            row = dict(plan=list(mega.route_plan(*shape, cluster=q)))
+            for kind, call_args in inputs.items():
+                want = _flat(mega.mega_route_plain(*_to(torch, call_args,
+                                                        "cpu")))
+                dev_args = _to(torch, call_args, "cuda")
+                got = _flat(mega.mega_route(*dev_args))
+                if not all(torch.equal(g.cpu(), w)
+                           for w, g in zip(want, got)):
+                    raise AssertionError(f"mega_route with clusters of {q} "
+                                         "disagrees with its plain version")
+                s, n = device_per_call(lambda: mega.mega_route(*dev_args))
+                row[kind] = dict(device_us=s * 1e6, device_launches=n)
+            out[str(q)] = row
+    finally:
+        mega.ROUTE_CLUSTER = keep
+    out["default_plan"] = list(mega.route_plan(*shape))
+    return out
+
+
 def sum_library(x, *_):
     """``torch.sum`` over the rows: scan_acc's function in one call."""
     return lambda: x.sum(dim=0, keepdim=True, dtype=x.dtype)
@@ -462,7 +542,7 @@ def check_kernel(torch, wrapper, plain, args, label, timing_args=None,
     plain version's and no guard may fire, and times it there (the poison
     fills of its outputs and the report's pointer copy included)."""
     from hermes_tpu_torch.core import dispatch
-    from hermes_tpu_torch.profiling import device_per_call
+    from hermes_tpu_torch.profiling import device_per_call, device_split
 
     want = _flat(plain(*_to(torch, args, "cpu")))
     before = wrapper.launches
@@ -481,11 +561,12 @@ def check_kernel(torch, wrapper, plain, args, label, timing_args=None,
     dev_args = _to(torch, timing_args or args, "cuda")
     call = lambda: wrapper(*dev_args)
     plain_call = lambda: plain(*dev_args)
-    k_s, k_n = device_per_call(call)
+    k_s, k_n, k_ops = device_split(call)
     p_s, p_n = device_per_call(plain_call)
     out = dict(exact=True, max_abs_err=err, counted_launches=counted,
                call_us=cuda_ms(torch, call) * 1e3, device_us=k_s * 1e6,
                device_launches=k_n,
+               device_ops=[[name, s * 1e6, c] for name, s, c in k_ops],
                plain_call_us=cuda_ms(torch, plain_call) * 1e3,
                plain_device_us=p_s * 1e6, plain_device_launches=p_n)
     if library is not None:
@@ -504,12 +585,13 @@ def check_kernel(torch, wrapper, plain, args, label, timing_args=None,
     return out
 
 
-def phase_kernels(torch, port, kernels):
-    """Every ported kernel against its plain version at each of its
-    shapes; returns each kernel's row of the summary line, its times from
-    its first shape (the bench shape, or the fixture's own).  The library
-    call is timed at every shape but the one whose keys leave the table,
-    where ``index_put_`` and ``index_select`` would fault."""
+def phase_kernels(torch, port, kernels, only=None):
+    """Every ported kernel (or those named in ``only``) against its plain
+    version at each of its shapes; returns each kernel's row of the
+    summary line, its times from its first shape (the bench shape, or the
+    fixture's own).  The library call is timed at every shape but the one
+    whose keys leave the table, where ``index_put_`` and ``index_select``
+    would fault."""
     mega, pk, fk = port.mega, port.pk, port.fk
     fx_library = {"fx_loop_inc": full_library,
                   "fx_acc_revisit": row_sum_library,
@@ -528,8 +610,8 @@ def phase_kernels(torch, port, kernels):
          "hermes_tpu/core/kernels.py:96", STATS_SHAPES, stats_case, None,
          "stats_block"),
         ("mega_route", mega.mega_route, mega.mega_route_plain,
-         "hermes_tpu/core/megaround.py:157", ROUTE_SHAPES, route_case, None,
-         "mega_route"),
+         "hermes_tpu/core/megaround.py:157", ROUTE_SHAPES, route_case,
+         route_library, "mega_route"),
         ("mega_apply", mega.mega_apply, mega.mega_apply_plain,
          "hermes_tpu/core/megaround.py:230", APPLY_SHAPES, apply_case, None,
          "mega_apply"),
@@ -545,6 +627,8 @@ def phase_kernels(torch, port, kernels):
     out = {}
     for k, (name, wrapper, plain, replaces, shapes, case, library,
             lib) in enumerate(specs):
+        if only is not None and name not in only:
+            continue
         rows = []
         for i, shape in enumerate(shapes):
             args, timing, info = case(torch, port, shape, seed=10 * k + i)
@@ -552,7 +636,15 @@ def phase_kernels(torch, port, kernels):
                                None if info.get("keys_out_of_range")
                                else library)
             rows.append(dict(info, **row))
-        emit({"phase": "kernels", name: rows})
+            if name in ONE_OPERATION and row["device_launches"] != 1:
+                raise AssertionError(
+                    f"{name} at {shape} enqueued {row['device_launches']} "
+                    f"device operations a call, want 1: {row['device_ops']}")
+        line = {"phase": "kernels", name: rows}
+        if name == "mega_route":
+            line["mega_route_clusters"] = route_cluster_us(
+                torch, port, shapes[BENCH_INDEX], seed=10 * k)
+        emit(line)
         bench = rows[BENCH_INDEX]
         out[name] = dict(
             name=name, route="cuda",
@@ -989,7 +1081,16 @@ def phase_kvs(torch, kernels, config, KVS):
         raise AssertionError("stats_block launches != KVS rounds")
 
 
-def main():
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Chip smoke test of the "
+                                 "PyTorch/CUDA port on one card.")
+    ap.add_argument("--kernels", default=None, metavar="NAME,...",
+                    help="run only the device, build and kernels phases, "
+                    "for these kernels, and print no result line")
+    ns = ap.parse_args(argv)
+    only = ns.kernels.split(",") if ns.kernels else None
     try:
         import torch
     except ImportError:
@@ -1032,7 +1133,14 @@ def main():
                     "mega_replay": mega.mega_replay}
         port = SimpleNamespace(config=config, fst=fst, mega=mega, pk=pk,
                                probe=table_probe, fk=fk)
-        rows = phase_kernels(torch, port, kernels)
+        rows = phase_kernels(torch, port, kernels, only)
+        if only is not None:
+            missing = sorted(set(only) - set(rows))
+            if missing:
+                raise ValueError(f"no kernel named {missing}")
+            emit({"kernels": list(rows.values())})
+            print(card, flush=True)
+            return 0
         path_launches = phase_sanitizer(torch, port)
         path_launches.update(phase_probe(torch, table_probe, card))
         phase_reference(torch, config, fst, convert, ycsb)

@@ -31,9 +31,13 @@ CPU tests can hold them against the Pallas fixtures there too.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
-from hermes_tpu_torch.core.dispatch import launch, need, on_card, out
+from hermes_tpu_torch.core.dispatch import (CLUSTER_MAX, SMS, cdiv, launch,
+                                            need, on_card, out)
 from hermes_tpu_torch.core.probe_kernels import (probe_serial_plain,
                                                  row_index)
 
@@ -60,6 +64,44 @@ def scan_acc_plain(x):
     return x.sum(dim=0, keepdim=True, dtype=torch.int64).to(I32)
 
 
+#: threads of a scan_acc CTA (scan_acc.cu's kThreads) and the most
+#: threads that read one row of a column tile
+SCAN_THREADS = 512
+SCAN_TPR_MAX = 8
+#: scan_acc.cu's shared memory a CTA: a partial row a warp, then the CTA's
+SCAN_SMEM_BYTES = 4 * (SCAN_THREADS // 32 + 1) * 32
+
+
+class ScanPlan(NamedTuple):
+    """``scan_acc.cu``'s launch geometry: ``vec`` columns a thread (4: one
+    16-byte load), ``tpr`` threads a row of a tile of ``tpr * vec``
+    columns, ``tiles`` tiles, one cluster of ``cluster`` CTAs a tile, each
+    CTA summing ``rows_per_cta`` rows."""
+    vec: int
+    tpr: int
+    cluster: int
+    tiles: int
+    rows_per_cta: int
+
+
+@functools.lru_cache(maxsize=64)
+def scan_acc_plan(M: int, W: int, aligned: bool = True) -> ScanPlan:
+    """The cluster plan of the (M, W) column sums: 16-byte loads when W is
+    a multiple of 4 and ``x`` is ``aligned``; as many threads a row as the
+    row's vectors need, at most ``SCAN_TPR_MAX``; as many CTAs a tile as
+    fill the card's SMs, at most ``CLUSTER_MAX``, each with at least two
+    passes of its threads over its rows (so a short array takes one CTA)."""
+    if M < 1 or W < 1:
+        raise ValueError(f"scan_acc_plan: no plan for ({M}, {W})")
+    vec = 4 if W % 4 == 0 and aligned else 1
+    tpr = min(SCAN_TPR_MAX, 1 << (cdiv(W, vec) - 1).bit_length())
+    tiles = cdiv(W, tpr * vec)
+    rows_in_flight = SCAN_THREADS // tpr
+    q = max(1, min(CLUSTER_MAX, cdiv(SMS, tiles), M // (2 * rows_in_flight)))
+    rows = cdiv(M, q)
+    return ScanPlan(vec, tpr, cdiv(M, rows), tiles, rows)
+
+
 def scan_acc(x):
     """``out[0, w] = sum_i x[i, w]`` for ``x`` (M, W) int32; returns the
     (1, W) int32 sums.
@@ -67,14 +109,18 @@ def scan_acc(x):
     Replaces ``_scan_acc_cell._kern``, a zero-fill and a 16-step loop that
     adds row i into the output block.  Bound by memory (each element read
     once, each column written once; at the sentinel's (16, 8) the launch is
-    all of its time).  One thread a column sums its rows in a register and
-    stores once."""
+    all of its time).  A thread-block cluster a column tile
+    (``scan_acc_plan``): its CTAs sum contiguous row shares in registers,
+    reduce across warps in shared memory and across the cluster through
+    distributed shared memory, and one CTA stores each column once."""
     name = "scan_acc"
     M, W = _need2(name, "x", x)
     if not on_card(name, x):
         return scan_acc_plain(x)
     sums = out((1, W), I32, x.device)
-    launch(name, x.device, x, sums, M, W)
+    plan = scan_acc_plan(M, W, x.data_ptr() % 16 == 0)
+    launch(name, x.device, x, sums, M, W, plan.vec, plan.tpr, plan.cluster,
+           plan.tiles, plan.rows_per_cta)
     scan_acc.launches += 1
     return sums
 

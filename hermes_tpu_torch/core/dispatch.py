@@ -32,6 +32,18 @@ import torch
 
 from hermes_tpu_torch import build
 
+# The card the launch plans are made for (an H100 SXM): its streaming
+# multiprocessors, the shared memory one CTA may take (227 KB, above 48 KB
+# only as dynamic shared memory) and the largest thread-block cluster
+# (16, non-portable above 8).
+SMS = 132
+SMEM_BYTES_MAX = 232448
+CLUSTER_MAX = 16
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
 
 def on_card(name: str, *xs) -> bool:
     """True for CUDA tensors, False for CPU tensors; raises on a mix of
@@ -65,7 +77,7 @@ def need(name: str, what: str, x, dtype, shape=None) -> None:
 #: words of one report row and their meaning (csrc/guard.cuh)
 REPORT_WORDS = 8
 R_COUNT, R_LINE, R_INDEX, R_EXTENT, R_STORE, R_UNGUARDED = range(6)
-_GUARD_SITE = re.compile(r"\bHG_(LD|ST|ATOMIC_MAX|ATOMIC_ADD)\(")
+_GUARD_SITE = re.compile(r"\bHG_(LD|ST|SMEM_ST|ATOMIC_MAX|ATOMIC_ADD)\(")
 
 
 def poison(dtype):

@@ -33,11 +33,15 @@ updates land in the table.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from hermes_tpu_torch.core import layouts
 from hermes_tpu_torch.core import types as t
-from hermes_tpu_torch.core.dispatch import launch, need, on_card, out
+from hermes_tpu_torch.core.dispatch import (CLUSTER_MAX, SMEM_BYTES_MAX, cdiv,
+                                            launch, need, on_card, out)
 
 I32 = torch.int32
 I32_MIN = -(1 << 31)
@@ -82,6 +86,71 @@ def mega_route_plain(cfg, si, word, srank):
     return lane_word, slot_lane[:, :C].contiguous()
 
 
+#: the cluster size a row takes when it needs no more passes than with
+#: the largest: on an H100 at the bench shape, clusters of 8 did the
+#: route-back faster than clusters of 16 (PERF.md, the B2 row)
+ROUTE_CLUSTER_PREFERRED = 8
+#: the largest cluster mega_route may take: None leaves it to route_plan;
+#: a size forces it (chip_smoke.py times 16 against 8)
+ROUTE_CLUSTER = None
+#: the least bytes of windows a CTA holds before a row takes more CTAs
+ROUTE_MIN_WINDOW_BYTES = 4096
+
+
+def _up4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+class RoutePlan(NamedTuple):
+    """``mega_route.cu``'s launch geometry: a cluster of ``cluster`` CTAs a
+    replica row; ``passes`` passes, each holding ``cluster`` windows of
+    ``wl`` lanes of ``lane_word`` and ``wc`` slots of ``slot_lane`` (the
+    window ``pass * cluster + rank`` in CTA ``rank``'s shared memory); ``ps``
+    positions of the row a CTA reads."""
+    cluster: int
+    passes: int
+    wl: int
+    wc: int
+    ps: int
+
+    @property
+    def smem_bytes(self) -> int:
+        return 4 * (self.wl + self.wc)
+
+
+def _route_windows(L: int, C: int, q: int):
+    """(passes, wl, wc): as few passes as keep a CTA's two windows (each a
+    multiple of 4 words, for the 16-byte write-out) within the card's
+    shared memory."""
+    passes = 1
+    while True:
+        wl = max(4, _up4(cdiv(L, q * passes)))
+        wc = _up4(cdiv(C, q * passes))
+        if 4 * (wl + wc) <= SMEM_BYTES_MAX:
+            return passes, wl, wc
+        passes += 1
+
+
+@functools.lru_cache(maxsize=64)
+def route_plan(R: int, L: int, C: int, cluster=None) -> RoutePlan:
+    """The window plan of an (R, L) route-back with C slots: as many CTAs
+    a row as give each at least ``ROUTE_MIN_WINDOW_BYTES`` of windows, at
+    most ``cluster`` (default: the card's largest); of that size and
+    ``ROUTE_CLUSTER_PREFERRED``, the one with fewer passes over the
+    positions, the smaller on a tie (``cluster`` given: that size).  ``R``
+    does not change it: one cluster a row."""
+    top = CLUSTER_MAX if cluster is None else cluster
+    if R < 1 or L < 1 or C < 0 or not 1 <= top <= CLUSTER_MAX:
+        raise ValueError(f"route_plan: no plan for R={R} L={L} C={C} "
+                         f"cluster={cluster}")
+    q = max(1, min(top, cdiv(4 * (L + C), ROUTE_MIN_WINDOW_BYTES)))
+    sizes = [q] if cluster is not None else sorted(
+        {min(q, ROUTE_CLUSTER_PREFERRED), q})
+    plans = [RoutePlan(n, *_route_windows(L, C, n), _up4(cdiv(L, n)))
+             for n in sizes]
+    return min(plans, key=lambda plan: plan.passes)
+
+
 def mega_route(cfg, si, word, srank):
     """Per-lane verdict route-back and slot ownership of the fused sort:
     returns ``(lane_word (R, L), slot_lane (R, C))`` from the (R, L) int32
@@ -90,11 +159,13 @@ def mega_route(cfg, si, word, srank):
 
     Replaces ``hermes_tpu/core/megaround.py:mega_route`` (Pallas
     ``_route_kernel``).  Bound by memory: three int32 reads per lane and
-    one or two int32 stores, ~10 MB at the bench shape.  The Pallas kernel
-    walks the lanes serially; the CUDA kernel gives each (r, p) a thread
-    with coalesced loads and plain stores, exact because the targets are
-    unique (see ``mega_route_plain``), after zero-filling both outputs on
-    the stream as the reference does."""
+    one int32 store per lane and slot, ~10 MB at the bench shape.  The
+    Pallas kernel walks the lanes serially; the CUDA kernel gives each
+    replica row a thread-block cluster whose CTAs hold the row's outputs
+    in shared memory, in equal windows (``route_plan``): the scatter lands
+    there through distributed shared memory, and each window goes out in
+    one coalesced pass, so a call is one device operation.  Exact on the
+    round's inputs, whose targets are unique (see ``mega_route_plain``)."""
     name = "mega_route"
     need(name, "si", si, I32)
     R, L = si.shape
@@ -106,8 +177,9 @@ def mega_route(cfg, si, word, srank):
     lane_word = out((R, L), I32, si.device)
     slot_lane = out((R, C), I32, si.device)
     if R and L:
+        plan = route_plan(R, L, C, ROUTE_CLUSTER)
         launch(name, si.device, si, word, srank, lane_word, slot_lane,
-               R, L, C)
+               R, L, C, plan.cluster, plan.passes, plan.wl, plan.wc, plan.ps)
         mega_route.launches += 1
     return lane_word, slot_lane
 

@@ -9,7 +9,11 @@
 //   HG_ST(p, i, n, v)           p[i] = v               (a store)
 //   HG_ATOMIC_MAX(p, i, n, v)   atomicMax(&p[i], v)    (counted as a store)
 //   HG_ATOMIC_ADD(p, i, n, v)   atomicAdd(&p[i], v)    (counted as a store)
-// with n the extent of p in elements.  In the release build these are the
+// with n the extent of p in elements.  A store into a window of shared
+// memory whose index the kernel computes from its data (a scatter, local
+// or through distributed shared memory) is a guard site too:
+//   HG_SMEM_ST(p, i, n, v)      p[i] = v, n the window's extent
+// checked and reported like HG_ST.  In the release build these are the
 // bare accesses on the right: the guard costs nothing.  In the checked
 // build each one first tests 0 <= i < n.  On a violation it adds one to
 // the report's count, records the first one (source line, index, extent,
@@ -109,7 +113,7 @@ static __device__ long long* report;
 template <typename T>
 __device__ __forceinline__ T load(const T* p, long long i, long long n,
                                   int line) {
-  return check(report, i, n, line, 0) ? p[i] : static_cast<T>(0);
+  return check(report, i, n, line, 0) ? p[i] : T{};
 }
 
 template <typename T, typename V>
@@ -140,6 +144,8 @@ inline cudaError_t begin(void* rep, cudaStream_t st) {
 
 #define HG_LD(p, i, n) hermes_guard::load((p), (i), (n), __LINE__)
 #define HG_ST(p, i, n, v) hermes_guard::store((p), (i), (n), (v), __LINE__)
+#define HG_SMEM_ST(p, i, n, v) \
+  hermes_guard::store((p), (i), (n), (v), __LINE__)
 #define HG_ATOMIC_MAX(p, i, n, v) \
   hermes_guard::atomic_max((p), (i), (n), (v), __LINE__)
 #define HG_ATOMIC_ADD(p, i, n, v) \
@@ -154,6 +160,7 @@ inline cudaError_t begin(void* rep, cudaStream_t st) {
 
 #define HG_LD(p, i, n) ((p)[(i)])
 #define HG_ST(p, i, n, v) ((p)[(i)] = (v))
+#define HG_SMEM_ST(p, i, n, v) ((p)[(i)] = (v))
 #define HG_ATOMIC_MAX(p, i, n, v) atomicMax((p) + (i), (v))
 #define HG_ATOMIC_ADD(p, i, n, v) atomicAdd((p) + (i), (v))
 #define HG_UNGUARDED(what) ((void)0)

@@ -56,13 +56,15 @@ _TRACES = 6
 _PAUSE_S = 0.25
 
 
-def device_per_call(call, n=20):
-    """Device seconds and device launches per call of ``call()``: a burst
-    of ``n`` calls is traced until two consecutive traces agree on a whole
-    number of launches per call (at most ``_TRACES`` traces; the second
-    one's time is returned).  A trace with no device time or a count that
-    is no multiple of ``n`` missed launches: it is refused, not read, and
-    said so on stderr.  Raises if no two traces agree."""
+def device_split(call, n=20):
+    """Device seconds and device launches per call of ``call()``, and the
+    device operations one call enqueues: a burst of ``n`` calls is traced
+    until two consecutive traces agree on a whole number of launches per
+    call (at most ``_TRACES`` traces; the second one is read).  A trace
+    with no device time or a count that is no multiple of ``n`` missed
+    launches: it is refused, not read, and said so on stderr.  Raises if no
+    two traces agree.  The operations are ``[name, seconds per call,
+    launches per call]``, the longest first (at most eight)."""
     last = None
     for _ in range(_TRACES):
         out = _trace(lambda: [call() for _ in range(n)])
@@ -73,12 +75,20 @@ def device_per_call(call, n=20):
             last = None
             time.sleep(_PAUSE_S)
         elif out["launches"] == last:
-            return out["busy_s"] / n, out["launches"] // n
+            ops = [[name, us / 1e6 / n, cnt / n] for us, cnt, name
+                   in out["top"]]
+            return out["busy_s"] / n, out["launches"] // n, ops
         else:
             last = out["launches"]
     raise RuntimeError(f"torch.profiler gave no two agreeing traces of {n} "
                        f"calls in {_TRACES}: the last held "
                        f"{out['launches']} launches and {out['busy_s']} s")
+
+
+def device_per_call(call, n=20):
+    """Device seconds and device launches per call of ``call()``
+    (``device_split`` without the operations)."""
+    return device_split(call, n)[:2]
 
 
 def lost_records(traces=250, n=80):

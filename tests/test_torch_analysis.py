@@ -38,6 +38,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+import chip_smoke
 from hermes_tpu.analysis import diffcheck as ref_dc
 from hermes_tpu.analysis import seeds as ref_seeds
 from hermes_tpu.config import HermesConfig as RefConfig
@@ -206,6 +207,62 @@ def test_torch_scan_acc_plain_matches_reference():
     np.testing.assert_array_equal(
         big.astype(np.int64).sum(0, keepdims=True).astype(np.int32),
         fk.scan_acc_plain(_t(big)).numpy())
+
+
+def _scan_shares(plan, M):
+    """The CTAs' row shares of a column tile."""
+    r = plan.rows_per_cta
+    return [(q * r, min(M, (q + 1) * r)) for q in range(plan.cluster)]
+
+
+def _scan_by_plan(plan, x):
+    """scan_acc.cu's algorithm over the plan, in numpy: each tile's CTAs
+    sum their row shares (wrapping as uint32), rank 0 adds the partials.
+    A column no tile covers keeps the poison -7."""
+    M, W = x.shape
+    out = np.full((1, W), -7, np.int64)
+    u = x.astype(np.int64) & 0xFFFFFFFF
+    tile = plan.tpr * plan.vec
+    for t in range(plan.tiles):
+        lo, hi = t * tile, min(W, (t + 1) * tile)
+        parts = [u[a:b, lo:hi].sum(0) for a, b in _scan_shares(plan, M)]
+        total = np.sum(parts, axis=0) & 0xFFFFFFFF
+        out[0, lo:hi] = np.where(total >= 1 << 31, total - (1 << 32), total)
+    return out
+
+
+SCAN_PLAN_SHAPES = [(M, W, True) for M, W in chip_smoke.SCAN_ACC_SHAPES] + [
+    (4096, 256, False), (1, 1, True), (33, 12, True)]
+
+
+@pytest.mark.parametrize("M,W,aligned", SCAN_PLAN_SHAPES)
+def test_torch_scan_acc_plan_covers_rows_and_columns_once(M, W, aligned):
+    """At the sentinel's shape, (4096, 256), the ragged (4097, 257), the
+    tall (65536, 8) and small ones: the CTAs' row shares cover [0, M)
+    exactly once, the tiles cover [0, W), a cluster of at most 16 CTAs
+    within the card's shared memory, 16-byte loads exactly where W and the
+    pointer allow them, and the plan's sums are the plain version's."""
+    plan = fk.scan_acc_plan(M, W, aligned)
+    assert 1 <= plan.cluster <= 16 and fk.SCAN_SMEM_BYTES <= 232448
+    assert plan.vec == (4 if W % 4 == 0 and aligned else 1)
+    assert plan.tpr in (1, 2, 4, 8)
+    tile = plan.tpr * plan.vec
+    assert (plan.tiles - 1) * tile < W <= plan.tiles * tile
+    shares = _scan_shares(plan, M)
+    assert all(a < b for a, b in shares)  # no CTA without rows
+    seen = np.zeros(M, np.int64)
+    for a, b in shares:
+        seen[a:b] += 1
+    assert (seen == 1).all()
+    if (M, W) == (16, 8):
+        assert plan.cluster == 1  # a cluster of one, as before
+    if (M, W, aligned) == (4096, 256, True):
+        assert plan.cluster * plan.tiles == 128  # of the card's 132 SMs
+    rng = np.random.default_rng(M + W)
+    x = rng.integers(-(1 << 31), 1 << 31, (M, W), dtype=np.int64).astype(
+        np.int32)
+    np.testing.assert_array_equal(_scan_by_plan(plan, x),
+                                  fk.scan_acc_plain(_t(x)).numpy())
 
 
 def _ref_pack(a, b):

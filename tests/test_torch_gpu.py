@@ -92,6 +92,55 @@ def test_mega_kernel_cuda_matches_plain(name, shape):
         assert torch.equal(w, x.cpu())
 
 
+def _route_within_freedom(si, word, srank, C, lane_word, slot_lane):
+    """True when every element of the kernel's outputs is one of its
+    writers' values, and 0 where no position writes it: the freedom the
+    kernel matrix's ``mega_route`` cell declares on repeated targets
+    (``analysis/diffcheck.py``), checked for whole rows at once."""
+    R, L = si.shape
+    lane = si.long().clamp(0, L - 1)
+    s = srank.long()
+    for got, tgt, val, keep, n in (
+            (lane_word, lane, word, torch.ones_like(s, dtype=torch.bool), L),
+            (slot_lane, s.clamp(0, max(C - 1, 0)), lane.int(),
+             (s >= 0) & (s < C), C)):
+        if n == 0:
+            continue
+        writers = torch.zeros((R, n), dtype=torch.int32).scatter_add_(
+            1, tgt, keep.int())
+        ok = keep & (torch.gather(got, 1, tgt) == val)
+        hit = torch.zeros((R, n), dtype=torch.int32).scatter_reduce_(
+            1, tgt, ok.int(), "amax")
+        if not bool(torch.where(writers > 0, hit == 1, got == 0).all()):
+            return False
+    return True
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", chip_smoke.ROUTE_SHAPES)
+def test_mega_route_cuda_repeated_targets_within_freedom(shape):
+    """Uniform draws of ``si`` (a few outside [0, L)) and ``srank`` (a few
+    outside [0, C)) repeat targets, which the round never does: each
+    element must hold one of its writers' values, 0 where none writes,
+    and the check itself must turn red on one wrong word."""
+    from hermes_tpu_torch import config
+    from hermes_tpu_torch.core import megaround as mega
+
+    dev = _card()
+    R, L, C = shape
+    cfg = chip_smoke.mega_cfg(config, R, L=L, C=C)
+    g = torch.Generator().manual_seed(R * L + C)
+    si = torch.randint(-2, L + 2, (R, L), generator=g, dtype=torch.int32)
+    srank = torch.randint(-2, C + 2, (R, L), generator=g, dtype=torch.int32)
+    word = torch.randint(1, 1 << 22, (R, L), generator=g, dtype=torch.int32)
+    assert len(si[0].unique()) < L  # a repeated lane
+    lane_word, slot_lane = (x.cpu() for x in mega.mega_route(
+        cfg, si.to(dev), word.to(dev), srank.to(dev)))
+    assert _route_within_freedom(si, word, srank, C, lane_word, slot_lane)
+    lane_word[0, int(si[0].clamp(0, L - 1)[0])] += 1
+    assert not _route_within_freedom(si, word, srank, C, lane_word, slot_lane)
+
+
 @pytest.mark.gpu
 def test_mega_kernels_reject_strided_input():
     dev = _card()
@@ -165,8 +214,10 @@ def _analysis_case(name, index):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("checked", [False, True])
-@pytest.mark.parametrize("index", [0, 1])
-@pytest.mark.parametrize("name", ANALYSIS_KERNELS)
+@pytest.mark.parametrize("name,index", [
+    (name, i) for name in ANALYSIS_KERNELS
+    for i in range(len(chip_smoke.SCAN_ACC_SHAPES if name == "scan_acc"
+                       else chip_smoke.FX_SHAPES[name]))])
 def test_analysis_kernel_cuda_matches_plain(name, index, checked):
     """The sentinel and the seven fixtures at chip_smoke.py's shapes (the
     fixture's own, a larger ragged one), in the release and in the

@@ -7,6 +7,7 @@ recorded history (``committed_write_lost == []``)."""
 
 import dataclasses
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -48,6 +49,25 @@ def _drive(kvs, seed):
     return [f.result() for f in futs], bf
 
 
+def _settle(ref):
+    """Make each round the reference KVS dispatches complete before
+    ``_step_pipelined`` goes back to host code.  On the CPU backend
+    ``jnp.asarray`` does not copy an aligned numpy buffer, so the stream
+    that ``_sync_stream`` uploads may alias the staging arrays
+    (``_op``, ``_key``, ``_uval``), which the next injection rewrites in
+    place while a round dispatched asynchronously may not have read them
+    yet (ROADMAP C).  Waiting for the round removes that race; the drive
+    and what it computes are unchanged."""
+    dispatch = ref.rt.dispatch_round
+
+    def settled(*args, **kwargs):
+        comp = dispatch(*args, **kwargs)
+        jax.block_until_ready((comp, ref.rt.fs))
+        return comp
+
+    ref.rt.dispatch_round = settled
+
+
 @pytest.mark.parametrize("depth", [1, 2])
 def test_torch_kvs_drive_identical_to_reference(depth):
     rc = RefConfig(n_replicas=3, n_keys=64, n_sessions=4, replay_slots=4,
@@ -55,6 +75,8 @@ def test_torch_kvs_drive_identical_to_reference(depth):
                    workload=RefWL(seed=24))
     cfg = HermesConfig(**dataclasses.asdict(rc))
     ref = RefKVS(rc, record=True)
+    if depth > 1:
+        _settle(ref)
     kvs = KVS(cfg, record=True, device="cpu")
     want, wbf = _drive(ref, seed=5)
     got, gbf = _drive(kvs, seed=5)
@@ -73,6 +95,37 @@ def test_torch_kvs_drive_identical_to_reference(depth):
     assert lin.committed_write_lost(committed, ops,
                                     kvs.rt.recorder.aborted_uids) == []
     assert kvs.rt.check().ok
+
+
+def _staged_stream_not_aliased(device):
+    """After ``_sync_stream`` the runtime's stream is a copy: rewriting
+    the staging arrays in place leaves it as it was uploaded."""
+    cfg = HermesConfig(n_replicas=3, n_keys=32, n_sessions=4, replay_slots=2,
+                       value_words=4, pipeline_depth=2)
+    kvs = KVS(cfg, device=device)
+    kvs.put(1, 2, 7, [11, 22])
+    kvs.get(2, 3, 5)
+    kvs._inject_ready()
+    kvs._sync_stream()
+    stream = kvs.rt.stream
+    before = [x.cpu().clone() for x in stream]
+    assert int(before[0][1, 2, 0]) != 0  # the put is staged
+    for a in (kvs._op, kvs._key, kvs._uval):
+        a[...] = 0x5A5A
+    for x, y in zip(stream, before):
+        assert torch.equal(x.cpu(), y)
+    assert kvs.rt.stream is stream
+
+
+def test_torch_kvs_staging_arrays_not_aliased_by_stream():
+    _staged_stream_not_aliased("cpu")
+
+
+@pytest.mark.gpu
+def test_torch_kvs_staging_arrays_not_aliased_by_stream_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
+    _staged_stream_not_aliased("cuda")
 
 
 def test_torch_kvs_put_get_every_replica():

@@ -340,3 +340,120 @@ def test_torch_mega_wrapper_rejects_wrong_dtype(name):
     args[i] = x.to(torch.int64) if x.dtype != torch.int64 else x.to(torch.int32)
     with pytest.raises(TypeError):
         wrapper(*args)
+
+
+# --------------------------------------------------------------------------
+# mega_route's launch geometry (csrc/mega_route.cu runs only on the card)
+# --------------------------------------------------------------------------
+
+
+def _windows(plan, n, w):
+    """The non-empty windows of ``w`` elements over [0, n), in order:
+    window ``pass * cluster + rank`` is CTA ``rank``'s in that pass."""
+    return [(i * w, min(n, (i + 1) * w))
+            for i in range(plan.cluster * plan.passes) if i * w < n]
+
+
+def _shares(plan, n):
+    """The CTAs' position shares of a row of ``n`` lanes."""
+    return [(q * plan.ps, min(n, (q + 1) * plan.ps))
+            for q in range(plan.cluster) if q * plan.ps < n]
+
+
+def _route_by_plan(plan, L, C, si, word, srank):
+    """mega_route.cu's algorithm over the plan, in numpy: each pass, every
+    CTA's position share stores into the owning CTA's window (the
+    cluster's shared memory), then each CTA writes its windows out.  An
+    element the write-out misses keeps the poison -7."""
+    R = si.shape[0]
+    Q, wl, wc = plan.cluster, plan.wl, plan.wc
+    lane_word = np.full((R, L), -7, np.int64)
+    slot_lane = np.full((R, C), -7, np.int64)
+    for p in range(plan.passes):
+        win_l = np.zeros((R, Q, wl), np.int64)
+        win_s = np.zeros((R, Q, max(wc, 1)), np.int64)
+        for p0, p1 in _shares(plan, L):
+            r = np.repeat(np.arange(R), p1 - p0)
+            lane = np.clip(si[:, p0:p1], 0, L - 1).ravel()
+            off = lane - p * Q * wl
+            keep = (off >= 0) & (off < Q * wl)
+            win_l[r[keep], off[keep] // wl, off[keep] % wl] = \
+                word[:, p0:p1].ravel()[keep]
+            s = srank[:, p0:p1].ravel()
+            soff = s - p * Q * wc
+            keep = (s >= 0) & (s < C) & (soff >= 0) & (soff < Q * wc)
+            win_s[r[keep], soff[keep] // wc, soff[keep] % wc] = lane[keep]
+        for q in range(Q):
+            w = p * Q + q
+            if w * wl < L:
+                hi = min(L, (w + 1) * wl)
+                lane_word[:, w * wl:hi] = win_l[:, q, :hi - w * wl]
+            if w * wc < C:
+                hi = min(C, (w + 1) * wc)
+                slot_lane[:, w * wc:hi] = win_s[:, q, :hi - w * wc]
+    return lane_word, slot_lane
+
+
+def _covers_once(n, spans):
+    seen = np.zeros(n, np.int64)
+    for lo, hi in spans:
+        assert 0 <= lo < hi <= n
+        seen[lo:hi] += 1
+    return bool((seen == 1).all())
+
+
+@pytest.mark.parametrize("shape", chip_smoke.ROUTE_SHAPES)
+def test_torch_route_plan_windows_cover_each_target_once(shape):
+    """At the bench shape, the multi-window one and the kernel-matrix and
+    ragged shapes: the windows cover [0, L) and [0, C) exactly once, the
+    position shares [0, L); a cluster of at most 16 CTAs, each within the
+    card's shared memory; 16-byte windows; and the plan's windows route
+    every target of a permutation to the plain version's place."""
+    R, L, C = shape
+    plan = mega.route_plan(R, L, C)
+    assert 1 <= plan.cluster <= 16 and plan.passes >= 1
+    assert plan.smem_bytes == 4 * (plan.wl + plan.wc) <= 232448
+    assert plan.wl % 4 == 0 and plan.wc % 4 == 0 and plan.ps % 4 == 0
+    assert _covers_once(L, _windows(plan, L, plan.wl))
+    assert C == 0 or _covers_once(C, _windows(plan, C, plan.wc))
+    assert _covers_once(L, _shares(plan, L))
+    if shape == chip_smoke.ROUTE_SHAPES[0]:  # the bench shape: one pass,
+        # clusters of 8 (of 16: the same passes, so the smaller)
+        assert plan == (8, 1, 8224, 6144, 8224) and plan.smem_bytes == 57472
+        assert mega.route_plan(R, L, C, cluster=16) == (16, 1, 4112, 3072,
+                                                       4112)
+    if shape == chip_smoke.ROUTE_SHAPES[-1]:  # 7.3 MB a row: clusters
+        # of 16 (of 8 it would take 4 passes)
+        assert plan.cluster == 16 and plan.passes == 2
+        assert plan.smem_bytes == 229376
+        assert mega.route_plan(R, L, C, cluster=8).passes == 4
+    si, word, srank = _route_inputs(R, L, 7)
+    lane = np.clip(si, 0, L - 1)
+    want_lw = np.zeros((R, L), np.int64)
+    np.put_along_axis(want_lw, lane, word, 1)
+    want_sl = np.zeros((R, C + 1), np.int64)
+    np.put_along_axis(want_sl, np.where(srank < C, srank, C), lane, 1)
+    got_lw, got_sl = _route_by_plan(plan, L, C, si, word, srank)
+    np.testing.assert_array_equal(got_lw, want_lw)
+    np.testing.assert_array_equal(got_sl, want_sl[:, :C])
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 8, 16])
+def test_torch_route_plan_takes_passes_when_the_row_outgrows_the_cluster(
+        cluster):
+    """The same row planned on smaller clusters: more passes, never more
+    shared memory than a CTA has, every target still placed once."""
+    R, L, C = 2, 1 << 18, 200000
+    plan = mega.route_plan(R, L, C, cluster=cluster)
+    assert plan.cluster == cluster
+    assert plan.smem_bytes <= 232448
+    assert plan.passes >= -(-4 * (L + C) // (cluster * 232448))
+    assert _covers_once(L, _windows(plan, L, plan.wl))
+    assert _covers_once(C, _windows(plan, C, plan.wc))
+    si, word, srank = _route_inputs(R, L, 8)
+    lane_word, slot_lane = _route_by_plan(plan, L, C, si, word, srank)
+    assert (lane_word >= 0).all() and (slot_lane >= 0).all()
+    np.testing.assert_array_equal(
+        np.take_along_axis(lane_word, si, 1), word)
+    with pytest.raises(ValueError):
+        mega.route_plan(R, L, C, cluster=17)
