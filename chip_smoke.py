@@ -22,8 +22,10 @@ prints no result):
    call on the stream (CUDA events, median of 25 samples of 10 calls) and
    on the device (torch.profiler, the kernels one call enqueues, mean of
    20 calls in one trace, each device operation of a call listed apart;
-   ``mega_route`` and ``scan_acc`` must be one operation a call, and
-   ``mega_route`` is also timed with clusters of 16 and of 8); where one
+   ``stats_block``, ``mega_route``, ``mega_apply`` and ``scan_acc`` must be
+   one operation a call, ``mega_route`` is also timed with clusters of 16
+   and of 8, and ``stats_block`` and ``mega_apply`` also on the inputs of
+   one real bench-a-mega round); where one
    PyTorch call computes the same function (``index_put_``,
    ``index_select``, ``sum``, ``clone``, ``new_full``, or for
    ``mega_route`` the fused round's ``scatter_reduce_``, a yardstick of
@@ -75,6 +77,13 @@ beside it, the script exits non-zero before any phase.
 
 runs the device, build and kernels phases for the named kernels alone,
 prints their summary line and the card, and no result line.
+
+    python3 chip_smoke.py --kernels stats_block,mega_apply --root DIR
+
+does the same for the ``hermes_tpu_torch`` of another checkout in DIR
+(say the parent commit's, unpacked with ``git archive``), so that two
+designs of a kernel are timed in one call on the same inputs; the
+one-operation rule is this checkout's and is not held there.
 """
 
 import dataclasses
@@ -119,7 +128,7 @@ PROBE_OUT_OF_RANGE = 3  # the index of the shape with keys outside [0, K)
 # and the red tests give them), then a larger, ragged one
 SCAN_ACC_SHAPES = ((16, 8), (4096, 256), (4097, 257), (65536, 8))  # M, W
 # the kernels whose call must enqueue exactly one device operation
-ONE_OPERATION = ("mega_route", "scan_acc")
+ONE_OPERATION = ("stats_block", "mega_route", "mega_apply", "scan_acc")
 FX_SHAPES = {  # rows, columns (fx_serial_scan: K, M; W = 10)
     "fx_pack": ((8, 128), (1000, 77)),
     "fx_store_at": ((8, 128), (64, 10)),
@@ -474,6 +483,66 @@ def route_cluster_us(torch, port, shape, seed):
     return out
 
 
+ROUND_WARMUP = 6  # bench-a-mega rounds before the one whose inputs are kept
+
+
+def round_inputs(torch, port, device="cuda"):
+    """The arguments ``stats_block`` and ``mega_apply`` get in one real
+    round of bench-a-mega on the card (after ``ROUND_WARMUP`` rounds), as
+    copies made on the stream before each call.  The mega round gives the
+    fused round's state and completions every round (the CPU tests hold
+    that), so ``stats_block``'s inputs are also bench-a's."""
+    kernels, mega = port.kernels, port.mega
+    cfg = port.config.bench_cfg("a", over=dict(mega_round=True))
+    rt = port.FastRuntime(cfg, device=device)
+    rt.fetch_completions = False
+    rt.run(ROUND_WARMUP)
+    got = {}
+
+    def keep(module, name):
+        fn = getattr(module, name)
+
+        def call(*args):
+            got[name] = _to(torch, args, device)  # before vpts is updated
+            return fn(*args)
+        call.launches = 0  # the wrapper counts on its module's name
+        return fn, call
+
+    saved = [(m, name, *keep(m, name)) for m, name in
+             ((kernels, "stats_block"), (mega, "mega_apply"))]
+    try:
+        for m, name, _fn, call in saved:
+            setattr(m, name, call)
+        rt.run(1)
+    finally:
+        for m, name, fn, call in saved:
+            setattr(m, name, fn)
+            fn.launches += call.launches
+    return got
+
+
+def round_info(torch, name, args):
+    """What shapes a round's inputs: for ``stats_block`` the committed
+    share and the share of commits in latency bin 0; for ``mega_apply`` the
+    masked rows, their distinct keys, and the share of masked rows whose
+    key equals the previous row's."""
+    if name == "stats_block":
+        step, op, invoke, commit, abort, read = (x.cpu() for x in args)
+        lat = (step - invoke)[commit]
+        return dict(R=op.shape[0], S=op.shape[1],
+                    commit_share=float(commit.float().mean()),
+                    bin0_share=float((lat <= 0).float().mean())
+                    if lat.numel() else 0.0)
+    _cfg, vpts, keys, _pts, mask = args
+    k, m = keys.reshape(-1).cpu(), mask.reshape(-1).cpu()
+    km = k[m]
+    return dict(K=vpts.shape[0], N=k.numel(), masked_rows=int(m.sum()),
+                distinct_masked_keys=int(km.unique().numel()),
+                masked_key_repeats_previous=float(
+                    (km[1:] == km[:-1]).float().mean()) if km.numel() > 1
+                else 0.0)
+
+
 def sum_library(x, *_):
     """``torch.sum`` over the rows: scan_acc's function in one call."""
     return lambda: x.sum(dim=0, keepdim=True, dtype=x.dtype)
@@ -585,14 +654,19 @@ def check_kernel(torch, wrapper, plain, args, label, timing_args=None,
     return out
 
 
-def phase_kernels(torch, port, kernels, only=None):
+def phase_kernels(torch, port, kernels, only=None, one_op=ONE_OPERATION):
     """Every ported kernel (or those named in ``only``) against its plain
     version at each of its shapes; returns each kernel's row of the
     summary line, its times from its first shape (the bench shape, or the
     fixture's own).  The library call is timed at every shape but the one
     whose keys leave the table, where ``index_put_`` and ``index_select``
-    would fault."""
+    would fault.  ``stats_block`` and ``mega_apply`` are also held and
+    timed on the inputs of one real round (``round_inputs``).  A kernel
+    named in ``one_op`` must enqueue one device operation a call."""
     mega, pk, fk = port.mega, port.pk, port.fk
+    on_round = {"stats_block", "mega_apply"} & set(only or ("stats_block",
+                                                            "mega_apply"))
+    rounds = round_inputs(torch, port) if on_round else {}
     fx_library = {"fx_loop_inc": full_library,
                   "fx_acc_revisit": row_sum_library,
                   "fx_block_copy": clone_library,
@@ -636,11 +710,17 @@ def phase_kernels(torch, port, kernels, only=None):
                                None if info.get("keys_out_of_range")
                                else library)
             rows.append(dict(info, **row))
-            if name in ONE_OPERATION and row["device_launches"] != 1:
-                raise AssertionError(
-                    f"{name} at {shape} enqueued {row['device_launches']} "
-                    f"device operations a call, want 1: {row['device_ops']}")
         line = {"phase": "kernels", name: rows}
+        if name in rounds:
+            line["round"] = dict(round_info(torch, name, rounds[name]),
+                                 **check_kernel(torch, wrapper, plain,
+                                                rounds[name], name))
+        held = rows + ([line["round"]] if "round" in line else [])
+        for row in held:
+            if name in one_op and row["device_launches"] != 1:
+                raise AssertionError(
+                    f"{name} enqueued {row['device_launches']} device "
+                    f"operations a call, want 1: {row['device_ops']}")
         if name == "mega_route":
             line["mega_route_clusters"] = route_cluster_us(
                 torch, port, shapes[BENCH_INDEX], seed=10 * k)
@@ -649,13 +729,15 @@ def phase_kernels(torch, port, kernels, only=None):
         out[name] = dict(
             name=name, route="cuda",
             source=f"hermes_tpu_torch/csrc/{lib}.cu", replaces=replaces,
-            max_abs_err=max(r["max_abs_err"] for r in rows),
+            max_abs_err=max(r["max_abs_err"] for r in held),
             ms=bench["device_us"] / 1e3,
             plain_ms=bench["plain_device_us"] / 1e3,
             bound_ms=bench["bound_us"] / 1e3, bound_by=bench["bound_by"],
             library_ms=(bench["library_device_us"] / 1e3
                         if library else None),
             checked_ms=bench["checked_device_us"] / 1e3)
+        if "round" in line:
+            out[name]["round_ms"] = line["round"]["device_us"] / 1e3
     return out
 
 
@@ -1089,8 +1171,15 @@ def main(argv=None):
     ap.add_argument("--kernels", default=None, metavar="NAME,...",
                     help="run only the device, build and kernels phases, "
                     "for these kernels, and print no result line")
+    ap.add_argument("--root", default=None, metavar="DIR",
+                    help="with --kernels: time the kernels of the "
+                    "hermes_tpu_torch in DIR (another checkout, e.g. the "
+                    "parent commit's) instead of the one beside this "
+                    "script; the one-operation rule is not held there")
     ns = ap.parse_args(argv)
     only = ns.kernels.split(",") if ns.kernels else None
+    if ns.root is not None and only is None:
+        ap.error("--root needs --kernels")
     try:
         import torch
     except ImportError:
@@ -1100,7 +1189,7 @@ def main(argv=None):
         print("chip_smoke: torch.cuda.is_available() is False: this needs "
               "a CUDA card", file=sys.stderr)
         return 2
-    sys.path.insert(0, HERE)
+    sys.path.insert(0, os.path.abspath(ns.root) if ns.root else HERE)
     try:
         from hermes_tpu_torch import build, config, convert, table_probe
         from hermes_tpu_torch.analysis import fixture_kernels as fk
@@ -1132,8 +1221,10 @@ def main(argv=None):
                     "mega_apply": mega.mega_apply,
                     "mega_replay": mega.mega_replay}
         port = SimpleNamespace(config=config, fst=fst, mega=mega, pk=pk,
-                               probe=table_probe, fk=fk)
-        rows = phase_kernels(torch, port, kernels, only)
+                               probe=table_probe, fk=fk, kernels=kernels,
+                               FastRuntime=FastRuntime)
+        rows = phase_kernels(torch, port, kernels, only,
+                             ONE_OPERATION if ns.root is None else ())
         if only is not None:
             missing = sorted(set(only) - set(rows))
             if missing:

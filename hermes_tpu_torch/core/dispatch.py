@@ -77,7 +77,8 @@ def need(name: str, what: str, x, dtype, shape=None) -> None:
 #: words of one report row and their meaning (csrc/guard.cuh)
 REPORT_WORDS = 8
 R_COUNT, R_LINE, R_INDEX, R_EXTENT, R_STORE, R_UNGUARDED = range(6)
-_GUARD_SITE = re.compile(r"\bHG_(LD|ST|SMEM_ST|ATOMIC_MAX|ATOMIC_ADD)\(")
+_GUARD_SITE = re.compile(
+    r"\bHG_(LD|LD_CG|ST|SMEM_ST|ATOMIC_MAX|ATOMIC_ADD)\(")
 
 
 def poison(dtype):

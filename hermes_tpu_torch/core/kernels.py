@@ -10,20 +10,26 @@ histogram over ``clip(step - invoke_step, 0, LAT_BINS - 1)``.
 
 What bounds it on the card: memory, ~15 bytes per lane and no real
 arithmetic — at the bench shape (8 x 65536 lanes) about 2.4 us at
-3.35 TB/s, less than the launch itself.  The kernel therefore keeps every
-reduction on chip (registers, warp shuffles, a shared-memory histogram)
-and touches device memory once per input and output; see the source note
-in the .cu file.
+3.35 TB/s, about what a launch takes.  The kernel is therefore one launch
+that touches device memory once per input and output: one thread-block
+cluster a replica (``stats_plan``), four lanes a thread a step with
+16-byte loads of the int32 arrays, every reduction on chip (registers,
+warp reductions, a shared-memory histogram, the cluster's distributed
+shared memory), and each output written whole, so nothing needs zeroing
+first; see the source note in the .cu file.
 
 Dispatch has no fallback: a CPU tensor goes to ``stats_block_plain`` (the
 same function in plain torch, which the CPU tests use and ``chip_smoke.py``
 holds the kernel against); a CUDA tensor launches the kernel or raises.
-``stats_block.launches`` counts kernel launches and nothing else.
+``stats_block.launches`` counts kernel launches and nothing else, one a
+call: a call is one device operation.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -31,7 +37,7 @@ from hermes_tpu_torch import build
 from hermes_tpu_torch.core import layouts
 from hermes_tpu_torch.core import state as st
 from hermes_tpu_torch.core import types as t
-from hermes_tpu_torch.core.dispatch import launch, out
+from hermes_tpu_torch.core.dispatch import CLUSTER_MAX, SMS, cdiv, launch, out
 
 CTR_READ = layouts.STATS_CTR.row("read")
 CTR_WRITE = layouts.STATS_CTR.row("write")
@@ -117,6 +123,36 @@ def _check_args(step, sess_op, invoke_step, commit, abort, read_done):
                         f"{tuple(step.shape)} on {step.device}")
 
 
+#: lanes a thread of stats_block.cu takes a step, one int4 (its kUnit)
+STATS_UNIT = 4
+#: the least lanes a CTA walks before a replica takes more CTAs
+STATS_MIN_LANES = 2048
+
+
+class StatsPlan(NamedTuple):
+    """``stats_block.cu``'s launch geometry: a cluster of ``cluster`` CTAs a
+    replica row (grid ``(cluster, R)``); CTA ``q`` walks the row's lanes
+    ``[q * ps, (q + 1) * ps)``, ``ps`` a multiple of ``STATS_UNIT``, with
+    a thread for every ``STATS_UNIT`` lanes of it, up to 512."""
+    cluster: int
+    ps: int
+
+
+@functools.lru_cache(maxsize=64)
+def stats_plan(R: int, S: int) -> StatsPlan:
+    """The cluster of an (R, S) call: the largest power of two up to
+    ``CLUSTER_MAX`` that keeps R clusters within the card's ``SMS`` and
+    gives every CTA at least ``STATS_MIN_LANES`` lanes, else one CTA a
+    replica.  At the bench shape (8, 65536): 8 clusters of 16."""
+    if not (1 <= R <= 65535 and S >= 1):
+        raise ValueError(f"stats_plan: no plan for R={R} S={S}")
+    q = 1
+    while (2 * q <= CLUSTER_MAX and R * 2 * q <= SMS
+           and S >= 2 * q * STATS_MIN_LANES):
+        q *= 2
+    return StatsPlan(q, cdiv(cdiv(S, q), STATS_UNIT) * STATS_UNIT)
+
+
 def _stats_block_cuda(step, sess_op, invoke_step, commit, abort, read_done):
     args = (step, sess_op, invoke_step, commit, abort, read_done)
     if not all(x.is_contiguous() for x in args):
@@ -125,14 +161,16 @@ def _stats_block_cuda(step, sess_op, invoke_step, commit, abort, read_done):
     R, S = sess_op.shape
     dev = sess_op.device
     code = out((R, S), I32, dev)
-    # the kernel adds into ctr and hist: the two zero-fills are their
-    # initialisation
-    ctr = out((R, CTR_WIDTH), I32, dev).zero_()
-    hist = out((R, st.LAT_BINS), I32, dev).zero_()
-    if R == 0 or S == 0:
-        return code, ctr, hist
+    if R == 0 or S == 0:  # no lane: nothing to launch, the sums are 0
+        return (code, torch.zeros((R, CTR_WIDTH), dtype=I32, device=dev),
+                torch.zeros((R, st.LAT_BINS), dtype=I32, device=dev))
+    # the kernel writes ctr and hist whole: no zero-fill
+    ctr = out((R, CTR_WIDTH), I32, dev)
+    hist = out((R, st.LAT_BINS), I32, dev)
     _check_abi()
-    launch("stats_block", dev, *args, code, ctr, hist, R, S)
+    plan = stats_plan(R, S)
+    launch("stats_block", dev, *args, code, ctr, hist, R, S, plan.cluster,
+           plan.ps)
     stats_block.launches += 1
     return code, ctr, hist
 

@@ -22,8 +22,8 @@ kernel or raises.  ``cfg.use_mega_round`` alone decides whether the round
 calls these: the port has no counterpart of the reference's ``resolve``
 (kernel self-test, analyzer verdict) and no fallback to the fused-sort
 program.  ``.launches`` on each wrapper counts the calls that launched its
-kernel, one per call (a ``mega_apply`` call is two device launches, a
-``mega_replay`` call three).
+kernel, one per call (a ``mega_route`` or ``mega_apply`` call is one device
+operation, a ``mega_replay`` call three).
 
 The engine's table carries one trailing drop row (core/faststep.py); the
 round passes its first ``cfg.n_keys`` rows (``vpts[:K]``, ``bank[:K]``,
@@ -206,6 +206,13 @@ def mega_apply_plain(cfg, vpts, keys, pts, mask):
     return vpts, vpts[kc]
 
 
+#: mega_apply.cu's threads a CTA and the 16-byte units of four rows a
+#: thread holds across its grid barrier (its kThreads and kHeld; its C
+#: entry checks both, the CPU tests replay the row assignment with them)
+APPLY_THREADS = 256
+APPLY_HELD = 2
+
+
 def mega_apply(cfg, vpts, keys, pts, mask):
     """The arbiter core: phase 0 scatter-MAXes every masked (key, pts) row
     into the (K,) int32 column ``vpts`` (in place), phase 1 reads the
@@ -217,10 +224,14 @@ def mega_apply(cfg, vpts, keys, pts, mask):
     Replaces ``hermes_tpu/core/megaround.py:mega_apply`` (Pallas
     ``_apply_kernel``, grid ``(2,)``).  Bound by memory: keys, pts and
     mask in, ``post`` out, and the 4 MB ``vpts`` column (2^20 keys), which
-    fits in the card's 50 MB L2 between the phases.  The CUDA design is
-    two launches on one stream: one thread per row does an integer
-    ``atomicMax`` (exact in any order), and the second launch, which sees
-    every update of the first, does the clamped read-back."""
+    stays in the card's 50 MB L2 between the phases.  The CUDA design is
+    one cooperative launch of a persistent grid (no more CTAs than
+    co-reside on the card): each thread applies its rows' maxima with
+    integer ``atomicMax`` (exact in any order), keeps their clamped keys
+    in registers across a grid barrier, and reads the verdicts back
+    through L2.  Keys, pts and post move in 16-byte units where the
+    pointers allow it (any pointer misaligned: row by row).  A refused
+    cooperative launch raises; nothing falls back to two launches."""
     name = "mega_apply"
     need(name, "vpts", vpts, I32)
     need(name, "keys", keys, I32)
@@ -235,7 +246,7 @@ def mega_apply(cfg, vpts, keys, pts, mask):
     post = out((N,), I32, vpts.device)
     if N:
         launch(name, vpts.device, vpts, keys, pts, mask, post,
-               vpts.shape[0], N)
+               vpts.shape[0], N, APPLY_THREADS, APPLY_HELD)
         mega_apply.launches += 1
     return vpts, post
 

@@ -6,6 +6,8 @@
 // release build, and a second library with -DHERMES_CHECKED.  A kernel
 // never indexes device memory directly; it writes
 //   HG_LD(p, i, n)              p[i]                   (a load)
+//   HG_LD_CG(p, i, n)           __ldcg(p + i)          (a load through L2
+//                                                       only, past L1)
 //   HG_ST(p, i, n, v)           p[i] = v               (a store)
 //   HG_ATOMIC_MAX(p, i, n, v)   atomicMax(&p[i], v)    (counted as a store)
 //   HG_ATOMIC_ADD(p, i, n, v)   atomicAdd(&p[i], v)    (counted as a store)
@@ -116,6 +118,12 @@ __device__ __forceinline__ T load(const T* p, long long i, long long n,
   return check(report, i, n, line, 0) ? p[i] : T{};
 }
 
+template <typename T>
+__device__ __forceinline__ T load_cg(const T* p, long long i, long long n,
+                                     int line) {
+  return check(report, i, n, line, 0) ? __ldcg(p + i) : T{};
+}
+
 template <typename T, typename V>
 __device__ __forceinline__ void store(T* p, long long i, long long n, V v,
                                       int line) {
@@ -143,6 +151,7 @@ inline cudaError_t begin(void* rep, cudaStream_t st) {
 }  // namespace hermes_guard
 
 #define HG_LD(p, i, n) hermes_guard::load((p), (i), (n), __LINE__)
+#define HG_LD_CG(p, i, n) hermes_guard::load_cg((p), (i), (n), __LINE__)
 #define HG_ST(p, i, n, v) hermes_guard::store((p), (i), (n), (v), __LINE__)
 #define HG_SMEM_ST(p, i, n, v) \
   hermes_guard::store((p), (i), (n), (v), __LINE__)
@@ -159,6 +168,7 @@ inline cudaError_t begin(void* rep, cudaStream_t st) {
 #else  // release: the bare access
 
 #define HG_LD(p, i, n) ((p)[(i)])
+#define HG_LD_CG(p, i, n) __ldcg((p) + (i))
 #define HG_ST(p, i, n, v) ((p)[(i)] = (v))
 #define HG_SMEM_ST(p, i, n, v) ((p)[(i)] = (v))
 #define HG_ATOMIC_MAX(p, i, n, v) atomicMax((p) + (i), (v))

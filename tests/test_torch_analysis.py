@@ -628,7 +628,10 @@ def test_torch_every_kernel_source_is_guarded():
         for i, line in enumerate(text.splitlines(), 1):
             if dispatch._GUARD_SITE.search(line):
                 assert dispatch.kernel_at(src.stem, i) != "<unknown>"
-    assert dispatch.kernel_at("mega_apply", 57) == "max_kernel"
+    apply_src = (build.CSRC / "mega_apply.cu").read_text().splitlines()
+    atomic = next(i for i, line in enumerate(apply_src, 1)
+                  if "HG_ATOMIC_MAX(" in line)
+    assert dispatch.kernel_at("mega_apply", atomic) == "apply_kernel"
     flags = build.cuda_flags("mega_apply", checked=True, broken=True)
     assert "-DHERMES_CHECKED" in flags and "-DHERMES_BROKEN_NO_CLAMP" in flags
     assert "-DHERMES_CHECKED" not in build.cuda_flags("mega_apply")

@@ -23,26 +23,100 @@ def _card():
     return torch.device("cuda")
 
 
+def _build(checked):
+    """The release build, or a checked_build block (outputs poisoned, so
+    an element the kernel leaves unwritten shows)."""
+    import contextlib
+
+    from hermes_tpu_torch.core import dispatch
+
+    return dispatch.checked_build() if checked else contextlib.nullcontext()
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("R,S", [(4, 512), (1024, 600), (512, 2000),
-                                 (8, 65536), (2, 40000)])
-def test_stats_block_cuda_matches_plain(R, S):
+@pytest.mark.parametrize("checked", [False, True])
+@pytest.mark.parametrize("R,S", list(chip_smoke.STATS_SHAPES) + [(3, 5)])
+def test_stats_block_cuda_matches_plain(R, S, checked):
+    """At every chip_smoke.py shape and a row shorter than one 16-lane
+    chunk, in the release and the checked build: equal to the plain
+    version, one launch a call; in the checked build ctr and hist start
+    poisoned, so equality shows every element written, and no guard
+    fires."""
     dev = _card()
-    g = torch.Generator().manual_seed(R * 7919 + S)
-    op = torch.randint(0, 4, (R, S), generator=g, dtype=torch.int32)
-    invoke = torch.randint(0, 90, (R, S), generator=g, dtype=torch.int32)
-    commit = torch.rand((R, S), generator=g) < 0.3
-    abort = (torch.rand((R, S), generator=g) < 0.05) & ~commit
-    read = (torch.rand((R, S), generator=g) < 0.3) & ~commit & ~abort
-    step = torch.tensor(77, dtype=torch.int32)
-    args = (step, op, invoke, commit, abort, read)
+    args = chip_smoke.stats_inputs(torch, R, S, seed=R * 7919 + S)
     want = kernels.stats_block_plain(*args)
     before = kernels.stats_block.launches
-    got = kernels.stats_block(*(a.to(dev) for a in args))
-    torch.cuda.synchronize(dev)
+    with _build(checked) as chk:
+        got = kernels.stats_block(*(a.to(dev) for a in args))
+        torch.cuda.synchronize(dev)
     assert kernels.stats_block.launches == before + 1
     for w, x in zip(want, got):
         assert torch.equal(w, x.cpu())
+    if checked:
+        assert chk.violations == [] and len(chk.launched) == 1
+
+
+def _device_ops(call):
+    from hermes_tpu_torch.profiling import device_split
+
+    call()
+    torch.cuda.synchronize()
+    return device_split(call)[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["stats_block", "mega_apply"])
+def test_kernel_call_is_one_device_operation(name):
+    """At the bench shape a call enqueues exactly one device operation
+    (torch.profiler): no fill, no second launch."""
+    dev = _card()
+    if name == "stats_block":
+        args = [a.to(dev) for a in chip_smoke.stats_inputs(
+            torch, *chip_smoke.STATS_SHAPES[0], seed=1)]
+        call = lambda: kernels.stats_block(*args)
+    else:
+        wrapper, _plain, args = _mega_call(
+            "mega_apply", chip_smoke.APPLY_SHAPES[0])
+        args = chip_smoke._to(torch, args, dev)
+        call = lambda: wrapper(*args)
+    assert _device_ops(call) == 1
+
+
+def _graph_equals_eager(make_args, call):
+    """One torch.cuda.CUDAGraph capture of ``call(*args)`` replayed on
+    fresh arguments equals the eager call on another fresh set: the
+    launch can be captured, as a graph of the round will need."""
+    eager = chip_smoke._flat(call(*make_args()))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture
+        call(*make_args())
+    torch.cuda.current_stream().wait_stream(side)
+    static = make_args()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):  # records the launch, runs nothing
+        captured = chip_smoke._flat(call(*static))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert len(captured) == len(eager)
+    for g, e in zip(captured, eager):
+        assert torch.equal(g, e)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["stats_block", "mega_apply"])
+def test_kernel_call_replays_from_a_cuda_graph(name):
+    dev = _card()
+    if name == "stats_block":
+        cpu = chip_smoke.stats_inputs(torch, *chip_smoke.STATS_SHAPES[0],
+                                      seed=2)
+        _graph_equals_eager(lambda: [a.to(dev) for a in cpu],
+                            kernels.stats_block)
+    else:
+        wrapper, _plain, args = _mega_call("mega_apply",
+                                           chip_smoke.APPLY_SHAPES[0])
+        _graph_equals_eager(lambda: chip_smoke._to(torch, args, dev),
+                            wrapper)
 
 
 @pytest.mark.gpu
@@ -77,19 +151,63 @@ def _mega_call(name, shape):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("checked", [False, True])
 @pytest.mark.parametrize("name,shape", [
     (name, shape) for name, (shapes, _case) in MEGA_CASES.items()
     for shape in shapes])
-def test_mega_kernel_cuda_matches_plain(name, shape):
+def test_mega_kernel_cuda_matches_plain(name, shape, checked):
+    """Each mega kernel at chip_smoke.py's shapes, in the release and the
+    checked build: equal to the plain version, one launch a call, no
+    guard firing on the round's inputs."""
     dev = _card()
     wrapper, plain, args = _mega_call(name, shape)
     want = chip_smoke._flat(plain(*chip_smoke._to(torch, args, "cpu")))
     before = wrapper.launches
-    got = chip_smoke._flat(wrapper(*chip_smoke._to(torch, args, dev)))
-    torch.cuda.synchronize(dev)
+    with _build(checked) as chk:
+        got = chip_smoke._flat(wrapper(*chip_smoke._to(torch, args, dev)))
+        torch.cuda.synchronize(dev)
     assert wrapper.launches == before + 1
     for w, x in zip(want, got):
         assert torch.equal(w, x.cpu())
+    if checked:
+        assert chk.violations == []
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("checked", [False, True])
+@pytest.mark.parametrize("edge", ["one_key", "masked_out", "misaligned"])
+def test_mega_apply_cuda_edges(edge, checked):
+    """``mega_apply`` at the bench shape with every row on one key (the
+    read-back after the grid barrier must see the last maximum: a stale
+    L1 line would show here), with every row masked out, and with keys
+    and pts off 16-byte alignment (the row-by-row path): equal to the
+    plain version in both builds."""
+    dev = _card()
+    wrapper, plain, (cfg, vpts, keys, pts, mask) = _mega_call(
+        "mega_apply", chip_smoke.APPLY_SHAPES[0])
+    if edge == "one_key":
+        keys = torch.full_like(keys, 12345)
+        mask = torch.ones_like(mask)
+    elif edge == "masked_out":
+        mask = torch.zeros_like(mask)
+    want = chip_smoke._flat(plain(cfg, vpts.clone(), keys, pts, mask))
+    card = [x.to(dev) for x in (vpts, keys, pts, mask)]
+    if edge == "misaligned":  # views one element into larger tensors
+        N = keys.numel()
+        for i in (1, 2):
+            big = torch.zeros(N + 1, dtype=torch.int32, device=dev)
+            big[1:] = card[i]
+            card[i] = big[1:]
+        assert card[1].data_ptr() % 16 == 4
+    with _build(checked) as chk:
+        got = chip_smoke._flat(wrapper(cfg, *card))
+        torch.cuda.synchronize(dev)
+    for w, x in zip(want, got):
+        assert torch.equal(w, x.cpu())
+    if checked:
+        assert chk.violations == []
+    if edge == "one_key":
+        assert (got[1] == got[0][12345]).all()
 
 
 def _route_within_freedom(si, word, srank, C, lane_word, slot_lane):
@@ -323,7 +441,7 @@ def test_red_fixture_gives_its_finding_and_context_lives(red):
             torch, 16, 16, seed=3))
         mask[:] = True
         call = lambda: mega.mega_apply(cfg, vpts.clone(), keys, pts, mask)
-        avs, want = [iv(0, 1 << 25)] * 2, ("oob-block-store", "max_kernel")
+        avs, want = [iv(0, 1 << 25)] * 2, ("oob-block-store", "apply_kernel")
         lib, broken = "mega_apply", True
         _outs, sound = analyze_call(call, avs, "mega_apply", lib)
         assert sound == []  # with its clamp the same keys are clean
@@ -454,3 +572,59 @@ def test_runtime_and_kvs_on_card_match_cpu(depth):
         assert kvs.rt.check().ok
         res[d] = (bf.code, bf.value, bf.uid, bf.step)
     _assert_equal_trees(res["cpu"], res[dev], "kvs")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mega_round", [False, True])
+def test_round_duplicate_scatters_write_identical_rows_on_card(
+        mega_round, monkeypatch):
+    """The round's two set-scatters with duplicate indices, the winner-row
+    write (``core/faststep.py:_winner_row_scatter``) and the replay mark
+    (``_replay_scan``), are right only because every duplicate writes the
+    same bytes: ``index_put_`` on the card leaves their order open.  On
+    bench-a (fused, where ``_replay_scan`` marks) and bench-a-mega (where
+    ``mega_replay`` marks), with replica 1 frozen from round 8 until after
+    the replay scan of round 32, every row the two sites pass to
+    ``index_put_`` is recorded: every duplicated target but the drop row
+    must receive byte-identical rows."""
+    import sys
+
+    from hermes_tpu_torch import config
+    from hermes_tpu_torch.runtime import FastRuntime
+
+    _card()
+    cfg = config.bench_cfg("a", over=dict(mega_round=mega_round))
+    rt = FastRuntime(cfg, device="cuda")
+    rt.fetch_completions = False
+    bank = rt.fs.table.bank
+    drop = bank.shape[0] - 1
+    sites = {"_winner_row_scatter": [], "_replay_scan": []}
+    real = torch.Tensor.index_put_
+
+    def index_put_(self, indices, values, accumulate=False):
+        site = sys._getframe(1).f_code.co_name
+        if site in sites and self.dtype == torch.int8 and (
+                self.shape == bank.shape):
+            rows, vals = indices[0], values
+            order = torch.argsort(rows, stable=True)
+            r, v = rows[order], vals[order]
+            dup = (r[1:] == r[:-1]) & (r[1:] != drop)
+            differ = dup & (v[1:] != v[:-1]).any(dim=1)
+            sites[site].append(torch.stack([dup.sum(), differ.sum()]))
+        return real(self, indices, values, accumulate)
+
+    monkeypatch.setattr(torch.Tensor, "index_put_", index_put_)
+    for s in range(40):
+        if s == 8:
+            rt.freeze(1)
+        if s == 33:
+            rt.thaw(1)
+        rt.step_once()
+    torch.cuda.synchronize()
+    got = {site: torch.stack(v).sum(0).tolist() if v else [0, 0]
+           for site, v in sites.items()}
+    assert len(sites["_winner_row_scatter"]) == 40
+    if not mega_round:
+        assert sites["_replay_scan"], "the replay mark never ran"
+    assert sum(dup for dup, _ in got.values()) > 0, got
+    assert all(differ == 0 for _, differ in got.values()), got

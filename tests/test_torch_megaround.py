@@ -457,3 +457,122 @@ def test_torch_route_plan_takes_passes_when_the_row_outgrows_the_cluster(
         np.take_along_axis(lane_word, si, 1), word)
     with pytest.raises(ValueError):
         mega.route_plan(R, L, C, cluster=17)
+
+
+# --------------------------------------------------------------------------
+# mega_apply's row assignment (csrc/mega_apply.cu runs only on the card)
+# --------------------------------------------------------------------------
+
+#: CTAs of mega_apply.cu that co-reside on an H100 at full occupancy (132
+#: SMs, 8 CTAs of 256 threads each); the kernel queries its own
+CO_RESIDENT = 132 * 8
+
+
+def _apply_grid(N, cap, vec, held):
+    """mega_apply.cu's grid: the CTAs its rows need (``held`` 16-byte
+    units of four rows a thread, or one row a thread without 16-byte
+    access), at least one and at most ``cap`` (what co-resides)."""
+    per = mega.APPLY_THREADS * (held if vec else 1)
+    units = -(-N // 4) if vec else N
+    return max(1, min(cap, -(-units // per)))
+
+
+def _apply_assignment(N, grid, vec, held):
+    """The kernel's loops replayed in numpy: for each row, how many
+    threads apply it in phase 0 and read it back in phase 1, and whether
+    its reader kept the clamped key in registers across the grid barrier
+    (the held units) or reads the key again."""
+    T = grid * mega.APPLY_THREADS
+    nv = N // 4 if vec else 0
+    gt = np.arange(T)
+    held_units = np.concatenate([gt + j * T for j in range(held)])
+    held_units = held_units[held_units < nv]
+    past_units = np.concatenate([np.arange(s, nv, T) for s in
+                                 gt + held * T if s < nv] or
+                                [np.zeros(0, np.int64)])
+    scalar_rows = np.concatenate([np.arange(s, N, T) for s in gt + 4 * nv
+                                  if s < N] or [np.zeros(0, np.int64)])
+    rows = lambda units: (4 * units[:, None] + np.arange(4)).reshape(-1)
+    applied = np.zeros(N, np.int64)
+    kept = np.zeros(N, bool)
+    for part in (rows(held_units), rows(past_units), scalar_rows):
+        np.add.at(applied, part, 1)
+    kept[rows(held_units)] = True
+    return applied, kept
+
+
+@pytest.mark.parametrize("N,cap,vec", [
+    (N, CO_RESIDENT, vec) for _K, N in chip_smoke.APPLY_SHAPES
+    for vec in (True, False)] + [
+    (8 * 65792, 3, True),   # a grid too small to hold every row
+    (7, CO_RESIDENT, True),  # fewer rows than one CTA has threads
+])
+def test_torch_apply_rows_cover_each_row_once(N, cap, vec):
+    """At every chip_smoke.py shape, with and without 16-byte access, on
+    a grid too small to hold every row and on one larger than N: every
+    row is applied and read back by exactly one thread; the grid never
+    exceeds what co-resides; at the bench shape every row's key stays in
+    registers across the barrier; and the scatter-max and read-back give
+    the plain version's column and verdicts."""
+    held = mega.APPLY_HELD
+    grid = _apply_grid(N, cap, vec, held)
+    assert 1 <= grid <= cap
+    applied, kept = _apply_assignment(N, grid, vec, held)
+    assert (applied == 1).all()
+    if vec and N == chip_smoke.APPLY_SHAPES[0][1] and cap == CO_RESIDENT:
+        # 131,584 units, 512 a CTA
+        assert kept.all() and grid == 257
+    if cap == 3:
+        assert not kept.all() and kept.any()  # keys read again
+    if not vec:
+        assert not kept.any()
+    if N == 7:
+        assert grid * mega.APPLY_THREADS > N
+    K = 1 << 12
+    vpts, keys, pts, mask = _apply_inputs(K, N, seed=N)
+    ok = mask & (keys >= 0) & (keys < K)
+    col = vpts.astype(np.int64)
+    np.maximum.at(col, keys[ok], pts[ok])
+    post = col[np.clip(keys, 0, K - 1)]
+    want_v, want_p = mega.mega_apply_plain(
+        None, torch.from_numpy(vpts.copy()), torch.from_numpy(keys),
+        torch.from_numpy(pts), torch.from_numpy(mask))
+    np.testing.assert_array_equal(col, want_v.numpy())
+    np.testing.assert_array_equal(post, want_p.numpy())
+
+
+APPLY_EDGES = {
+    # every row on one key: all maxima land on one word (on the card, the
+    # read-back after the barrier must see the last of them)
+    "one_key": lambda K, keys, mask: (np.full_like(keys, K // 2), mask),
+    # every key outside [0, K): all dropped, all clamped
+    "all_outside": lambda K, keys, mask: (
+        np.where(np.arange(keys.size) % 2, -1 - keys % 7, K + keys % 7)
+        .astype(np.int32), mask),
+    # every row masked out: the column is unchanged
+    "masked_out": lambda K, keys, mask: (keys, np.zeros_like(mask)),
+}
+
+
+@pytest.mark.parametrize("edge", sorted(APPLY_EDGES))
+@pytest.mark.parametrize("K,N", [(16, 7), (37, 300)])
+def test_torch_mega_apply_plain_matches_reference_at_edges(edge, K, N):
+    """The plain version against the JAX function at the CUDA kernel's
+    edges: every row on one key, every key outside the column, every row
+    masked out; N = 7 is fewer rows than one 16-byte unit a thread of one
+    CTA takes."""
+    rc = _kernel_cfg(n_keys=K)
+    vpts, keys, pts, mask = _apply_inputs(K, N, seed=K * N)
+    keys, mask = APPLY_EDGES[edge](K, keys, mask)
+    want_v, want_p = ref_mega.mega_apply(
+        rc, jnp.asarray(vpts), jnp.asarray(keys), jnp.asarray(pts),
+        jnp.asarray(mask.astype(np.int32)))
+    got_v, got_p = mega.mega_apply_plain(
+        _port(rc), torch.from_numpy(vpts.copy()), torch.from_numpy(keys),
+        torch.from_numpy(pts), torch.from_numpy(mask))
+    np.testing.assert_array_equal(_np(want_v), got_v.numpy())
+    np.testing.assert_array_equal(_np(want_p), got_p.numpy())
+    if edge == "one_key":
+        assert (got_p.numpy() == got_v.numpy()[K // 2]).all()
+    else:
+        assert (got_v.numpy() == vpts).all()
