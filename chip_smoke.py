@@ -22,10 +22,12 @@ prints no result):
    call on the stream (CUDA events, median of 25 samples of 10 calls) and
    on the device (torch.profiler, the kernels one call enqueues, mean of
    20 calls in one trace, each device operation of a call listed apart;
-   ``stats_block``, ``mega_route``, ``mega_apply`` and ``scan_acc`` must be
-   one operation a call, ``mega_route`` is also timed with clusters of 16
-   and of 8, and ``stats_block`` and ``mega_apply`` also on the inputs of
-   one real bench-a-mega round); where one
+   every kernel in ``ONE_OPERATION`` must be one operation a call,
+   ``mega_route`` is also timed with clusters of 16 and of 8,
+   ``mega_replay`` with each way of reading the sst words, ``stats_block``
+   and ``mega_apply`` also on the inputs of one real bench-a-mega round,
+   and ``mega_replay`` on those of two replay-scan rounds, bench-a-mega's
+   and checked-mega's); where one
    PyTorch call computes the same function (``index_put_``,
    ``index_select``, ``sum``, ``clone``, ``new_full``, or for
    ``mega_route`` the fused round's ``scatter_reduce_``, a yardstick of
@@ -128,7 +130,10 @@ PROBE_OUT_OF_RANGE = 3  # the index of the shape with keys outside [0, K)
 # and the red tests give them), then a larger, ragged one
 SCAN_ACC_SHAPES = ((16, 8), (4096, 256), (4097, 257), (65536, 8))  # M, W
 # the kernels whose call must enqueue exactly one device operation
-ONE_OPERATION = ("stats_block", "mega_route", "mega_apply", "scan_acc")
+# (probe_serial after its first call on a stream, which fills its winner
+# column: the kernels phase makes that call before it counts)
+ONE_OPERATION = ("stats_block", "mega_route", "mega_apply", "mega_replay",
+                 "probe_serial", "scan_acc")
 FX_SHAPES = {  # rows, columns (fx_serial_scan: K, M; W = 10)
     "fx_pack": ((8, 128), (1000, 77)),
     "fx_store_at": ((8, 128), (64, 10)),
@@ -484,36 +489,31 @@ def route_cluster_us(torch, port, shape, seed):
 
 
 ROUND_WARMUP = 6  # bench-a-mega rounds before the one whose inputs are kept
+REPLAY_ROUND = 32  # the replay-scan round whose mega_replay inputs are kept
+# checked-mega: replica 1 frozen from this round until after REPLAY_ROUND
+CHECKED_FREEZE_AT = 8
 
 
-def round_inputs(torch, port, device="cuda"):
-    """The arguments ``stats_block`` and ``mega_apply`` get in one real
-    round of bench-a-mega on the card (after ``ROUND_WARMUP`` rounds), as
-    copies made on the stream before each call.  The mega round gives the
-    fused round's state and completions every round (the CPU tests hold
-    that), so ``stats_block``'s inputs are also bench-a's."""
-    kernels, mega = port.kernels, port.mega
-    cfg = port.config.bench_cfg("a", over=dict(mega_round=True))
-    rt = port.FastRuntime(cfg, device=device)
-    rt.fetch_completions = False
-    rt.run(ROUND_WARMUP)
+def _kept_args(torch, calls, run, device):
+    """The arguments each wrapper of ``calls`` ((module, name) pairs) gets
+    while ``run()`` runs, as copies made on the stream before the call
+    (before any in-place update)."""
     got = {}
 
     def keep(module, name):
         fn = getattr(module, name)
 
         def call(*args):
-            got[name] = _to(torch, args, device)  # before vpts is updated
+            got[name] = _to(torch, args, device)
             return fn(*args)
         call.launches = 0  # the wrapper counts on its module's name
         return fn, call
 
-    saved = [(m, name, *keep(m, name)) for m, name in
-             ((kernels, "stats_block"), (mega, "mega_apply"))]
+    saved = [(m, name, *keep(m, name)) for m, name in calls]
     try:
         for m, name, _fn, call in saved:
             setattr(m, name, call)
-        rt.run(1)
+        run()
     finally:
         for m, name, fn, call in saved:
             setattr(m, name, fn)
@@ -521,11 +521,63 @@ def round_inputs(torch, port, device="cuda"):
     return got
 
 
-def round_info(torch, name, args):
+def round_inputs(torch, port, replay=True, device="cuda"):
+    """The arguments the round kernels get in real rounds on the card,
+    ``{name: {label: args}}``: ``stats_block`` and ``mega_apply`` in one
+    round of bench-a-mega (after ``ROUND_WARMUP`` rounds), labelled
+    ``round``; with ``replay``, ``mega_replay`` in its replay-scan round
+    ``REPLAY_ROUND`` of the same run (``round``) and of the checked-mega
+    phase's drive (``round_frozen``: the recorder on, replica 1 frozen
+    from round 8, so that the scan takes slots).  The mega round gives the
+    fused round's state and completions every round (the CPU tests hold
+    that), so ``stats_block``'s inputs are also bench-a's."""
+    kernels, mega = port.kernels, port.mega
+    cfg = port.config.bench_cfg("a", over=dict(mega_round=True))
+    rt = port.FastRuntime(cfg, device=device)
+    rt.fetch_completions = False
+    rt.run(ROUND_WARMUP)
+    got = {name: {"round": args} for name, args in _kept_args(
+        torch, ((kernels, "stats_block"), (mega, "mega_apply")),
+        lambda: rt.run(1), device).items()}
+    if not replay:
+        return got
+    rt.run(REPLAY_ROUND - rt.step_idx)
+    got["mega_replay"] = {"round": _kept_args(
+        torch, ((mega, "mega_replay"),), lambda: rt.run(1),
+        device)["mega_replay"]}
+    del rt
+    rt = port.FastRuntime(cfg, record="array", device=device)
+    for s in range(REPLAY_ROUND):
+        if s == CHECKED_FREEZE_AT:
+            rt.freeze(1)
+        rt.step_once()
+    got["mega_replay"]["round_frozen"] = _kept_args(
+        torch, ((mega, "mega_replay"),), rt.step_once, device)["mega_replay"]
+    return got
+
+
+def round_info(torch, port, name, args):
     """What shapes a round's inputs: for ``stats_block`` the committed
     share and the share of commits in latency bin 0; for ``mega_apply`` the
     masked rows, their distinct keys, and the share of masked rows whose
-    key equals the previous row's."""
+    key equals the previous row's; for ``mega_replay`` the stuck rows (at
+    the round's replay_age, and at -1, which the timed calls take) and the
+    slots the scan takes."""
+    if name == "mega_replay":
+        cfg, step, _frozen, _vpts, bank, replay = _to(torch, args, "cpu")
+        sst = port.fst._bank_to_i32(bank[:, 4:8])[:, 0]
+        state = sst & 7
+        held = ((state == port.types.INVALID) | (state == port.types.TRANS)
+                | (state == port.types.REPLAY))
+        taken = port.mega.mega_replay_plain(*_to(torch, args, "cpu"))[1][0]
+        return dict(K=bank.shape[0], R=replay.active.shape[0],
+                    RS=replay.active.shape[1], step=int(step),
+                    replay_age=cfg.replay_age,
+                    stuck_rows=int((held & (step - (sst >> 3)
+                                            > cfg.replay_age)).sum()),
+                    stuck_rows_timed=int(held.sum()),
+                    frozen_replicas=int(_frozen.sum()),
+                    slots_taken=int((taken & ~replay.active).sum()))
     if name == "stats_block":
         step, op, invoke, commit, abort, read = (x.cpu() for x in args)
         lat = (step - invoke)[commit]
@@ -661,12 +713,15 @@ def phase_kernels(torch, port, kernels, only=None, one_op=ONE_OPERATION):
     fixture's own).  The library call is timed at every shape but the one
     whose keys leave the table, where ``index_put_`` and ``index_select``
     would fault.  ``stats_block`` and ``mega_apply`` are also held and
-    timed on the inputs of one real round (``round_inputs``).  A kernel
-    named in ``one_op`` must enqueue one device operation a call."""
+    timed on the inputs of one real round (``round_inputs``), and
+    ``mega_replay`` on those of two replay-scan rounds, timed at
+    replay_age -1 as its synthetic draws are.  A kernel named in
+    ``one_op`` must enqueue one device operation a call."""
     mega, pk, fk = port.mega, port.pk, port.fk
-    on_round = {"stats_block", "mega_apply"} & set(only or ("stats_block",
-                                                            "mega_apply"))
-    rounds = round_inputs(torch, port) if on_round else {}
+    on_round = {"stats_block", "mega_apply", "mega_replay"} & set(
+        only or ("stats_block", "mega_apply", "mega_replay"))
+    rounds = (round_inputs(torch, port, replay="mega_replay" in on_round)
+              if on_round else {})
     fx_library = {"fx_loop_inc": full_library,
                   "fx_acc_revisit": row_sum_library,
                   "fx_block_copy": clone_library,
@@ -711,11 +766,15 @@ def phase_kernels(torch, port, kernels, only=None, one_op=ONE_OPERATION):
                                else library)
             rows.append(dict(info, **row))
         line = {"phase": "kernels", name: rows}
-        if name in rounds:
-            line["round"] = dict(round_info(torch, name, rounds[name]),
-                                 **check_kernel(torch, wrapper, plain,
-                                                rounds[name], name))
-        held = rows + ([line["round"]] if "round" in line else [])
+        for label, rargs in rounds.get(name, {}).items():
+            timing = None
+            if name == "mega_replay":  # a call's marks leave the stuck set
+                timing = [dataclasses.replace(rargs[0], replay_age=-1),
+                          *rargs[1:]]
+            line[label] = dict(round_info(torch, port, name, rargs),
+                               **check_kernel(torch, wrapper, plain, rargs,
+                                              name, timing))
+        held = rows + [line[label] for label in rounds.get(name, {})]
         for row in held:
             if name in one_op and row["device_launches"] != 1:
                 raise AssertionError(
@@ -736,8 +795,8 @@ def phase_kernels(torch, port, kernels, only=None, one_op=ONE_OPERATION):
             library_ms=(bench["library_device_us"] / 1e3
                         if library else None),
             checked_ms=bench["checked_device_us"] / 1e3)
-        if "round" in line:
-            out[name]["round_ms"] = line["round"]["device_us"] / 1e3
+        for label in rounds.get(name, {}):
+            out[name][f"{label}_ms"] = line[label]["device_us"] / 1e3
     return out
 
 
@@ -1079,7 +1138,7 @@ def phase_checked(torch, counters, config, FastRuntime, types,
     slots."""
     cfg = config.bench_cfg("a", over=dict(mega_round=mega_round))
     rt = FastRuntime(cfg, record="array", device="cuda")
-    freeze = (8, 33) if mega_round else None
+    freeze = (CHECKED_FREEZE_AT, REPLAY_ROUND + 1) if mega_round else None
     rounds = 40 if mega_round else 16
     for w in counters.values():
         w.launches = 0
@@ -1222,7 +1281,7 @@ def main(argv=None):
                     "mega_replay": mega.mega_replay}
         port = SimpleNamespace(config=config, fst=fst, mega=mega, pk=pk,
                                probe=table_probe, fk=fk, kernels=kernels,
-                               FastRuntime=FastRuntime)
+                               types=types, FastRuntime=FastRuntime)
         rows = phase_kernels(torch, port, kernels, only,
                              ONE_OPERATION if ns.root is None else ())
         if only is not None:

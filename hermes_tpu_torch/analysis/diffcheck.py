@@ -173,10 +173,11 @@ def kernel_cells() -> List[KernelCell]:
     """The kernel matrix: the reference's eight cells, name for name and
     shape for shape, and one more.  The reference's ``mega_replay/k22b3``
     forces a ragged 3-block grid over 22 rows through a block-bytes
-    override; the port's ``mega_replay`` blocks by
-    ``megaround.REPLAY_ROWS_PER_BLOCK`` rows, where 22 rows are one block,
-    so ``mega_replay/k2500b3`` adds what reaches that code path here: three
-    blocks, the last one ragged, the candidate ranks crossing blocks."""
+    override; the port's ``mega_replay`` gives each CTA of its one
+    cooperative launch a span of whole ``megaround.REPLAY_UNIT_ROWS``-row
+    units (``megaround.replay_plan``), where 22 rows are one CTA, so
+    ``mega_replay/k2500b3`` adds what reaches that code path here: three
+    CTAs, the last span ragged, the candidate ranks crossing CTAs."""
     return [
         _stats_cell("stats_block/r4s512", 4, 512,
                     note="single block, no padding"),
@@ -193,8 +194,8 @@ def kernel_cells() -> List[KernelCell]:
                           note="the reference's ragged 3-block shape; one "
                                "block here"),
         _mega_replay_cell("mega_replay/k2500b3", 2500,
-                          note="3 blocks of 1024 rows, the last ragged: "
-                               "the candidate ranks cross blocks"),
+                          note="3 CTAs of 1024 rows, the last ragged: "
+                               "the candidate ranks cross CTAs"),
     ]
 
 

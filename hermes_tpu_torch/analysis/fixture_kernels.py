@@ -290,10 +290,12 @@ def fx_serial_scan(table, keys, rows):
     """``for i: table[keys[i]] = rows[i]`` on ``table`` (K, W), ``keys``
     (M,) and ``rows`` (M, W), all int32, in place; returns ``table``.
     Replaces the serial scan ``_kern`` (a loop of dynamic single-row
-    stores).  The winner-column form of ``csrc/probe_serial.cu``: a memset,
-    an ``atomicMax`` of the message index per key, a store where it won;
-    unlike that kernel it does not clamp, so a key outside [0, K) only
-    inside ``dispatch.checked_build()``."""
+    stores).  The first winner-column form of ``csrc/probe_serial.cu``,
+    kept here as it was: a memset of a new column, an ``atomicMax`` of the
+    message index per key, a store where it won, in three device
+    operations (``probe_serial`` now keeps its column and makes one); it
+    does not clamp, so a key outside [0, K) only inside
+    ``dispatch.checked_build()``."""
     name = "fx_serial_scan"
     K, W = _need2(name, "table", table)
     need(name, "keys", keys, I32)

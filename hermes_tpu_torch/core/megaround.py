@@ -22,8 +22,7 @@ kernel or raises.  ``cfg.use_mega_round`` alone decides whether the round
 calls these: the port has no counterpart of the reference's ``resolve``
 (kernel self-test, analyzer verdict) and no fallback to the fused-sort
 program.  ``.launches`` on each wrapper counts the calls that launched its
-kernel, one per call (a ``mega_route`` or ``mega_apply`` call is one device
-operation, a ``mega_replay`` call three).
+kernel, one per call; each call is one device operation.
 
 The engine's table carries one trailing drop row (core/faststep.py); the
 round passes its first ``cfg.n_keys`` rows (``vpts[:K]``, ``bank[:K]``,
@@ -40,8 +39,8 @@ import torch
 
 from hermes_tpu_torch.core import layouts
 from hermes_tpu_torch.core import types as t
-from hermes_tpu_torch.core.dispatch import (CLUSTER_MAX, SMEM_BYTES_MAX, cdiv,
-                                            launch, need, on_card, out)
+from hermes_tpu_torch.core.dispatch import (CLUSTER_MAX, SMEM_BYTES_MAX, SMS,
+                                            cdiv, launch, need, on_card, out)
 
 I32 = torch.int32
 I32_MIN = -(1 << 31)
@@ -51,8 +50,6 @@ I32_MIN = -(1 << 31)
 _SST_OFF, _VAL_OFF = 4, 8
 _STEP_SHIFT = layouts.SST.field("step").shift
 _STATE_MASK = layouts.SST.field("state").mask
-#: rows per block of mega_replay.cu's scan (its kRowsPerBlock)
-REPLAY_ROWS_PER_BLOCK = 1024
 
 
 def _step_tensor(name: str, step, dev):
@@ -307,6 +304,65 @@ def mega_replay_plain(cfg, step, frozen, table_vpts, table_bank, replay):
     return table_bank, new_replay
 
 
+#: mega_replay.cu's rows a CTA span is made of (its kUnitRows), its
+#: threads a CTA (kThreads) and the CTAs of those it asks to co-reside on
+#: each SM (kCtasPerSm, its launch bounds)
+REPLAY_UNIT_ROWS = 1024
+REPLAY_THREADS = 256
+REPLAY_CTAS_PER_SM = 2
+#: the most CTAs of mega_replay's grid: it must co-reside, which the C
+#: entry checks against the card's own occupancy query
+REPLAY_GRID_MAX = SMS * REPLAY_CTAS_PER_SM
+
+
+class ReplayPlan(NamedTuple):
+    """``mega_replay.cu``'s span CTAs: ``ctas`` of them, CTA b owning the
+    rows ``[b * per * REPLAY_UNIT_ROWS, (b + 1) * per * REPLAY_UNIT_ROWS)``
+    of the table (the last span ragged).  The grid adds one CTA a slot
+    task (``replay_slot_tasks``)."""
+    ctas: int
+    per: int
+
+
+@functools.lru_cache(maxsize=64)
+def replay_plan(rows: int, cap: int = REPLAY_GRID_MAX) -> ReplayPlan:
+    """Contiguous spans of whole ``REPLAY_UNIT_ROWS``-row units over
+    ``rows`` rows: one unit a CTA while the units fit in ``cap`` CTAs, else
+    as few units a CTA as keep the CTAs within ``cap``; exactly the CTAs
+    the rows need."""
+    if rows < 1 or cap < 1:
+        raise ValueError(f"replay_plan: no plan for rows={rows} cap={cap}")
+    units = cdiv(rows, REPLAY_UNIT_ROWS)
+    per = cdiv(units, cap)
+    return ReplayPlan(cdiv(units, per), per)
+
+
+def replay_slot_tasks(R: int, RS: int) -> int:
+    """mega_replay.cu's slot tasks, a CTA each: one a replica and chunk of
+    ``REPLAY_THREADS`` slots."""
+    return R * cdiv(RS, REPLAY_THREADS)
+
+
+def _aligned(n: int, *xs) -> bool:
+    return all(x.data_ptr() % n == 0 for x in xs)
+
+
+def replay_access(bank, val, nval, active):
+    """``(words, vec)`` for ``mega_replay.cu``, from the pointers and the
+    bank's row of ``W4`` bytes: ``words`` 1 where the sst words are
+    4-byte aligned (one 4-byte load or store a row), else 0 (bytes); and
+    the width of the value copies (16: 8-byte loads and 16-byte stores; 8;
+    or 1, bytes)."""
+    W4 = bank.shape[1]
+    V4 = W4 - _VAL_OFF
+    words = int(_aligned(4, bank) and W4 % 4 == 0 and _SST_OFF % 4 == 0)
+    v8 = (_aligned(8, bank, val, nval) and _aligned(4, active)
+          and W4 % 8 == 0 and _VAL_OFF % 8 == 0 and V4 % 8 == 0)
+    vec = (16 if v8 and _aligned(16, val, nval) and V4 % 16 == 0
+           else 8 if v8 else 1)
+    return words, vec
+
+
 def mega_replay(cfg, step, frozen, table_vpts, table_bank, replay):
     """The gated replay scan (run every ``replay_scan_every`` rounds):
     ``step`` the round as a one-element int32 tensor on the table's device
@@ -321,14 +377,19 @@ def mega_replay(cfg, step, frozen, table_vpts, table_bank, replay):
     with a candidate cursor carried in SMEM).  Bound by memory: every
     row's 4-byte sst word must be read (4 MB at 2^20 keys); in the
     40-byte bank row each read costs a 32-byte sector, ~34 MB.  Hopper
-    blocks run in no order, so the streaming cursor becomes three
-    launches: (a) per 1024-row block, stuck flags and a block count;
-    (b) each block with stuck rows sums the earlier counts and ranks its
-    stuck rows, the first RS go to their candidate slot; (c) one block per
-    replica ranks its free slots and fills the new slot tensors (copies
-    of the old where nothing is taken), and one more block re-stamps the
-    marked rows.  The round's step is read from a device pointer, so the
-    round needs no host sync."""
+    blocks run in no order, so the streaming cursor becomes one
+    cooperative launch of a persistent grid over contiguous spans of the
+    table (``replay_plan``) and one more CTA a slot task, in three phases
+    split by grid barriers: (A) each thread keeps its rows' stuck flags in
+    a register bitmask and each span CTA writes its count, while the slot
+    CTAs copy the old slots to the new tensors and rank each replica's
+    free slots; (B) every CTA sums the counts before it, and a CTA whose
+    prefix is below RS ranks its flags in row order into the candidate
+    list; (C) the taken candidates' sst words are re-stamped over the
+    whole grid, and the free slots that take a candidate are filled.  The
+    round's step is read from a device pointer, so the round needs no host
+    sync.  A refused cooperative launch raises; nothing falls back to
+    three launches."""
     name = "mega_replay"
     dev = table_bank.device
     step = _step_tensor(name, step, dev)
@@ -351,14 +412,19 @@ def mega_replay(cfg, step, frozen, table_vpts, table_bank, replay):
         raise ValueError(f"{name}: needs rows, R and RS >= 1, got "
                          f"{rows}, {R}, {RS}")
     new = tuple(out(x.shape, x.dtype, dev) for x in leaves)
-    # one count per row block, then the RS candidate rows (the .cu file
-    # checks the length against its block size)
-    n_scratch = -(-rows // REPLAY_ROWS_PER_BLOCK) + RS
+    spans_max = REPLAY_GRID_MAX - replay_slot_tasks(R, RS)
+    if spans_max < 1:
+        raise ValueError(f"{name}: {R} replicas of {RS} slots leave no CTA "
+                         f"of the {REPLAY_GRID_MAX} for the table")
+    plan = replay_plan(rows, spans_max)
+    # a stuck count a CTA, a free count a replica, the RS candidate rows
+    n_scratch = plan.ctas + R + RS
     scratch = out((n_scratch,), I32, dev)
+    words, vec = replay_access(table_bank, replay.val, new[4], replay.active)
     launch(name, dev, step, frozen, table_vpts, table_bank, *leaves, *new,
            scratch, n_scratch, rows, W4, R, RS, cfg.n_keys, cfg.replay_age,
            _STEP_SHIFT, _STATE_MASK, t.INVALID, t.TRANS, t.REPLAY,
-           _SST_OFF, _VAL_OFF)
+           _SST_OFF, _VAL_OFF, plan.ctas, plan.per, words, vec)
     mega_replay.launches += 1
     return table_bank, new
 

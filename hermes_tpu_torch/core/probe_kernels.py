@@ -19,8 +19,8 @@ does about it.  Both are the reference's bit for bit, keys outside
 Dispatch, as for ``core/megaround.py``: a CPU tensor goes to the plain
 version (``probe_*_plain``), a CUDA tensor launches the kernel or raises.
 ``.launches`` on each wrapper counts the calls that launched its kernel,
-one per call (a ``probe_serial`` call is a memset and two device
-launches).
+one per call; each call is one device operation (``probe_serial``'s first
+call on a (device, stream, K) also fills its winner column).
 """
 
 from __future__ import annotations
@@ -70,6 +70,31 @@ def probe_serial_plain(table, keys, rows):
     return table
 
 
+#: probe_serial's winner columns, one a (device, stream, K): int32 (K,),
+#: all -1 between calls (each call resets what it raised)
+win_columns: dict = {}
+
+
+def win_column(device, stream: int, K: int):
+    """The winner column of ``probe_serial`` calls on ``stream`` (its
+    ``cuda_stream`` handle) of ``device`` over a K-row table: made once,
+    filled with -1 on that stream, and kept.  Raises where it would be made
+    inside a CUDA graph capture: the fill would only be recorded, and an
+    eager call before the graph's first replay would read a column that
+    was never filled."""
+    key = (device, stream, K)
+    col = win_columns.get(key)
+    if col is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"probe_serial: no winner column yet for K={K} on the "
+                "capturing stream; call probe_serial once on that stream "
+                "before the capture")
+        col = win_columns[key] = torch.full((K,), -1, dtype=I32,
+                                            device=device)
+    return col
+
+
 def probe_serial(table, keys, rows):
     """The serial probe step: writes ``rows`` (M, W) int32 into ``table``
     (K, W) int32 at ``keys`` (M,) int32, in place, as the ordered loop
@@ -79,19 +104,22 @@ def probe_serial(table, keys, rows):
     Replaces ``scripts/pallas_probe.py:candidate_step.serial_fn`` (Pallas
     ``_serial_kernel``).  Bound by memory: a key read per message, and
     per distinct key the winning row read and written, ~4 MB at the bench
-    table shape.  The Pallas loop's order becomes data on the card: after a
-    memset of an int32 (K,) scratch column to -1, phase 0 takes an integer
-    ``atomicMax`` of the message index per key (order-free, so exact) and
-    phase 1, one thread per (message, word), stores only the winning
-    message's row."""
+    table shape.  The Pallas loop's order becomes data on the card, an
+    int32 (K,) winner column kept all -1 between calls (``win_column``):
+    one cooperative launch whose phase 0 takes an integer ``atomicMax`` of
+    the message index per row (order-free, so exact) and whose phase 1,
+    after a grid barrier, has each message read its row's winner once;
+    the winner stores its row and resets the entry to -1.  So a call is
+    one device operation, with no memset of the column."""
     name = "probe_serial"
     K, M, W = _check(name, table, keys)
     need(name, "rows", rows, I32, (M, W))
     if not on_card(name, table, keys, rows):
         return probe_serial_plain(table, keys, rows)
     if M and W:
-        win = out((K,), I32, table.device)
-        launch(name, table.device, table, keys, rows, win, K, M, W)
+        dev = table.device
+        win = win_column(dev, torch.cuda.current_stream(dev).cuda_stream, K)
+        launch(name, dev, table, keys, rows, win, K, M, W)
         probe_serial.launches += 1
     return table
 

@@ -19,44 +19,72 @@
 // What bounds it: memory.  The scan must read every row's 4-byte sst word
 // (4 MB at 2^20 rows); in the 40-byte bank row each such read costs one
 // 32-byte sector (bytes 4..7 never cross one), ~34 MB, ~10 us at
-// 3.35 TB/s.  The replay slots and candidate rows are under 0.5 MB.
-// The Pallas kernel walks VMEM-sized table blocks in order and carries a
-// candidate cursor across grid steps in SMEM.  Hopper blocks run in no
-// order, so the cursor becomes three launches on one stream:
-//   (a) count:  one block per 1024 rows forms the stuck flags and writes
-//       its count (block 0 also clears the candidate list);
-//   (b) place:  a block with stuck rows sums the earlier blocks' counts
-//       (its offset; it stops when that reaches RS), ranks its stuck rows
-//       with a block scan in row order, and writes rank -> row for the
-//       ranks below RS;
-//   (c) assign: one block per replica ranks its free slots with a block
-//       scan and fills the new slot tensors; one more block computes how
-//       many candidates some unfrozen replica takes and re-stamps those
-//       rows.  The replica blocks read only value bytes and vpts, the mark
-//       block writes only sst bytes, so they need no ordering.
-// The round's step is read from a device pointer, so the round needs no
-// host sync; bools are read and written as bytes; the sst word is read
-// and written byte by byte, by arithmetic.
+// 3.35 TB/s (the whole rows are 42 MB; streaming them coalesced in
+// 16-byte loads measured slower than the strided words, PERF.md).  The
+// replay slots and candidate rows are under 0.5 MB.  The Pallas kernel walks VMEM-sized table blocks
+// in order and carries a candidate cursor across grid steps in SMEM.
+// Hopper blocks run in no order; the first port made the cursor three
+// launches (count, place, assign).  This design is one cooperative launch
+// of a persistent grid (never more CTAs than co-reside, queried once per
+// device and kept), whose CTAs own contiguous spans of whole 1,024-row
+// units (megaround.replay_plan, re-checked here), in three phases split
+// by grid barriers:
+//   A: each (replica, 256-slot chunk) task has a CTA of its own after the
+//      span CTAs: it copies its slots' old fields to the new tensors,
+//      counts the replica's free slots and ranks them with a block scan,
+//      each thread keeping its slot's free rank for phase C.  In each span
+//      CTA each thread reads the sst words of its rows (row lo + k*256 + t
+//      of its CTA's span at step k, kBatch loads in flight) and keeps their stuck flags as a bitmask in a
+//      register (kMaskSteps steps; rows past that re-read their word in
+//      phase B); the CTA writes its stuck count to scratch.  A word is one
+//      aligned 4-byte load a row, neighbouring threads on neighbouring
+//      rows; a bank whose rows are not 4-byte aligned reads bytes;
+//   B: every CTA reads all the per-CTA counts (a few hundred: its prefix,
+//      the total, ncand = min(total, RS)) and the free counts (ntake =
+//      min(ncand, max over unfrozen r of nfree[r])).  A CTA whose prefix
+//      is below RS ranks its flags in row order (one ballot a step and
+//      warp; warp 0 turns the counts into ranks, lane = step) and writes
+//      cand[rank] = row for ranks below RS, without reading sst again;
+//   C: the candidates below ntake get their sst word re-stamped (one
+//      4-byte store each, spread over the grid), and each free slot of an
+//      unfrozen replica whose free rank i is below ncand takes candidate
+//      i: active 1, acks 0, the row's key, pts and value bytes (8-byte
+//      loads and 16-byte stores where aligned) over the old copy.  The
+//      fills read only value bytes and vpts, the marks write only sst
+//      bytes, so no load covers bytes another CTA writes.
+// Counts, free counts and cand are written by other CTAs before a
+// barrier, so they are read with __ldcg (L2 only: L1 is not coherent
+// across SMs); the bank is never read through the read-only path.  The
+// round's step is read from a device pointer, so the round needs no host
+// sync; bools are read and written as bytes.
 //
 // Every global access goes through guard.cuh's guard (the bare access in
-// this build, bound-checked in the -DHERMES_CHECKED build); a bank byte is
-// guarded by its byte index row * w4 + offset, not by its row.
+// this build, bound-checked in the -DHERMES_CHECKED build); a bank access
+// is guarded by its index in units of its own width.
 //
 // C interface (ctypes, hermes_tpu_torch/core/megaround.py): pointers and
-// the stream are void*-sized; returns cudaGetLastError() after the
-// launches (0 = launched).
+// the stream are void*-sized; returns the first CUDA error of the checks,
+// the queries and the launch (0 = launched); a refused cooperative launch
+// is an error, never three launches.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "guard.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRowsPerThread = 4;
-constexpr int kRowsPerBlock = kThreads * kRowsPerThread;  // REPLAY_ROWS_PER_BLOCK
+constexpr int kThreads = 256;                     // REPLAY_THREADS
 constexpr int kWarps = kThreads / 32;
+constexpr int kUnitRows = 1024;                   // REPLAY_UNIT_ROWS
+constexpr int kStepsPerUnit = kUnitRows / kThreads;
+constexpr int kMaskSteps = 32;                    // flags held in a register
+constexpr int kBatch = 8;                         // loads in flight a thread
+constexpr int kCtasPerSm = 2;                     // REPLAY_CTAS_PER_SM
+constexpr int kMaxDevices = 64;
 
 struct Scan {
   const int32_t* step;
@@ -73,21 +101,18 @@ struct Scan {
   int32_t* npts;
   int32_t* nacks;
   int8_t* nval;
-  int32_t* counts;  // one per row block
-  int32_t* cand;    // RS candidate rows, -1 past the last
+  int32_t* counts;  // spans: stuck rows of each span CTA's span
+  int32_t* nfree;   // R: free slots of each replica
+  int32_t* cand;    // RS: candidate rows in rank order, the first ncand
   int rows, w4, R, RS, K, age, shift, state_mask, s_invalid, s_trans,
-      s_replay, sst_off, val_off;
+      s_replay, sst_off, val_off, spans, per, words, vec;
   __device__ int64_t bank_bytes() const { return static_cast<int64_t>(rows) * w4; }
   __device__ int64_t slots() const { return static_cast<int64_t>(R) * RS; }
 };
 
-__device__ __forceinline__ bool stuck(const Scan& p, int row, int32_t step) {
-  const int64_t b = static_cast<int64_t>(row) * p.w4 + p.sst_off, nb = p.bank_bytes();
-  const int32_t sst = static_cast<int32_t>(
-      static_cast<uint32_t>(HG_LD(p.bank, b, nb)) |
-      (static_cast<uint32_t>(HG_LD(p.bank, b + 1, nb)) << 8) |
-      (static_cast<uint32_t>(HG_LD(p.bank, b + 2, nb)) << 16) |
-      (static_cast<uint32_t>(HG_LD(p.bank, b + 3, nb)) << 24));
+__device__ __forceinline__ bool stuck(const Scan& p, uint32_t word,
+                                      int32_t step) {
+  const int32_t sst = static_cast<int32_t>(word);
   const int32_t state = sst & p.state_mask;
   // int32 arithmetic that wraps, as the reference's
   const int32_t age = static_cast<int32_t>(static_cast<uint32_t>(step) -
@@ -96,14 +121,67 @@ __device__ __forceinline__ bool stuck(const Scan& p, int row, int32_t step) {
           state == p.s_replay) && age > p.age;
 }
 
-// Sum of v over the block; every thread gets it.
-__device__ int block_sum(int v) {
+// The sst word of `row` from global memory: one aligned 4-byte load, or
+// four bytes.
+__device__ __forceinline__ uint32_t sst_word(const Scan& p, int row) {
+  const int64_t b = static_cast<int64_t>(row) * p.w4 + p.sst_off;
+  const int64_t nb = p.bank_bytes();
+  if (p.words) {
+    const uint32_t* bank4 = reinterpret_cast<const uint32_t*>(p.bank);
+    return HG_LD(bank4, b / 4, nb / 4);
+  }
+  return static_cast<uint32_t>(HG_LD(p.bank, b, nb)) |
+         (static_cast<uint32_t>(HG_LD(p.bank, b + 1, nb)) << 8) |
+         (static_cast<uint32_t>(HG_LD(p.bank, b + 2, nb)) << 16) |
+         (static_cast<uint32_t>(HG_LD(p.bank, b + 3, nb)) << 24);
+}
+
+// Stuck flags of this thread's rows at steps [k0, k1) (k1 - k0 <=
+// kMaskSteps, a multiple of kStepsPerUnit) of the span [lo, hi): bit
+// k - k0.
+__device__ uint32_t flags(const Scan& p, int lo, int hi, int k0, int k1,
+                          int32_t step) {
+  uint32_t m = 0;
+  for (int k = k0; k < k1; k += kBatch) {  // the batch's loads in flight together
+    uint32_t w[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int row = lo + (k + u) * kThreads + threadIdx.x;
+      w[u] = k + u < k1 && row < hi ? sst_word(p, row) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int row = lo + (k + u) * kThreads + threadIdx.x;
+      if (k + u < k1 && row < hi && stuck(p, w[u], step)) m |= 1u << (k + u - k0);
+    }
+  }
+  return m;
+}
+
+// Sums of a and b over the block; every thread gets both.
+__device__ int2 block_sum2(int a, int b) {
+  __shared__ int2 part[kWarps];
+  a = __reduce_add_sync(0xffffffffu, a);
+  b = __reduce_add_sync(0xffffffffu, b);
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = make_int2(a, b);
+  __syncthreads();
+  int2 all = make_int2(0, 0);
+  for (int w = 0; w < kWarps; ++w) {
+    all.x += part[w].x;
+    all.y += part[w].y;
+  }
+  __syncthreads();
+  return all;
+}
+
+// Maximum of v over the block; every thread gets it.
+__device__ int block_max(int v) {
   __shared__ int part[kWarps];
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  v = __reduce_max_sync(0xffffffffu, v);
   if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = v;
   __syncthreads();
-  int all = 0;
-  for (int w = 0; w < kWarps; ++w) all += part[w];
+  int all = part[0];
+  for (int w = 1; w < kWarps; ++w) all = max(all, part[w]);
   __syncthreads();
   return all;
 }
@@ -129,100 +207,216 @@ __device__ int block_excl_scan(int v, int* total) {
   return before + x - v;
 }
 
-__global__ void __launch_bounds__(kThreads) count_kernel(Scan p) {
-  const int32_t step = HG_LD(p.step, 0, 1);
-  const int base = blockIdx.x * kRowsPerBlock;
-  int n = 0;
-  for (int k = 0; k < kRowsPerThread; ++k) {
-    const int row = base + k * kThreads + threadIdx.x;
-    n += __syncthreads_count(row < p.rows && stuck(p, row, step));
-  }
-  if (threadIdx.x == 0) HG_ST(p.counts, blockIdx.x, gridDim.x, n);
-  if (blockIdx.x == 0)
-    for (int i = threadIdx.x; i < p.RS; i += kThreads) HG_ST(p.cand, i, p.RS, -1);
-}
-
-__global__ void __launch_bounds__(kThreads) place_kernel(Scan p) {
-  const int b = blockIdx.x;
-  if (HG_LD(p.counts, b, gridDim.x) == 0) return;  // the same for the whole block
-  int part = 0;
-  for (int i = threadIdx.x; i < b; i += kThreads) part += HG_LD(p.counts, i, gridDim.x);
-  int carry = block_sum(part);  // candidates of the earlier blocks
-  const int32_t step = HG_LD(p.step, 0, 1);
-  const int base = b * kRowsPerBlock;
-  // carry is the same in every thread, so the loop and its scans are too
-  for (int k = 0; k < kRowsPerThread && carry < p.RS; ++k) {
-    const int row = base + k * kThreads + threadIdx.x;
-    const int f = (row < p.rows && stuck(p, row, step)) ? 1 : 0;
-    int total;
-    const int rank = carry + block_excl_scan(f, &total);
-    if (f && rank < p.RS) HG_ST(p.cand, rank, p.RS, row);
-    carry += total;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) assign_kernel(Scan p) {
-  // the placed candidates are a prefix of cand
-  int ncand = 0;
-  for (int i0 = 0; i0 < p.RS; i0 += kThreads) {
-    const int i = i0 + threadIdx.x;
-    ncand += __syncthreads_count(i < p.RS && HG_LD(p.cand, i, p.RS) >= 0);
-  }
-  const int v4 = p.w4 - p.val_off;
-  const int64_t ns = p.slots(), nv = ns * v4, nb = p.bank_bytes();
-  if (blockIdx.x < p.R) {
-    const int r = blockIdx.x;
-    const bool frozen = HG_LD(p.frozen, r, p.R) != 0;
-    int carry = 0;  // free slots before this chunk
-    for (int s0 = 0; s0 < p.RS; s0 += kThreads) {
-      const int s = s0 + threadIdx.x;
-      const int64_t slot = static_cast<int64_t>(r) * p.RS + s;
-      const int is_free = (s < p.RS && HG_LD(p.active, slot, ns) == 0) ? 1 : 0;
-      int total;
-      const int i = carry + block_excl_scan(is_free, &total);  // free rank
-      carry += total;
-      if (s >= p.RS) continue;
-      const int64_t dst = slot * v4;
-      if (is_free && i < ncand && !frozen) {
-        const int row = HG_LD(p.cand, i, p.RS);
-        HG_ST(p.nact, slot, ns, 1);
-        HG_ST(p.nkey, slot, ns, row % p.K);
-        HG_ST(p.npts, slot, ns, HG_LD(p.vpts, row, p.rows));
-        HG_ST(p.nacks, slot, ns, 0);
-        const int64_t src = static_cast<int64_t>(row) * p.w4 + p.val_off;
-        for (int j = 0; j < v4; ++j)
-          HG_ST(p.nval, dst + j, nv, static_cast<int8_t>(HG_LD(p.bank, src + j, nb)));
-      } else {
-        HG_ST(p.nact, slot, ns, HG_LD(p.active, slot, ns));
-        HG_ST(p.nkey, slot, ns, HG_LD(p.key, slot, ns));
-        HG_ST(p.npts, slot, ns, HG_LD(p.pts, slot, ns));
-        HG_ST(p.nacks, slot, ns, HG_LD(p.acks, slot, ns));
-        for (int j = 0; j < v4; ++j) HG_ST(p.nval, dst + j, nv, HG_LD(p.val, dst + j, nv));
-      }
-    }
+// Free slots (active == 0) among active[a, a + n), summed over the block:
+// 4-byte words (p.vec >= 8 promises them aligned) or bytes.
+__device__ int free_slots(const Scan& p, int64_t a, int n) {
+  const int64_t ns = p.slots();
+  int c = 0;
+  if (p.vec >= 8 && a % 4 == 0 && n % 4 == 0) {
+    const uint32_t* act4 = reinterpret_cast<const uint32_t*>(p.active);
+    for (int i = threadIdx.x; i < n / 4; i += kThreads)
+      c += __popc(__vcmpeq4(HG_LD(act4, a / 4 + i, ns / 4), 0u)) / 8;
   } else {
-    // candidate i is taken when some unfrozen replica has > i free slots
-    int ntake = 0;
-    for (int r = 0; r < p.R; ++r) {
-      int nfree = 0;
-      for (int s0 = 0; s0 < p.RS; s0 += kThreads) {
-        const int s = s0 + threadIdx.x;
-        nfree += __syncthreads_count(
-            s < p.RS && HG_LD(p.active, static_cast<int64_t>(r) * p.RS + s, ns) == 0);
+    for (int i = threadIdx.x; i < n; i += kThreads)
+      c += HG_LD(p.active, a + i, ns) == 0;
+  }
+  return block_sum2(c, 0).x;
+}
+
+// n value bytes from src (byte s) to dst (byte d): 16-byte stores from
+// 8-byte loads (vec 16), 8-byte loads and stores (vec 8) or bytes.
+template <typename S>
+__device__ __forceinline__ void copy_val(int8_t* dst, int64_t d, int64_t nd,
+                                         const S* src, int64_t s, int64_t ns,
+                                         int n, int vec) {
+  if (vec >= 8) {
+    const unsigned long long* src8 =
+        reinterpret_cast<const unsigned long long*>(src);
+    if (vec == 16) {
+      ulonglong2* dst16 = reinterpret_cast<ulonglong2*>(dst);
+      for (int q = 0; q < n / 16; ++q) {
+        ulonglong2 v;
+        v.x = HG_LD(src8, s / 8 + 2 * q, ns / 8);
+        v.y = HG_LD(src8, s / 8 + 2 * q + 1, ns / 8);
+        HG_ST(dst16, d / 16 + q, nd / 16, v);
       }
-      if (HG_LD(p.frozen, r, p.R) == 0 && nfree > ntake) ntake = nfree;
+    } else {
+      unsigned long long* dst8 = reinterpret_cast<unsigned long long*>(dst);
+      for (int q = 0; q < n / 8; ++q)
+        HG_ST(dst8, d / 8 + q, nd / 8, HG_LD(src8, s / 8 + q, ns / 8));
     }
-    if (ntake > ncand) ntake = ncand;
-    const uint32_t mark = (static_cast<uint32_t>(HG_LD(p.step, 0, 1)) << p.shift) |
-                          static_cast<uint32_t>(p.s_replay);
-    for (int i = threadIdx.x; i < ntake; i += kThreads) {
-      const int64_t b = static_cast<int64_t>(HG_LD(p.cand, i, p.RS)) * p.w4 + p.sst_off;
-      HG_ST(p.bank, b, nb, static_cast<uint8_t>(mark));
-      HG_ST(p.bank, b + 1, nb, static_cast<uint8_t>(mark >> 8));
-      HG_ST(p.bank, b + 2, nb, static_cast<uint8_t>(mark >> 16));
-      HG_ST(p.bank, b + 3, nb, static_cast<uint8_t>(mark >> 24));
+    return;
+  }
+  for (int j = 0; j < n; ++j)
+    HG_ST(dst, d + j, nd, static_cast<int8_t>(HG_LD(src, s + j, ns)));
+}
+
+// Slot task `task`: replica task / chunks, its slots from
+// (task % chunks) * kThreads, a slot a thread.  Every slot's old fields go
+// to the new tensors (fill() overwrites a slot a candidate takes, from the
+// same thread, once cand is complete) and the chunk-0 task writes the
+// replica's free count to nfree.  Returns the thread's slot's free rank
+// where it is a free slot of an unfrozen replica (else -1), and sets
+// *slot_out.  Every thread of the block calls it.
+__device__ int slot_task(const Scan& p, int task, int chunks,
+                         int64_t* slot_out) {
+  const int r = task / chunks, s0 = (task % chunks) * kThreads;
+  const int64_t row0 = static_cast<int64_t>(r) * p.RS;
+  const int64_t ns = p.slots();
+  const int v4 = p.w4 - p.val_off;
+  const int s = s0 + threadIdx.x;
+  const int64_t slot = row0 + s;
+  const bool frozen = HG_LD(p.frozen, r, p.R) != 0;
+  uint8_t act = 1;
+  if (s < p.RS) {
+    act = HG_LD(p.active, slot, ns);
+    HG_ST(p.nact, slot, ns, act);
+    HG_ST(p.nkey, slot, ns, HG_LD(p.key, slot, ns));
+    HG_ST(p.npts, slot, ns, HG_LD(p.pts, slot, ns));
+    HG_ST(p.nacks, slot, ns, HG_LD(p.acks, slot, ns));
+    copy_val(p.nval, slot * v4, ns * v4, p.val, slot * v4, ns * v4, v4, p.vec);
+  }
+  const int before = s0 ? free_slots(p, row0, s0) : 0;
+  const int is_free = act == 0 ? 1 : 0;
+  int total;
+  const int i = before + block_excl_scan(is_free, &total);  // free rank
+  if (s0 == 0) {
+    const int nf = chunks == 1 ? total : free_slots(p, row0, p.RS);
+    if (threadIdx.x == 0) HG_ST(p.nfree, r, p.R, nf);
+  }
+  *slot_out = slot;
+  return is_free && !frozen ? i : -1;
+}
+
+// Slot `slot` taken by candidate i: active 1, acks 0, and the row's key,
+// pts and value bytes.
+__device__ __forceinline__ void fill(const Scan& p, int64_t slot, int i) {
+  const int64_t ns = p.slots();
+  const int v4 = p.w4 - p.val_off;
+  const int row = HG_LD_CG(p.cand, i, p.RS);
+  HG_ST(p.nact, slot, ns, 1);
+  HG_ST(p.nacks, slot, ns, 0);
+  HG_ST(p.nkey, slot, ns, row % p.K);
+  HG_ST(p.npts, slot, ns, HG_LD(p.vpts, row, p.rows));
+  copy_val(p.nval, slot * v4, ns * v4, p.bank,
+           static_cast<int64_t>(row) * p.w4 + p.val_off, p.bank_bytes(), v4,
+           p.vec);
+}
+
+__global__ void __launch_bounds__(kThreads, kCtasPerSm) replay_kernel(Scan p) {
+  __shared__ int base[kMaskSteps][kWarps];  // phase B: ranks of (step, warp)
+  __shared__ int chunk_total;
+  const int b = blockIdx.x, ctas = gridDim.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int32_t step = HG_LD(p.step, 0, 1);
+  // a span CTA's rows; the slot CTAs after the spans have none
+  const int lo = min(p.rows, b * p.per * kUnitRows);
+  const int hi = min(p.rows, lo + p.per * kUnitRows);
+  const int steps = b < p.spans ? p.per * kStepsPerUnit : 0;
+
+  // phase A: a slot CTA runs its slot task (the free rank kept in
+  // registers until phase C); a span CTA its stuck flags and count
+  const int chunks = (p.RS + kThreads - 1) / kThreads;
+  int64_t held_slot = 0;
+  const int held = b >= p.spans ? slot_task(p, b - p.spans, chunks, &held_slot) : -1;
+  uint32_t mask = 0;
+  int mine = 0;
+  for (int k0 = 0; k0 < steps; k0 += kMaskSteps) {
+    const uint32_t m = flags(p, lo, hi, k0, min(steps, k0 + kMaskSteps), step);
+    if (k0 == 0) mask = m;
+    mine += __popc(m);
+  }
+  mine = block_sum2(mine, 0).x;
+  if (b < p.spans && threadIdx.x == 0) HG_ST(p.counts, b, p.spans, mine);
+
+  cg::this_grid().sync();
+
+  // phase B: the CTA's prefix, ncand and ntake (candidate i is taken when
+  // some unfrozen replica has more than i free slots)
+  int pre = 0, tot = 0, most = 0;
+  for (int i = threadIdx.x; i < p.spans; i += kThreads) {
+    const int c = HG_LD_CG(p.counts, i, p.spans);
+    tot += c;
+    pre += i < b ? c : 0;
+  }
+  for (int r = threadIdx.x; r < p.R; r += kThreads) {
+    const int nf = HG_LD_CG(p.nfree, r, p.R);
+    if (HG_LD(p.frozen, r, p.R) == 0 && nf > most) most = nf;
+  }
+  const int2 sums = block_sum2(pre, tot);
+  pre = sums.x;
+  const int ncand = min(sums.y, p.RS);
+  const int ntake = min(block_max(most), ncand);
+  // ranks in row order: base[k][w] counts the flags of the steps before k
+  // and of the warps before w at step k
+  if (mine > 0 && pre < p.RS) {  // the same in every thread of the CTA
+    int carry = pre;
+    for (int k0 = 0; k0 < steps && carry < p.RS; k0 += kMaskSteps) {
+      const int k1 = min(steps, k0 + kMaskSteps);
+      const uint32_t m = k0 == 0 ? mask : flags(p, lo, hi, k0, k1, step);
+      for (int k = k0; k < k1; ++k) {
+        const unsigned bal = __ballot_sync(0xffffffffu, (m >> (k - k0)) & 1u);
+        if (lane == 0) base[k - k0][warp] = __popc(bal);
+      }
+      __syncthreads();
+      if (warp == 0) {  // lane = step
+        int run = 0;
+        if (lane < k1 - k0)
+          for (int w = 0; w < kWarps; ++w) {
+            const int c = base[lane][w];
+            base[lane][w] = run;
+            run += c;
+          }
+        int x = run;  // inclusive scan of the steps' counts
+        for (int o = 1; o < 32; o <<= 1) {
+          const int y = __shfl_up_sync(0xffffffffu, x, o);
+          if (lane >= o) x += y;
+        }
+        if (lane < k1 - k0)
+          for (int w = 0; w < kWarps; ++w) base[lane][w] += carry + x - run;
+        if (lane == 31) chunk_total = x;
+      }
+      __syncthreads();
+      for (int k = k0; k < k1; ++k) {
+        const unsigned bal = __ballot_sync(0xffffffffu, (m >> (k - k0)) & 1u);
+        if ((m >> (k - k0)) & 1u) {
+          const int rank = base[k - k0][warp] + __popc(bal & ((1u << lane) - 1u));
+          if (rank < p.RS)
+            HG_ST(p.cand, rank, p.RS, lo + k * kThreads + static_cast<int>(threadIdx.x));
+        }
+      }
+      carry += chunk_total;
+      __syncthreads();
     }
   }
+
+  cg::this_grid().sync();
+
+  // phase C: the marks, spread over the grid, and the taken slots
+  const int64_t nb = p.bank_bytes();
+  const uint32_t mark = (static_cast<uint32_t>(step) << p.shift) |
+                        static_cast<uint32_t>(p.s_replay);
+  for (int i = b * kThreads + threadIdx.x; i < ntake; i += ctas * kThreads) {
+    const int64_t at = static_cast<int64_t>(HG_LD_CG(p.cand, i, p.RS)) * p.w4 + p.sst_off;
+    if (p.words) {
+      uint32_t* bank4 = reinterpret_cast<uint32_t*>(p.bank);
+      HG_ST(bank4, at / 4, nb / 4, mark);
+    } else {
+      HG_ST(p.bank, at, nb, static_cast<uint8_t>(mark));
+      HG_ST(p.bank, at + 1, nb, static_cast<uint8_t>(mark >> 8));
+      HG_ST(p.bank, at + 2, nb, static_cast<uint8_t>(mark >> 16));
+      HG_ST(p.bank, at + 3, nb, static_cast<uint8_t>(mark >> 24));
+    }
+  }
+  if (held >= 0 && held < ncand) fill(p, held_slot, held);
+}
+
+// CTAs of replay_kernel that co-reside on `dev`, queried once per device
+// and kept; 0 until queried.
+int co_resident[kMaxDevices];
+
+bool aligned(const void* ptr, int n) {
+  return reinterpret_cast<uintptr_t>(ptr) % n == 0;
 }
 
 }  // namespace
@@ -232,8 +426,13 @@ extern "C" {
 // step: one int32 on the device; frozen (R,) bool; vpts (rows,) int32;
 // bank (rows, w4) int8, updated in place; active (R, RS) bool; key, pts,
 // acks (R, RS) int32; val (R, RS, w4 - val_off) int8; the n* outputs are
-// shaped as their inputs; scratch holds n_scratch int32, at least one per
-// kRowsPerBlock rows plus RS.  rows, R, RS, K >= 1.
+// shaped as their inputs; scratch holds n_scratch >= ctas + R + RS int32.
+// rows, R, RS, K >= 1.  The plan: ctas span CTAs of `per` 1,024-row units
+// each, exactly the CTAs the rows need; the grid adds one slot CTA a
+// (replica, 256-slot chunk) task; words: 1 reads and writes the sst
+// words as 4-byte words, 0 as bytes; vec: the value copies' width (16, 8
+// or 1).  A plan, words or vec the pointers and shapes do not allow is
+// refused.
 int hermes_mega_replay(const void* step, const void* frozen, const void* vpts,
                        void* bank, const void* active, const void* key,
                        const void* pts, const void* acks, const void* val,
@@ -241,13 +440,44 @@ int hermes_mega_replay(const void* step, const void* frozen, const void* vpts,
                        void* nval, void* scratch, int n_scratch, int rows,
                        int w4, int R, int RS, int K, int replay_age, int shift,
                        int state_mask, int s_invalid, int s_trans,
-                       int s_replay, int sst_off, int val_off HG_ENTRY_ARG,
+                       int s_replay, int sst_off, int val_off, int ctas,
+                       int per, int words, int vec HG_ENTRY_ARG,
                        void* stream) {
-  const int nblk = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  const int v4 = w4 - val_off;
   if (rows < 1 || R < 1 || RS < 1 || K < 1 || val_off < sst_off + 4 ||
-      w4 < val_off || n_scratch < nblk + RS)
+      v4 < 1 || per < 1 || ctas < 1 || n_scratch < ctas + R + RS)
+    return cudaErrorInvalidValue;
+  const int64_t span = static_cast<int64_t>(per) * kUnitRows;
+  if ((ctas - 1) * span >= rows || ctas * span < rows)
+    return cudaErrorInvalidValue;  // not the CTAs the rows need
+  if ((words && !(aligned(bank, 4) && w4 % 4 == 0 && sst_off % 4 == 0)) ||
+      (words != 0 && words != 1))
+    return cudaErrorInvalidValue;
+  const bool v8 = aligned(bank, 8) && aligned(val, 8) && aligned(nval, 8) &&
+                  aligned(active, 4) && w4 % 8 == 0 && val_off % 8 == 0 &&
+                  v4 % 8 == 0;
+  if ((vec == 8 && !v8) ||
+      (vec == 16 && !(v8 && aligned(val, 16) && aligned(nval, 16) && v4 % 16 == 0)) ||
+      (vec != 1 && vec != 8 && vec != 16))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int& cap = co_resident[dev];
+  if (cap == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, replay_kernel,
+                                                        kThreads, 0);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+    cap = per_sm * sms;
+  }
+  const int64_t grid = ctas + static_cast<int64_t>(R) * ((RS + kThreads - 1) / kThreads);
+  if (grid > cap) return cudaErrorCooperativeLaunchTooLarge;
   Scan p;
   p.step = static_cast<const int32_t*>(step);
   p.frozen = static_cast<const uint8_t*>(frozen);
@@ -264,7 +494,8 @@ int hermes_mega_replay(const void* step, const void* frozen, const void* vpts,
   p.nacks = static_cast<int32_t*>(nacks);
   p.nval = static_cast<int8_t*>(nval);
   p.counts = static_cast<int32_t*>(scratch);
-  p.cand = p.counts + nblk;
+  p.nfree = p.counts + ctas;
+  p.cand = p.nfree + R;
   p.rows = rows;
   p.w4 = w4;
   p.R = R;
@@ -278,15 +509,24 @@ int hermes_mega_replay(const void* step, const void* frozen, const void* vpts,
   p.s_replay = s_replay;
   p.sst_off = sst_off;
   p.val_off = val_off;
-  cudaError_t err = HG_BEGIN(st);
+  p.spans = ctas;
+  p.per = per;
+  p.words = words;
+  p.vec = vec;
+  err = HG_BEGIN(st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  count_kernel<<<nblk, kThreads, 0, st>>>(p);
-  err = cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(grid), 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, replay_kernel, p);
   if (err != cudaSuccess) return static_cast<int>(err);
-  place_kernel<<<nblk, kThreads, 0, st>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  assign_kernel<<<R + 1, kThreads, 0, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

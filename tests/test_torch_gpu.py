@@ -65,18 +65,27 @@ def _device_ops(call):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["stats_block", "mega_apply"])
+@pytest.mark.parametrize("name", ["stats_block", "mega_apply", "mega_replay",
+                                  "probe_serial"])
 def test_kernel_call_is_one_device_operation(name):
     """At the bench shape a call enqueues exactly one device operation
-    (torch.profiler): no fill, no second launch."""
+    (torch.profiler): no fill, no memset, no second launch
+    (``probe_serial`` after its first call, which fills its winner
+    column)."""
     dev = _card()
     if name == "stats_block":
         args = [a.to(dev) for a in chip_smoke.stats_inputs(
             torch, *chip_smoke.STATS_SHAPES[0], seed=1)]
         call = lambda: kernels.stats_block(*args)
+    elif name == "probe_serial":
+        from hermes_tpu_torch.core import probe_kernels as pk
+
+        args = [a.to(dev) for a in _probe_args(chip_smoke.PROBE_SHAPES[0])]
+        call = lambda: pk.probe_serial(*args)
     else:
         wrapper, _plain, args = _mega_call(
-            "mega_apply", chip_smoke.APPLY_SHAPES[0])
+            name, (chip_smoke.APPLY_SHAPES if name == "mega_apply"
+                   else chip_smoke.REPLAY_SHAPES)[0])
         args = chip_smoke._to(torch, args, dev)
         call = lambda: wrapper(*args)
     assert _device_ops(call) == 1
@@ -104,7 +113,7 @@ def _graph_equals_eager(make_args, call):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["stats_block", "mega_apply"])
+@pytest.mark.parametrize("name", ["stats_block", "mega_apply", "mega_replay"])
 def test_kernel_call_replays_from_a_cuda_graph(name):
     dev = _card()
     if name == "stats_block":
@@ -113,10 +122,146 @@ def test_kernel_call_replays_from_a_cuda_graph(name):
         _graph_equals_eager(lambda: [a.to(dev) for a in cpu],
                             kernels.stats_block)
     else:
-        wrapper, _plain, args = _mega_call("mega_apply",
-                                           chip_smoke.APPLY_SHAPES[0])
+        wrapper, _plain, args = _mega_call(
+            name, (chip_smoke.APPLY_SHAPES if name == "mega_apply"
+                   else chip_smoke.REPLAY_SHAPES)[0])
         _graph_equals_eager(lambda: chip_smoke._to(torch, args, dev),
                             wrapper)
+
+
+def _probe_args(shape, seed=2):
+    from types import SimpleNamespace
+
+    from hermes_tpu_torch import table_probe
+    from hermes_tpu_torch.core import probe_kernels as pk
+
+    port = SimpleNamespace(pk=pk, probe=table_probe)
+    args, _timing, _info = chip_smoke.serial_case(torch, port, shape, seed)
+    return args
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", chip_smoke.PROBE_SHAPES[:2])
+def test_probe_serial_replays_from_a_cuda_graph(shape):
+    """``probe_serial`` captured once on a stream whose winner column
+    exists, then replayed three times with new keys and rows copied into
+    the static buffers: the table equals the plain version applied three
+    times, and the column is all -1 after each replay (the graph holds no
+    memset: the call resets what it raised)."""
+    from hermes_tpu_torch.core import probe_kernels as pk
+
+    dev = _card()
+    draws = [_probe_args(shape, seed=10 + n) for n in range(4)]
+    table0 = draws[0][0]
+    want = table0.clone()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        static = [x.to(dev) for x in draws[0]]
+        pk.probe_serial(*static)  # warm-up: makes the stream's column
+        torch.cuda.synchronize()
+        static[0].copy_(table0)
+        col = pk.win_columns[(static[0].device, s.cuda_stream, shape[0])]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=s):
+            pk.probe_serial(*static)
+        for _table, keys, rows in draws[1:]:
+            static[1].copy_(keys)
+            static[2].copy_(rows)
+            graph.replay()
+            torch.cuda.synchronize()
+            want = pk.probe_serial_plain(want, keys, rows)
+            assert torch.equal(static[0].cpu(), want)
+            assert bool((col == -1).all())
+
+
+@pytest.mark.gpu
+def test_probe_serial_first_call_in_a_capture_raises():
+    """A capture on a stream that has no winner column yet raises rather
+    than record the column's fill, and keeps no column for that stream."""
+    from hermes_tpu_torch.core import probe_kernels as pk
+
+    dev = _card()
+    shape = chip_smoke.PROBE_SHAPES[0]
+    static = [x.to(dev) for x in _probe_args(shape)]
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="before the capture"):
+        with torch.cuda.graph(graph, stream=s):
+            pk.probe_serial(*static)
+    assert (static[0].device, s.cuda_stream, shape[0]) not in pk.win_columns
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("checked", [False, True])
+@pytest.mark.parametrize("edge", ["bank_off_by_4", "bank_off_by_1",
+                                  "stuck_in_last_span"])
+def test_mega_replay_cuda_edges(edge, checked):
+    """``mega_replay`` at the bench shape with the bank 4 bytes off its
+    allocation (4-byte sst words, byte-wise value copies) and 1 byte off
+    (the byte path for both), and with every stuck row in the last CTA's
+    span (the ranks all made by one CTA at the end of the grid): equal to
+    the plain version in both builds."""
+    from hermes_tpu_torch.core import megaround as mega
+
+    dev = _card()
+    wrapper, plain, (cfg, step, frozen, vpts, bank, rep) = _mega_call(
+        "mega_replay", chip_smoke.REPLAY_SHAPES[0])
+    K = bank.shape[0]
+    if edge == "stuck_in_last_span":
+        R, RS = rep.active.shape
+        plan = mega.replay_plan(
+            K, mega.REPLAY_GRID_MAX - mega.replay_slot_tasks(R, RS))
+        lo = (plan.ctas - 1) * plan.per * mega.REPLAY_UNIT_ROWS
+        sst = bank[:, 4:8].clone()
+        bank[:, 4:8] = 0  # VALID at step 0: not stuck
+        bank[lo:, 4:8] = sst[lo:]
+        bank[lo + 5:lo + 400:3, 4:8] = sst[0:1].new_tensor(
+            [[1, 0, 0, 0]], dtype=torch.int8)  # INVALID at step 0
+    want = chip_smoke._flat(plain(cfg, step, frozen, vpts, bank.clone(), rep))
+    card = chip_smoke._to(torch, (step, frozen, vpts, bank, rep), dev)
+    off = {"bank_off_by_4": 4, "bank_off_by_1": 1}.get(edge)
+    if off:
+        big = torch.zeros(bank.numel() + off, dtype=torch.int8, device=dev)
+        big[off:] = card[3].reshape(-1)
+        card[3] = big[off:].view(bank.shape)
+        assert card[3].data_ptr() % 8 == off
+        words, vec = mega.replay_access(card[3], card[4].val, card[4].val,
+                                        card[4].active)
+        assert (words, vec) == ((1, 1) if off == 4 else (0, 1))
+    with _build(checked) as chk:
+        got = chip_smoke._flat(wrapper(cfg, *card))
+        torch.cuda.synchronize(dev)
+    for w, x in zip(want, got):
+        assert torch.equal(w, x.cpu())
+    assert bool((want[1] & ~rep.active).any())  # slots were taken
+    if checked:
+        assert chk.violations == []
+
+
+@pytest.mark.gpu
+def test_mega_replay_refused_cooperative_launch_raises(monkeypatch):
+    """A plan of more CTAs than co-reside on the card (made here, beside
+    the program's own ``replay_plan``) is refused by the C entry, and the
+    wrapper raises: nothing falls back to more launches."""
+    from hermes_tpu_torch import config
+    from hermes_tpu_torch.core import faststep as fst
+    from hermes_tpu_torch.core import megaround as mega
+
+    dev = _card()
+    # 2,000 CTAs of one unit: more than the 1,056 CTAs of 256 threads an
+    # H100's 132 SMs can hold at all
+    ctas, R, RS, V = 2000, 2, 2, 2
+    K = ctas * mega.REPLAY_UNIT_ROWS
+    cfg = chip_smoke.mega_cfg(config, R, K=K, L=RS + 4, RS=RS, V=V)
+    args = chip_smoke._to(torch, chip_smoke.replay_inputs(
+        torch, fst, K, R, RS, V, 8, seed=5), dev)
+    monkeypatch.setattr(mega, "replay_plan",
+                        lambda rows, cap=None: mega.ReplayPlan(ctas, 1))
+    with pytest.raises(RuntimeError, match="CUDA error 720"):
+        mega.mega_replay(cfg, *args)
+        torch.cuda.synchronize(dev)
 
 
 @pytest.mark.gpu

@@ -37,6 +37,7 @@ from hermes_tpu.config import HermesConfig as RefConfig, WorkloadConfig as RefWL
 from hermes_tpu.core import faststep as ref_fst
 from hermes_tpu.core import megaround as ref_mega
 from hermes_tpu.runtime import FastRuntime as RefRuntime
+from hermes_tpu_torch import config as port_config
 from hermes_tpu_torch import convert
 from hermes_tpu_torch.config import HermesConfig
 from hermes_tpu_torch.core import faststep as fst
@@ -576,3 +577,163 @@ def test_torch_mega_apply_plain_matches_reference_at_edges(edge, K, N):
         assert (got_p.numpy() == got_v.numpy()[K // 2]).all()
     else:
         assert (got_v.numpy() == vpts).all()
+
+
+# --------------------------------------------------------------------------
+# mega_replay's plan and phases (csrc/mega_replay.cu runs only on the card)
+# --------------------------------------------------------------------------
+
+UNIT = mega.REPLAY_UNIT_ROWS
+
+
+def _spans(plan, rows):
+    span = plan.per * UNIT
+    return [(b * span, min(rows, (b + 1) * span)) for b in range(plan.ctas)]
+
+
+@pytest.mark.parametrize("rows,cap", [
+    (K, mega.REPLAY_GRID_MAX) for K, *_ in chip_smoke.REPLAY_SHAPES] + [
+    (1 << 20, 100),          # the bench table on a grid smaller than its units
+    (2500, 2), (2500, 1),    # three units on two CTAs, on one
+    (40 * UNIT + 3, 7)])     # more steps a thread than its flag mask holds
+def test_torch_replay_plan_spans_cover_each_row_once(rows, cap):
+    """Each row in exactly one CTA span; every span but the last of whole
+    REPLAY_UNIT_ROWS-row units, starting on a unit; no more CTAs than the
+    cap and exactly the CTAs the rows need (the C entry refuses any other
+    plan); 2,500 rows make three CTAs, so the kernel-matrix cell
+    mega_replay/k2500b3 still ranks candidates across CTAs."""
+    plan = mega.replay_plan(rows, cap)
+    assert 1 <= plan.ctas <= cap and plan.per >= 1
+    assert (plan.ctas - 1) * plan.per * UNIT < rows <= plan.ctas * plan.per * UNIT
+    spans = _spans(plan, rows)
+    assert _covers_once(rows, spans)
+    for lo, hi in spans[:-1]:
+        assert lo % UNIT == 0 and (hi - lo) == plan.per * UNIT
+    if rows == 2500 and cap >= 3:
+        assert plan == (3, 1)
+    if rows == 1 << 20 and cap == mega.REPLAY_GRID_MAX:
+        assert mega.REPLAY_GRID_MAX == 132 * mega.REPLAY_CTAS_PER_SM
+        assert plan.ctas * plan.per == 1024 and plan.ctas <= 264
+    with pytest.raises(ValueError):
+        mega.replay_plan(0, cap)
+
+
+def _sst_of(bank):
+    b = bank[:, 4:8].astype(np.int64) & 0xFF
+    w = b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16) | (b[:, 3] << 24)
+    return np.where(w >= 1 << 31, w - (1 << 32), w)
+
+
+def _replay_by_plan(plan, cfg, step, frozen, vpts, bank, active, key, pts,
+                    acks, val):
+    """mega_replay.cu's three phases replayed in numpy, CTA by CTA and
+    thread by thread on the plan's spans: the stuck flags a thread holds
+    (row lo + k * 256 + t, step k), the per-CTA counts, the ranks of the
+    flags from the per-(step, warp) counts and the ballots, chunk by chunk
+    of 32 steps, the slot tasks' free ranks, the marks and the fills.
+    Returns the bank and the five new slot fields; asserts that every
+    candidate rank below ncand is written exactly once and that nothing
+    reads an unwritten one."""
+    T, WARPS, MASK = mega.REPLAY_THREADS, mega.REPLAY_THREADS // 32, 32
+    rows = bank.shape[0]
+    R, RS = active.shape
+    bank = bank.copy()
+    sst = _sst_of(bank)
+    state, age = sst & 7, (step - (sst >> 3) + (1 << 31)) % (1 << 32) - (1 << 31)
+    stuck = np.isin(state, (1, 3, 4)) & (age > cfg.replay_age)
+    steps = plan.per * UNIT // T
+    # phase A: slot tasks (copies of every slot, free counts, free ranks)
+    new = [active.copy(), key.copy(), pts.copy(), acks.copy(), val.copy()]
+    free = ~active
+    nfree = free.sum(1)
+    rank = np.cumsum(free, 1) - free
+    held = np.where(free & ~frozen[:, None], rank, -1)
+    # phase A: flags and counts, F[b, k, t]
+    F = np.zeros((plan.ctas, steps, T), bool)
+    for b, (lo, hi) in enumerate(_spans(plan, rows)):
+        r = lo + np.arange(steps)[:, None] * T + np.arange(T)
+        F[b] = np.where(r < hi, stuck[np.minimum(r, rows - 1)], False)
+    counts = F.reshape(plan.ctas, -1).sum(1)
+    # phase B
+    cand = np.full(RS, -1, np.int64)
+    tot = counts.sum()
+    ncand = min(tot, RS)
+    unfrozen = nfree[~frozen]
+    ntake = min(unfrozen.max() if unfrozen.size else 0, ncand)
+    for b, (lo, _hi) in enumerate(_spans(plan, rows)):
+        carry = counts[:b].sum()
+        if counts[b] == 0 or carry >= RS:
+            continue
+        for k0 in range(0, steps, MASK):
+            if carry >= RS:
+                break
+            f = F[b, k0:k0 + MASK].reshape(-1, WARPS, 32)
+            wc = f.sum(-1)  # the warps' ballot counts a step
+            base = (np.cumsum(wc.ravel()) - wc.ravel()).reshape(wc.shape)
+            lanes = np.cumsum(f, -1) - f  # popc(ballot & lanemask_lt)
+            rk = carry + base[..., None] + lanes
+            for k, w, l in zip(*np.nonzero(f & (rk < RS))):
+                assert cand[rk[k, w, l]] == -1
+                cand[rk[k, w, l]] = lo + (k0 + k) * T + w * 32 + l
+            carry += f.sum()
+    assert (cand[:ncand] >= 0).all()
+    # phase C: marks, then fills over the old copies
+    mark = (step << 3) | 4
+    for i in range(ntake):
+        bank[cand[i], 4:8] = np.array([mark], "<i4").view(np.int8)
+    for r, s in zip(*np.nonzero((held >= 0) & (held < ncand))):
+        row = cand[held[r, s]]
+        assert row >= 0
+        new[0][r, s], new[3][r, s] = True, 0
+        new[1][r, s], new[2][r, s] = row % cfg.n_keys, vpts[row]
+        new[4][r, s] = bank[row, 8:]
+    return bank, new
+
+
+REPLAY_PHASE_CASES = {  # K, R, RS, V, stuck rows, frozen replicas, cap
+    **{f"smoke{i}": (*shape, None, mega.REPLAY_GRID_MAX)
+       for i, shape in enumerate(chip_smoke.REPLAY_SHAPES[1:])},
+    "cross_ctas_small_grid": (5003, 3, 7, 3, 300, None, 2),
+    "mask_chunks": (40 * UNIT + 3, 2, 64, 2, 120, None, 1),
+    "slot_chunks": (3000, 3, 300, 2, 500, None, mega.REPLAY_GRID_MAX),
+    "all_frozen": (5003, 3, 7, 3, 300, (0, 1, 2), mega.REPLAY_GRID_MAX),
+    "no_stuck_row": (2500, 2, 2, 2, 0, None, mega.REPLAY_GRID_MAX),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REPLAY_PHASE_CASES))
+def test_torch_replay_phases_in_numpy_match_plain(case):
+    """The kernel's phases replayed in numpy on chip_smoke.replay_inputs'
+    draws, on the span CTAs the wrapper plans (the grid's slot CTAs come
+    after them), equal mega_replay_plain: at the kernels phase's small
+    shapes
+    (2,500 rows: candidates ranked across three CTAs), on a grid smaller
+    than the units, with more steps a thread than its 32-step flag mask
+    (ranks across mask chunks), with more slots a replica than a CTA has
+    threads, with every replica frozen and with no stuck row."""
+    K, R, RS, V, n_stuck, frozen, cap = REPLAY_PHASE_CASES[case]
+    cfg = chip_smoke.mega_cfg(port_config, R, K=K, L=RS + 4, RS=RS, V=V)
+    step, fz, vpts, bank, rep = chip_smoke.replay_inputs(
+        torch, fst, K, R, RS, V, n_stuck, seed=K + RS)
+    if frozen is not None:
+        fz[list(frozen)] = True
+    want_bank, want = mega.mega_replay_plain(cfg, step, fz, vpts, bank.clone(),
+                                             rep)
+    plan = mega.replay_plan(
+        K, min(cap, mega.REPLAY_GRID_MAX - mega.replay_slot_tasks(R, RS)))
+    got_bank, got = _replay_by_plan(
+        plan, cfg, int(step), fz.numpy(), vpts.numpy(), bank.numpy(),
+        *(x.numpy() for x in (rep.active, rep.key, rep.pts, rep.acks,
+                              rep.val)))
+    np.testing.assert_array_equal(got_bank, want_bank.numpy())
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
+    taken = int((want[0] & ~rep.active).sum())
+    if case in ("all_frozen", "no_stuck_row"):
+        assert taken == 0
+    else:
+        assert taken > 0
+    if case == "mask_chunks":
+        assert plan.per * UNIT // mega.REPLAY_THREADS > 32
+    if case == "slot_chunks":
+        assert RS > mega.REPLAY_THREADS

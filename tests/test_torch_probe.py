@@ -253,3 +253,84 @@ def test_torch_table_probe_cli_needs_card():
     assert r.returncode != 0
     assert "torch.cuda.is_available() is False" in r.stderr
     assert r.stdout == ""
+
+
+def _serial_protocol(K, keys, table, rows, seed):
+    """probe_serial.cu's winner column replayed in numpy: phase 0 takes
+    the maximum message index per row in one shuffled order; phase 1, in
+    another, lets each message read its row's entry once, and the winner
+    store its row and then reset the entry to -1.  Returns the table and
+    the column."""
+    rng = np.random.default_rng(seed)
+    k = pk.row_index(torch.from_numpy(keys), K).numpy()
+    win = np.full(K, -1, np.int64)
+    for i in rng.permutation(len(keys)):
+        win[k[i]] = max(win[k[i]], i)
+    for i in rng.permutation(len(keys)):
+        if win[k[i]] == i:  # a loser sees the winner's index or -1
+            table[k[i]] = rows[i]
+            win[k[i]] = -1
+    return table, win
+
+
+@pytest.mark.parametrize("K,M,out_of_range,seed", [
+    (64, 256, False, 0), (8, 256, False, 1), (4096, 4096, False, 2),
+    (1000, 777, True, 3), (5, 40, True, 4)])
+def test_torch_probe_serial_max_then_reset_protocol_in_numpy(K, M,
+                                                             out_of_range,
+                                                             seed):
+    """The kernel's max-then-reset protocol, its messages in shuffled
+    order, gives the ordered loop's table, the plain version's, and
+    leaves the column all -1 for the next call."""
+    rng = np.random.default_rng(seed)
+    keys = _keys(rng, K, M, out_of_range)
+    table = rng.integers(-(1 << 31), 1 << 31, (K, W), dtype=np.int64).astype(
+        np.int32)
+    rows = rng.integers(-(1 << 31), 1 << 31, (M, W), dtype=np.int64).astype(
+        np.int32)
+    want = table.copy()
+    k = pk.row_index(torch.from_numpy(keys), K).numpy()
+    for i in range(M):
+        want[k[i]] = rows[i]
+    got, win = _serial_protocol(K, keys, table.copy(), rows, seed)
+    np.testing.assert_array_equal(got, want)
+    assert (win == -1).all()
+    plain = pk.probe_serial_plain(torch.from_numpy(table.copy()),
+                                  torch.from_numpy(keys),
+                                  torch.from_numpy(rows))
+    np.testing.assert_array_equal(plain.numpy(), want)
+
+
+def test_torch_probe_serial_win_column_cache(monkeypatch):
+    """One winner column per (device, stream, K), made once, all -1; the
+    plain path (CPU tensors) makes none."""
+    monkeypatch.setattr(pk, "win_columns", {})
+    cpu = torch.device("cpu")
+    col = pk.win_column(cpu, 7, 16)
+    assert col.dtype == torch.int32 and col.shape == (16,)
+    assert (col == -1).all()
+    assert pk.win_column(cpu, 7, 16) is col
+    assert pk.win_column(cpu, 8, 16) is not col
+    assert pk.win_column(cpu, 7, 17) is not col
+    assert sorted(pk.win_columns) == [(cpu, 7, 16), (cpu, 7, 17), (cpu, 8, 16)]
+    monkeypatch.setattr(pk, "win_columns", {})
+    t = torch.zeros((16, W), dtype=torch.int32)
+    pk.probe_serial(t, torch.arange(5, dtype=torch.int32),
+                    torch.ones((5, W), dtype=torch.int32))
+    assert pk.win_columns == {}
+
+
+def test_torch_probe_serial_win_column_not_made_in_a_capture(monkeypatch):
+    """Inside a CUDA graph capture a missing winner column raises (its -1
+    fill would only be recorded) and none is kept; a column made before
+    the capture is returned as it is."""
+    monkeypatch.setattr(pk, "win_columns", {})
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    card = torch.device("cuda", 0)
+    with pytest.raises(RuntimeError, match="before the capture"):
+        pk.win_column(card, 7, 16)
+    assert pk.win_columns == {}
+    made = object()
+    pk.win_columns[(card, 7, 16)] = made
+    assert pk.win_column(card, 7, 16) is made
