@@ -24,10 +24,10 @@ prints no result):
    20 calls in one trace, each device operation of a call listed apart;
    every kernel in ``ONE_OPERATION`` must be one operation a call,
    ``mega_route`` is also timed with clusters of 16 and of 8,
-   ``mega_replay`` with each way of reading the sst words, ``stats_block``
-   and ``mega_apply`` also on the inputs of one real bench-a-mega round,
-   and ``mega_replay`` on those of two replay-scan rounds, bench-a-mega's
-   and checked-mega's); where one
+   ``stats_block`` and ``mega_apply`` also on the inputs of one real
+   bench-a-mega round, ``mega_replay`` on those of two replay-scan rounds,
+   bench-a-mega's and checked-mega's, and ``probe_vgather`` on the probe
+   phase's own input, ``probe_inputs``); where one
    PyTorch call computes the same function (``index_put_``,
    ``index_select``, ``sum``, ``clone``, ``new_full``, or for
    ``mega_route`` the fused round's ``scatter_reduce_``, a yardstick of
@@ -133,7 +133,7 @@ SCAN_ACC_SHAPES = ((16, 8), (4096, 256), (4097, 257), (65536, 8))  # M, W
 # (probe_serial after its first call on a stream, which fills its winner
 # column: the kernels phase makes that call before it counts)
 ONE_OPERATION = ("stats_block", "mega_route", "mega_apply", "mega_replay",
-                 "probe_serial", "scan_acc")
+                 "probe_serial", "probe_vgather", "scan_acc")
 FX_SHAPES = {  # rows, columns (fx_serial_scan: K, M; W = 10)
     "fx_pack": ((8, 128), (1000, 77)),
     "fx_store_at": ((8, 128), (64, 10)),
@@ -556,13 +556,31 @@ def round_inputs(torch, port, replay=True, device="cuda"):
     return got
 
 
+def probe_step_inputs(torch, port):
+    """What each ``vgather`` step of the probe phase gathers after its
+    first: the bench table of ones (``table_probe.candidate_step``) at
+    every key 1, the first word of a row of ones masked to [0, K)."""
+    K, M = port.probe.BENCH
+    return {"probe_inputs": (torch.ones((M,), dtype=torch.int32),
+                             torch.ones((K, port.probe.W),
+                                        dtype=torch.int32))}
+
+
 def round_info(torch, port, name, args):
-    """What shapes a round's inputs: for ``stats_block`` the committed
+    """What shapes a round's inputs: for ``probe_vgather`` (the probe
+    step's, ``probe_step_inputs``) the shape, the distinct rows and the
+    bound; for ``stats_block`` the committed
     share and the share of commits in latency bin 0; for ``mega_apply`` the
     masked rows, their distinct keys, and the share of masked rows whose
     key equals the previous row's; for ``mega_replay`` the stuck rows (at
     the round's replay_age, and at -1, which the timed calls take) and the
     slots the scan takes."""
+    if name == "probe_vgather":
+        keys, table = args
+        (K, W), M = table.shape, keys.shape[0]
+        D = len(port.pk.row_index(keys, K).unique())
+        return dict(K=K, M=M, W=W, distinct_rows=D,
+                    **bound(4 * M + 4 * M * W + 4 * D * W, 3 * M * W))
     if name == "mega_replay":
         cfg, step, _frozen, _vpts, bank, replay = _to(torch, args, "cpu")
         sst = port.fst._bank_to_i32(bank[:, 4:8])[:, 0]
@@ -715,13 +733,16 @@ def phase_kernels(torch, port, kernels, only=None, one_op=ONE_OPERATION):
     would fault.  ``stats_block`` and ``mega_apply`` are also held and
     timed on the inputs of one real round (``round_inputs``), and
     ``mega_replay`` on those of two replay-scan rounds, timed at
-    replay_age -1 as its synthetic draws are.  A kernel named in
+    replay_age -1 as its synthetic draws are; ``probe_vgather`` on the
+    probe step's own input (``probe_step_inputs``).  A kernel named in
     ``one_op`` must enqueue one device operation a call."""
     mega, pk, fk = port.mega, port.pk, port.fk
     on_round = {"stats_block", "mega_apply", "mega_replay"} & set(
         only or ("stats_block", "mega_apply", "mega_replay"))
     rounds = (round_inputs(torch, port, replay="mega_replay" in on_round)
               if on_round else {})
+    if only is None or "probe_vgather" in only:
+        rounds["probe_vgather"] = probe_step_inputs(torch, port)
     fx_library = {"fx_loop_inc": full_library,
                   "fx_acc_revisit": row_sum_library,
                   "fx_block_copy": clone_library,

@@ -258,18 +258,35 @@ def fx_block_copy_plain(x, offset=0, copied=None):
     return copied
 
 
+#: the most column blocks fx_block_copy's grid takes (its y extent)
+COPY_BLOCKS_MAX = 65535
+
+
+def block_copy_access(x, copied) -> int:
+    """1 where ``fx_block_copy`` moves 16-byte int4s (C a multiple of 4,
+    both pointers 16-byte aligned), else 0 (4-byte words)."""
+    return int(x.shape[1] % 4 == 0 and x.data_ptr() % 16 == 0
+               and copied.data_ptr() % 16 == 0)
+
+
 def fx_block_copy(x, offset=0):
     """``out[:, (j + offset) block] = x[:, j block]`` for every 128-column
     block j of ``x`` (R, C) int32.  Replaces the blocked copy ``_kern``
-    whose output index map is off by one block.  One thread block a column
-    block.  A non-zero ``offset`` only inside
-    ``dispatch.checked_build()``."""
+    whose output index map is off by one block.  One launch in which every
+    thread moves one unit and none loops, a CTA per (row tile, column
+    block): a 16-byte int4 where ``block_copy_access`` allows it, else a
+    word.  A non-zero
+    ``offset`` only inside ``dispatch.checked_build()``."""
     name = "fx_block_copy"
     R, C = _need2(name, "x", x)
+    if cdiv(C, BLOCK_COLS) > COPY_BLOCKS_MAX:
+        raise ValueError(f"{name}: at most {COPY_BLOCKS_MAX} column blocks, "
+                         f"got {cdiv(C, BLOCK_COLS)}")
     copied = out((R, C), I32, x.device)
     if not on_card(name, x):
         return fx_block_copy_plain(x, offset, copied)
-    launch(name, x.device, x, copied, R, C, int(offset), lib=LIB)
+    launch(name, x.device, x, copied, R, C, int(offset),
+           block_copy_access(x, copied), lib=LIB)
     fx_block_copy.launches += 1
     return copied
 

@@ -137,6 +137,21 @@ def probe_vgather_plain(keys, table):
     return table[row_index(keys, table.shape[0]).long()]
 
 
+#: the widest row probe_vgather.cu takes (kMaxW: the most its reciprocal
+#: division is exact for)
+VGATHER_W_MAX = 8192
+
+
+def vgather_access(table, rows):
+    """``(vec_ld, vec_st)`` for ``probe_vgather.cu``, from the pointers and
+    the row width alone: ``vec_ld`` 1 where the table's rows move as 8-byte
+    pieces (the table 8-byte aligned, W even), else 0 (4-byte words);
+    ``vec_st`` 1 where the output tiles are stored in 16 bytes (``rows``
+    16-byte aligned), else 0 (words)."""
+    vec_ld = table.data_ptr() % 8 == 0 and table.shape[1] % 2 == 0
+    return int(vec_ld), int(rows.data_ptr() % 16 == 0)
+
+
 def probe_vgather(keys, table):
     """The gather probe step: ``out[m] = table[row_index(keys[m])]`` from
     ``keys`` (M,) int32 and ``table`` (K, W) int32; returns ``out`` (M, W)
@@ -145,15 +160,26 @@ def probe_vgather(keys, table):
     Replaces ``scripts/pallas_probe.py:candidate_step.vgather_fn`` (Pallas
     ``_vgather_kernel``, which Mosaic would not lower on the TPU).  Bound
     by memory: a key read and a row written per message, a row read per
-    distinct key, ~4 MB at the bench table shape.  One launch, one thread
-    per (message, word), neighbouring threads on neighbouring words."""
+    distinct key, ~4 MB at the bench table shape (a 40-byte row spans two
+    32-byte sectors: ~5.3 MB of sectors).  One plain launch of a
+    persistent grid (at most the CTAs that co-reside, no more than the
+    tiles need), a warp a tile of 32 messages: the
+    keys in one coalesced load, the rows fetched as 8-byte pieces whose
+    row numbers reach the lanes by shuffle, all loads in flight before the
+    first store, then the tile staged in shared memory and stored in
+    16-byte vectors; ``vgather_access`` picks the vector or the word path
+    from the pointers."""
     name = "probe_vgather"
     K, M, W = _check(name, table, keys)
+    if W > VGATHER_W_MAX:
+        raise ValueError(f"{name}: rows of at most {VGATHER_W_MAX} words, "
+                         f"got {W}")
     if not on_card(name, keys, table):
         return probe_vgather_plain(keys, table)
     rows = out((M, W), I32, table.device)
     if M and W:
-        launch(name, table.device, keys, table, rows, K, M, W)
+        launch(name, table.device, keys, table, rows, K, M, W,
+               *vgather_access(table, rows))
         probe_vgather.launches += 1
     return rows
 

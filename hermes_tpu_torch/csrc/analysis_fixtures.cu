@@ -39,6 +39,17 @@
 //     a memset of an int32 (K,) column to -1, an integer atomicMax of the
 //     message index per key, and a store pass in which only the winner of
 //     a key writes its row.
+//   * fx_block_copy: the Pallas grid walks the column blocks in order, a
+//     (R, 128) block a step.  Here every thread moves one unit and no
+//     thread loops: a grid of (row tile, column block) CTAs of 256
+//     threads, each thread one 16-byte int4 (32 a block row, 8 rows a
+//     CTA) where C is a multiple of 4 and both pointers are 16-byte
+//     aligned (the wrapper chooses, fixture_kernels.block_copy_access, and
+//     the entry re-checks), else one word (128 a block row, 2 rows a CTA).
+//     At (8, 256) that is 2 CTAs of one 16-byte copy a thread; what bounds
+//     it is the launch.  Each store is guarded against its own row's
+//     extent in the units it moves, so an offset block past the row's end
+//     is caught, not aliased into the next row.
 //   * fx_async_copy: pltpu.make_async_copy and its DMA semaphore become
 //     cp.async (__pipeline_memcpy_async) from global into shared memory,
 //     committed and waited for (__pipeline_wait_prior), then plain stores
@@ -59,6 +70,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBlockCols = 128;  // the fixtures' column block
+constexpr int kGridYMax = 65535;  // column blocks of fx_block_copy
 constexpr int kCopyWords = 1024;  // int32 words a block stages (4 KB)
 
 unsigned grid_for(int64_t n) {
@@ -97,20 +109,26 @@ __global__ void acc_revisit_kernel(const int32_t* __restrict__ x,
   if (lane == 0) HG_ATOMIC_ADD(out, r, R, static_cast<int32_t>(s));
 }
 
-// Block j copies column block j of x to column block j + offset of out.
+// Block (t, j) copies rows [t * rows, (t + 1) * rows) of column block j
+// of x to column block j + offset of out, one unit a thread: an int4 (vec,
+// 32 units a block row, 8 rows a CTA) or a word (128 units, 2 rows).
 __global__ void __launch_bounds__(kThreads)
 block_copy_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out,
-                  int R, int C, int offset) {
-  const int64_t n = static_cast<int64_t>(R) * C;
-  const int dst0 = (static_cast<int>(blockIdx.x) + offset) * kBlockCols;
-  for (int t = threadIdx.x; t < R * kBlockCols; t += blockDim.x) {
-    const int r = t / kBlockCols, c = t % kBlockCols;
-    const int src = blockIdx.x * kBlockCols + c, dst = dst0 + c;
-    if (src >= C) continue;  // the ragged last block
-    // guarded in its row: a flat index past the row's end would alias the
-    // next row and pass
-    HG_ST(out + static_cast<int64_t>(r) * C, dst, C, HG_LD(x, static_cast<int64_t>(r) * C + src, n));
-  }
+                  int R, int C, int offset, int vec) {
+  const int shift = vec ? 5 : 7;  // log2 of the units of a block row
+  const int r = blockIdx.x * (kThreads >> shift) + (threadIdx.x >> shift);
+  const int u = threadIdx.x & ((1 << shift) - 1);
+  const int cu = vec ? C >> 2 : C;  // units a row
+  const int src = (blockIdx.y << shift) + u;
+  if (r >= R || src >= cu) return;  // past the last row; the ragged block
+  const int dst = (static_cast<int>(blockIdx.y) + offset) * (1 << shift) + u;
+  const int64_t row = static_cast<int64_t>(r) * cu, n = static_cast<int64_t>(R) * cu;
+  // guarded in its row: a flat index past the row's end would alias the
+  // next row and pass
+  if (vec)
+    HG_ST(reinterpret_cast<int4*>(out) + row, dst, cu, HG_LD(reinterpret_cast<const int4*>(x), row + src, n));
+  else
+    HG_ST(out + row, dst, cu, HG_LD(x, row + src, n));
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -206,15 +224,24 @@ int hermes_fx_acc_revisit(const void* x, void* out, int R, int C,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x, out: (R, C) int32.  R, C >= 1.
-int hermes_fx_block_copy(const void* x, void* out, int R, int C,
-                         int offset HG_ENTRY_ARG, void* stream) {
-  if (R < 1 || C < 1) return cudaErrorInvalidValue;
+// x, out: (R, C) int32.  R, C >= 1, C <= 128 * 65535.  vec: 1 moves
+// int4s (C a multiple of 4, x and out 16-byte aligned), 0 words; a vec the
+// pointers or C do not allow is refused (cudaErrorInvalidValue).
+int hermes_fx_block_copy(const void* x, void* out, int R, int C, int offset,
+                         int vec HG_ENTRY_ARG, void* stream) {
+  if (R < 1 || C < 1 || (C + kBlockCols - 1) / kBlockCols > kGridYMax ||
+      (vec != 0 && vec != 1) ||
+      (vec && !(C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                reinterpret_cast<uintptr_t>(out) % 16 == 0)))
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = HG_BEGIN(st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  block_copy_kernel<<<(C + kBlockCols - 1) / kBlockCols, kThreads, 0, st>>>(
-      static_cast<const int32_t*>(x), static_cast<int32_t*>(out), R, C, offset);
+  const int rows = vec ? kThreads / 32 : kThreads / kBlockCols;  // a CTA
+  const dim3 grid((R + rows - 1) / rows, (C + kBlockCols - 1) / kBlockCols);
+  block_copy_kernel<<<grid, kThreads, 0, st>>>(
+      static_cast<const int32_t*>(x), static_cast<int32_t*>(out), R, C,
+      offset, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -27,6 +27,7 @@ and chip_smoke.py.
 import ctypes
 import json
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -419,6 +420,70 @@ def test_torch_fx_block_copy_matches_fixture(offset):
     np.testing.assert_array_equal(want, got)
     if offset == 0:
         np.testing.assert_array_equal(x, fk.fx_block_copy(_t(x)).numpy())
+
+
+def _block_copy_replay(x, copied, offset):
+    """``block_copy_kernel`` replayed in numpy: the entry's grid of CTAs
+    of kThreads threads (``analysis_fixtures.cu``), a CTA a (row tile,
+    column block), with the path ``block_copy_access`` picks, each
+    thread's row, unit and destination as the kernel computes them.
+    Returns the output (0 where nothing landed), the stores each output
+    word took, the path, and the stores the per-row guard skips."""
+    R, C = x.shape
+    vec = fk.block_copy_access(x, copied)
+    if vec:
+        assert C % 4 == 0 and x.data_ptr() % 16 == 0
+        assert copied.data_ptr() % 16 == 0
+    text = (build.CSRC / "analysis_fixtures.cu").read_text()
+    threads = int(re.search(r"constexpr int kThreads = (\d+);", text)[1])
+    unit = 4 if vec else 1  # words a thread moves
+    units = fk.BLOCK_COLS // unit  # a block row's
+    rows = threads // units  # a CTA's
+    cu = C // unit  # units a row
+    xs = x.numpy().reshape(R, cu, unit)
+    got = np.zeros((R, cu, unit), np.int64)
+    writes = np.zeros((R, cu), np.int64)
+    t = np.arange(threads)
+    skipped = 0
+    for bx in range(-(-R // rows)):
+        for by in range(-(-C // fk.BLOCK_COLS)):
+            r = bx * rows + t // units
+            u = t % units
+            src = by * units + u
+            live = (r < R) & (src < cu)
+            dst = (by + offset) * units + u
+            inrow = live & (dst >= 0) & (dst < cu)
+            skipped += int((live & ~inrow).sum())
+            got[r[inrow], dst[inrow]] = xs[r[inrow], src[inrow]]
+            writes[r[inrow], dst[inrow]] += 1
+    return got.reshape(R, C), writes, vec, skipped
+
+
+@pytest.mark.parametrize("R,C", [(8, 256), (5, 1000), (3, 1001), (7, 130),
+                                 (1, 1)])
+def test_torch_fx_block_copy_grid_replays_in_numpy(R, C):
+    """The one-unit-a-thread grid replayed in numpy: from aligned tensors
+    (int4s where C is a multiple of 4) and from an input view 4 bytes off
+    its allocation (words), every element is copied by exactly one thread
+    at offset 0; at offset 1 the stores past a row's end are exactly those
+    the per-row guard skips (a flat index over the tensor would have let
+    all but the last row's land in the next row)."""
+    rng = np.random.default_rng(R * 7 + C)
+    buf = _t(_i32(rng, (R * C + 1,)))
+    copied = torch.empty((R, C), dtype=torch.int32)
+    for x in (buf[:-1].view(R, C), buf[1:].view(R, C)):
+        got, writes, vec, skipped = _block_copy_replay(x, copied, 0)
+        assert vec == int(C % 4 == 0 and x.data_ptr() == buf.data_ptr())
+        assert (writes == 1).all() and skipped == 0
+        np.testing.assert_array_equal(got, x.numpy())
+    for x in (buf[:-1].view(R, C), buf[1:].view(R, C)):
+        got, writes, vec, skipped = _block_copy_replay(x, copied, 1)
+        # a row's last BLOCK_COLS columns (all of them if fewer) land past
+        # its end: a row-local store index at or past the row's extent
+        per_row = min(C, fk.BLOCK_COLS) // (4 if vec else 1)
+        assert skipped == R * per_row
+        assert (writes <= 1).all() and writes.sum() == R * C // (
+            4 if vec else 1) - skipped
 
 
 @pytest.mark.parametrize("bad_key", [None, 64, 69, -1, -64, -65, -70,

@@ -66,7 +66,7 @@ def _device_ops(call):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["stats_block", "mega_apply", "mega_replay",
-                                  "probe_serial"])
+                                  "probe_serial", "probe_vgather"])
 def test_kernel_call_is_one_device_operation(name):
     """At the bench shape a call enqueues exactly one device operation
     (torch.profiler): no fill, no memset, no second launch
@@ -82,6 +82,12 @@ def test_kernel_call_is_one_device_operation(name):
 
         args = [a.to(dev) for a in _probe_args(chip_smoke.PROBE_SHAPES[0])]
         call = lambda: pk.probe_serial(*args)
+    elif name == "probe_vgather":
+        from hermes_tpu_torch.core import probe_kernels as pk
+
+        table, keys, _rows = (a.to(dev) for a in _probe_args(
+            chip_smoke.PROBE_SHAPES[0]))
+        call = lambda: pk.probe_vgather(keys, table)
     else:
         wrapper, _plain, args = _mega_call(
             name, (chip_smoke.APPLY_SHAPES if name == "mega_apply"
@@ -173,6 +179,119 @@ def test_probe_serial_replays_from_a_cuda_graph(shape):
             want = pk.probe_serial_plain(want, keys, rows)
             assert torch.equal(static[0].cpu(), want)
             assert bool((col == -1).all())
+
+
+def _vgather_edge(edge, dev):
+    """``(keys, table, path)`` of a ``probe_vgather`` edge on the card:
+    ``w<W>`` a (1000, W) table with 1,000 messages (31 whole tiles and a
+    ragged one of 8) and keys outside [0, K), ``w<W>_off4`` the same from a
+    table view 4 bytes off its allocation, ``one_row`` the probe step's own
+    input (``chip_smoke.probe_step_inputs``); ``path`` the (vec_ld,
+    vec_st) the wrapper must take."""
+    from types import SimpleNamespace
+
+    from hermes_tpu_torch import table_probe
+
+    if edge == "one_row":
+        keys, table = chip_smoke.probe_step_inputs(
+            torch, SimpleNamespace(probe=table_probe))["probe_inputs"]
+        return keys.to(dev), table.to(dev), (1, 1)
+    W = int(edge[1:].split("_")[0])
+    table, keys, _rows = chip_smoke.probe_inputs(torch, 1000, 1000, W,
+                                                 seed=W, out_of_range=True)
+    if edge.endswith("_off4"):
+        buf = torch.empty(table.numel() + 1, dtype=torch.int32, device=dev)
+        view = buf[1:].view(table.shape)
+        view.copy_(table)
+        return keys.to(dev), view, (0, 1)
+    return keys.to(dev), table.to(dev), (int(W % 2 == 0), 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("checked", [False, True])
+@pytest.mark.parametrize("edge", ["w1", "w3", "w10", "w17", "w10_off4",
+                                  "w3_off4", "one_row"])
+def test_probe_vgather_cuda_edges(edge, checked):
+    """``probe_vgather`` on the word path (odd W, a table 4 bytes off its
+    allocation) and the 8-byte path (even W), with a ragged last tile, and
+    on the probe step's all-one-row input, in the release and the checked
+    build (outputs poisoned, so an unwritten word shows): equal to the
+    plain version, one launch, no guard fired."""
+    from hermes_tpu_torch.core import probe_kernels as pk
+
+    dev = _card()
+    keys, table, path = _vgather_edge(edge, dev)
+    assert pk.vgather_access(table, torch.empty_like(table)) == path
+    want = pk.probe_vgather_plain(keys.cpu(), table.cpu())
+    before = pk.probe_vgather.launches
+    with _build(checked) as chk:
+        got = pk.probe_vgather(keys, table)
+        torch.cuda.synchronize(dev)
+    assert pk.probe_vgather.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    if checked:
+        assert chk.violations == [] and len(chk.launched) == 1
+
+
+@pytest.mark.gpu
+def test_probe_vgather_replays_from_a_cuda_graph():
+    """One ``probe_vgather`` call captured into a CUDA graph, then replayed
+    with new keys copied into the static buffer: each replay equals the
+    eager call on those keys."""
+    from hermes_tpu_torch.core import probe_kernels as pk
+
+    dev = _card()
+    shape = chip_smoke.PROBE_SHAPES[0]
+    draws = [_probe_args(shape, seed=20 + n) for n in range(3)]
+    table = draws[0][0].to(dev)
+    keys = draws[0][1].to(dev)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        pk.probe_vgather(keys, table)  # warm-up off the capture
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=s):
+            captured = pk.probe_vgather(keys, table)
+        for _table, new_keys, _rows in draws[1:]:
+            keys.copy_(new_keys)
+            graph.replay()
+            torch.cuda.synchronize()
+            eager = pk.probe_vgather(new_keys.to(dev), table)
+            torch.cuda.synchronize()
+            assert torch.equal(captured, eager)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("checked", [False, True])
+@pytest.mark.parametrize("edge", ["c1001", "c1000_off4", "c256_off4"])
+def test_fx_block_copy_cuda_edges(edge, checked):
+    """``fx_block_copy`` on the word path: C = 1,001 (not a multiple of
+    4), and input views 4 bytes off their allocation (C = 1,000, and the
+    fixture's 256): equal to the plain version in both builds, one
+    launch."""
+    from hermes_tpu_torch.analysis import fixture_kernels as fk
+
+    dev = _card()
+    C = int(edge[1:].split("_")[0])
+    g = torch.Generator().manual_seed(C)
+    x = torch.randint(-(1 << 31), 1 << 31, (5, C), generator=g,
+                      dtype=torch.int64).to(torch.int32)
+    if "off4" in edge:
+        buf = torch.empty(x.numel() + 1, dtype=torch.int32, device=dev)
+        xd = buf[1:].view(x.shape)
+        xd.copy_(x)
+    else:
+        xd = x.to(dev)
+    assert fk.block_copy_access(xd, torch.empty_like(xd)) == 0
+    before = fk.fx_block_copy.launches
+    with _build(checked) as chk:
+        got = fk.fx_block_copy(xd)
+        torch.cuda.synchronize(dev)
+    assert fk.fx_block_copy.launches == before + 1
+    assert torch.equal(got.cpu(), fk.fx_block_copy_plain(x))
+    if checked:
+        assert chk.violations == [] and len(chk.launched) == 1
 
 
 @pytest.mark.gpu

@@ -22,6 +22,7 @@ chip_smoke.py.
 import importlib.util
 import json
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -100,6 +101,173 @@ def test_torch_probe_vgather_matches_reference(ref, K, M, out_of_range):
     got = pk.probe_vgather(torch.from_numpy(keys), torch.from_numpy(table))
     assert pk.probe_vgather.launches == before
     np.testing.assert_array_equal(want, got.numpy())
+
+
+@pytest.mark.parametrize("K,M,width", [
+    (64, 256, 1), (5, 40, 1), (64, 256, 3), (5, 40, 3), (64, 256, 17),
+    (1000, 777, 17)])
+def test_torch_probe_vgather_plain_matches_reference_at_widths(ref, K, M,
+                                                               width):
+    """The plain gather against ``_vgather_kernel`` (interpret mode) at
+    row widths beside the probe's W = 10, keys outside [0, K) among
+    them."""
+    rng = np.random.default_rng(K * 1000 + M + width)
+    table = rng.integers(-(1 << 31), 1 << 31, (K, width), dtype=np.int64
+                         ).astype(np.int32)
+    keys = _keys(rng, K, M, True)
+    want = _np(pl.pallas_call(
+        ref._vgather_kernel,
+        out_shape=jax.ShapeDtypeStruct((M, width), jnp.int32),
+        interpret=True)(jnp.asarray(keys), jnp.asarray(table)))
+    got = pk.probe_vgather_plain(torch.from_numpy(keys),
+                                 torch.from_numpy(table))
+    np.testing.assert_array_equal(want, got.numpy())
+
+
+def _cu_const(name):
+    """A ``constexpr int`` of ``csrc/probe_vgather.cu``: the replay takes
+    the kernel's own geometry."""
+    text = (ROOT / "hermes_tpu_torch" / "csrc" / "probe_vgather.cu"
+            ).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def _recip(d):
+    """``probe_vgather.cu``'s reciprocal of a divisor d (the entry's
+    arithmetic): ceil(2^32 / d), 0 for d = 1."""
+    return 0 if d == 1 else ((1 << 32) + d - 1) // d
+
+
+def _row_in_tile(p, d):
+    """The kernel's ``row_in_tile``: p / d as a multiply-high by the
+    reciprocal (p itself for d = 1)."""
+    p = np.asarray(p, np.uint64)
+    return p if d == 1 else (p * np.uint64(_recip(d))) >> np.uint64(32)
+
+
+def test_torch_probe_vgather_reciprocal_division_is_exact():
+    """umulhi(p, ceil(2^32 / d)) == p // d wherever the kernel uses it:
+    p below 32 d + 512 (a tile's pieces or words, and the unused slots of
+    its last pass), for every d up to VGATHER_W_MAX: the bound p * (m d -
+    2^32) < 2^32 holds for each, and a brute force over every such p
+    agrees at the smallest and the largest divisors."""
+    stage = _cu_const("kStage")
+    assert _cu_const("kMaxW") == pk.VGATHER_W_MAX
+    for d in range(1, pk.VGATHER_W_MAX + 1):
+        reach = 32 * d + stage
+        assert d == 1 or reach * (_recip(d) * d - (1 << 32)) < 1 << 32
+    for d in (*range(1, 65), 4095, 4096, 8191, pk.VGATHER_W_MAX):
+        p = np.arange(32 * d + stage, dtype=np.uint64)
+        np.testing.assert_array_equal(_row_in_tile(p, d), p // np.uint64(d))
+
+
+def _vgather_replay(keys, table, rows, cap):
+    """``csrc/probe_vgather.cu`` replayed in numpy on ``keys`` (M,) and
+    ``table`` (K, W) tensors, ``rows`` the output tensor whose pointer the
+    launch would get, with ``cap`` co-resident CTAs: the grid the entry
+    makes (a tile of kTile messages a warp, as many CTAs of kThreads / 32
+    warps as the tiles need, at most ``cap``), the path
+    (``vgather_access``) the wrapper picks, every warp's tiles by grid
+    stride, each lane's key, the
+    pieces or words it loads (row numbers taken from the lane that holds
+    them, as ``__shfl_sync`` does), the stage and the stores.  Asserts that
+    every tile is taken by one warp, every load stays in the table, every
+    store in the output, every vector access is aligned, and every output
+    word is written once from a staged word (rows within a tile by the
+    kernel's reciprocal division); returns the output and the path."""
+    K, W = table.shape
+    M = keys.shape[0]
+    vec_ld, vec_st = pk.vgather_access(table, rows)
+    if vec_ld:
+        assert table.data_ptr() % 8 == 0 and W % 2 == 0
+    if vec_st:
+        assert rows.data_ptr() % 16 == 0
+    T, S = _cu_const("kTile"), _cu_const("kStage")
+    tiles = -(-M // T)
+    ctas = min(cap, -(-tiles // (_cu_const("kThreads") // 32)))
+    warps = ctas * (_cu_const("kThreads") // 32)
+    k_np, flat = keys.numpy(), table.numpy().reshape(-1)
+    lane = np.arange(32)
+    out = np.zeros(M * W, np.int64)
+    writes = np.zeros(M * W, np.int64)
+    taken = np.zeros(tiles, np.int64)
+    for w in range(warps):
+        for tile in range(w, tiles, warps):
+            taken[tile] += 1
+            m0 = tile * T
+            n = min(T, M - m0)
+            key = np.where(lane < n, k_np[np.minimum(m0 + lane, M - 1)], 0)
+            row = pk.row_index(torch.from_numpy(key), K).numpy()
+            words = n * W
+            for base in range(0, words, S):
+                cnt = min(S, words - base)
+                stage = np.zeros(S, np.int64)
+                filled = np.zeros(S, bool)
+                if vec_ld:
+                    H = W // 2
+                    slot = (lane[None, :] + 32 * np.arange(S // 64)[:, None]
+                            ).ravel()
+                    p = base // 2 + slot
+                    r = _row_in_tile(p, H).astype(np.int64)
+                    src = row[r & 31]
+                    ok = 2 * slot < cnt
+                    piece = (src * H + p - r * H)[ok]
+                    assert (0 <= piece).all() and (piece < K * H).all()
+                    for half in (0, 1):
+                        stage[2 * slot[ok] + half] = flat[2 * piece + half]
+                        filled[2 * slot[ok] + half] = True
+                else:
+                    slot = (lane[None, :] + 32 * np.arange(S // 32)[:, None]
+                            ).ravel()
+                    p = base + slot
+                    r = _row_in_tile(p, W).astype(np.int64)
+                    src = row[r & 31]
+                    ok = slot < cnt
+                    word = (src * W + p - r * W)[ok]
+                    assert (0 <= word).all() and (word < K * W).all()
+                    stage[slot[ok]] = flat[word]
+                    filled[slot[ok]] = True
+                assert filled[:cnt].all()
+                o = m0 * W + base
+                assert o % 4 == 0
+                nv = cnt >> 2 if vec_st else 0
+                vec = (o >> 2) + np.arange(nv)
+                assert (vec < (M * W) >> 2).all()
+                at = np.concatenate([(4 * vec[:, None] + np.arange(4)).ravel(),
+                                     o + np.arange(4 * nv, cnt)])
+                assert (at < M * W).all()
+                out[at] = stage[:cnt]
+                writes[at] += 1
+    assert (taken == 1).all()  # every message is in exactly one tile
+    assert (writes == 1).all()  # every output word written once
+    return out.reshape(M, W).astype(np.int32), (vec_ld, vec_st)
+
+
+@pytest.mark.parametrize("width", [1, 3, 10, 17])
+@pytest.mark.parametrize("M", [1, 31, 32, 33, 4096, 49152])
+def test_torch_probe_vgather_plan_replays_in_numpy(M, width):
+    """The kernel's tiles, grid and paths replayed in numpy equal the plain
+    gather: at a grid of as many CTAs as the tiles need (a warp a tile)
+    and at a grid of 3 CTAs (warps striding over many tiles), from an
+    aligned table (8-byte pieces where W is even) and from a view 4 bytes
+    off its allocation (the word path), with keys outside [0, K)."""
+    K = 1000
+    rng = np.random.default_rng(M * 31 + width)
+    keys = torch.from_numpy(_keys(rng, K, M, M >= 8))
+    buf = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, K * width + 1,
+                                        dtype=np.int64).astype(np.int32))
+    rows = torch.empty((M, width), dtype=torch.int32)
+    for table, cap in ((buf[:-1].view(K, width), 10 ** 6),
+                       (buf[1:].view(K, width), 3)):
+        want = pk.probe_vgather_plain(keys, table).numpy()
+        got, path = _vgather_replay(keys, table, rows, cap)
+        np.testing.assert_array_equal(got, want)
+        off = table.data_ptr() - buf.data_ptr()
+        assert path == (int(off == 0 and width % 2 == 0), 1)
+    rows = torch.empty(M * width + 1, dtype=torch.int32)[1:].view(M, width)
+    got, path = _vgather_replay(keys, table, rows, 3)  # output 4 bytes off
+    assert path[1] == 0
+    np.testing.assert_array_equal(got, want)
 
 
 def _port_args(cand, args):
@@ -223,6 +391,17 @@ def test_torch_probe_kernels_dispatch(wrapper, call):
     if wrapper is pk.probe_serial:
         with pytest.raises(ValueError):
             call(t, k, r[:, :3])
+
+
+def test_torch_probe_vgather_refuses_rows_wider_than_its_kernel():
+    """Rows wider than ``VGATHER_W_MAX`` words raise on either device: the
+    wrapper takes what the kernel takes."""
+    keys = torch.zeros((3,), dtype=torch.int32)
+    wide = torch.zeros((2, pk.VGATHER_W_MAX + 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="at most"):
+        pk.probe_vgather(keys, wide)
+    got = pk.probe_vgather(keys, wide[:, :pk.VGATHER_W_MAX])
+    assert got.shape == (3, pk.VGATHER_W_MAX)
 
 
 def test_torch_table_probe_cli_cpu(tmp_path):
