@@ -127,21 +127,24 @@ REPLAY_STEP, REPLAY_AGE = 1000, 16
 PROBE_SHAPES = ((1 << 20, 49152), (4096, 4096), (8, 256), (1000, 777))
 PROBE_OUT_OF_RANGE = 3  # the index of the shape with keys outside [0, K)
 # the analysis kernels: the fixture's shape first (what the kernel matrix
-# and the red tests give them), then a larger, ragged one
+# and the red tests give them), then a larger, ragged one; fx_async_copy
+# also at 4.1 MB (a partial last tile), fx_loop_inc at 91 words (its word
+# path)
 SCAN_ACC_SHAPES = ((16, 8), (4096, 256), (4097, 257), (65536, 8))  # M, W
 # the kernels whose call must enqueue exactly one device operation
 # (probe_serial after its first call on a stream, which fills its winner
 # column: the kernels phase makes that call before it counts)
 ONE_OPERATION = ("stats_block", "mega_route", "mega_apply", "mega_replay",
-                 "probe_serial", "probe_vgather", "scan_acc")
+                 "probe_serial", "probe_vgather", "scan_acc", "fx_async_copy",
+                 "fx_loop_inc")
 FX_SHAPES = {  # rows, columns (fx_serial_scan: K, M; W = 10)
     "fx_pack": ((8, 128), (1000, 77)),
     "fx_store_at": ((8, 128), (64, 10)),
     "fx_acc_revisit": ((8, 256), (20, 1000)),
     "fx_block_copy": ((8, 256), (5, 1000)),
     "fx_serial_scan": ((64, 32), (1000, 777)),
-    "fx_async_copy": ((8, 128), (64, 1024)),
-    "fx_loop_inc": ((8, 128), (1000, 77)),
+    "fx_async_copy": ((8, 128), (64, 1024), (1000, 1028)),
+    "fx_loop_inc": ((8, 128), (1000, 77), (7, 13)),
 }
 FX_W = 10
 

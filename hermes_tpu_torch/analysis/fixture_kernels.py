@@ -344,22 +344,23 @@ def fx_async_copy_plain(x):
 
 def fx_async_copy(x):
     """A copy of ``x`` (int32, a multiple of 4 elements, 16-byte aligned)
-    made with the card's asynchronous copy: global to shared memory with
-    ``cp.async``, waited for, then stored.  Replaces the DMA ``_kern``
-    (``pltpu.make_async_copy`` and its semaphore).  The asynchronous copy
-    is the one access of the port no guard wraps; the source declares it
-    and the checked build reports it."""
+    made with the card's Tensor Memory Accelerator: a CTA a 4 KB tile, one
+    thread asks for the tile's bulk copy into shared memory, waits on an
+    mbarrier, then asks for its bulk store.  Replaces the DMA ``_kern``
+    (``pltpu.make_async_copy`` and its semaphore).  The bulk copies are the
+    accesses of the port no guard wraps; the source declares them, the
+    checked build reports them and checks each tile's store as a range."""
     name = "fx_async_copy"
     need(name, "x", x, I32)
     if x.numel() < 4 or x.numel() % 4:
         raise ValueError(f"{name}: x must hold a multiple of 4 elements, got "
                          f"{x.numel()}")
-    if not on_card(name, x):
-        return fx_async_copy_plain(x)
     if x.data_ptr() % 16:
         raise ValueError(f"{name}: x must be 16-byte aligned")
+    if not on_card(name, x):
+        return fx_async_copy_plain(x)
     copied = out(x.shape, I32, x.device)
-    launch(name, x.device, x, copied, x.numel(), lib=LIB)
+    launch(name, x.device, x, copied, x.numel(), x.numel(), lib=LIB)
     fx_async_copy.launches += 1
     return copied
 
@@ -380,11 +381,18 @@ def fx_loop_inc_plain(x, times=10):
     return acc
 
 
+def loop_inc_access(acc) -> int:
+    """1 where ``fx_loop_inc`` stores 16-byte int4s into ``acc`` (a
+    multiple of 4 elements, 16-byte aligned), else 0 (4-byte words)."""
+    return int(acc.numel() % 4 == 0 and acc.data_ptr() % 16 == 0)
+
+
 def fx_loop_inc(x, times=10):
     """``out = 0``, then ``out += 1`` ``times`` times, shaped as the int32
     tensor ``x`` (whose values the function, as the Pallas ``_kern`` it
-    replaces, does not read).  One thread an element, the loop in a
-    register."""
+    replaces, does not read).  The loop in a register, then one store a
+    thread: a 16-byte int4 where ``loop_inc_access`` allows it, else a
+    word."""
     name = "fx_loop_inc"
     need(name, "x", x, I32)
     if times < 0:
@@ -393,7 +401,8 @@ def fx_loop_inc(x, times=10):
         return fx_loop_inc_plain(x, times)
     acc = out(x.shape, I32, x.device)
     if x.numel():
-        launch(name, x.device, acc, x.numel(), int(times), lib=LIB)
+        launch(name, x.device, acc, x.numel(), int(times),
+               loop_inc_access(acc), lib=LIB)
         fx_loop_inc.launches += 1
     return acc
 

@@ -51,17 +51,30 @@
 //     extent in the units it moves, so an offset block past the row's end
 //     is caught, not aliased into the next row.
 //   * fx_async_copy: pltpu.make_async_copy and its DMA semaphore become
-//     cp.async (__pipeline_memcpy_async) from global into shared memory,
-//     committed and waited for (__pipeline_wait_prior), then plain stores
-//     to the output.  The hardware forms the asynchronous copy's global
-//     addresses, so no guard wraps it: it is declared HG_UNGUARDED.
+//     the Tensor Memory Accelerator's 1-D bulk copy and an mbarrier.  One
+//     warp a CTA, a tile of kTileBytes a CTA (the last tile what remains, a
+//     multiple of 16 bytes since n % 4 == 0); one thread initialises the
+//     barrier, arms it with the tile's byte count, asks for the tile
+//     (cp.async.bulk global -> shared, completing on the barrier), waits
+//     for phase 0, asks for the bulk store (shared -> global) and waits
+//     until shared memory has been read.  The data never passes through
+//     registers; no thread loops.  The hardware forms both copies'
+//     addresses, so no guard wraps them: each is declared HG_UNGUARDED.
+//     The checked build checks each tile's store once, as a range against
+//     out's extent (HG_ST_RANGE), and skips a tile that leaves it.  A tile
+//     of 4 KB: with one tile in flight a CTA, more CTAs move more at once;
+//     a 16 KB tile was slower at 256 KB and at 4 MB (PERF.md §6).
+//   * fx_loop_inc: each thread forms the value with the register loop and
+//     stores one 16-byte int4 where n is a multiple of 4 and out is 16-byte
+//     aligned (the wrapper chooses, fixture_kernels.loop_inc_access, and
+//     the entry re-checks), else one word: one CTA at the fixture's 1,024
+//     words.  Each store is guarded in the units it writes.
 //
 // C interface (ctypes, hermes_tpu_torch/analysis/fixture_kernels.py):
 // pointers and the stream are void*-sized; each entry returns
 // cudaGetLastError() after its launches (0 = launched).
 
 #include <cstdint>
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "guard.cuh"
@@ -71,7 +84,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kBlockCols = 128;  // the fixtures' column block
 constexpr int kGridYMax = 65535;  // column blocks of fx_block_copy
-constexpr int kCopyWords = 1024;  // int32 words a block stages (4 KB)
+constexpr int kTileBytes = 4096;  // fx_async_copy's tile, a multiple of 16
+constexpr int kTileWords = kTileBytes / 4;
 
 unsigned grid_for(int64_t n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
@@ -150,31 +164,63 @@ scan_store_kernel(int32_t* __restrict__ table, const int32_t* __restrict__ keys,
     HG_ST(table, k * W + (j - i * W), static_cast<int64_t>(K) * W, HG_LD(rows, j, M * W));
 }
 
-// Each block stages kCopyWords words in shared memory, 16 bytes a thread.
-__global__ void __launch_bounds__(kThreads)
-async_copy_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out,
-                  int n) {
-  __shared__ __align__(16) int32_t stage[kCopyWords];
-  const int base = blockIdx.x * kCopyWords;
-  const int w = threadIdx.x * 4;  // n is a multiple of 4
-  if (base + w < n) {
-    HG_UNGUARDED("cp.async (__pipeline_memcpy_async) of 16 bytes from x into shared memory");
-    __pipeline_memcpy_async(stage + w, x + base + w, 16);
-  }
-  __pipeline_commit();
-  __pipeline_wait_prior(0);
-  __syncthreads();
-  for (int t = threadIdx.x; t < kCopyWords && base + t < n; t += blockDim.x)
-    HG_ST(out, base + t, n, stage[t]);
+// The shared-memory address of p, as the bulk copies and the barrier take it.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// Block b copies words [b * kTileWords, b * kTileWords + words) of x to
+// out, n words in all, out holding n_out: one thread drives the TMA, the
+// data goes from global to shared memory and back without a register.
+__global__ void __launch_bounds__(32)
+async_copy_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out,
+                  int n, int n_out) {
+  __shared__ __align__(128) int32_t stage[kTileWords];
+  __shared__ __align__(8) uint64_t full;
+  if (threadIdx.x != 0) return;
+  const int64_t start = static_cast<int64_t>(blockIdx.x) * kTileWords;
+  const int words = static_cast<int>(
+      n - start < kTileWords ? n - start : kTileWords);
+  if (!HG_ST_RANGE(start, words, n_out)) return;  // skip the tile
+  const uint32_t bytes = 4u * words, bar = smem_addr(&full),
+                 tile = smem_addr(stage);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(1u)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(bar), "r"(bytes) : "memory");
+  HG_UNGUARDED("cp.async.bulk (TMA) of a tile from x into shared memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(tile), "l"(x + start), "r"(bytes), "r"(bar)
+      : "memory");
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(bar), "r"(0u) : "memory");  // phase 0
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  HG_UNGUARDED("cp.async.bulk (TMA) of the tile from shared memory to out");
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               ::"l"(out + start), "r"(tile), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// Thread i stores unit i of out: an int4 (vec) or a word.
 __global__ void __launch_bounds__(kThreads)
-loop_inc_kernel(int32_t* __restrict__ out, int n, int times) {
+loop_inc_kernel(int32_t* __restrict__ out, int n, int times, int vec) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  const int units = vec ? n >> 2 : n;
+  if (i >= units) return;
   int32_t v = 0;
   for (int t = 0; t < times; ++t) v += 1;
-  HG_ST(out, i, n, v);
+  if (vec)
+    HG_ST(reinterpret_cast<int4*>(out), i, units, make_int4(v, v, v, v));
+  else
+    HG_ST(out, i, n, v);
 }
 
 }  // namespace
@@ -268,28 +314,36 @@ int hermes_fx_serial_scan(void* table, const void* keys, const void* rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x, out: n int32 each, both 16-byte aligned.  n >= 4, a multiple of 4.
-int hermes_fx_async_copy(const void* x, void* out, int n HG_ENTRY_ARG,
-                         void* stream) {
-  if (n < 4 || n % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)
+// x: n int32, copied to out, which holds n_out int32 (n, from the
+// wrapper); both 16-byte aligned, as a bulk copy needs, else refused
+// (cudaErrorInvalidValue).  n >= 4, a multiple of 4.  An n_out below n only
+// in the checked build, whose range check skips the tiles past it.
+int hermes_fx_async_copy(const void* x, void* out, int n,
+                         int n_out HG_ENTRY_ARG, void* stream) {
+  if (n < 4 || n % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = HG_BEGIN(st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  async_copy_kernel<<<(n + kCopyWords - 1) / kCopyWords, kThreads, 0, st>>>(
-      static_cast<const int32_t*>(x), static_cast<int32_t*>(out), n);
+  async_copy_kernel<<<(n + kTileWords - 1) / kTileWords, 32, 0, st>>>(
+      static_cast<const int32_t*>(x), static_cast<int32_t*>(out), n, n_out);
   return static_cast<int>(cudaGetLastError());
 }
 
-// out: n int32.  n >= 1, times >= 0.
-int hermes_fx_loop_inc(void* out, int n, int times HG_ENTRY_ARG,
-                       void* stream) {
-  if (n < 1 || times < 0) return cudaErrorInvalidValue;
+// out: n int32.  n >= 1, times >= 0.  vec: 1 stores int4s (n a multiple
+// of 4, out 16-byte aligned), 0 words; a vec out or n do not allow is
+// refused (cudaErrorInvalidValue).
+int hermes_fx_loop_inc(void* out, int n, int times,
+                       int vec HG_ENTRY_ARG, void* stream) {
+  if (n < 1 || times < 0 || (vec != 0 && vec != 1) ||
+      (vec && !(n % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0)))
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = HG_BEGIN(st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  loop_inc_kernel<<<grid_for(n), kThreads, 0, st>>>(static_cast<int32_t*>(out),
-                                                    n, times);
+  loop_inc_kernel<<<grid_for(vec ? n / 4 : n), kThreads, 0, st>>>(
+      static_cast<int32_t*>(out), n, times, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,7 +15,13 @@
 // memory whose index the kernel computes from its data (a scatter, local
 // or through distributed shared memory) is a guard site too:
 //   HG_SMEM_ST(p, i, n, v)      p[i] = v, n the window's extent
-// checked and reported like HG_ST.  In the release build these are the
+// checked and reported like HG_ST.  A store of a whole range in one
+// instruction that the hardware addresses (a bulk copy, cp.async.bulk) is
+// checked once, as a range, before it issues:
+//   if (HG_ST_RANGE(i, count, n)) { the store of [i, i + count) }
+// true in the release build; in the checked build false, with the first
+// index of the range outside [0, n) recorded as HG_ST records its index,
+// when the range leaves the extent.  In the release build these are the
 // bare accesses on the right: the guard costs nothing.  In the checked
 // build each one first tests 0 <= i < n.  On a violation it adds one to
 // the report's count, records the first one (source line, index, extent,
@@ -42,8 +48,8 @@
 // before the stream (HG_ENTRY_ARG) and hands it to the kernels with
 // HG_BEGIN(stream) before its first launch.
 //
-// check() also compiles for the host (g++, native/guard_host.cpp), so the
-// CPU tests hold its arithmetic.
+// check() and check_range() also compile for the host (g++,
+// native/guard_host.cpp), so the CPU tests hold their arithmetic.
 
 #pragma once
 
@@ -96,6 +102,16 @@ HG_HD bool check(long long* rep, long long index, long long extent, int line,
     rep[kStore] = is_store;
   }
   return false;
+}
+
+// True when [start, start + count) lies in [0, extent), count >= 0.
+// Otherwise records, as check() does, the range's first index outside the
+// extent, and returns false: the caller skips the whole range.
+HG_HD bool check_range(long long* rep, long long start, long long count,
+                       long long extent, int line, int is_store) {
+  if (start >= 0 && start <= extent - count) return true;
+  return check(rep, start < 0 || start >= extent ? start : extent, extent,
+               line, is_store);
 }
 
 }  // namespace hermes_guard
@@ -155,6 +171,9 @@ inline cudaError_t begin(void* rep, cudaStream_t st) {
 #define HG_ST(p, i, n, v) hermes_guard::store((p), (i), (n), (v), __LINE__)
 #define HG_SMEM_ST(p, i, n, v) \
   hermes_guard::store((p), (i), (n), (v), __LINE__)
+#define HG_ST_RANGE(i, count, n)                                       \
+  hermes_guard::check_range(hermes_guard::report, (i), (count), (n), \
+                            __LINE__, 1)
 #define HG_ATOMIC_MAX(p, i, n, v) \
   hermes_guard::atomic_max((p), (i), (n), (v), __LINE__)
 #define HG_ATOMIC_ADD(p, i, n, v) \
@@ -171,6 +190,7 @@ inline cudaError_t begin(void* rep, cudaStream_t st) {
 #define HG_LD_CG(p, i, n) __ldcg((p) + (i))
 #define HG_ST(p, i, n, v) ((p)[(i)] = (v))
 #define HG_SMEM_ST(p, i, n, v) ((p)[(i)] = (v))
+#define HG_ST_RANGE(i, count, n) true
 #define HG_ATOMIC_MAX(p, i, n, v) atomicMax((p) + (i), (v))
 #define HG_ATOMIC_ADD(p, i, n, v) atomicAdd((p) + (i), (v))
 #define HG_UNGUARDED(what) ((void)0)

@@ -26,6 +26,7 @@ and chip_smoke.py.
 
 import ctypes
 import json
+import os
 import pathlib
 import re
 import subprocess
@@ -422,6 +423,12 @@ def test_torch_fx_block_copy_matches_fixture(offset):
         np.testing.assert_array_equal(x, fk.fx_block_copy(_t(x)).numpy())
 
 
+def _fixture_constant(name):
+    """A ``constexpr int`` of ``csrc/analysis_fixtures.cu``."""
+    text = (build.CSRC / "analysis_fixtures.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text)[1])
+
+
 def _block_copy_replay(x, copied, offset):
     """``block_copy_kernel`` replayed in numpy: the entry's grid of CTAs
     of kThreads threads (``analysis_fixtures.cu``), a CTA a (row tile,
@@ -434,8 +441,7 @@ def _block_copy_replay(x, copied, offset):
     if vec:
         assert C % 4 == 0 and x.data_ptr() % 16 == 0
         assert copied.data_ptr() % 16 == 0
-    text = (build.CSRC / "analysis_fixtures.cu").read_text()
-    threads = int(re.search(r"constexpr int kThreads = (\d+);", text)[1])
+    threads = _fixture_constant("kThreads")
     unit = 4 if vec else 1  # words a thread moves
     units = fk.BLOCK_COLS // unit  # a block row's
     rows = threads // units  # a CTA's
@@ -512,6 +518,99 @@ def test_torch_fx_async_copy_and_loop_inc_match_fixtures():
                                   fk.fx_async_copy(_t(v)).numpy())
     np.testing.assert_array_equal(_np(_ref_loop_inc(jnp.asarray(v))),
                                   fk.fx_loop_inc(_t(v)).numpy())
+
+
+@pytest.mark.parametrize("n", [4, 1024, 4092, 65536, 1028000])
+def test_torch_fx_async_copy_tiles_replay_in_numpy(n):
+    """``async_copy_kernel``'s launch replayed in numpy: the entry's grid
+    of one ``kTileBytes`` tile a CTA, each tile's words as the kernel
+    computes them, the last one what remains.  Every tile is a whole
+    number of 16-byte units (what a bulk copy moves), passes the checked
+    build's range check (``check_range`` through the host build of
+    ``csrc/guard.cuh``) and every word is moved exactly once; an output 4
+    words short fails the check on the last tile alone, at its first word
+    past the extent."""
+    tile_bytes = _fixture_constant("kTileBytes")
+    assert tile_bytes % 16 == 0 and tile_bytes <= 48 * 1024  # static smem
+    tile = tile_bytes // 4
+    x = _i32(np.random.default_rng(n), (n,))
+    got = np.zeros(n, np.int64)
+    moved = np.zeros(n, np.int64)
+    lib = _guard()
+    rep = (ctypes.c_longlong * dispatch.REPORT_WORDS)()
+    short = (ctypes.c_longlong * dispatch.REPORT_WORDS)()
+    tiles = -(-n // tile)  # the entry's grid
+    sizes = []
+    for b in range(tiles):
+        start = b * tile
+        words = n - start if n - start < tile else tile
+        assert (4 * words) % 16 == 0
+        assert lib.hermes_guard_check_range(ctypes.addressof(rep), start,
+                                            words, n, 1, 1) == 1
+        lib.hermes_guard_check_range(ctypes.addressof(short), start, words,
+                                     n - 4, 2, 1)
+        got[start:start + words] = x[start:start + words]
+        moved[start:start + words] += 1
+        sizes.append(4 * words)
+    assert (moved == 1).all() and list(rep) == [0] * dispatch.REPORT_WORDS
+    np.testing.assert_array_equal(got, x)
+    assert sizes[:-1] == [tile_bytes] * (tiles - 1)
+    assert sizes[-1] == 4 * n - tile_bytes * (tiles - 1)
+    assert (short[dispatch.R_COUNT], short[dispatch.R_INDEX],
+            short[dispatch.R_EXTENT]) == (1, n - 4, n - 4)
+    np.testing.assert_array_equal(fk.fx_async_copy(_t(x)).numpy(), x)
+
+
+@pytest.mark.parametrize("bad", ["n_not_a_multiple_of_4", "x_misaligned"])
+def test_torch_fx_async_copy_refuses_what_a_bulk_copy_cannot_take(bad):
+    """A bulk copy moves 16-byte units between 16-byte aligned addresses:
+    the wrapper raises, on any device, for a count not a multiple of 4 and
+    for an ``x`` 4 bytes off its allocation."""
+    buf = torch.arange(1029, dtype=torch.int32)
+    x = buf[:1026] if bad == "n_not_a_multiple_of_4" else buf[1:1025]
+    assert (x.data_ptr() - buf.data_ptr()) == (0 if x.numel() == 1026 else 4)
+    with pytest.raises(ValueError, match="multiple of 4" if x.numel() == 1026
+                       else "16-byte aligned"):
+        fk.fx_async_copy(x)
+
+
+def test_torch_launch_floor_needs_the_card():
+    """Without a card ``python -m hermes_tpu_torch.launch_floor`` exits 2
+    and prints no result."""
+    r = subprocess.run([sys.executable, "-m", "hermes_tpu_torch.launch_floor"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=120,
+                       env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert r.returncode == 2 and r.stdout == "" and "card" in r.stderr
+
+
+@pytest.mark.parametrize("n", [1, 3, 91, 1024, 77000])
+def test_torch_fx_loop_inc_replays_in_numpy(n):
+    """``loop_inc_kernel``'s launch replayed in numpy into an output from
+    its allocation and one 4 bytes off it: the path ``loop_inc_access``
+    picks (int4s only where n is a multiple of 4 and the pointer is
+    16-byte aligned), the entry's grid of ``kThreads`` threads, each
+    thread's unit; every word is written exactly once, and the fixture's
+    1,024 words take one CTA of int4s."""
+    threads = _fixture_constant("kThreads")
+    buf = torch.empty(n + 1, dtype=torch.int32)
+    for acc in (buf[:-1], buf[1:]):
+        vec = fk.loop_inc_access(acc)
+        assert vec == int(n % 4 == 0 and acc.data_ptr() == buf.data_ptr())
+        unit = 4 if vec else 1  # words a thread stores
+        units = n // unit
+        ctas = -(-units // threads)  # the entry's grid
+        writes = np.zeros(n, np.int64)
+        for b in range(ctas):
+            i = b * threads + np.arange(threads)
+            i = i[i < units]
+            for k in range(unit):
+                writes[i * unit + k] += 1
+        assert (writes == 1).all()
+        if n == 1024 and vec:
+            assert ctas == 1
+    np.testing.assert_array_equal(
+        fk.fx_loop_inc(torch.zeros(n, dtype=torch.int32), 7).numpy(),
+        np.full(n, 7))
 
 
 @pytest.mark.parametrize("name", sorted(fk.KERNELS))
@@ -653,6 +752,10 @@ def _guard():
     lib.hermes_guard_check.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int]
+    lib.hermes_guard_check_range.restype = ctypes.c_int
+    lib.hermes_guard_check_range.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
     lib.hermes_guard_words.restype = ctypes.c_int
     return lib
 
@@ -675,6 +778,29 @@ def test_torch_guard_arithmetic_host_build():
     assert (rep[dispatch.R_LINE], rep[dispatch.R_INDEX],
             rep[dispatch.R_EXTENT], rep[dispatch.R_STORE]) == (12, 8, 8, 0)
     assert rep[dispatch.R_UNGUARDED] == 0
+
+
+@pytest.mark.parametrize("start,count,extent,first_out", [
+    (0, 1024, 1024, None), (1020, 4, 1024, None), (1024, 0, 1024, None),
+    (1 << 40, 4096, 1 << 41, None), (0, 1024, 1020, 1020),
+    (4096, 4, 1020, 4096), (-4, 8, 1020, -4), (1020, 4, 1020, 1020)])
+def test_torch_guard_range_check_host_build(start, count, extent, first_out):
+    """``check_range`` through g++: a range inside [0, extent) (an empty
+    one at the extent too, 64-bit indices) passes and records nothing; a
+    range that leaves the extent is refused whole and recorded at its
+    first index outside it (the extent itself, or its start when that lies
+    outside), as a store, once."""
+    lib = _guard()
+    rep = (ctypes.c_longlong * dispatch.REPORT_WORDS)()
+    ok = lib.hermes_guard_check_range(ctypes.addressof(rep), start, count,
+                                      extent, 77, 1)
+    if first_out is None:
+        assert ok == 1 and list(rep) == [0] * dispatch.REPORT_WORDS
+    else:
+        assert ok == 0
+        assert (rep[dispatch.R_COUNT], rep[dispatch.R_LINE],
+                rep[dispatch.R_INDEX], rep[dispatch.R_EXTENT],
+                rep[dispatch.R_STORE]) == (1, 77, first_out, extent, 1)
 
 
 def test_torch_every_kernel_source_is_guarded():

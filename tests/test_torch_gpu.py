@@ -66,14 +66,21 @@ def _device_ops(call):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["stats_block", "mega_apply", "mega_replay",
-                                  "probe_serial", "probe_vgather"])
+                                  "probe_serial", "probe_vgather",
+                                  "fx_async_copy", "fx_loop_inc"])
 def test_kernel_call_is_one_device_operation(name):
     """At the bench shape a call enqueues exactly one device operation
     (torch.profiler): no fill, no memset, no second launch
     (``probe_serial`` after its first call, which fills its winner
-    column)."""
+    column); the two fixtures at chip_smoke.py's last shape (4.1 MB for
+    ``fx_async_copy``, the word path for ``fx_loop_inc``)."""
     dev = _card()
-    if name == "stats_block":
+    if name.startswith("fx_"):
+        wrapper, _plain, args = _analysis_case(
+            name, len(chip_smoke.FX_SHAPES[name]) - 1)
+        args = chip_smoke._to(torch, args, dev)
+        call = lambda: wrapper(*args)
+    elif name == "stats_block":
         args = [a.to(dev) for a in chip_smoke.stats_inputs(
             torch, *chip_smoke.STATS_SHAPES[0], seed=1)]
         call = lambda: kernels.stats_block(*args)
@@ -119,10 +126,16 @@ def _graph_equals_eager(make_args, call):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["stats_block", "mega_apply", "mega_replay"])
+@pytest.mark.parametrize("name", ["stats_block", "mega_apply", "mega_replay",
+                                  "fx_async_copy", "fx_loop_inc"])
 def test_kernel_call_replays_from_a_cuda_graph(name):
     dev = _card()
-    if name == "stats_block":
+    if name.startswith("fx_"):
+        for index in range(len(chip_smoke.FX_SHAPES[name])):
+            wrapper, _plain, args = _analysis_case(name, index)
+            _graph_equals_eager(lambda: chip_smoke._to(torch, args, dev),
+                                wrapper)
+    elif name == "stats_block":
         cpu = chip_smoke.stats_inputs(torch, *chip_smoke.STATS_SHAPES[0],
                                       seed=2)
         _graph_equals_eager(lambda: [a.to(dev) for a in cpu],
@@ -622,6 +635,77 @@ def test_analysis_kernel_cuda_matches_plain(name, index, checked):
         assert torch.equal(w, x.cpu())
     if checked:
         assert chk.violations == [] and len(chk.launched) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("checked", [False, True])
+def test_fx_loop_inc_and_async_copy_take_only_paths_the_pointers_allow(
+        checked):
+    """``fx_loop_inc``'s word path into an output 4 bytes off its
+    allocation (1,024 words, a multiple of 4) is right in both builds, the
+    word before it untouched; through ctypes the C entries refuse
+    (cudaErrorInvalidValue, 1) a vector store into that output and a bulk
+    copy from or to a pointer 4 bytes off."""
+    from hermes_tpu_torch.analysis import fixture_kernels as fk
+    from hermes_tpu_torch.core import dispatch
+
+    dev = _card()
+    poison = dispatch.poison(torch.int32)
+    buf = torch.full((1025,), poison, dtype=torch.int32, device=dev)
+    acc = buf[1:]
+    assert fk.loop_inc_access(acc) == 0
+    with _build(checked) as chk:
+        dispatch.launch("fx_loop_inc", dev, acc, 1024, 10, 0, lib=fk.LIB)
+        torch.cuda.synchronize(dev)
+    assert bool((acc == 10).all()) and int(buf[0]) == poison
+    if checked:
+        assert chk.violations == []
+    x = torch.arange(1028, dtype=torch.int32, device=dev)
+    o = torch.empty_like(x)
+    with _build(checked):
+        with pytest.raises(RuntimeError, match=r"CUDA error 1$"):
+            dispatch.launch("fx_loop_inc", dev, acc, 1024, 10, 1, lib=fk.LIB)
+        for src, dst in ((x[1:1025], o[:1024]), (x[:1024], o[1:1025])):
+            with pytest.raises(RuntimeError, match=r"CUDA error 1$"):
+                dispatch.launch("fx_async_copy", dev, src, dst, 1024, 1024,
+                                lib=fk.LIB)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1024, 65536])
+def test_checked_fx_async_copy_skips_a_tile_past_its_output(n):
+    """The checked entry driven through ctypes with an output extent 4
+    words short of the copy: the range check records the fault once (a
+    store in ``async_copy_kernel`` at its ``HG_ST_RANGE`` line, index and
+    extent n - 4) and skips the whole last tile, whose words keep their
+    poison, while the tiles before it are copied; with the full extent the
+    same call copies everything and reports only its declared bulk
+    copy."""
+    from hermes_tpu_torch import build
+    from hermes_tpu_torch.analysis import fixture_kernels as fk
+    from hermes_tpu_torch.core import dispatch
+
+    dev = _card()
+    src = (build.CSRC / "analysis_fixtures.cu").read_text().splitlines()
+    line = next(i for i, t in enumerate(src, 1) if "HG_ST_RANGE(" in t)
+    tile = next(int(t.split("=")[1].split(";")[0]) for t in src
+                if "constexpr int kTileBytes" in t) // 4
+    last = (n - 1) // tile * tile  # the last tile's first word
+    x = torch.arange(n, dtype=torch.int32, device=dev)
+    with dispatch.checked_build() as chk:
+        o = dispatch.out((n,), torch.int32, dev)
+        dispatch.launch("fx_async_copy", dev, x, o, n, n - 4, lib=fk.LIB)
+    [v] = chk.violations
+    assert (v["kernel"], v["line"], v["index"], v["extent"], v["store"],
+            v["count"]) == ("async_copy_kernel", line, n - 4, n - 4, True, 1)
+    assert torch.equal(o[:last], x[:last])
+    assert bool((o[last:] == dispatch.poison(torch.int32)).all())
+    with dispatch.checked_build() as chk:
+        o = dispatch.out((n,), torch.int32, dev)
+        dispatch.launch("fx_async_copy", dev, x, o, n, n, lib=fk.LIB)
+    assert chk.violations == [] and torch.equal(o, x)
+    assert [u["kernel"] for u in chk.unguarded] == ["async_copy_kernel"]
+    assert "cp.async.bulk" in chk.unguarded[0]["what"]
 
 
 @pytest.mark.gpu
