@@ -129,20 +129,21 @@ PROBE_OUT_OF_RANGE = 3  # the index of the shape with keys outside [0, K)
 # the analysis kernels: the fixture's shape first (what the kernel matrix
 # and the red tests give them), then a larger, ragged one; fx_async_copy
 # also at 4.1 MB (a partial last tile), fx_loop_inc at 91 words (its word
-# path)
+# path), fx_acc_revisit at 4 MB (a cluster, int4 loads) and with C = 1,001
+# (its word path), fx_serial_scan at the probe's bench table (40 MB)
 SCAN_ACC_SHAPES = ((16, 8), (4096, 256), (4097, 257), (65536, 8))  # M, W
 # the kernels whose call must enqueue exactly one device operation
 # (probe_serial after its first call on a stream, which fills its winner
 # column: the kernels phase makes that call before it counts)
 ONE_OPERATION = ("stats_block", "mega_route", "mega_apply", "mega_replay",
-                 "probe_serial", "probe_vgather", "scan_acc", "fx_async_copy",
-                 "fx_loop_inc")
+                 "probe_serial", "probe_vgather", "scan_acc", "fx_acc_revisit",
+                 "fx_serial_scan", "fx_async_copy", "fx_loop_inc")
 FX_SHAPES = {  # rows, columns (fx_serial_scan: K, M; W = 10)
     "fx_pack": ((8, 128), (1000, 77)),
     "fx_store_at": ((8, 128), (64, 10)),
-    "fx_acc_revisit": ((8, 256), (20, 1000)),
+    "fx_acc_revisit": ((8, 256), (20, 1000), (32, 32768), (7, 1001)),
     "fx_block_copy": ((8, 256), (5, 1000)),
-    "fx_serial_scan": ((64, 32), (1000, 777)),
+    "fx_serial_scan": ((64, 32), (1000, 777), (1 << 20, 49152)),
     "fx_async_copy": ((8, 128), (64, 1024), (1000, 1028)),
     "fx_loop_inc": ((8, 128), (1000, 77), (7, 13)),
 }
@@ -389,12 +390,21 @@ def scan_acc_case(torch, port, shape, seed):
 
 def fx_case(name):
     """The case maker of one analysis fixture: inputs in bounds at
-    (rows, columns), and the least bytes (each input read once, each
-    output written once) and operations."""
+    (rows, columns) (``fx_serial_scan``: K table rows, M messages), and
+    the least bytes (each input read once, each output written once) and
+    operations."""
     def case(torch, port, shape, seed):
         r, c = shape
         n = r * c
         g = torch.Generator().manual_seed(seed)
+        if name == "fx_serial_scan":  # keys read; winners' rows moved
+            K, M = shape
+            keys = _i32(torch, g, (M,), 0, K)
+            args = (_i32(torch, g, (K, FX_W), -(1 << 31), 1 << 31), keys,
+                    _i32(torch, g, (M, FX_W), -(1 << 31), 1 << 31))
+            D = len(keys.unique())
+            return args, None, dict(rows=K, cols=M, **bound(
+                4 * M + 8 * D * FX_W, 4 * M * FX_W))
         x = _i32(torch, g, (r, c), 0, 4)
         if name == "fx_pack":
             args = (_i32(torch, g, (r, c), 0, 3),
@@ -409,13 +419,6 @@ def fx_case(name):
         elif name == "fx_block_copy":
             args = (x, 0)
             cost = bound(8 * n, n)
-        elif name == "fx_serial_scan":  # keys read; winners' rows moved
-            K, M = shape
-            keys = _i32(torch, g, (M,), 0, K)
-            args = (_i32(torch, g, (K, FX_W), -(1 << 31), 1 << 31), keys,
-                    _i32(torch, g, (M, FX_W), -(1 << 31), 1 << 31))
-            D = len(keys.unique())
-            cost = bound(4 * M + 8 * D * FX_W, 4 * M * FX_W)
         elif name == "fx_async_copy":
             args = (x,)
             cost = bound(8 * n, n)

@@ -212,15 +212,52 @@ def fx_acc_revisit_plain(x, init=True, acc=None):
     return acc
 
 
+#: the least columns a CTA of fx_acc_revisit's cluster sums, and the
+#: largest cluster its plan takes (analysis_fixtures.cu takes up to 16)
+ACC_COLS_MIN = 2048
+ACC_CLUSTER_MAX = 8
+
+
+class AccPlan(NamedTuple):
+    """``acc_revisit_kernel``'s launch: ``vec`` columns a lane a load (4:
+    one 16-byte int4), a cluster of ``cluster`` CTAs, each summing ``cols``
+    columns of every row."""
+    vec: int
+    cluster: int
+    cols: int
+
+
+def acc_revisit_access(x) -> int:
+    """1 where ``fx_acc_revisit`` loads 16-byte int4s from ``x`` (C a
+    multiple of 4, ``x`` 16-byte aligned), else 0 (4-byte words)."""
+    return int(x.shape[1] % 4 == 0 and x.data_ptr() % 16 == 0)
+
+
+@functools.lru_cache(maxsize=64)
+def acc_revisit_plan(R: int, C: int, aligned: bool = True) -> AccPlan:
+    """The cluster plan of the (R, C) row sums: int4 loads where C is a
+    multiple of 4 and ``x`` is ``aligned``; a CTA (a warp a row) for every
+    ``ACC_COLS_MIN`` columns, at most ``ACC_CLUSTER_MAX``, each summing an
+    equal share of whole vectors (so a short row takes one CTA)."""
+    if not (1 <= R <= 32 and C >= 1):
+        raise ValueError(f"acc_revisit_plan: no plan for ({R}, {C})")
+    vec = 4 if aligned and C % 4 == 0 else 1
+    q = max(1, min(ACC_CLUSTER_MAX, C // ACC_COLS_MIN))
+    cols = cdiv(cdiv(C, q), vec) * vec
+    return AccPlan(vec, cdiv(C, cols), cols)
+
+
 def fx_acc_revisit(x, init=True):
-    """The (R, 1) int32 row sums of ``x`` (R, C) int32, R <= 32, formed by
-    one thread block per 128-column block adding its partial sums into the
-    one output, which ``init`` zero-fills first.  ``init=False`` is the
-    fixture of a dropped initialisation: the sums land on whatever the
-    output held.  Replaces ``TestRefHazards._acc._kern`` (a grid of 2
-    revisiting one output block, with or without its first-visit
-    zero-fill).  Row sums by warp shuffle, one integer atomicAdd a row and
-    block."""
+    """The (R, 1) int32 row sums of ``x`` (R, C) int32, R <= 32, added to
+    a zero output (``init``) or to whatever the output held
+    (``init=False``: the fixture of a dropped initialisation).  Replaces
+    ``TestRefHazards._acc._kern`` (a grid of 2 revisiting one output
+    block, with or without its first-visit zero-fill).  One launch and one
+    device operation, no memset and no global atomic: a warp a row, a
+    shuffle reduction, and one store a row that adds onto zero or onto the
+    old value; wide rows a thread-block cluster along the columns
+    (``acc_revisit_plan``), whose partials meet in distributed shared
+    memory."""
     name = "fx_acc_revisit"
     R, C = _need2(name, "x", x)
     if R > 32:
@@ -228,7 +265,9 @@ def fx_acc_revisit(x, init=True):
     acc = out((R, 1), I32, x.device)
     if not on_card(name, x):
         return fx_acc_revisit_plain(x, init, acc)
-    launch(name, x.device, x, acc, R, C, int(bool(init)), lib=LIB)
+    plan = acc_revisit_plan(R, C, bool(acc_revisit_access(x)))
+    launch(name, x.device, x, acc, R, C, int(bool(init)), plan.vec,
+           plan.cluster, plan.cols, lib=LIB)
     fx_acc_revisit.launches += 1
     return acc
 
@@ -307,12 +346,15 @@ def fx_serial_scan(table, keys, rows):
     """``for i: table[keys[i]] = rows[i]`` on ``table`` (K, W), ``keys``
     (M,) and ``rows`` (M, W), all int32, in place; returns ``table``.
     Replaces the serial scan ``_kern`` (a loop of dynamic single-row
-    stores).  The first winner-column form of ``csrc/probe_serial.cu``,
-    kept here as it was: a memset of a new column, an ``atomicMax`` of the
-    message index per key, a store where it won, in three device
-    operations (``probe_serial`` now keeps its column and makes one); it
-    does not clamp, so a key outside [0, K) only inside
-    ``dispatch.checked_build()``."""
+    stores).  One plain launch and one device operation: CTA b owns table
+    rows [b * S, (b + 1) * S) (S = ``kScanSlots`` of
+    ``csrc/analysis_fixtures.cu``) and their winner column in shared
+    memory, takes a shared-memory ``atomicMax`` of the message index on
+    each key in its slice (the last message wins), then copies each
+    winner's row.  No allocation, no memset, no state between calls.  It
+    does not clamp: a key outside [0, K) only inside
+    ``dispatch.checked_build()`` (the release build stores no such
+    key)."""
     name = "fx_serial_scan"
     K, W = _need2(name, "table", table)
     need(name, "keys", keys, I32)
@@ -323,8 +365,7 @@ def fx_serial_scan(table, keys, rows):
     if not on_card(name, table, keys, rows):
         return fx_serial_scan_plain(table, keys, rows)
     if M:
-        win = out((K,), I32, table.device)
-        launch(name, table.device, table, keys, rows, win, K, M, W, lib=LIB)
+        launch(name, table.device, table, keys, rows, K, M, W, lib=LIB)
         fx_serial_scan.launches += 1
     return table
 

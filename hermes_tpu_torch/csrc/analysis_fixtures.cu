@@ -8,9 +8,9 @@
 //   fx_pack        [:128, :146]  out = (a << 29) | b, elementwise int32
 //   fx_store_at    [:174]  out = 0, then out[idx, :] = v[0, :], the row
 //                          index read from device memory
-//   fx_acc_revisit [:215]  out[r] = sum of row r of x, formed by one block
-//                          per 128-column block adding its partial sums
-//                          into the one (R, 1) output
+//   fx_acc_revisit [:215]  out[r] = sum of row r of x, formed by the
+//                          Pallas grid's two 128-column blocks adding their
+//                          partial sums into the one (R, 1) output
 //   fx_block_copy  [:249]  column block j of x copied to column block
 //                          j + offset of out
 //   fx_serial_scan [:279, :315]  table[keys[i], :] = rows[i, :] in message
@@ -26,19 +26,44 @@
 // accumulates into an output nobody initialised shows in the poisoned
 // output.  Inputs that leave an extent (fx_store_at's index, fx_serial_scan's
 // keys, fx_block_copy's offset) are for the checked build only: the release
-// build does not clamp and would write outside the tensor.
+// build does not clamp and would write outside the tensor (fx_serial_scan's
+// release build stores no such key).
 //
 // Design notes, where the TPU kernel's shape does not carry over:
 //   * fx_acc_revisit: the Pallas grid revisits one output block in order
-//     and zero-fills it on the first visit.  Blocks here run in no order,
-//     so the zero-fill is a cudaMemsetAsync before the launch (`init`), the
-//     row sums reduce by warp shuffle and land with one integer atomicAdd a
-//     row and block: order-free, so exact.  Without `init` the output keeps
-//     whatever it held: the fixture of a dropped initialisation.
-//   * fx_serial_scan: the ordered loop becomes data, as in probe_serial.cu:
-//     a memset of an int32 (K,) column to -1, an integer atomicMax of the
-//     message index per key, and a store pass in which only the winner of
-//     a key writes its row.
+//     and zero-fills it on its first visit.  Blocks here run in no order,
+//     so the first visit becomes the one visitor that stores: warp r sums
+//     row r (one 16-byte int4 a lane where C is a multiple of 4 and x is
+//     16-byte aligned, else one word; the wrapper chooses,
+//     fixture_kernels.acc_revisit_access, and the entry re-checks), reduces
+//     by shuffle, and lane 0 stores out[r] = (init ? 0 : out[r]) + sum.
+//     `init` is an argument, not a memset; without it the kernel reads
+//     out[r] through a guard, so a dropped initialisation still shows in
+//     the checked build's poisoned output.  Wide rows take a thread-block
+//     cluster along the columns (fixture_kernels.acc_revisit_plan, checked
+//     here): each CTA sums its share into a shared (R,) partial, rank 0
+//     adds the others' through distributed shared memory and makes the one
+//     store a row, and a second cluster.sync() keeps every CTA alive until
+//     its partial is read.  Integer sums commute, so the result is exact;
+//     one device operation, no global atomic.  At (8, 256) one CTA.
+//   * fx_serial_scan: the ordered loop becomes data, in one plain launch.
+//     CTA b owns the table rows [b * kScanSlots, (b + 1) * kScanSlots) and
+//     keeps their winner column in shared memory: it fills its slots with
+//     -1, every thread walks the messages and takes a shared-memory
+//     atomicMax of the message index on a key in its slice (integer maxima
+//     commute, so each slot ends holding the last message on its row), and
+//     after a barrier its warps walk the slice 32 slots at a time, list
+//     the slots that won and copy the winners' rows, a word a lane,
+//     neighbouring lanes on neighbouring words.  Each row is written by
+//     its winner alone and untouched rows keep their values: the serial
+//     loop's table bit for bit.  No global column, no memset, no state
+//     between calls.  Every CTA reads every key, so the key reads grow
+//     with K / kScanSlots (one CTA at K <= kScanSlots); a larger slice
+//     means more chunks a warp, each a memory round trip, and a 216 KB
+//     column was slower at the bench table than the 32 KB one kept.  A key
+//     outside [0, K) is in no slice and never stored; the checked build
+//     checks each message's row once, in CTA 0, as a store range against
+//     the table.
 //   * fx_block_copy: the Pallas grid walks the column blocks in order, a
 //     (R, 128) block a step.  Here every thread moves one unit and no
 //     thread loops: a grid of (row tile, column block) CTAs of 256
@@ -74,10 +99,13 @@
 // pointers and the stream are void*-sized; each entry returns
 // cudaGetLastError() after its launches (0 = launched).
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "guard.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -86,6 +114,14 @@ constexpr int kBlockCols = 128;  // the fixtures' column block
 constexpr int kGridYMax = 65535;  // column blocks of fx_block_copy
 constexpr int kTileBytes = 4096;  // fx_async_copy's tile, a multiple of 16
 constexpr int kTileWords = kTileBytes / 4;
+constexpr int kAccClusterMax = 16;  // fx_acc_revisit; non-portable above 8
+constexpr int kAccLoads = 8;  // fx_acc_revisit's loads a lane in flight
+constexpr int kScanThreads = 1024;  // fx_serial_scan's CTA
+constexpr int kScanWarps = kScanThreads / 32;
+// fx_serial_scan's table rows a CTA: a 32 KB winner column (a 216 KB one,
+// 55,296 rows, walked 54 chunks a warp, was 3.4 times slower at the bench
+// table: PERF.md section 6)
+constexpr int kScanSlots = 8192;
 
 unsigned grid_for(int64_t n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
@@ -110,17 +146,91 @@ __global__ void store_at_kernel(const int32_t* __restrict__ idx,
     HG_ST(out, row * W + w, n, HG_LD(v, w, n));  // w < W: exact in the row
 }
 
-// Block j: rows of column block j; warp r sums row r and adds it to out[r].
+// Cluster rank q sums columns [q * cols, min(C, (q + 1) * cols)) of x,
+// warp r row r (VEC columns a lane a load); the cluster's one store a row
+// is out[r] = (init ? 0 : out[r]) + the row's sum.
+template <int VEC>
 __global__ void acc_revisit_kernel(const int32_t* __restrict__ x,
-                                   int32_t* __restrict__ out, int R, int C) {
+                                   int32_t* __restrict__ out, int R, int C,
+                                   int cols, int init) {
+  __shared__ uint32_t part[32];  // this CTA's sum of each row
+  cg::cluster_group cluster = cg::this_cluster();
+  const int q = static_cast<int>(cluster.block_rank());
+  const int Q = static_cast<int>(cluster.num_blocks());
   const int r = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t n = static_cast<int64_t>(R) * C;
-  uint32_t s = 0;
-  for (int c = blockIdx.x * kBlockCols + lane;
-       c < C && c < (blockIdx.x + 1) * kBlockCols; c += 32)
-    s += static_cast<uint32_t>(HG_LD(x, static_cast<int64_t>(r) * C + c, n));
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
-  if (lane == 0) HG_ATOMIC_ADD(out, r, R, static_cast<int32_t>(s));
+  const int c0 = q * cols, c1 = cols < C - c0 ? c0 + cols : C;
+  uint32_t s = 0;  // the bits of a wrapping int32 sum
+  // kAccLoads loads a lane in flight before the first add (a loop that
+  // adds as it loads waits a round trip a load); each guarded in its row
+  if constexpr (VEC == 4) {
+    const int4* xr = reinterpret_cast<const int4*>(x) + static_cast<int64_t>(r) * (C / 4);
+    for (int c = c0 + 4 * lane; c < c1; c += 128 * kAccLoads) {
+      int4 v[kAccLoads];
+#pragma unroll
+      for (int u = 0; u < kAccLoads; ++u)
+        v[u] = c + 128 * u < c1 ? HG_LD(xr, (c + 128 * u) / 4, C / 4) : int4{};
+#pragma unroll
+      for (int u = 0; u < kAccLoads; ++u)
+        s += static_cast<uint32_t>(v[u].x) + static_cast<uint32_t>(v[u].y) +
+             static_cast<uint32_t>(v[u].z) + static_cast<uint32_t>(v[u].w);
+    }
+  } else {
+    const int32_t* xr = x + static_cast<int64_t>(r) * C;
+    for (int c = c0 + lane; c < c1; c += 32 * kAccLoads) {
+      int32_t v[kAccLoads];
+#pragma unroll
+      for (int u = 0; u < kAccLoads; ++u)
+        v[u] = c + 32 * u < c1 ? HG_LD(xr, c + 32 * u, C) : 0;
+#pragma unroll
+      for (int u = 0; u < kAccLoads; ++u) s += static_cast<uint32_t>(v[u]);
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if (Q > 1) {
+    if (lane == 0) part[r] = s;
+    cluster.sync();  // every CTA's partials are in its shared memory
+    // rank 0, warp r: lane p < Q brings rank p's partial of row r
+    if (q == 0) {
+      uint32_t p = lane > 0 && lane < Q ? cluster.map_shared_rank(&part[0], lane)[r] : 0u;
+      for (int o = 16; o > 0; o >>= 1) p += __shfl_xor_sync(0xffffffffu, p, o);
+      s += p;
+    }
+  }
+  if (q == 0 && lane == 0) {
+    const uint32_t before = init ? 0u : static_cast<uint32_t>(HG_LD(out, r, R));
+    HG_ST(out, r, R, static_cast<int32_t>(before + s));
+  }
+  if (Q > 1) cluster.sync();  // no CTA leaves while rank 0 reads its partials
+}
+
+template <int VEC>
+cudaError_t launch_acc_revisit(const int32_t* x, int32_t* out, int R, int C,
+                               int cluster, int cols, int init,
+                               cudaStream_t st) {
+  auto kernel = acc_revisit_kernel<VEC>;
+  static int checked = 1;  // the largest cluster size checked so far
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.blockDim = dim3(32 * R, 1, 1);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (cluster > checked) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    int active = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    if (active < 1) return cudaErrorInvalidConfiguration;
+    checked = cluster;
+  }
+  return cudaLaunchKernelEx(&cfg, kernel, x, out, R, C, cols, init);
 }
 
 // Block (t, j) copies rows [t * rows, (t + 1) * rows) of column block j
@@ -143,25 +253,6 @@ block_copy_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out,
     HG_ST(reinterpret_cast<int4*>(out) + row, dst, cu, HG_LD(reinterpret_cast<const int4*>(x), row + src, n));
   else
     HG_ST(out + row, dst, cu, HG_LD(x, row + src, n));
-}
-
-__global__ void __launch_bounds__(kThreads)
-scan_win_kernel(int32_t* __restrict__ win, const int32_t* __restrict__ keys,
-                int K, int M) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < M) HG_ATOMIC_MAX(win, HG_LD(keys, i, M), K, i);
-}
-
-__global__ void __launch_bounds__(kThreads)
-scan_store_kernel(int32_t* __restrict__ table, const int32_t* __restrict__ keys,
-                  const int32_t* __restrict__ rows,
-                  const int32_t* __restrict__ win, int K, int M, int W) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= M * W) return;
-  const int i = j / W;
-  const int64_t k = HG_LD(keys, i, M);
-  if (HG_LD(win, k, K) == i)
-    HG_ST(table, k * W + (j - i * W), static_cast<int64_t>(K) * W, HG_LD(rows, j, M * W));
 }
 
 // The shared-memory address of p, as the bulk copies and the barrier take it.
@@ -223,6 +314,49 @@ loop_inc_kernel(int32_t* __restrict__ out, int n, int times, int vec) {
     HG_ST(out, i, n, v);
 }
 
+// CTA b: the table rows [base, base + slots), base = b * kScanSlots, and
+// their winner column `win` in shared memory; the last message on each
+// row stores its row there.
+__global__ void __launch_bounds__(kScanThreads)
+serial_scan_kernel(int32_t* __restrict__ table,
+                   const int32_t* __restrict__ keys,
+                   const int32_t* __restrict__ rows, int K, int M, int W) {
+  extern __shared__ int32_t win[];  // slots of them
+  __shared__ int2 won[kScanWarps][32];  // a warp's winning (slot, message)
+  const int base = blockIdx.x * kScanSlots;
+  const int slots = min(kScanSlots, K - base);
+  const int64_t n_table = static_cast<int64_t>(K) * W, n_rows = static_cast<int64_t>(M) * W;
+  for (int s = threadIdx.x; s < slots; s += kScanThreads) win[s] = -1;
+  __syncthreads();
+#pragma unroll 4
+  for (int i = threadIdx.x; i < M; i += kScanThreads) {
+    const int k = HG_LD(keys, i, M);
+    // the checked build: a message whose row leaves the table, once
+    if (blockIdx.x == 0 && !HG_ST_RANGE(static_cast<int64_t>(k) * W, W, n_table))
+      continue;
+    if (k >= base && k - base < slots) HG_ATOMIC_MAX(win, k - base, slots, i);
+  }
+  __syncthreads();
+  // warp w lists the winners of a chunk of 32 slots, then copies their
+  // rows, word t of the list by lane t % 32
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int s0 = warp * 32; s0 < slots; s0 += kScanThreads) {
+    const int i = s0 + lane < slots ? win[s0 + lane] : -1;
+    const unsigned mask = __ballot_sync(0xffffffffu, i >= 0);
+    if (i >= 0)
+      HG_SMEM_ST(won[warp], __popc(mask & ((1u << lane) - 1)), 32, make_int2(s0 + lane, i));
+    __syncwarp();
+    const int words = __popc(mask) * W;
+    for (int t = lane; t < words; t += 32) {
+      const int j = t / W, c = t - j * W;
+      const int2 e = won[warp][j];
+      HG_ST(table, static_cast<int64_t>(base + e.x) * W + c, n_table,
+            HG_LD(rows, static_cast<int64_t>(e.y) * W + c, n_rows));
+    }
+    __syncwarp();  // the list is read before the next chunk's is written
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -255,18 +389,30 @@ int hermes_fx_store_at(const void* idx, const void* v, void* out, int rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x (R, C) int32; out (R,) int32, zero-filled first when init != 0.
-// 1 <= R <= 32 (one warp a row), C >= 1.
-int hermes_fx_acc_revisit(const void* x, void* out, int R, int C,
-                          int init HG_ENTRY_ARG, void* stream) {
-  if (R < 1 || R > 32 || C < 1) return cudaErrorInvalidValue;
+// x (R, C) int32; out (R,) int32, out[r] = (init ? 0 : out[r]) + the sum
+// of row r.  1 <= R <= 32 (one warp a row), 1 <= C < 2^31 - 1024.  The plan
+// (fixture_kernels.acc_revisit_plan): vec 4 loads int4s (C a multiple of
+// 4, x 16-byte aligned), 1 words; a cluster of `cluster` CTAs, each
+// summing `cols` columns (a multiple of vec), covering C with no CTA
+// empty.  A plan that breaks this is refused (cudaErrorInvalidValue).
+int hermes_fx_acc_revisit(const void* x, void* out, int R, int C, int init,
+                          int vec, int cluster, int cols HG_ENTRY_ARG,
+                          void* stream) {
+  if (R < 1 || R > 32 || C < 1 || C > INT32_MAX - 128 * kAccLoads ||
+      (vec != 1 && vec != 4) || cluster < 1 ||
+      cluster > kAccClusterMax || cols < 1 || cols % vec ||
+      static_cast<int64_t>(cluster) * cols < C ||
+      static_cast<int64_t>(cluster - 1) * cols >= C ||
+      (vec == 4 && (C % 4 || reinterpret_cast<uintptr_t>(x) % 16)))
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = HG_BEGIN(st);
-  if (err == cudaSuccess && init)
-    err = cudaMemsetAsync(out, 0, sizeof(int32_t) * R, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  acc_revisit_kernel<<<(C + kBlockCols - 1) / kBlockCols, 32 * R, 0, st>>>(
-      static_cast<const int32_t*>(x), static_cast<int32_t*>(out), R, C);
+  const int32_t* xi = static_cast<const int32_t*>(x);
+  int32_t* o = static_cast<int32_t*>(out);
+  err = vec == 4 ? launch_acc_revisit<4>(xi, o, R, C, cluster, cols, init, st)
+                 : launch_acc_revisit<1>(xi, o, R, C, cluster, cols, init, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -292,25 +438,22 @@ int hermes_fx_block_copy(const void* x, void* out, int R, int C, int offset,
 }
 
 // table (K, W) int32, updated in place; keys (M,) int32; rows (M, W)
-// int32; win (K,) int32 scratch.  K, M, W >= 1, M * W < 2^31.
+// int32.  K, M, W >= 1, M * W < 2^31, 32 * W < 2^31 (the words of a
+// warp's list).  One launch of ceil(K / kScanSlots) CTAs, each with 4
+// bytes of dynamic shared memory a row it owns.
 int hermes_fx_serial_scan(void* table, const void* keys, const void* rows,
-                          void* win, int K, int M, int W HG_ENTRY_ARG,
-                          void* stream) {
-  if (K < 1 || M < 1 || W < 1 || static_cast<int64_t>(M) * W > INT32_MAX)
+                          int K, int M, int W HG_ENTRY_ARG, void* stream) {
+  if (K < 1 || M < 1 || W < 1 || static_cast<int64_t>(M) * W > INT32_MAX ||
+      W > INT32_MAX / 32)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = HG_BEGIN(st);
-  if (err == cudaSuccess)
-    err = cudaMemsetAsync(win, 0xFF, sizeof(int32_t) * K, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  scan_win_kernel<<<grid_for(M), kThreads, 0, st>>>(
-      static_cast<int32_t*>(win), static_cast<const int32_t*>(keys), K, M);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  scan_store_kernel<<<grid_for(static_cast<int64_t>(M) * W), kThreads, 0, st>>>(
+  const int slots = K < kScanSlots ? K : kScanSlots;
+  serial_scan_kernel<<<(K - 1) / kScanSlots + 1, kScanThreads,
+                       sizeof(int32_t) * slots, st>>>(
       static_cast<int32_t*>(table), static_cast<const int32_t*>(keys),
-      static_cast<const int32_t*>(rows), static_cast<const int32_t*>(win), K,
-      M, W);
+      static_cast<const int32_t*>(rows), K, M, W);
   return static_cast<int>(cudaGetLastError());
 }
 

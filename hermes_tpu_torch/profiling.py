@@ -14,6 +14,14 @@ import time
 import torch
 
 
+#: the kernel of ``torch.cuda._sleep``, which each trace launches before
+#: and after what it measures and leaves out of its counts: a trace can
+#: come back one device record short (on an H100, a burst of 20 calls
+#: traced at 19 launches, six times in a row), and a lost sentinel costs
+#: nothing
+SENTINEL = "spin_kernel"
+
+
 def _trace(run):
     """Device busy time (sum of CUDA kernel time), kernel count, wall time
     and the top kernels of ``run()``, from torch.profiler."""
@@ -23,13 +31,17 @@ def _trace(run):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
     busy_us, n, top = 0.0, 0, []
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and SENTINEL not in e.key:
             us = getattr(e, "self_device_time_total", 0.0)
             busy_us += us
             n += e.count
@@ -49,11 +61,16 @@ def device_busy(run):
 # torch.profiler on an H100 loses device records in episodes: for some
 # 100 ms, a few seconds to a quarter of a minute apart, consecutive traces
 # come back short or empty (PyTorch's own kernels as well as the port's,
-# with or without a pause inside the trace's ends).  A burst is therefore
-# traced until two traces in a row hold the same whole number of launches
-# per call, with a pause after a refused one to let the episode pass.
-_TRACES = 6
+# with or without a pause inside the trace's ends; once six traces in a
+# row, about two seconds).  A burst is therefore traced until two traces
+# in a row hold the same whole number of launches per call, with a pause
+# after a refused one to let the episode pass.
+_TRACES = 10
 _PAUSE_S = 0.25
+# A trace of some 3,000 launches or more comes back short every time (an
+# H100: 3,074 of 3,075, 20,497 to 20,499 of 20,500), so a burst is cut to
+# hold at most this many launches, or one call.
+_LAUNCHES_MAX = 1000
 
 
 def device_split(call, n=20):
@@ -61,14 +78,19 @@ def device_split(call, n=20):
     device operations one call enqueues: a burst of ``n`` calls is traced
     until two consecutive traces agree on a whole number of launches per
     call (at most ``_TRACES`` traces; the second one is read).  A trace
-    with no device time or a count that is no multiple of ``n`` missed
-    launches: it is refused, not read, and said so on stderr.  Raises if no
-    two traces agree.  The operations are ``[name, seconds per call,
-    launches per call]``, the longest first (at most eight)."""
+    of more than ``_LAUNCHES_MAX`` launches cuts ``n`` to fit and counts
+    as refused.  A trace with no device time or a count that is no
+    multiple of ``n`` missed launches: it is refused, not read, and said
+    so on stderr.  Raises if no two traces agree.  The operations are
+    ``[name, seconds per call, launches per call]``, the longest first (at
+    most eight)."""
     last = None
     for _ in range(_TRACES):
         out = _trace(lambda: [call() for _ in range(n)])
-        if out["busy_s"] <= 0 or out["launches"] % n:
+        if out["launches"] > _LAUNCHES_MAX and n > 1:
+            n = max(1, n * _LAUNCHES_MAX // out["launches"])
+            last = None
+        elif out["busy_s"] <= 0 or out["launches"] % n:
             print(f"profiling: refused a trace of {out['launches']} launches "
                   f"and {out['busy_s']} s for {n} calls", file=sys.stderr,
                   flush=True)

@@ -409,6 +409,76 @@ def test_torch_fx_acc_revisit_matches_fixture():
         fk.fx_acc_revisit_plain(_t(x), init=False, acc=poisoned).numpy())
 
 
+def _acc_by_plan(plan, x, before):
+    """``acc_revisit_kernel`` over the plan, in numpy: CTA q of the cluster
+    sums columns [q * cols, min(C, (q + 1) * cols)) of every row, lane l
+    the vectors l, l + 32, ... of its share (``plan.vec`` columns each),
+    wrapping as uint32; rank 0 adds the partials to ``before`` (None: the
+    zero of ``init``).  Returns the sums and how often each column was
+    read."""
+    R, C = x.shape
+    u = x.astype(np.int64) & 0xFFFFFFFF
+    reads = np.zeros(C, np.int64)
+    total = np.zeros(R, np.int64)
+    for q in range(plan.cluster):
+        c0, c1 = q * plan.cols, min(C, (q + 1) * plan.cols)
+        assert c0 < c1  # no CTA without columns
+        for lane in range(32):
+            for c in range(c0 + plan.vec * lane, c1, 32 * plan.vec):
+                total += u[:, c:c + plan.vec].sum(1)
+                reads[c:c + plan.vec] += 1
+    if before is not None:
+        total += before.astype(np.int64)
+    total &= 0xFFFFFFFF
+    return np.where(total >= 1 << 31, total - (1 << 32), total), reads
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("R,C", [(1, 1), (8, 256), (20, 1000), (7, 1001),
+                                 (32, 32768)])
+def test_torch_acc_revisit_plan_replays_in_numpy(R, C, aligned):
+    """The fixture's (8, 256), chip_smoke.py's larger shapes and one
+    element, from an aligned ``x`` and not: int4 loads exactly where C and
+    the pointer allow them, a cluster within what the entry takes, every
+    column summed by exactly one lane of one CTA, one CTA at the fixture's
+    shape; the plan's sums, onto zero and onto an old output, are the
+    plain version's."""
+    plan = fk.acc_revisit_plan(R, C, aligned)
+    assert plan.vec == (4 if aligned and C % 4 == 0 else 1)
+    assert 1 <= plan.cluster <= fk.ACC_CLUSTER_MAX
+    assert fk.ACC_CLUSTER_MAX <= _fixture_constant("kAccClusterMax")
+    assert plan.cols % plan.vec == 0
+    assert (plan.cluster - 1) * plan.cols < C <= plan.cluster * plan.cols
+    if (R, C) == (8, 256):
+        assert plan.cluster == 1
+    if (R, C) == (32, 32768):
+        assert plan.cluster == fk.ACC_CLUSTER_MAX
+    rng = np.random.default_rng(R * 31 + C)
+    x = _i32(rng, (R, C))
+    old = _i32(rng, (R,))
+    want = fk.fx_acc_revisit_plain(_t(x)).numpy()[:, 0]
+    got, reads = _acc_by_plan(plan, x, None)
+    assert (reads == 1).all()
+    np.testing.assert_array_equal(got, want)
+    acc = _t(old).reshape(R, 1).clone()
+    np.testing.assert_array_equal(
+        _acc_by_plan(plan, x, old)[0],
+        fk.fx_acc_revisit_plain(_t(x), init=False, acc=acc).numpy()[:, 0])
+
+
+def test_torch_fx_acc_revisit_path_and_row_limit():
+    """``acc_revisit_access`` gives int4s only for an aligned ``x`` whose
+    C is a multiple of 4; more than 32 rows raise on any device."""
+    buf = torch.zeros(8 * 256 + 1, dtype=torch.int32)
+    assert fk.acc_revisit_access(buf[:-1].view(8, 256)) == 1
+    assert fk.acc_revisit_access(buf[1:].view(8, 256)) == 0
+    assert fk.acc_revisit_access(buf[:7 * 291].view(7, 291)) == 0
+    with pytest.raises(ValueError, match="at most 32 rows"):
+        fk.fx_acc_revisit(torch.zeros((33, 4), dtype=torch.int32))
+    with pytest.raises(ValueError, match="no plan"):
+        fk.acc_revisit_plan(33, 4)
+
+
 @pytest.mark.parametrize("offset", [0, 1, -1])
 def test_torch_fx_block_copy_matches_fixture(offset):
     """Offset 0 in bounds; off by a block, interpret mode clamps the block
@@ -509,6 +579,95 @@ def test_torch_fx_serial_scan_matches_fixture(bad_key):
     t = _t(table)
     assert fk.fx_serial_scan(t, _t(keys), _t(rows)) is t  # in place
     np.testing.assert_array_equal(want, t.numpy())
+
+
+def _serial_scan_by_slices(table, keys, rows, S, order, guard=None):
+    """``serial_scan_kernel`` in numpy with S rows a CTA: CTA b fills its
+    winner column with -1, takes ``np.maximum.at`` (the shared-memory
+    atomicMax) of the message indices on the keys of its slice, in the
+    threads' ``order``, then walks its slots 32 at a time, lists the
+    slots that won in lane order and copies their rows a word a lane.
+    With
+    ``guard`` (the host build of csrc/guard.cuh) CTA 0 checks each
+    message's row as a store range and returns the report too.  Returns
+    the table and the words stored into each table row."""
+    K, W = table.shape
+    out = table.copy()
+    stored = np.zeros(K, np.int64)
+    rep = (ctypes.c_longlong * dispatch.REPORT_WORDS)()
+    for b in range(-(-K // S)):
+        base, slots = b * S, min(S, K - b * S)
+        win = np.full(slots, -1, np.int64)
+        k = keys[order].astype(np.int64)
+        if b == 0 and guard is not None:
+            for key in k:
+                guard.hermes_guard_check_range(ctypes.addressof(rep),
+                                               int(key) * W, W, K * W, 1, 1)
+        inside = (k >= base) & (k - base < slots)
+        np.maximum.at(win, k[inside] - base, order[inside])
+        for s0 in range(0, slots, 32):
+            lanes = win[s0:s0 + 32]
+            listed = [(s0 + lane, lanes[lane])
+                      for lane in np.flatnonzero(lanes >= 0)]
+            for t in range(len(listed) * W):
+                j, c = divmod(t, W)
+                slot, i = listed[j]
+                out[base + slot, c] = rows[i, c]
+                stored[base + slot] += 1
+    return out, stored, rep
+
+
+SCAN_CASES = ["duplicates", "one_key", "descending", "ragged", "outside"]
+
+
+@pytest.mark.parametrize("case", SCAN_CASES)
+@pytest.mark.parametrize("S", [1, 7, 64, 4096])
+def test_torch_fx_serial_scan_slices_equal_the_serial_loop(S, case):
+    """The shared-column design replayed in numpy equals the ordered
+    Python loop ``for i: table[keys[i]] = rows[i]``, whatever order the
+    atomics run in: heavy duplicates, every message on one key, keys in
+    descending order, K not a multiple of S (and past 4,096), and keys
+    outside [0, K), which the release design never stores and the checked
+    build's range check counts once each.  Every row is written by its
+    winner alone (W words), untouched rows keep their values."""
+    # the column and the warps' (slot, message) lists fit the 48 KB a CTA
+    # has without asking for more
+    assert _fixture_constant("kScanSlots") * 4 + 8 * _fixture_constant(
+        "kScanThreads") <= 48 * 1024
+    rng = np.random.default_rng(S * 11 + SCAN_CASES.index(case))
+    K, M = {"duplicates": (100, 500), "one_key": (64, 200),
+            "descending": (300, 300), "ragged": (5000, 2000),
+            "outside": (130, 400)}[case]
+    if case == "duplicates":
+        keys = _i32(rng, (M,), 0, 9) * 11
+    elif case == "one_key":
+        keys = np.full(M, 17, np.int32)
+    elif case == "descending":
+        keys = (K - 1 - np.arange(M)).astype(np.int32)
+    else:
+        keys = _i32(rng, (M,), 0, K)
+    if case == "outside":
+        keys[::37] = K
+        keys[5::41] = -1
+    table = _i32(rng, (K, 10))
+    rows = _i32(rng, (M, 10))
+    want = table.copy()
+    for i in range(M):  # the fixture's loop, on the keys inside the table
+        if 0 <= keys[i] < K:
+            want[keys[i]] = rows[i]
+    order = rng.permutation(M)
+    got, stored, rep = _serial_scan_by_slices(table, keys, rows, S, order,
+                                              _guard())
+    np.testing.assert_array_equal(got, want)
+    inside = keys[(keys >= 0) & (keys < K)]
+    assert (stored[np.unique(inside)] == 10).all()
+    assert stored.sum() == 10 * len(np.unique(inside))
+    bad = int(((keys < 0) | (keys >= K)).sum())
+    assert rep[dispatch.R_COUNT] == bad and (bad > 0) == (case == "outside")
+    if case != "outside":  # the plain version clamps keys outside
+        t = _t(table)
+        np.testing.assert_array_equal(
+            fk.fx_serial_scan(t, _t(keys), _t(rows)).numpy(), want)
 
 
 def test_torch_fx_async_copy_and_loop_inc_match_fixtures():

@@ -67,13 +67,15 @@ def _device_ops(call):
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["stats_block", "mega_apply", "mega_replay",
                                   "probe_serial", "probe_vgather",
+                                  "fx_acc_revisit", "fx_serial_scan",
                                   "fx_async_copy", "fx_loop_inc"])
 def test_kernel_call_is_one_device_operation(name):
     """At the bench shape a call enqueues exactly one device operation
     (torch.profiler): no fill, no memset, no second launch
     (``probe_serial`` after its first call, which fills its winner
-    column); the two fixtures at chip_smoke.py's last shape (4.1 MB for
-    ``fx_async_copy``, the word path for ``fx_loop_inc``)."""
+    column); the fixtures at chip_smoke.py's last shape (4.1 MB for
+    ``fx_async_copy``, the word path for ``fx_loop_inc`` and
+    ``fx_acc_revisit``, the 40 MB bench table for ``fx_serial_scan``)."""
     dev = _card()
     if name.startswith("fx_"):
         wrapper, _plain, args = _analysis_case(
@@ -127,8 +129,12 @@ def _graph_equals_eager(make_args, call):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["stats_block", "mega_apply", "mega_replay",
+                                  "fx_acc_revisit", "fx_serial_scan",
                                   "fx_async_copy", "fx_loop_inc"])
 def test_kernel_call_replays_from_a_cuda_graph(name):
+    """A call captured into a CUDA graph (on the capture's own stream,
+    which has seen no call: nothing is kept per stream) replays equal to
+    the eager call; the fixtures at every chip_smoke.py shape."""
     dev = _card()
     if name.startswith("fx_"):
         for index in range(len(chip_smoke.FX_SHAPES[name])):
@@ -303,6 +309,87 @@ def test_fx_block_copy_cuda_edges(edge, checked):
         torch.cuda.synchronize(dev)
     assert fk.fx_block_copy.launches == before + 1
     assert torch.equal(got.cpu(), fk.fx_block_copy_plain(x))
+    if checked:
+        assert chk.violations == [] and len(chk.launched) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("checked", [False, True])
+@pytest.mark.parametrize("shape", [(8, 256), (32, 32768)])
+def test_fx_acc_revisit_cuda_edges(shape, checked):
+    """``fx_acc_revisit`` through the ctypes entry with init 0 adds onto
+    a pre-filled output (nothing zeroes it), at one CTA and with a
+    cluster; an ``x`` view 4 bytes off its allocation takes the word path
+    and is right; the entry refuses (cudaErrorInvalidValue, 1) int4 loads
+    from that view and a plan that leaves columns out, in both builds."""
+    from hermes_tpu_torch.analysis import fixture_kernels as fk
+    from hermes_tpu_torch.core import dispatch
+
+    dev = _card()
+    R, C = shape
+    g = torch.Generator().manual_seed(C)
+    x = torch.randint(-(1 << 31), 1 << 31, (R, C), generator=g,
+                      dtype=torch.int64).to(torch.int32)
+    old = torch.randint(-(1 << 31), 1 << 31, (R, 1), generator=g,
+                        dtype=torch.int64).to(torch.int32)
+    want = fk.fx_acc_revisit_plain(x, init=False, acc=old.clone())
+    buf = torch.empty(x.numel() + 4, dtype=torch.int32, device=dev)
+    aligned, off = buf[:-4].view(R, C), buf[1:-3].view(R, C)
+    assert fk.acc_revisit_access(aligned) == 1
+    assert fk.acc_revisit_access(off) == 0
+    for xd in (aligned, off):
+        xd.copy_(x)
+        plan = fk.acc_revisit_plan(R, C, bool(fk.acc_revisit_access(xd)))
+        acc = old.to(dev)
+        with _build(checked) as chk:
+            dispatch.launch("fx_acc_revisit", dev, xd, acc, R, C, 0, *plan,
+                            lib=fk.LIB)
+            torch.cuda.synchronize(dev)
+        assert torch.equal(acc.cpu(), want)
+        if checked:
+            assert chk.violations == []
+        with _build(checked):
+            assert torch.equal(fk.fx_acc_revisit(xd).cpu(),
+                               fk.fx_acc_revisit_plain(x))
+    vec4 = fk.acc_revisit_plan(R, C, True)
+    short = (vec4.vec, vec4.cluster, vec4.cols - 4)
+    with _build(checked):
+        for xd, plan in ((off, vec4), (aligned, short)):
+            with pytest.raises(RuntimeError, match=r"CUDA error 1$"):
+                dispatch.launch("fx_acc_revisit", dev, xd, acc, R, C, 1,
+                                *plan, lib=fk.LIB)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("checked", [False, True])
+@pytest.mark.parametrize("edge", ["one_key", "descending", "three_ctas"])
+def test_fx_serial_scan_cuda_edges(edge, checked):
+    """``fx_serial_scan`` with every message on one key, with keys in
+    descending order, and over a table of two whole slices and a ragged
+    third (three CTAs): the serial loop's table, in both builds, no guard
+    firing."""
+    from hermes_tpu_torch import build
+    from hermes_tpu_torch.analysis import fixture_kernels as fk
+
+    dev = _card()
+    src = (build.CSRC / "analysis_fixtures.cu").read_text()
+    slots = int(src.split("constexpr int kScanSlots = ")[1].split(";")[0])
+    K, M = {"one_key": (64, 4096), "descending": (5000, 5000),
+            "three_ctas": (2 * slots + 5, 20000)}[edge]
+    g = torch.Generator().manual_seed(K)
+    i32 = lambda shape, lo, hi: torch.randint(
+        lo, hi, shape, generator=g, dtype=torch.int64).to(torch.int32)
+    table, rows = i32((K, 10), -(1 << 31), 1 << 31), i32((M, 10), 0, 1 << 20)
+    keys = {"one_key": torch.full((M,), 17, dtype=torch.int32),
+            "descending": torch.arange(M - 1, -1, -1, dtype=torch.int32),
+            "three_ctas": i32((M,), 0, K)}[edge]
+    want = table.clone()
+    for i in range(M):  # the serial loop
+        want[keys[i]] = rows[i]
+    with _build(checked) as chk:
+        got = fk.fx_serial_scan(table.to(dev), keys.to(dev), rows.to(dev))
+        torch.cuda.synchronize(dev)
+    assert torch.equal(got.cpu(), want)
     if checked:
         assert chk.violations == [] and len(chk.launched) == 1
 
@@ -773,7 +860,7 @@ def test_red_fixture_gives_its_finding_and_context_lives(red):
         table, rows = i32((64, 10), 0, 101), i32((32, 10), 0, 1 << 20)
         call, avs, want = (lambda: (fk.fx_serial_scan(table, keys, rows),),
                            [iv(0, 1 << 20)],
-                           ("oob-block-store", "scan_win_kernel"))
+                           ("oob-block-store", "serial_scan_kernel"))
     elif red == "acc_revisit":
         call, avs, want = (lambda: (fk.fx_acc_revisit(x, init=False),),
                            [iv(0, 3 * 256)],
