@@ -29,10 +29,11 @@ prints no result):
    bench-a-mega's and checked-mega's, and ``probe_vgather`` on the probe
    phase's own input, ``probe_inputs``); where one
    PyTorch call computes the same function (``index_put_``,
-   ``index_select``, ``sum``, ``clone``, ``new_full``, or for
-   ``mega_route`` the fused round's ``scatter_reduce_``, a yardstick of
-   time only) that call's time; and the kernel in the bound-checked
-   build, held against the plain version again and timed.
+   ``index_select``, ``sum``, ``clone``, ``new_full``; yardsticks of time
+   only: for ``mega_route`` the fused round's ``scatter_reduce_``, for
+   ``fx_store_at`` the fill ``zeros_like``, for ``fx_pack``
+   ``bitwise_or(a << 29, b)``) that call's time; and the kernel in the
+   bound-checked build, held against the plain version again and timed.
    sanitizer — the kernel matrix (``hermes_tpu_torch.analysis``): every
    cell analyzed in the checked build and sanitized on 3 draws, in the
    release and in the checked build (every output inside its declared
@@ -128,19 +129,22 @@ PROBE_SHAPES = ((1 << 20, 49152), (4096, 4096), (8, 256), (1000, 777))
 PROBE_OUT_OF_RANGE = 3  # the index of the shape with keys outside [0, K)
 # the analysis kernels: the fixture's shape first (what the kernel matrix
 # and the red tests give them), then a larger, ragged one; fx_async_copy
-# also at 4.1 MB (a partial last tile), fx_loop_inc at 91 words (its word
-# path), fx_acc_revisit at 4 MB (a cluster, int4 loads) and with C = 1,001
-# (its word path), fx_serial_scan at the probe's bench table (40 MB)
+# also at 4.1 MB (a partial last tile), fx_loop_inc, fx_pack and
+# fx_store_at at 91 words (their word paths), fx_acc_revisit at 4 MB (a
+# cluster, int4 loads) and with C = 1,001 (its word path), fx_serial_scan
+# at the probe's bench table (40 MB), fx_pack at 96 MB moved and
+# fx_store_at at a 64 MB output (past the 50 MB L2)
 SCAN_ACC_SHAPES = ((16, 8), (4096, 256), (4097, 257), (65536, 8))  # M, W
-# the kernels whose call must enqueue exactly one device operation
-# (probe_serial after its first call on a stream, which fills its winner
-# column: the kernels phase makes that call before it counts)
+# the kernels whose call must enqueue exactly one device operation: all
+# fourteen (probe_serial after its first call on a stream, which fills its
+# winner column: the kernels phase makes that call before it counts)
 ONE_OPERATION = ("stats_block", "mega_route", "mega_apply", "mega_replay",
-                 "probe_serial", "probe_vgather", "scan_acc", "fx_acc_revisit",
+                 "probe_serial", "probe_vgather", "scan_acc", "fx_pack",
+                 "fx_store_at", "fx_acc_revisit", "fx_block_copy",
                  "fx_serial_scan", "fx_async_copy", "fx_loop_inc")
 FX_SHAPES = {  # rows, columns (fx_serial_scan: K, M; W = 10)
-    "fx_pack": ((8, 128), (1000, 77)),
-    "fx_store_at": ((8, 128), (64, 10)),
+    "fx_pack": ((8, 128), (1000, 77), (7, 13), (8192, 1024)),
+    "fx_store_at": ((8, 128), (64, 10), (7, 13), (1 << 20, 16)),
     "fx_acc_revisit": ((8, 256), (20, 1000), (32, 32768), (7, 1001)),
     "fx_block_copy": ((8, 256), (5, 1000)),
     "fx_serial_scan": ((64, 32), (1000, 777), (1 << 20, 49152)),
@@ -634,6 +638,22 @@ def full_library(x, times):
     return lambda: x.new_full(x.shape, times)
 
 
+def zeros_library(_idx, v):
+    """``zeros_like``: the fill any library route to fx_store_at pays (a
+    yardstick of time only: the row is a second call)."""
+    import torch
+
+    return lambda: torch.zeros_like(v)
+
+
+def pack_library(a, b):
+    """``bitwise_or(a << 29, b)``: fx_pack's function in two PyTorch calls
+    (a yardstick of time only)."""
+    import torch
+
+    return lambda: torch.bitwise_or(a << 29, b)
+
+
 def clone_library(x, *_):
     """``clone``: the copy fx_block_copy (offset 0) and fx_async_copy
     make."""
@@ -730,26 +750,14 @@ def check_kernel(torch, wrapper, plain, args, label, timing_args=None,
     return out
 
 
-def phase_kernels(torch, port, kernels, only=None, one_op=ONE_OPERATION):
-    """Every ported kernel (or those named in ``only``) against its plain
-    version at each of its shapes; returns each kernel's row of the
-    summary line, its times from its first shape (the bench shape, or the
-    fixture's own).  The library call is timed at every shape but the one
-    whose keys leave the table, where ``index_put_`` and ``index_select``
-    would fault.  ``stats_block`` and ``mega_apply`` are also held and
-    timed on the inputs of one real round (``round_inputs``), and
-    ``mega_replay`` on those of two replay-scan rounds, timed at
-    replay_age -1 as its synthetic draws are; ``probe_vgather`` on the
-    probe step's own input (``probe_step_inputs``).  A kernel named in
-    ``one_op`` must enqueue one device operation a call."""
-    mega, pk, fk = port.mega, port.pk, port.fk
-    on_round = {"stats_block", "mega_apply", "mega_replay"} & set(
-        only or ("stats_block", "mega_apply", "mega_replay"))
-    rounds = (round_inputs(torch, port, replay="mega_replay" in on_round)
-              if on_round else {})
-    if only is None or "probe_vgather" in only:
-        rounds["probe_vgather"] = probe_step_inputs(torch, port)
-    fx_library = {"fx_loop_inc": full_library,
+def kernel_specs(port):
+    """Every kernel the kernels phase times, in its order: name, wrapper,
+    plain version, the ``file:line`` it replaces, shapes, case maker, the
+    library call of the same function (or None), the csrc source."""
+    kernels, mega, pk, fk = port.kernels, port.mega, port.pk, port.fk
+    fx_library = {"fx_pack": pack_library,
+                  "fx_store_at": zeros_library,
+                  "fx_loop_inc": full_library,
                   "fx_acc_revisit": row_sum_library,
                   "fx_block_copy": clone_library,
                   "fx_serial_scan": serial_library,
@@ -760,8 +768,7 @@ def phase_kernels(torch, port, kernels, only=None, one_op=ONE_OPERATION):
          scan_acc_case if name == "scan_acc" else fx_case(name),
          sum_library if name == "scan_acc" else fx_library.get(name), lib)
         for name, (wrapper, plain, lib, replaces) in fk.KERNELS.items())
-    specs = (  # name, wrapper, plain, file:line it replaces, shapes, case,
-        #        the library call of the same function, the csrc source
+    return (
         ("stats_block", kernels.stats_block, kernels.stats_block_plain,
          "hermes_tpu/core/kernels.py:96", STATS_SHAPES, stats_case, None,
          "stats_block"),
@@ -780,9 +787,29 @@ def phase_kernels(torch, port, kernels, only=None, one_op=ONE_OPERATION):
         ("probe_vgather", pk.probe_vgather, pk.probe_vgather_plain,
          "scripts/pallas_probe.py:204", PROBE_SHAPES, vgather_case,
          vgather_library, "probe_vgather")) + fixtures
+
+
+def phase_kernels(torch, port, only=None, one_op=ONE_OPERATION):
+    """Every ported kernel (or those named in ``only``) against its plain
+    version at each of its shapes; returns each kernel's row of the
+    summary line, its times from its first shape (the bench shape, or the
+    fixture's own).  The library call is timed at every shape but the one
+    whose keys leave the table, where ``index_put_`` and ``index_select``
+    would fault.  ``stats_block`` and ``mega_apply`` are also held and
+    timed on the inputs of one real round (``round_inputs``), and
+    ``mega_replay`` on those of two replay-scan rounds, timed at
+    replay_age -1 as its synthetic draws are; ``probe_vgather`` on the
+    probe step's own input (``probe_step_inputs``).  A kernel named in
+    ``one_op`` must enqueue one device operation a call."""
+    on_round = {"stats_block", "mega_apply", "mega_replay"} & set(
+        only or ("stats_block", "mega_apply", "mega_replay"))
+    rounds = (round_inputs(torch, port, replay="mega_replay" in on_round)
+              if on_round else {})
+    if only is None or "probe_vgather" in only:
+        rounds["probe_vgather"] = probe_step_inputs(torch, port)
     out = {}
     for k, (name, wrapper, plain, replaces, shapes, case, library,
-            lib) in enumerate(specs):
+            lib) in enumerate(kernel_specs(port)):
         if only is not None and name not in only:
             continue
         rows = []
@@ -1309,7 +1336,7 @@ def main(argv=None):
         port = SimpleNamespace(config=config, fst=fst, mega=mega, pk=pk,
                                probe=table_probe, fk=fk, kernels=kernels,
                                types=types, FastRuntime=FastRuntime)
-        rows = phase_kernels(torch, port, kernels, only,
+        rows = phase_kernels(torch, port, only,
                              ONE_OPERATION if ns.root is None else ())
         if only is not None:
             missing = sorted(set(only) - set(rows))

@@ -23,7 +23,9 @@ Three fixtures take an argument that can leave the tensor
 (``fx_store_at``'s index, ``fx_serial_scan``'s keys, ``fx_block_copy``'s
 offset).  The CUDA kernels do not clamp it: launch such an argument only
 inside ``dispatch.checked_build()``, where the guard records and skips the
-access; the release build would write outside the tensor.  The plain
+access; the release build may write outside the tensor
+(``fx_block_copy``) or store nothing there (``fx_serial_scan``,
+``fx_store_at``), where the plain version clamps.  The plain
 versions place such an argument where the reference's interpret mode
 does (an index counted from the end when negative, then clamped), so the
 CPU tests can hold them against the Pallas fixtures there too.
@@ -138,10 +140,18 @@ def fx_pack_plain(a, b):
     return (a << 29) | b
 
 
+def pack_access(a, b, packed) -> int:
+    """1 where ``fx_pack`` moves 16-byte int4s (a multiple of 4 elements,
+    all three pointers 16-byte aligned), else 0 (4-byte words)."""
+    return int(a.numel() % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (a, b, packed)))
+
+
 def fx_pack(a, b):
     """``(a << 29) | b`` elementwise on two int32 tensors of one shape:
     the pack whose fields overlap when ``b`` reaches 2^29.  Replaces
-    ``_pack_kernel``.  One thread an element."""
+    ``_pack_kernel``.  One unit a thread and no thread loops: a 16-byte
+    int4 of each tensor where ``pack_access`` allows it, else a word."""
     name = "fx_pack"
     need(name, "a", a, I32)
     need(name, "b", b, I32, a.shape)
@@ -149,7 +159,8 @@ def fx_pack(a, b):
         return fx_pack_plain(a, b)
     packed = out(a.shape, I32, a.device)
     if a.numel():
-        launch(name, a.device, a, b, packed, a.numel(), lib=LIB)
+        launch(name, a.device, a, b, packed, a.numel(),
+               pack_access(a, b, packed), lib=LIB)
         fx_pack.launches += 1
     return packed
 
@@ -174,8 +185,12 @@ def fx_store_at(idx, v):
     """``out = 0; out[idx] = v[0]`` for ``v`` (rows, W) int32 and ``idx``
     a one-element int32 tensor on ``v``'s device (the counterpart of the
     Pallas kernel's scalar in SMEM).  Replaces ``_store_at_idx._kern``.
-    A memset, then one warp stores the row.  An ``idx`` outside
-    [0, rows) only inside ``dispatch.checked_build()``."""
+    One launch and no memset: each thread stores one unit of the flat
+    output (a 16-byte int4 where ``store_at_access`` allows it, else a
+    word), row 0 of ``v`` on the words of row ``idx`` and 0 on the others.
+    An ``idx`` outside [0, rows) only inside ``dispatch.checked_build()``
+    (the release build then writes zeros alone, where the plain version
+    clamps the row)."""
     name = "fx_store_at"
     rows, W = _need2(name, "v", v)
     need(name, "idx", idx, I32)
@@ -185,7 +200,8 @@ def fx_store_at(idx, v):
     if not on_card(name, idx, v):
         return fx_store_at_plain(idx, v)
     stored = out((rows, W), I32, v.device)
-    launch(name, v.device, idx, v, stored, rows, W, lib=LIB)
+    launch(name, v.device, idx, v, stored, rows, W, store_at_access(stored),
+           lib=LIB)
     fx_store_at.launches += 1
     return stored
 
@@ -426,6 +442,11 @@ def loop_inc_access(acc) -> int:
     """1 where ``fx_loop_inc`` stores 16-byte int4s into ``acc`` (a
     multiple of 4 elements, 16-byte aligned), else 0 (4-byte words)."""
     return int(acc.numel() % 4 == 0 and acc.data_ptr() % 16 == 0)
+
+
+#: 1 where ``fx_store_at`` stores 16-byte int4s: ``loop_inc_access``'s
+#: rule, for the output it fills
+store_at_access = loop_inc_access
 
 
 def fx_loop_inc(x, times=10):

@@ -7,7 +7,8 @@
 //
 //   fx_pack        [:128, :146]  out = (a << 29) | b, elementwise int32
 //   fx_store_at    [:174]  out = 0, then out[idx, :] = v[0, :], the row
-//                          index read from device memory
+//                          index read from device memory; one launch, the
+//                          zero-fill in the kernel
 //   fx_acc_revisit [:215]  out[r] = sum of row r of x, formed by the
 //                          Pallas grid's two 128-column blocks adding their
 //                          partial sums into the one (R, 1) output
@@ -26,10 +27,37 @@
 // accumulates into an output nobody initialised shows in the poisoned
 // output.  Inputs that leave an extent (fx_store_at's index, fx_serial_scan's
 // keys, fx_block_copy's offset) are for the checked build only: the release
-// build does not clamp and would write outside the tensor (fx_serial_scan's
-// release build stores no such key).
+// build does not clamp and may write outside the tensor (fx_serial_scan's
+// and fx_store_at's release builds store no such key or row).
 //
 // Design notes, where the TPU kernel's shape does not carry over:
+//   * fx_pack: an elementwise pass, bound by its bytes (two words read,
+//     one written, an element).  Each thread loads one 16-byte int4 of a
+//     and of b and stores one of out where n is a multiple of 4 and all
+//     three pointers are 16-byte aligned (the wrapper chooses,
+//     fixture_kernels.pack_access, and the entry re-checks), else one
+//     word; no thread loops, so the fixture's 1,024 words are one CTA.
+//     Each access is guarded in the units it moves.  Timed beside it: two
+//     int4s a thread, all four loads before the two stores (PERF.md
+//     section 6).
+//   * fx_store_at: the Pallas kernel zero-fills its block, then stores
+//     one row.  Here one plain launch does both, with no memset: thread i
+//     owns unit i of the flat output (one int4 where rows * W is a
+//     multiple of 4 and out is 16-byte aligned, fixture_kernels.
+//     store_at_access, re-checked in the entry; else one word) and stores
+//     v[j - lo] into each word j with lo <= j < lo + W, lo = idx * W, and
+//     0 into the others.  An int4 may straddle two rows; the flat range
+//     test needs no division by W.  Every word is written once, by one
+//     thread, so the fill and the row need no order between them.  What
+//     bounds it: the output's bytes, and at the fixture's few KB two
+//     memory round trips (idx, then v) after the launch.  Inside the row
+//     j - lo == j % W, so each thread loads v[j % W] (row 0, which does
+//     not depend on idx) beside idx: one round trip, one division a
+//     thread.  Timed beside it: the two-trip design that loads v only
+//     after idx, in the row's threads alone (PERF.md section 6).  An idx
+//     outside [0, rows) puts no word in the row: the release build
+//     writes zeros and nothing outside out; the checked build records
+//     the row's store range once (HG_ST_RANGE, thread 0).
 //   * fx_acc_revisit: the Pallas grid revisits one output block in order
 //     and zero-fills it on its first visit.  Blocks here run in no order,
 //     so the first visit becomes the one visitor that stores: warp r sums
@@ -127,23 +155,63 @@ unsigned grid_for(int64_t n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
 }
 
-__global__ void __launch_bounds__(kThreads)
-pack_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
-            int32_t* __restrict__ out, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const uint32_t hi = static_cast<uint32_t>(HG_LD(a, i, n)) << 29;
-  HG_ST(out, i, n, static_cast<int32_t>(hi | static_cast<uint32_t>(HG_LD(b, i, n))));
+// The pack of one word: the shift wraps, as int32's does in the fixture.
+__device__ __forceinline__ int32_t pack29(int32_t a, int32_t b) {
+  return static_cast<int32_t>((static_cast<uint32_t>(a) << 29) |
+                              static_cast<uint32_t>(b));
 }
 
-// One warp: lane l stores words l, l + 32, ... of row 0 of v at row idx.
-__global__ void store_at_kernel(const int32_t* __restrict__ idx,
-                                const int32_t* __restrict__ v,
-                                int32_t* __restrict__ out, int rows, int W) {
-  const int64_t n = static_cast<int64_t>(rows) * W;
-  const int64_t row = HG_LD(idx, 0, 1);
-  for (int w = threadIdx.x; w < W; w += blockDim.x)
-    HG_ST(out, row * W + w, n, HG_LD(v, w, n));  // w < W: exact in the row
+// Thread i packs unit i of n words: an int4 of a, of b and of out (vec)
+// or a word.
+__global__ void __launch_bounds__(kThreads)
+pack_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+            int32_t* __restrict__ out, int n, int vec) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (vec) {
+    const int units = n >> 2;
+    if (i >= units) return;
+    const int4 x = HG_LD(reinterpret_cast<const int4*>(a), i, units);
+    const int4 y = HG_LD(reinterpret_cast<const int4*>(b), i, units);
+    HG_ST(reinterpret_cast<int4*>(out), i, units,
+          make_int4(pack29(x.x, y.x), pack29(x.y, y.y), pack29(x.z, y.z),
+                    pack29(x.w, y.w)));
+  } else if (i < n) {
+    HG_ST(out, i, n, pack29(HG_LD(a, i, n), HG_LD(b, i, n)));
+  }
+}
+
+// Thread i stores unit i of out, n = rows * W words: an int4 (vec) or a
+// word.  Word j takes v[j - lo] where lo <= j < lo + W, lo = idx * W, and
+// 0 elsewhere.  Inside the row j - lo is j % W, which does not depend on
+// idx: the thread loads v[j % W] beside idx, one memory round trip.
+__global__ void __launch_bounds__(kThreads)
+store_at_kernel(const int32_t* __restrict__ idx,
+                const int32_t* __restrict__ v, int32_t* __restrict__ out,
+                int rows, int W, int vec) {
+  const int n = rows * W;  // < 2^31 (the entry checks)
+  const int unit = vec ? 4 : 1;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n / unit) return;
+  const int64_t lo = static_cast<int64_t>(HG_LD(idx, 0, 1)) * W;
+  // the checked build: a row outside out, recorded once
+  if (i == 0) (void)HG_ST_RANGE(lo, W, n);
+  const int j = i * unit;  // the unit's first word
+  int c = static_cast<int>(static_cast<unsigned>(j) % static_cast<unsigned>(W));
+  int32_t w[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (k < unit) {
+      w[k] = HG_LD(v, c, W);  // row 0 of v
+      c = c + 1 < W ? c + 1 : 0;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (j + k < lo || j + k >= lo + W) w[k] = 0;  // outside the row
+  if (vec)
+    HG_ST(reinterpret_cast<int4*>(out), i, n / 4, make_int4(w[0], w[1], w[2], w[3]));
+  else
+    HG_ST(out, i, n, w[0]);
 }
 
 // Cluster rank q sums columns [q * cols, min(C, (q + 1) * cols)) of x,
@@ -361,31 +429,41 @@ serial_scan_kernel(int32_t* __restrict__ table,
 
 extern "C" {
 
-// a, b, out: n int32 each.  n >= 1.
-int hermes_fx_pack(const void* a, const void* b, void* out, int n HG_ENTRY_ARG,
-                   void* stream) {
-  if (n < 1) return cudaErrorInvalidValue;
+// a, b, out: n int32 each.  n >= 1.  vec: 1 moves int4s (n a multiple
+// of 4, all three pointers 16-byte aligned), 0 words; a vec the pointers
+// or n do not allow is refused (cudaErrorInvalidValue).
+int hermes_fx_pack(const void* a, const void* b, void* out, int n,
+                   int vec HG_ENTRY_ARG, void* stream) {
+  if (n < 1 || (vec != 0 && vec != 1) ||
+      (vec && !(n % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                reinterpret_cast<uintptr_t>(b) % 16 == 0 &&
+                reinterpret_cast<uintptr_t>(out) % 16 == 0)))
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = HG_BEGIN(st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  pack_kernel<<<grid_for(n), kThreads, 0, st>>>(
+  pack_kernel<<<grid_for(vec ? n / 4 : n), kThreads, 0, st>>>(
       static_cast<const int32_t*>(a), static_cast<const int32_t*>(b),
-      static_cast<int32_t*>(out), n);
+      static_cast<int32_t*>(out), n, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-// idx: one int32 on the device; v, out: (rows, W) int32.  rows, W >= 1.
+// idx: one int32 on the device; v, out: (rows, W) int32.  rows, W >= 1,
+// rows * W < 2^31.  vec: 1 stores int4s (rows * W a multiple of 4, out
+// 16-byte aligned), 0 words; a vec out or the shape do not allow is
+// refused (cudaErrorInvalidValue).  One launch, no memset.
 int hermes_fx_store_at(const void* idx, const void* v, void* out, int rows,
-                       int W HG_ENTRY_ARG, void* stream) {
-  if (rows < 1 || W < 1) return cudaErrorInvalidValue;
+                       int W, int vec HG_ENTRY_ARG, void* stream) {
+  const int64_t n = static_cast<int64_t>(rows) * W;
+  if (rows < 1 || W < 1 || n > INT32_MAX || (vec != 0 && vec != 1) ||
+      (vec && !(n % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0)))
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = HG_BEGIN(st);
-  if (err == cudaSuccess)
-    err = cudaMemsetAsync(out, 0, sizeof(int32_t) * rows * W, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  store_at_kernel<<<1, 32, 0, st>>>(static_cast<const int32_t*>(idx),
-                                    static_cast<const int32_t*>(v),
-                                    static_cast<int32_t*>(out), rows, W);
+  store_at_kernel<<<grid_for(vec ? n / 4 : n), kThreads, 0, st>>>(
+      static_cast<const int32_t*>(idx), static_cast<const int32_t*>(v),
+      static_cast<int32_t*>(out), rows, W, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

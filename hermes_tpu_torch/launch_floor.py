@@ -1,8 +1,9 @@
 """What a launch-bound kernel of the port cannot go below, on the card:
 device time a call (``profiling.device_per_call``) of an empty kernel and
 of small fills and copies built the way the port builds its libraries,
-beside PyTorch's fill and copy and the port's ``fx_loop_inc`` and
-``fx_async_copy`` at the same sizes.
+beside PyTorch's fills and copy and the port's ``fx_loop_inc``,
+``fx_store_at`` (a fill and one row) and ``fx_async_copy`` at the same
+sizes.
 
     python -m hermes_tpu_torch.launch_floor
 
@@ -116,6 +117,10 @@ def measure() -> dict:
     timed("empty 1x32", lambda: lib.floor_empty(stream()))
     timed("new_full 1024", lambda: o.new_full(o.shape, 10))
     timed("fx_loop_inc 1024", lambda: fk.fx_loop_inc(o, 10))
+    v = torch.arange(1024, dtype=torch.int32, device="cuda").view(8, 128)
+    idx = torch.tensor([[7]], dtype=torch.int32, device="cuda")
+    timed("zeros_like 1024", lambda: torch.zeros_like(v))
+    timed("fx_store_at 1024", lambda: fk.fx_store_at(idx, v))
     for vec, threads in ((0, 256), (1, 256), (1, 128)):
         o.zero_()
         timed(f"fill 1024 {'int4' if vec else 'word'} x{threads}",

@@ -772,6 +772,161 @@ def test_torch_fx_loop_inc_replays_in_numpy(n):
         np.full(n, 7))
 
 
+#: fx_pack's and fx_store_at's chip_smoke.py shapes but the large one,
+#: and (1000, 77)
+PACK_STORE_SHAPES = [(8, 128), (64, 10), (7, 13), (1000, 77)]
+
+
+def _unit_grid(n, out):
+    """The entry's grid of ``kThreads`` threads over ``n`` words, one unit
+    a thread: the unit (4 words where ``vec``, else 1), the live threads'
+    unit indices and the CTAs launched."""
+    vec = n % 4 == 0 and out.data_ptr() % 16 == 0
+    unit = 4 if vec else 1
+    threads = _fixture_constant("kThreads")
+    ctas = -(-(n // unit) // threads)
+    i = np.arange(ctas * threads)
+    return unit, i[i < n // unit], ctas
+
+
+def _store_at_replay(idx, v, stored):
+    """``store_at_kernel`` replayed in numpy: thread i's unit, the column
+    ``j % W`` it loads from row 0 of ``v`` beside ``idx`` (the first by
+    division, the next by a wrapping increment), and the flat range test
+    against ``lo = idx * W`` that keeps the loaded word or stores 0.
+    Returns the output (-1 where nothing landed), the stores each word
+    took, the unit and the CTAs."""
+    rows, W = v.shape
+    n = rows * W
+    unit, i, ctas = _unit_grid(n, stored)
+    assert fk.store_at_access(stored) == int(unit == 4)
+    lo = idx * W
+    row0 = v[0].numpy()
+    got = np.full(n, -1, np.int64)
+    writes = np.zeros(n, np.int64)
+    c = (i * unit) % W
+    for k in range(unit):
+        j = i * unit + k
+        inrow = (j >= lo) & (j < lo + W)
+        assert (c[inrow] == j[inrow] - lo).all()  # j % W is j - lo there
+        got[j] = np.where(inrow, row0[c], 0)
+        np.add.at(writes, j, 1)
+        c = np.where(c + 1 < W, c + 1, 0)
+    return got.reshape(rows, W), writes, unit, ctas
+
+
+@pytest.mark.parametrize("rows,W", PACK_STORE_SHAPES)
+def test_torch_fx_store_at_replays_in_numpy(rows, W):
+    """``store_at_kernel``'s one launch replayed in numpy into an output at
+    its allocation and one 4 bytes off it, with ``idx`` at the first, a
+    middle and the last row: every word is written exactly once, the
+    words equal the plain version (row 0 of ``v`` at row ``idx``, zeros
+    elsewhere, bit-exact), and the fixture's (8, 128) takes one CTA of
+    int4s.  An ``idx`` one past the end writes zeros alone, all inside
+    the output."""
+    v = _t(_i32(np.random.default_rng(rows * 31 + W), (rows, W)))
+    buf = torch.empty(rows * W + 1, dtype=torch.int32)
+    for stored in (buf[:-1], buf[1:]):
+        for idx in (0, rows // 2, rows - 1, rows):
+            got, writes, unit, ctas = _store_at_replay(idx, v, stored)
+            assert (writes == 1).all()
+            if idx < rows:
+                i = torch.tensor([[idx]], dtype=torch.int32)
+                np.testing.assert_array_equal(
+                    got, fk.fx_store_at_plain(i, v).numpy())
+            else:
+                assert (got == 0).all()
+        assert unit == (4 if rows * W % 4 == 0
+                        and stored.data_ptr() == buf.data_ptr() else 1)
+        if (rows, W) == (8, 128) and unit == 4:
+            assert ctas == 1
+
+
+@pytest.mark.parametrize("rows,C", PACK_STORE_SHAPES)
+def test_torch_fx_pack_replays_in_numpy(rows, C):
+    """``pack_kernel``'s one launch replayed in numpy into an output at its
+    allocation and one 4 bytes off it: the path ``pack_access`` picks, one
+    unit a thread; every word is written exactly once and equals the
+    plain version's shift-or (bit-exact, the shift wrapping), and the
+    fixture's (8, 128) takes one CTA of int4s."""
+    rng = np.random.default_rng(rows * 37 + C)
+    a, b = _i32(rng, (rows * C,)), _i32(rng, (rows * C,))
+    want = fk.fx_pack_plain(_t(a), _t(b)).numpy()
+    buf = torch.empty(rows * C + 1, dtype=torch.int32)
+    for packed in (buf[:-1], buf[1:]):
+        n = rows * C
+        unit, i, ctas = _unit_grid(n, packed)
+        assert fk.pack_access(_t(a), _t(b), packed) == int(unit == 4)
+        got = np.zeros(n, np.int64)
+        writes = np.zeros(n, np.int64)
+        for k in range(unit):
+            j = i * unit + k
+            got[j] = ((a[j].astype(np.uint32) << np.uint32(29))
+                      | b[j].astype(np.uint32)).astype(np.int32)
+            np.add.at(writes, j, 1)
+        assert (writes == 1).all()
+        np.testing.assert_array_equal(got, want)
+        if (rows, C) == (8, 128) and unit == 4:
+            assert ctas == 1
+
+
+@pytest.mark.parametrize("n", [1, 3, 91, 1024, 1028])
+def test_torch_store_at_and_pack_access_take_int4s_only_when_aligned(n):
+    """Both choosers give int4s (1) only where n is a multiple of 4 and
+    every pointer they are given is 16-byte aligned; a tensor 4 bytes off
+    its allocation, in any place, gives words (0)."""
+    buf = torch.empty(n + 1, dtype=torch.int32)
+    on, off = buf[:-1], buf[1:]
+    assert fk.store_at_access(on) == int(n % 4 == 0)
+    assert fk.store_at_access(off) == 0
+    assert fk.pack_access(on, on, on) == int(n % 4 == 0)
+    for a, b, packed in ((off, on, on), (on, off, on), (on, on, off)):
+        assert fk.pack_access(a, b, packed) == 0
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (7, 13), (1000, 77)])
+def test_torch_fx_pack_plain_matches_fixture_at_every_shape(shape):
+    """``_ref_pack`` takes any shape: the plain version equals it, bit for
+    bit, at the word path's (7, 13) and (1000, 77) as at the fixture's."""
+    rng = np.random.default_rng(shape[0] + shape[1])
+    a, b = _i32(rng, shape), _i32(rng, shape)
+    np.testing.assert_array_equal(
+        _np(_ref_pack(jnp.asarray(a), jnp.asarray(b))),
+        fk.fx_pack_plain(_t(a), _t(b)).numpy())
+
+
+@pytest.mark.parametrize("blk", [8, 64])
+def test_torch_fx_store_at_plain_matches_fixture_at_both_blocks(blk):
+    """``_ref_store_at`` is fixed at 128 columns and takes any row count:
+    at 8 and 64 rows, ``idx`` at the first, a middle and the last row and
+    one past the end (interpret mode clamps it), bit for bit."""
+    v = _i32(np.random.default_rng(blk), (blk, 128))
+    for idx in (0, blk // 2, blk - 1, blk):
+        i = np.array([[idx]], np.int32)
+        np.testing.assert_array_equal(
+            _np(_ref_store_at(jnp.asarray(i), jnp.asarray(v))),
+            fk.fx_store_at_plain(_t(i), _t(v)).numpy())
+
+
+def test_torch_one_operation_names_every_timed_kernel():
+    """``chip_smoke.ONE_OPERATION`` names every kernel the kernels phase
+    times (``kernel_specs``: the six production and probe kernels and
+    ``fk.KERNELS``), so none can slip out of the one-operation check."""
+    from types import SimpleNamespace
+
+    from hermes_tpu_torch.core import kernels
+    from hermes_tpu_torch.core import megaround as mega
+    from hermes_tpu_torch.core import probe_kernels as pk
+
+    port = SimpleNamespace(kernels=kernels, mega=mega, pk=pk, fk=fk)
+    names = [spec[0] for spec in chip_smoke.kernel_specs(port)]
+    assert len(names) == len(set(names)) == 14
+    assert set(names) == set(fk.KERNELS) | {
+        "stats_block", "mega_route", "mega_apply", "mega_replay",
+        "probe_serial", "probe_vgather"}
+    assert sorted(chip_smoke.ONE_OPERATION) == sorted(names)
+
+
 @pytest.mark.parametrize("name", sorted(fk.KERNELS))
 def test_torch_analysis_kernels_dispatch(name):
     """A CPU tensor takes the plain version (no launch counted); a wrong

@@ -66,8 +66,9 @@ def _device_ops(call):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["stats_block", "mega_apply", "mega_replay",
-                                  "probe_serial", "probe_vgather",
-                                  "fx_acc_revisit", "fx_serial_scan",
+                                  "probe_serial", "probe_vgather", "fx_pack",
+                                  "fx_store_at", "fx_acc_revisit",
+                                  "fx_block_copy", "fx_serial_scan",
                                   "fx_async_copy", "fx_loop_inc"])
 def test_kernel_call_is_one_device_operation(name):
     """At the bench shape a call enqueues exactly one device operation
@@ -75,7 +76,8 @@ def test_kernel_call_is_one_device_operation(name):
     (``probe_serial`` after its first call, which fills its winner
     column); the fixtures at chip_smoke.py's last shape (4.1 MB for
     ``fx_async_copy``, the word path for ``fx_loop_inc`` and
-    ``fx_acc_revisit``, the 40 MB bench table for ``fx_serial_scan``)."""
+    ``fx_acc_revisit``, the 40 MB bench table for ``fx_serial_scan``,
+    96 MB moved for ``fx_pack``, a 64 MB output for ``fx_store_at``)."""
     dev = _card()
     if name.startswith("fx_"):
         wrapper, _plain, args = _analysis_case(
@@ -129,8 +131,9 @@ def _graph_equals_eager(make_args, call):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["stats_block", "mega_apply", "mega_replay",
-                                  "fx_acc_revisit", "fx_serial_scan",
-                                  "fx_async_copy", "fx_loop_inc"])
+                                  "fx_pack", "fx_store_at", "fx_acc_revisit",
+                                  "fx_serial_scan", "fx_async_copy",
+                                  "fx_loop_inc"])
 def test_kernel_call_replays_from_a_cuda_graph(name):
     """A call captured into a CUDA graph (on the capture's own stream,
     which has seen no call: nothing is kept per stream) replays equal to
@@ -759,6 +762,76 @@ def test_fx_loop_inc_and_async_copy_take_only_paths_the_pointers_allow(
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("checked", [False, True])
+def test_fx_pack_and_store_at_take_only_paths_the_pointers_allow(checked):
+    """An output 4 bytes off its allocation (1,024 words, a multiple of 4)
+    takes the word path of ``fx_pack`` and of ``fx_store_at`` and is right
+    in both builds, the word before it untouched; through ctypes the C
+    entries refuse (cudaErrorInvalidValue, 1) int4s into that output, and
+    ``fx_pack``'s int4s from an ``a`` or ``b`` 4 bytes off."""
+    from hermes_tpu_torch.analysis import fixture_kernels as fk
+    from hermes_tpu_torch.core import dispatch
+
+    dev = _card()
+    poison = dispatch.poison(torch.int32)
+    g = torch.Generator().manual_seed(12)
+    a, b = (torch.randint(-(1 << 31), 1 << 31, (1024,), generator=g,
+                          dtype=torch.int64).to(torch.int32) for _ in "ab")
+    v = b.view(8, 128)
+    idx = torch.tensor([[5]], dtype=torch.int32, device=dev)
+    ad, bd, vd = a.to(dev), b.to(dev), v.to(dev)
+    buf = torch.full((1025,), poison, dtype=torch.int32, device=dev)
+    off = buf[1:]
+    assert fk.pack_access(ad, bd, off) == 0 and fk.store_at_access(off) == 0
+    with _build(checked) as chk:
+        dispatch.launch("fx_pack", dev, ad, bd, off, 1024, 0, lib=fk.LIB)
+        torch.cuda.synchronize(dev)
+        assert torch.equal(off.cpu(), fk.fx_pack_plain(a, b))
+        dispatch.launch("fx_store_at", dev, idx, vd, off, 8, 128, 0,
+                        lib=fk.LIB)
+        torch.cuda.synchronize(dev)
+        assert torch.equal(off.view(8, 128).cpu(),
+                           fk.fx_store_at_plain(idx.cpu(), v))
+    assert int(buf[0]) == poison
+    if checked:
+        assert chk.violations == []
+    x = torch.empty(1025, dtype=torch.int32, device=dev)
+    with _build(checked):
+        for args in ((ad, bd, off), (x[1:], bd, buf[:1024]),
+                     (ad, x[1:], buf[:1024])):
+            with pytest.raises(RuntimeError, match=r"CUDA error 1$"):
+                dispatch.launch("fx_pack", dev, *args, 1024, 1, lib=fk.LIB)
+        with pytest.raises(RuntimeError, match=r"CUDA error 1$"):
+            dispatch.launch("fx_store_at", dev, idx, vd, off, 8, 128, 1,
+                            lib=fk.LIB)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 128), (7, 13)])
+def test_fx_store_at_release_index_past_the_end_writes_zeros_only(shape):
+    """The release ``fx_store_at`` with ``idx`` = rows (one past the end),
+    on its int4 path and its word path, into a fresh allocation with a
+    guard word after the output: every output word is 0 and the guard
+    word keeps its value (the old design stored the row past the end)."""
+    from hermes_tpu_torch.analysis import fixture_kernels as fk
+    from hermes_tpu_torch.core import dispatch
+
+    dev = _card()
+    rows, W = shape
+    n = rows * W
+    v = torch.arange(1, n + 1, dtype=torch.int32, device=dev).view(rows, W)
+    idx = torch.tensor([[rows]], dtype=torch.int32, device=dev)
+    buf = torch.full((n + 1,), 12345, dtype=torch.int32, device=dev)
+    stored = buf[:n]
+    vec = fk.store_at_access(stored)
+    assert vec == int(n % 4 == 0)
+    dispatch.launch("fx_store_at", dev, idx, v, stored, rows, W, vec,
+                    lib=fk.LIB)
+    torch.cuda.synchronize(dev)
+    assert bool((stored == 0).all()) and int(buf[n]) == 12345
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n", [1024, 65536])
 def test_checked_fx_async_copy_skips_a_tile_past_its_output(n):
     """The checked entry driven through ctypes with an output extent 4
@@ -774,7 +847,8 @@ def test_checked_fx_async_copy_skips_a_tile_past_its_output(n):
 
     dev = _card()
     src = (build.CSRC / "analysis_fixtures.cu").read_text().splitlines()
-    line = next(i for i, t in enumerate(src, 1) if "HG_ST_RANGE(" in t)
+    line = next(i for i, t in enumerate(src, 1) if "HG_ST_RANGE(" in t
+                and dispatch.kernel_at(fk.LIB, i) == "async_copy_kernel")
     tile = next(int(t.split("=")[1].split(";")[0]) for t in src
                 if "constexpr int kTileBytes" in t) // 4
     last = (n - 1) // tile * tile  # the last tile's first word
