@@ -71,6 +71,21 @@ prints no result):
    until after the replay scan of round 32, which must take slots.
 7. kvs     — a ``KVS`` at the full key count, value width and session
    count: puts from replica 0 read back from every replica, one RMW.
+8. reads   — the local-read path at the same shape, recorded: 65,536
+   distinct keys put with ``submit_batch``, one ``multi_get`` of 65,536
+   keys (half written, half never written) and one ``scan`` of all 2^20
+   rows, every answer held to what was written or to the initial value,
+   every key served locally; then one key fenced ahead of its row
+   (``pin_read_fence``) must go through the round path; the checker and
+   ``stale_read`` must pass.  Reads/s and GB/s of the multi-get and the
+   scan on the host clock.
+9. values  — the value heap at the same shape (``max_value_bytes=1024``,
+   the 8 MiB heap the ref layout allows): 32,768 keys put with
+   memcached-shaped byte values, all overwritten once, 4,096 keys a
+   batch, which passes the heap's capacity (a pressure GC must run); read back byte-exact; every
+   live ref gathered from the device log equal to the mirror; one
+   explicit GC.  Writes/s, put, read and device-gather GB/s.
+   Both phases hold ``stats_block``'s launches equal to the KVS's rounds.
 
 Then the kernels summary line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Without a card, or without the package
@@ -1276,6 +1291,161 @@ def phase_kvs(torch, kernels, config, KVS):
         raise AssertionError("stats_block launches != KVS rounds")
 
 
+READS_KEYS = 65536  # keys put, and keys of the one multi_get
+READS_SEED = 12
+VALUES_KEYS = 32768
+VALUES_CHUNK = 4096
+VALUES_SEED = 17
+
+
+def _kvs_cfg(config, **over):
+    return config.bench_cfg("a", over=dict(device_stream=False,
+                                           read_unroll=1, **over))
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_reads(torch, np, kernels, types, config, KVS, lin, card):
+    """The local-read path at the bench shape, recorded and checked."""
+    cfg = _kvs_cfg(config)
+    kvs = KVS(cfg, record="array", device="cuda")
+    kernels.stats_block.launches = 0
+    K, n, u = cfg.n_keys, READS_KEYS, cfg.value_words - 2
+    rng = np.random.default_rng(READS_SEED)
+    keys = rng.choice(K, n, replace=False).astype(np.int64)
+    vals = rng.integers(-(1 << 30), 1 << 30, (n, u)).astype(np.int32)
+    bf, put_s = _timed(torch, lambda: kvs.submit_batch(
+        np.full(n, KVS.PUT, np.int32), keys, vals))
+    if not kvs.run_batch(bf, 64) or not (bf.code == types.C_WRITE).all():
+        raise AssertionError("the puts did not all commit")
+    want = np.zeros((K, u), np.int32)  # the initial value's payload words
+    want[keys] = vals
+    unwritten = np.setdiff1d(np.arange(K), keys)
+    rkeys = np.concatenate([keys[: n // 2],
+                            rng.choice(unwritten, n // 2, replace=False)])
+    res, mget_s = _timed(torch, lambda: kvs.multi_get(rkeys))
+    sc, scan_s = _timed(torch, lambda: kvs.scan(0, K))
+    for name, r, k in (("multi_get", res, rkeys), ("scan", sc, np.arange(K))):
+        if not r.all_done() or r.local_served != len(k) or r.fallbacks:
+            raise AssertionError(f"{name}: {r.local_served} of {len(k)} "
+                                 f"served locally, {r.fallbacks} fallbacks")
+        bad = np.nonzero((r.value != want[k]).any(axis=1))[0]
+        if bad.size or not (r.key == k).all():
+            raise AssertionError(f"{name}: {bad.size} wrong answers, first "
+                                 f"key {k[bad[:1]]}")
+    # one key fenced ahead of its row must go through the round path
+    fkey = int(keys[0])
+    kvs.pin_read_fence("smoke", fkey, (int(bf.tsv[0]) + 1, 0))
+    fres = kvs.multi_get([fkey], session="smoke")
+    if (not fres.all_done() or fres.local[0] or fres.fallbacks != 1
+            or (fres.value[0] != vals[0]).any()):
+        raise AssertionError("the fenced key was not served by the round "
+                             f"path: local {fres.local[0]}")
+    stats = kvs.read_stats()
+    # the read dispatches alone (gather or slice, decode, copy to the
+    # host), without the KVS's host work: where the two calls' time goes
+    reader = kvs._get_reader()
+    _, mget_dispatch_s = _timed(torch, lambda: reader.multi_get(rkeys))
+    _, scan_dispatch_s = _timed(torch, lambda: reader.scan(0, K))
+    t0 = time.perf_counter()
+    v = kvs.rt.check()
+    check_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stale = lin.stale_read(kvs.rt.history_ops())
+    stale_s = time.perf_counter() - t0
+    row = 4 * (2 + cfg.value_words)
+    emit({"phase": "reads", "nvidia_smi": card, "keys": K, "puts": n,
+          "put_s": put_s, "rounds": kvs.rt.step_idx,
+          "multi_get_keys": n, "multi_get_s": mget_s,
+          "multi_get_reads_per_s": n / mget_s,
+          "multi_get_gb_per_s": n * row / mget_s / 1e9,
+          "scan_rows": K, "scan_s": scan_s, "scan_reads_per_s": K / scan_s,
+          "scan_gb_per_s": K * row / scan_s / 1e9,
+          "multi_get_dispatch_s": mget_dispatch_s,
+          "scan_dispatch_s": scan_dispatch_s, "read_stats": stats,
+          "check_ok": v.ok, "check_s": check_s, "stale_read": len(stale),
+          "stale_read_s": stale_s,
+          "stats_block_launches": kernels.stats_block.launches})
+    if stats["fallback_reads"] != 1 or stats["ryw_fallbacks"] != 1:
+        raise AssertionError(f"fallbacks beyond the forced one: {stats}")
+    if not v.ok or stale:
+        raise AssertionError(f"checker {v.ok}, stale reads {stale[:2]}")
+    if kernels.stats_block.launches != kvs.rt.step_idx:
+        raise AssertionError("stats_block launches != KVS rounds")
+
+
+def phase_values(torch, np, kernels, types, config, KVS, layouts, ycsb,
+                 card):
+    """The value heap at the bench shape: churn past the heap's
+    capacity, byte-exact reads, device gathers equal to the mirror."""
+    cfg = _kvs_cfg(config, max_value_bytes=1024,
+                   heap_bytes=layouts.MAX_HEAP_BYTES)
+    kvs = KVS(cfg, device="cuda")
+    kernels.stats_block.launches = 0
+    n = VALUES_KEYS
+    keys = np.random.default_rng(VALUES_SEED).choice(
+        cfg.n_keys, n, replace=False).astype(np.int64)
+    lens = ycsb.value_sizes(dict(n=2 * n, max_bytes=1024), VALUES_SEED)
+    pays = [ycsb.value_payload(VALUES_SEED, i, int(lens[i]))
+            for i in range(2 * n)]
+    put_s = 0.0
+    # put every key, then overwrite every key once, in batches of
+    # VALUES_CHUNK: an overwritten batch's old extents are dead by the
+    # time the heap fills, so the pressure GC has bytes to reclaim
+    for lo in range(0, 2 * n, VALUES_CHUNK):
+        sl = slice(lo % n, lo % n + VALUES_CHUNK)
+        batch = pays[lo:lo + VALUES_CHUNK]
+        bf, s1 = _timed(torch, lambda: kvs.submit_batch(
+            np.full(len(batch), KVS.PUT, np.int32), keys[sl], batch))
+        ok, s2 = _timed(torch, lambda: kvs.run_batch(bf, 64))
+        put_s += s1 + s2
+        if not ok or not (bf.code == types.C_WRITE).all():
+            raise AssertionError(f"the put batch at {lo} did not commit")
+    put_bytes = int(lens.sum())
+    latest = pays[n:]
+    res, get_s = _timed(torch, lambda: kvs.multi_get(keys))
+    if not res.all_done() or res.data != latest:
+        bad = [i for i in range(n) if res.data[i] != latest[i]]
+        raise AssertionError(f"{len(bad)} values not byte-exact")
+    heap = kvs.heap
+    refs = res.value[:, 0].copy()
+    (rows, glens), gather_s = _timed(torch,
+                                     lambda: heap.device_gather(refs))
+    for i in range(n):
+        ln = int(glens[i])
+        if rows[i, :ln].tobytes() != heap.read(int(refs[i])) \
+                or rows[i, ln:].any():
+            raise AssertionError(f"device gather of ref {refs[i]:#x} "
+                                 "differs from the mirror")
+    gc_runs = heap.gc_runs
+    st = kvs.heap_gc(reason="smoke")
+    after = kvs.multi_get(keys)
+    get_bytes = sum(len(d) for d in latest)
+    emit({"phase": "values", "nvidia_smi": card, "keys": n,
+          "puts": 2 * n, "rounds": kvs.rt.step_idx,
+          "put_s": put_s, "writes_per_s": 2 * n / put_s,
+          "put_gb_per_s": put_bytes / put_s / 1e9,
+          "get_s": get_s, "read_gb_per_s": get_bytes / get_s / 1e9,
+          "gather_s": gather_s,
+          "device_gather_gb_per_s": int(glens.sum()) / gather_s / 1e9,
+          "pressure_gc_runs": gc_runs, "heap": st,
+          "stats_block_launches": kernels.stats_block.launches})
+    if gc_runs < 1:
+        raise AssertionError("the churn never ran a pressure GC")
+    if not st or st["live_bytes"] > st["used_bytes"]:
+        raise AssertionError(f"heap_gc gave {st}")
+    if after.data != latest:
+        raise AssertionError("values changed across the explicit GC")
+    if kernels.stats_block.launches != kvs.rt.step_idx:
+        raise AssertionError("stats_block launches != KVS rounds")
+
+
 def main(argv=None):
     import argparse
 
@@ -1310,6 +1480,10 @@ def main(argv=None):
         from hermes_tpu_torch.core import kernels, types
         from hermes_tpu_torch.core import megaround as mega
         from hermes_tpu_torch.core import probe_kernels as pk
+        import numpy as np
+
+        from hermes_tpu_torch.checker import linearizability as lin
+        from hermes_tpu_torch.core import layouts
         from hermes_tpu_torch.workload import ycsb
         from hermes_tpu_torch.kvs import KVS
         from hermes_tpu_torch.runtime import FastRuntime
@@ -1365,6 +1539,9 @@ def main(argv=None):
         phase_checked(torch, counters, config, FastRuntime, types,
                       mega_round=True)
         phase_kvs(torch, kernels, config, KVS)
+        phase_reads(torch, np, kernels, types, config, KVS, lin, card)
+        phase_values(torch, np, kernels, types, config, KVS, layouts, ycsb,
+                     card)
     except Exception:
         traceback.print_exc()
         return 1

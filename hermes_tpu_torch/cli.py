@@ -3,22 +3,33 @@
     python -m hermes_tpu_torch --replicas 8 --keys $((1<<20)) \\
         --sessions 1024 --arb-mode sort --chain-writes 128 --check
     python -m hermes_tpu_torch --arb-mode sort --mega-round --check
+    python -m hermes_tpu_torch --value-words 6 --reads 20000 --check
+    python -m hermes_tpu_torch --value-words 3 --value-bytes 1024 --check
 
 The default fast-backend drive of ``hermes_tpu/cli.py``: with ``--steps
 0`` (the default) the run drains every session's op stream; ``--check``
 records the history and runs the linearizability gate (sampled over 512
-keys).  It prints the summary record, then the verdict.  The run is on
-the card unless ``--device cpu`` is given.
+keys).  It prints the summary record, then the verdict.  ``--reads N``
+(the local-read path) and ``--value-bytes N`` (the value heap) are the
+reference's two client drives through ``kvs.KVS``; each prints one JSON
+summary line.  The run is on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 
+import numpy as np
+
 # keys the --check gate samples (the reference CLI's --check-keys default)
 CHECK_KEYS = 512
+
+#: --value-bytes --check: post-compaction utilization floor (live bytes
+#: over the allocated log prefix); granule rounding is the only slack
+VALUES_UTIL_FLOOR = 0.75
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -42,19 +53,193 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--steps", type=int, default=0, help="0 = run until drained")
     ap.add_argument("--check", action="store_true",
                     help="record history + linearizability gate")
+    ap.add_argument("--distribution", choices=["uniform", "zipfian"],
+                    default="uniform")
+    ap.add_argument("--zipf-theta", type=float, default=0.99)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--reads", type=int, default=None, metavar="N",
+                    help="local-read drive: N ops, reads through the "
+                         "batched multi_get, writes through submit_batch, "
+                         "interleaved; one JSON summary line.  --check "
+                         "also gates the stale-read check.  Needs "
+                         "--value-words >= 3")
+    ap.add_argument("--read-frac", type=float, default=0.95,
+                    help="read fraction of the --reads mix (YCSB-B's 0.95)")
+    ap.add_argument("--read-latest", action="store_true",
+                    help="--reads: latest-distribution read keys (YCSB-D)")
+    ap.add_argument("--value-bytes", type=int, default=None, metavar="N",
+                    help="value-heap drive: byte values up to N bytes "
+                         "(ycsb.value_sizes) through submit_batch puts and "
+                         "one multi_get, then a compaction; one JSON "
+                         "summary line.  --check also gates the stale-read "
+                         "check and the post-compaction utilization.  "
+                         "Needs --value-words >= 3")
+    ap.add_argument("--values-ops", type=int, default=4096, metavar="N",
+                    help="op count of the --value-bytes drive")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: the card)")
     return ap
 
 
+def _run_values(args, cfg) -> int:
+    """The value-heap drive: N byte puts of memcached-shaped sizes, one
+    batched read-back and one compaction; one JSON line.  ``--check``
+    gates the linearizability checker, the stale-read check and the
+    post-compaction utilization floor."""
+    import dataclasses
+
+    from hermes_tpu_torch.checker import linearizability as lin
+    from hermes_tpu_torch.checker.fast import default_record
+    from hermes_tpu_torch.core import layouts
+    from hermes_tpu_torch.kvs import KVS
+    from hermes_tpu_torch.workload.ycsb import value_payload, value_sizes
+
+    cfg = dataclasses.replace(cfg, max_value_bytes=args.value_bytes,
+                              heap_bytes=min(layouts.MAX_HEAP_BYTES, 1 << 22))
+    kvs = KVS(cfg, record=default_record(args.check), device=args.device)
+    n = args.values_ops
+    rng = np.random.default_rng(args.seed)
+    lens = value_sizes(dict(n=n, max_bytes=args.value_bytes), args.seed)
+    chunk = min(2048, cfg.n_keys)
+    latest = {}
+    written = 0
+    t0 = time.perf_counter()
+    for lo in range(0, n, chunk):
+        m = min(chunk, n - lo)
+        # unique keys a batch: same-key writes of one batch commit in
+        # arbiter order, so byte-exactness needs one write a key
+        kk = rng.permutation(cfg.n_keys)[:m].astype(np.int64)
+        pays = [value_payload(args.seed, lo + j, int(lens[lo + j]))
+                for j in range(m)]
+        bf = kvs.submit_batch(np.full(m, KVS.PUT, np.int32), kk, pays)
+        if not kvs.run_batch(bf, max_steps=args.steps or 50_000):
+            print(json.dumps({"ok": False,
+                              "error": "value puts did not drain"}))
+            return 1
+        for k, p in zip(kk, pays):
+            latest[int(k)] = p
+        written += int(sum(len(p) for p in pays))
+    put_wall = time.perf_counter() - t0
+    skeys = np.asarray(sorted(latest), np.int64)
+    t0 = time.perf_counter()
+    res = kvs.multi_get(skeys)
+    if not res.all_done():
+        print(json.dumps({"ok": False, "error": "reads did not drain"}))
+        return 1
+    get_wall = time.perf_counter() - t0
+    exact = all(res.data[j] == latest[int(k)] for j, k in enumerate(skeys))
+    stats = kvs.heap_gc(reason="quickstart")
+    util = (stats["live_bytes"] / stats["used_bytes"]) if stats else None
+    gb = 1 << 30
+    summary = dict(ops=n, value_bytes_cap=args.value_bytes,
+                   bytes_written=written,
+                   wall_s=round(put_wall + get_wall, 3),
+                   writes_per_sec=round(n / put_wall, 1),
+                   put_gb_per_sec=round(written / put_wall / gb, 4),
+                   byte_exact=bool(exact),
+                   heap=kvs.heap.stats(),
+                   post_gc_util=round(util, 4) if util else None)
+    ok = exact
+    if args.check:
+        v = kvs.rt.check(max_keys=CHECK_KEYS)
+        stale = lin.stale_read(kvs.rt.history_ops())
+        summary["checked_ok"] = bool(v.ok)
+        summary["stale_read"] = [repr(e) for e in stale[:4]]
+        summary["util_floor"] = VALUES_UTIL_FLOOR
+        ok = (ok and bool(v.ok) and not stale
+              and util is not None and util >= VALUES_UTIL_FLOOR)
+    summary["ok"] = bool(ok)
+    print(json.dumps(summary, default=str))
+    return 0 if ok else 1
+
+
+def _run_reads(args, cfg) -> int:
+    """The local-read drive: N ops at ``--read-frac``, reads through the
+    batched local-read path, writes through submit_batch; one JSON line.
+    ``--check`` gates the linearizability checker and the stale-read
+    check."""
+    from hermes_tpu_torch.checker import linearizability as lin
+    from hermes_tpu_torch.checker.fast import default_record
+    from hermes_tpu_torch.kvs import KVS
+    from hermes_tpu_torch.workload.openloop import MixSpec, make_mix
+
+    kvs = KVS(cfg, record=default_record(args.check), device=args.device)
+    dist = "latest" if args.read_latest else cfg.workload.distribution
+    spec = MixSpec(name=dist, distribution=dist,
+                   zipf_theta=cfg.workload.zipf_theta,
+                   read_frac=args.read_frac)
+    n = args.reads
+    mix = make_mix(spec, cfg.n_keys, n, args.seed,
+                   value_words=cfg.value_words - 2)
+    chunk = 4096
+    t0 = time.perf_counter()
+    reads = writes = local = 0
+    for lo in range(0, n, chunk):
+        kk = mix["key"][lo: lo + chunk]
+        wr = mix["kind"][lo: lo + chunk] != 0
+        if wr.any():
+            bf = kvs.submit_batch(
+                np.full(int(wr.sum()), KVS.PUT, np.int32), kk[wr],
+                mix["value"][lo: lo + chunk][wr])
+            if not kvs.run_batch(bf, max_steps=args.steps or 50_000):
+                print(json.dumps({"ok": False,
+                                  "error": "write share did not drain"}))
+                return 1
+            writes += int(wr.sum())
+        rd = ~wr
+        if rd.any():
+            res = kvs.multi_get(kk[rd])
+            if not res.all_done():
+                print(json.dumps({"ok": False,
+                                  "error": "read share did not drain"}))
+                return 1
+            reads += int(rd.sum())
+            local += res.local_served
+    wall = time.perf_counter() - t0
+    summary = dict(ops=n, reads=reads, writes=writes,
+                   read_frac=args.read_frac, distribution=dist,
+                   wall_s=round(wall, 3),
+                   reads_per_sec=round(reads / wall, 1) if reads else 0.0,
+                   **kvs.read_stats())
+    ok = True
+    if args.check:
+        v = kvs.rt.check(max_keys=CHECK_KEYS)
+        stale = lin.stale_read(kvs.rt.history_ops())
+        summary["checked_ok"] = bool(v.ok)
+        summary["stale_read"] = [repr(e) for e in stale[:4]]
+        ok = bool(v.ok) and not stale
+    summary["ok"] = bool(ok)
+    print(json.dumps(summary, default=str))
+    return 0 if ok else 1
+
+
 def main(argv=None) -> int:
     from hermes_tpu_torch import stats as stats_lib
     from hermes_tpu_torch.checker.fast import default_record
-    from hermes_tpu_torch.config import HermesConfig
+    from hermes_tpu_torch.config import HermesConfig, WorkloadConfig
     from hermes_tpu_torch.runtime import FastRuntime
 
     ap = build_parser()
     args = ap.parse_args(argv)
+    if args.reads is not None:
+        if args.reads < 1:
+            ap.error("--reads wants a positive op count")
+        if not (0.0 <= args.read_frac <= 1.0):
+            ap.error("--read-frac must be in [0, 1]")
+        if args.value_words < 3:
+            ap.error("--reads needs --value-words >= 3 (words 0-1 carry "
+                     "the write uid)")
+        if args.value_bytes is not None:
+            ap.error("--reads and --value-bytes are separate drives; "
+                     "pick one")
+    if args.value_bytes is not None:
+        if args.value_bytes < 1:
+            ap.error("--value-bytes wants a positive byte cap")
+        if args.values_ops < 1:
+            ap.error("--values-ops wants a positive op count")
+        if args.value_words < 3:
+            ap.error("--value-bytes needs --value-words >= 3 (words 0-1 "
+                     "carry the write uid, word 2 the packed heap ref)")
     if args.chain_writes and args.arb_mode != "sort":
         ap.error("--chain-writes needs --arb-mode sort")
     if args.mega_round and args.arb_mode != "sort":
@@ -70,7 +255,13 @@ def main(argv=None) -> int:
         arb_mode=args.arb_mode,
         chain_writes=args.chain_writes,
         mega_round=args.mega_round,
+        workload=WorkloadConfig(distribution=args.distribution,
+                                zipf_theta=args.zipf_theta, seed=args.seed),
     )
+    if args.reads is not None:
+        return _run_reads(args, cfg)
+    if args.value_bytes is not None:
+        return _run_values(args, cfg)
     rt = FastRuntime(cfg, record=default_record(args.check),
                      device=args.device)
     t0 = time.perf_counter()

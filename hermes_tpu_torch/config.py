@@ -247,6 +247,11 @@ class HermesConfig:
         return self.max_value_bytes > 0
 
     @property
+    def heap_granules(self) -> int:
+        """Heap log capacity in granules (granule 0 = the null ref)."""
+        return self.heap_bytes // layouts.HEAP_GRANULE
+
+    @property
     def use_wal(self) -> bool:
         return self.wal_dir is not None
 

@@ -136,8 +136,8 @@ BLOCK_META = Layout("block_meta", "INV block scalars (epoch | alive)", (
     Field("epoch", 1, 30),
 ))
 
-#: Value-heap extent reference word (the heap is not ported yet; the
-#: config validation of max_value_bytes/heap_bytes reads its budgets).
+#: Value-heap extent reference word (``heap/core.py``; the config
+#: validation of max_value_bytes/heap_bytes reads its budgets).
 HEAP_REF = Layout("heap_ref", "value-heap extent ref (gran | len)", (
     Field("len", 0, 12),    # extent byte length; bounds max_value_bytes
     Field("gran", 12, 19),  # granule index; bounds heap_bytes/HEAP_GRANULE

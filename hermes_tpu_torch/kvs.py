@@ -10,12 +10,24 @@ the INV/ACK/VAL round and linearize at quorum.
 Values are ``value_words - 2`` int32 payload words: words 0-1 of every
 stored value carry the device-derived unique write id (the
 linearizability witness), so checked runs work unchanged over client
-traffic.  Keys are dense slot ids ``[0, n_keys)``.
+traffic.  With ``cfg.max_value_bytes > 0`` values are byte payloads in the
+value heap (``heap/``): the extent lands in the heap at submission and
+only its packed ref word (payload word 0) rides the round.
 
-Not ported yet (ROADMAP A5), each refused loudly when its knob is set:
-sparse keys, the value heap, the WAL, the stuck-op watchdog and retry,
-degraded mode, per-op tracing; ``multi_get``/``scan``, the elastic
-operations and the sharded backend are absent.
+Keys are dense slot ids ``[0, n_keys)`` by default; ``sparse_keys=True``
+takes arbitrary unsigned 64-bit client keys through the exact index of
+``keyindex.py``: completions echo the client key, and inserting more than
+``n_keys`` distinct keys raises ``keyindex.KeyspaceFull``.
+
+``multi_get`` and ``scan`` are the local-read path (``core/readpath.py``):
+one dispatch answers every Valid key from the resident table; the rest
+(Invalid, read-your-writes fence unmet, no healthy replica) go through the
+round path.
+
+Not ported yet, each refused loudly when its knob is set: the WAL (ROADMAP
+A9), the stuck-op watchdog and retry, per-op tracing and the heap GC's
+span and gauge (A5b), degraded mode, the fence mask and the elastic
+operations (A11), and the sharded backend (A10).
 
 Usage::
 
@@ -28,15 +40,20 @@ Usage::
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from hermes_tpu_torch.config import HermesConfig
 from hermes_tpu_torch.core import faststep as fst
+from hermes_tpu_torch.core import readpath
 from hermes_tpu_torch.core import state as st
 from hermes_tpu_torch.core import types as t
+from hermes_tpu_torch.heap import HeapFull, ValueHeap
+from hermes_tpu_torch.keyindex import KeyIndex
 from hermes_tpu_torch.runtime import FastRuntime
 
 
@@ -47,10 +64,16 @@ class Completion:
     kind: str
     key: int
     value: Optional[List[int]] = None  # payload read (get / rmw read-part)
+    # heap mode: the byte payload behind the row's ref word (None = the
+    # key was never written, the null ref)
+    data: Optional[bytes] = None
     uid: Optional[Tuple[int, int]] = None  # unique id of the written value
     step: int = -1
+    # sparse-key mode: False when a get probed a key never written (it
+    # completes at once, value None, and claims no dense slot)
     found: bool = True
-    # committed updates only: the globally re-anchored protocol (ver, fc)
+    # committed updates only: the globally re-anchored protocol (ver, fc),
+    # what a caller hands to KVS.pin_read_fence
     ts: Optional[Tuple[int, int]] = None
 
 
@@ -71,7 +94,10 @@ class BatchFutures:
     """Array-form futures of one ``KVS.submit_batch`` call: results land in
     preallocated numpy columns — ``code`` (0 while pending, else the
     completion code), ``value`` (payload read), ``uid`` (written value id),
-    ``step`` (completing round), ``tsv``/``tsf`` (committed timestamp)."""
+    ``found`` (sparse mode: False for gets of never-written keys),
+    ``step`` (completing round), ``tsv``/``tsf`` (committed timestamp),
+    and in heap mode ``data`` (the byte payload read, resolved eagerly at
+    completion off the heap's mirror, before any later GC can move it)."""
 
     def __init__(self, kinds: np.ndarray, keys: np.ndarray, u: int):
         n = kinds.shape[0]
@@ -81,6 +107,7 @@ class BatchFutures:
         self.value = np.zeros((n, u), np.int32)
         self.uid = np.zeros((n, 2), np.int32)
         self.found = np.ones(n, bool)
+        self.data: List[Optional[bytes]] = [None] * n
         self.step = np.full(n, -1, np.int32)
         self.tsv = np.zeros(n, np.int64)
         self.tsf = np.zeros(n, np.int32)
@@ -104,8 +131,9 @@ class BatchFutures:
                 else self._KINDSTR[int(self.kind[i])])
         done = Completion(kind=kind, key=int(self.key[i]),
                           step=int(self.step[i]), found=bool(self.found[i]))
-        if c in (t.C_READ, t.C_RMW):
+        if c in (t.C_READ, t.C_RMW) and self.found[i]:
             done.value = self.value[i].tolist()
+            done.data = self.data[i]
         if c in (t.C_WRITE, t.C_RMW):
             done.uid = (int(self.uid[i, 0]), int(self.uid[i, 1]))
             done.ts = (int(self.tsv[i]), int(self.tsf[i]))
@@ -116,6 +144,70 @@ class BatchFutures:
         if self.code[i] != 0:
             fut._result = self.completion(i)
         return fut
+
+
+class MultiGetResult:
+    """Result of one ``KVS.multi_get``/``scan`` call, in the columns of
+    BatchFutures:
+
+      ``key``   (n,) the CLIENT keys echoed (sparse callers see the keys
+                they submitted, uint64, never dense slots)
+      ``code``  (n,) 0 pending, else types.C_READ
+      ``value`` (n, value_words-2) payload words (uid words stripped)
+      ``found`` (n,) bool (sparse mode: False for never-written keys)
+      ``local`` (n,) bool: answered by the local-read path (False = the
+                round-path fallback)
+      ``step``  (n,) protocol round the answer is anchored to
+      ``data``  heap mode: the byte payload per key
+
+    Keys the local path could not serve ride a fallback ``BatchFutures``
+    through the round path; drive it with ``KVS.step()`` until
+    ``all_done()``."""
+
+    def __init__(self, keys: np.ndarray, u: int, heap=None):
+        n = keys.shape[0]
+        self.key = keys
+        self.code = np.zeros(n, np.int32)
+        self.value = np.zeros((n, u), np.int32)
+        self.found = np.ones(n, bool)
+        self.local = np.zeros(n, bool)
+        self.step = np.full(n, -1, np.int32)
+        self._fallback: Optional[Tuple[BatchFutures, np.ndarray]] = None
+        self._heap = heap
+        self.data: List[Optional[bytes]] = [None] * n
+
+    def __len__(self) -> int:
+        return self.key.shape[0]
+
+    def _pull(self) -> None:
+        if self._fallback is None:
+            return
+        bf, gix = self._fallback
+        done = (bf.code != 0) & (self.code[gix] == 0)
+        if done.any():
+            di = gix[done]
+            self.code[di] = bf.code[done]
+            self.value[di] = bf.value[done]
+            self.found[di] = bf.found[done]
+            self.step[di] = bf.step[done]
+            if self._heap is not None:
+                for j, i in zip(np.nonzero(done)[0], di):
+                    self.data[int(i)] = bf.data[int(j)]
+
+    def done_count(self) -> int:
+        self._pull()
+        return int(np.count_nonzero(self.code))
+
+    def all_done(self) -> bool:
+        return self.done_count() == len(self)
+
+    @property
+    def local_served(self) -> int:
+        return int(np.count_nonzero(self.local))
+
+    @property
+    def fallbacks(self) -> int:
+        return 0 if self._fallback is None else int(self._fallback[1].size)
 
 
 class KVS:
@@ -138,8 +230,6 @@ class KVS:
             raise ValueError("KVS drives ops through the stream; device_stream "
                              "would replace client requests with hash-generated ops")
         refused = [name for name, on in (
-            ("sparse_keys", sparse_keys),
-            ("max_value_bytes (value heap)", cfg.use_heap),
             ("wal_dir (write-ahead log)", cfg.use_wal),
             ("op_timeout_rounds (stuck-op watchdog)", cfg.op_timeout_rounds),
             ("op_retry_limit (bounded retry)", cfg.op_retry_limit),
@@ -183,6 +273,33 @@ class KVS:
         self._next_bid = 0
         self._slot_bid = np.full((r, s), -1, np.int32)
         self._slot_bix = np.zeros((r, s), np.int32)
+        # sparse-key mode: 64-bit client keys -> dense slots
+        self.index: Optional[KeyIndex] = (KeyIndex(cfg.n_keys) if sparse_keys
+                                          else None)
+        # the local-read path: _ryw is the read-your-writes fence, per
+        # session token the re-anchored (ver, fc) of its latest committed
+        # write per dense slot; a local read of that slot must see a row
+        # ts >= the fence or fall back to the round path.  Entries prune
+        # on first satisfaction (the row ts only grows).
+        self._reader: Optional[readpath.LocalReader] = None
+        self._ryw: Dict[object, Dict[int, Tuple[int, int]]] = {}
+        self.local_reads = 0
+        self.fallback_reads = 0
+        self.ryw_fallbacks = 0
+        # the value heap: dead extents compact at rebase boundaries
+        # (rt.rebase_hook) and on allocation pressure (append raises
+        # HeapFull -> heap_gc -> one retry)
+        if self.cfg.use_heap:
+            self.heap: Optional[ValueHeap] = ValueHeap(self.cfg,
+                                                       device=self.rt.device)
+            self.rt.rebase_hook = self._heap_rebase_hook
+        else:
+            self.heap = None
+        self._in_heap_gc = False
+        # refs appended for a call still being staged: a pressure GC
+        # between two appends of one submit_batch must root and remap
+        # them (_heap_staging); each entry is a 1-D int32 view
+        self._staging: List[np.ndarray] = []
 
     # -- client ops ----------------------------------------------------------
 
@@ -192,10 +309,30 @@ class KVS:
             raise ValueError(f"replica {replica} out of range [0, {cfg.n_replicas})")
         if not (0 <= session < cfg.n_sessions):
             raise ValueError(f"session {session} out of range [0, {cfg.n_sessions})")
-        if not (0 <= key < cfg.n_keys):
-            raise ValueError(f"key {key} out of range [0, {cfg.n_keys})")
+        if self.index is not None:
+            client_key = int(key)
+            if not (0 <= client_key < (1 << 64) - 1):
+                raise ValueError("sparse keys are unsigned 64-bit "
+                                 "(0xFFFF...FF reserved)")
+            # writes allocate (a written key keeps its dense slot); gets
+            # probe without inserting: an absent key's read completes at
+            # once as not-found instead of using up a slot
+            if kind == "get":
+                slot = self.index.slot(client_key, insert=False)
+                if slot < 0:
+                    fut = Future()
+                    fut._result = Completion(kind="get", key=client_key,
+                                             found=False)
+                    return fut
+            else:
+                slot = self.index.slot(client_key, insert=True)
+        else:
+            if not (0 <= key < cfg.n_keys):
+                raise ValueError(f"key {key} out of range [0, {cfg.n_keys})")
+            client_key, slot = int(key), int(key)
         fut = Future()
-        self._queues[(replica, session)].append((kind, int(key), value, fut))
+        self._queues[(replica, session)].append(
+            (kind, slot, client_key, value, fut))
         self._queued_slots.add((replica, session))
         if (replica, session) not in self._inflight:
             self._ready.add((replica, session))
@@ -217,10 +354,43 @@ class KVS:
 
     def _payload(self, value) -> np.ndarray:
         u = self.cfg.value_words - 2
+        if self.heap is not None:
+            # heap mode: the payload IS bytes; the extent lands in the
+            # log now and only the packed ref word rides the round
+            if not isinstance(value, (bytes, bytearray, memoryview)):
+                raise TypeError(
+                    "heap mode (cfg.max_value_bytes > 0) takes byte "
+                    f"payloads, got {type(value).__name__}; fixed-word "
+                    "values need max_value_bytes=0")
+            out = np.zeros(u, np.int32)
+            out[0] = self._heap_append(bytes(value))
+            return out
         arr = np.asarray(list(value), np.int32)
         if arr.ndim != 1 or arr.shape[0] > u:
             raise ValueError(f"value must be <= {u} int32 words")
         return np.pad(arr, (0, u - arr.shape[0]))
+
+    def _heap_append(self, data: bytes) -> int:
+        """Land one extent, compacting ONCE on allocation pressure; a heap
+        that stays full after compaction is out of space and HeapFull
+        propagates."""
+        try:
+            return self.heap.append(data)
+        except HeapFull:
+            if self._in_heap_gc:
+                raise
+            self.heap_gc(reason="full")
+            return self.heap.append(data)
+
+    @contextlib.contextmanager
+    def _heap_staging(self, refs: np.ndarray):
+        """Root the nonzero entries of ``refs`` (a 1-D int32 view) for any
+        GC that fires inside the with-block, which remaps them in place."""
+        self._staging.append(refs)
+        try:
+            yield refs
+        finally:
+            self._staging.remove(refs)
 
     # -- batched client path (array-in, futures-out) -------------------------
 
@@ -228,9 +398,10 @@ class KVS:
 
     def submit_batch(self, kinds, keys, values=None) -> BatchFutures:
         """Enqueue a whole op mix: ``kinds`` (n,) of KVS.GET/PUT/RMW,
-        ``keys`` (n,), ``values`` (n, <=value_words-2) int32 payloads.  Ops
-        flow through idle slots in submission order; drive the returned
-        BatchFutures with run_batch()/step()."""
+        ``keys`` (n,) client keys, ``values`` (n, <=value_words-2) int32
+        payloads (in heap mode a sequence of n byte payloads, anything for
+        gets).  Ops flow through idle slots in submission order; drive the
+        returned BatchFutures with run_batch()/step()."""
         opc = np.ascontiguousarray(np.asarray(kinds, np.int32))
         n = opc.shape[0]
         bad = ~np.isin(opc, (t.OP_READ, t.OP_WRITE, t.OP_RMW))
@@ -241,19 +412,62 @@ class KVS:
             raise ValueError("keys must be shape (n,)")
         u = self.cfg.value_words - 2
         uval = np.zeros((n, u), np.int32)
-        if values is not None:
+        if values is not None and self.heap is not None:
+            # heap mode: each update's extent lands NOW and only the
+            # packed ref word enters the op stream
+            if len(values) != n:
+                raise ValueError(f"values must carry {n} byte payloads")
+            upd = opc != t.OP_READ
+            # the ref column is a GC root while the batch is staged: a
+            # pressure compaction between two appends remaps the refs
+            # already written here
+            with self._heap_staging(uval[:, 0]):
+                for i in np.nonzero(upd)[0]:
+                    v = values[int(i)]
+                    if not isinstance(v, (bytes, bytearray, memoryview)):
+                        raise TypeError(
+                            "heap mode takes byte payloads per update, got "
+                            f"{type(v).__name__} at index {int(i)}")
+                    uval[i, 0] = self._heap_append(bytes(v))
+        elif values is not None:
             v = np.asarray(values, np.int32)
             if v.ndim != 2 or v.shape[0] != n or v.shape[1] > u:
                 raise ValueError(f"values must be (n, <={u}) int32 words")
             uval[:, : v.shape[1]] = v
-        kmin, kmax = (int(keys_arr.min()), int(keys_arr.max())) if n else (0, 0)
-        if n and not (0 <= kmin and kmax < self.cfg.n_keys):
-            raise ValueError(f"keys out of range [0, {self.cfg.n_keys})")
+        elif self.heap is not None and (opc != t.OP_READ).any():
+            # an update without a byte payload would commit the null ref
+            raise TypeError(
+                "heap mode (cfg.max_value_bytes > 0) needs a byte payload "
+                "per update op; got values=None with "
+                f"{int((opc != t.OP_READ).sum())} update(s) in the batch")
         bf = BatchFutures(opc.copy(), keys_arr.copy(), u)
-        if n:
+        if self.index is not None:
+            k64 = keys_arr.astype(np.uint64)
+            slots = np.zeros(n, np.int32)
+            wr = opc != t.OP_READ
+            if wr.any():
+                slots[wr] = self.index.get_slots(k64[wr])
+            rd = opc == t.OP_READ
+            if rd.any():
+                got = self.index.get_slots(k64[rd], insert=False)
+                gi = np.nonzero(rd)[0]
+                miss = got < 0
+                # absent keys: the get completes at once as not-found
+                # without claiming a dense slot (the get() rule)
+                bf.code[gi[miss]] = t.C_READ
+                bf.found[gi[miss]] = False
+                slots[gi[~miss]] = got[~miss]
+        else:
+            kmin, kmax = ((int(keys_arr.min()), int(keys_arr.max())) if n
+                          else (0, 0))
+            if n and not (0 <= kmin and kmax < self.cfg.n_keys):
+                raise ValueError(f"keys out of range [0, {self.cfg.n_keys})")
+            slots = keys_arr.astype(np.int32)
+        pend = np.nonzero(bf.code == 0)[0].astype(np.int32)
+        if pend.size:
             self._bat[self._next_bid] = dict(
-                bf=bf, gix=np.arange(n, dtype=np.int32), opc=opc,
-                slots=keys_arr.astype(np.int32), uval=uval, cursor=0)
+                bf=bf, gix=pend, opc=opc[pend], slots=slots[pend],
+                uval=uval[pend], cursor=0)
             self._next_bid += 1
         return bf
 
@@ -315,15 +529,15 @@ class KVS:
             if self._slot_bid[rs_key] >= 0:
                 waiting.add(rs_key)
                 continue
-            kind, key, value, fut = q.popleft()
+            kind, slot, client_key, value, fut = q.popleft()
             if not q:
                 self._queued_slots.discard(rs_key)
             r, s = rs_key
             self._op[r, s, 0] = self._OPC[kind]
-            self._key[r, s, 0] = key
+            self._key[r, s, 0] = slot
             if value is not None:
                 self._uval[r, s, 0] = value
-            self._inflight[rs_key] = (kind, fut, key)
+            self._inflight[rs_key] = (kind, fut, client_key, value)
             self._kindarr[r, s] = self._OPC[kind]
             self._dirty = True
         self._ready.clear()
@@ -362,7 +576,9 @@ class KVS:
     def _resolve(self, done_mask, code, rval, wval, round_idx: int,
                  ver, fc) -> int:
         """Resolve the futures of one round's completed (already retired)
-        slots; returns the op count."""
+        slots; returns the op count.  A per-op committed update pins its
+        re-anchored timestamp as the read-your-writes fence of its
+        (replica, session) lane."""
         ndone = 0
         bdone = done_mask & (self._slot_bid >= 0)
         if bdone.any():
@@ -378,6 +594,17 @@ class KVS:
                 bf.value[gi] = rval[rr, cc, 2:]
                 bf.uid[gi] = wval[rr, cc, :2]
                 bf.step[gi] = round_idx
+                if self.heap is not None:
+                    # heap mode: resolve read payloads eagerly while the
+                    # extents are provably not compacted (GC flushes every
+                    # completion before it moves bytes)
+                    ccode = code[rr, cc]
+                    crefs = rval[rr, cc, 2]
+                    for j in np.nonzero(
+                            (ccode == t.C_READ) | (ccode == t.C_RMW))[0]:
+                        ref = int(crefs[j])
+                        bf.data[int(gi[j])] = (
+                            self.heap.read(ref) if ref else None)
                 bf.tsv[gi] = ver[rr, cc]
                 bf.tsf[gi] = fc[rr, cc]
                 if b["cursor"] >= b["opc"].shape[0] and bf.all_done():
@@ -390,16 +617,24 @@ class KVS:
                     self._ready.add(rs_key)
         for r, s in np.argwhere(done_mask & ~bdone):
             r, s = int(r), int(s)
-            kind, fut, key = self._inflight.pop((r, s))
+            kind, fut, client_key, _value = self._inflight.pop((r, s))
             c = int(code[r, s])
             done = Completion(
                 kind="rmw_abort" if c == t.C_RMW_ABORT else kind,
-                key=key, step=round_idx)
+                key=client_key, step=round_idx)
             if c in (t.C_READ, t.C_RMW):
                 done.value = rval[r, s, 2:].tolist()
+                if self.heap is not None:
+                    ref = int(rval[r, s, 2])
+                    done.data = self.heap.read(ref) if ref else None
             if c in (t.C_WRITE, t.C_RMW):
                 done.uid = (int(wval[r, s, 0]), int(wval[r, s, 1]))
                 done.ts = (int(ver[r, s]), int(fc[r, s]))
+                # RYW fence: this lane's later local reads of the slot
+                # must observe ts >= this committed write
+                slot = (client_key if self.index is None
+                        else self.index.slot(client_key, insert=False))
+                self._ryw.setdefault((r, s), {})[int(slot)] = done.ts
             fut._result = done
             if self._queues.get((r, s)):
                 self._ready.add((r, s))
@@ -467,6 +702,317 @@ class KVS:
             self.step()
         self.flush()
         return all(f.done() for f in futures)
+
+    # -- the local-read path (core/readpath.py) ------------------------------
+
+    def _get_reader(self) -> readpath.LocalReader:
+        if self._reader is None:
+            self._reader = readpath.LocalReader(self.rt)
+        return self._reader
+
+    def _record_local_reads(self, slots: np.ndarray, vals: np.ndarray) -> None:
+        """Feed locally served reads into the recorded history (either
+        recorder), so the read path is checked, not assumed: each read
+        linearizes at the coming round's read point (inv = resp = 2 * step
+        in the doubled clock: after the last harvested round's commits,
+        before the next round's)."""
+        rec = self.rt.recorder
+        if rec is None or slots.size == 0:
+            return
+        n = slots.shape[0]
+        step = np.full((1, n), self.rt.step_idx, np.int32)
+        rec.record_step(st.Completions(
+            code=np.full((1, n), t.C_READ, np.int32),
+            key=slots.reshape(1, n).astype(np.int32),
+            wval=np.zeros((1, n, self.cfg.value_words), np.int32),
+            rval=vals.reshape(1, n, -1).astype(np.int32),
+            ver=np.zeros((1, n), np.int32),
+            fc=np.zeros((1, n), np.int32),
+            invoke_step=step,
+            commit_step=step,
+        ))
+
+    def _ryw_unserved(self, session, slots: np.ndarray, serve: np.ndarray,
+                      pts: np.ndarray) -> None:
+        """Clear ``serve`` bits whose row timestamp has not caught up with
+        the session's own committed writes (the read-your-writes fence):
+        the round-path read stalls until the key revalidates at >= the
+        fence ts.  Satisfied entries prune (the row ts only grows).
+        ``session`` is any hashable token: per-op writes pin under their
+        (replica, session) lane, batch writers through ``pin_read_fence``."""
+        fence = self._ryw.get(session) if session is not None else None
+        if not fence:
+            return
+        base = self._ver_base_of(slots)
+        for j in np.nonzero(serve)[0]:
+            slot = int(slots[j])
+            want = fence.get(slot)
+            if want is None:
+                continue
+            row = (int(pts[j]) >> fst.PTS_FC_BITS) + int(base[j]), \
+                int(pts[j]) & fst.FC_MASK
+            if row < want:
+                serve[j] = False
+                self.ryw_fallbacks += 1
+            else:
+                del fence[slot]
+
+    def _ver_base_of(self, slots: np.ndarray) -> np.ndarray:
+        """Per-slot rebase delta re-anchoring device-era row timestamps
+        into the recorder's global version space (zero before the first
+        rebase)."""
+        vb = self.rt._ver_base
+        if vb is None:
+            return np.zeros(slots.shape[0], np.int64)
+        return vb[np.asarray(slots)]
+
+    def _serve_reads(self, res: MultiGetResult, slots: np.ndarray,
+                     pend: np.ndarray, session, ans) -> None:
+        """Shared tail of multi_get/scan: fill the locally answerable rows
+        of ``res`` from a ReadAnswer aligned with the pending subset, and
+        send the rest through the round path as a fallback read batch."""
+        pi = np.nonzero(pend)[0]
+        if pi.size == 0:
+            return
+        serve = np.zeros(pi.size, bool)
+        if ans is not None:
+            serve = np.asarray(ans.valid).copy()
+            self._ryw_unserved(session, slots[pi], serve,
+                               np.asarray(ans.pts))
+            si = pi[serve]
+            if si.size:
+                vals = np.asarray(ans.val)[serve]
+                res.code[si] = t.C_READ
+                res.value[si] = vals[:, 2:]
+                res.local[si] = True
+                res.step[si] = self.rt.step_idx
+                self.local_reads += int(si.size)
+                if self.heap is not None:
+                    # the row's ref word came with its uid in the one
+                    # gather: resolve the bytes off the mirror now
+                    for i, ref in zip(si, vals[:, 2]):
+                        res.data[int(i)] = (self.heap.read(int(ref))
+                                            if int(ref) else None)
+                self._record_local_reads(slots[si], vals)
+        fb = pi[~serve]
+        if fb.size:
+            # Invalid at the serving replica (a write is in flight), RYW
+            # fence unmet, or no healthy replica: the round path serves
+            # these; its read stalls until the key is Valid
+            self.fallback_reads += int(fb.size)
+            bf = self.submit_batch(
+                np.full(fb.size, t.OP_READ, np.int32),
+                np.asarray(res.key)[fb])
+            res._fallback = (bf, fb)
+
+    def multi_get(self, keys, session=None, wait: bool = True,
+                  max_steps: int = 50_000) -> MultiGetResult:
+        """Batched local read: ONE dispatch answers every Valid key of
+        ``keys`` from the resident table, with no protocol round.  Keys
+        the local path must not answer (Invalid, the ``session``'s
+        read-your-writes fence unmet, no healthy replica) go through the
+        round path instead of returning stale bytes.  ``session`` is the
+        calling lane or token whose committed writes fence its reads.
+        With ``wait`` (default) the fallback batch is driven to the end
+        before returning."""
+        # sparse client keys are unsigned 64-bit: coerce explicitly (a bare
+        # asarray of a python int above int64 makes the batch float64)
+        keys_arr = np.atleast_1d(
+            np.asarray(keys, np.uint64) if self.index is not None
+            else np.asarray(keys))
+        n = keys_arr.shape[0]
+        u = self.cfg.value_words - 2
+        res = MultiGetResult(keys_arr.copy(), u, heap=self.heap)
+        if n == 0:
+            return res
+        if self.index is not None:
+            slots = self.index.get_slots(keys_arr, insert=False)
+            miss = slots < 0
+            if miss.any():
+                # absent sparse keys: not-found at once, no slot claimed
+                res.code[miss] = t.C_READ
+                res.found[miss] = False
+                res.step[miss] = self.rt.step_idx
+                slots = np.where(miss, 0, slots)
+        else:
+            kmin = int(keys_arr.min())
+            kmax = int(keys_arr.max())
+            if not (0 <= kmin and kmax < self.cfg.n_keys):
+                raise ValueError(f"keys out of range [0, {self.cfg.n_keys})")
+            slots = keys_arr.astype(np.int32)
+        pend = res.code == 0
+        if pend.any():
+            ans = self._get_reader().multi_get(slots[np.nonzero(pend)[0]])
+            self._serve_reads(res, slots, pend, session, ans)
+        if wait and res._fallback is not None:
+            self.run_batch(res._fallback[0], max_steps=max_steps)
+            res._pull()
+        return res
+
+    def scan(self, lo: int, hi: int, session=None, wait: bool = True,
+             max_steps: int = 50_000) -> MultiGetResult:
+        """Range scan over dense slots ``[lo, hi)``: one contiguous slice
+        of the table.  Dense mode echoes slot ids as keys; sparse mode
+        clamps to the allocated frontier and echoes each slot's CLIENT key
+        (slots allocate in first-write order, so a sparse scan is a
+        write-order scan).  The Valid/RYW fallback rules of
+        ``multi_get``."""
+        if not (0 <= lo < hi <= self.cfg.n_keys):
+            raise ValueError(
+                f"scan range [{lo}, {hi}) outside [0, {self.cfg.n_keys})")
+        u = self.cfg.value_words - 2
+        if self.index is not None:
+            hi = min(hi, self.index.n_used)
+            if lo >= hi:
+                return MultiGetResult(np.zeros(0, np.uint64), u,
+                                      heap=self.heap)
+            keys_arr = self.index._rev[lo:hi].copy()
+        else:
+            keys_arr = np.arange(lo, hi, dtype=np.int64)
+        slots = np.arange(lo, hi, dtype=np.int32)
+        res = MultiGetResult(keys_arr, u, heap=self.heap)
+        pend = np.ones(hi - lo, bool)
+        ans = self._get_reader().scan(lo, hi)
+        self._serve_reads(res, slots, pend, session, ans)
+        if wait and res._fallback is not None:
+            self.run_batch(res._fallback[0], max_steps=max_steps)
+            res._pull()
+        return res
+
+    def pin_read_fence(self, session, client_key: int,
+                       ts: Tuple[int, int]) -> None:
+        """Pin a read-your-writes fence under any session token: the
+        caller saw a commit with protocol timestamp ``ts``
+        (Completion.ts, or BatchFutures.tsv/tsf) and wants every later
+        ``multi_get(..., session=token)`` of the key to observe it or go
+        through the round path.  Per-op writes pin their own lane; this is
+        the hook for batch writers."""
+        slot = (int(client_key) if self.index is None
+                else self.index.slot(int(client_key), insert=False))
+        if slot < 0:
+            return  # absent sparse key: nothing committed to fence on
+        self._ryw.setdefault(session, {})[slot] = (int(ts[0]), int(ts[1]))
+
+    def read_stats(self) -> dict:
+        """Local-read accounting: locally served and round-path fallback
+        reads, RYW fence misses, and read dispatches issued."""
+        rd = self._reader
+        return dict(local_reads=self.local_reads,
+                    fallback_reads=self.fallback_reads,
+                    ryw_fallbacks=self.ryw_fallbacks,
+                    read_dispatches=0 if rd is None else rd.dispatches)
+
+    # -- value-heap GC (heap/) -------------------------------------------------
+
+    def _heap_rebase_hook(self) -> None:
+        """The runtime's ``rebase_hook``: compaction rides every version
+        rebase; the store is already quiesced, drained and flushed there,
+        so the GC skips its own drain."""
+        if not self._in_heap_gc:
+            self.heap_gc(quiesce=False, reason="rebase")
+
+    _REF_COL = 4 * (fst.BANK_VAL + 2)  # byte offset of payload word 0
+
+    def _heap_roots(self):
+        """Every place a live heap ref can hide while the store is
+        drained: the table's rows [0, K) (row K is the drop row, where
+        masked scatters land, and roots nothing), the staged stream (ops
+        injected, not yet consumed), queued per-op traffic, the
+        uninjected rows of batches and the staging arrays.  Returns
+        (bank ref column, staged mask, all roots)."""
+        col = self.rt.fs.table.bank[:-1, self._REF_COL:self._REF_COL + 4]
+        refcol = fst._bank_to_i32(col)[:, 0].cpu().numpy().copy()
+        roots = [refcol.astype(np.int64)]
+        staged_mask = self._kindarr != t.OP_NOP
+        roots.append(self._uval[:, :, 0, 0][staged_mask].astype(np.int64))
+        for rs_key in self._queued_slots:
+            for item in self._queues[rs_key]:
+                if item[3] is not None:
+                    roots.append(np.asarray([item[3][0]], np.int64))
+        for b in self._bat.values():
+            roots.append(b["uval"][b["cursor"]:, 0].astype(np.int64))
+        for arr in self._staging:
+            roots.append(arr[arr != 0].astype(np.int64))
+        return refcol, staged_mask, np.concatenate(roots)
+
+    def heap_gc(self, quiesce: bool = True, reason: str = "full",
+                max_quiesce_rounds: int = 512) -> dict:
+        """Compact the value heap: quiesce-drain in-flight writes (new
+        intake and issues pause while pending broadcasts finish), flush
+        every completion, copy the LIVE extents to the front of a fresh
+        log, and remap the ref words wherever they live (table rows on
+        the device, staged stream, client queues, pending batches).
+
+        If in-flight ops cannot drain (a frozen coordinator pins them) the
+        compaction is skipped: an undrained op's device-side ref cannot be
+        remapped.  ``reason`` names the trigger (the span that would carry
+        it is ROADMAP A5b).  Returns the post-GC heap stats (an empty dict
+        when skipped)."""
+        if self.heap is None:
+            raise RuntimeError("heap_gc needs cfg.max_value_bytes > 0")
+        if self._in_heap_gc:
+            return {}
+        self._in_heap_gc = True
+        try:
+            return self._heap_gc_body(quiesce, max_quiesce_rounds)
+        finally:
+            self._in_heap_gc = False
+
+    def _heap_gc_body(self, quiesce: bool, max_quiesce_rounds: int) -> dict:
+        rt = self.rt
+        if quiesce:
+            prev = rt.quiesce
+            rt.quiesce = True
+            try:
+                for _ in range(max_quiesce_rounds):
+                    if rt._inflight_count() == 0:
+                        break
+                    self.step()
+            finally:
+                rt.quiesce = prev
+        rt.flush_pipeline()
+        self.flush()
+        if rt._inflight_count() != 0:
+            return {}
+        refcol, staged_mask, roots = self._heap_roots()
+        old, new = self.heap.compact(roots)
+        # table rows [0, K): rewrite the ref-word column in one byte-column
+        # update, by arithmetic (_i32_to_bank); the drop row K stays as it
+        # was
+        newcol = ValueHeap.remap(refcol, old, new).astype(np.int32)
+        if not np.array_equal(newcol, refcol):
+            bank = rt.fs.table.bank
+            col = torch.from_numpy(newcol).to(bank.device)[:, None]
+            bank[:-1, self._REF_COL:self._REF_COL + 4] = fst._i32_to_bank(col)
+        # staged stream rows (injected, unconsumed) remap in place; idle
+        # rows' stale payloads are zeroed so a dead ref can never pass for
+        # a live one at the next collection
+        vals = self._uval[:, :, 0, 0]
+        vals[staged_mask] = ValueHeap.remap(
+            vals[staged_mask], old, new).astype(np.int32)
+        vals[~staged_mask] = 0
+        self._dirty = True
+        # queued per-op payload arrays mutate in place (the deque items
+        # hold the very array the injection will read)
+        for rs_key in self._queued_slots:
+            for item in self._queues[rs_key]:
+                if item[3] is not None:
+                    item[3][0] = int(ValueHeap.remap(
+                        np.asarray([item[3][0]], np.int64), old, new)[0])
+        for b in self._bat.values():
+            pend = b["uval"][b["cursor"]:, 0]
+            b["uval"][b["cursor"]:, 0] = ValueHeap.remap(
+                pend.astype(np.int64), old, new).astype(np.int32)
+        for arr in self._staging:
+            nz = arr != 0
+            if nz.any():
+                arr[nz] = ValueHeap.remap(
+                    arr[nz].astype(np.int64), old, new).astype(arr.dtype)
+        return self.heap.stats()
+
+    def heap_stats(self) -> Optional[dict]:
+        """Heap accounting (None when the heap is off)."""
+        return None if self.heap is None else self.heap.stats()
 
     # -- membership / failure passthrough ------------------------------------
 

@@ -13,9 +13,13 @@ asynchronous copy to pinned host memory right after the round is
 enqueued, and the harvest later waits only for that copy — so the host's
 recording and matching of round k overlap the card running round k+1.
 
-Out of scope for now (ROADMAP A4): the observability, WAL and membership
-service hooks, live resize, the sharded backend and the reference
-``Runtime``.
+The value heap's GC rides every version rebase through ``rebase_hook``
+(installed by ``kvs.KVS``), and ``healthy_replicas`` names the replicas
+that may serve local reads (``core/readpath.py``).
+
+Out of scope for now: the observability hooks (ROADMAP A5b), the WAL
+(A9), the membership service and live resize (A11), the sharded backend
+(A10) and the reference ``Runtime`` (A12).
 """
 
 from __future__ import annotations
@@ -133,6 +137,9 @@ class FastRuntime:
         # rebase quiesce drain
         self.comp_flush = None
         self.comp_sink = None
+        # called at the end of every rebase_versions, while the store is
+        # quiesced, drained and flushed (the value heap's GC, kvs.KVS)
+        self.rebase_hook = None
         self.quiesce = False
         self.rebases = 0
         self.prerebase_peaks: list = []
@@ -210,6 +217,13 @@ class FastRuntime:
         replica, so it already holds the joiner's state: no transfer."""
         self.frozen[replica] = False
         self.set_live(int(self.live[0]) | (1 << replica))
+
+    def healthy_replicas(self) -> list:
+        """Replicas that are live AND unfrozen: the set that can serve
+        and ack right now."""
+        live = int(self.live[0])
+        return [r for r in range(self.cfg.n_replicas)
+                if (live >> r) & 1 and not self.frozen[r]]
 
     # -- stepping ---------------------------------------------------------------
 
@@ -308,6 +322,8 @@ class FastRuntime:
                 self._ver_base = np.zeros(self.cfg.n_keys, np.int64)
             self._ver_base += delta
             self.rebases += 1
+        if self.rebase_hook is not None:
+            self.rebase_hook()
         return n
 
     def drain(self, max_steps: int = 10_000) -> bool:

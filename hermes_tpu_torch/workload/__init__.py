@@ -1,1 +1,2 @@
-"""Workload generation: the YCSB-style op streams (``workload.ycsb``)."""
+"""Workload generation: the YCSB-style op streams and value shapes
+(``workload.ycsb``) and the client op mix (``workload.openloop``)."""

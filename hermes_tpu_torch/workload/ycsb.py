@@ -1,5 +1,6 @@
-"""YCSB-style op streams: the port of ``hermes_tpu/workload/ycsb.py``'s
-stream side.
+"""YCSB-style op streams and value shapes: the port of
+``hermes_tpu/workload/ycsb.py``'s stream side and its value-size draws
+(``value_sizes``, ``value_payload``, ``latest_ages``).
 
 Two sources feed the fast engine.  ``make_streams`` pre-generates each
 replica's (S, G) op stream host-side with numpy (the same generator calls
@@ -50,6 +51,58 @@ def scrambled_zipfian(
     ranks = np.searchsorted(cdf, rng.random(size=size))
     perm = np.random.default_rng(scramble_seed ^ 0x5CA1AB1E).permutation(n_keys)
     return perm[ranks]
+
+
+# The recency horizon of the 'latest' draw (YCSB-D): reads rank the last
+# this-many writes by a Zipfian(theta) over age.
+LATEST_WINDOW = 1024
+
+# Memcached-shaped value-size classes (bytes) of the value heap's
+# workload: a Zipfian over ASCENDING classes, so the smallest class is the
+# most probable and the tail reaches into KBs.
+VALUE_SIZE_CLASSES = (16, 32, 64, 128, 256, 512, 1024, 2048)
+
+
+def value_sizes(spec: dict, seed: int) -> np.ndarray:
+    """Seeded value-size draw: ``spec`` is ``{"n": count, "max_bytes":
+    cap, "classes": sizes?, "theta": t?}``, a Zipfian(theta) over the
+    size classes <= cap.  Same (spec, seed) => byte-identical array.
+    Returns (n,) int64 byte lengths."""
+    n = int(spec["n"])
+    cap = int(spec.get("max_bytes", VALUE_SIZE_CLASSES[-1]))
+    if cap < 1:
+        raise ValueError("max_bytes must be >= 1")
+    classes = tuple(c for c in spec.get("classes", VALUE_SIZE_CLASSES)
+                    if c <= cap)
+    if not classes:
+        classes = (cap,)
+    theta = float(spec.get("theta", 0.99))
+    rng = np.random.default_rng(
+        (int(seed) * 0xA24BAED4963EE407 + 5) & 0xFFFFFFFFFFFFFFFF)
+    cdf = _zipf_cdf(len(classes), theta)
+    ranks = np.searchsorted(cdf, rng.random(size=n))
+    return np.asarray(classes, np.int64)[ranks]
+
+
+def value_payload(seed: int, i: int, nbytes: int) -> bytes:
+    """Deterministic payload bytes of op ``i``: the stream hash's
+    ``_mix32`` over word indices, so a checked run recomputes any op's
+    bytes from (seed, op index, length).  ``_mix32`` runs here on numpy
+    int64 arrays of uint32 words; the words go out as native uint32."""
+    if nbytes <= 0:
+        return b""
+    idx = np.arange((nbytes + 3) // 4, dtype=np.int64)
+    salt = (seed * 0x9E3779B9 + i * 0x85EBCA6B) & _M32
+    words = _mix32(idx ^ salt)
+    return words.astype(np.uint32).tobytes()[:nbytes]
+
+
+def latest_ages(rng: np.random.Generator, n: int, theta: float = 0.99
+                ) -> np.ndarray:
+    """Zipfian(theta) age draws in [0, LATEST_WINDOW): age 0 = the most
+    recent write.  Callers clamp to the writes that exist yet."""
+    cdf = _zipf_cdf(LATEST_WINDOW, theta)
+    return np.searchsorted(cdf, rng.random(size=n)).astype(np.int64)
 
 
 def sample_keys(

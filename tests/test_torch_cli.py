@@ -1,6 +1,10 @@
 """The port's CLI (``python -m hermes_tpu_torch``) against the reference's
 default fast-backend drive (``hermes_tpu/cli.py``: a batched FastRuntime
-drained to the end of its streams, then the summary record).
+drained to the end of its streams, then the summary record), and its two
+client drives, ``--reads`` and ``--value-bytes``, against the reference
+CLI's on the same arguments (every count equal: ops, reads, writes, local
+and fallback reads, byte-exactness, heap stats; wall times are not
+compared).
 
 The port's run goes through the package's ``__main__`` in a fresh
 interpreter on the CPU; its summary record must equal the reference's
@@ -12,6 +16,8 @@ import os
 import pathlib
 import subprocess
 import sys
+
+import pytest
 
 from hermes_tpu import stats as ref_stats
 from hermes_tpu.config import HermesConfig as RefConfig
@@ -73,3 +79,73 @@ def test_torch_cli_refuses_mega_round_without_sort_arbiter():
          "--mega-round"], cwd=ROOT, capture_output=True, text=True,
         timeout=300)
     assert r.returncode == 2 and "--mega-round needs --arb-mode sort" in r.stderr
+
+
+# -- the client drives: --reads and --value-bytes ------------------------------
+
+# fields of the drives' summary lines that depend on the wall clock
+DRIVE_WALL_FIELDS = ("wall_s", "reads_per_sec", "writes_per_sec",
+                     "put_gb_per_sec")
+
+
+def _drive_summaries(capsys, argv):
+    """The port's drive (a fresh interpreter, CPU) and the reference
+    CLI's (in-process) on the same arguments: both JSON summaries."""
+    import json
+
+    from hermes_tpu import cli as ref_cli
+
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    r = subprocess.run(
+        [sys.executable, "-m", "hermes_tpu_torch", *argv, "--device", "cpu"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    capsys.readouterr()
+    assert ref_cli.main(argv) == 0
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    strip = lambda d: {k: v for k, v in d.items()
+                       if k not in DRIVE_WALL_FIELDS}
+    assert strip(got) == strip(want)
+    return got
+
+
+BASE = ["--replicas", "3", "--keys", "512", "--sessions", "16",
+        "--replay-slots", "8", "--value-words", "6", "--check"]
+
+
+@pytest.mark.parametrize("extra", [[], ["--read-latest", "--seed", "5"],
+                                   ["--distribution", "zipfian",
+                                    "--read-frac", "0.6"]])
+def test_torch_cli_reads_drive_matches_reference_counts(capsys, extra):
+    got = _drive_summaries(capsys, BASE + ["--reads", "3000", *extra])
+    assert got["ok"] and got["checked_ok"] and got["stale_read"] == []
+    assert got["reads"] + got["writes"] == got["ops"] == 3000
+    assert got["local_reads"] + got["fallback_reads"] >= got["reads"]
+
+
+@pytest.mark.parametrize("extra", [["--value-bytes", "256"],
+                                   ["--value-bytes", "1024", "--seed", "9"]])
+def test_torch_cli_values_drive_matches_reference_counts(capsys, extra):
+    got = _drive_summaries(capsys, BASE + ["--values-ops", "600", *extra])
+    assert got["ok"] and got["byte_exact"] and got["checked_ok"]
+    assert got["heap"]["appends"] == 600 and got["heap"]["gc_runs"] >= 1
+    assert got["post_gc_util"] >= got["util_floor"]
+
+
+@pytest.mark.parametrize("argv,msg", [
+    (["--reads", "0"], "positive op count"),
+    (["--reads", "10", "--read-frac", "1.5"], "--read-frac"),
+    (["--reads", "10", "--value-words", "2"], "--value-words >= 3"),
+    (["--reads", "10", "--value-bytes", "64", "--value-words", "4"],
+     "separate drives"),
+    (["--value-bytes", "0", "--value-words", "4"], "positive byte cap"),
+    (["--value-bytes", "64", "--values-ops", "0", "--value-words", "4"],
+     "positive op count"),
+    (["--value-bytes", "64"], "--value-words >= 3"),
+])
+def test_torch_cli_drives_refuse_bad_flags(argv, msg):
+    r = subprocess.run(
+        [sys.executable, "-m", "hermes_tpu_torch", "--device", "cpu", *argv],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 2 and msg in r.stderr, r.stderr

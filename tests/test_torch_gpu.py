@@ -1137,3 +1137,143 @@ def test_round_duplicate_scatters_write_identical_rows_on_card(
         assert sites["_replay_scan"], "the replay mark never ran"
     assert sum(dup for dup, _ in got.values()) > 0, got
     assert all(differ == 0 for _, differ in got.values()), got
+
+
+def _read_drive(kvs, np):
+    """Writes beside local reads: a batch stepped part way with replica 2
+    frozen (so keys are Invalid), multi-gets with a session, a scan, the
+    fallbacks driven home; returns every answer column."""
+    out = []
+    rng = np.random.default_rng(21)
+    for it in range(4):
+        kvs.freeze(2)
+        keys = rng.integers(0, 48, 32)
+        bf = kvs.submit_batch(np.full(32, kvs.PUT, np.int32), keys,
+                              rng.integers(-999, 999, (32, 4)))
+        kvs.step()
+        kvs.step()
+        lane = (it % 2, 0)
+        res = kvs.multi_get(rng.integers(0, 64, 40), session=lane,
+                            wait=False)
+        sc = kvs.scan(0, 64, wait=False)
+        kvs.rt.thaw(2)
+        assert kvs.run_batch(bf, 300)
+        for r in (res, sc):
+            if r._fallback is not None:
+                assert kvs.run_batch(r._fallback[0], 300)
+            r._pull()
+            out.append((r.code, r.value, r.found, r.local, r.step, r.key))
+        kvs.pin_read_fence(lane, int(keys[0]),
+                           (int(bf.tsv[0]) + 1, 0))
+        f = kvs.multi_get([int(keys[0])], session=lane)
+        out.append((f.code, f.value, f.local, bf.uid, bf.tsv))
+    out.append(tuple(kvs.read_stats().values()))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [1, 2])
+def test_read_path_on_card_matches_cpu(depth):
+    """multi_get / scan / the RYW fence on the card give the CPU port's
+    answers column for column (the CPU port is held to the JAX reference
+    by tests/test_torch_readpath.py), and a green checker with no stale
+    read."""
+    import numpy as np
+
+    from hermes_tpu_torch.checker import linearizability as lin
+    from hermes_tpu_torch.config import HermesConfig
+    from hermes_tpu_torch.kvs import KVS
+
+    dev = _card()
+    cfg = HermesConfig(n_replicas=3, n_keys=64, n_sessions=8, replay_slots=4,
+                       value_words=6, pipeline_depth=depth)
+    got = {}
+    for d in ("cpu", dev):
+        kvs = KVS(cfg, record=True, device=d)
+        got[d] = _read_drive(kvs, np)
+        assert kvs.rt.check().ok
+        assert lin.stale_read(kvs.rt.history_ops()) == []
+    _assert_equal_trees(tuple(got["cpu"]), tuple(got[dev]), "reads")
+    assert got[dev][-1][1] > 0  # some reads went through the round path
+
+
+@pytest.mark.gpu
+def test_heap_device_gather_on_card_equals_mirror_at_bench_size():
+    """The extent gather on the card, from the 8 MiB log of the bench
+    heap filled with memcached-shaped values, equals the host mirror;
+    hostile refs (negative, past the log, past the declared fields)
+    answer what the CPU port answers, in bounds; and appends after a
+    first gather reach the card through the dirty-tail sync."""
+    import numpy as np
+
+    from hermes_tpu_torch import config
+    from hermes_tpu_torch.core import layouts
+    from hermes_tpu_torch.heap import ValueHeap, pack_ref
+    from hermes_tpu_torch.workload import ycsb
+
+    _card()
+    cfg = config.bench_cfg("a", over=dict(
+        device_stream=False, read_unroll=1, max_value_bytes=1024,
+        heap_bytes=layouts.MAX_HEAP_BYTES))
+    heaps = {d: ValueHeap(cfg, device=d) for d in ("cpu", "cuda")}
+    lens = ycsb.value_sizes(dict(n=40000, max_bytes=1024), 3)
+    refs = []
+    for i, n in enumerate(lens[:30000]):
+        p = ycsb.value_payload(3, i, int(n))
+        refs.append(heaps["cpu"].append(p))
+        assert heaps["cuda"].append(p) == refs[-1]
+    cpu, card = heaps["cpu"], heaps["cuda"]
+    hostile = [-1, -(1 << 31), (1 << 31) - 1, pack_ref(cpu.granules - 1, 1024),
+               pack_ref((1 << 19) - 1, 4095), pack_ref(3, 4000), 0]
+
+    def check(batch, n_real):
+        rows, glens = card.device_gather(batch)
+        crows, clens = cpu.device_gather(batch)
+        assert np.array_equal(rows, crows) and np.array_equal(glens, clens)
+        for i in range(n_real):
+            ln = int(glens[i])
+            assert rows[i, :ln].tobytes() == card.read(int(batch[i]))
+            assert not rows[i, ln:].any()
+
+    check(np.asarray(refs + hostile, np.int32), len(refs))
+    more = []
+    for i, n in enumerate(lens[30000:31000]):
+        p = ycsb.value_payload(4, i, int(n))
+        more.append(card.append(p))
+        assert cpu.append(p) == more[-1]
+    check(np.asarray(more + refs[:100], np.int32), len(more) + 100)
+
+
+@pytest.mark.gpu
+def test_heap_gc_column_rewrite_leaves_the_drop_row_on_card():
+    """A contended heap drive on the card (16 writers a key, so losing
+    rows scatter to row K in any order), then a GC that moves every
+    extent: the ref-word rewrite of rows [0, K) leaves row K byte for
+    byte as it was, the values stay byte-exact, and the heap stats equal
+    the CPU port's on the same drive."""
+    import numpy as np
+
+    from hermes_tpu_torch.config import HermesConfig
+    from hermes_tpu_torch.kvs import KVS
+
+    dev = _card()
+    cfg = HermesConfig(n_replicas=3, n_keys=128, value_words=3,
+                       n_sessions=16, replay_slots=8, max_value_bytes=256,
+                       heap_bytes=1 << 14)
+    stats, data = {}, {}
+    for d in ("cpu", dev):
+        kvs = KVS(cfg, device=d)
+        for rnd in range(6):
+            keys = np.arange(48, dtype=np.int64) % 3
+            pays = [bytes([(rnd * 48 + i) & 0xFF]) * (10 + i)
+                    for i in range(48)]
+            bf = kvs.submit_batch(np.full(48, KVS.PUT, np.int32), keys, pays)
+            assert kvs.run_batch(bf, 300)
+        bank = kvs.rt.fs.table.bank
+        row_k = bank[-1].clone()
+        stats[d] = kvs.heap_gc(reason="card")
+        assert stats[d] and stats[d]["gc_reclaimed_bytes"] > 0
+        assert torch.equal(bank[-1], row_k)
+        data[d] = kvs.multi_get(np.arange(3)).data
+    assert stats["cpu"] == stats[dev] and data["cpu"] == data[dev]
+    assert all(x is not None for x in data[dev])

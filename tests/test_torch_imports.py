@@ -1,7 +1,8 @@
 """Import boundary of the port: hermes_tpu_torch imports torch, never jax
 and nothing of hermes_tpu (a module named ``hermes_tpu`` or starting with
 ``hermes_tpu.`` — not the string prefix, which the port's own name has).
-Checked in a fresh interpreter that runs one round, one KVS put/get, one
+Checked in a fresh interpreter that runs one round, one KVS put/get, a
+multi-get and a scan, a heap put on a sparse key with its GC, one
 cell of the table-step probe and the kernel matrix (the analysis
 sub-package, its fixtures and its command line) on the CPU."""
 
@@ -29,6 +30,18 @@ p = kvs.put(0, 0, 5, [1, 2])
 assert kvs.run_until([p])
 g = kvs.get(1, 0, 5)
 assert kvs.run_until([g]) and g.result().value == [1, 2]
+res = kvs.multi_get([5, 6])
+assert res.local.all() and res.value[0].tolist() == [1, 2]
+assert kvs.scan(0, 8).all_done()
+hk = KVS(HermesConfig(n_replicas=3, n_keys=64, n_sessions=4, replay_slots=2,
+                      value_words=3, max_value_bytes=64, heap_bytes=1 << 12),
+         sparse_keys=True, device="cpu")
+p = hk.put(0, 0, 2**63 + 1, b"bytes")
+assert hk.run_until([p]) and hk.multi_get([2**63 + 1]).data == [b"bytes"]
+assert hk.heap_gc()["live_bytes"] == 5
+from hermes_tpu_torch.transport import codec
+from hermes_tpu_torch.workload import openloop
+assert len(openloop.make_mix(openloop.MixSpec(value_bytes=64), 64, 8, 1)) == 5
 from hermes_tpu_torch import table_probe
 assert table_probe.cell("serial", 64, 256, "cpu")["calls"] == 4
 from hermes_tpu_torch import analysis

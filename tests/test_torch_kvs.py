@@ -142,16 +142,12 @@ def test_torch_kvs_put_get_every_replica():
     assert m.result().kind == "rmw" and m.result().value == [11, 22]
 
 
-@pytest.mark.parametrize("knob", [dict(max_value_bytes=64),
-                                  dict(wal_dir="w"),
+@pytest.mark.parametrize("knob", [dict(wal_dir="w"),
                                   dict(op_timeout_rounds=4),
                                   dict(min_healthy_for_writes=2),
-                                  dict(trace_sample=2),
-                                  dict(sparse_keys=True)])
+                                  dict(trace_sample=2)])
 def test_torch_kvs_refuses_unported_knobs(knob):
-    kw = dict(knob)
-    sparse = kw.pop("sparse_keys", False)
     cfg = HermesConfig(n_replicas=3, n_keys=32, n_sessions=2, replay_slots=2,
-                       value_words=4, **kw)
+                       value_words=4, **knob)
     with pytest.raises(NotImplementedError, match="A5"):
-        KVS(cfg, sparse_keys=sparse, device="cpu")
+        KVS(cfg, device="cpu")
