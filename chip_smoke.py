@@ -85,7 +85,29 @@ prints no result):
    batch, which passes the heap's capacity (a pressure GC must run); read back byte-exact; every
    live ref gathered from the device log equal to the mirror; one
    explicit GC.  Writes/s, put, read and device-gather GB/s.
-   Both phases hold ``stats_block``'s launches equal to the KVS's rounds.
+10. durable — a child process (``python -m
+   hermes_tpu_torch.wal.crashdrive``) runs a ``KVS`` at the same shape
+   with ``wal_sync="commit"`` and a WAL under a temporary directory: waves
+   of 131,072 distinct-key puts through ``submit_batch``, the committed
+   uids and values written to a witness after each; in the fifth wave,
+   once a log batch of it is durable, it SIGKILLs itself.  The parent
+   requires death by signal 9 and the card's memory back, recovers the
+   store with ``chaos.recover_store(device="cuda")`` in under 90 s, and
+   holds it to the witness and the log (no committed write lost, every
+   key reads its newest logged value, which is the witness's unless the
+   killed wave's own write survived).  Then waves with the WAL on (the
+   recovered store) and off (a fresh one), in turns on off off on.
+11. restart — ``chaos.restart_replica`` of replica 3 from a snapshot and
+   the WAL tail, with ops in flight on it: they resolve ``lost``, the
+   table equals the donor's, the restarted replica commits and the
+   checker passes.
+12. observed — an ``Observability`` run log with per-step spans,
+   ``trace_sample=64``, ``op_timeout_rounds=8`` and ``op_retry_limit=2``:
+   16 puts wedged on frozen replica 7 give one ``stuck_op`` event each and
+   a flight archive, are retried on a healthy replica and resolve after
+   ``remove(7)``; the checker passes and the log's ``t`` never decreases.
+   Traced against untraced waves in turns.
+   Every KVS phase holds ``stats_block``'s launches equal to its rounds.
 
 Then the kernels summary line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Without a card, or without the package
@@ -1446,6 +1468,295 @@ def phase_values(torch, np, kernels, types, config, KVS, layouts, ycsb,
         raise AssertionError("stats_block launches != KVS rounds")
 
 
+DURABLE_WAVES = 5  # the child is killed in the last one
+DURABLE_WAVE_PUTS = 131072
+DURABLE_CHILD_TIMEOUT_S = 600
+RECOVERY_BOUND_S = 90.0  # the JAX package's durability gate's bound
+OBSERVED_WEDGED = 16  # per-op puts coordinated on the frozen replica 7
+
+
+def _fstype(path):
+    """The file system type under ``path`` (the longest mount prefix in
+    /proc/self/mounts): the WAL's fsync cost depends on it."""
+    best, kind = "", "unknown"
+    try:
+        with open("/proc/self/mounts") as f:
+            for ln in f:
+                parts = ln.split()
+                if len(parts) > 2 and path.startswith(parts[1]) \
+                        and len(parts[1]) > len(best):
+                    best, kind = parts[1], parts[2]
+    except OSError:
+        pass
+    return kind
+
+
+def _wave_timed(torch, np, kvs, types, wave, n):
+    """One wave of ``n`` distinct-key puts through submit_batch, on the
+    host clock ending in torch.cuda.synchronize(); returns seconds."""
+    from hermes_tpu_torch.wal import crashdrive
+
+    keys, vals = crashdrive.wave_ops(kvs.cfg, wave, n)
+
+    def run():
+        bf = kvs.submit_batch(np.full(n, kvs.PUT, np.int32), keys, vals)
+        return kvs.run_batch(bf, 256) and (bf.code == types.C_WRITE).all()
+
+    ok, s = _timed(torch, run)
+    if not ok:
+        raise AssertionError(f"wave {wave}: the puts did not all commit")
+    return s
+
+
+def _card_free_after_child(torch, free_before):
+    """The card once the killed child is reaped: its memory back within
+    256 MiB of what was free before it started (polled for 10 s)."""
+    for _ in range(100):
+        free = torch.cuda.mem_get_info()[0]
+        if free >= free_before - (256 << 20):
+            return free
+        time.sleep(0.1)
+    raise AssertionError(f"the card holds {(free_before - free) >> 20} MiB "
+                         "more after the killed child was reaped")
+
+
+def phase_durable(torch, np, kernels, types, KVS, port, card):
+    """A KVS child with the WAL on at the bench shape, killed by SIGKILL
+    in the middle of its last wave; the parent recovers the whole store
+    and holds it to the child's witness and to the log."""
+    import shutil
+    import signal
+    import tempfile
+
+    crashdrive, replay = port.crashdrive, port.replay
+    tmp = tempfile.mkdtemp(prefix="hermes_durable_")
+    try:
+        wal_dir, wit = os.path.join(tmp, "wal"), os.path.join(tmp, "wit")
+        torch.cuda.synchronize()
+        free_before = torch.cuda.mem_get_info()[0]
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-m", "hermes_tpu_torch.wal.crashdrive",
+             wal_dir, wit, "--waves", str(DURABLE_WAVES),
+             "--wave-puts", str(port.wave_puts), "--shape", port.shape,
+             "--device", port.device],
+            cwd=port.root, capture_output=True, text=True,
+            timeout=DURABLE_CHILD_TIMEOUT_S)
+        child_s = time.perf_counter() - t0
+        if child.returncode != -signal.SIGKILL:
+            raise AssertionError(
+                f"the child exited {child.returncode}, want death by "
+                f"signal 9\n{child.stderr[-3000:]}")
+        free_after = _card_free_after_child(torch, free_before)
+        scan = replay.read_records(wal_dir)
+        log_bytes = sum(os.path.getsize(p) for p in scan["segments"])
+        cfg = crashdrive.crash_cfg(port.shape, wal_dir)
+        kernels.stats_block.launches = 0
+        t0 = time.perf_counter()
+        kvs, summary = port.recover_store(cfg, device=port.device)
+        torch.cuda.synchronize()
+        recovery_s = time.perf_counter() - t0
+        resumed = kvs.rt.step_idx
+        got = crashdrive.check_recovery(kvs, scan["records"], wit)
+        # writes/s with the WAL on (the recovered store, commit) against
+        # off (a fresh store), in turns: on off off on
+        off = KVS(dataclasses.replace(cfg, wal_dir=None), device=port.device)
+        for i, store in enumerate((kvs, off)):  # one untimed wave each
+            _wave_timed(torch, np, store, types, 90 + i, port.wave_puts)
+        waves = {"on": [], "off": []}
+        for i, (label, store) in enumerate((("on", kvs), ("off", off),
+                                            ("off", off), ("on", kvs))):
+            waves[label].append(_wave_timed(torch, np, store, types,
+                                            100 + i, port.wave_puts))
+        wal_stats = kvs.wal.stats()
+        kvs.wal.close()
+        rounds = (kvs.rt.step_idx - resumed) + off.rt.step_idx
+        rate = {k: [port.wave_puts / s for s in v]
+                for k, v in waves.items()}
+        emit({"phase": "durable", "nvidia_smi": card,
+              "wal_fs": _fstype(tmp), "waves": DURABLE_WAVES,
+              "wave_puts": port.wave_puts, "child_s": child_s,
+              "child_rc": child.returncode,
+              "card_free_mib": [free_before >> 20, free_after >> 20],
+              "records": summary["records"], "applied": summary["applied"],
+              "skipped": summary["skipped"],
+              "torn_tail": summary["torn_tail"],
+              "log_bytes": log_bytes, "recovery_s": recovery_s,
+              "check": got, "wal_on_wave_s": waves["on"],
+              "wal_off_wave_s": waves["off"],
+              "wal_on_writes_per_s": rate["on"],
+              "wal_off_writes_per_s": rate["off"],
+              "on_vs_off": (statistics.median(rate["on"])
+                            / statistics.median(rate["off"])),
+              "wal_fsyncs": wal_stats["fsyncs"], "rounds": rounds,
+              "stats_block_launches": kernels.stats_block.launches})
+        if recovery_s >= RECOVERY_BOUND_S:
+            raise AssertionError(f"recovery took {recovery_s:.1f} s, bound "
+                                 f"{RECOVERY_BOUND_S} s")
+        if kernels.stats_block.launches != rounds:
+            raise AssertionError("stats_block launches != KVS rounds")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_restart(torch, np, kernels, types, KVS, port, card):
+    """restart_replica of replica 3 at the bench shape, from a snapshot
+    and the WAL tail, with ops in flight on it."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="hermes_restart_")
+    try:
+        wal_dir = os.path.join(tmp, "wal")
+        cfg = port.kvs_cfg(wal_dir=wal_dir, wal_sync="commit")
+        kvs = KVS(cfg, record="array", device=port.device)
+        kernels.stats_block.launches = 0
+        _wave_timed(torch, np, kvs, types, 200, port.wave_puts // 2)
+        snap = os.path.join(tmp, "snap.npz")
+        _, save_s = _timed(torch, lambda: port.snapshot.save(snap, kvs))
+        _wave_timed(torch, np, kvs, types, 201, port.wave_puts // 2)
+        # per-op puts coordinated on replica 3, caught in flight by the
+        # crash (replica 5 frozen: no ack quorum)
+        kvs.freeze(5)
+        futs = [kvs.put(3, s, 1000 + s, [s, 3]) for s in range(16)]
+        kvs.step()
+        kvs.step()
+        kvs.wal.sync()
+        donor = kvs.rt.fs.table.bank.clone()
+        donor_vpts = kvs.rt.fs.table.vpts.clone()
+        summary, restart_s = _timed(torch, lambda: port.restart_replica(
+            kvs, 3, snapshot_path=snap, wal_dir=wal_dir))
+        same = (torch.equal(kvs.rt.fs.table.bank, donor)
+                and torch.equal(kvs.rt.fs.table.vpts, donor_vpts))
+        kvs.rt.thaw(5)
+        lost = sum(f.done() and f.result().kind == "lost" for f in futs)
+        after = [kvs.put(3, s, 2000 + s, [s, 4]) for s in range(16)]
+        if not kvs.run_until(after, 256):
+            raise AssertionError("the restarted replica commits nothing")
+        for _ in range(8):
+            kvs.step()
+        t0 = time.perf_counter()
+        v = kvs.rt.check()
+        check_s = time.perf_counter() - t0
+        kvs.wal.close()
+        emit({"phase": "restart", "nvidia_smi": card, "summary": summary,
+              "snapshot_bytes": os.path.getsize(snap),
+              "snapshot_save_s": save_s, "restart_s": restart_s,
+              "table_equals_donor": same, "lost_futures": lost,
+              "check_ok": v.ok, "check_s": check_s,
+              "rounds": kvs.rt.step_idx,
+              "stats_block_launches": kernels.stats_block.launches})
+        if summary["source"] != "snapshot" or summary["wal_applied"] != 0 \
+                or not summary["wal_skipped"]:
+            raise AssertionError(f"restart_replica gave {summary}")
+        if not same:
+            raise AssertionError("the table after the restart differs from "
+                                 "the donor's copy")
+        if lost != summary["lost_client_futures"] or not lost:
+            raise AssertionError(f"{lost} futures lost, summary "
+                                 f"{summary['lost_client_futures']}")
+        if not v.ok:
+            raise AssertionError("the checker failed after the restart")
+        if kernels.stats_block.launches != kvs.rt.step_idx:
+            raise AssertionError("stats_block launches != KVS rounds")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_observed(torch, np, kernels, types, KVS, port, card):
+    """The obs context, per-op tracing, the watchdog and the bounded
+    retry at the bench shape: ops wedged on a frozen replica are
+    reported once, dumped, retried on healthy replicas and resolve."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="hermes_observed_")
+    try:
+        cfg = port.kvs_cfg(trace_sample=64, op_timeout_rounds=8,
+                           op_retry_limit=2)
+        kvs = KVS(cfg, record="array", device=port.device)
+        log = os.path.join(tmp, "run.jsonl")
+        obs = kvs.rt.attach_obs(port.Observability(
+            path=log, trace_steps=True,
+            flight_dir=os.path.join(tmp, "flight")))
+        # recorded like the traced store: the pair differs by the obs
+        # context and the sampler alone
+        plain = KVS(port.kvs_cfg(), record="array", device=port.device)
+        kernels.stats_block.launches = 0
+        for i, store in enumerate((kvs, plain)):  # one untimed wave each
+            _wave_timed(torch, np, store, types, 290 + i,
+                        port.wave_puts // 2)
+        waves = {"traced": [], "untraced": []}
+        for i, (label, store) in enumerate((
+                ("traced", kvs), ("untraced", plain),
+                ("untraced", plain), ("traced", kvs))):
+            waves[label].append(_wave_timed(torch, np, store, types,
+                                            300 + i, port.wave_puts // 2))
+        kvs.freeze(7)
+        futs = [kvs.put(7, s, 3000 + s, [s, 7])
+                for s in range(OBSERVED_WEDGED)]
+        # wedged past the timeout, each op is reported, dumped, salvaged
+        # off the frozen coordinator and re-enqueued on a healthy one
+        for _ in range(4 * cfg.op_timeout_rounds):
+            kvs.step()
+            if kvs.retried_ops >= OBSERVED_WEDGED:
+                break
+        kvs.remove(7)  # the retried ops' quorum no longer waits on 7
+        if not kvs.run_until(futs, 256):
+            raise AssertionError("the wedged futures never resolved")
+        for _ in range(8):
+            kvs.step()
+        v = kvs.rt.check()
+        obs.close()
+        with open(log) as f:
+            recs = [json.loads(ln) for ln in f]
+        stuck = [r for r in recs if r.get("name") == "stuck_op"]
+        retries = [r for r in recs if r.get("name") == "op_retry"]
+        dumped = [port.flightrec.load(p) for p in obs.flight.dumps]
+        dumped_keys = sorted(d["key"] for p in dumped
+                             for d in p["extra"]["diags"])
+        kinds = [f.result().kind for f in futs]
+        ts = [r["t"] for r in recs]
+        rate = {k: [port.wave_puts // 2 / s for s in v]
+                for k, v in waves.items()}
+        rounds = kvs.rt.step_idx + plain.rt.step_idx
+        emit({"phase": "observed", "nvidia_smi": card,
+              "records": len(recs), "spans": sum(
+                  r["kind"] == "span_end" for r in recs),
+              "op_spans": len(port.canonical_span_bytes(recs).splitlines()),
+              "stuck_op_events": len(stuck), "flight_dumps": len(dumped),
+              "retries": len(retries), "retried_ops": kvs.retried_ops,
+              "retry_targets": sorted({r["target"] for r in retries}),
+              "kinds": sorted(set(kinds)), "check_ok": v.ok,
+              "traced_wave_s": waves["traced"],
+              "untraced_wave_s": waves["untraced"],
+              "traced_writes_per_s": rate["traced"],
+              "untraced_writes_per_s": rate["untraced"],
+              "traced_vs_untraced": (statistics.median(rate["traced"])
+                                     / statistics.median(rate["untraced"])),
+              "rounds": rounds,
+              "stats_block_launches": kernels.stats_block.launches})
+        want_keys = list(range(3000, 3000 + OBSERVED_WEDGED))
+        if sorted(r["key"] for r in stuck) != want_keys or any(
+                r["replica"] != 7 for r in stuck):
+            raise AssertionError(f"stuck_op events for keys "
+                                 f"{sorted(r['key'] for r in stuck)}")
+        if dumped_keys != want_keys or any(
+                p["reason"] != "stuck_op" for p in dumped):
+            raise AssertionError(f"flight archives hold keys {dumped_keys}")
+        if len(retries) != OBSERVED_WEDGED or any(
+                r["target"] == 7 for r in retries):
+            raise AssertionError(f"retries {retries[:4]}")
+        if set(kinds) != {"put"} or not v.ok:
+            raise AssertionError(f"futures {set(kinds)}, checker {v.ok}")
+        if any(b < a for a, b in zip(ts, ts[1:])):
+            raise AssertionError("the run log's t values decrease")
+        if kernels.stats_block.launches != rounds:
+            raise AssertionError("stats_block launches != KVS rounds")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv=None):
     import argparse
 
@@ -1487,6 +1798,11 @@ def main(argv=None):
         from hermes_tpu_torch.workload import ycsb
         from hermes_tpu_torch.kvs import KVS
         from hermes_tpu_torch.runtime import FastRuntime
+        from hermes_tpu_torch import snapshot
+        from hermes_tpu_torch.chaos import recover_store, restart_replica
+        from hermes_tpu_torch.obs import (Observability,
+                                          canonical_span_bytes, flightrec)
+        from hermes_tpu_torch.wal import crashdrive, replay
     except ImportError as e:
         print(f"chip_smoke: cannot import the port next to this script "
               f"({e})", file=sys.stderr)
@@ -1542,6 +1858,17 @@ def main(argv=None):
         phase_reads(torch, np, kernels, types, config, KVS, lin, card)
         phase_values(torch, np, kernels, types, config, KVS, layouts, ycsb,
                      card)
+        store = SimpleNamespace(
+            root=HERE, shape="bench", device="cuda",
+            wave_puts=DURABLE_WAVE_PUTS,
+            kvs_cfg=lambda **over: _kvs_cfg(config, **over),
+            snapshot=snapshot, replay=replay,
+            crashdrive=crashdrive, recover_store=recover_store,
+            restart_replica=restart_replica, Observability=Observability,
+            flightrec=flightrec, canonical_span_bytes=canonical_span_bytes)
+        phase_durable(torch, np, kernels, types, KVS, store, card)
+        phase_restart(torch, np, kernels, types, KVS, store, card)
+        phase_observed(torch, np, kernels, types, KVS, store, card)
     except Exception:
         traceback.print_exc()
         return 1

@@ -107,13 +107,22 @@ class ArrayRecorder:
             )
         self._chunks.append(chunk)
 
-    def fold_pending(self, sess) -> int:
-        """Fold in-flight updates in as maybe_w rows (they may or may not
+    def fold_pending(self, sess, replica: int = None, mask=None) -> int:
+        """Fold in-flight updates (optionally one replica's row, or an
+        ``(R, S)`` slot ``mask``) in as maybe_w rows (they may or may not
         have taken effect; the checker lets them linearize optionally).
-        Called by ``finalize`` at end of run."""
+        Called by ``finalize`` at end of run, by
+        ``chaos.recovery.restart_replica`` at crash time and by the KVS's
+        bounded retry for a salvaged slot."""
         status = np.asarray(sess.status)
         op = np.asarray(sess.op)
         sel = (status == t.S_INFL) & ((op == t.OP_WRITE) | (op == t.OP_RMW))
+        if replica is not None:
+            keep = np.zeros_like(sel)
+            keep[replica] = True
+            sel = sel & keep
+        if mask is not None:
+            sel = sel & np.asarray(mask, bool)
         if sel.any():
             val = np.asarray(sess.val)[sel]
             self._chunks.append(dict(

@@ -99,12 +99,14 @@ class HistoryRecorder:
                 self.aborted_uids.add((int(wval[r, s, 0]), int(wval[r, s, 1])))
             # C_NOP: no effect on the register history
 
-    def fold_pending(self, sess) -> int:
-        """Fold in-flight updates of ``sess`` as ``maybe_w`` ops: an
-        update still gathering acks may have been applied at some replica
-        and must be allowed — but not required — to linearize.
-        ``finalize`` calls this once at end of run.  Returns the number of
-        ops folded."""
+    def fold_pending(self, sess, replica: int = None, mask=None) -> int:
+        """Fold in-flight updates of ``sess`` (optionally one replica's
+        row, or an ``(R, S)`` slot ``mask``) as ``maybe_w`` ops: an update
+        still gathering acks may have been applied at some replica and
+        must be allowed — but not required — to linearize.  ``finalize``
+        calls this once at end of run; ``chaos.recovery.restart_replica``
+        at crash time for the dying replica; the KVS's bounded retry for
+        a salvaged slot.  Returns the number of ops folded."""
         status = np.asarray(sess.status)
         op = np.asarray(sess.op)
         key = np.asarray(sess.key)
@@ -112,9 +114,14 @@ class HistoryRecorder:
         ver = np.asarray(sess.ver)
         fc = np.asarray(sess.fc)
         inv = np.asarray(sess.invoke_step)
-        rr, ss = np.nonzero(status == t.S_INFL)
+        infl = status == t.S_INFL
+        if mask is not None:
+            infl = infl & np.asarray(mask, bool)
+        rr, ss = np.nonzero(infl)
         n = 0
         for r, s in zip(rr.tolist(), ss.tolist()):
+            if replica is not None and r != replica:
+                continue
             if op[r, s] in (t.OP_WRITE, t.OP_RMW):
                 self.ops.append(
                     Op("maybe_w", int(key[r, s]), 2.0 * inv[r, s], INF,

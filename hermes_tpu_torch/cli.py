@@ -5,6 +5,9 @@
     python -m hermes_tpu_torch --arb-mode sort --mega-round --check
     python -m hermes_tpu_torch --value-words 6 --reads 20000 --check
     python -m hermes_tpu_torch --value-words 3 --value-bytes 1024 --check
+    python -m hermes_tpu_torch --steps 400 --report-every 50 \\
+        --freeze 2:100:200 --metrics-out run.jsonl
+    python -m hermes_tpu_torch.obs.report run.jsonl
 
 The default fast-backend drive of ``hermes_tpu/cli.py``: with ``--steps
 0`` (the default) the run drains every session's op stream; ``--check``
@@ -12,7 +15,11 @@ records the history and runs the linearizability gate (sampled over 512
 keys).  It prints the summary record, then the verdict.  ``--reads N``
 (the local-read path) and ``--value-bytes N`` (the value heap) are the
 reference's two client drives through ``kvs.KVS``; each prints one JSON
-summary line.  The run is on the card unless ``--device cpu`` is given.
+summary line.  ``--metrics-out`` writes the obs run log of the fast
+drive (interval records every ``--report-every`` steps, the fault events
+of ``--freeze`` windows, spans, the summary with its histograms and the
+registry), which ``python -m hermes_tpu_torch.obs.report`` renders.  The
+run is on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -76,6 +83,28 @@ def build_parser() -> argparse.ArgumentParser:
                          "Needs --value-words >= 3")
     ap.add_argument("--values-ops", type=int, default=4096, metavar="N",
                     help="op count of the --value-bytes drive")
+    ap.add_argument("--report-every", type=int, default=0,
+                    help="steps between stat lines (stderr, and interval "
+                         "records in --metrics-out)")
+    ap.add_argument("--metrics-out", type=str, default=None,
+                    metavar="RUN_JSONL",
+                    help="obs run log: interval metrics + trace events + "
+                         "summary on one monotonic clock "
+                         "(hermes_tpu_torch.obs); render with python -m "
+                         "hermes_tpu_torch.obs.report")
+    ap.add_argument("--trace-steps", action="store_true",
+                    help="with --metrics-out: per-step dispatch/readback "
+                         "spans (faults, drains and intervals are always "
+                         "traced)")
+    ap.add_argument("--trace-sample", type=int, default=0, metavar="N",
+                    help="per-op tracing (cfg.trace_sample): trace ~1 in N "
+                         "submitted client ops with a seeded sampler; 0 "
+                         "disables")
+    ap.add_argument("--freeze", action="append", default=[],
+                    metavar="R:FROM:TO",
+                    help="failure injection: freeze replica R at step FROM, "
+                         "thaw at step TO (repeatable; emits obs fault "
+                         "events)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: the card)")
     return ap
@@ -213,6 +242,42 @@ def _run_reads(args, cfg) -> int:
     return 0 if ok else 1
 
 
+def _freeze_faults(ap, args):
+    """The --freeze windows as (step, replica, action) in firing order,
+    thaw before freeze at one step; argument errors leave before any
+    output file exists."""
+    windows: dict = {}
+    for spec in args.freeze:
+        try:
+            r, lo, hi = (int(x) for x in spec.split(":"))
+        except ValueError:
+            ap.error(f"--freeze wants R:FROM:TO, got {spec!r}")
+        if not 0 <= r < args.replicas:
+            ap.error(f"--freeze replica {r} out of range "
+                     f"(0..{args.replicas - 1})")
+        if not 0 <= lo < hi:
+            ap.error(f"--freeze window {lo}:{hi} must satisfy 0 <= FROM < TO")
+        windows.setdefault(r, []).append((lo, hi))
+    faults = []
+    for r, wins in windows.items():
+        wins.sort()
+        for (_, hi_a), (lo_b, _) in zip(wins, wins[1:]):
+            if lo_b < hi_a:
+                ap.error(f"--freeze windows for replica {r} overlap "
+                         f"(..:{hi_a} vs {lo_b}:..)")
+        for lo, hi in wins:
+            faults += [(lo, r, "freeze"), (hi, r, "thaw")]
+    faults.sort(key=lambda f: (f[0], f[2] != "thaw", f[1]))
+    if faults:
+        if args.steps <= 0:
+            ap.error("--freeze needs a bounded run (--steps > 0)")
+        if faults[-1][0] >= args.steps:
+            ap.error(f"--freeze window ends at step {faults[-1][0]} but the "
+                     f"run stops after --steps {args.steps}; the thaw would "
+                     "never fire (want TO < --steps)")
+    return faults
+
+
 def main(argv=None) -> int:
     from hermes_tpu_torch import stats as stats_lib
     from hermes_tpu_torch.checker.fast import default_record
@@ -255,6 +320,7 @@ def main(argv=None) -> int:
         arb_mode=args.arb_mode,
         chain_writes=args.chain_writes,
         mega_round=args.mega_round,
+        trace_sample=args.trace_sample,
         workload=WorkloadConfig(distribution=args.distribution,
                                 zipf_theta=args.zipf_theta, seed=args.seed),
     )
@@ -262,11 +328,28 @@ def main(argv=None) -> int:
         return _run_reads(args, cfg)
     if args.value_bytes is not None:
         return _run_values(args, cfg)
+    faults = _freeze_faults(ap, args)
     rt = FastRuntime(cfg, record=default_record(args.check),
                      device=args.device)
+    obs = None
+    if args.metrics_out:
+        from hermes_tpu_torch.obs import Observability
+
+        obs = rt.attach_obs(Observability(path=args.metrics_out,
+                                          trace_steps=args.trace_steps))
     t0 = time.perf_counter()
     if args.steps > 0:
-        rt.run(args.steps)
+        for s in range(args.steps):
+            while faults and faults[0][0] <= s:
+                _, r, action = faults.pop(0)
+                getattr(rt, action)(r)
+            rt.step_once()
+            if args.report_every and (s + 1) % args.report_every == 0:
+                rec = stats_lib.summarize(rt.fs.meta,
+                                          time.perf_counter() - t0, s + 1)
+                print(rec, file=sys.stderr)
+                if obs:
+                    obs.interval(rec)
     elif not rt.drain():
         print("WARNING: did not drain", file=sys.stderr)
     if rt.device.type == "cuda":
@@ -274,7 +357,15 @@ def main(argv=None) -> int:
 
         torch.cuda.synchronize(rt.device)
     wall = time.perf_counter() - t0
-    print(stats_lib.summarize(rt.fs.meta, wall, rt.step_idx))
+    rec = stats_lib.summarize(rt.fs.meta, wall, rt.step_idx,
+                              hists=obs is not None)
+    if obs:
+        obs.summary(rec)
+        obs.registry_snapshot()
+        obs.close()
+        rec = {k: v for k, v in rec.items()
+               if k not in ("lat_hist", "qwait_hist")}
+    print(rec)
     if args.check:
         v = rt.check(max_keys=CHECK_KEYS)
         print(f"linearizability: {'PASS' if v.ok else 'FAIL'} "

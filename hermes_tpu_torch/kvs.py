@@ -24,10 +24,25 @@ one dispatch answers every Valid key from the resident table; the rest
 (Invalid, read-your-writes fence unmet, no healthy replica) go through the
 round path.
 
-Not ported yet, each refused loudly when its knob is set: the WAL (ROADMAP
-A9), the stuck-op watchdog and retry, per-op tracing and the heap GC's
-span and gauge (A5b), degraded mode, the fence mask and the elastic
-operations (A11), and the sharded backend (A10).
+Robustness and durability (ROADMAP A5b and A9):
+
+  * ``cfg.op_timeout_rounds``: the stuck-op watchdog reports a client op
+    pending past the budget once (a ``stuck_op`` event, a diagnostic in
+    ``stuck_ops`` and a flight-recorder dump; ``strict_timeouts`` raises
+    ``StuckOpError``); with ``cfg.op_retry_limit`` an op wedged on a
+    fenced coordinator is salvaged and re-enqueued on a healthy replica.
+  * ``cfg.trace_sample``: a seeded sampler traces ~1 in N submitted ops
+    (``op_queue`` and ``op_rounds`` spans on the attached obs timeline).
+  * ``cfg.wal_dir``: the write-ahead log taps the harvest; under
+    ``wal_sync='commit'`` a round's futures resolve only once its log
+    batch is fsynced, the relaxed modes label their completions, and a
+    full dirty window sheds new updates as ``retry_after``.  A crashed
+    replica's in-flight futures resolve as ``lost``
+    (``chaos.recovery``).
+
+Not ported yet: degraded mode (``min_healthy_for_writes``, refused
+loudly), the fence mask and the elastic operations (A11), and the
+sharded backend (A10).
 
 Usage::
 
@@ -56,10 +71,37 @@ from hermes_tpu_torch.heap import HeapFull, ValueHeap
 from hermes_tpu_torch.keyindex import KeyIndex
 from hermes_tpu_torch.runtime import FastRuntime
 
+# client-level completion code for ops LOST to a replica crash
+# (chaos.recovery.restart_replica) or a retry with nowhere to go: the
+# op MAY have applied.  Negative, so it never collides with the device
+# C_* codes.
+C_LOST = -2
+# client-level completion code for updates shed by WAL backpressure
+# (cfg.wal_dirty_window): the write never entered the store; the client
+# retries after the flusher drains.
+C_RETRY_AFTER = -4
+
+
+class StuckOpError(RuntimeError):
+    """Strict-mode stuck-op watchdog verdict (cfg.op_timeout_rounds): at
+    least one client op out-aged the timeout; ``diagnostics`` carries the
+    per-session evidence (coordinator, session, phase, age)."""
+
+    def __init__(self, diagnostics):
+        self.diagnostics = diagnostics
+        super().__init__(
+            f"{len(diagnostics)} client op(s) stuck past op_timeout_rounds: "
+            + "; ".join(
+                f"r{d['replica']}/s{d['session']} {d['kind']} key={d['key']} "
+                f"phase={d['phase']} age={d['age_rounds']}"
+                for d in diagnostics[:4]))
+
 
 @dataclasses.dataclass
 class Completion:
-    """Result of one client op: kind 'get' | 'put' | 'rmw' | 'rmw_abort'."""
+    """Result of one client op: kind 'get' | 'put' | 'rmw' | 'rmw_abort'
+    | 'lost' (replica crash or exhausted retries: the op MAY have
+    applied) | 'retry_after' (WAL backpressure: it did NOT apply)."""
 
     kind: str
     key: int
@@ -75,6 +117,9 @@ class Completion:
     # committed updates only: the globally re-anchored protocol (ver, fc),
     # what a caller hands to KVS.pin_read_fence
     ts: Optional[Tuple[int, int]] = None
+    # committed updates on a WAL store only: 'commit' (the log record was
+    # fsynced before this resolved) or '<mode>:not-fsynced-at-resolve'
+    durability: Optional[str] = None
 
 
 class Future:
@@ -111,6 +156,9 @@ class BatchFutures:
         self.step = np.full(n, -1, np.int32)
         self.tsv = np.zeros(n, np.int64)
         self.tsf = np.zeros(n, np.int32)
+        # the store's durability label for committed updates (one per
+        # store, set by submit_batch)
+        self.durability: Optional[str] = None
 
     def __len__(self) -> int:
         return self.code.shape[0]
@@ -127,6 +175,10 @@ class BatchFutures:
         if self.code[i] == 0:
             raise RuntimeError("op not complete; run KVS.run_batch()")
         c = int(self.code[i])
+        if c in (C_LOST, C_RETRY_AFTER):
+            return Completion(kind="lost" if c == C_LOST else "retry_after",
+                              key=int(self.key[i]), step=int(self.step[i]),
+                              found=False)
         kind = ("rmw_abort" if c == t.C_RMW_ABORT
                 else self._KINDSTR[int(self.kind[i])])
         done = Completion(kind=kind, key=int(self.key[i]),
@@ -137,6 +189,7 @@ class BatchFutures:
         if c in (t.C_WRITE, t.C_RMW):
             done.uid = (int(self.uid[i, 0]), int(self.uid[i, 1]))
             done.ts = (int(self.tsv[i]), int(self.tsf[i]))
+            done.durability = self.durability
         return done
 
     def future(self, i: int) -> Future:
@@ -218,7 +271,7 @@ class KVS:
 
     def __init__(self, cfg: HermesConfig, backend: str = "batched",
                  record: bool = False, sparse_keys: bool = False,
-                 device="cuda"):
+                 strict_timeouts: bool = False, device="cuda"):
         if cfg.value_words < 3:
             raise ValueError("KVS needs value_words >= 3 (2 uid words + payload)")
         if cfg.read_unroll != 1:
@@ -229,18 +282,11 @@ class KVS:
         if cfg.device_stream:
             raise ValueError("KVS drives ops through the stream; device_stream "
                              "would replace client requests with hash-generated ops")
-        refused = [name for name, on in (
-            ("wal_dir (write-ahead log)", cfg.use_wal),
-            ("op_timeout_rounds (stuck-op watchdog)", cfg.op_timeout_rounds),
-            ("op_retry_limit (bounded retry)", cfg.op_retry_limit),
-            ("min_healthy_for_writes (degraded mode)",
-             cfg.min_healthy_for_writes),
-            ("trace_sample (per-op tracing)", cfg.trace_sample),
-        ) if on]
-        if refused:
+        if cfg.min_healthy_for_writes:
             raise NotImplementedError(
-                f"hermes_tpu_torch.kvs.KVS does not implement {refused} yet "
-                "(ROADMAP A5); unset them or use the JAX package")
+                "hermes_tpu_torch.kvs.KVS does not implement "
+                "min_healthy_for_writes (degraded mode) yet (ROADMAP A11); "
+                "unset it or use the JAX package")
         # One-deep, rewritable stream: wrap_stream makes idle sessions reload
         # slot op_idx % 1 == 0 every round, so the host injects ops by
         # rewriting the (R, S, 1) stream between rounds.
@@ -273,6 +319,17 @@ class KVS:
         self._next_bid = 0
         self._slot_bid = np.full((r, s), -1, np.int32)
         self._slot_bix = np.zeros((r, s), np.int32)
+        # stuck-op watchdog: the round each slot's current op was injected
+        # (-1 = idle), the diagnostics surfaced so far, and the ops already
+        # reported (once per op); bounded retry: per-slot next examination
+        # round and backoff windows elapsed
+        self._slot_inject = np.full((r, s), -1, np.int64)
+        self._stuck_flagged: set = set()
+        self.stuck_ops: List[dict] = []
+        self.strict_timeouts = strict_timeouts
+        self._retry_next: Dict[Tuple[int, int], int] = {}
+        self._retry_k: Dict[Tuple[int, int], int] = {}
+        self.retried_ops = 0
         # sparse-key mode: 64-bit client keys -> dense slots
         self.index: Optional[KeyIndex] = (KeyIndex(cfg.n_keys) if sparse_keys
                                           else None)
@@ -300,6 +357,44 @@ class KVS:
         # between two appends of one submit_batch must root and remap
         # them (_heap_staging); each entry is a 1-D int32 view
         self._staging: List[np.ndarray] = []
+        # the write-ahead log rides the harvest (rt.attach_wal); under
+        # wal_sync='commit' a harvested round parks in _wal_defer, keyed
+        # by its log batch's LSN, until the flusher reports it durable
+        if self.cfg.use_wal:
+            from hermes_tpu_torch.wal import GroupCommitWal
+
+            self.wal = GroupCommitWal(self.cfg)
+            self.rt.attach_wal(self.wal, heap=self.heap)
+        else:
+            self.wal = None
+        self._wal_defer: collections.deque = collections.deque()
+        self.wal_shed = 0
+        self._wal_bp = False
+        # per-op tracing: a seeded sampler mints a trace id for ~1 in
+        # cfg.trace_sample submissions; the id rides the FUTURE, never the
+        # device stream, so the round is the same at any rate
+        if self.cfg.trace_sample:
+            from hermes_tpu_torch.obs.tracing import TraceSampler
+
+            self._sampler = TraceSampler(self.cfg.trace_sample,
+                                         seed=self.cfg.workload.seed)
+        else:
+            self._sampler = None
+        self._trace_seq = 0
+        self._op_tracer_cache = None
+
+    def _op_tracer(self):
+        """Span writer bound to the runtime's CURRENT obs context (None
+        while none is attached)."""
+        obs = self.rt.obs
+        if obs is None:
+            return None
+        c = self._op_tracer_cache
+        if c is None or c.obs is not obs:
+            from hermes_tpu_torch.obs.tracing import OpTracer
+
+            c = self._op_tracer_cache = OpTracer(obs)
+        return c
 
     # -- client ops ----------------------------------------------------------
 
@@ -309,6 +404,14 @@ class KVS:
             raise ValueError(f"replica {replica} out of range [0, {cfg.n_replicas})")
         if not (0 <= session < cfg.n_sessions):
             raise ValueError(f"session {session} out of range [0, {cfg.n_sessions})")
+        if kind != "get" and self._wal_backpressured():
+            # the log's dirty window is full: shed the update loudly,
+            # before the sparse index could spend a slot on it
+            self.wal_shed += 1
+            fut = Future()
+            fut._result = Completion(kind="retry_after", key=int(key),
+                                     found=False)
+            return fut
         if self.index is not None:
             client_key = int(key)
             if not (0 <= client_key < (1 << 64) - 1):
@@ -331,12 +434,37 @@ class KVS:
                 raise ValueError(f"key {key} out of range [0, {cfg.n_keys})")
             client_key, slot = int(key), int(key)
         fut = Future()
+        # trace mint: the submit sequence ticks for EVERY accepted
+        # submission, so replays sample the same ops
+        if self._sampler is not None:
+            trace = self._sampler.sample(self._trace_seq)
+            if trace:
+                fut._trace = trace
+                fut._trace_r0 = self.rt.step_idx
+        self._trace_seq += 1
         self._queues[(replica, session)].append(
-            (kind, slot, client_key, value, fut))
+            (kind, slot, client_key, value, fut, 0))
         self._queued_slots.add((replica, session))
         if (replica, session) not in self._inflight:
             self._ready.add((replica, session))
         return fut
+
+    def _wal_backpressured(self) -> bool:
+        """More appended-but-not-durable records than
+        cfg.wal_dirty_window.  Transitions land on the obs timeline;
+        while backpressured the flusher is kicked at every probe."""
+        if self.wal is None:
+            return False
+        bp = self.wal.backpressured()
+        if bp != self._wal_bp:
+            self._wal_bp = bp
+            self.rt._trace(
+                "wal_backpressure" if bp else "wal_backpressure_clear",
+                dirty=self.wal.dirty_records(),
+                window=self.cfg.wal_dirty_window)
+        if bp:
+            self.wal.kick()
+        return bp
 
     def get(self, replica: int, session: int, key: int) -> Future:
         """Local linearizable read from ``replica``'s own table."""
@@ -441,13 +569,21 @@ class KVS:
                 "per update op; got values=None with "
                 f"{int((opc != t.OP_READ).sum())} update(s) in the batch")
         bf = BatchFutures(opc.copy(), keys_arr.copy(), u)
+        bf.durability = self._wal_label()
+        if self._wal_backpressured():
+            # shed NEW updates loudly before the index mapping
+            shed = opc != t.OP_READ
+            if shed.any():
+                bf.code[shed] = C_RETRY_AFTER
+                bf.found[shed] = False
+                self.wal_shed += int(shed.sum())
         if self.index is not None:
             k64 = keys_arr.astype(np.uint64)
             slots = np.zeros(n, np.int32)
-            wr = opc != t.OP_READ
+            wr = (opc != t.OP_READ) & (bf.code == 0)
             if wr.any():
                 slots[wr] = self.index.get_slots(k64[wr])
-            rd = opc == t.OP_READ
+            rd = (opc == t.OP_READ) & (bf.code == 0)
             if rd.any():
                 got = self.index.get_slots(k64[rd], insert=False)
                 gi = np.nonzero(rd)[0]
@@ -482,9 +618,10 @@ class KVS:
 
     def _inject_batches(self) -> None:
         free = self._kindarr == t.OP_NOP
-        if self._depth > 1:
-            # pipelined: a slot retired at the last sync point whose
-            # resolution is still deferred keeps its (bid, bix) mapping
+        if self._depth > 1 or self._wal_defer:
+            # a slot retired at the last sync point whose resolution is
+            # still deferred (pipelined, or parked until its WAL batch is
+            # durable) keeps its (bid, bix) mapping until it resolves
             free &= self._slot_bid < 0
             for rs_key in self._inflight:
                 free[rs_key] = False
@@ -510,6 +647,7 @@ class KVS:
             self._kindarr[rr, cc] = b["opc"][sl]
             self._slot_bid[rr, cc] = bid
             self._slot_bix[rr, cc] = b["gix"][sl]
+            self._slot_inject[rr, cc] = self.rt.step_idx
             b["cursor"] = cur + take
             p += take
             self._dirty = True
@@ -529,7 +667,7 @@ class KVS:
             if self._slot_bid[rs_key] >= 0:
                 waiting.add(rs_key)
                 continue
-            kind, slot, client_key, value, fut = q.popleft()
+            kind, slot, client_key, value, fut, nretry = q.popleft()
             if not q:
                 self._queued_slots.discard(rs_key)
             r, s = rs_key
@@ -537,8 +675,19 @@ class KVS:
             self._key[r, s, 0] = slot
             if value is not None:
                 self._uval[r, s, 0] = value
-            self._inflight[rs_key] = (kind, fut, client_key, value)
+            self._inflight[rs_key] = (kind, fut, client_key, value, nretry)
             self._kindarr[r, s] = self._OPC[kind]
+            self._slot_inject[r, s] = self.rt.step_idx
+            trace = getattr(fut, "_trace", 0)
+            if trace:
+                # close the client-queue span (submit -> injection) and pin
+                # the inject round for the op_rounds span
+                fut._trace_inject = self.rt.step_idx
+                tr = self._op_tracer()
+                if tr is not None:
+                    tr.span("op_queue", trace, r0=fut._trace_r0,
+                            r1=self.rt.step_idx, replica=r, session=s,
+                            op=kind, key=client_key)
             self._dirty = True
         self._ready.clear()
         self._ready |= waiting
@@ -571,6 +720,7 @@ class KVS:
         if rows.size:
             self._op[rows, cols, 0] = t.OP_NOP
             self._kindarr[rows, cols] = t.OP_NOP
+            self._slot_inject[rows, cols] = -1
             self._dirty = True
 
     def _resolve(self, done_mask, code, rval, wval, round_idx: int,
@@ -617,7 +767,9 @@ class KVS:
                     self._ready.add(rs_key)
         for r, s in np.argwhere(done_mask & ~bdone):
             r, s = int(r), int(s)
-            kind, fut, client_key, _value = self._inflight.pop((r, s))
+            kind, fut, client_key, _value, _nretry = self._inflight.pop((r, s))
+            self._retry_next.pop((r, s), None)
+            self._retry_k.pop((r, s), None)
             c = int(code[r, s])
             done = Completion(
                 kind="rmw_abort" if c == t.C_RMW_ABORT else kind,
@@ -630,16 +782,161 @@ class KVS:
             if c in (t.C_WRITE, t.C_RMW):
                 done.uid = (int(wval[r, s, 0]), int(wval[r, s, 1]))
                 done.ts = (int(ver[r, s]), int(fc[r, s]))
+                done.durability = self._wal_label()
                 # RYW fence: this lane's later local reads of the slot
                 # must observe ts >= this committed write
                 slot = (client_key if self.index is None
                         else self.index.slot(client_key, insert=False))
                 self._ryw.setdefault((r, s), {})[int(slot)] = done.ts
+            trace = getattr(fut, "_trace", 0)
+            if trace:
+                # device-rounds span: injection round -> resolution round
+                tr = self._op_tracer()
+                if tr is not None:
+                    tr.span("op_rounds", trace,
+                            r0=getattr(fut, "_trace_inject", round_idx),
+                            r1=round_idx, replica=r, session=s,
+                            op=done.kind, key=client_key)
             fut._result = done
             if self._queues.get((r, s)):
                 self._ready.add((r, s))
             ndone += 1
         return ndone
+
+    # -- stuck-op watchdog and bounded retry -----------------------------------
+
+    _PHASE = {t.S_IDLE: "idle", t.S_READ: "read-stall", t.S_ISSUE: "issue",
+              t.S_INFL: "ack-wait", t.S_DONE: "done"}
+
+    def _watchdog(self) -> None:
+        """Surface client ops pending past ``cfg.op_timeout_rounds``: one
+        ``stuck_op`` obs event and one ``stuck_ops`` diagnostic per op
+        (coordinator, session, phase, gathered-ack bitmap, age in rounds)
+        the first time it out-ages the budget, and a flight dump.  The
+        session rows are read from the device only when a NEW stuck op
+        exists.  Strict mode raises StuckOpError after reporting."""
+        tmo = self.cfg.op_timeout_rounds
+        if not tmo:
+            return
+        active = self._slot_inject >= 0
+        if not active.any():
+            return
+        age = self.rt.step_idx - self._slot_inject
+        stuck = active & (age > tmo)
+        fresh = []
+        for r, s in zip(*np.nonzero(stuck)):
+            tag = (int(r), int(s), int(self._slot_inject[r, s]))
+            if tag not in self._stuck_flagged:
+                self._stuck_flagged.add(tag)
+                fresh.append((int(r), int(s)))
+        new_diags = []
+        if fresh:
+            sess = self.rt.fs.sess
+            status = sess.status.cpu().numpy()
+            acks = sess.acks.cpu().numpy()
+            for r, s in fresh:
+                # the CLIENT's key (sparse mode stages dense slots)
+                if (r, s) in self._inflight:
+                    ckey = self._inflight[(r, s)][2]
+                elif self._slot_bid[r, s] >= 0:
+                    b = self._bat.get(int(self._slot_bid[r, s]))
+                    ckey = (int(b["bf"].key[int(self._slot_bix[r, s])])
+                            if b is not None else int(self._key[r, s, 0]))
+                else:
+                    ckey = int(self._key[r, s, 0])
+                diag = dict(
+                    replica=r, session=s,
+                    key=int(ckey),
+                    kind=BatchFutures._KINDSTR.get(
+                        int(self._kindarr[r, s]), "?"),
+                    phase=self._PHASE.get(int(status[r, s]), "?"),
+                    acks=int(acks[r, s]),
+                    age_rounds=int(age[r, s]),
+                    at_step=self.rt.step_idx,
+                )
+                new_diags.append(diag)
+                self.stuck_ops.append(diag)
+                self.rt._trace("stuck_op", **diag)
+        if new_diags and self.rt.obs is not None:
+            # dump BEFORE any strict raise, so the archive holds the
+            # diagnostics
+            self.rt.obs.flight_dump("stuck_op", extra=dict(diags=new_diags))
+        if self.cfg.op_retry_limit:
+            self._escalate_stuck(stuck)
+        if self.strict_timeouts and new_diags:
+            raise StuckOpError(new_diags)
+
+    def _escalate_stuck(self, stuck: np.ndarray) -> None:
+        """Bounded retry with backoff (cfg.op_retry_limit): a stuck per-op
+        future whose coordinator is FENCED (not live, or frozen) is
+        salvaged and re-submitted on a healthy replica; one on a healthy
+        coordinator is re-examined after an exponential backoff window
+        (it may yet commit: a blind retry would double-write)."""
+        step = self.rt.step_idx
+        healthy = set(self.rt.healthy_replicas())
+        for rs_key in [k for k in list(self._inflight) if stuck[k]]:
+            if rs_key not in self._inflight:
+                continue  # resolved by an earlier salvage's pipeline flush
+            r, s = rs_key
+            nxt = self._retry_next.get(rs_key)
+            if nxt is None:
+                self._retry_next[rs_key] = step  # examine now
+            elif step < nxt:
+                continue
+            if r in healthy:
+                k = self._retry_k.get(rs_key, 0)
+                self._retry_k[rs_key] = k + 1
+                self._retry_next[rs_key] = step + (
+                    self.cfg.op_timeout_rounds * self.cfg.op_backoff ** (k + 1))
+                continue
+            self._salvage_retry(r, s, sorted(healthy))
+
+    def _salvage_retry(self, r: int, s: int, healthy: list) -> None:
+        """Salvage one wedged per-op future off fenced coordinator ``r``
+        (the crash model, per slot: history fold as maybe_w for updates,
+        volatile wipe so the dead uid never re-mints, staged slot
+        cleared) and re-enqueue it on a healthy replica with the SAME
+        future; exhausted retries (or no healthy replica) resolve it as
+        ``lost``."""
+        from hermes_tpu_torch.chaos import recovery as recovery_lib
+
+        rt = self.rt
+        rt.flush_pipeline()  # a deferred round may have completed this op
+        if (r, s) not in self._inflight or self._slot_inject[r, s] < 0:
+            self._retry_next.pop((r, s), None)
+            self._retry_k.pop((r, s), None)
+            return
+        kind, fut, ck, value, nretry = self._inflight.pop((r, s))
+        slot = int(self._key[r, s, 0])
+        mask = np.zeros((self.cfg.n_replicas, self.cfg.n_sessions), bool)
+        mask[r, s] = True
+        if kind != "get" and rt.recorder is not None:
+            # the wedged broadcast may still commit via replay: the history
+            # must be ALLOWED, not required, to linearize it
+            rt.recorder.fold_pending(rt._sess_view(), mask=mask)
+        recovery_lib.wipe_volatile(rt, mask)
+        self._op[r, s, 0] = t.OP_NOP
+        self._kindarr[r, s] = t.OP_NOP
+        self._slot_inject[r, s] = -1
+        self._dirty = True
+        self._retry_next.pop((r, s), None)
+        self._retry_k.pop((r, s), None)
+        if nretry >= self.cfg.op_retry_limit or not healthy:
+            fut._result = Completion(kind="lost", key=ck, found=False)
+            rt._trace("op_retry_exhausted", replica=r, session=s, key=ck,
+                      outcome="lost", retries=nretry)
+        else:
+            target = healthy[(r + 1 + nretry) % len(healthy)]
+            self.retried_ops += 1
+            rt._trace("op_retry", replica=r, session=s, key=ck,
+                      target=target, attempt=nretry + 1)
+            self._queues[(target, s)].append(
+                (kind, slot, ck, value, fut, nretry + 1))
+            self._queued_slots.add((target, s))
+            if (target, s) not in self._inflight:
+                self._ready.add((target, s))
+        if self._queues.get((r, s)):
+            self._ready.add((r, s))  # traffic queued behind the salvaged op
 
     def step(self) -> int:
         """Inject queued ops, run one protocol round, resolve completions.
@@ -649,15 +946,19 @@ class KVS:
         if self._bat:
             self._inject_batches()
         if self._depth > 1:
-            return self._step_pipelined()
+            n = self._step_pipelined()
+            self._watchdog()
+            return n
         self._sync_stream()
         comp = self.rt.step_once()
         code = np.asarray(comp.code)
         done_mask = self._done_mask(code, np.asarray(comp.key))
         self._retire(done_mask)
-        return self._resolve(done_mask, code, np.asarray(comp.rval),
-                             np.asarray(comp.wval), self.rt.step_idx - 1,
-                             np.asarray(comp.ver), np.asarray(comp.fc))
+        n = self._gated_resolve(done_mask, code, np.asarray(comp.rval),
+                                np.asarray(comp.wval), self.rt.step_idx - 1,
+                                np.asarray(comp.ver), np.asarray(comp.fc))
+        self._watchdog()
+        return n
 
     def _step_pipelined(self) -> int:
         """Dispatch round k, then — while the device runs it — resolve round
@@ -679,20 +980,79 @@ class KVS:
         return ndone
 
     def _flush_round(self) -> int:
-        """Harvest and resolve the deferred round (pipelined mode)."""
+        """Harvest the deferred round (pipelined mode) and resolve what
+        durability allows: under wal_sync='commit' the round parks until
+        its log batch fsyncs.  Never blocks on the disk."""
         if self._pending is None:
-            return 0
+            return self._drain_wal_defer()
         pk, pcomp, done_mask, code = self._pending
         self._pending = None
         comp_np = self.rt.harvest_comp(pcomp, round_idx=pk)
-        return self._resolve(done_mask, code, np.asarray(comp_np.rval),
-                             np.asarray(comp_np.wval), pk,
-                             np.asarray(comp_np.ver), np.asarray(comp_np.fc))
+        return self._gated_resolve(done_mask, code, np.asarray(comp_np.rval),
+                                   np.asarray(comp_np.wval), pk,
+                                   np.asarray(comp_np.ver),
+                                   np.asarray(comp_np.fc))
 
     def flush(self) -> int:
-        """Resolve every in-flight completion (the deferred pipelined
-        round); installed as the runtime's ``comp_flush`` hook."""
-        return self._flush_round()
+        """Resolve EVERY in-flight completion: the deferred pipelined
+        round and, under wal_sync='commit', every durability-parked round
+        after a forced group commit.  Installed as the runtime's
+        ``comp_flush`` hook."""
+        n = self._flush_round()
+        if self._wal_defer:
+            n += self._drain_wal_defer(wait=True)
+        return n
+
+    # -- durability gating -----------------------------------------------------
+
+    def _gated_resolve(self, done_mask, code, rval, wval, round_idx,
+                       ver, fc) -> int:
+        """Resolve one harvested round now or, under wal_sync='commit',
+        park it under the round's WAL batch LSN until the flusher reports
+        that batch durable.  Rounds resolve in round order."""
+        wal = self.wal
+        if wal is None or self.cfg.wal_sync != "commit":
+            if wal is not None:
+                wal.kick()  # relaxed modes: fsync soon, just don't wait
+            return self._resolve(done_mask, code, rval, wval, round_idx,
+                                 ver, fc)
+        self._wal_defer.append((self.rt.wal_last_lsn, done_mask, code,
+                                rval, wval, round_idx, ver, fc))
+        wal.kick()
+        return self._drain_wal_defer()
+
+    def _drain_wal_defer(self, wait: bool = False) -> int:
+        """Resolve parked rounds whose log batches are durable; ``wait``
+        forces the group commit first (a ``wal_sync`` span)."""
+        wal = self.wal
+        if wal is None or not self._wal_defer:
+            return 0
+        if wait:
+            target = self._wal_defer[-1][0]
+            obs = self.rt.obs
+            if obs is not None:
+                with obs.tracer.span("wal_sync", lsn=target,
+                                     parked_rounds=len(self._wal_defer)):
+                    wal.sync(target)
+            else:
+                wal.sync(target)
+        n = 0
+        durable = wal.durable_lsn()
+        while self._wal_defer and self._wal_defer[0][0] <= durable:
+            _lsn, done_mask, code, rval, wval, k, ver, fc = (
+                self._wal_defer.popleft())
+            n += self._resolve(done_mask, code, rval, wval, k, ver, fc)
+        return n
+
+    def _wal_label(self) -> Optional[str]:
+        """The durability label committed updates carry: 'commit' when
+        resolution waited for the fsync, a loud
+        ':not-fsynced-at-resolve' suffix for the relaxed modes."""
+        if self.wal is None:
+            return None
+        mode = self.cfg.wal_sync
+        return ("commit" if mode == "commit"
+                else f"{mode}:not-fsynced-at-resolve")
 
     def run_until(self, futures: Sequence[Future], max_steps: int = 10_000) -> bool:
         """Step until every future resolves (or the step budget runs out)."""
@@ -944,21 +1304,29 @@ class KVS:
         the device, staged stream, client queues, pending batches).
 
         If in-flight ops cannot drain (a frozen coordinator pins them) the
-        compaction is skipped: an undrained op's device-side ref cannot be
-        remapped.  ``reason`` names the trigger (the span that would carry
-        it is ROADMAP A5b).  Returns the post-GC heap stats (an empty dict
-        when skipped)."""
+        compaction is skipped loudly (a ``heap_gc_skipped`` event): an
+        undrained op's device-side ref cannot be remapped.  ``reason``
+        names the trigger; the collection lands on the obs timeline as a
+        ``heap_gc`` span and event and a ``heap_util`` gauge.  Returns the
+        post-GC heap stats (an empty dict when skipped)."""
         if self.heap is None:
             raise RuntimeError("heap_gc needs cfg.max_value_bytes > 0")
         if self._in_heap_gc:
             return {}
+        rt = self.rt
         self._in_heap_gc = True
         try:
-            return self._heap_gc_body(quiesce, max_quiesce_rounds)
+            if rt.obs is not None:
+                with rt.obs.tracer.span("heap_gc", step=rt.step_idx,
+                                        reason=reason):
+                    return self._heap_gc_body(quiesce, reason,
+                                              max_quiesce_rounds)
+            return self._heap_gc_body(quiesce, reason, max_quiesce_rounds)
         finally:
             self._in_heap_gc = False
 
-    def _heap_gc_body(self, quiesce: bool, max_quiesce_rounds: int) -> dict:
+    def _heap_gc_body(self, quiesce: bool, reason: str,
+                      max_quiesce_rounds: int) -> dict:
         rt = self.rt
         if quiesce:
             prev = rt.quiesce
@@ -973,6 +1341,8 @@ class KVS:
         rt.flush_pipeline()
         self.flush()
         if rt._inflight_count() != 0:
+            rt._trace("heap_gc_skipped", reason=reason,
+                      inflight=rt._inflight_count())
             return {}
         refcol, staged_mask, roots = self._heap_roots()
         old, new = self.heap.compact(roots)
@@ -1008,11 +1378,62 @@ class KVS:
             if nz.any():
                 arr[nz] = ValueHeap.remap(
                     arr[nz].astype(np.int64), old, new).astype(arr.dtype)
-        return self.heap.stats()
+        if self.wal is not None and old.size:
+            # log the ref rewrite (bookkeeping: each record's extent bytes
+            # stay authoritative for replay)
+            self.wal.note_remap(old, new)
+        stats = self.heap.stats()
+        if rt.obs is not None:
+            rt.obs.registry.gauge(
+                "heap_util",
+                help="live heap bytes / heap capacity").set(
+                    stats["live_bytes"] / stats["capacity_bytes"])
+        rt._trace("heap_gc", reason=reason,
+                  live_bytes=stats["live_bytes"],
+                  used_bytes=stats["used_bytes"],
+                  reclaimed_bytes=self.heap.gc_reclaimed_bytes)
+        return stats
 
     def heap_stats(self) -> Optional[dict]:
         """Heap accounting (None when the heap is off)."""
         return None if self.heap is None else self.heap.stats()
+
+    # -- crash support (chaos.recovery.restart_replica) ----------------------
+
+    def _on_replica_crash(self, replica: int) -> int:
+        """Client-side fallout of a host-crash of ``replica``: its
+        in-flight futures resolve as kind='lost' (batch slots get C_LOST);
+        whether a write took effect is decided by replay, and the history
+        records it as a maybe_w.  Queued, uninjected traffic survives and
+        re-injects after the rejoin.  Returns the client ops lost."""
+        lost = 0
+        for rs_key in [k for k in self._inflight if k[0] == replica]:
+            _kind, fut, client_key, _v, _n = self._inflight.pop(rs_key)
+            fut._result = Completion(kind="lost", key=client_key, found=False)
+            lost += 1
+        for s in np.nonzero(self._slot_bid[replica] >= 0)[0]:
+            bid = int(self._slot_bid[replica, s])
+            b = self._bat.get(bid)
+            if b is not None:
+                bf: BatchFutures = b["bf"]
+                gi = int(self._slot_bix[replica, s])
+                bf.code[gi] = C_LOST
+                bf.found[gi] = False
+                if b["cursor"] >= b["opc"].shape[0] and bf.all_done():
+                    del self._bat[bid]
+            lost += 1
+        self._slot_bid[replica] = -1
+        self._op[replica] = t.OP_NOP
+        self._kindarr[replica] = t.OP_NOP
+        self._slot_inject[replica] = -1
+        self._dirty = True
+        for rs_key in [k for k in self._retry_next if k[0] == replica]:
+            self._retry_next.pop(rs_key, None)
+            self._retry_k.pop(rs_key, None)
+        for rs_key in self._queued_slots:
+            if rs_key[0] == replica:
+                self._ready.add(rs_key)
+        return lost
 
     # -- membership / failure passthrough ------------------------------------
 

@@ -17,14 +17,26 @@ The value heap's GC rides every version rebase through ``rebase_hook``
 (installed by ``kvs.KVS``), and ``healthy_replicas`` names the replicas
 that may serve local reads (``core/readpath.py``).
 
-Out of scope for now: the observability hooks (ROADMAP A5b), the WAL
-(A9), the membership service and live resize (A11), the sharded backend
-(A10) and the reference ``Runtime`` (A12).
+Observability (``attach_obs``, the ``obs`` package): freeze, thaw,
+remove, join and control uploads are point events on the run's timeline;
+drains and rebases are spans, and with ``obs.trace_steps`` so are every
+round's dispatch and readback; the registry gets ``host_work_s`` /
+``device_wait_s``, the pipeline-depth gauge and the pipeline-depth,
+max-version and commits series; a red checker verdict dumps the flight
+recorder.  The write-ahead log (``attach_wal``, the ``wal`` package) taps
+the harvest: every committed write is appended after the version
+re-anchor, from the numpy copy the harvest already holds, so the log's
+flusher thread never touches a tensor.  Everything is a no-op while
+nothing is attached.
+
+Out of scope for now: the membership service and live resize (A11), the
+sharded backend (A10) and the reference ``Runtime`` (A12).
 """
 
 from __future__ import annotations
 
 import collections
+import time
 from typing import Optional
 
 import numpy as np
@@ -150,11 +162,41 @@ class FastRuntime:
         # completion fetch per round; a telemetry-only run sets False
         # and polls counters() alone
         self.fetch_completions = True
+        # the obs context and the WAL tap (attach_obs / attach_wal)
+        self.obs = None
+        self.wal = None
+        self._wal_heap = None
+        self.wal_last_lsn = 0
+        self._devwait_s = 0.0
         if record == "array":
             self.recorder = ArrayRecorder(cfg)
         else:
             self.recorder = HistoryRecorder(cfg) if record else None
         self._step = fst.build_fast_batched(cfg)
+
+    # -- observability and the WAL tap ---------------------------------------
+
+    def attach_obs(self, obs):
+        """Install the run's Observability context (a late attach still
+        feeds an attached WAL's fsync-latency and dirty-window series)."""
+        self.obs = obs
+        if self.wal is not None:
+            self.wal.obs = obs
+        return obs
+
+    def attach_wal(self, wal, heap=None):
+        """Install the write-ahead log tap: every committed write
+        ``harvest_comp`` surfaces is appended to ``wal`` (with its extent
+        bytes read from ``heap`` in heap mode)."""
+        self.wal = wal
+        self._wal_heap = heap
+        if wal.obs is None and self.obs is not None:
+            wal.obs = self.obs
+        return wal
+
+    def _trace(self, name: str, **fields) -> None:
+        if self.obs is not None:
+            self.obs.tracer.event(name, step=self.step_idx, **fields)
 
     # -- device-resident control --------------------------------------------
 
@@ -185,6 +227,8 @@ class FastRuntime:
                 frozen=torch.as_tensor(self.frozen).to(dev),
             )
             self._ctl_dirty = False
+            self._trace("ctl_upload", epoch=int(self.epoch[0]),
+                        live_mask=int(self.live[0]))
         return self._ctl_dev._replace(step=self._step_dev,
                                       host_step=self._step_idx,
                                       quiesce=self.quiesce)
@@ -195,10 +239,12 @@ class FastRuntime:
         """Failure injection: the replica stops processing and emitting."""
         self.frozen[replica] = True
         self._ctl_dirty = True
+        self._trace("freeze", replica=replica)
 
     def thaw(self, replica: int) -> None:
         self.frozen[replica] = False
         self._ctl_dirty = True
+        self._trace("thaw", replica=replica)
 
     def set_live(self, mask: int) -> None:
         """Membership change: new live bitmap, epoch bump everywhere."""
@@ -211,12 +257,15 @@ class FastRuntime:
         serving reads at once)."""
         self.frozen[replica] = True
         self.set_live(int(self.live[0]) & ~(1 << replica))
+        self._trace("remove", replica=replica, live_mask=int(self.live[0]))
 
     def join(self, replica: int, from_replica: int) -> None:
         """Re-admit ``replica``.  The batched table is shared by every
         replica, so it already holds the joiner's state: no transfer."""
         self.frozen[replica] = False
         self.set_live(int(self.live[0]) | (1 << replica))
+        self._trace("join", replica=replica, from_replica=from_replica,
+                    live_mask=int(self.live[0]))
 
     def healthy_replicas(self) -> list:
         """Replicas that are live AND unfrozen: the set that can serve
@@ -230,16 +279,34 @@ class FastRuntime:
     def dispatch_round(self):
         """Enqueue one protocol round without syncing; returns the round's
         device-side Completions."""
+        obs = self.obs
+        trace = obs is not None and obs.trace_steps
+        if trace:
+            td = obs.tracer.span_begin("step_dispatch", step=self.step_idx)
         self.fs, comp = self._step(self.fs, self.stream, self._ctl())
         self._step_dev = fst.bump_step(self._step_dev)
+        if trace:
+            obs.tracer.span_end("step_dispatch", td)
         self._step_idx += 1
         return comp
 
     def harvest_comp(self, comp, round_idx: Optional[int] = None):
         """Fetch one dispatched round's completions (device tensors or an
         in-flight host fetch), re-anchor rebased versions and feed the
-        recorder.  Callers harvest in round order."""
+        recorder and the WAL.  Callers harvest in round order."""
+        obs = self.obs
+        trace = obs is not None and obs.trace_steps
+        if trace:
+            tr = obs.tracer.span_begin("readback", step=self.step_idx,
+                                       round=round_idx)
+        t0 = time.perf_counter() if obs is not None else 0.0
         comp_np = _to_host(comp)
+        if obs is not None:
+            dt = time.perf_counter() - t0
+            self._devwait_s += dt
+            obs.registry.counter("device_wait_s").inc(dt)
+        if trace:
+            obs.tracer.span_end("readback", tr)
         if self._ver_base is not None:
             # re-anchor post-rebase versions into the global version space
             fix = lambda c: c._replace(
@@ -250,6 +317,15 @@ class FastRuntime:
         if self.recorder is not None:
             for c in _subs(comp_np):
                 self.recorder.record_step(c)
+        if self.wal is not None:
+            # after the re-anchor above: the log carries globally monotone
+            # versions (replay subtracts the target's own ver_base)
+            for c in _subs(comp_np):
+                lsn = self.wal.append_comp(c, heap=self._wal_heap,
+                                           round_idx=round_idx)
+                if lsn is not None:
+                    self.wal_last_lsn = lsn
+            self.wal.kick()
         return comp_np
 
     def _harvest_one(self):
@@ -272,6 +348,9 @@ class FastRuntime:
         Completions are fetched and returned; at depth >= 2 the OLDEST
         in-flight round is harvested once the ring is full (None while it
         fills).  ``fetch_completions=False`` runs never sync."""
+        obs = self.obs
+        t0 = time.perf_counter() if obs is not None else 0.0
+        self._devwait_s = 0.0
         comp = self.dispatch_round()
         out = None
         if self.fetch_completions or self.recorder is not None:
@@ -280,6 +359,13 @@ class FastRuntime:
             self._ring.append((self.step_idx - 1, comp))
             if len(self._ring) >= self.cfg.pipeline_depth:
                 out = self._harvest_one()
+        if obs is not None:
+            reg = obs.registry
+            reg.counter("host_work_s").inc(
+                time.perf_counter() - t0 - self._devwait_s)
+            reg.gauge("pipeline_depth").set(len(self._ring))
+            reg.series("pipeline_depth_series").append(
+                self.step_idx, len(self._ring))
         return out
 
     def run(self, n_steps: int) -> None:
@@ -299,6 +385,12 @@ class FastRuntime:
         new intake paused.  Recorded histories stay checkable: the per-key
         deltas accumulate in ``_ver_base`` and are added back to every
         later completion.  Returns the number of keys rebased."""
+        if self.obs is not None:
+            with self.obs.tracer.span("rebase_versions", step=self.step_idx):
+                return self._rebase_versions(quiesce, max_quiesce_rounds)
+        return self._rebase_versions(quiesce, max_quiesce_rounds)
+
+    def _rebase_versions(self, quiesce: bool, max_quiesce_rounds: int) -> int:
         if quiesce:
             prev = self.quiesce
             self.quiesce = True
@@ -330,6 +422,12 @@ class FastRuntime:
         """Step until every session on a live, unfrozen replica finished
         its stream (one device scalar per poll); False if max_steps ran
         out first."""
+        if self.obs is not None:
+            with self.obs.tracer.span("drain", step=self.step_idx):
+                return self._drain(max_steps)
+        return self._drain(max_steps)
+
+    def _drain(self, max_steps: int) -> bool:
         ok = False
         for _ in range(max_steps):
             ctl = self._ctl()
@@ -349,6 +447,17 @@ class FastRuntime:
         max_ver = self._check_version_headroom(m)
         out = _sum_meta_counters(m)
         out["max_ver"] = max_ver
+        if self.obs is not None:
+            # the version watermark and cumulative commits keyed by the
+            # poll's round, and one Meta summary into the flight ring
+            reg = self.obs.registry
+            reg.series("max_ver_series").append(self.step_idx, max_ver)
+            reg.series("commits_series").append(
+                self.step_idx, int(out["n_write"]) + int(out["n_rmw"]))
+            self.obs.flight.note_meta(dict(
+                step=self.step_idx,
+                **{k: (v.tolist() if isinstance(v, np.ndarray) else int(v))
+                   for k, v in out.items()}))
         return out
 
     def _check_version_headroom(self, m) -> int:
@@ -411,8 +520,17 @@ class FastRuntime:
         self.flush_pipeline()
         if isinstance(self.recorder, ArrayRecorder):
             self.recorder.finalize(self._sess_view())
-            return check_arrays(self.recorder, max_keys=max_keys)
-        ops = self.history_ops()
-        if max_keys is not None:
-            ops = lin.sample_keys(ops, max_keys=max_keys)
-        return lin.check_history(ops, aborted_uids=self.recorder.aborted_uids)
+            v = check_arrays(self.recorder, max_keys=max_keys)
+        else:
+            ops = self.history_ops()
+            if max_keys is not None:
+                ops = lin.sample_keys(ops, max_keys=max_keys)
+            v = lin.check_history(ops,
+                                  aborted_uids=self.recorder.aborted_uids)
+        self._trace("checker_verdict", ok=v.ok, keys_checked=v.keys_checked)
+        if not v.ok and self.obs is not None:
+            # checker red: dump the black box while the run's last records
+            # are still in the ring
+            self.obs.flight_dump("checker_red",
+                                 extra=dict(keys_checked=v.keys_checked))
+        return v

@@ -1,25 +1,29 @@
 """Stats: the summary record of a run, read off the device Meta counters.
 
-Port of ``hermes_tpu/stats.py`` (``summarize``, ``percentile_from_hist``)
-and of the one helper it takes from ``hermes_tpu/obs/metrics.py``
-(``percentile_from_counts``), in numpy.  ``summarize`` accepts a Meta of
-tensors on any device or of numpy arrays.
+Port of ``hermes_tpu/stats.py`` (``summarize``, ``percentile_from_hist``,
+``percentile_nearest_rank``), in numpy; ``percentile_from_counts`` lives
+in ``obs/metrics.py``, as in the reference.  ``summarize`` accepts a Meta
+of tensors on any device or of numpy arrays.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
 import torch
 
+from hermes_tpu_torch.obs.metrics import percentile_from_counts
 
-def percentile_from_counts(counts: np.ndarray, q: float) -> Optional[int]:
-    """q in [0, 1]; bin index of the q-quantile, or None when empty."""
-    cum = np.asarray(counts).cumsum()
-    if cum[-1] == 0:
+
+def percentile_nearest_rank(sorted_vals, q: float):
+    """Nearest-rank percentile (the ceil(q*n)-th order statistic) of an
+    already-sorted sequence; None on an empty sequence."""
+    if not sorted_vals:
         return None
-    return int((cum >= q * cum[-1]).argmax())
+    return sorted_vals[min(len(sorted_vals) - 1,
+                           max(0, math.ceil(q * len(sorted_vals)) - 1))]
 
 
 def percentile_from_hist(hist: np.ndarray, q: float) -> Optional[int]:

@@ -1277,3 +1277,104 @@ def test_heap_gc_column_rewrite_leaves_the_drop_row_on_card():
         data[d] = kvs.multi_get(np.arange(3)).data
     assert stats["cpu"] == stats[dev] and data["cpu"] == data[dev]
     assert all(x is not None for x in data[dev])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heap", [False, True], ids=["words", "heap"])
+def test_wal_replay_on_card_equals_cpu(heap):
+    """The vectorised WAL replay on the card: many records a key, out of
+    timestamp order, over a table that already holds some of them, give
+    the CPU port's applied/skipped counts, table and heap; the drop row
+    stays as it was."""
+    import numpy as np
+
+    from hermes_tpu_torch import convert
+    from hermes_tpu_torch.config import HermesConfig
+    from hermes_tpu_torch.kvs import KVS
+    from hermes_tpu_torch.wal import replay
+
+    dev = _card()
+    over = (dict(value_words=4, max_value_bytes=64, heap_bytes=1 << 22)
+            if heap else dict(value_words=6))
+    cfg = HermesConfig(n_replicas=3, n_keys=4096, n_sessions=8,
+                       replay_slots=4, **over)
+    rng = np.random.default_rng(3)
+
+    def records(n_rec, per, first):
+        out = []
+        for j in range(n_rec):
+            lens = (rng.integers(0, 40, per) if heap
+                    else np.zeros(per, np.int64)).astype(np.int32)
+            out.append(dict(
+                kind=1, lsn=first + j, round_idx=first + j,
+                step=np.full(per, first + j, np.int64),
+                key=rng.integers(0, cfg.n_keys, per).astype(np.int32),
+                ver=rng.integers(1, 9, per).astype(np.int64),
+                fc=rng.integers(0, 8, per).astype(np.int32),
+                wv=rng.integers(-99, 99, (per, cfg.value_words)
+                                ).astype(np.int32), lens=lens,
+                blob=rng.integers(0, 256, int(lens.sum())
+                                  ).astype(np.uint8).tobytes()))
+        return out
+
+    seed, recs = records(2, 2048, 0), records(8, 4096, 10)
+    got = {}
+    for d in ("cpu", dev):
+        kvs = KVS(cfg, device=d)
+        replay.apply_records(kvs.rt, seed, heap=kvs.heap)
+        counts = replay.apply_records(kvs.rt, recs, heap=kvs.heap)
+        assert int(kvs.rt.fs.table.vpts[-1]) == 0
+        assert not kvs.rt.fs.table.bank[-1].any()
+        got[d] = (counts, convert.fast_state_to_numpy(kvs.rt.fs).table,
+                  None if kvs.heap is None else kvs.heap._mirror.copy())
+    (ca, ta, ha), (cb, tb, hb) = got["cpu"], got[dev]
+    assert ca == cb and ca[0] > 0 and ca[1] > 0
+    np.testing.assert_array_equal(ta.vpts, tb.vpts)
+    np.testing.assert_array_equal(ta.bank, tb.bank)
+    if heap:
+        np.testing.assert_array_equal(ha, hb)
+
+
+@pytest.mark.gpu
+def test_traced_bench_drive_leaves_state_identical():
+    """At the bench shape on the card, a KVS with an obs context attached
+    (per-step spans, 1-in-64 op tracing) ends a put/get drive with the
+    state tree and the completions of an untraced one, byte for byte."""
+    import numpy as np
+
+    from hermes_tpu_torch import config, convert
+    from hermes_tpu_torch.kvs import KVS
+    from hermes_tpu_torch.obs import Observability, canonical_span_bytes
+
+    dev = _card()
+    out = []
+    for traced in (True, False):
+        cfg = config.bench_cfg("a", over=dict(
+            device_stream=False, read_unroll=1,
+            trace_sample=64 if traced else 0))
+        kvs = KVS(cfg, device=dev)
+        obs = (kvs.rt.attach_obs(Observability(trace_steps=True))
+               if traced else None)
+        rng = np.random.default_rng(8)
+        n = 65536
+        keys = rng.choice(cfg.n_keys, n, replace=False)
+        vals = rng.integers(0, 1 << 30, (n, cfg.value_words - 2),
+                            dtype=np.int32)
+        bf = kvs.submit_batch(np.full(n, KVS.PUT, np.int32), keys, vals)
+        assert kvs.run_batch(bf, 64)
+        futs = [kvs.put(r, 7, int(keys[r]), [r]) for r in range(8)]
+        futs += [kvs.get(r, 9, int(keys[r])) for r in range(8)]
+        assert kvs.run_until(futs, 64)
+        torch.cuda.synchronize()
+        out.append((convert.fast_state_to_numpy(kvs.rt.fs),
+                    bf.code.copy(), bf.uid.copy(),
+                    [f.result() for f in futs], kvs.rt.step_idx))
+        if traced:
+            assert canonical_span_bytes(obs.records)
+    (sa, *ra), (sb, *rb) = out
+    for x, y in zip(sa, sb):
+        for u, v in zip(x, y):
+            np.testing.assert_array_equal(u, v)
+    np.testing.assert_array_equal(ra[0], rb[0])
+    np.testing.assert_array_equal(ra[1], rb[1])
+    assert ra[2:] == rb[2:]

@@ -4,7 +4,10 @@ and nothing of hermes_tpu (a module named ``hermes_tpu`` or starting with
 Checked in a fresh interpreter that runs one round, one KVS put/get, a
 multi-get and a scan, a heap put on a sparse key with its GC, one
 cell of the table-step probe and the kernel matrix (the analysis
-sub-package, its fixtures and its command line) on the CPU."""
+sub-package, its fixtures and its command line), and a durable, observed
+KVS (obs/, wal/, snapshot.py, chaos/, concurrency.py: a traced put under
+the WAL, a snapshot, a replica restart, a whole-store recovery and the
+report renderer) on the CPU."""
 
 import pathlib
 import subprocess
@@ -51,6 +54,31 @@ assert len(analysis.run_kernel_matrix(n_draws=1, device="cpu")) == 9
 assert analysis_cli.main(["--kernels", "--json", "--draws", "1",
                           "--device", "cpu"]) == 0
 assert int(fixture_kernels.fx_loop_inc(torch.zeros(4, dtype=torch.int32))[0]) == 10
+import tempfile
+from hermes_tpu_torch import concurrency, snapshot
+from hermes_tpu_torch.chaos import recover_store, restart_replica
+from hermes_tpu_torch.obs import Observability, canonical_span_bytes
+from hermes_tpu_torch.obs import report
+from hermes_tpu_torch.wal import crashdrive, replay
+assert concurrency.make_lock("X.y").acquire(blocking=False)
+d = tempfile.mkdtemp()
+wcfg = HermesConfig(n_replicas=3, n_keys=64, n_sessions=4, replay_slots=2,
+                    value_words=4, wal_dir=d + "/wal", trace_sample=1,
+                    op_timeout_rounds=8, op_retry_limit=1)
+wk = KVS(wcfg, device="cpu")
+obs = wk.rt.attach_obs(Observability(trace_steps=True))
+p = wk.put(0, 0, 5, [1, 2])
+assert wk.run_until([p]) and p.result().durability == "commit"
+assert canonical_span_bytes(obs.records)
+snapshot.save(d + "/s.npz", wk)
+assert restart_replica(wk, 1, snapshot_path=d + "/s.npz")["source"] == "snapshot"
+wk.wal.sync()
+wk.wal.close()
+rk, summary = recover_store(wcfg, device="cpu")
+assert summary["applied"] == 1 and len(crashdrive.log_ops(
+    replay.read_records(d + "/wal")["records"])) == 1
+assert "obs report" in report.render_report(obs.records)
+rk.wal.close()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "hermes_tpu" or m.startswith("hermes_tpu."))

@@ -142,12 +142,27 @@ def test_torch_kvs_put_get_every_replica():
     assert m.result().kind == "rmw" and m.result().value == [11, 22]
 
 
-@pytest.mark.parametrize("knob", [dict(wal_dir="w"),
-                                  dict(op_timeout_rounds=4),
-                                  dict(min_healthy_for_writes=2),
-                                  dict(trace_sample=2)])
-def test_torch_kvs_refuses_unported_knobs(knob):
+def test_torch_kvs_refuses_unported_knobs():
     cfg = HermesConfig(n_replicas=3, n_keys=32, n_sessions=2, replay_slots=2,
-                       value_words=4, **knob)
-    with pytest.raises(NotImplementedError, match="A5"):
+                       value_words=4, min_healthy_for_writes=2)
+    with pytest.raises(NotImplementedError, match="A11"):
         KVS(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("knob", ["wal_dir", "op_timeout_rounds",
+                                  "trace_sample"])
+def test_torch_kvs_ported_knob_builds_and_commits(knob, tmp_path):
+    """The knobs the port refused until the durable, observed store
+    landed now build a KVS that commits a put."""
+    value = {"wal_dir": str(tmp_path / "wal"), "op_timeout_rounds": 4,
+             "trace_sample": 2}[knob]
+    cfg = HermesConfig(n_replicas=3, n_keys=32, n_sessions=2, replay_slots=2,
+                       value_words=4, **{knob: value})
+    kvs = KVS(cfg, device="cpu")
+    p = kvs.put(0, 0, 7, [11, 22])
+    assert kvs.run_until([p])
+    assert p.result().kind == "put"
+    assert (kvs.wal is not None) == (knob == "wal_dir")
+    if kvs.wal is not None:
+        assert p.result().durability == "commit"
+        kvs.wal.close()
