@@ -69,6 +69,20 @@ prints no result):
    the device op counters must equal the recorded completions.
    checked-mega: ``mega_round=True`` with replica 1 frozen from round 8
    until after the replay scan of round 32, which must take slots.
+   sharded — bench-a on the sharded engine (``backend="sharded"``, one
+   table copy a replica, every replica in this process on a
+   ``LocalGroup``; 8 copies of 2^20+1 rows): the main window's rounds,
+   launches and profile.  sharded-mega: the same with ``mega_round=True``
+   (``mega_replay`` once a copy on a replay-scan round), and
+   ``mega_apply`` at the sharded site (one launch over the flat table)
+   and ``mega_replay`` on one copy's view held against their plain
+   versions on a real round's inputs.  checked-sharded: a healthy drive
+   beside the batched engine (every copy equal to its table after the
+   drain), then a recorded one with replica 1 frozen across the round-32
+   replay scan (the copies must differ), replica 2 removed and re-joined
+   from replica 0: the checker passes, the counters equal the recorded
+   completions, the copies converge.  (A ``DistGroup`` across cards is not
+   run here: one card.)
 7. kvs     — a ``KVS`` at the full key count, value width and session
    count: puts from replica 0 read back from every replica, one RMW.
 8. reads   — the local-read path at the same shape, recorded: 65,536
@@ -78,7 +92,10 @@ prints no result):
    every key served locally; then one key fenced ahead of its row
    (``pin_read_fence``) must go through the round path; the checker and
    ``stale_read`` must pass.  Reads/s and GB/s of the multi-get and the
-   scan on the host clock.
+   scan on the host clock.  reads-sharded: a sharded KVS, 4,096 keys read
+   back through named replicas' copies; a row made to differ in one copy
+   is read by that replica only; replica 0 frozen, replica 1's copy
+   serves.
 9. values  — the value heap at the same shape (``max_value_bytes=1024``,
    the 8 MiB heap the ref layout allows): 32,768 keys put with
    memcached-shaped byte values, all overwritten once, 4,096 keys a
@@ -220,6 +237,40 @@ def cuda_ms(torch, fn, samples=25, inner=10):
         b.synchronize()
         out.append(a.elapsed_time(b) / inner)
     return statistics.median(out)
+
+
+def queued_ms(torch, fn, label, inner=20, spin_cycles=1 << 24):
+    """The device time of a call in ms with the host out of the way: the
+    ``inner`` calls are enqueued behind a spin kernel that outlasts their
+    enqueueing, so they run back to back on the device between two CUDA
+    events.  For wrappers whose host work outlasts their kernel, where
+    ``cuda_ms`` measures the host and the profiler loses records.  None
+    (not measured, said on stderr) if the spin ended before the last call
+    was enqueued, four times over at a spin four times longer each time:
+    a call that waits on the device cannot be queued."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(4):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin_cycles)
+        a.record()
+        for _ in range(inner):
+            fn()
+        b.record()
+        hidden = not a.query()
+        b.synchronize()
+        if hidden:
+            return a.elapsed_time(b) / inner
+        spin_cycles *= 4
+    print("chip_smoke: a call could not be queued behind the spin kernel "
+          f"({label}): queued time not measured",
+          file=sys.stderr)
+    return None
+
+
+def _us(ms):
+    return None if ms is None else ms * 1e3
 
 
 def stats_inputs(torch, R, S, seed):
@@ -731,7 +782,7 @@ def _to(torch, args, dev):
 
 
 def check_kernel(torch, wrapper, plain, args, label, timing_args=None,
-                 library=None):
+                 library=None, trace=True):
     """The kernel against its plain version on the same inputs (on the
     CPU and on the card), bit-exact, and its times: per call on the
     stream (CUDA events) and on the device (torch.profiler, the kernels
@@ -742,7 +793,11 @@ def check_kernel(torch, wrapper, plain, args, label, timing_args=None,
     whose device time is taken the same way.  The call also runs in the
     bound-checked build, where its outputs must again be the
     plain version's and no guard may fire, and times it there (the poison
-    fills of its outputs and the report's pointer copy included)."""
+    fills of its outputs and the report's pointer copy included).  With
+    ``trace=False`` the profiler is not asked (``device_us`` None): the
+    times are the CUDA events' per call on the stream (``call_us``,
+    ``plain_call_us``, ``checked_call_us``) and per call queued behind a
+    spin kernel (``queued_us``, ``plain_queued_us``: ``queued_ms``)."""
     from hermes_tpu_torch.core import dispatch
     from hermes_tpu_torch.profiling import device_per_call, device_split
 
@@ -763,6 +818,23 @@ def check_kernel(torch, wrapper, plain, args, label, timing_args=None,
     dev_args = _to(torch, timing_args or args, "cuda")
     call = lambda: wrapper(*dev_args)
     plain_call = lambda: plain(*dev_args)
+    if not trace:
+        out = dict(exact=True, max_abs_err=err, counted_launches=counted,
+                   call_us=cuda_ms(torch, call) * 1e3, device_us=None,
+                   queued_us=_us(queued_ms(torch, call, label)),
+                   plain_call_us=cuda_ms(torch, plain_call) * 1e3,
+                   plain_queued_us=_us(queued_ms(torch, plain_call,
+                                                     label + " plain")))
+        with dispatch.checked_build() as chk:
+            got = _flat(wrapper(*_to(torch, args, "cuda")))
+            out["checked_call_us"] = cuda_ms(torch, call) * 1e3
+        if not all(torch.equal(g.cpu(), w) for w, g in zip(want, got)):
+            raise AssertionError(f"{label} in the checked build disagrees "
+                                 "with its plain version")
+        if chk.violations:
+            raise AssertionError(f"{label}: the guard fired on inputs in "
+                                 f"bounds: {chk.violations[:2]}")
+        return out
     k_s, k_n, k_ops = device_split(call)
     p_s, p_n = device_per_call(plain_call)
     out = dict(exact=True, max_abs_err=err, counted_launches=counted,
@@ -1189,7 +1261,10 @@ def phase_main(torch, counters, config, FastRuntime, card, mega_round=False,
                profiled_us_per_round=busy["wall_s"] / prof_rounds * 1e6,
                top_device_us_per_round=[
                    [name, us / prof_rounds, cnt / prof_rounds]
-                   for us, cnt, name in busy["top"]])
+                   for us, cnt, name in busy["top"]],
+               top_ops_device_us_per_round=[
+                   [name, us / prof_rounds, cnt / prof_rounds]
+                   for us, cnt, name in busy["top_ops"]])
     if fused is not None:  # the A/B: the fused round's numbers of this call
         out["fused"] = {k: fused[k] for k in (
             "writes_per_s", "us_per_round", "device_us_per_round",
@@ -1283,6 +1358,321 @@ def phase_checked(torch, counters, config, FastRuntime, types,
         raise AssertionError("commit latency bulk is not in bin 0")
 
 
+# --------------------------------------------------------------------------
+# The sharded engine (one table copy a replica, a LocalGroup on the card)
+# --------------------------------------------------------------------------
+
+SHARDED_WARMUP = 4
+SHARDED_PROFILED = 5
+# checked-sharded: replica 1 frozen across the replay scan of round 32,
+# then replica 2 removed and re-joined from replica 0's copy
+SHARDED_FREEZE = (CHECKED_FREEZE_AT, REPLAY_ROUND + 1)
+SHARDED_REMOVE_AT = 36
+SHARDED_JOIN_AT = 40
+SHARDED_ROUNDS = 44
+SHARDED_HEALTHY_ROUNDS = 10  # the sharded and batched drives compared
+SHARDED_READ_KEYS = 4096
+SHARDED_READ_COPY = 5  # the copy whose row of one key is made to differ
+
+
+def sharded_expected_launches(cfg, first, last, copies):
+    """``expected_launches`` of the sharded round: the same but that
+    ``mega_replay`` runs once a local copy on each replay-scan round."""
+    out = expected_launches(cfg, first, last)
+    if "mega_replay" in out:
+        out["mega_replay"] *= copies
+    return out
+
+
+def sharded_runtime(sh, cfg, record=False):
+    return sh.FastRuntime(cfg, backend="sharded", record=record,
+                          group=sh.LocalGroup(sh.device))
+
+
+def sharded_site_inputs(torch, sh, rt):
+    """The arguments of ``mega_apply`` at the sharded site (one launch a
+    round over the flat ``R*(K+1)``-row table: every replica's gathered
+    slots and its replay keys) in the next round of ``rt``, and of
+    ``mega_replay`` on one copy's K-row view (the last local copy) in the
+    next replay-scan round, replica 1 frozen from the apply round on so
+    that the writes waiting on its ack age into the scan, which takes
+    slots."""
+    mega = sh.mega
+    got = {"mega_apply": _kept_args(torch, ((mega, "mega_apply"),),
+                                    lambda: rt.run(1), sh.device)[
+                                        "mega_apply"]}
+    rt.freeze(1)
+    # the first scan round by which a write stalled now is past the age
+    every, first = rt.cfg.replay_scan_every, rt.step_idx + rt.cfg.replay_age + 2
+    rt.run(-(-first // every) * every - rt.step_idx)
+    got["mega_replay"] = _kept_args(torch, ((mega, "mega_replay"),),
+                                    lambda: rt.run(1), sh.device)[
+                                        "mega_replay"]
+    return got
+
+
+def sharded_site_rows(torch, sh, rt):
+    """``mega_apply`` at the sharded site and ``mega_replay`` on a copy's
+    view, on the inputs of real bench-a-mega rounds of the sharded engine,
+    against their plain versions (``check_kernel``: CUDA-event times, on
+    the stream and queued behind a spin kernel) with their bounds."""
+    mega = sh.mega
+    rows = {}
+    for name, args in sharded_site_inputs(torch, sh, rt).items():
+        timing = None
+        if name == "mega_replay":  # a call's marks leave the stuck set
+            timing = [dataclasses.replace(args[0], replay_age=-1),
+                      *args[1:]]
+        info = round_info(torch, sh.port, name, args)
+        if name == "mega_apply":
+            _cfg, vpts, keys, _pts, _mask = args
+            N, rows_k = keys.numel(), vpts.shape[0]
+            info.update(bound(N * (4 + 4 + 1) + 2 * 4 * rows_k + 4 * N,
+                              6 * N))
+        else:
+            # replay_case's bytes: every row's sst word, the slots read
+            # and written, the timed calls' candidates
+            _cfg, _step, _frozen, vpts, bank, replay = args
+            rows_k, V = bank.shape[0], (bank.shape[1] - 8) // 4
+            R, RS = replay.active.shape
+            if info["slots_taken"] == 0:
+                raise AssertionError("mega_replay on the copy's view took "
+                                     "no slot")
+            n_cand = min(info["stuck_rows_timed"], RS)
+            info.update(bound(4 * rows_k + 2 * R * RS * (17 + 4 * V)
+                              + n_cand * (8 + 4 * V) + R + 4, 8 * rows_k))
+        # timed with CUDA events alone, the calls also queued behind a
+        # spin kernel: torch.profiler dropped 2 of every 20 mega_apply
+        # launches and 3 of every 20 mega_replay launches at these shapes
+        rows[name] = dict(info, **sh.check_kernel(
+            torch, getattr(mega, name), getattr(mega, name + "_plain"),
+            args, name, timing, trace=False))
+    return rows
+
+
+def phase_sharded(torch, counters, sh, card, mega_round=False):
+    """bench-a (``mega_round``: bench-a-mega) on the sharded engine at
+    full width, every replica in this process on a ``LocalGroup``: the
+    4 warm-up and 60 timed rounds of ``main``, each kernel's launches over
+    the timed window against the rounds (``mega_replay`` once a copy on a
+    replay-scan round), a profiled window.  With ``mega_round`` also
+    ``mega_apply`` at the sharded site and ``mega_replay`` on a copy's
+    view held against their plain versions.  Returns (numbers, the
+    kernel-site rows)."""
+    cfg = sh.cfg(mega_round=mega_round)
+    sh.reset_peak_memory()
+    rt = sharded_runtime(sh, cfg)
+    rt.fetch_completions = False  # throughput drive: counters only
+    rt.run(SHARDED_WARMUP)
+    first = rt.step_idx
+    for w in counters.values():
+        w.launches = 0
+    wall, commits, d = timed_window(torch, rt, sh.rounds)
+    launches = {name: w.launches for name, w in counters.items()}
+    want = sharded_expected_launches(cfg, first, rt.step_idx, rt.n_copies)
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"kernel launches {launches} in {sh.rounds} "
+                             f"sharded rounds, want {want}")
+    busy = sh.device_busy(lambda: rt.run(SHARDED_PROFILED))
+    n = SHARDED_PROFILED
+    out = {"phase": "sharded-mega" if mega_round else "sharded",
+           "card": card, "copies": rt.n_copies, "rounds": sh.rounds,
+           "writes_per_s": commits / wall,
+           "us_per_round": wall / sh.rounds * 1e6, "commits": commits,
+           "launches": {k: launches[k] for k in want},
+           "rounds_timed": rt.step_idx - first - n,
+           "reads": d["n_read"], "aborts": d["n_abort"],
+           "profiled_rounds": n,
+           "device_busy_share": busy["busy_s"] / busy["wall_s"],
+           "device_us_per_round": busy["busy_s"] / n * 1e6,
+           "cuda_kernels_per_round": busy["launches"] / n,
+           "profiled_us_per_round": busy["wall_s"] / n * 1e6,
+           "top_device_us_per_round": [[name, us / n, cnt / n]
+                                       for us, cnt, name in busy["top"]],
+           "top_ops_device_us_per_round": [
+               [name, us / n, cnt / n] for us, cnt, name in busy["top_ops"]],
+           "peak_memory_bytes": sh.peak_memory()}
+    sites = sharded_site_rows(torch, sh, rt) if mega_round else {}
+    if sites:
+        out["sites"] = sites
+    emit(out)
+    if commits <= 0:
+        raise AssertionError("the sharded path committed nothing")
+    del rt
+    return out, sites
+
+
+def _bank_equal_but_steps(torch, sh, bank):
+    """Every copy's key rows equal to copy 0's in all but the sst step
+    (the join re-stamps the rows it transfers and a replay mark stamps
+    its own round): pts, state and value bytes."""
+    K = sh.cfg().n_keys
+    rows = sh.fst.copies(bank, K)
+    sst = sh.fst._bank_to_i32(rows[..., 4:8])[..., 0]
+    return (torch.equal(rows[..., 0:4], rows[:1, :, 0:4].expand_as(
+        rows[..., 0:4])) and torch.equal(rows[..., 8:], rows[:1, :, 8:]
+                                         .expand_as(rows[..., 8:]))
+            and torch.equal(sst & 7, (sst[:1] & 7).expand_as(sst)))
+
+
+def phase_checked_sharded(torch, counters, sh, types):
+    """The sharded engine at full width and a smaller depth.  (1) Healthy:
+    ``SHARDED_HEALTHY_ROUNDS`` rounds and a quiesce drain beside the
+    batched engine on the same stream: every copy equals the batched
+    table byte for byte.  (2) Recorded (``record="array"``): replica 1
+    frozen across the replay scan of round 32 (the copies must differ
+    then: the scan re-stamps stuck keys REPLAY in every copy but the
+    frozen one's), then replica 2 removed and re-joined from replica 0's
+    copy, then a quiesce drain: the checker passes, the device op
+    counters equal the recorded completions, every key is VALID and
+    every copy equal to copy 0 but for sst steps; each kernel's launches
+    equal the rounds as declared."""
+    cfg = sh.cfg()
+    K = cfg.n_keys
+
+    def drain(rt):
+        rt.quiesce = True
+        n = 0
+        while rt._inflight_count() and n < 256:
+            rt.step_once()
+            n += 1
+        rt.quiesce = False
+        rt.flush_pipeline()
+        return n
+
+    a = sh.FastRuntime(cfg, device=sh.device)
+    b = sharded_runtime(sh, cfg)
+    for rt in (a, b):
+        rt.fetch_completions = False
+        rt.run(SHARDED_HEALTHY_ROUNDS)
+        drain(rt)
+    healthy = (all(torch.equal(c, a.fs.table.bank[:K])
+                   for c in sh.fst.copies(b.fs.table.bank, K))
+               and all(torch.equal(c, a.fs.table.vpts[:K])
+                       for c in sh.fst.copies(b.fs.table.vpts, K)))
+    healthy_rounds = (a.step_idx, b.step_idx)
+    del a, b
+    rt = sharded_runtime(sh, cfg, record="array")
+    for w in counters.values():
+        w.launches = 0
+    differed = None
+    for s in range(SHARDED_ROUNDS):
+        if s == SHARDED_FREEZE[0]:
+            rt.freeze(1)
+        if s == SHARDED_FREEZE[1]:
+            rt.thaw(1)
+        if s == SHARDED_REMOVE_AT:
+            rt.remove(2)
+        if s == SHARDED_JOIN_AT:
+            rt.join(2, 0)
+        rt.step_once()
+        if s == REPLAY_ROUND:
+            bank = sh.fst.copies(rt.fs.table.bank, K)
+            differed = [int((~(c == bank[0]).all(dim=1)).sum())
+                        for c in bank]
+    drained = drain(rt)
+    launches = {name: w.launches for name, w in counters.items()}
+    want = sharded_expected_launches(cfg, 0, rt.step_idx, rt.n_copies)
+    c = rt.counters()
+    device_ops = int(c["n_read"] + c["n_write"] + c["n_rmw"] + c["n_abort"])
+    recorded = rt.recorder.n_recorded
+    rows = sh.fst.copies(rt.fs.table.bank, K)
+    valid = bool(((sh.fst._bank_to_i32(rows[..., 4:8])[..., 0] & 7)
+                  == types.VALID).all())
+    converged = _bank_equal_but_steps(torch, sh, rt.fs.table.bank) and all(
+        torch.equal(v, sh.fst.copies(rt.fs.table.vpts, K)[0])
+        for v in sh.fst.copies(rt.fs.table.vpts, K))
+    replay_peak = int(rt.fs.meta.replay_peak.max())
+    t0 = time.perf_counter()
+    v = rt.check()
+    check_s = time.perf_counter() - t0
+    emit({"phase": "checked-sharded", "copies": rt.n_copies,
+          "healthy_rounds": healthy_rounds,
+          "healthy_copies_equal_batched": healthy,
+          "rounds": SHARDED_ROUNDS, "frozen_rounds": SHARDED_FREEZE,
+          "removed_at": SHARDED_REMOVE_AT, "joined_at": SHARDED_JOIN_AT,
+          "rows_differing_from_copy0_at_replay_scan": differed,
+          "drain_rounds": drained,
+          "launches": {k: launches[k] for k in want},
+          "replay_peak": replay_peak, "inflight_left": rt._inflight_count(),
+          "device_ops": device_ops, "recorded_ops": recorded,
+          "all_keys_valid": valid, "copies_converged": converged,
+          "check_ok": v.ok, "keys_checked": v.keys_checked,
+          "check_s": check_s})
+    if not healthy:
+        raise AssertionError("after a healthy drain a copy differs from the "
+                             "batched engine's table")
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"kernel launches {launches} in the "
+                             f"checked-sharded run, want {want}")
+    if not differed or not any(differed):
+        raise AssertionError("the copies did not differ in the frozen "
+                             "window")
+    if not v.ok:
+        raise AssertionError(f"linearizability check failed: "
+                             f"{[f.reason[:200] for f in v.failures[:3]]}")
+    if rt._inflight_count() or not valid or not converged:
+        raise AssertionError("the drained copies did not converge to "
+                             "all-VALID and equal")
+    if device_ops != recorded:
+        raise AssertionError(f"device op counters {device_ops} != recorded "
+                             f"completions {recorded}")
+    if replay_peak == 0:
+        raise AssertionError("the replay scan took no slot in the frozen "
+                             "window")
+
+
+def sharded_reads(torch, np, kernels, types, KVS, sh):
+    """The read path on the sharded layout at the bench shape: keys put,
+    then read back through named replicas' copies (``LocalReader``,
+    ``replica=``); one copy's row of one key made to differ must be read
+    by that replica only; with replica 0 frozen the KVS serves from
+    replica 1's copy, and a frozen replica named serves nothing."""
+    cfg = _kvs_cfg(sh.config)
+    kvs = KVS(cfg, backend="sharded", device=sh.device)
+    kernels.stats_block.launches = 0
+    K, n, u = cfg.n_keys, SHARDED_READ_KEYS, cfg.value_words - 2
+    rng = np.random.default_rng(READS_SEED + 1)
+    keys = rng.choice(K, n, replace=False).astype(np.int64)
+    vals = rng.integers(-(1 << 30), 1 << 30, (n, u)).astype(np.int32)
+    bf = kvs.submit_batch(np.full(n, KVS.PUT, np.int32), keys, vals)
+    if not kvs.run_batch(bf, 64) or not (bf.code == types.C_WRITE).all():
+        raise AssertionError("sharded reads: the puts did not all commit")
+    reader = kvs._get_reader()
+    served = {}
+    for r in (0, 3, cfg.n_replicas - 1):
+        ans, dt = _timed(torch, lambda: reader.multi_get(keys, replica=r))
+        if not ans.valid.all() or (ans.val[:, 2:] != vals).any():
+            raise AssertionError(f"replica {r}'s copy read back wrong")
+        served[r] = dt
+    # one copy's row of keys[0] differs: only its replica reads it
+    k0, c = int(keys[0]), SHARDED_READ_COPY
+    other = torch.tensor([[1 << 10, types.VALID, k0, -1, 5, 6, 7, 8, 9, 10]],
+                         dtype=torch.int32)[:, :2 + cfg.value_words]
+    row = sh.fst._i32_to_bank(other)[0].to(sh.device)
+    sh.fst.copies(kvs.rt.fs.table.bank, K)[c, k0] = row
+    got_c = reader.multi_get([k0], replica=c).val[0]
+    got_3 = reader.multi_get([k0], replica=3).val[0]
+    if got_c.tolist() != other[0, 2:].tolist() or (got_3[2:] != vals[0]).any():
+        raise AssertionError(f"the differing copy was not read by its own "
+                             f"replica only: {got_c}, {got_3}")
+    kvs.freeze(0)
+    res = kvs.multi_get(keys[1:])
+    if (not res.all_done() or not res.local.all()
+            or (res.value != vals[1:]).any()):
+        raise AssertionError("with replica 0 frozen the KVS did not serve "
+                             "locally from replica 1's copy")
+    if reader.multi_get(keys[:1], replica=0) is not None:
+        raise AssertionError("a frozen replica served a local read")
+    out = {"keys_put": n, "replicas_read": sorted(served),
+           "multi_get_dispatch_s": served, "differing_copy": c,
+           "rounds": kvs.rt.step_idx,
+           "stats_block_launches": kernels.stats_block.launches}
+    if kernels.stats_block.launches != kvs.rt.step_idx:
+        raise AssertionError("stats_block launches != sharded KVS rounds")
+    return out
+
+
 def phase_kvs(torch, kernels, config, KVS):
     cfg = config.bench_cfg("a", over=dict(device_stream=False, read_unroll=1))
     kvs = KVS(cfg, device="cuda")
@@ -1333,8 +1723,11 @@ def _timed(torch, fn):
     return out, time.perf_counter() - t0
 
 
-def phase_reads(torch, np, kernels, types, config, KVS, lin, card):
-    """The local-read path at the bench shape, recorded and checked."""
+def phase_reads(torch, np, kernels, types, config, KVS, lin, card,
+                sh=None):
+    """The local-read path at the bench shape, recorded and checked; with
+    ``sh`` then on the sharded layout through named replicas' copies
+    (``sharded_reads``, its own line)."""
     cfg = _kvs_cfg(config)
     kvs = KVS(cfg, record="array", device="cuda")
     kernels.stats_block.launches = 0
@@ -1400,6 +1793,10 @@ def phase_reads(torch, np, kernels, types, config, KVS, lin, card):
         raise AssertionError(f"checker {v.ok}, stale reads {stale[:2]}")
     if kernels.stats_block.launches != kvs.rt.step_idx:
         raise AssertionError("stats_block launches != KVS rounds")
+    if sh is not None:
+        del kvs, reader
+        emit(dict({"phase": "reads-sharded", "nvidia_smi": card},
+                  **sharded_reads(torch, np, kernels, types, KVS, sh)))
 
 
 def phase_values(torch, np, kernels, types, config, KVS, layouts, ycsb,
@@ -1798,6 +2195,8 @@ def main(argv=None):
         from hermes_tpu_torch.workload import ycsb
         from hermes_tpu_torch.kvs import KVS
         from hermes_tpu_torch.runtime import FastRuntime
+        from hermes_tpu_torch.core.group import LocalGroup
+        from hermes_tpu_torch.profiling import device_busy
         from hermes_tpu_torch import snapshot
         from hermes_tpu_torch.chaos import recover_store, restart_replica
         from hermes_tpu_torch.obs import (Observability,
@@ -1854,8 +2253,38 @@ def main(argv=None):
         phase_checked(torch, counters, config, FastRuntime, types)
         phase_checked(torch, counters, config, FastRuntime, types,
                       mega_round=True)
+        torch.cuda.empty_cache()
+        sh = SimpleNamespace(
+            cfg=lambda mega_round=False: config.bench_cfg(
+                "a", over=dict(mega_round=mega_round)),
+            config=config, FastRuntime=FastRuntime, LocalGroup=LocalGroup,
+            device="cuda", mega=mega, fst=fst, port=port,
+            rounds=MAIN_ROUNDS, device_busy=device_busy,
+            check_kernel=check_kernel,
+            reset_peak_memory=torch.cuda.reset_peak_memory_stats,
+            peak_memory=torch.cuda.max_memory_allocated)
+        sharded, _ = phase_sharded(torch, counters, sh, card)
+        sharded_mega, sites = phase_sharded(torch, counters, sh, card,
+                                            mega_round=True)
+        for name, row in rows.items():
+            if name in counters:
+                row["sharded_launches"] = (
+                    sharded if name == "stats_block"
+                    else sharded_mega)["launches"][name]
+            if name in sites:
+                site = sites[name]
+                tag = ("sharded_site" if name == "mega_apply"
+                       else "sharded_copy")
+                row.update({f"{tag}_ms": site["call_us"] / 1e3,
+                            f"{tag}_queued_ms": site["queued_us"] and
+                            site["queued_us"] / 1e3,
+                            f"{tag}_plain_ms": site["plain_call_us"] / 1e3,
+                            f"{tag}_bound_ms": site["bound_us"] / 1e3})
+                row["max_abs_err"] = max(row["max_abs_err"],
+                                         site["max_abs_err"])
+        phase_checked_sharded(torch, counters, sh, types)
         phase_kvs(torch, kernels, config, KVS)
-        phase_reads(torch, np, kernels, types, config, KVS, lin, card)
+        phase_reads(torch, np, kernels, types, config, KVS, lin, card, sh)
         phase_values(torch, np, kernels, types, config, KVS, layouts, ycsb,
                      card)
         store = SimpleNamespace(

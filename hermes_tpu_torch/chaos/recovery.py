@@ -12,11 +12,14 @@
   2. **Fence + remove.** A crashed replica must not serve reads.
   3. **Restore.** With ``snapshot_path`` the archive is verified first (a
      torn or foreign snapshot is refused on the timeline and recovery
-     falls back to peer transfer); the batched table is shared and
+     falls back to peer transfer).  The batched table is shared and
      survives the crash, so every row of a verified snapshot counts as
-     current.
-  4. **Rejoin.** ``join(replica, donor)``; with ``wal_dir`` the log's
-     tail is replayed idempotently after it.
+     current; on the sharded engine the rows of the replica's archived
+     copy whose packed ts equals the donor's count.
+  4. **Rejoin.** ``join(replica, donor)`` (sharded: the donor's copy is
+     transferred into the rejoined one); with ``wal_dir`` the log's tail
+     is replayed idempotently after it, into the rejoined copy only on
+     the sharded engine.
 
 ``recover_store`` brings a whole killed store back from its WAL (and
 optionally a snapshot) with zero committed writes lost.  ``wipe_volatile``
@@ -86,18 +89,26 @@ def _wipe_replica_volatile(rt, replica: int) -> int:
     return wipe_volatile(rt, sess_mask, replay_mask)
 
 
-def _snapshot_rows_current(rt, replica: int,
+def _snapshot_rows_current(rt, replica: int, donor: int,
                            snapshot_path: str) -> Optional[int]:
     """FULLY verify the snapshot (manifest, every array checksum, config
     fingerprint) and count its rows still current for ``replica``.  The
-    port's table is the batched one, shared by every replica (K rows plus
-    the drop row, which is not a replica's copy): it survives the crash,
-    so every row of a verified snapshot is current.  Returns None — with
-    a ``snapshot_rejected`` timeline event — when the snapshot cannot be
-    trusted."""
+    batched table is shared by every replica and survives the crash, so
+    every row of a verified snapshot is current; on the sharded engine a
+    row of the replica's archived copy is current when its packed ts
+    equals the donor's (same ts, byte-identical row).  Returns None —
+    with a ``snapshot_rejected`` timeline event — when the snapshot
+    cannot be trusted."""
     try:
         snapshot_lib.verify_archive(snapshot_path, rt.cfg)
-        return rt.cfg.n_keys
+        K = rt.cfg.n_keys
+        if rt.backend == "batched":
+            return K
+        with np.load(snapshot_path) as z:
+            snap = np.asarray(
+                z["state.table.vpts"])[replica * K:(replica + 1) * K]
+        donor_rows = rt.copy_of(donor)[0].cpu().numpy()
+        return int((snap == donor_rows).sum())
     except (ValueError, OSError, KeyError, zipfile.BadZipFile) as e:
         rt._trace("snapshot_rejected", replica=replica,
                   path=str(snapshot_path), reason=str(e)[:160])
@@ -150,7 +161,8 @@ def restart_replica(target, replica: int, donor: Optional[int] = None,
     # 3. restore source: a verified snapshot, else peer transfer
     rows_current = None
     if snapshot_path is not None:
-        rows_current = _snapshot_rows_current(rt, replica, snapshot_path)
+        rows_current = _snapshot_rows_current(rt, replica, donor,
+                                              snapshot_path)
     source = "snapshot" if rows_current is not None else "transfer"
 
     # 4. rejoin; the live coordinator / replay scan re-validates
@@ -164,7 +176,8 @@ def restart_replica(target, replica: int, donor: Optional[int] = None,
         scan = wal_replay.read_records(wal_dir, obs=rt.obs)
         wal_replay.check_headers(scan["headers"], cfg, obs=rt.obs)
         wal_applied, wal_skipped = wal_replay.apply_records(
-            rt, scan["records"], heap=getattr(kvs, "heap", None))
+            rt, scan["records"], heap=getattr(kvs, "heap", None),
+            replicas=[replica])
 
     summary = dict(replica=replica, donor=donor, source=source,
                    lost_ops=lost_ops, lost_client_futures=lost_client,

@@ -1,8 +1,9 @@
-"""CLI: run a replicated-KVS workload on the port's batched fast engine.
+"""CLI: run a replicated-KVS workload on the port's fast engine.
 
     python -m hermes_tpu_torch --replicas 8 --keys $((1<<20)) \\
         --sessions 1024 --arb-mode sort --chain-writes 128 --check
     python -m hermes_tpu_torch --arb-mode sort --mega-round --check
+    python -m hermes_tpu_torch --backend fast-sharded --replicas 8 --check
     python -m hermes_tpu_torch --value-words 6 --reads 20000 --check
     python -m hermes_tpu_torch --value-words 3 --value-bytes 1024 --check
     python -m hermes_tpu_torch --steps 400 --report-every 50 \\
@@ -18,8 +19,11 @@ reference's two client drives through ``kvs.KVS``; each prints one JSON
 summary line.  ``--metrics-out`` writes the obs run log of the fast
 drive (interval records every ``--report-every`` steps, the fault events
 of ``--freeze`` windows, spans, the summary with its histograms and the
-registry), which ``python -m hermes_tpu_torch.obs.report`` renders.  The
-run is on the card unless ``--device cpu`` is given.
+registry), which ``python -m hermes_tpu_torch.obs.report`` renders.
+``--backend fast-sharded`` runs the three drives on the sharded engine
+(one table copy a replica, every replica in this process: a
+``LocalGroup``).  The run is on the card unless ``--device cpu`` is
+given.
 """
 
 from __future__ import annotations
@@ -42,6 +46,11 @@ VALUES_UTIL_FLOOR = 0.75
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="hermes_tpu_torch", description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
+    ap.add_argument("--backend", choices=["fast", "fast-sharded"],
+                    default="fast",
+                    help="fast: the batched engine (one shared table); "
+                         "fast-sharded: one table copy a replica, real "
+                         "INV/ACK/VAL exchange")
     ap.add_argument("--replicas", type=int, default=3)
     ap.add_argument("--keys", type=int, default=1 << 16)
     ap.add_argument("--value-words", type=int, default=2)
@@ -110,6 +119,10 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _backend(args) -> str:
+    return "batched" if args.backend == "fast" else "sharded"
+
+
 def _run_values(args, cfg) -> int:
     """The value-heap drive: N byte puts of memcached-shaped sizes, one
     batched read-back and one compaction; one JSON line.  ``--check``
@@ -125,7 +138,8 @@ def _run_values(args, cfg) -> int:
 
     cfg = dataclasses.replace(cfg, max_value_bytes=args.value_bytes,
                               heap_bytes=min(layouts.MAX_HEAP_BYTES, 1 << 22))
-    kvs = KVS(cfg, record=default_record(args.check), device=args.device)
+    kvs = KVS(cfg, backend=_backend(args), record=default_record(args.check),
+              device=args.device)
     n = args.values_ops
     rng = np.random.default_rng(args.seed)
     lens = value_sizes(dict(n=n, max_bytes=args.value_bytes), args.seed)
@@ -192,7 +206,8 @@ def _run_reads(args, cfg) -> int:
     from hermes_tpu_torch.kvs import KVS
     from hermes_tpu_torch.workload.openloop import MixSpec, make_mix
 
-    kvs = KVS(cfg, record=default_record(args.check), device=args.device)
+    kvs = KVS(cfg, backend=_backend(args), record=default_record(args.check),
+              device=args.device)
     dist = "latest" if args.read_latest else cfg.workload.distribution
     spec = MixSpec(name=dist, distribution=dist,
                    zipf_theta=cfg.workload.zipf_theta,
@@ -329,8 +344,8 @@ def main(argv=None) -> int:
     if args.value_bytes is not None:
         return _run_values(args, cfg)
     faults = _freeze_faults(ap, args)
-    rt = FastRuntime(cfg, record=default_record(args.check),
-                     device=args.device)
+    rt = FastRuntime(cfg, backend=_backend(args),
+                     record=default_record(args.check), device=args.device)
     obs = None
     if args.metrics_out:
         from hermes_tpu_torch.obs import Observability

@@ -1,13 +1,24 @@
-"""The batched fast engine — one Hermes protocol round in PyTorch.
+"""The fast engine — one Hermes protocol round in PyTorch.
 
-Port of ``hermes_tpu/core/faststep.py``'s batched parts: the round
-(coordinate -> INV -> apply_inv -> ACK -> collect_acks -> VAL) over a
-packed key-state table shared by the R replicas of one device, with
-packed Lamport timestamps arbitrated by one scatter-max, lane compaction
-with rebroadcast backoff, and the gated stuck-key replay scan.  The
-module docstring and comments of the reference explain the protocol and
-the packing; this file keeps its names and layout so the two read side by
-side, and notes only where PyTorch needs something the reference did not.
+Port of ``hermes_tpu/core/faststep.py``: the round (coordinate -> INV ->
+apply_inv -> ACK -> collect_acks -> VAL) with packed Lamport timestamps
+arbitrated by one scatter-max, lane compaction with rebroadcast backoff,
+and the gated stuck-key replay scan, in both of the reference's engines:
+
+* batched (``fast_round_batched``): one packed key-state table shared by
+  the R replicas of one device, the ACK bitmap derived from the shared
+  verdicts;
+* sharded (``fast_round_sharded``): one table copy a replica, the INV
+  blocks compacted into wire slots and gathered, each replica
+  arbitrating them against its own copy, the ACK verdicts routed back
+  and matched, the VAL bits gathered — the reference's shard body run
+  over a leading axis of local replicas, its collectives those of a
+  replica group (``core/group.py``).
+
+The module docstring and comments of the reference explain the protocol
+and the packing; this file keeps its names and layout so the two read
+side by side, and notes only where PyTorch needs something the reference
+did not.
 
 Where PyTorch differs from JAX (each checked against the reference by
 tests/test_torch_faststep.py, round by round, bit for bit):
@@ -21,7 +32,11 @@ tests/test_torch_faststep.py, round by round, bit for bit):
   out-of-range index with ``mode="drop"``; torch index ops raise on that.
   The table therefore carries ONE extra trailing row, the drop row (row
   K of ``vpts`` and ``bank``): masked rows scatter there, and nothing
-  reads it.  Scratch scatter targets get the same extra slot.
+  reads it.  Each sharded copy has its own (row ``r*(K+1)+K``), so a
+  copy is exactly a batched table; an untrusted wire key at or above K
+  is masked out of the scatters (never offset into the next copy) and
+  clamped to K-1 of its own copy for the reads.  Scratch scatter targets
+  get the same extra slot.
 * **Stable sorts.**  ``lax.sort(..., num_keys=1)`` is stable, which gives
   lowest-session-wins; ``torch.sort(stable=True)`` on the key, with the
   other operands gathered through the permutation, is the same.
@@ -40,9 +55,11 @@ tests/test_torch_faststep.py, round by round, bit for bit):
 The kernels on this path: ``kernels.stats_block`` (once per round, in
 ``_collect_acks``) and, with ``cfg.use_mega_round``, the three mega-round
 kernels of ``core/megaround.py`` at the reference's three sites —
-``mega_replay`` for the gated replay scan, ``mega_route`` for the fused
-sort's route-back scatter, ``mega_apply`` for the arbiter scatter-max and
-the verdict gather of ``_derived_acks``.  ``jax.jit`` has no counterpart —
+``mega_replay`` for the gated replay scan (sharded: once a copy, on its
+K-row view), ``mega_route`` for the fused sort's route-back scatter,
+``mega_apply`` for the arbiter scatter-max and the verdict gather of
+``_derived_acks`` (sharded: ``_apply_inv``'s, one launch over the flat
+table of every copy).  ``jax.jit`` has no counterpart —
 the round runs eagerly — and ``lax.scan`` in ``build_fast_scan`` is a
 Python loop.
 """
@@ -82,6 +99,10 @@ FUSED_BAND_SHIFT = layouts.FUSED_KEY.field("band").shift
 LANE_CHAIN_MASK = layouts.LANE_WORD.field("chain_rank").mask
 LANE_ISSUE_SHIFT = layouts.LANE_WORD.field("issue").shift
 LANE_TAKEN_SHIFT = layouts.LANE_WORD.field("taken").shift
+
+ACK_KEY_SHIFT = layouts.ACK_PKF.field("key").shift
+ACK_OK_MASK = layouts.ACK_PKF.field("ok").mask
+ACK_VALID_MASK = layouts.ACK_PKF.field("valid").mask
 
 META_EPOCH_SHIFT = layouts.BLOCK_META.field("epoch").shift
 META_ALIVE_MASK = layouts.BLOCK_META.field("alive").mask
@@ -134,14 +155,22 @@ def _rotated(idx, step, n: int):
 
 
 class FastTable(NamedTuple):
-    """Key-state table shared by the replicas of the device:
+    """Key-state table.  The batched engine holds ONE copy, shared by the
+    replicas of the device:
 
       ``vpts`` (K+1,) int32 — max applied packed ts (the Lamport arbiter);
       ``bank`` (K+1, 4*(2+V)) int8 — the bytes of [pts | sst | val words].
 
     Row K of both is the drop row (see the module docstring): it absorbs
-    masked scatters and is never read.  Both arrays are updated in place
-    by the round."""
+    masked scatters and is never read.  The sharded engine holds one copy
+    a local replica, each with its own drop row: ``vpts``
+    ``(n*(K+1),)``, ``bank`` ``(n*(K+1), 4*(2+V))``, replica r's copy the
+    rows ``[r*(K+1), (r+1)*(K+1))`` — exactly a batched table, so a
+    function written for one table runs unchanged on the view.  The
+    layout is never inferred from the shapes: the runtime carries it
+    (``FastRuntime.backend``), and ``copies`` views either layout as
+    ``(n, K, ...)``.  The properties below read the batched layout.  Both
+    arrays are updated in place by the round."""
 
     vpts: torch.Tensor
     bank: torch.Tensor
@@ -210,8 +239,9 @@ class FastInv(NamedTuple):
     """Compacted INV block as one byte tensor ``rows8`` (..., C, 8+4V)
     holding the bytes of [pkf | pts | val] per slot, plus the per-block
     ``meta`` word (epoch << 1) | alive.  The batched round never builds
-    it (it applies straight from the lane block); ``_apply_inv_arb``
-    takes one, as the sharded engine will."""
+    it (it applies straight from the lane block); the sharded round
+    compacts one a replica (``_compact_out_inv``) and gathers them into
+    the source-shaped block ``_apply_inv`` takes."""
 
     rows8: torch.Tensor
     meta: torch.Tensor
@@ -266,14 +296,27 @@ class FastState(NamedTuple):
     meta: st.Meta
 
 
-def init_fast_state(cfg: HermesConfig, device: torch.device) -> FastState:
+def copies(x, n_keys: int):
+    """A table column of either layout, ``(n*(K+1), ...)``, as the view
+    ``(n, K, ...)`` of each copy's key rows (the drop rows left out)."""
+    return x.view((-1, n_keys + 1) + tuple(x.shape[1:]))[:, :n_keys]
+
+
+def init_fast_state(cfg: HermesConfig, device: torch.device,
+                    n_copies=None) -> FastState:
     """Fresh replicated state on ``device``: all keys Valid at version 0
-    with the recognizable initial value (lo=key, hi=-1)."""
-    r, k, s, rs, v = (cfg.n_replicas, cfg.n_keys, cfg.n_sessions,
-                      cfg.replay_slots, cfg.value_words)
-    rows32 = torch.zeros((k + 1, 2 + v), dtype=I32, device=device)
-    rows32[:k, BANK_VAL] = torch.arange(k, dtype=I32, device=device)
-    rows32[:k, BANK_VAL + 1] = -1
+    with the recognizable initial value (lo=key, hi=-1).  ``n_copies``
+    None: the batched layout (one shared table, R replicas); n: the
+    sharded layout of n local replicas, one table copy each (the
+    reference's ``n_local``)."""
+    k, s, rs, v = (cfg.n_keys, cfg.n_sessions, cfg.replay_slots,
+                   cfg.value_words)
+    r = cfg.n_replicas if n_copies is None else n_copies
+    nv = 1 if n_copies is None else n_copies
+    rows32 = torch.zeros((nv, k + 1, 2 + v), dtype=I32, device=device)
+    rows32[:, :k, BANK_VAL] = torch.arange(k, dtype=I32, device=device)
+    rows32[:, :k, BANK_VAL + 1] = -1
+    rows32 = rows32.reshape(nv * (k + 1), 2 + v)
 
     def z(*sh):
         return torch.zeros(sh, dtype=I32, device=device)
@@ -282,7 +325,7 @@ def init_fast_state(cfg: HermesConfig, device: torch.device) -> FastState:
         return torch.zeros(sh, dtype=torch.int8, device=device)
 
     return FastState(
-        table=FastTable(vpts=z(k + 1), bank=_i32_to_bank(rows32)),
+        table=FastTable(vpts=z(nv * (k + 1)), bank=_i32_to_bank(rows32)),
         sess=FastSess(
             status=z(r, s), op=z(r, s), op_idx=z(r, s), key=z(r, s),
             val=z8(r, s, 4 * v), pts=z(r, s), acks=z(r, s),
@@ -293,7 +336,7 @@ def init_fast_state(cfg: HermesConfig, device: torch.device) -> FastState:
             active=torch.zeros((r, rs), dtype=torch.bool, device=device),
             key=z(r, rs), pts=z(r, rs), val=z8(r, rs, 4 * v), acks=z(r, rs),
         ),
-        meta=st.init_meta(cfg, device),
+        meta=st.init_meta(cfg, device, n_rows=r),
     )
 
 
@@ -374,17 +417,26 @@ def _write_value(cfg: HermesConfig, my_cid, op_idx):
     return torch.stack(words, dim=-1)
 
 
+def _rows(key, base):
+    """Table row of ``key`` in each replica's copy: the key itself in the
+    batched layout (``base`` None), ``base + key`` in the sharded one
+    (``base`` the (R, 1) first rows of the local copies)."""
+    return (key if base is None else key + base).long()
+
+
 def _replay_scan(cfg: HermesConfig, ctl: FastCtl, table: FastTable,
-                 replay: FastReplay):
+                 replay: FastReplay, base=None):
     """The stuck-key replay scan (the reference's ``do_scan``): candidate
     stuck rows in ascending row order, each replica's i-th free slot takes
-    the i-th candidate, and taken rows are re-stamped REPLAY in the shared
-    table (in place)."""
+    the i-th candidate, and taken rows are re-stamped REPLAY (in place).
+    Batched: one scan of the shared table; sharded (``base``): each
+    replica scans its own copy."""
     K, RS = cfg.n_keys, cfg.replay_slots
     R = replay.active.shape[0]
     step, bank = ctl.step, table.bank
     dev = bank.device
-    sstK = _bank_to_i32(bank[:K, 4 * BANK_SST: 4 * BANK_SST + 4])[:, 0]
+    sstK = _bank_to_i32(copies(bank, K)[..., 4 * BANK_SST:
+                                        4 * BANK_SST + 4])[..., 0]  # (n, K)
     age = step - sst_step(sstK)
     state = sst_state(sstK)
     stuck = ((state == t.INVALID) | (state == t.TRANS)
@@ -393,11 +445,11 @@ def _replay_scan(cfg: HermesConfig, ctl: FastCtl, table: FastTable,
     score = torch.where(stuck, -kiota, I32_MIN)
     # top_k VALUES: stuck rows score -row (distinct), the rest I32_MIN, so
     # the value list is the same whatever order ties come out in
-    top = torch.topk(score, RS).values
+    top = torch.topk(score, RS, dim=1).values
     cand_ok1 = top != I32_MIN
     cand1 = torch.remainder(torch.where(cand_ok1, -top, 0), K)
-    cand_ok = cand_ok1[None].expand(R, RS) & ~ctl.frozen[:, None]
-    cand = cand1[None].expand(R, RS)
+    cand_ok = cand_ok1.expand(R, RS) & ~ctl.frozen[:, None]
+    cand = cand1.expand(R, RS)
     free = ~replay.active
     free_rank = torch.cumsum(free.to(I32), dim=1, dtype=I32) - 1
     take = torch.where(free, free_rank, RS)
@@ -408,12 +460,13 @@ def _replay_scan(cfg: HermesConfig, ctl: FastCtl, table: FastTable,
                          dim=1)
     take_ok = (take < RS) & torch.gather(pad_ok, 1, tk)
     ck = torch.gather(pad_cand, 1, tk)
-    ckrow8 = bank[ck.long()]  # (R, RS, 4*(2+V)) snapshot byte rows
+    crow = _rows(ck, base)
+    ckrow8 = bank[crow]  # (R, RS, 4*(2+V)) snapshot byte rows
     ckval8 = ckrow8[..., 4 * BANK_VAL:]
     new_replay = FastReplay(
         active=take_ok | replay.active,
         key=torch.where(take_ok, ck, replay.key),
-        pts=torch.where(take_ok, table.vpts[ck.long()], replay.pts),
+        pts=torch.where(take_ok, table.vpts[crow], replay.pts),
         val=torch.where(take_ok[..., None], ckval8, replay.val),
         acks=torch.where(take_ok, 0, replay.acks),
     )
@@ -421,17 +474,37 @@ def _replay_scan(cfg: HermesConfig, ctl: FastCtl, table: FastTable,
                             ).expand(R, RS, 4)
     mark = torch.cat([ckrow8[..., :4 * BANK_SST], mark_sst, ckval8], dim=-1)
     # In place (JAX donates the table).  Live rows are distinct candidates
-    # within a replica; across replicas the same candidate row is marked
-    # with identical bytes, so duplicate indices cannot disagree.  Masked
-    # rows go to the drop row K.
-    rows = torch.where(take_ok, ck, K).reshape(-1).long()
+    # within a replica; across replicas the same candidate row of the one
+    # batched table is marked with identical bytes (each sharded replica
+    # marks its own copy), so duplicate indices cannot disagree.  Masked
+    # rows go to the copy's drop row.
+    rows = torch.where(take_ok, crow, _rows(_full(ck, K), base)
+                       ).reshape(-1)
     bank.index_put_((rows,), mark.reshape(rows.shape[0], -1))
     return table, new_replay
 
 
-def _coordinate(cfg: HermesConfig, ctl: FastCtl, fs: FastState, stream):
+def _mega_replay_copies(cfg: HermesConfig, step, frozen, table: FastTable,
+                        replay: FastReplay) -> FastReplay:
+    """The sharded replay scan through ``mega_replay``: replica r's scan
+    runs on its own copy's K-row view with its own slots, one launch a
+    copy; the new slots are stacked back to (R, RS)."""
+    vk, bk = copies(table.vpts, cfg.n_keys), copies(table.bank, cfg.n_keys)
+    outs = []
+    for r in range(replay.active.shape[0]):
+        one = FastReplay(*(x[r:r + 1] for x in replay))
+        _bank, new = megaround.mega_replay(cfg, step, frozen[r:r + 1],
+                                           vk[r], bk[r], one)
+        outs.append(new)
+    act, rkey, rpts, racks, rval = (torch.cat(xs) for xs in zip(*outs))
+    return FastReplay(active=act, key=rkey, pts=rpts, val=rval, acks=racks)
+
+
+def _coordinate(cfg: HermesConfig, ctl: FastCtl, fs: FastState, stream,
+                base=None):
     """Intake + local reads + update issue + the replay scan (gated) +
-    the outbound lane block."""
+    the outbound lane block.  ``base``: None on the batched table, the
+    (R, 1) first rows of the local copies on the sharded one."""
     R, S = fs.sess.status.shape
     K, G, RS = cfg.n_keys, cfg.ops_per_session, cfg.replay_slots
     dev = fs.sess.status.device
@@ -483,7 +556,7 @@ def _coordinate(cfg: HermesConfig, ctl: FastCtl, fs: FastState, stream):
         sess = _intake(sess)
         # one bank-row gather serves the Valid check, the read value and
         # the issue path's arbiter ts
-        krow8 = table.bank[sess.key.long()]  # (R, S, 4*(2+V)) int8
+        krow8 = table.bank[_rows(sess.key, base)]  # (R, S, 4*(2+V)) int8
         k_valid = (krow8[..., 4 * BANK_SST] & 7) == t.VALID
         rd_val = krow8[..., 4 * BANK_VAL:]
         read_done = (sess.status == t.S_READ) & k_valid & ~frozen
@@ -573,7 +646,7 @@ def _coordinate(cfg: HermesConfig, ctl: FastCtl, fs: FastState, stream):
 
     # --- replay scan, gated on the host step mirror ------------------------
     if ctl.host_step % cfg.replay_scan_every == 0:
-        if cfg.use_mega_round:
+        if cfg.use_mega_round and base is None:
             # the scan as one kernel over the table's K rows (the drop row
             # left out): marks in place, new replay leaves
             _bank, (act, rkey, rpts, racks, rval) = megaround.mega_replay(
@@ -581,8 +654,12 @@ def _coordinate(cfg: HermesConfig, ctl: FastCtl, fs: FastState, stream):
                 replay)
             replay = FastReplay(active=act, key=rkey, pts=rpts, val=rval,
                                 acks=racks)
+        elif cfg.use_mega_round:
+            # sharded: one launch a local copy, on its K-row view
+            replay = _mega_replay_copies(cfg, step, ctl.frozen, table,
+                                         replay)
         else:
-            table, replay = _replay_scan(cfg, ctl, table, replay)
+            table, replay = _replay_scan(cfg, ctl, table, replay, base)
 
     # --- outbound INV compaction --------------------------------------------
     L, C = cfg.n_lanes, cfg.lane_budget
@@ -724,28 +801,36 @@ def _apply_inv_meta(ctl: FastCtl, meta, inv_src: FastInv):
     )
 
 
-def _ts_scatter_max(table: FastTable, keys, pts, mask):
+def _ts_scatter_max(table: FastTable, keys, pts, mask, drop=None):
     """Scatter-MAX of packed timestamps into vpts for every masked (key,
-    ts) row, in place (masked rows land on the drop row)."""
-    drop = table.vpts.shape[0] - 1
+    ts) row, in place (masked rows land on the drop row ``drop``, by
+    default the table's last)."""
+    if drop is None:
+        drop = table.vpts.shape[0] - 1
     rows = torch.where(mask, keys, drop).reshape(-1).long()
-    table.vpts.scatter_reduce_(0, rows, pts.reshape(-1), "amax")
+    table.vpts.scatter_reduce_(0, rows, pts.expand(mask.shape).reshape(-1),
+                               "amax")
     return table
 
 
 def _winner_row_scatter(ctl: FastCtl, table: FastTable, keys, pts, vals,
-                        win, vbit, fresh):
+                        win, vbit, fresh, drop=None):
     """The round's single [pts|sst|val] table write, in place: every
     winning row lands with its own ts, VALID if committing, INVALID
     otherwise.  Only FRESH rows (unique per (key, ts)) or committing rows
     (all duplicates produce the identical VALID row) write, so duplicate
-    indices agree; the rest land on the drop row."""
+    indices agree; the rest land on the drop row ``drop`` (by default the
+    table's last).  ``keys``, ``pts``, ``vals`` and ``fresh`` broadcast
+    against ``win``/``vbit``."""
     state_new = torch.where(vbit, t.VALID, _full(vbit, t.INVALID))
     head8 = _i32_to_bank(
-        torch.stack([pts, pack_sst(ctl.step, state_new)], dim=-1))
-    upd8 = torch.cat([head8, vals], dim=-1)
+        torch.stack([pts.expand(vbit.shape),
+                     pack_sst(ctl.step, state_new)], dim=-1))
+    upd8 = torch.cat([head8, vals.expand(vbit.shape + vals.shape[-1:])],
+                     dim=-1)
     write0 = win & (fresh | vbit)
-    drop = table.bank.shape[0] - 1
+    if drop is None:
+        drop = table.bank.shape[0] - 1
     rows = torch.where(write0, keys, drop).reshape(-1).long()
     table.bank.index_put_((rows,), upd8.reshape(rows.shape[0], -1))
     return table
@@ -806,9 +891,11 @@ def _derived_acks(ctl: FastCtl, table: FastTable, taken_lane, pend_key,
 
 def _collect_acks(cfg: HermesConfig, ctl: FastCtl, fs: FastState,
                   gained, nacked, taken_lane, read_done,
-                  read_extra, pre_comm, post_lane):
+                  read_extra, pre_comm, post_lane=None, replay_post=None):
     """Coordinator-side poll_acks + commit + VAL build; completion codes
-    and counters through the ``stats_block`` kernel."""
+    and counters through the ``stats_block`` kernel.  The replay slots'
+    settled arbiter comes from ``post_lane`` (batched) or ``replay_post``
+    (sharded: ``_apply_inv``'s joint gather)."""
     table, sess, replay, meta = fs.table, fs.sess, fs.replay, fs.meta
     R = gained.shape[0]
     Rs = cfg.n_replicas
@@ -833,7 +920,8 @@ def _collect_acks(cfg: HermesConfig, ctl: FastCtl, fs: FastState,
     commit = ((infl & covered & taken_lane[:, :S] & ~frozen & ~nack_rmw)
               | pre_comm)
 
-    rowns = replay.pts == post_lane[:, S:]
+    rowns = replay.pts == (post_lane[:, S:] if post_lane is not None
+                           else replay_post)
 
     racks = torch.where(replay.active, replay.acks | gained[:, S:],
                         replay.acks)
@@ -926,6 +1014,186 @@ def fast_round_batched(cfg: HermesConfig, ctl: FastCtl, fs: FastState, stream):
 
 
 # --------------------------------------------------------------------------
+# The sharded round: one table copy a replica, real INV / ACK / VAL exchange
+# --------------------------------------------------------------------------
+
+
+def _copy_base(R: int, K: int, device):
+    """(R, 1) first row of each local replica's table copy."""
+    return (torch.arange(R, dtype=I32, device=device) * (K + 1))[:, None]
+
+
+def _compact_out_inv(ctl: FastCtl, lanes: LaneBlock, slot_lane, taken_lane):
+    """Lane block -> wire-shaped INV block (the C-slot broadcast batch):
+    the [pkf | pts | val] bytes of every lane packed in one tensor, and
+    ONE gather of the slots' rows."""
+    lane_pkf = (lanes.key
+                | torch.where(lanes.fresh, INV_FRESH, 0)
+                | torch.where(taken_lane, INV_VALID, 0))
+    head8 = _i32_to_bank(torch.stack([lane_pkf, lanes.pts], dim=-1))
+    rows8 = torch.cat([head8, lanes.val], dim=-1)  # (R, L, 8+4V)
+    idx = slot_lane.long()[..., None].expand(
+        slot_lane.shape + rows8.shape[-1:])
+    return FastInv(
+        rows8=torch.gather(rows8, 1, idx),
+        meta=(ctl.epoch << META_EPOCH_SHIFT) | (~ctl.frozen).to(I32),
+    )
+
+
+def _apply_inv(cfg: HermesConfig, ctl: FastCtl, fs: FastState,
+               inv_src: FastInv, replay_key, base):
+    """Follower-side ``apply_inv`` of every local replica over the
+    source-shaped block ``inv_src`` ((Rsrc, C) slots): the scatter-max of
+    the slots' packed ts into each replica's own copy, then ONE joint
+    gather of the settled arbiter for the slots and the local replay
+    keys.  The inbound key is an untrusted wire field: a key >= K drops
+    from the scatter (never offset into the next copy) and is clamped to
+    K-1 of its own copy for the read.  On the mega path the scatter and
+    the gather are one ``mega_apply`` launch over the flat table.
+    Returns ``(fs, ack_flags, win0, replay_post)``, the first two (R,
+    Rsrc, C)."""
+    K = cfg.n_keys
+    R = replay_key.shape[0]
+    key0, pts0 = inv_src.key, inv_src.pts
+    v_ok = inv_src.valid[None] & (
+        inv_src.epoch[None, :] == ctl.epoch[:, None])[..., None]
+    in_k = key0 < K
+    rkey = base[:, :, None] + key0.clamp(max=K - 1)[None]  # (R, Rsrc, C)
+    keys_all = torch.cat([rkey.reshape(R, -1), base + replay_key], dim=1)
+    table = fs.table
+    if cfg.use_mega_round:
+        nrep = replay_key.shape[1]
+        pts_all = torch.cat([pts0.reshape(1, -1).expand(R, -1),
+                             torch.zeros((R, nrep), dtype=I32,
+                                         device=key0.device)], dim=1)
+        mask_all = torch.cat([(v_ok & in_k[None]).reshape(R, -1),
+                              torch.zeros((R, nrep), dtype=torch.bool,
+                                          device=key0.device)], dim=1)
+        _vpts, joint = megaround.mega_apply(cfg, table.vpts, keys_all,
+                                            pts_all, mask_all)
+        joint = joint.reshape(R, -1)
+    else:
+        table = _ts_scatter_max(table, rkey, pts0[None],
+                                v_ok & in_k[None], drop=base[..., None] + K)
+        joint = table.vpts[keys_all.long()]
+    nslot = key0.numel()
+    post0 = joint[:, :nslot].reshape((R,) + key0.shape)
+    replay_post = joint[:, nslot:]
+    ack_flags = pts0[None] == post0
+    win0 = v_ok & ack_flags
+    fs = fs._replace(table=table, meta=_apply_inv_meta(ctl, fs.meta,
+                                                       inv_src))
+    return fs, ack_flags, win0, replay_post
+
+
+def _wire_acks(cfg: HermesConfig, ctl: FastCtl, inv_src: FastInv,
+               ack_flags, out_inv: FastInv, group):
+    """Sharded ACK exchange: each local replica packs its verdicts on
+    every source's slots, the group routes them back to the sources, and
+    each source matches the echoes against the block it actually sent —
+    a stale ack never credits a different pending update.  Returns
+    (gained_slot, nacked_slot), (R, C)."""
+    Rs = inv_src.pkf.shape[0]
+    epoch_ok = (inv_src.epoch[None, :] == ctl.epoch[:, None])[..., None]
+    ok = inv_src.valid[None] & epoch_ok & ~ctl.frozen[:, None, None]
+    pkf = ((inv_src.key[None] << ACK_KEY_SHIFT)
+           | (ack_flags.to(I32) << 1) | ok.to(I32))
+    ack8 = _i32_to_bank(torch.stack(
+        [pkf, inv_src.pts[None].expand(pkf.shape)], dim=-1))
+    in8 = group.route_back(ack8)  # (R, Rsrc, C, 8): each acker's echo
+    in_pkf = _bank_to_i32(in8[..., 0:4])[..., 0]
+    in_pts = _bank_to_i32(in8[..., 4:8])[..., 0]
+    matched = (
+        out_inv.valid[:, None, :]
+        & ((in_pkf & ACK_VALID_MASK) == ACK_VALID_MASK) & epoch_ok
+        & ~ctl.frozen[:, None, None]
+        & ((in_pkf >> ACK_KEY_SHIFT) == out_inv.key[:, None, :])
+        & (in_pts == out_inv.pts[:, None, :])
+    )
+    aok = (in_pkf & ACK_OK_MASK) == ACK_OK_MASK
+    bit = (torch.ones((), dtype=I32, device=pkf.device)
+           << torch.arange(Rs, dtype=I32, device=pkf.device))[None, :, None]
+    gained_slot = torch.where(matched, bit, 0).sum(dim=1, dtype=I32)
+    nacked_slot = (matched & ~aok).any(dim=1)
+    return gained_slot, nacked_slot
+
+
+def _slot_to_lane_acks(cfg: HermesConfig, gained_slot, nacked_slot,
+                       slot_lane):
+    """Per-slot wire acks back to lanes through ``slot_lane``: ONE scatter
+    of the gained bitmap and the nack bit packed in one word (int64 here,
+    the reference's uint32: the bitmap can use all 31 mask bits).
+    ``slot_lane`` is injective per replica, so the set equals the
+    reference's max onto zeros."""
+    R = gained_slot.shape[0]
+    gshift = layouts.SLOT_ACK.field("gained").shift
+    nmask = layouts.SLOT_ACK.field("nacked").mask
+    packed = ((gained_slot.to(torch.int64) << gshift)
+              | nacked_slot.to(torch.int64))
+    lanes = torch.zeros((R, cfg.n_lanes), dtype=torch.int64,
+                        device=packed.device).scatter_(
+                            1, slot_lane.long(), packed)
+    return (lanes >> gshift).to(I32), (lanes & nmask) != 0
+
+
+def _apply_commit(cfg: HermesConfig, ctl: FastCtl, fs: FastState,
+                  inv_src: FastInv, win0, val_bits, val_epochs, base):
+    """The round's single table write of every local replica: each
+    winning INV slot lands its [pts | sst | val] row in the replica's own
+    copy, VALID if its VAL bit says it committed this round, INVALID
+    otherwise (the reference's ``_apply_commit``; the duplicate-row
+    argument of ``_winner_row_scatter`` holds per copy).  A wire key >= K
+    drops."""
+    K = cfg.n_keys
+    key0 = inv_src.key
+    vbit = val_bits[None] & (
+        val_epochs[None, :] == ctl.epoch[:, None])[..., None]
+    table = _winner_row_scatter(
+        ctl, fs.table, base[..., None] + key0[None], inv_src.pts[None],
+        inv_src.val[None], win0 & (key0 < K)[None], vbit,
+        inv_src.fresh[None], drop=base[..., None] + K)
+    return fs._replace(table=table)
+
+
+def fast_round_sharded(cfg: HermesConfig, ctl: FastCtl, fs: FastState,
+                       stream, group):
+    """One protocol round of the sharded engine over the local replicas
+    (``ctl`` rows and ``fs`` the local ones; ``my_cid`` their global ids):
+    the compacted INV blocks all-gathered, each replica arbitrating them
+    against its own table copy, the ACK verdicts routed back and matched
+    against the block sent, the VAL bits all-gathered.  ``group`` moves
+    the blocks (core/group.py).  Updates the table in place and returns
+    (fs, comp)."""
+    R = fs.sess.status.shape[0]
+    base = _copy_base(R, cfg.n_keys, fs.sess.status.device)
+    (fs, lanes, slot_lane, taken_lane, read_done,
+     read_extra, sub_comps, pre_comm) = _coordinate(cfg, ctl, fs, stream,
+                                                    base)
+    out_inv = _compact_out_inv(ctl, lanes, slot_lane, taken_lane)
+    inv_src = FastInv(rows8=group.gather_src(out_inv.rows8),
+                      meta=group.gather_src(out_inv.meta))
+    fs, ack_flags, win0, replay_post = _apply_inv(cfg, ctl, fs, inv_src,
+                                                  fs.replay.key, base)
+    gained_slot, nacked_slot = _wire_acks(cfg, ctl, inv_src, ack_flags,
+                                          out_inv, group)
+    gained, nacked = _slot_to_lane_acks(cfg, gained_slot, nacked_slot,
+                                        slot_lane)
+    fs, commit_lane, comp = _collect_acks(cfg, ctl, fs, gained, nacked,
+                                          taken_lane, read_done,
+                                          read_extra, pre_comm,
+                                          replay_post=replay_post)
+    # VAL phase: a per-slot commit bit over THIS round's INV slots; the
+    # receivers rebuild (key, ts) from the INV block they hold
+    commit_at_slot = torch.gather(commit_lane, 1, slot_lane.long())
+    val_bits = group.gather_src(commit_at_slot)
+    fs = _apply_commit(cfg, ctl, fs, inv_src, win0, val_bits,
+                       inv_src.epoch, base)
+    if sub_comps:
+        comp = tuple(sub_comps) + (comp,)
+    return fs, comp
+
+
+# --------------------------------------------------------------------------
 # Step builders
 # --------------------------------------------------------------------------
 
@@ -983,6 +1251,32 @@ def build_fast_batched(cfg: HermesConfig):
     return step
 
 
+def build_fast_sharded(cfg: HermesConfig, group):
+    """The sharded round over ``group``'s local replicas as a function
+    ``(fs, stream, ctl) -> (fs, comp)`` (the reference's
+    ``build_fast_sharded`` at ``rounds=1``; shard_map has no counterpart:
+    the round runs over the leading local-replica axis)."""
+    if cfg.n_replicas % group.world:
+        raise ValueError(f"{cfg.n_replicas} replicas do not split over the "
+                         f"group's {group.world} ranks")
+
+    def step(fs, stream, ctl):
+        return fast_round_sharded(cfg, ctl, fs, stream, group)
+
+    return step
+
+
+def place_fast_sharded(cfg: HermesConfig, group, stream):
+    """The sharded state of ``group``'s local replicas on its device, and
+    their rows of an (R, S, G[, U]) op stream."""
+    n = group.n_local(cfg.n_replicas)
+    lo = group.first(cfg.n_replicas)
+    local = type(stream)(*(None if x is None else x[lo:lo + n]
+                           for x in stream))
+    return (init_fast_state(cfg, group.device, n_copies=n),
+            prep_stream(local, group.device))
+
+
 def build_fast_scan(cfg: HermesConfig, rounds: int):
     """``rounds`` rounds per call, completions dropped (the throughput
     loop); the reference's ``lax.scan`` is a Python loop here."""
@@ -1002,57 +1296,90 @@ def build_fast_scan(cfg: HermesConfig, rounds: int):
 # --------------------------------------------------------------------------
 
 
-def _rebase_core(cfg: HermesConfig, fs: FastState, busy):
+def _rebase_core(cfg: HermesConfig, fs: FastState, busy, uniform=None):
     """Reset every ELIGIBLE key (no outstanding ts anywhere — ``busy`` —
     and VALID) to version 1, in place on the table; returns (fs, delta)
     with delta the (K,) per-key version reduction the runtime adds back
-    to recorded completions."""
+    to recorded completions.  Works on the copies view (``copies``): the
+    batched table is one copy, the sharded one a copy a local replica,
+    where ``uniform`` (the keys whose (pts, VALID) agree on every copy of
+    the group) vetoes the rest: a stale copy must not diverge."""
     K = cfg.n_keys
     table, sess, replay = fs.table, fs.sess, fs.replay
-    vpts = table.vpts[:K]
+    vpts = copies(table.vpts, K)  # (n, K) views
+    bank = copies(table.bank, K)
     ver = pts_ver(vpts)
-    rows32 = _bank_to_i32(table.bank[:K])
-    state = rows32[:, BANK_SST] & 7
+    rows32 = _bank_to_i32(bank)
+    state = rows32[..., BANK_SST] & 7
     elig = (busy == 0) & (state == t.VALID) & (ver > 1)
+    if uniform is not None:
+        elig = elig & uniform
     new_ver = torch.where(elig, 1, ver)
     new_vpts = pack_pts(new_ver, pts_fc(vpts))
-    rows32[:, BANK_PTS] = torch.where(elig, new_vpts, rows32[:, BANK_PTS])
+    rows32[..., BANK_PTS] = torch.where(elig, new_vpts, rows32[..., BANK_PTS])
     # in place (JAX returns a fresh table)
-    table.vpts[:K] = new_vpts
-    table.bank[:K] = _i32_to_bank(rows32)
+    vpts.copy_(new_vpts)
+    bank.copy_(_i32_to_bank(rows32))
 
     kept = sess.status == t.S_INFL
     new_sess_pts = torch.where(kept, sess.pts, 0)
     r_pts = torch.where(replay.active, replay.pts, 0)
     new_max = torch.maximum(
-        new_vpts.max(),
+        new_vpts.amax(dim=1),
         torch.maximum(new_sess_pts.amax(dim=1), r_pts.amax(dim=1)),
     )
     meta = fs.meta._replace(
         max_pts=new_max.expand(fs.meta.max_pts.shape).contiguous())
-    delta = ver - new_ver
+    delta = (ver - new_ver)[0]
     return fs._replace(sess=sess._replace(pts=new_sess_pts), meta=meta), delta
 
 
-def _busy_mask(cfg: HermesConfig, sess: FastSess, replay: FastReplay):
+def _busy_mask(cfg: HermesConfig, sess: FastSess, replay: FastReplay,
+               per_replica: bool = False):
     """(K,) int32: 1 where any session/replay slot holds a minted
-    outstanding ts for the key."""
-    busy = torch.zeros((cfg.n_keys,), dtype=I32, device=sess.key.device)
+    outstanding ts for the key; ``per_replica``: (R, K), each replica's
+    own slots."""
+    K = cfg.n_keys
+    R = sess.key.shape[0]
+    n = R if per_replica else 1
+    busy = torch.zeros((n * K,), dtype=I32, device=sess.key.device)
+    off = (torch.arange(R, dtype=I32, device=sess.key.device)[:, None] * K
+           if per_replica else 0)
     infl = (sess.status == t.S_INFL).to(I32).reshape(-1)
-    busy.scatter_reduce_(0, sess.key.reshape(-1).long(), infl, "amax")
+    busy.scatter_reduce_(0, (sess.key + off).reshape(-1).long(), infl,
+                         "amax")
     ract = replay.active.to(I32).reshape(-1)
-    busy.scatter_reduce_(0, replay.key.reshape(-1).long(), ract, "amax")
-    return busy
+    busy.scatter_reduce_(0, (replay.key + off).reshape(-1).long(), ract,
+                         "amax")
+    return busy.view(n, K) if per_replica else busy
 
 
-def build_rebase(cfg: HermesConfig, backend: str = "batched"):
-    """``fs -> (fs, delta)`` version-rebase pass (batched engine)."""
-    if backend != "batched":
-        raise NotImplementedError(
-            f"backend {backend!r}: the port has the batched engine only "
-            "(the sharded engine is ROADMAP A10)")
+def build_rebase(cfg: HermesConfig, backend: str = "batched", group=None):
+    """``fs -> (fs, delta)`` version-rebase pass.  Batched: one shared
+    table.  Sharded: ``busy`` summed over the group and the ``uniform``
+    veto — every copy's vpts equal (pmax == pmin) and VALID everywhere
+    (pmin) — taken over it, so every copy makes the identical decision
+    and ``delta`` is the same on every replica."""
+    if backend == "batched":
+        def rebase(fs):
+            return _rebase_core(cfg, fs, _busy_mask(cfg, fs.sess, fs.replay))
 
-    def rebase(fs):
-        return _rebase_core(cfg, fs, _busy_mask(cfg, fs.sess, fs.replay))
+        return rebase
+    if backend != "sharded":
+        raise ValueError(f"unknown backend {backend!r}")
+    if group is None:
+        raise ValueError("the sharded rebase needs a group")
+    K = cfg.n_keys
 
-    return rebase
+    def rebase_sharded(fs):
+        busy = group.psum(_busy_mask(cfg, fs.sess, fs.replay,
+                                     per_replica=True))
+        vpts = copies(fs.table.vpts, K)
+        valid = ((_bank_to_i32(copies(fs.table.bank, K)[
+            ..., 4 * BANK_SST:4 * BANK_SST + 4])[..., 0] & 7)
+            == t.VALID).to(I32)
+        uniform = ((group.pmax(vpts) == group.pmin(vpts))
+                   & (group.pmin(valid) == 1))
+        return _rebase_core(cfg, fs, busy, uniform)
+
+    return rebase_sharded

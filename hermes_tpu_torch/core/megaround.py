@@ -27,7 +27,11 @@ kernel, one per call; each call is one device operation.
 The engine's table carries one trailing drop row (core/faststep.py); the
 round passes its first ``cfg.n_keys`` rows (``vpts[:K]``, ``bank[:K]``,
 contiguous views), so ``K`` here is the reference's and the in-place
-updates land in the table.
+updates land in the table.  The sharded round (one table copy a replica,
+each with its own drop row) calls ``mega_apply`` once a round over the
+flat table of every copy, each replica's keys offset into its copy and a
+wire key at or above the copy's K masked out and clamped to its K-1, and
+``mega_replay`` once a copy on that copy's K-row view.
 """
 
 from __future__ import annotations

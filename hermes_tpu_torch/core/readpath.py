@@ -1,5 +1,4 @@
-"""The local-read path: port of ``hermes_tpu/core/readpath.py`` (batched
-engine).
+"""The local-read path: port of ``hermes_tpu/core/readpath.py``.
 
 Hermes serves reads LOCALLY: any healthy replica answers a Valid key
 from its own table, with no protocol round.  This module answers a whole
@@ -10,6 +9,10 @@ round:
   clamped to ``[0, K)`` (an untrusted index never gathers out of bounds,
   and never reaches the drop row K);
 * a range scan is a slice of contiguous rows, no gather at all.
+
+On the sharded engine each replica owns a table copy of K+1 rows, and the
+serving replica's copy answers: its rows start at ``replica * (K+1)``
+(the reference's ``replica * K`` plus the drop rows before it).
 
 The row layout ``[pts | sst | val]`` puts the Valid check, the value
 words and the packed timestamp the read-your-writes fence compares in one
@@ -35,7 +38,7 @@ Where the port differs: PyTorch compiles nothing, so there are no batch
 buckets to pad to; a multi-get gathers exactly its ``n`` rows.
 ``batch_bucket`` stays as the reference defines it, for callers that
 size their batches by it.  ``read_census``/``scan_census`` (the op
-census) wait for ROADMAP A14; the sharded engine is ROADMAP A10.
+census) wait for ROADMAP A14.
 """
 
 from __future__ import annotations
@@ -82,29 +85,34 @@ def _answer_rows(rows8: torch.Tensor) -> ReadAnswer:
 
 
 def build_multi_get(cfg: HermesConfig):
-    """The batched multi-get: ``fn(table, slots) -> ReadAnswer`` for an
-    (n,) vector of dense slots (numpy or a tensor), clamped to
-    ``[0, n_keys)`` on the device before the one gather."""
+    """The batched multi-get: ``fn(table, slots, copy=0) -> ReadAnswer``
+    for an (n,) vector of dense slots (numpy or a tensor), clamped to
+    ``[0, n_keys)`` on the device before the one gather.  ``copy`` is the
+    index of a copy held by the table (``copy * (K+1)`` its first row):
+    0 on the batched table, which every replica shares."""
     k = cfg.n_keys
 
-    def mget(table: fst.FastTable, slots) -> ReadAnswer:
+    def mget(table: fst.FastTable, slots, copy: int = 0) -> ReadAnswer:
         bank = table.bank
         idx = torch.as_tensor(np.asarray(slots, np.int64)).to(bank.device)
-        return _answer_rows(bank.index_select(0, idx.clamp(0, k - 1)))
+        idx = idx.clamp(0, k - 1) + copy * (k + 1)
+        return _answer_rows(bank.index_select(0, idx))
 
     return mget
 
 
 def build_scan(cfg: HermesConfig):
-    """The range scan: ``fn(table, lo, hi) -> ReadAnswer`` over the
-    contiguous rows ``[lo, hi)`` (a slice; the drop row K is never in
-    range)."""
+    """The range scan: ``fn(table, lo, hi, copy=0) -> ReadAnswer`` over
+    the contiguous rows ``[lo, hi)`` of the table's copy ``copy`` (a
+    slice; a drop row is never in range)."""
     k = cfg.n_keys
 
-    def scan(table: fst.FastTable, lo: int, hi: int) -> ReadAnswer:
+    def scan(table: fst.FastTable, lo: int, hi: int,
+             copy: int = 0) -> ReadAnswer:
         if not (0 <= lo < hi <= k):
             raise ValueError(f"scan range [{lo}, {hi}) outside [0, {k})")
-        return _answer_rows(table.bank[lo:hi])
+        off = copy * (k + 1)
+        return _answer_rows(table.bank[off + lo:off + hi])
 
     return scan
 
@@ -113,11 +121,13 @@ class LocalReader:
     """Host-side driver of the read dispatches over one FastRuntime.
 
     Local reads may be served only by a HEALTHY replica (live and
-    unfrozen: a fenced replica must not serve reads).  Each method
-    returns a ReadAnswer for the whole request, or ``None`` when no
-    replica may serve (callers then send everything through the round
-    path).  ``dispatches`` and ``keys_served`` count as the reference's
-    do: one a call, ``n`` keys a call."""
+    unfrozen: a fenced replica must not serve reads).  On the sharded
+    engine the serving replica's own copy answers: the first healthy
+    one, or the one a call names.  Each method returns a ReadAnswer for
+    the whole request, or ``None`` when no replica may serve (a named
+    replica that is not healthy cannot; callers then send everything
+    through the round path).  ``dispatches`` and ``keys_served`` count as
+    the reference's do: one a call, ``n`` keys a call."""
 
     def __init__(self, rt):
         self.rt = rt
@@ -127,28 +137,32 @@ class LocalReader:
         self.dispatches = 0
         self.keys_served = 0
 
-    def _serving_replica(self) -> Optional[int]:
+    def _serving_replica(self, replica=None) -> Optional[int]:
         healthy = self.rt.healthy_replicas()
+        if replica is not None:
+            return replica if replica in healthy else None
         return healthy[0] if healthy else None
 
-    def multi_get(self, slots) -> Optional[ReadAnswer]:
+    def multi_get(self, slots, replica=None) -> Optional[ReadAnswer]:
         """One read dispatch for an (n,) int array of dense slots."""
-        if self._serving_replica() is None:
+        rep = self._serving_replica(replica)
+        if rep is None:
             return None
         slots = np.asarray(slots, np.int32)
-        ans = self._mget(self.rt.fs.table, slots)
+        ans = self._mget(self.rt.fs.table, slots, self.rt.copy_index(rep))
         self.dispatches += 1
         self.keys_served += slots.shape[0]
         return ans
 
-    def scan(self, lo: int, hi: int) -> Optional[ReadAnswer]:
+    def scan(self, lo: int, hi: int, replica=None) -> Optional[ReadAnswer]:
         """One scan dispatch over dense slots [lo, hi)."""
         if not (0 <= lo < hi <= self.cfg.n_keys):
             raise ValueError(f"scan range [{lo}, {hi}) outside "
                              f"[0, {self.cfg.n_keys})")
-        if self._serving_replica() is None:
+        rep = self._serving_replica(replica)
+        if rep is None:
             return None
-        ans = self._scan(self.rt.fs.table, lo, hi)
+        ans = self._scan(self.rt.fs.table, lo, hi, self.rt.copy_index(rep))
         self.dispatches += 1
         self.keys_served += hi - lo
         return ans

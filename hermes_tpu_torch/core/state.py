@@ -72,16 +72,18 @@ class OpStream(NamedTuple):
     uval: Optional[torch.Tensor] = None
 
 
-def init_meta(cfg: HermesConfig, device: torch.device) -> Meta:
-    """Zeroed batched Meta: (R,) counters, (R, R) heartbeat rows and
-    (R, LAT_BINS) histograms."""
-    r = cfg.n_replicas
+def init_meta(cfg: HermesConfig, device: torch.device,
+              n_rows=None) -> Meta:
+    """Zeroed Meta: (R,) counters, (R, R) heartbeat rows and (R,
+    LAT_BINS) histograms; ``n_rows`` local replicas instead of R rows
+    (the sharded layout on a rank of a DistGroup)."""
+    r = cfg.n_replicas if n_rows is None else n_rows
 
     def z(*sh):
         return torch.zeros(sh, dtype=torch.int32, device=device)
 
     return Meta(
-        last_seen=z(r, r), suspect_age=z(r, r),
+        last_seen=z(r, cfg.n_replicas), suspect_age=z(r, cfg.n_replicas),
         n_read=z(r), n_write=z(r), n_rmw=z(r), n_abort=z(r),
         lat_sum=z(r), lat_cnt=z(r), lat_hist=z(r, LAT_BINS),
         max_pts=z(r), n_inv=z(r), n_rebcast=z(r), n_nack=z(r),

@@ -40,9 +40,13 @@ Robustness and durability (ROADMAP A5b and A9):
     replica's in-flight futures resolve as ``lost``
     (``chaos.recovery``).
 
+``backend="sharded"`` runs the sharded engine (one table copy a replica,
+``core/group.py``) with every replica in this process, on ``device``:
+gets and local reads are served from the serving replica's own copy,
+and the heap GC rewrites the ref words of every copy.
+
 Not ported yet: degraded mode (``min_healthy_for_writes``, refused
-loudly), the fence mask and the elastic operations (A11), and the
-sharded backend (A10).
+loudly), the fence mask and the elastic operations (A11).
 
 Usage::
 
@@ -1275,13 +1279,15 @@ class KVS:
 
     def _heap_roots(self):
         """Every place a live heap ref can hide while the store is
-        drained: the table's rows [0, K) (row K is the drop row, where
-        masked scatters land, and roots nothing), the staged stream (ops
-        injected, not yet consumed), queued per-op traffic, the
-        uninjected rows of batches and the staging arrays.  Returns
-        (bank ref column, staged mask, all roots)."""
-        col = self.rt.fs.table.bank[:-1, self._REF_COL:self._REF_COL + 4]
-        refcol = fst._bank_to_i32(col)[:, 0].cpu().numpy().copy()
+        drained: the key rows [0, K) of every table copy (a copy's row K
+        is its drop row, where masked scatters land, and roots nothing),
+        the staged stream (ops injected, not yet consumed), queued per-op
+        traffic, the uninjected rows of batches and the staging arrays.
+        Returns (the ref column of every copy, flattened; the staged
+        mask; all roots)."""
+        col = fst.copies(self.rt.fs.table.bank, self.cfg.n_keys)[
+            ..., self._REF_COL:self._REF_COL + 4]
+        refcol = fst._bank_to_i32(col)[..., 0].reshape(-1).cpu().numpy()
         roots = [refcol.astype(np.int64)]
         staged_mask = self._kindarr != t.OP_NOP
         roots.append(self._uval[:, :, 0, 0][staged_mask].astype(np.int64))
@@ -1346,14 +1352,16 @@ class KVS:
             return {}
         refcol, staged_mask, roots = self._heap_roots()
         old, new = self.heap.compact(roots)
-        # table rows [0, K): rewrite the ref-word column in one byte-column
-        # update, by arithmetic (_i32_to_bank); the drop row K stays as it
-        # was
+        # key rows [0, K) of every copy (batched: the one shared copy,
+        # sharded: all R): rewrite the ref-word column in one byte-column
+        # update, by arithmetic (_i32_to_bank); the drop rows stay as they
+        # were
         newcol = ValueHeap.remap(refcol, old, new).astype(np.int32)
         if not np.array_equal(newcol, refcol):
-            bank = rt.fs.table.bank
-            col = torch.from_numpy(newcol).to(bank.device)[:, None]
-            bank[:-1, self._REF_COL:self._REF_COL + 4] = fst._i32_to_bank(col)
+            rows = fst.copies(rt.fs.table.bank, self.cfg.n_keys)
+            col = torch.from_numpy(newcol).to(rows.device).reshape(
+                rows.shape[0], -1, 1)
+            rows[..., self._REF_COL:self._REF_COL + 4] = fst._i32_to_bank(col)
         # staged stream rows (injected, unconsumed) remap in place; idle
         # rows' stale payloads are zeroed so a dead ref can never pass for
         # a live one at the next collection

@@ -23,8 +23,10 @@ SENTINEL = "spin_kernel"
 
 
 def _trace(run):
-    """Device busy time (sum of CUDA kernel time), kernel count, wall time
-    and the top kernels of ``run()``, from torch.profiler."""
+    """Device busy time (sum of CUDA kernel time), kernel count, wall time,
+    the top kernels of ``run()`` and the top host operators by the device
+    time of the kernels each launched itself (``top_ops``: which PyTorch
+    call a kernel name stands for), from torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -39,15 +41,20 @@ def _trace(run):
         wall = time.perf_counter() - t0
         torch.cuda._sleep(1)
         torch.cuda.synchronize()
-    busy_us, n, top = 0.0, 0, []
+    busy_us, n, top, ops = 0.0, 0, [], []
     for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
         if e.device_type == DeviceType.CUDA and SENTINEL not in e.key:
-            us = getattr(e, "self_device_time_total", 0.0)
             busy_us += us
             n += e.count
             top.append((us, e.count, e.key[:60]))
+        elif e.device_type == DeviceType.CPU and us > 0 and (
+                "_sleep" not in e.key):
+            ops.append((us, e.count, e.key[:60]))
     top.sort(reverse=True)
-    return dict(wall_s=wall, busy_s=busy_us / 1e6, launches=n, top=top[:8])
+    ops.sort(reverse=True)
+    return dict(wall_s=wall, busy_s=busy_us / 1e6, launches=n, top=top[:8],
+                top_ops=ops[:8])
 
 
 def device_busy(run):

@@ -1,11 +1,21 @@
-"""Run loop of the batched fast engine: the step loop, failure injection,
-the completion pipeline, version rebase and history recording.
+"""Run loop of the fast engine: the step loop, failure injection, the
+completion pipeline, version rebase and history recording.
 
-Port of ``hermes_tpu/runtime.py:FastRuntime`` (batched backend).  The
-state lives on one device (``device=``, default the card); the round
-counter lives there too and is bumped on the device, so the steady-state
-round uploads no control data.  Membership rows are uploaded only when a
-freeze/thaw/remove/join dirties them.
+Port of ``hermes_tpu/runtime.py:FastRuntime``, both backends:
+
+* ``batched`` — the R replicas share one lockstep table copy on one
+  device (``device=``, default the card);
+* ``sharded`` — one table copy a replica, the INV / ACK / VAL blocks
+  moving through a replica group (``group=``, ``core/group.py``): a
+  ``LocalGroup`` holds every replica in this process (the card's path,
+  and the default), a ``DistGroup`` R/W replicas on each rank of a
+  ``torch.distributed`` group, whose rows of the state this runtime then
+  holds (``n_copies`` of them; recording is single-process only).
+
+The round counter lives on the device and is bumped there, so the
+steady-state round uploads no control data.  Membership rows are
+uploaded only when a freeze/thaw/remove/join dirties them; on the
+sharded backend they are the local replicas' rows.
 
 Completions of a round are device tensors until harvested.  At
 ``cfg.pipeline_depth >= 2`` a dispatched round's completions start an
@@ -29,8 +39,8 @@ re-anchor, from the numpy copy the harvest already holds, so the log's
 flusher thread never touches a tensor.  Everything is a no-op while
 nothing is attached.
 
-Out of scope for now: the membership service and live resize (A11), the
-sharded backend (A10) and the reference ``Runtime`` (A12).
+Out of scope for now: the membership service and live resize (A11) and
+the reference ``Runtime`` (A12).
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ from hermes_tpu_torch.checker.history import HistoryRecorder
 from hermes_tpu_torch.config import HermesConfig
 from hermes_tpu_torch.core import faststep as fst
 from hermes_tpu_torch.core import state as st
+from hermes_tpu_torch.core.group import LocalGroup
 from hermes_tpu_torch.core import types as t
 from hermes_tpu_torch.workload import ycsb
 
@@ -106,25 +117,38 @@ def meta_to_numpy(meta: st.Meta) -> st.Meta:
 
 
 class FastRuntime:
-    """Runs the batched fast round: the same membership /
-    failure-injection / history-recording surface as the reference, over a
-    FastState of tensors on ``device``.
+    """Runs the fast round: the same membership / failure-injection /
+    history-recording surface as the reference, over a FastState of
+    tensors on ``device`` (batched) or on the group's device (sharded;
+    ``group`` None: a ``LocalGroup`` on ``device``).
 
     ``record``: False | True (Python Op recorder) | "array" (columnar
     recorder + native witness checker, for bench-scale histories)."""
 
     def __init__(self, cfg: HermesConfig, backend: str = "batched",
                  record=False, stream: Optional[st.OpStream] = None,
-                 device="cuda"):
-        if backend != "batched":
-            raise NotImplementedError(
-                f"backend {backend!r}: the port has the batched engine only "
-                "(the sharded engine is ROADMAP A10)")
-        self.device = device_lib.resolve(device)
+                 device="cuda", group=None):
+        if backend not in ("batched", "sharded"):
+            raise ValueError(f"unknown backend {backend!r}")
+        if backend == "batched" and group is not None:
+            raise ValueError("a replica group is for the sharded backend")
+        if backend == "sharded" and group is None:
+            group = LocalGroup(device)
+        self.group = group
+        self.device = (group.device if group is not None
+                       else device_lib.resolve(device))
         self.cfg = cfg
         self.backend = backend
         r = cfg.n_replicas
-        self.fs = fst.init_fast_state(cfg, self.device)
+        # table copies held here, the first local replica's id and the
+        # local replicas' rows of the host control arrays
+        self.n_copies = 1 if group is None else group.n_local(r)
+        self._first = 0 if group is None else group.first(r)
+        self._rows = slice(self._first, self._first + (
+            r if group is None else self.n_copies))
+        if record and group is not None and group.world > 1:
+            raise ValueError("history recording is single-process only "
+                             "(a DistGroup holds some replicas' rows)")
         if cfg.device_stream:
             if stream is not None:
                 raise ValueError(
@@ -133,7 +157,13 @@ class FastRuntime:
             raw = ycsb.stub_stream(cfg)
         else:
             raw = stream if stream is not None else ycsb.make_streams(cfg)
-        self.stream = fst.prep_stream(raw, self.device)
+        if group is None:
+            self.fs = fst.init_fast_state(cfg, self.device)
+            self.stream = fst.prep_stream(raw, self.device)
+            self._step = fst.build_fast_batched(cfg)
+        else:
+            self.fs, self.stream = fst.place_fast_sharded(cfg, group, raw)
+            self._step = fst.build_fast_sharded(cfg, group)
 
         self.step_idx = 0  # also seeds the device-resident round counter
         self.epoch = np.zeros((r,), np.int32)
@@ -172,7 +202,6 @@ class FastRuntime:
             self.recorder = ArrayRecorder(cfg)
         else:
             self.recorder = HistoryRecorder(cfg) if record else None
-        self._step = fst.build_fast_batched(cfg)
 
     # -- observability and the WAL tap ---------------------------------------
 
@@ -217,14 +246,16 @@ class FastRuntime:
         a hook dirtied them; the step rides the device-side increment and
         its host mirror gates the replay scan."""
         if self._ctl_dirty:
-            dev, r = self.device, self.cfg.n_replicas
+            # the local replicas' rows (all R but on a DistGroup rank)
+            dev, rows = self.device, self._rows
             self._ctl_dev = fst.FastCtl(
                 step=self._step_dev,
                 host_step=self._step_idx,
-                my_cid=torch.arange(r, dtype=torch.int32, device=dev),
-                epoch=torch.as_tensor(self.epoch).to(dev),
-                live_mask=torch.as_tensor(self.live).to(dev),
-                frozen=torch.as_tensor(self.frozen).to(dev),
+                my_cid=torch.arange(rows.start, rows.stop, dtype=torch.int32,
+                                    device=dev),
+                epoch=torch.as_tensor(self.epoch[rows]).to(dev),
+                live_mask=torch.as_tensor(self.live[rows]).to(dev),
+                frozen=torch.as_tensor(self.frozen[rows]).to(dev),
             )
             self._ctl_dirty = False
             self._trace("ctl_upload", epoch=int(self.epoch[0]),
@@ -261,11 +292,57 @@ class FastRuntime:
 
     def join(self, replica: int, from_replica: int) -> None:
         """Re-admit ``replica``.  The batched table is shared by every
-        replica, so it already holds the joiner's state: no transfer."""
+        replica, so it already holds the joiner's state: no transfer.  On
+        the sharded backend the donor's copy is transferred into the
+        joiner's, its in-flight coordination states (WRITE, TRANS,
+        REPLAY) folded to INVALID and every row's step set to this round
+        (the live coordinator's VAL or the replay scan re-validates
+        them)."""
+        if self.backend == "sharded":
+            self._transfer_copy(replica, from_replica)
         self.frozen[replica] = False
         self.set_live(int(self.live[0]) | (1 << replica))
         self._trace("join", replica=replica, from_replica=from_replica,
                     live_mask=int(self.live[0]))
+
+    def _transfer_copy(self, replica: int, from_replica: int) -> None:
+        K = self.cfg.n_keys
+        vk = fst.copies(self.fs.table.vpts, K)
+        bk = fst.copies(self.fs.table.bank, K)
+        d_vpts = self.group.fetch_row(vk, from_replica)
+        rows = fst._bank_to_i32(self.group.fetch_row(bk, from_replica))
+        state = fst.sst_state(rows[:, fst.BANK_SST])
+        folded = torch.where(
+            (state == t.WRITE) | (state == t.TRANS) | (state == t.REPLAY),
+            t.INVALID, state)
+        rows[:, fst.BANK_SST] = fst.pack_sst(self._step_idx, folded)
+        j = replica - self._first
+        if 0 <= j < self.n_copies:
+            vk[j].copy_(d_vpts)
+            bk[j].copy_(fst._i32_to_bank(rows))
+
+    def copy_index(self, replica: int) -> int:
+        """The index in this runtime's table of ``replica``'s copy: 0 on
+        the batched table every replica shares; raises for a replica whose
+        copy another rank holds."""
+        j = 0 if self.backend == "batched" else replica - self._first
+        if not 0 <= j < self.n_copies:
+            raise ValueError(f"replica {replica}'s copy is not held here")
+        return j
+
+    def copy_of(self, replica: int):
+        """``(vpts (K,), bank (K, 4(2+V)))``: views of ``replica``'s table
+        copy (the shared table on the batched backend)."""
+        K, j = self.cfg.n_keys, self.copy_index(replica)
+        return (fst.copies(self.fs.table.vpts, K)[j],
+                fst.copies(self.fs.table.bank, K)[j])
+
+    def _psum(self, per_replica):
+        """Sum of (n_copies,)-row per-replica counts over every replica
+        (a device scalar)."""
+        if self.group is None or self.group.world == 1:
+            return per_replica.sum()
+        return self.group.psum(per_replica.reshape(-1, 1))[0, 0]
 
     def healthy_replicas(self) -> list:
         """Replicas that are live AND unfrozen: the set that can serve
@@ -375,6 +452,10 @@ class FastRuntime:
     # -- version rebase -------------------------------------------------------
 
     def _inflight_count(self) -> int:
+        if self.group is not None and self.group.world > 1:
+            per = ((self.fs.sess.status == t.S_INFL).sum(1)
+                   + self.fs.replay.active.sum(1))
+            return int(self._psum(per))
         s = (self.fs.sess.status == t.S_INFL).sum()
         return int(s + self.fs.replay.active.sum())
 
@@ -405,7 +486,8 @@ class FastRuntime:
         # in-flight completions belong to the pre-rebase version era
         self.flush_pipeline()
         if self._rebase_fn is None:
-            self._rebase_fn = fst.build_rebase(self.cfg, backend=self.backend)
+            self._rebase_fn = fst.build_rebase(self.cfg, backend=self.backend,
+                                               group=self.group)
         self.fs, delta = self._rebase_fn(self.fs)
         delta = delta.cpu().numpy().astype(np.int64)
         n = int(np.count_nonzero(delta))
@@ -431,8 +513,9 @@ class FastRuntime:
         ok = False
         for _ in range(max_steps):
             ctl = self._ctl()
-            undone = int(fst.pending_sessions(
-                self.fs.sess.status, ctl.live_mask, ctl.frozen))
+            pend = fst.pending_sessions(self.fs.sess.status, ctl.live_mask,
+                                        ctl.frozen)
+            undone = int(self._psum(pend.reshape(1)))
             if undone == 0:
                 ok = True
                 break
@@ -442,8 +525,15 @@ class FastRuntime:
 
     # -- observability ----------------------------------------------------------
 
+    def _global_meta(self) -> st.Meta:
+        """Every replica's Meta rows (gathered over a DistGroup)."""
+        meta = self.fs.meta
+        if self.group is not None and self.group.world > 1:
+            meta = st.Meta(*(self.group.gather_src(x) for x in meta))
+        return meta
+
     def counters(self) -> dict:
-        m = meta_to_numpy(self.fs.meta)
+        m = meta_to_numpy(self._global_meta())
         max_ver = self._check_version_headroom(m)
         out = _sum_meta_counters(m)
         out["max_ver"] = max_ver
@@ -475,7 +565,8 @@ class FastRuntime:
                 self.rebase_versions()
             finally:
                 self._in_rebase = False
-            max_ver = int(self.fs.meta.max_pts.max()) >> fst.PTS_FC_BITS
+            max_ver = (int(self._global_meta().max_pts.max())
+                       >> fst.PTS_FC_BITS)
             # back off when a key can't be reclaimed: re-pay the drain only
             # once the watermark has grown meaningfully again
             self._next_rebase_at = max_ver + max(

@@ -18,8 +18,11 @@ scope, config fingerprint, step, flushed ring depth, per-array sha256).
 mutation: a bit-rotted, truncated or foreign archive is refused and the
 target is left as it was.
 
-The range archives of the elastic migration (``save_range`` /
-``load_range``) are ROADMAP A11.
+The sharded engine's archive holds every replica's table copy in the
+reference's ``(R*K,)`` rows, each copy's own drop row cut and re-added;
+it loads only into a sharded runtime (and a batched archive only into a
+batched one), of one process.  The range archives of the elastic
+migration (``save_range`` / ``load_range``) are ROADMAP A11.
 """
 
 from __future__ import annotations
@@ -130,9 +133,13 @@ def _leaf_keys(prefix="state."):
 
 def _split(target):
     """(kvs or None, runtime) of a KVS facade or a FastRuntime."""
-    if hasattr(target, "rt") and hasattr(target, "index"):
-        return target, target.rt
-    return None, target
+    kvs, rt = ((target, target.rt)
+               if hasattr(target, "rt") and hasattr(target, "index")
+               else (None, target))
+    if rt.group is not None and rt.group.world > 1:
+        raise ValueError("a snapshot holds every replica's state: one "
+                         "process only (a DistGroup rank holds some)")
+    return kvs, rt
 
 
 def save(path: str, rt) -> None:
@@ -158,7 +165,8 @@ def save(path: str, rt) -> None:
     # harvest in-flight ring rounds: the recorder must not miss
     # completions the restored run would re-record
     ring_flushed = rt.flush_pipeline()
-    arrays = _flatten(convert.fast_state_to_numpy(rt.fs), "state.")
+    arrays = _flatten(convert.fast_state_to_numpy(
+        rt.fs, n_copies=rt.n_copies), "state.")
     arrays["ctl.step_idx"] = np.int64(rt.step_idx)
     arrays["ctl.epoch"] = np.asarray(rt.epoch)
     arrays["ctl.live"] = np.asarray(rt.live)
@@ -316,7 +324,7 @@ def _load(z, rt, kvs) -> None:
             f"{missing[:5]}{'...' if len(missing) > 5 else ''}")
     # the state is built (and its shapes checked) before anything mutates
     restored = convert.fast_state_from_numpy(rt.cfg, _state_tree(z),
-                                             rt.device)
+                                             rt.device, rt.n_copies)
     # -- mutate --------------------------------------------------------------
     if kvs is not None:
         kvs._op[:] = z["kvs.op"]

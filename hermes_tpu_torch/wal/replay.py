@@ -152,15 +152,17 @@ def _concat(records, field, dtype):
     return np.concatenate(parts) if parts else np.zeros(0, dtype)
 
 
-def apply_records(rt, records, heap=None):
+def apply_records(rt, records, heap=None, replicas=None):
     """Replay decoded K_ROUND records into ``rt``'s table, idempotently
     by packed timestamp.  Returns ``(applied, skipped)`` record counts.
-    The port's batched table is one copy shared by every replica (rows
-    ``[0, K)``; the drop row K is never written), so the reference's
-    ``replicas`` argument, which picks sharded copies, has no
-    counterpart.  In heap mode each applying record's extent bytes are re-appended
-    into ``heap``, in log order, and the row's ref word re-minted (the
-    logged ref is from the dead store's heap)."""
+    The batched table is one copy shared by every replica; on the sharded
+    engine ``replicas`` picks the copies written (restart_replica's
+    catch-up of the rejoined copy), None every copy.  Only the key rows
+    ``[0, K)`` of a copy are written, never its drop row.  A record
+    applies when it beats the row of at least one selected copy.  In heap
+    mode each applying record's extent bytes are re-appended into
+    ``heap``, in log order, and the row's ref word re-minted (the logged
+    ref is from the dead store's heap)."""
     cfg = rt.cfg
     K = cfg.n_keys
     key = _concat(records, "key", np.int64)
@@ -186,9 +188,17 @@ def apply_records(rt, records, heap=None):
     fc = _concat(records, "fc", np.int64)
     pts = fst.pack_pts(dver, fc).astype(np.int32)
     tbl = rt.fs.table
-    vpts0 = tbl.vpts[:K].cpu().numpy()
-    # log order within each key: a record applies iff its pts beats the
-    # row's and every earlier record's of the key (segmented running max)
+    vk = fst.copies(tbl.vpts, K)  # (n_copies, K) views
+    bk = fst.copies(tbl.bank, K)
+    if rt.backend == "sharded":
+        sel = list(range(rt.n_copies)) if replicas is None else [
+            r - rt._first for r in replicas]
+    else:
+        sel = [0]
+    vpts0 = vk[sel].cpu().numpy()  # (c, K)
+    # log order within each key: a record applies to a copy iff its pts
+    # beats the copy's row and every earlier record's of the key (a
+    # segmented running max)
     order = np.lexsort((np.arange(n), key))
     ks, ps = key[order], pts[order].astype(np.int64)
     first = np.ones(n, bool)
@@ -203,8 +213,9 @@ def apply_records(rt, records, heap=None):
     prev[1:] = run[:-1]
     prev_max = np.where(first, np.int64(-(1 << 40)),
                         (prev - (group << 33)) - (1 << 31))
-    thr = np.maximum(prev_max, vpts0[ks].astype(np.int64))
-    hit_sorted = ps > thr
+    thr = np.maximum(prev_max[None], vpts0[:, ks].astype(np.int64))
+    hit_copy = ps[None] > thr  # (c, n), sorted order
+    hit_sorted = hit_copy.any(axis=0)
     applied = int(hit_sorted.sum())
     skipped = n - applied
     if applied == 0:
@@ -231,19 +242,22 @@ def apply_records(rt, records, heap=None):
             j = int(rec_of[i])
             ext = blobs[j][int(offs[i + 1] - lens[i]):int(offs[i + 1])]
             wv[i, 2] = np.int32(heap.append(ext))
-    # each key's newest applying record is the one that stays: the last
-    # hit of its group in log order
-    hs = np.nonzero(hit_sorted)[0]
-    last = np.ones(hs.size, bool)
-    last[:-1] = ks[hs[1:]] != ks[hs[:-1]]
-    win = order[hs[last]]
-    rows32 = np.empty((win.size, 2 + cfg.value_words), np.int32)
-    rows32[:, fst.BANK_PTS] = pts[win]
-    rows32[:, fst.BANK_SST] = fst.pack_sst(step[win],
-                                           t.VALID).astype(np.int32)
-    rows32[:, fst.BANK_VAL:] = wv[win]
     dev = tbl.vpts.device
-    idx = torch.from_numpy(key[win]).to(dev)
-    tbl.vpts[idx] = torch.from_numpy(pts[win]).to(dev)
-    tbl.bank[idx] = torch.from_numpy(codec.words_to_rows(rows32)).to(dev)
+    for c, hit_c in zip(sel, hit_copy):
+        # each key's newest record applying to this copy stays: the last
+        # hit of its group in log order
+        hs = np.nonzero(hit_c)[0]
+        if hs.size == 0:
+            continue
+        last = np.ones(hs.size, bool)
+        last[:-1] = ks[hs[1:]] != ks[hs[:-1]]
+        win = order[hs[last]]
+        rows32 = np.empty((win.size, 2 + cfg.value_words), np.int32)
+        rows32[:, fst.BANK_PTS] = pts[win]
+        rows32[:, fst.BANK_SST] = fst.pack_sst(step[win],
+                                               t.VALID).astype(np.int32)
+        rows32[:, fst.BANK_VAL:] = wv[win]
+        idx = torch.from_numpy(key[win]).to(dev)
+        vk[c][idx] = torch.from_numpy(pts[win]).to(dev)
+        bk[c][idx] = torch.from_numpy(codec.words_to_rows(rows32)).to(dev)
     return applied, skipped

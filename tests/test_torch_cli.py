@@ -30,9 +30,10 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 WALL_FIELDS = ("wall_s", "writes_per_sec", "ops_per_sec", "step_us")
 
 
-def _check_drive(extra_argv, **extra_cfg):
+def _check_drive(extra_argv, backend="batched", **extra_cfg):
     """Run the port's CLI check drive on the CPU and the reference's
-    FastRuntime on the same config: equal summaries, checker PASS."""
+    FastRuntime on the same config and backend: equal summaries, checker
+    PASS."""
     argv = ["--replicas", "3", "--keys", "64", "--sessions", "8",
             "--replay-slots", "4", "--ops-per-session", "12",
             "--arb-mode", "sort", "--chain-writes", "2", *extra_argv]
@@ -47,9 +48,17 @@ def _check_drive(extra_argv, **extra_cfg):
     got = ast.literal_eval(lines[0])
     assert lines[1].startswith("linearizability: PASS")
 
+    mesh = None
+    if backend == "sharded":
+        import jax
+        import numpy as np
+        from jax.sharding import Mesh
+
+        mesh = Mesh(np.array(jax.devices()[:3]), ("replica",))
     ref = RefRuntime(RefConfig(n_replicas=3, n_keys=64, n_sessions=8,
                                replay_slots=4, ops_per_session=12,
-                               arb_mode="sort", chain_writes=2, **extra_cfg))
+                               arb_mode="sort", chain_writes=2, **extra_cfg),
+                     backend=backend, mesh=mesh)
     assert ref.drain()
     want = ref_stats.summarize(ref.fs.meta, None, ref.step_idx)
     assert {k: v for k, v in got.items() if k not in WALL_FIELDS} == want
@@ -62,6 +71,14 @@ def test_torch_cli_check_drive_matches_reference_summary():
 
 def test_torch_cli_mega_round_check_drive_matches_reference_summary():
     _check_drive(["--mega-round"], mega_round=True)
+
+
+@pytest.mark.parametrize("extra", [[], ["--mega-round"]])
+def test_torch_cli_sharded_check_drive_matches_reference_summary(extra):
+    """``--backend fast-sharded``: the sharded engine on a LocalGroup,
+    against the reference's sharded FastRuntime over three CPU devices."""
+    _check_drive(["--backend", "fast-sharded", *extra], backend="sharded",
+                 mega_round=bool(extra))
 
 
 def test_torch_cli_defaults_to_the_card_and_refuses_bad_flags():
@@ -88,16 +105,18 @@ DRIVE_WALL_FIELDS = ("wall_s", "reads_per_sec", "writes_per_sec",
                      "put_gb_per_sec")
 
 
-def _drive_summaries(capsys, argv):
+def _drive_summaries(capsys, argv, port_extra=()):
     """The port's drive (a fresh interpreter, CPU) and the reference
-    CLI's (in-process) on the same arguments: both JSON summaries."""
+    CLI's (in-process) on the same arguments, the port's with
+    ``port_extra`` added: both JSON summaries."""
     import json
 
     from hermes_tpu import cli as ref_cli
 
     env = dict(os.environ, OMP_NUM_THREADS="1")
     r = subprocess.run(
-        [sys.executable, "-m", "hermes_tpu_torch", *argv, "--device", "cpu"],
+        [sys.executable, "-m", "hermes_tpu_torch", *argv, *port_extra,
+         "--device", "cpu"],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     got = json.loads(r.stdout.strip().splitlines()[-1])
@@ -114,11 +133,26 @@ BASE = ["--replicas", "3", "--keys", "512", "--sessions", "16",
         "--replay-slots", "8", "--value-words", "6", "--check"]
 
 
+# the reference runs its client drives on the batched engine only; the
+# port's sharded engine (--backend fast-sharded) must give the same counts
+# on these healthy drives, where every copy stays in lockstep
+SHARDED = ("--backend", "fast-sharded")
+
+
 @pytest.mark.parametrize("extra", [[], ["--read-latest", "--seed", "5"],
                                    ["--distribution", "zipfian",
                                     "--read-frac", "0.6"]])
 def test_torch_cli_reads_drive_matches_reference_counts(capsys, extra):
-    got = _drive_summaries(capsys, BASE + ["--reads", "3000", *extra])
+    _reads_drive(capsys, extra)
+
+
+def test_torch_cli_sharded_reads_drive_matches_reference_counts(capsys):
+    _reads_drive(capsys, [], SHARDED)
+
+
+def _reads_drive(capsys, extra, port_extra=()):
+    got = _drive_summaries(capsys, BASE + ["--reads", "3000", *extra],
+                           port_extra)
     assert got["ok"] and got["checked_ok"] and got["stale_read"] == []
     assert got["reads"] + got["writes"] == got["ops"] == 3000
     assert got["local_reads"] + got["fallback_reads"] >= got["reads"]
@@ -127,7 +161,16 @@ def test_torch_cli_reads_drive_matches_reference_counts(capsys, extra):
 @pytest.mark.parametrize("extra", [["--value-bytes", "256"],
                                    ["--value-bytes", "1024", "--seed", "9"]])
 def test_torch_cli_values_drive_matches_reference_counts(capsys, extra):
-    got = _drive_summaries(capsys, BASE + ["--values-ops", "600", *extra])
+    _values_drive(capsys, extra)
+
+
+def test_torch_cli_sharded_values_drive_matches_reference_counts(capsys):
+    _values_drive(capsys, ["--value-bytes", "256"], SHARDED)
+
+
+def _values_drive(capsys, extra, port_extra=()):
+    got = _drive_summaries(capsys, BASE + ["--values-ops", "600", *extra],
+                           port_extra)
     assert got["ok"] and got["byte_exact"] and got["checked_ok"]
     assert got["heap"]["appends"] == 600 and got["heap"]["gc_runs"] >= 1
     assert got["post_gc_util"] >= got["util_floor"]

@@ -1139,6 +1139,147 @@ def test_round_duplicate_scatters_write_identical_rows_on_card(
     assert all(differ == 0 for _, differ in got.values()), got
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("mega_round", [False, True])
+def test_sharded_round_duplicate_scatters_write_identical_rows_on_card(
+        mega_round, monkeypatch):
+    """The sharded round's set-scatters with duplicate indices: the
+    winner-row write (``_winner_row_scatter`` from ``_apply_commit``,
+    R x Rsrc x C rows into the R copies, more duplicates than batched)
+    and the replay mark (``_replay_scan``, each replica into its own
+    copy).  On bench-a and bench-a-mega on the sharded engine, with
+    replica 1 frozen from round 8 until after the replay scan of round
+    32, every duplicated target but a copy's drop row must receive
+    byte-identical rows."""
+    import sys
+
+    from hermes_tpu_torch import config
+    from hermes_tpu_torch.core.group import LocalGroup
+    from hermes_tpu_torch.runtime import FastRuntime
+
+    _card()
+    cfg = config.bench_cfg("a", over=dict(mega_round=mega_round))
+    rt = FastRuntime(cfg, backend="sharded", group=LocalGroup("cuda"))
+    rt.fetch_completions = False
+    bank = rt.fs.table.bank
+    K = cfg.n_keys
+    sites = {"_winner_row_scatter": [], "_replay_scan": []}
+    real = torch.Tensor.index_put_
+
+    def index_put_(self, indices, values, accumulate=False):
+        site = sys._getframe(1).f_code.co_name
+        if site in sites and self.dtype == torch.int8 and (
+                self.shape == bank.shape):
+            rows, vals = indices[0], values
+            order = torch.argsort(rows, stable=True)
+            r, v = rows[order], vals[order]
+            dup = (r[1:] == r[:-1]) & (r[1:] % (K + 1) != K)
+            differ = dup & (v[1:] != v[:-1]).any(dim=1)
+            sites[site].append(torch.stack([dup.sum(), differ.sum()]))
+        return real(self, indices, values, accumulate)
+
+    monkeypatch.setattr(torch.Tensor, "index_put_", index_put_)
+    for s in range(40):
+        if s == 8:
+            rt.freeze(1)
+        if s == 33:
+            rt.thaw(1)
+        rt.step_once()
+    torch.cuda.synchronize()
+    got = {site: torch.stack(v).sum(0).tolist() if v else [0, 0]
+           for site, v in sites.items()}
+    assert len(sites["_winner_row_scatter"]) == 40
+    if not mega_round:
+        assert sites["_replay_scan"], "the replay mark never ran"
+    assert sum(dup for dup, _ in got.values()) > 0, got
+    assert all(differ == 0 for _, differ in got.values()), got
+
+
+@pytest.mark.gpu
+def test_mega_kernels_at_the_sharded_sites_match_plain_on_card():
+    """``mega_apply`` at the sharded site (one launch over the flat
+    R*(K+1)-row table: every replica's gathered slots and replay keys,
+    keys offset into its own copy) and ``mega_replay`` on one copy's K-row
+    view, on the inputs of real bench-a-mega rounds of the sharded engine
+    (``chip_smoke.sharded_site_inputs``, which freezes replica 1 so that
+    the scan takes slots): equal to their plain versions on the CPU, one
+    launch a call."""
+    from types import SimpleNamespace
+
+    from hermes_tpu_torch import config
+    from hermes_tpu_torch.core import megaround as mega
+    from hermes_tpu_torch.core.group import LocalGroup
+    from hermes_tpu_torch.runtime import FastRuntime
+
+    _card()
+    cfg = config.bench_cfg("a", over=dict(mega_round=True))
+    rt = FastRuntime(cfg, backend="sharded", group=LocalGroup("cuda"))
+    rt.fetch_completions = False
+    rt.run(6)
+    sh = SimpleNamespace(mega=mega, device="cuda")
+    got = chip_smoke.sharded_site_inputs(torch, sh, rt)
+    for name, args in got.items():
+        wrapper = getattr(mega, name)
+        plain = getattr(mega, name + "_plain")
+        want = chip_smoke._flat(plain(*chip_smoke._to(torch, args, "cpu")))
+        before = wrapper.launches
+        out = chip_smoke._flat(wrapper(*chip_smoke._to(torch, args, "cuda")))
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1, name
+        for w, x in zip(want, out):
+            assert torch.equal(w, x.cpu()), name
+    _cfg, vpts, keys, _pts, mask = got["mega_apply"]
+    assert vpts.shape[0] == cfg.n_replicas * (cfg.n_keys + 1)
+    assert bool(mask.any())
+    assert got["mega_replay"][4].shape[0] == cfg.n_keys
+    taken = mega.mega_replay_plain(*chip_smoke._to(
+        torch, got["mega_replay"], "cpu"))[1][0]
+    assert bool((taken & ~got["mega_replay"][5].active.cpu()).any())
+
+
+_TWO_RANKS_ONE_CARD = r"""
+import sys
+import torch
+from hermes_tpu_torch import launch
+from hermes_tpu_torch.core.group import DistGroup
+launch.init_distributed(sys.argv[1], 2, int(sys.argv[2]), device="cuda")
+try:
+    DistGroup(None, "cuda:0")
+except ValueError as e:
+    print("REFUSED", e)
+"""
+
+
+@pytest.mark.gpu
+def test_dist_group_refuses_two_ranks_on_one_card(tmp_path):
+    """A ``DistGroup`` on CUDA needs NCCL and one distinct card a rank:
+    two ranks of an NCCL group both on card 0 are refused, on both ranks,
+    before any collective runs on the card."""
+    import os
+    import subprocess
+    import sys
+
+    _card()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "two_ranks.py"
+    script.write_text(_TWO_RANKS_ONE_CARD)
+    init = f"file://{tmp_path / 'rdv'}"
+    procs = [subprocess.Popen([sys.executable, str(script), init, str(r)],
+                              env=dict(os.environ, PYTHONPATH=root),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for r in range(2)]
+    outs = []
+    try:
+        outs = [p.communicate(timeout=120)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for out in outs:
+        assert "REFUSED" in out and "distinct device" in out, out[-2000:]
+
+
 def _read_drive(kvs, np):
     """Writes beside local reads: a batch stepped part way with replica 2
     frozen (so keys are Invalid), multi-gets with a session, a scan, the

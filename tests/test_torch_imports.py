@@ -7,7 +7,8 @@ cell of the table-step probe and the kernel matrix (the analysis
 sub-package, its fixtures and its command line), and a durable, observed
 KVS (obs/, wal/, snapshot.py, chaos/, concurrency.py: a traced put under
 the WAL, a snapshot, a replica restart, a whole-store recovery and the
-report renderer) on the CPU."""
+report renderer), and the sharded engine (core/group.py, launch.py: a
+sharded KVS put/get on a LocalGroup and a launch run) on the CPU."""
 
 import pathlib
 import subprocess
@@ -79,6 +80,16 @@ assert summary["applied"] == 1 and len(crashdrive.log_ops(
     replay.read_records(d + "/wal")["records"])) == 1
 assert "obs report" in report.render_report(obs.records)
 rk.wal.close()
+from hermes_tpu_torch import launch
+from hermes_tpu_torch.core import group
+sk = KVS(cfg, backend="sharded", device="cpu")
+p = sk.put(0, 0, 9, [3, 4])
+assert sk.run_until([p])
+g = sk.get(2, 0, 9)
+assert sk.run_until([g]) and g.result().value == [3, 4]
+assert group.replica_devices(3, "cpu") == [torch.device("cpu")] * 3
+lrt = launch.run(cfg, 4, device="cpu")
+assert lrt.n_copies == 3 and lrt.step_idx == 4
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "hermes_tpu" or m.startswith("hermes_tpu."))

@@ -357,3 +357,83 @@ def test_torch_read_path_entry_defaults_to_the_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="card"):
             KVS(_cfgs()[1])
+
+
+# -- the sharded engine: one table copy a replica ------------------------------
+
+
+def _sharded_pair():
+    from jax.sharding import Mesh
+
+    rc, cfg = _cfgs()
+    mesh = Mesh(np.array(jax.devices()[:3]), ("replica",))
+    ref = RefKVS(rc, backend="sharded", mesh=mesh, record=True)
+    kvs = KVS(cfg, backend="sharded", record=True, device="cpu")
+    return ref, kvs, mesh
+
+
+def _part_copy_2(ref, kvs, mesh, key, row_words):
+    """Make replica 2's copy of ``key`` differ from the others in both
+    packages (a frozen replica still applies inbound INVs, so the
+    engine's own stall model keeps the copies' values together)."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from hermes_tpu_torch.core import faststep as fst
+    from hermes_tpu_torch.transport import codec
+
+    K = kvs.cfg.n_keys
+    row8 = codec.words_to_rows(np.asarray([row_words], np.int32))[0]
+    bank = np.asarray(jax.device_get(ref.rt.fs.table.bank)).copy()
+    bank[2 * K + key] = row8
+    ref.rt.fs = ref.rt.fs._replace(table=ref.rt.fs.table._replace(
+        bank=jax.device_put(jax.numpy.asarray(bank),
+                            NamedSharding(mesh, P("replica")))))
+    fst.copies(kvs.rt.fs.table.bank, K)[2, key] = torch.from_numpy(row8)
+
+
+def test_torch_sharded_reads_serve_the_named_replicas_copy():
+    """On the sharded engine a read is served from the serving replica's
+    own copy (the row offset ``replica * (K+1)``): with replica 2's copy
+    of key 17 made to differ, the raw programs read each replica's copy
+    as the reference's do, the KVS serves from the first healthy replica
+    (copy 0, then copy 2 once 0 and 1 are frozen), and a named replica
+    reads its own."""
+    ref, kvs, mesh = _sharded_pair()
+    for k in (ref, kvs):
+        _put_all(k, [(0, [1, 2]), (255, [3, 4]), (17, [-5, 6])])
+    other = [123 << 10, (4 << 3) | 0, 17, -1, 9, 9, 9, 9]  # VALID, ts 123
+    _part_copy_2(ref, kvs, mesh, 17, other)
+    K = kvs.cfg.n_keys
+    slots = np.array([0, 255, 17, -1, 256, 3], np.int32)
+    mget = rp.build_multi_get(kvs.cfg)
+    scan = rp.build_scan(kvs.cfg)
+    answers = []
+    for rep in range(3):
+        want = ref_rp.build_multi_get(ref.cfg, "sharded",
+                                      rp.batch_bucket(6))(
+            ref.rt.fs.table, np.pad(slots, (0, 250)), jax.numpy.int32(rep))
+        got = mget(kvs.rt.fs.table, slots, rep)
+        for f in ("valid", "val", "pts"):
+            np.testing.assert_array_equal(getattr(got, f),
+                                          np.asarray(getattr(want, f))[:6],
+                                          f"replica {rep} {f}")
+        w = ref_rp.build_scan(ref.cfg, "sharded", K)(
+            ref.rt.fs.table, jax.numpy.int32(0), jax.numpy.int32(rep))
+        g = scan(kvs.rt.fs.table, 0, K, rep)
+        np.testing.assert_array_equal(g.val, np.asarray(w.val))
+        answers.append(got.val[2].tolist())
+    assert answers[0] == answers[1] != answers[2]
+    assert answers[2][:2] == [17, -1]
+    # the KVS and its reader: the first healthy replica's copy, or a named
+    assert kvs.multi_get([17]).value[0].tolist() == answers[0][2:]
+    reader = kvs._get_reader()
+    assert reader.multi_get([17], replica=2).val[0].tolist() == answers[2]
+    assert reader.scan(17, 18, replica=2).val[0].tolist() == answers[2]
+    for k in (ref, kvs):
+        k.freeze(0)
+        k.freeze(1)
+    want = _cols(ref.multi_get([17, 0]))
+    got = _cols(kvs.multi_get([17, 0]))
+    _same([want], [got], "served by replica 2")
+    assert got["value"][0].tolist() == answers[2][2:]
+    assert reader.multi_get([17], replica=0) is None  # frozen: no local read

@@ -44,8 +44,8 @@ def _cfgs(**over):
     return rc, HermesConfig(**dataclasses.asdict(rc))
 
 
-def _state_equal(port, ref):
-    a = convert.fast_state_to_numpy(port.rt.fs)
+def _state_equal(port, ref, n_copies=1):
+    a = convert.fast_state_to_numpy(port.rt.fs, n_copies=n_copies)
     b = jax.device_get(ref.rt.fs)
     for pa, pb in zip(a, b):
         for f, x, y in zip(pa._fields, pa, pb):
@@ -133,6 +133,65 @@ def test_torch_recovery_restart_replica_equals_reference(tmp_path, source):
     ev = lambda recs: [(r["name"], r.get("replica"))
                        for r in recs if r["kind"] == "event"]
     assert ev(pobs.records) == ev(robs.records)
+    if wal:
+        port.wal.close()
+        ref.wal.close()
+
+
+@pytest.mark.parametrize("source", ["snapshot", "wal"])
+def test_torch_recovery_sharded_restart_replica_equals_reference(tmp_path,
+                                                                 source):
+    """``restart_replica`` of one copy on the sharded engine: the donor's
+    copy is transferred into replica 3's (its in-flight states folded to
+    INVALID), the snapshot's rows current against the donor are counted,
+    and the WAL tail is replayed into replica 3's copy only.  Same state,
+    summary and completions as the reference's sharded KVS."""
+    from jax.sharding import Mesh
+
+    from hermes_tpu_torch.core import faststep as fst
+
+    wal = source == "wal"
+    rc, cfg = _cfgs(wal_dir=str(tmp_path / "wal") if wal else None,
+                    wal_sync="round")
+    if wal:
+        rc = dataclasses.replace(rc, wal_dir=str(tmp_path / "rwal"))
+    mesh = Mesh(np.array(jax.devices()[:5]), ("replica",))
+    ref = RefKVS(rc, backend="sharded", mesh=mesh, record=True)
+    port = KVS(cfg, backend="sharded", record=True, device="cpu")
+    for kv, pkg, name in ((ref, ref_snap, "r.npz"),
+                          (port, snapshot, "p.npz")):
+        f = _load(kv, 1, n=12)
+        assert kv.run_until(f)
+        pkg.save(str(tmp_path / name), kv)
+    fr, fp = _load(ref, 2), _load(port, 2)
+    for kv, fl in ((ref, fr), (port, fp)):
+        kv.freeze(4)
+        fl += [kv.put(3, s, 40 + s, [s, s, s]) for s in range(3)]
+        kv.step()
+        kv.step()
+    if wal:
+        ref.wal.sync()
+        port.wal.sync()
+    sr = ref_restart(ref, 3, snapshot_path=str(tmp_path / "r.npz"),
+                     wal_dir=rc.wal_dir if wal else None)
+    sp = restart_replica(port, 3, snapshot_path=str(tmp_path / "p.npz"),
+                         wal_dir=cfg.wal_dir if wal else None)
+    assert sp == sr and sp["source"] == "snapshot"
+    assert 0 < sp["rows_current"] <= cfg.n_keys
+    _state_equal(port, ref, n_copies=5)
+    assert _results(fp) == _results(fr)
+    K = cfg.n_keys
+    bank = fst.copies(port.rt.fs.table.bank, K)
+    sst = fst._bank_to_i32(bank[..., 4:8])[..., 0]
+    assert not torch.equal(sst[3], sst[0])  # the join re-stamped copy 3
+    for kv in (ref, port):
+        kv.rt.thaw(4)
+        f = kv.put(3, 0, 5, [1, 2, 3])
+        assert kv.run_until([f], 200)
+        for _ in range(8):
+            kv.step()
+    _state_equal(port, ref, n_copies=5)
+    assert port.rt.check().ok and ref.rt.check().ok
     if wal:
         port.wal.close()
         ref.wal.close()

@@ -135,10 +135,13 @@ def test_torch_runtime_array_recorder_and_native_checker():
 def test_torch_runtime_defaults_to_the_card():
     cfg = HermesConfig(n_replicas=2, n_keys=16, n_sessions=2, replay_slots=1,
                        ops_per_session=2)
-    if torch.cuda.is_available():
-        assert FastRuntime(cfg).device.type == "cuda"
-    else:
-        with pytest.raises(RuntimeError, match="device='cpu'"):
-            FastRuntime(cfg)
-    with pytest.raises(NotImplementedError, match="A10"):
-        FastRuntime(cfg, backend="sharded", device="cpu")
+    for backend in ("batched", "sharded"):
+        if torch.cuda.is_available():
+            assert FastRuntime(cfg, backend=backend).device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                FastRuntime(cfg, backend=backend)
+    rt = FastRuntime(cfg, backend="sharded", device="cpu")
+    assert rt.device.type == "cpu" and rt.n_copies == 2
+    with pytest.raises(ValueError, match="unknown backend"):
+        FastRuntime(cfg, backend="phases", device="cpu")

@@ -72,6 +72,61 @@ def test_torch_snapshot_runtime_cross_load(tmp_path, writer):
     _assert_state_equal(dst_port.fs, _ref_tree(dst_ref))
 
 
+def _assert_sharded_equal(port_fs, ref_fs, n):
+    a = convert.fast_state_to_numpy(port_fs, n_copies=n)
+    for part_a, part_b in zip(a, jax.device_get(ref_fs)):
+        for f, x, y in zip(part_a._fields, part_a, part_b):
+            np.testing.assert_array_equal(x, np.asarray(y), err_msg=f)
+
+
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_torch_snapshot_sharded_cross_load(tmp_path, writer):
+    """The sharded engine's full archive: every replica's copy in the
+    reference's (R*K,) rows, each copy's own drop row cut and re-added;
+    written by either package it loads in the other (copies that differ
+    included: replica 2 was frozen through the replay scan), the restored
+    runs go on equal, and the archive is refused by a batched runtime."""
+    from jax.sharding import Mesh
+
+    from hermes_tpu_torch.core import faststep as fst
+    from hermes_tpu_torch.core.group import LocalGroup
+
+    rc, cfg = _cfgs(replay_age=1, replay_scan_every=2)
+    mesh = Mesh(np.array(jax.devices()[:3]), ("replica",))
+    mk_ref = lambda: RefRuntime(rc, backend="sharded", mesh=mesh)
+    mk_port = lambda: FastRuntime(cfg, backend="sharded",
+                                  group=LocalGroup("cpu"))
+    ref, port = mk_ref(), mk_port()
+    for rt in (ref, port):
+        rt.run(2)
+        jax.block_until_ready(ref.fs)
+        rt.freeze(2)
+        rt.run(5)
+    _assert_sharded_equal(port.fs, ref.fs, 3)
+    bank = fst.copies(port.fs.table.bank, cfg.n_keys)
+    assert not torch.equal(bank[2], bank[0]), "the copies never parted"
+    p = str(tmp_path / "snap.npz")
+    (snapshot if writer == "port" else ref_snap).save(p, port if writer
+                                                      == "port" else ref)
+    with np.load(p) as z:
+        assert z["state.table.vpts"].shape == (3 * cfg.n_keys,)
+    dst_ref, dst_port = mk_ref(), mk_port()
+    snapshot.load(p, dst_port)
+    ref_snap.load(p, dst_ref)
+    _assert_sharded_equal(dst_port.fs, dst_ref.fs, 3)
+    for r in range(3):  # every drop row re-added zeroed
+        assert int(dst_port.fs.table.vpts[r * (cfg.n_keys + 1)
+                                          + cfg.n_keys]) == 0
+    for rt in (dst_ref, dst_port):
+        jax.block_until_ready(dst_ref.fs)
+        rt.thaw(2)
+        rt.run(10)
+    _assert_sharded_equal(dst_port.fs, dst_ref.fs, 3)
+    batched = FastRuntime(cfg, device="cpu")
+    with pytest.raises(ValueError, match="1 table copy"):
+        snapshot.load(p, batched)
+
+
 def test_torch_snapshot_port_archive_equals_reference_members(tmp_path):
     """Every member the port writes has the reference's checksum."""
     rc, cfg = _cfgs()

@@ -247,6 +247,51 @@ def test_torch_wal_apply_records_equals_reference(heap):
     assert replay.apply_records(port.rt, recs, heap=port.heap) == (0, 96)
 
 
+@pytest.mark.parametrize("heap", [False, True], ids=["words", "heap"])
+def test_torch_wal_apply_records_sharded_replicas_equals_reference(heap):
+    """``apply_records(replicas=)`` on the sharded engine: the seed
+    records land in copy 1 only, so the copies differ; the replay into
+    copies 0 and 1 applies a record when it beats the row of either and
+    writes each copy's own winners.  Same counts, same copies, same heap
+    as the reference's record loop; the copy not named is untouched."""
+    from jax.sharding import Mesh
+
+    from hermes_tpu_torch.core import faststep as fst
+
+    rng = np.random.default_rng(12)
+    over = dict(max_value_bytes=64, heap_bytes=1 << 14, value_words=4) \
+        if heap else {}
+    rc = RefConfig(**_kw(None, n_keys=32, **over))
+    cfg = HermesConfig(**dataclasses.asdict(rc))
+    mesh = Mesh(np.array(jax.devices()[:3]), ("replica",))
+    ref = RefKVS(rc, backend="sharded", mesh=mesh)
+    port = KVS(cfg, backend="sharded", device="cpu")
+    seed = _random_records(rng, 2, 8, 32, cfg.value_words, heap)
+    recs = _random_records(rng, 6, 16, 32, cfg.value_words, heap)
+    for kv, mod in ((ref, ref_replay), (port, replay)):
+        assert mod.apply_records(kv.rt, seed, heap=kv.heap,
+                                 replicas=[1])[0] > 0
+    K = cfg.n_keys
+    v = fst.copies(port.rt.fs.table.vpts, K)
+    assert not torch.equal(v[0], v[1]) and torch.equal(v[0], v[2])
+    before2 = fst.copies(port.rt.fs.table.bank, K)[2].clone()
+    got = replay.apply_records(port.rt, recs, heap=port.heap,
+                               replicas=[0, 1])
+    want = ref_replay.apply_records(ref.rt, recs, heap=ref.heap,
+                                    replicas=[0, 1])
+    assert got == want and got[0] > 0 and got[1] > 0
+    a = convert.fast_state_to_numpy(port.rt.fs, n_copies=3).table
+    b = jax.device_get(ref.rt.fs.table)
+    np.testing.assert_array_equal(a.vpts, np.asarray(b.vpts))
+    np.testing.assert_array_equal(a.bank, np.asarray(b.bank))
+    assert torch.equal(fst.copies(port.rt.fs.table.bank, K)[2], before2)
+    if heap:
+        assert port.heap._cursor == ref.heap._cursor
+        np.testing.assert_array_equal(port.heap._mirror, ref.heap._mirror)
+    assert replay.apply_records(port.rt, recs, heap=port.heap,
+                                replicas=[0, 1]) == (0, 96)
+
+
 # -- the KVS surface -----------------------------------------------------------
 
 
