@@ -107,7 +107,8 @@ prints no result):
    with ``wal_sync="commit"`` and a WAL under a temporary directory: waves
    of 131,072 distinct-key puts through ``submit_batch``, the committed
    uids and values written to a witness after each; in the fifth wave,
-   once a log batch of it is durable, it SIGKILLs itself.  The parent
+   once a log batch of its first half is durable, it submits the second
+   half, steps once and SIGKILLs itself.  The parent
    requires death by signal 9 and the card's memory back, recovers the
    store with ``chaos.recover_store(device="cuda")`` in under 90 s, and
    holds it to the witness and the log (no committed write lost, every
@@ -124,6 +125,30 @@ prints no result):
    a flight archive, are retried on a healthy replica and resolve after
    ``remove(7)``; the checker passes and the log's ``t`` never decreases.
    Traced against untraced waves in turns.
+13. chaos   — bench-a at pipeline depth 2, recorded, the failure detector
+   attached (``MembershipService(confirm_steps=2)``), through the
+   declarative ``CHAOS_SCHEDULE`` for 64 rounds (freezes and thaws, a
+   heartbeat skew, two crash-restarts, a remove and a join, a partition
+   the detector acts on, a heal), healed and quiesced: the executed log
+   holds every verb and a detector removal, the checker passes, every key
+   is VALID, the device op counters equal the recorded completions (a
+   crash's maybe_w rows at most its lost ops), no ``membership_fetch``
+   event, each kernel's launches equal the rounds.  chaos-sharded-mega:
+   the same on the sharded engine with ``mega_round=True``, each join's
+   copy held against its donor's (equal but for the folded states).
+14. detect-cost — bench-a at depth 2 with completions harvested, without
+   and with the detector, 60-round windows in turns off on on off: host
+   us/round and a profiled window's busy share of each.
+15. drill   — ``elastic.run_rolling_restart`` on bench-a at depth 2,
+   recorded, a restart every 6 rounds (58 rounds): 8 restarts, each
+   restart's seconds, the dip and the lost ops; quiesced, checked.
+16. resize  — ``elastic.rolling_resize`` (``hold_steps=8``) on a KVS at the
+   reads shape with ``RESIZE_SESSIONS`` sessions a replica under the
+   reference CLI's standing load: 8 resizes, puts to retired replicas
+   ``rejected``, the load completes; then degraded mode
+   (``min_healthy_for_writes=5``, four replicas frozen): every write of a
+   mixed batch shed, every get answered, writes commit after the thaw,
+   ``degraded`` then ``degraded_clear`` traced; the checker passes.
    Every KVS phase holds ``stats_block``'s launches equal to its rounds.
 
 Then the kernels summary line, the card's name and power limit, and last
@@ -2154,6 +2179,414 @@ def phase_observed(torch, np, kernels, types, KVS, port, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# The failure detector, fault schedules, live resize and degraded mode
+# --------------------------------------------------------------------------
+
+CHAOS_ROUNDS = 64
+CHAOS_CONFIRM = 2  # the detector's confirm window, rounds
+# bench-a's lease is 8 rounds and the ring 2 deep: replica 5, frozen at 2,
+# is removed by the detector around round 14 (until then it holds every
+# commit back: Hermes waits for every live replica's ack); replica 1, cut
+# off at 22 but still running, around round 33; both come back at the
+# heal of round 54.  The skew of replica 2 lapses inside the confirm
+# window (suspect, then clear).  The crashes come while every live
+# replica is unfrozen: a crash while commits are held back would leave
+# one stuck key per held write, for the replay scan to take 256 a scan
+CHAOS_SCHEDULE = """
+@2 freeze 5
+@6 hb_skew 2 skew=12 until=8
+@18 crash_restart 3
+@20 remove 6
+@22 partition 1 until=40
+@26 join 6 donor=0
+@30 thaw 5
+@36 crash_restart 2
+@44 freeze 7
+@50 thaw 7
+@54 heal
+"""
+CHAOS_KINDS = ("freeze", "thaw", "join", "crash_restart", "hb_skew",
+               "partition")
+DETECT_ORDER = ("off", "on", "on", "off")
+DRILL_SPACING = 6  # rounds between two restarts: 4 + 6 * 8 + 6 rounds
+RESIZE_HOLD = 8
+RESIZE_SESSIONS = 16384  # a replica; the reads shape's 65,536, cut (PERF §4)
+RESIZE_RETIRED_PUTS = 4  # per-op puts sent to each replica while retired
+DEGRADED_FLOOR = 5
+DEGRADED_FROZEN = (4, 5, 6, 7)  # 4 of 8 healthy: under the floor
+DEGRADED_OPS = 16384
+
+
+def _quiesce_drain(rt, settled=None, limit=256):
+    """Rounds with new intake paused until nothing is in flight and
+    ``settled()`` holds (bench-a's streams wrap, so a drain to the streams'
+    end never comes).  A key a crashed coordinator left INVALID waits for
+    the replay scan (every 32nd round, once it is ``replay_age`` rounds
+    old), so ``settled`` is every key VALID there."""
+    rt.quiesce = True
+    n = 0
+    while (rt._inflight_count() or (settled and not settled())) \
+            and n < limit:
+        rt.step_once()
+        n += 1
+    rt.quiesce = False
+    rt.flush_pipeline()
+    return n
+
+
+def _recorded_split(recorder):
+    """(completion rows, maybe_w rows) the recorder holds: a crash folds
+    its in-flight updates in as maybe_w rows (code -1)."""
+    maybe = sum(int((c["code"] == -1).sum()) for c in recorder._chunks)
+    return recorder.n_recorded - maybe, maybe
+
+
+def _all_valid(ch, rt):
+    K = rt.cfg.n_keys
+    rows = ch.fst.copies(rt.fs.table.bank, K)
+    sst = ch.fst._bank_to_i32(rows[..., 4:8])[..., 0]
+    return bool(((sst & 7) == ch.types.VALID).all())
+
+
+def _checking_joins(torch, ch, rt, joins):
+    """Wrap ``rt.join`` (the schedule's joins, the heal's and the crash
+    restarts') so that each join holds the joiner's new copy against its
+    donor's: vpts, pts and value bytes equal; each row's state the donor's
+    with WRITE, TRANS and REPLAY folded to INVALID, stamped this round."""
+    join = rt.join
+    T = ch.types
+
+    def checked(replica, from_replica):
+        join(replica, from_replica)
+        jv, jb = rt.copy_of(replica)
+        dv, db = rt.copy_of(from_replica)
+        js = ch.fst._bank_to_i32(jb[:, 4:8])[:, 0]
+        ds = ch.fst._bank_to_i32(db[:, 4:8])[:, 0]
+        dstate = ds & 7
+        folded = torch.where((dstate == T.WRITE) | (dstate == T.TRANS)
+                             | (dstate == T.REPLAY), T.INVALID, dstate)
+        same = (torch.equal(jv, dv) and torch.equal(jb[:, 0:4], db[:, 0:4])
+                and torch.equal(jb[:, 8:], db[:, 8:])
+                and torch.equal(js & 7, folded)
+                and bool((ch.fst.sst_step(js) == rt.step_idx).all()))
+        joins.append({"replica": replica, "donor": from_replica,
+                      "round": rt.step_idx, "equal": same,
+                      "folded": int((folded != dstate).sum())})
+
+    rt.join = checked
+
+
+def phase_chaos(torch, counters, ch, card, sharded=False):
+    """bench-a at depth 2, recorded, the detector attached
+    (``confirm_steps=2``), through ``CHAOS_SCHEDULE`` for 64 rounds, healed
+    and quiesced: the checker passes, every key is VALID, the device op
+    counters equal the recorded completions (a crash's lost in-flight
+    updates are maybe_w rows beside them, at most its lost ops), the
+    pipelined detector fetched nothing synchronously, and each kernel's
+    launches equal the rounds as declared.  ``sharded``: the same on the
+    sharded engine with ``mega_round=True``; each join's copy is held
+    against its donor's."""
+    cfg = ch.cfg(pipeline_depth=2, mega_round=sharded)
+    if sharded:
+        rt = ch.FastRuntime(cfg, backend="sharded", record="array",
+                            group=ch.LocalGroup(ch.device))
+    else:
+        rt = ch.FastRuntime(cfg, record="array", device=ch.device)
+    obs = rt.attach_obs(ch.Observability())
+    rt.attach_membership(ch.MembershipService(cfg,
+                                              confirm_steps=CHAOS_CONFIRM))
+    joins = []
+    if sharded:
+        _checking_joins(torch, ch, rt, joins)
+    runner = ch.chaos.ChaosRunner(rt, ch.chaos.Schedule.parse(CHAOS_SCHEDULE))
+    for w in counters.values():
+        w.launches = 0
+    ch.sync()
+    t0 = time.perf_counter()
+    # heal at the end; the drain to the streams' end is left out (they
+    # wrap): the quiesce drain below settles the cluster instead
+    res = runner.run(CHAOS_ROUNDS, heal=True, drain_steps=0)
+    ch.sync()
+    wall = time.perf_counter() - t0
+    drained = _quiesce_drain(rt, lambda: _all_valid(ch, rt))
+    launches = {name: w.launches for name, w in counters.items()}
+    want = sharded_expected_launches(cfg, 0, rt.step_idx, rt.n_copies)
+    c = rt.counters()
+    device_ops = int(c["n_read"] + c["n_write"] + c["n_rmw"] + c["n_abort"])
+    recorded, maybe_w = _recorded_split(rt.recorder)
+    valid = _all_valid(ch, rt)
+    t0 = time.perf_counter()
+    v = rt.check()
+    check_s = time.perf_counter() - t0
+    names = [r["name"] for r in obs.records if r.get("kind") == "event"]
+    kinds = sorted({e["kind"] for e in runner.log})
+    detector = [(e.step, e.kind, e.replica) for e in rt.membership.events]
+    out = {"phase": "chaos-sharded-mega" if sharded else "chaos",
+           "nvidia_smi": card, "rounds": CHAOS_ROUNDS,
+           "us_per_round": wall / CHAOS_ROUNDS * 1e6,
+           "drain_rounds": drained, "executed": runner.log,
+           "membership_events": detector,
+           "suspects": names.count("suspect"),
+           "suspect_clears": names.count("suspect_clear"),
+           "membership_fetch": names.count("membership_fetch"),
+           "lost_ops": res["lost_ops"], "device_ops": device_ops,
+           "recorded_ops": recorded, "maybe_w_rows": maybe_w,
+           "launches": {k: launches[k] for k in want},
+           "all_keys_valid": valid, "check_ok": v.ok,
+           "keys_checked": v.keys_checked, "check_s": check_s}
+    if sharded:
+        out["copies"] = rt.n_copies
+        out["joins"] = joins
+    emit(out)
+    missing = [k for k in CHAOS_KINDS if k not in kinds]
+    if missing or not any(k == "remove" for _, k, _ in detector):
+        raise AssertionError(f"the executed log lacks {missing} (detector "
+                             f"events {detector})")
+    if out["membership_fetch"]:
+        raise AssertionError(f"{out['membership_fetch']} synchronous "
+                             "membership fetches in a pipelined run")
+    if not v.ok:
+        raise AssertionError(f"linearizability check failed: "
+                             f"{[f.reason[:200] for f in v.failures[:3]]}")
+    if rt._inflight_count() or not valid:
+        raise AssertionError("the healed store did not converge to "
+                             "all-VALID")
+    if device_ops != recorded or maybe_w > res["lost_ops"]:
+        raise AssertionError(f"device op counters {device_ops} != recorded "
+                             f"completions {recorded} (maybe_w {maybe_w}, "
+                             f"lost {res['lost_ops']})")
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"kernel launches {launches} in the chaos run, "
+                             f"want {want}")
+    if sharded and (len(joins) < 3 or not all(j["equal"] for j in joins)):
+        raise AssertionError(f"a joiner's copy differs from its donor's: "
+                             f"{joins}")
+    return out
+
+
+def phase_detect_cost(torch, ch, card):
+    """What the detector costs: bench-a at depth 2 with completions
+    harvested, one runtime without a detector and one with, 60-round
+    windows in turns off on on off; host us/round of each window and a
+    profiled window's device busy share of each setting."""
+    cfg = ch.cfg(pipeline_depth=2)
+    rts = {}
+    obs = {}
+    for name in ("off", "on"):
+        rt = ch.FastRuntime(cfg, device=ch.device)
+        # both carry an obs context (the fetch count reads it), so the
+        # pair differs by the detector alone
+        obs[name] = rt.attach_obs(ch.Observability())
+        if name == "on":
+            rt.attach_membership(ch.MembershipService(cfg))
+        rt.run(4)
+        rts[name] = rt
+    us = {"off": [], "on": []}
+    for name in DETECT_ORDER:
+        wall, _, _ = timed_window(torch, rts[name], ch.rounds)
+        us[name].append(wall / ch.rounds * 1e6)
+    busy = {}
+    for name, rt in rts.items():
+        b = ch.device_busy(lambda rt=rt: rt.run(SHARDED_PROFILED))
+        busy[name] = {"busy_share": b["busy_s"] / b["wall_s"],
+                      "device_us_per_round":
+                          b["busy_s"] / SHARDED_PROFILED * 1e6,
+                      "profiled_us_per_round":
+                          b["wall_s"] / SHARDED_PROFILED * 1e6}
+    for rt in rts.values():
+        rt.flush_pipeline()
+    fetches = sum(r.get("name") == "membership_fetch"
+                  for r in obs["on"].records)
+    out = {"phase": "detect-cost", "nvidia_smi": card,
+           "order": " ".join(DETECT_ORDER), "rounds_per_window": ch.rounds,
+           "us_per_round": us, "busy": busy,
+           "median_us_per_round": {k: statistics.median(v)
+                                   for k, v in us.items()},
+           "membership_fetch": fetches,
+           "harvested_round": rts["on"].harvested_ages[0],
+           "rounds": rts["on"].step_idx}
+    out["on_over_off"] = (out["median_us_per_round"]["on"]
+                          / out["median_us_per_round"]["off"])
+    emit(out)
+    if fetches:
+        raise AssertionError(f"{fetches} synchronous membership fetches")
+    if rts["on"].step_idx - rts["on"].harvested_ages[0] > 2:
+        raise AssertionError("the detector's ages lag the ring")
+    return out
+
+
+def phase_drill(torch, kernels, ch, card):
+    """``run_rolling_restart`` on bench-a at depth 2, recorded: every
+    replica crash-restarted, ``DRILL_SPACING`` rounds apart, under load;
+    then a quiesce drain and the checker.  Each restart's host seconds
+    (the call, ending in a device sync)."""
+    cfg = ch.cfg(pipeline_depth=2)
+    rt = ch.FastRuntime(cfg, record="array", device=ch.device)
+    restart = ch.recovery.restart_replica
+    restart_s = []
+
+    def timed_restart(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = restart(*args, **kwargs)
+        ch.sync()
+        restart_s.append(time.perf_counter() - t0)
+        return out
+
+    kernels.stats_block.launches = 0
+    ch.recovery.restart_replica = timed_restart
+    try:
+        t0 = time.perf_counter()
+        res = ch.elastic.run_rolling_restart(rt, spacing=DRILL_SPACING,
+                                             heal=False)
+        ch.sync()
+        wall = time.perf_counter() - t0
+    finally:
+        ch.recovery.restart_replica = restart
+    drained = _quiesce_drain(rt, lambda: _all_valid(ch, rt))
+    c = rt.counters()
+    device_ops = int(c["n_read"] + c["n_write"] + c["n_rmw"] + c["n_abort"])
+    recorded, maybe_w = _recorded_split(rt.recorder)
+    valid = _all_valid(ch, rt)
+    t0 = time.perf_counter()
+    v = rt.check()
+    check_s = time.perf_counter() - t0
+    out = {"phase": "drill", "nvidia_smi": card, "steps": res["steps"],
+           "spacing": DRILL_SPACING, "restarts": res["restarts"],
+           "lost_ops": res["lost_ops"], "dip": res["dip"],
+           "restart_s": restart_s, "wall_s": wall,
+           "us_per_round": wall / rt.step_idx * 1e6,
+           "drain_rounds": drained, "rounds": rt.step_idx,
+           "device_ops": device_ops, "recorded_ops": recorded,
+           "maybe_w_rows": maybe_w, "all_keys_valid": valid,
+           "check_ok": v.ok, "check_s": check_s,
+           "stats_block_launches": kernels.stats_block.launches}
+    emit(out)
+    if res["restarts"] != cfg.n_replicas or len(restart_s) != cfg.n_replicas:
+        raise AssertionError(f"{res['restarts']} restarts, want "
+                             f"{cfg.n_replicas}")
+    if not v.ok or rt._inflight_count() or not valid:
+        raise AssertionError(f"checker {v.ok}, in flight "
+                             f"{rt._inflight_count()}, all VALID {valid}")
+    if device_ops != recorded or maybe_w > res["lost_ops"]:
+        raise AssertionError(f"device op counters {device_ops} != recorded "
+                             f"completions {recorded}")
+    if kernels.stats_block.launches != rt.step_idx:
+        raise AssertionError("stats_block launches != drill rounds")
+    return out
+
+
+def phase_resize(torch, np, kernels, ch, card):
+    """The KVS at the reads shape (``RESIZE_SESSIONS`` a replica, recorded,
+    ``min_healthy_for_writes=5``): ``rolling_resize`` with ``hold_steps=8``
+    under a ``submit_drill_mix`` standing load sized as the reference CLI
+    sizes it; per-op puts sent to each replica while it is retired come
+    back ``rejected``; the load then completes, nothing stranded.  Then
+    degraded mode: four replicas frozen (4 healthy, under the floor), a
+    mixed batch on replica 0's sessions returns every write ``C_REJECTED``
+    and answers every get; thawed, writes commit again; the trace shows
+    ``degraded`` then ``degraded_clear``; the checker passes."""
+    cfg = ch.kvs_cfg(n_sessions=RESIZE_SESSIONS,
+                     min_healthy_for_writes=DEGRADED_FLOOR)
+    kvs = ch.KVS(cfg, record="array", device=ch.device)
+    obs = kvs.rt.attach_obs(ch.Observability())
+    kernels.stats_block.launches = 0
+    R, S = cfg.n_replicas, cfg.n_sessions
+    rounds_est = R * (2 * RESIZE_HOLD + 6) + 24  # hermes_tpu/cli.py's
+    n_ops = rounds_est * R * S
+    bf, submit_s = _timed(torch, lambda: ch.elastic.submit_drill_mix(
+        kvs, n_ops, seed=ch.seed))
+    shrink = kvs.shrink
+    retired_kinds = []
+
+    def shrink_and_probe(replica, *args, **kwargs):
+        shrink(replica, *args, **kwargs)
+        retired_kinds.extend(
+            kvs.put(replica, s, s, [replica, s]).result().kind
+            for s in range(RESIZE_RETIRED_PUTS))
+
+    kvs.shrink = shrink_and_probe
+    t0 = time.perf_counter()
+    res = ch.elastic.rolling_resize(kvs, hold_steps=RESIZE_HOLD)
+    ch.sync()
+    drill_s = time.perf_counter() - t0
+    drill_rounds = kvs.rt.step_idx
+    done_in_drill = bf.done_count()
+    load_ok, load_s = _timed(torch, lambda: kvs.run_batch(bf))
+    kvs.flush()
+    codes = np.asarray(bf.code)
+    # degraded mode
+    for r in DEGRADED_FROZEN:
+        kvs.freeze(r)
+    # half gets, half puts; the gets all fit replica 0's idle sessions
+    n_deg = min(DEGRADED_OPS, 2 * S)
+    rng = np.random.default_rng(ch.seed + 1)
+    dk = rng.integers(0, cfg.n_keys, n_deg).astype(np.int64)
+    dkind = np.where(np.arange(n_deg) % 2 == 0, ch.KVS.GET,
+                     ch.KVS.PUT).astype(np.int32)
+    dval = rng.integers(0, 1 << 20, (n_deg, cfg.value_words - 2),
+                        dtype=np.int64).astype(np.int32)
+    degraded = kvs.degraded()
+    dbf = kvs.submit_batch(dkind, dk, dval)
+    shed_at_submit = int((dbf.code == ch.C_REJECTED).sum())
+    dbf_done = kvs.run_batch(dbf, 64)
+    gets = dkind == ch.KVS.GET
+    answered = int((dbf.code[gets] == ch.types.C_READ).sum())
+    for r in DEGRADED_FROZEN:
+        kvs.rt.thaw(r)
+    after = kvs.submit_batch(np.full(n_deg // 2, ch.KVS.PUT, np.int32),
+                             dk[~gets], dval[~gets])
+    after_ok = kvs.run_batch(after, 64)
+    kvs.flush()
+    trace = [r["name"] for r in obs.records
+             if r.get("name", "").startswith("degraded")]
+    t0 = time.perf_counter()
+    v = kvs.rt.check()
+    check_s = time.perf_counter() - t0
+    out = {"phase": "resize", "nvidia_smi": card, "sessions": S,
+           "hold_steps": RESIZE_HOLD, "resizes": res["resizes"],
+           "cycles": res["cycles"], "dip": res["dip"],
+           "rejected_ops": kvs.rejected_ops,
+           "retired_put_kinds": sorted(set(retired_kinds)),
+           "load_submitted": n_ops, "load_submit_s": submit_s,
+           "load_done_in_drill": done_in_drill,
+           "load_done": bf.done_count(), "load_rejected":
+               int((codes == ch.C_REJECTED).sum()),
+           "drill_s": drill_s, "drill_rounds": drill_rounds,
+           "us_per_round": drill_s / drill_rounds * 1e6,
+           "load_finish_s": load_s, "rounds": kvs.rt.step_idx,
+           "degraded_before_batch": degraded, "degraded_batch": n_deg,
+           "degraded_shed": shed_at_submit, "shed_writes": kvs.shed_writes,
+           "degraded_gets_answered": answered,
+           "writes_after_thaw": int((after.code == ch.types.C_WRITE).sum()),
+           "degraded_trace": trace, "check_ok": v.ok, "check_s": check_s,
+           "stats_block_launches": kernels.stats_block.launches}
+    emit(out)
+    if res["resizes"] != R or not load_ok or bf.done_count() != n_ops:
+        raise AssertionError(f"{res['resizes']} resizes; {bf.done_count()} "
+                             f"of {n_ops} load ops done")
+    if done_in_drill < n_ops // 2:
+        raise AssertionError("the standing load did not run under the "
+                             "drill")
+    if (retired_kinds != ["rejected"] * (R * RESIZE_RETIRED_PUTS)
+            or kvs.rejected_ops != len(retired_kinds) or out["load_rejected"]):
+        raise AssertionError(f"ops to retired replicas {retired_kinds[:4]}, "
+                             f"rejected_ops {kvs.rejected_ops}")
+    if (not degraded or shed_at_submit != int((~gets).sum()) or not dbf_done
+            or answered != int(gets.sum())):
+        raise AssertionError("degraded mode did not shed every write and "
+                             "answer every get")
+    if not after_ok or out["writes_after_thaw"] != n_deg // 2:
+        raise AssertionError("writes did not commit after the thaw")
+    if trace != ["degraded", "degraded_clear"] or kvs.degraded():
+        raise AssertionError(f"degraded trace {trace}")
+    if not v.ok:
+        raise AssertionError("the checker failed after the resize drill")
+    if kernels.stats_block.launches != kvs.rt.step_idx:
+        raise AssertionError("stats_block launches != KVS rounds")
+    return out
+
+
 def main(argv=None):
     import argparse
 
@@ -2202,6 +2635,10 @@ def main(argv=None):
         from hermes_tpu_torch.obs import (Observability,
                                           canonical_span_bytes, flightrec)
         from hermes_tpu_torch.wal import crashdrive, replay
+        from hermes_tpu_torch import chaos as chaos_lib, elastic
+        from hermes_tpu_torch import kvs as kvs_mod
+        from hermes_tpu_torch.chaos import recovery
+        from hermes_tpu_torch.membership import MembershipService
     except ImportError as e:
         print(f"chip_smoke: cannot import the port next to this script "
               f"({e})", file=sys.stderr)
@@ -2298,6 +2735,28 @@ def main(argv=None):
         phase_durable(torch, np, kernels, types, KVS, store, card)
         phase_restart(torch, np, kernels, types, KVS, store, card)
         phase_observed(torch, np, kernels, types, KVS, store, card)
+        torch.cuda.empty_cache()
+        ch = SimpleNamespace(
+            cfg=lambda **over: config.bench_cfg("a", over=over),
+            kvs_cfg=lambda **over: _kvs_cfg(config, **over),
+            device="cuda", FastRuntime=FastRuntime, LocalGroup=LocalGroup,
+            KVS=KVS, C_REJECTED=kvs_mod.C_REJECTED, chaos=chaos_lib,
+            recovery=recovery, elastic=elastic,
+            MembershipService=MembershipService,
+            Observability=Observability, fst=fst, types=types,
+            sync=torch.cuda.synchronize, device_busy=device_busy,
+            rounds=MAIN_ROUNDS, seed=0)
+        chaos_runs = {
+            "chaos": phase_chaos(torch, counters, ch, card),
+            "chaos_sharded_mega": phase_chaos(torch, counters, ch, card,
+                                              sharded=True)}
+        for name, row in rows.items():
+            for tag, run in chaos_runs.items():
+                if name in run["launches"]:
+                    row[f"{tag}_launches"] = run["launches"][name]
+        phase_detect_cost(torch, ch, card)
+        phase_drill(torch, kernels, ch, card)
+        phase_resize(torch, np, kernels, ch, card)
     except Exception:
         traceback.print_exc()
         return 1

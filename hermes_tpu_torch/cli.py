@@ -9,6 +9,10 @@
     python -m hermes_tpu_torch --steps 400 --report-every 50 \\
         --freeze 2:100:200 --metrics-out run.jsonl
     python -m hermes_tpu_torch.obs.report run.jsonl
+    python -m hermes_tpu_torch --replicas 5 --steps 200 --chaos 7 \\
+        --detect 3 --check
+    python -m hermes_tpu_torch --replicas 4 --value-words 6 --drill resize \\
+        --check
 
 The default fast-backend drive of ``hermes_tpu/cli.py``: with ``--steps
 0`` (the default) the run drains every session's op stream; ``--check``
@@ -20,6 +24,12 @@ summary line.  ``--metrics-out`` writes the obs run log of the fast
 drive (interval records every ``--report-every`` steps, the fault events
 of ``--freeze`` windows, spans, the summary with its histograms and the
 registry), which ``python -m hermes_tpu_torch.obs.report`` renders.
+``--detect CONFIRM`` attaches the failure detector; ``--chaos SEED`` or
+``--chaos-schedule FILE`` drives a fault schedule over ``--steps`` rounds,
+then heals and drains; ``--drill rolling|resize`` runs an elastic drill
+and prints one JSON line (``--drill migrate`` is ROADMAP A11b);
+``--degraded-floor N`` sets ``min_healthy_for_writes`` of the client
+drives.
 ``--backend fast-sharded`` runs the three drives on the sharded engine
 (one table copy a replica, every replica in this process: a
 ``LocalGroup``).  The run is on the card unless ``--device cpu`` is
@@ -114,6 +124,36 @@ def build_parser() -> argparse.ArgumentParser:
                     help="failure injection: freeze replica R at step FROM, "
                          "thaw at step TO (repeatable; emits obs fault "
                          "events)")
+    ap.add_argument("--degraded-floor", type=int, default=0, metavar="N",
+                    help="degraded mode (cfg.min_healthy_for_writes): with "
+                         "fewer than N healthy replicas the client drives "
+                         "shed new writes as kind='rejected'; 0 disables")
+    ap.add_argument("--detect", type=int, default=None, metavar="CONFIRM",
+                    help="attach the lease failure detector "
+                         "(membership.MembershipService) with this confirm "
+                         "window in rounds (0 = remove at first "
+                         "suspicion); its input rides the completion "
+                         "harvest")
+    ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
+                    help="drive a seeded fault schedule "
+                         "(chaos.Schedule.random: freeze / thaw / join / "
+                         "crash-restart / hb-skew) over --steps rounds, "
+                         "then heal and drain; events ride the obs "
+                         "timeline")
+    ap.add_argument("--chaos-schedule", type=str, default=None,
+                    metavar="FILE",
+                    help="a declarative fault schedule file ('@STEP KIND "
+                         "[replica] [k=v...]' lines, chaos.Schedule.parse) "
+                         "instead of a seeded one; needs --steps")
+    ap.add_argument("--drill", default=None,
+                    choices=["rolling", "resize", "migrate"],
+                    help="an elastic drill: 'rolling' crash-restarts every "
+                         "replica in sequence under load, 'resize' shrinks "
+                         "and grows every replica live through the KVS "
+                         "(needs --value-words >= 3); --check gates each "
+                         "with the checker; one JSON line with the "
+                         "worst-window dip.  'migrate' is not ported "
+                         "(ROADMAP A11b)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: the card)")
     return ap
@@ -257,6 +297,53 @@ def _run_reads(args, cfg) -> int:
     return 0 if ok else 1
 
 
+def _run_drill(args, cfg) -> int:
+    """The elastic drills, rolling restart or rolling resize, checked with
+    ``--check``; one JSON summary line with the worst-window dip."""
+    from hermes_tpu_torch import elastic
+    from hermes_tpu_torch.checker.fast import default_record
+    from hermes_tpu_torch.kvs import KVS
+    from hermes_tpu_torch.runtime import FastRuntime
+
+    backend = _backend(args)
+    rec = default_record(args.check)
+    summary: dict = {"drill": args.drill, "backend": backend}
+    if args.drill == "rolling":
+        rt = FastRuntime(cfg, backend=backend, record=rec,
+                         device=args.device)
+        if args.detect is not None:
+            from hermes_tpu_torch.membership import MembershipService
+
+            rt.attach_membership(
+                MembershipService(cfg, confirm_steps=args.detect))
+        res = elastic.run_rolling_restart(
+            rt, steps=args.steps or None, check=args.check)
+        ok = (res["restarts"] == cfg.n_replicas and res.get("drained", True)
+              and res.get("checked_ok", not args.check))
+        summary.update(restarts=res["restarts"], drained=res.get("drained"),
+                       lost_ops=res["lost_ops"], dip=res["dip"],
+                       checked_ok=res.get("checked_ok"))
+    else:  # resize
+        kvs = KVS(cfg, backend=backend, record=rec, device=args.device)
+        # a standing load that outlasts the drill (R cycles of 2 x 8
+        # rounds plus each shrink's drain, up to R*S completions a round):
+        # a load that dries up mid-drill reads as a 100 % dip
+        rounds_est = cfg.n_replicas * (2 * 8 + 6) + 24
+        n_ops = rounds_est * cfg.n_replicas * cfg.n_sessions
+        bf = elastic.submit_drill_mix(kvs, n_ops, seed=args.seed)
+        res = elastic.rolling_resize(kvs, check=args.check)
+        kvs.run_batch(bf)
+        ok = (res["resizes"] == cfg.n_replicas and bf.all_done()
+              and res.get("checked_ok", not args.check))
+        summary.update(resizes=res["resizes"], dip=res["dip"],
+                       rejected_ops=res["rejected_ops"],
+                       load_done=bf.done_count(),
+                       checked_ok=res.get("checked_ok"))
+    summary["ok"] = bool(ok)
+    print(json.dumps(summary, default=str))
+    return 0 if ok else 1
+
+
 def _freeze_faults(ap, args):
     """The --freeze windows as (step, replica, action) in firing order,
     thaw before freeze at one step; argument errors leave before any
@@ -301,6 +388,31 @@ def main(argv=None) -> int:
 
     ap = build_parser()
     args = ap.parse_args(argv)
+    chaos_on = args.chaos is not None or args.chaos_schedule
+    drives = [name for name, on in (
+        ("--reads", args.reads is not None),
+        ("--value-bytes", args.value_bytes is not None),
+        ("--drill", bool(args.drill)), ("--chaos", bool(chaos_on))) if on]
+    if args.chaos is not None and args.chaos_schedule:
+        ap.error("--chaos and --chaos-schedule are mutually exclusive")
+    if args.drill == "migrate":
+        ap.error("--drill migrate (live key-range migration) is not ported "
+                 "yet: ROADMAP A11b")
+    if len(drives) > 1:
+        ap.error(f"{' and '.join(drives)} are separate drives; pick one")
+    if args.drill:
+        if args.freeze:
+            ap.error("--drill and --freeze are mutually exclusive (drills "
+                     "build their own schedules)")
+        if args.drill == "resize" and args.value_words < 3:
+            ap.error("--drill resize drives the client KVS: needs "
+                     "--value-words >= 3 (words 0-1 carry the write uid)")
+    if chaos_on:
+        if args.steps <= 0:
+            ap.error("--chaos needs a bounded run (--steps > 0)")
+        if args.freeze:
+            ap.error("--chaos and --freeze are mutually exclusive (put "
+                     "freeze windows in the schedule instead)")
     if args.reads is not None:
         if args.reads < 1:
             ap.error("--reads wants a positive op count")
@@ -309,9 +421,6 @@ def main(argv=None) -> int:
         if args.value_words < 3:
             ap.error("--reads needs --value-words >= 3 (words 0-1 carry "
                      "the write uid)")
-        if args.value_bytes is not None:
-            ap.error("--reads and --value-bytes are separate drives; "
-                     "pick one")
     if args.value_bytes is not None:
         if args.value_bytes < 1:
             ap.error("--value-bytes wants a positive byte cap")
@@ -336,6 +445,7 @@ def main(argv=None) -> int:
         chain_writes=args.chain_writes,
         mega_round=args.mega_round,
         trace_sample=args.trace_sample,
+        min_healthy_for_writes=args.degraded_floor,
         workload=WorkloadConfig(distribution=args.distribution,
                                 zipf_theta=args.zipf_theta, seed=args.seed),
     )
@@ -343,7 +453,18 @@ def main(argv=None) -> int:
         return _run_reads(args, cfg)
     if args.value_bytes is not None:
         return _run_values(args, cfg)
+    if args.drill:
+        return _run_drill(args, cfg)
     faults = _freeze_faults(ap, args)
+    sched = None
+    if chaos_on:
+        from hermes_tpu_torch import chaos as chaos_lib
+
+        if args.chaos_schedule:
+            with open(args.chaos_schedule) as f:
+                sched = chaos_lib.Schedule.parse(f.read())
+        else:
+            sched = chaos_lib.Schedule.random(cfg, args.chaos, args.steps)
     rt = FastRuntime(cfg, backend=_backend(args),
                      record=default_record(args.check), device=args.device)
     obs = None
@@ -352,19 +473,34 @@ def main(argv=None) -> int:
 
         obs = rt.attach_obs(Observability(path=args.metrics_out,
                                           trace_steps=args.trace_steps))
+    if args.detect is not None:
+        from hermes_tpu_torch.membership import MembershipService
+
+        rt.attach_membership(MembershipService(cfg,
+                                               confirm_steps=args.detect))
     t0 = time.perf_counter()
-    if args.steps > 0:
+
+    def report(s):
+        if args.report_every and (s + 1) % args.report_every == 0:
+            rec = stats_lib.summarize(rt.fs.meta, time.perf_counter() - t0,
+                                      s + 1)
+            print(rec, file=sys.stderr)
+            if obs:
+                obs.interval(rec)
+
+    if sched is not None:
+        runner = chaos_lib.ChaosRunner(rt, sched, on_step=report)
+        res = runner.run(args.steps)
+        print(f"chaos: {len(runner.log)} event(s) applied, "
+              f"lost_ops={res['lost_ops']}, drained={res['drained']}",
+              file=sys.stderr)
+    elif args.steps > 0:
         for s in range(args.steps):
             while faults and faults[0][0] <= s:
                 _, r, action = faults.pop(0)
                 getattr(rt, action)(r)
             rt.step_once()
-            if args.report_every and (s + 1) % args.report_every == 0:
-                rec = stats_lib.summarize(rt.fs.meta,
-                                          time.perf_counter() - t0, s + 1)
-                print(rec, file=sys.stderr)
-                if obs:
-                    obs.interval(rec)
+            report(s)
     elif not rt.drain():
         print("WARNING: did not drain", file=sys.stderr)
     if rt.device.type == "cuda":

@@ -86,8 +86,8 @@ class HermesConfig:
     donate_state: bool = True
     pipeline_depth: int = 1
 
-    # --- client-layer knobs of subsystems not ported yet (kvs.KVS refuses
-    # each one when it is set) ----------------------------------------------
+    # --- client layer (kvs.KVS): watchdog and retry, degraded mode, the
+    # value heap, the write-ahead log and per-op tracing ----------------------
     op_timeout_rounds: int = 0
     op_retry_limit: int = 0
     op_backoff: int = 2

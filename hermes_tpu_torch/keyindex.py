@@ -1,6 +1,6 @@
 """Sparse 64-bit client keys -> dense table slots: the port's copy of
 ``hermes_tpu/keyindex.py`` (``KeyspaceFull``, ``_splitmix64``,
-``KeyIndex``; the range router waits for the elastic slice, ROADMAP A11).
+``KeyIndex``; the range router waits for range migration, ROADMAP A11b).
 
 Host code, numpy only: the index lives on the host because the client
 path injects ops into the device stream there, which is exactly where a

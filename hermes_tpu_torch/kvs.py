@@ -45,8 +45,22 @@ Robustness and durability (ROADMAP A5b and A9):
 gets and local reads are served from the serving replica's own copy,
 and the heap GC rewrites the ref words of every copy.
 
-Not ported yet: degraded mode (``min_healthy_for_writes``, refused
-loudly), the fence mask and the elastic operations (A11).
+Membership and elastic operations (ROADMAP A11a):
+
+  * ``cfg.min_healthy_for_writes``: degraded mode.  With fewer healthy
+    (live, unfrozen, unretired) replicas than the floor, new writes are
+    shed at once as ``kind='rejected'`` (``C_REJECTED`` in a batch) and
+    counted in ``shed_writes``, while gets are still served; the
+    transitions are ``degraded`` / ``degraded_clear`` trace events.
+  * ``shrink`` / ``grow``: live resize under traffic.  A retired replica
+    takes no new ops (queued and new ones resolve ``rejected``, counted
+    in ``rejected_ops``); its in-flight ops drain to normal completion
+    before the runtime fences and removes it.
+  * ``net_phase``: the active adversary windows a ``ChaosRunner``
+    publishes, tagged onto stuck-op diagnostics.
+
+Not ported yet: the fence mask and range migration (A11b) and the
+fleet (A11c).
 
 Usage::
 
@@ -80,6 +94,10 @@ from hermes_tpu_torch.runtime import FastRuntime
 # op MAY have applied.  Negative, so it never collides with the device
 # C_* codes.
 C_LOST = -2
+# client-level completion code for ops REJECTED: a write shed in degraded
+# mode or an op sent to a replica retired by a live shrink.  The op never
+# entered the store: a rejected op definitively did NOT happen.
+C_REJECTED = -3
 # client-level completion code for updates shed by WAL backpressure
 # (cfg.wal_dirty_window): the write never entered the store; the client
 # retries after the flusher drains.
@@ -105,7 +123,8 @@ class StuckOpError(RuntimeError):
 class Completion:
     """Result of one client op: kind 'get' | 'put' | 'rmw' | 'rmw_abort'
     | 'lost' (replica crash or exhausted retries: the op MAY have
-    applied) | 'retry_after' (WAL backpressure: it did NOT apply)."""
+    applied) | 'rejected' (degraded mode or a retired replica: it did NOT
+    apply) | 'retry_after' (WAL backpressure: it did NOT apply)."""
 
     kind: str
     key: int
@@ -174,13 +193,15 @@ class BatchFutures:
         return bool((self.code != 0).all())
 
     _KINDSTR = {t.OP_READ: "get", t.OP_WRITE: "put", t.OP_RMW: "rmw"}
+    _CLIENT_KINDS = {C_LOST: "lost", C_REJECTED: "rejected",
+                     C_RETRY_AFTER: "retry_after"}
 
     def completion(self, i: int) -> Completion:
         if self.code[i] == 0:
             raise RuntimeError("op not complete; run KVS.run_batch()")
         c = int(self.code[i])
-        if c in (C_LOST, C_RETRY_AFTER):
-            return Completion(kind="lost" if c == C_LOST else "retry_after",
+        if c in self._CLIENT_KINDS:
+            return Completion(kind=self._CLIENT_KINDS[c],
                               key=int(self.key[i]), step=int(self.step[i]),
                               found=False)
         kind = ("rmw_abort" if c == t.C_RMW_ABORT
@@ -286,11 +307,6 @@ class KVS:
         if cfg.device_stream:
             raise ValueError("KVS drives ops through the stream; device_stream "
                              "would replace client requests with hash-generated ops")
-        if cfg.min_healthy_for_writes:
-            raise NotImplementedError(
-                "hermes_tpu_torch.kvs.KVS does not implement "
-                "min_healthy_for_writes (degraded mode) yet (ROADMAP A11); "
-                "unset it or use the JAX package")
         # One-deep, rewritable stream: wrap_stream makes idle sessions reload
         # slot op_idx % 1 == 0 every round, so the host injects ops by
         # rewriting the (R, S, 1) stream between rounds.
@@ -334,6 +350,16 @@ class KVS:
         self._retry_next: Dict[Tuple[int, int], int] = {}
         self._retry_k: Dict[Tuple[int, int], int] = {}
         self.retried_ops = 0
+        # live resize: replicas retired by shrink() take no new ops; ops
+        # sent to them resolve 'rejected' (rejected_ops).  Degraded mode
+        # sheds new writes while too few replicas are healthy
+        # (shed_writes).  net_phase: the active adversary windows a
+        # ChaosRunner publishes into the stuck-op diagnostics
+        self._retired: set = set()
+        self.rejected_ops = 0
+        self.shed_writes = 0
+        self._degraded = False
+        self.net_phase: Optional[dict] = None
         # sparse-key mode: 64-bit client keys -> dense slots
         self.index: Optional[KeyIndex] = (KeyIndex(cfg.n_keys) if sparse_keys
                                           else None)
@@ -408,6 +434,14 @@ class KVS:
             raise ValueError(f"replica {replica} out of range [0, {cfg.n_replicas})")
         if not (0 <= session < cfg.n_sessions):
             raise ValueError(f"session {session} out of range [0, {cfg.n_sessions})")
+        if kind != "get" and self._degraded_now():
+            # degraded mode: shed the write loudly, before the sparse
+            # index could spend a slot on it (counted in shed_writes only)
+            self.shed_writes += 1
+            fut = Future()
+            fut._result = Completion(kind="rejected", key=int(key),
+                                     found=False)
+            return fut
         if kind != "get" and self._wal_backpressured():
             # the log's dirty window is full: shed the update loudly,
             # before the sparse index could spend a slot on it
@@ -437,6 +471,10 @@ class KVS:
             if not (0 <= key < cfg.n_keys):
                 raise ValueError(f"key {key} out of range [0, {cfg.n_keys})")
             client_key, slot = int(key), int(key)
+        if replica in self._retired:
+            # a replica retired by a live shrink: the op never enters the
+            # store, and the client is told now
+            return self._rejected_future(client_key)
         fut = Future()
         # trace mint: the submit sequence ticks for EVERY accepted
         # submission, so replays sample the same ops
@@ -452,6 +490,42 @@ class KVS:
         if (replica, session) not in self._inflight:
             self._ready.add((replica, session))
         return fut
+
+    def _degraded_now(self) -> bool:
+        """Degraded mode (cfg.min_healthy_for_writes): too few healthy,
+        unretired replicas to commit new writes.  Transitions land on the
+        obs timeline as ``degraded`` / ``degraded_clear``."""
+        floor = self.cfg.min_healthy_for_writes
+        if not floor:
+            return False
+        healthy = [r for r in self.rt.healthy_replicas()
+                   if r not in self._retired]
+        degraded = len(healthy) < floor
+        if degraded != self._degraded:
+            self._degraded = degraded
+            self.rt._trace("degraded" if degraded else "degraded_clear",
+                           healthy=len(healthy), floor=floor)
+        return degraded
+
+    def degraded(self) -> bool:
+        """True while degraded mode sheds new writes."""
+        return self._degraded_now()
+
+    def _rejected_future(self, client_key: int) -> Future:
+        self.rejected_ops += 1
+        fut = Future()
+        fut._result = Completion(kind="rejected", key=client_key, found=False)
+        return fut
+
+    def _reject_queued(self, rs_key) -> None:
+        """Resolve every op queued on a retired replica's slot
+        ``rejected``."""
+        q = self._queues[rs_key]
+        while q:
+            _k, _sl, ck, _v, fut, _n = q.popleft()
+            fut._result = Completion(kind="rejected", key=ck, found=False)
+            self.rejected_ops += 1
+        self._queued_slots.discard(rs_key)
 
     def _wal_backpressured(self) -> bool:
         """More appended-but-not-durable records than
@@ -574,9 +648,17 @@ class KVS:
                 f"{int((opc != t.OP_READ).sum())} update(s) in the batch")
         bf = BatchFutures(opc.copy(), keys_arr.copy(), u)
         bf.durability = self._wal_label()
+        if self._degraded_now():
+            # degraded mode: shed the writes before the index mapping (a
+            # shed op claims no dense slot); gets are still served
+            shed = opc != t.OP_READ
+            if shed.any():
+                bf.code[shed] = C_REJECTED
+                bf.found[shed] = False
+                self.shed_writes += int(shed.sum())
         if self._wal_backpressured():
             # shed NEW updates loudly before the index mapping
-            shed = opc != t.OP_READ
+            shed = (opc != t.OP_READ) & (bf.code == 0)
             if shed.any():
                 bf.code[shed] = C_RETRY_AFTER
                 bf.found[shed] = False
@@ -622,6 +704,8 @@ class KVS:
 
     def _inject_batches(self) -> None:
         free = self._kindarr == t.OP_NOP
+        for r in self._retired:
+            free[r] = False  # retired replicas take no new injections
         if self._depth > 1 or self._wal_defer:
             # a slot retired at the last sync point whose resolution is
             # still deferred (pipelined, or parked until its WAL batch is
@@ -667,6 +751,11 @@ class KVS:
         for rs_key in self._ready:
             q = self._queues.get(rs_key)
             if rs_key in self._inflight or not q:
+                continue
+            if rs_key[0] in self._retired:
+                # the replica retired after these ops were queued
+                # (shrink() sweeps the queues too)
+                self._reject_queued(rs_key)
                 continue
             if self._slot_bid[rs_key] >= 0:
                 waiting.add(rs_key)
@@ -858,6 +947,10 @@ class KVS:
                     age_rounds=int(age[r, s]),
                     at_step=self.rt.step_idx,
                 )
+                if self.net_phase is not None:
+                    # an adversary window is active: the diagnostic names
+                    # it, so no log cross-reference is needed
+                    diag["net"] = self.net_phase
                 new_diags.append(diag)
                 self.stuck_ops.append(diag)
                 self.rt._trace("stuck_op", **diag)
@@ -872,12 +965,12 @@ class KVS:
 
     def _escalate_stuck(self, stuck: np.ndarray) -> None:
         """Bounded retry with backoff (cfg.op_retry_limit): a stuck per-op
-        future whose coordinator is FENCED (not live, or frozen) is
-        salvaged and re-submitted on a healthy replica; one on a healthy
+        future whose coordinator is FENCED (not live, frozen or retired)
+        is salvaged and re-submitted on a healthy replica; one on a healthy
         coordinator is re-examined after an exponential backoff window
         (it may yet commit: a blind retry would double-write)."""
         step = self.rt.step_idx
-        healthy = set(self.rt.healthy_replicas())
+        healthy = set(self.rt.healthy_replicas()) - self._retired
         for rs_key in [k for k in list(self._inflight) if stuck[k]]:
             if rs_key not in self._inflight:
                 continue  # resolved by an earlier salvage's pipeline flush
@@ -1405,6 +1498,49 @@ class KVS:
     def heap_stats(self) -> Optional[dict]:
         """Heap accounting (None when the heap is off)."""
         return None if self.heap is None else self.heap.stats()
+
+    # -- live resize -------------------------------------------------------------
+
+    def _replica_busy(self, replica: int) -> bool:
+        return (any(rs[0] == replica for rs in self._inflight)
+                or bool((self._slot_bid[replica] >= 0).any()))
+
+    def shrink(self, replica: int, drain_steps: int = 2000) -> None:
+        """Live resize out under traffic: retire ``replica`` (no new
+        injections; its queued ops resolve ``rejected``), drain its
+        in-flight ops to normal completion, then fence + remove it from
+        quorums (``FastRuntime.shrink``).  A replica that cannot drain
+        (its quorum is gone) raises and stays unretired; crash-restart it
+        instead."""
+        if not (int(self.rt.live[0]) >> replica) & 1:
+            # checked before any client state changes: a non-live replica
+            # retired here would reject its traffic after a later rejoin
+            raise ValueError(f"replica {replica} is not live")
+        self._retired.add(replica)
+        for rs_key in [k for k in self._queued_slots if k[0] == replica]:
+            self._reject_queued(rs_key)
+        for _ in range(drain_steps):
+            if not self._replica_busy(replica):
+                break
+            self.step()
+        else:
+            self._retired.discard(replica)
+            raise RuntimeError(
+                f"shrink: replica {replica} did not drain its in-flight "
+                f"ops in {drain_steps} rounds (quorum gone?); use "
+                "chaos.restart_replica for a non-cooperative removal")
+        self.flush()
+        self.rt.shrink(replica)
+
+    def grow(self, replica: int, from_replica: Optional[int] = None) -> None:
+        """Live resize in: value-sync ``replica`` through the join,
+        re-admit it into quorums and take client ops again."""
+        self.rt.grow(replica, from_replica)
+        self._retired.discard(replica)
+        # slots freed while retired may hold queued traffic again
+        for rs_key in self._queued_slots:
+            if rs_key[0] == replica and rs_key not in self._inflight:
+                self._ready.add(rs_key)
 
     # -- crash support (chaos.recovery.restart_replica) ----------------------
 

@@ -17,7 +17,7 @@ caller gives the rendezvous address (``tcp://host:port`` or a
     python -m hermes_tpu_torch.launch --init file:///tmp/rdv --world-size 2 \\
         --rank $RANK --device cpu --replicas 8 --steps 200
 
-``run_fleet`` (A11) and the serving workers (A13) are not ported.
+``run_fleet`` (A11c) and the serving workers (A13) are not ported.
 """
 
 from __future__ import annotations

@@ -39,8 +39,15 @@ re-anchor, from the numpy copy the harvest already holds, so the log's
 flusher thread never touches a tensor.  Everything is a no-op while
 nothing is attached.
 
-Out of scope for now: the membership service and live resize (A11) and
-the reference ``Runtime`` (A12).
+The failure detector (``attach_membership``, ``membership.py``) reads
+each round's ``Meta.suspect_age`` off the harvest: the round enqueues its
+age columns beside its completions, and on the card at depth >= 2 they
+ride the same pinned copy and event (``_HostFetch``), so detection adds
+no synchronous fetch.  ``shrink`` / ``grow`` resize the live group under
+traffic (fence + remove; join with the donor's copy transferred).
+
+Not ported yet: the fleet's group label (A11c) and the reference
+``Runtime`` (A12).
 """
 
 from __future__ import annotations
@@ -74,21 +81,41 @@ def _subs(comp):
 
 
 class _HostFetch:
-    """An in-flight device->host copy of one round's completions: the
-    copies are enqueued (pinned, non-blocking) right behind the round, and
-    ``wait`` blocks only until they land."""
+    """An in-flight device->host copy of one round's completions (and,
+    with a detector attached, its suspect-age columns): the copies are
+    enqueued (pinned, non-blocking) right behind the round under one
+    event, and ``wait`` blocks only until they land."""
 
-    def __init__(self, comp):
+    def __init__(self, comp, ages=None):
         self._comp = tuple(type(c)(*(x.to("cpu", non_blocking=True)
                                      for x in c)) for c in _subs(comp))
         self._multi = _is_multi(comp)
+        self._ages = (None if ages is None
+                      else ages.to("cpu", non_blocking=True))
         self._event = torch.cuda.Event()
         self._event.record()
+        self._landed = False
+
+    def _land(self):
+        if not self._landed:
+            self._event.synchronize()
+            self._landed = True
 
     def wait(self):
-        self._event.synchronize()
+        self._land()
         out = tuple(type(c)(*(x.numpy() for x in c)) for c in self._comp)
         return out if self._multi else out[0]
+
+    def ages(self) -> np.ndarray:
+        self._land()  # a no-op once the round's completions were harvested
+        return self._ages.numpy()
+
+
+def _ages_to_host(handle) -> np.ndarray:
+    """One ring entry's suspect-age columns as numpy."""
+    if isinstance(handle, _HostFetch):
+        return handle.ages()
+    return handle.cpu().numpy()
 
 
 def _to_host(comp):
@@ -192,6 +219,14 @@ class FastRuntime:
         # completion fetch per round; a telemetry-only run sets False
         # and polls counters() alone
         self.fetch_completions = True
+        # the failure detector (attach_membership) and its input: each
+        # dispatched round's suspect-age columns, FIFO beside the
+        # completion ring, and the last harvested (round, ages).  The
+        # round builds Meta.suspect_age anew every round and nothing
+        # writes it in place, so an entry holds the round's own tensor
+        self.membership = None
+        self._age_ring: collections.deque = collections.deque()
+        self.harvested_ages = None
         # the obs context and the WAL tap (attach_obs / attach_wal)
         self.obs = None
         self.wal = None
@@ -304,6 +339,49 @@ class FastRuntime:
         self.set_live(int(self.live[0]) | (1 << replica))
         self._trace("join", replica=replica, from_replica=from_replica,
                     live_mask=int(self.live[0]))
+        if self.membership is not None:
+            self.membership.note_join(self, replica)
+
+    def attach_membership(self, service) -> None:
+        """Attach the failure detector (``membership.MembershipService``):
+        it polls every harvested round's ages and removes a replica no
+        live peer has heard from past the lease.  One process only: a
+        ``DistGroup`` rank holds some replicas' rows."""
+        if self.group is not None and self.group.world > 1:
+            raise ValueError("the failure detector is single-process only "
+                             "(a DistGroup rank holds some replicas' rows)")
+        self.membership = service
+
+    # -- live resize -------------------------------------------------------------
+
+    def shrink(self, replica: int) -> None:
+        """Resize out: fence + remove ``replica`` from every quorum, after
+        harvesting every completion of the old membership.  An attached
+        detector logs it as ``shrink``, not as its own ``remove``."""
+        if not (int(self.live[0]) >> replica) & 1:
+            raise ValueError(f"replica {replica} is not live")
+        self.flush_pipeline()
+        self.remove(replica)
+        if self.membership is not None:
+            self.membership.note_shrink(self, replica)
+        self._trace("shrink", replica=replica, live_mask=int(self.live[0]))
+
+    def grow(self, replica: int, from_replica: Optional[int] = None) -> None:
+        """Resize in: re-admit ``replica`` through the join (its copy
+        value-synced from ``from_replica``, default the lowest live,
+        unfrozen replica)."""
+        if (int(self.live[0]) >> replica) & 1 and not self.frozen[replica]:
+            raise ValueError(f"replica {replica} is already live")
+        if from_replica is None:
+            cands = [d for d in self.healthy_replicas() if d != replica]
+            if not cands:
+                raise RuntimeError("grow needs a live unfrozen donor; "
+                                   "none left")
+            from_replica = cands[0]
+        self.flush_pipeline()
+        self.join(replica, from_replica)
+        self._trace("grow", replica=replica, donor=from_replica,
+                    live_mask=int(self.live[0]))
 
     def _transfer_copy(self, replica: int, from_replica: int) -> None:
         K = self.cfg.n_keys
@@ -365,6 +443,14 @@ class FastRuntime:
         if trace:
             obs.tracer.span_end("step_dispatch", td)
         self._step_idx += 1
+        if self.membership is not None:
+            if self.fetch_completions or self.recorder is not None:
+                # the detector's input rides the harvest of this round
+                self._age_ring.append(
+                    (self._step_idx - 1, self.fs.meta.suspect_age))
+            else:
+                # a run that never harvests: the synchronous poll
+                self.membership.poll(self)
         return comp
 
     def harvest_comp(self, comp, round_idx: Optional[int] = None):
@@ -384,6 +470,16 @@ class FastRuntime:
             obs.registry.counter("device_wait_s").inc(dt)
         if trace:
             obs.tracer.span_end("readback", tr)
+        ring = self._age_ring
+        if ring and (round_idx is None or ring[0][0] <= round_idx):
+            # the freshest age entry of a round at or before this one: its
+            # work completed with it, so reading it stalls nothing
+            age_round, handle = ring.popleft()
+            while ring and (round_idx is None or ring[0][0] <= round_idx):
+                age_round, handle = ring.popleft()
+            self.harvested_ages = (age_round, _ages_to_host(handle))
+            if self.membership is not None:
+                self.membership.poll(self)
         if self._ver_base is not None:
             # re-anchor post-rebase versions into the global version space
             fix = lambda c: c._replace(
@@ -431,9 +527,15 @@ class FastRuntime:
         comp = self.dispatch_round()
         out = None
         if self.fetch_completions or self.recorder is not None:
+            k = self.step_idx - 1
             if self.cfg.pipeline_depth > 1 and self.device.type == "cuda":
-                comp = _HostFetch(comp)
-            self._ring.append((self.step_idx - 1, comp))
+                ring = self._age_ring
+                ages = ring[-1][1] if ring and ring[-1][0] == k else None
+                comp = _HostFetch(comp, ages)
+                if ages is not None:
+                    # the ages land with the completions, one event
+                    ring[-1] = (k, comp)
+            self._ring.append((k, comp))
             if len(self._ring) >= self.cfg.pipeline_depth:
                 out = self._harvest_one()
         if obs is not None:

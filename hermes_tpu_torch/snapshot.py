@@ -22,7 +22,7 @@ The sharded engine's archive holds every replica's table copy in the
 reference's ``(R*K,)`` rows, each copy's own drop row cut and re-added;
 it loads only into a sharded runtime (and a batched archive only into a
 batched one), of one process.  The range archives of the elastic
-migration (``save_range`` / ``load_range``) are ROADMAP A11.
+migration (``save_range`` / ``load_range``) are ROADMAP A11b.
 """
 
 from __future__ import annotations
@@ -264,7 +264,7 @@ def _load(z, rt, kvs) -> None:
         raise ValueError(
             f"snapshot is scope={scope!r} — a key-range migration transfer "
             "archive, not full crash-recovery state; range archives "
-            "restore through the elastic migration (ROADMAP A11)")
+            "restore through the elastic migration (ROADMAP A11b)")
     if manifest.get("config_sha256") != config_fingerprint(rt.cfg):
         raise ValueError(
             "snapshot config fingerprint mismatch (manifest "
@@ -354,6 +354,10 @@ def _load(z, rt, kvs) -> None:
     rt.live[:] = z["ctl.live"]
     rt.frozen[:] = z["ctl.frozen"]
     rt._ctl_dirty = True
+    # suspect-age copies of the old run's rounds must not reach the
+    # detector of the restored one
+    rt._age_ring.clear()
+    rt.harvested_ages = None
     if "ctl.ver_base" in z:
         vb = np.asarray(z["ctl.ver_base"]).astype(np.int64)
         rt._ver_base = vb.copy() if vb.size and vb.any() else None

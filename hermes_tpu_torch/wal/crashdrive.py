@@ -13,8 +13,8 @@ must pick the newest value.  After each resolved wave it writes the
 committed keys, uids and values to ``WITNESS_DIR/wave-NNN.npz``
 (tmp + fsync + rename), and before the last wave it writes that wave's
 keys and values as ``pending.npz``.  In the last wave it sends itself
-``SIGKILL`` once the first of the wave's log batches is durable, with
-part of the wave unresolved.
+``SIGKILL`` once a log batch of the wave's first half is durable, its
+second half submitted and unresolved.
 
 The parent reaps the child, runs ``chaos.recover_store`` on the same
 configuration and holds it to ``check_recovery``: no committed write is
@@ -75,21 +75,32 @@ def _save_atomic(path: str, **arrays) -> None:
 
 
 def run_wave(kvs, wave: int, n: int, kill: bool = False):
-    """Put one wave through ``submit_batch`` and drive it; with ``kill``,
-    SIGKILL this process once the first of the wave's log batches is
-    durable, while part of the wave is still unresolved."""
+    """Put one wave through ``submit_batch`` and drive it.  With ``kill``
+    the wave goes in two halves: the first is driven until one of its log
+    batches is durable, then the second is submitted and stepped once,
+    and this process SIGKILLs itself with that half unresolved.  (One
+    batch of the whole wave can fit one round, which can resolve whole in
+    the very step its log batch turns durable: there would be no moment
+    to kill it mid-wave.)"""
     keys, vals = wave_ops(kvs.cfg, wave, n)
-    bf = kvs.submit_batch(np.full(n, kvs.PUT, np.int32), keys, vals)
+    puts = np.full(n, kvs.PUT, np.int32)
+    if not kill:
+        bf = kvs.submit_batch(puts, keys, vals)
+        for _ in range(10_000):
+            if bf.all_done():
+                break
+            kvs.step()
+        return bf, keys, vals
+    h = n // 2
     lsn0 = kvs.wal.last_lsn()
+    kvs.submit_batch(puts[:h], keys[:h], vals[:h])
     for _ in range(10_000):
-        if bf.all_done():
-            break
         kvs.step()
-        if kill and kvs.wal.durable_lsn() > lsn0 and not bf.all_done():
+        if kvs.wal.durable_lsn() > lsn0:
+            kvs.submit_batch(puts[h:], keys[h:], vals[h:])
+            kvs.step()
             os.kill(os.getpid(), signal.SIGKILL)
-    if kill:
-        raise RuntimeError("the killed wave resolved whole before the kill")
-    return bf, keys, vals
+    raise RuntimeError("no log batch of the killed wave became durable")
 
 
 def main(argv=None) -> int:

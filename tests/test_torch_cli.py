@@ -123,8 +123,9 @@ def _drive_summaries(capsys, argv, port_extra=()):
     capsys.readouterr()
     assert ref_cli.main(argv) == 0
     want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    strip = lambda d: {k: v for k, v in d.items()
-                       if k not in DRIVE_WALL_FIELDS}
+    strip = lambda d: {k: (v if k != "dip" else {
+        dk: dv for dk, dv in v.items() if dk not in DIP_WALL})
+        for k, v in d.items() if k not in DRIVE_WALL_FIELDS}
     assert strip(got) == strip(want)
     return got
 
@@ -188,6 +189,96 @@ def _values_drive(capsys, extra, port_extra=()):
     (["--value-bytes", "64"], "--value-words >= 3"),
 ])
 def test_torch_cli_drives_refuse_bad_flags(argv, msg):
+    r = subprocess.run(
+        [sys.executable, "-m", "hermes_tpu_torch", "--device", "cpu", *argv],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 2 and msg in r.stderr, r.stderr
+
+
+# -- the chaos drive, the detector and the drills ------------------------------
+
+CHAOS = ["--replicas", "5", "--keys", "96", "--sessions", "6",
+         "--replay-slots", "6", "--ops-per-session", "24", "--steps", "120",
+         "--check"]
+
+
+def _summary_pair(capsys, argv):
+    """The port's default drive (a fresh interpreter, CPU) and the
+    reference CLI's (in-process) on the same arguments: both summary
+    records and the port's stderr."""
+    from hermes_tpu import cli as ref_cli
+
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    r = subprocess.run(
+        [sys.executable, "-m", "hermes_tpu_torch", *argv, "--device", "cpu"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    lines = r.stdout.splitlines()
+    assert lines[1].startswith("linearizability: PASS"), r.stdout
+    got = ast.literal_eval(lines[0])
+    capsys.readouterr()
+    assert ref_cli.main(argv) == 0
+    out = capsys.readouterr()
+    want = ast.literal_eval(out.out.splitlines()[0])
+    strip = lambda d: {k: v for k, v in d.items() if k not in WALL_FIELDS}
+    assert strip(got) == strip(want)
+    chaos_line = [ln for ln in r.stderr.splitlines() if ln.startswith("chaos:")]
+    assert chaos_line == [ln for ln in out.err.splitlines()
+                          if ln.startswith("chaos:")]
+    return got, chaos_line
+
+
+@pytest.mark.parametrize("backend", ["fast", "fast-sharded"])
+def test_torch_cli_chaos_drive_matches_reference_summary(capsys, backend):
+    """``--chaos SEED --detect CONFIRM``: the seeded schedule with the
+    detector attached; the summary record (every counter) and the
+    runner's line equal the reference CLI's."""
+    got, line = _summary_pair(capsys, CHAOS + ["--chaos", "23", "--detect",
+                                               "3", "--backend", backend])
+    assert "lost_ops=6, drained=True" in line[0]
+    assert got["commits"] > 0
+
+
+def test_torch_cli_chaos_schedule_file_matches_reference_summary(capsys,
+                                                                 tmp_path):
+    path = tmp_path / "sched.txt"
+    path.write_text("@3 freeze 1\n@10 partition 2 until=30\n"
+                    "@20 crash_restart 0\n@40 thaw 1\n@50 heal\n")
+    _, line = _summary_pair(capsys, CHAOS + ["--chaos-schedule", str(path),
+                                             "--detect", "2"])
+    assert line and "drained=True" in line[0]
+
+
+# fields of the drills' JSON lines that depend on the wall clock
+DIP_WALL = ("worst_window", "clean_rate", "dip_pct")
+
+
+@pytest.mark.parametrize("argv", [
+    ["--replicas", "4", "--keys", "96", "--sessions", "4",
+     "--ops-per-session", "48", "--drill", "rolling", "--detect", "2"],
+    ["--replicas", "4", "--keys", "64", "--sessions", "4", "--value-words",
+     "6", "--drill", "resize", "--degraded-floor", "2"],
+])
+def test_torch_cli_drills_match_reference(capsys, argv):
+    got = _drive_summaries(capsys, argv + ["--check"])
+    assert got["ok"] and got["checked_ok"]
+    assert got.get("restarts", got.get("resizes")) == 4
+
+
+@pytest.mark.parametrize("argv,msg", [
+    (["--drill", "migrate", "--value-words", "4"], "A11b"),
+    (["--chaos", "1", "--chaos-schedule", "x", "--steps", "5"],
+     "mutually exclusive"),
+    (["--chaos", "1"], "--steps > 0"),
+    (["--chaos", "1", "--steps", "9", "--freeze", "1:2:3"],
+     "mutually exclusive"),
+    (["--drill", "resize"], "--value-words >= 3"),
+    (["--drill", "rolling", "--freeze", "1:2:3", "--steps", "9"],
+     "mutually exclusive"),
+    (["--drill", "rolling", "--reads", "10", "--value-words", "4"],
+     "separate drives"),
+])
+def test_torch_cli_chaos_and_drill_refuse_bad_flags(argv, msg):
     r = subprocess.run(
         [sys.executable, "-m", "hermes_tpu_torch", "--device", "cpu", *argv],
         cwd=ROOT, capture_output=True, text=True, timeout=300)

@@ -1519,3 +1519,96 @@ def test_traced_bench_drive_leaves_state_identical():
     np.testing.assert_array_equal(ra[0], rb[0])
     np.testing.assert_array_equal(ra[1], rb[1])
     assert ra[2:] == rb[2:]
+
+
+def _chaos_cfg(depth):
+    from hermes_tpu_torch.config import HermesConfig, WorkloadConfig
+
+    return HermesConfig(n_replicas=5, n_keys=96, n_sessions=6,
+                        replay_slots=6, ops_per_session=24, replay_age=6,
+                        replay_scan_every=4, rebroadcast_every=2,
+                        lease_steps=6, pipeline_depth=depth,
+                        workload=WorkloadConfig(read_frac=0.4, rmw_frac=0.25,
+                                                seed=23))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["batched", "sharded"])
+@pytest.mark.parametrize("depth", [1, 2])
+def test_chaos_runner_on_card_matches_cpu(backend, depth):
+    """A seeded fault schedule with the detector attached (crash restarts,
+    freezes, detector removals, heal) gives the CPU port's executed log,
+    membership events and final state on the card, on both backends; at
+    depth 2 the card's ages ride the pinned harvest copy."""
+    from hermes_tpu_torch import chaos, convert
+    from hermes_tpu_torch.membership import MembershipService
+    from hermes_tpu_torch.obs import Observability
+    from hermes_tpu_torch.runtime import FastRuntime
+
+    dev = _card()
+    cfg = _chaos_cfg(depth)
+    out = {}
+    for d in ("cpu", dev):
+        rt = FastRuntime(cfg, backend=backend, record=True, device=d)
+        obs = rt.attach_obs(Observability())
+        rt.attach_membership(MembershipService(cfg, confirm_steps=3))
+        runner = chaos.ChaosRunner(rt, chaos.Schedule.random(
+            cfg, seed=23, steps=120, spec=chaos.ChaosSpec(p_crash=0.03)))
+        res = runner.run(120, check=True)
+        assert res["drained"] and res["checked_ok"]
+        names = [r["name"] for r in obs.records if r.get("kind") == "event"]
+        assert "membership_fetch" not in names and "remove" in names
+        out[d] = (runner.log_json(),
+                  [(e.step, e.kind, e.replica, e.live_mask)
+                   for e in rt.membership.events],
+                  convert.fast_state_to_numpy(rt.fs, n_copies=rt.n_copies))
+    assert out["cpu"][0] == out[dev][0]
+    assert out["cpu"][1] == out[dev][1]
+    _assert_equal_trees(out["cpu"][2], out[dev][2], "state")
+
+
+@pytest.mark.gpu
+def test_detector_ages_add_no_sync_to_the_harvest_on_card():
+    """On the card at depth 2 a round's suspect-age columns ride its
+    completions' pinned copy: a harvest waits on one event with the
+    detector as without, and never copies a device tensor to the host
+    synchronously."""
+    from hermes_tpu_torch import runtime
+    from hermes_tpu_torch.membership import MembershipService
+
+    dev = _card()
+    cfg = _chaos_cfg(2)
+    counts = {"event_waits": 0, "sync_copies": 0}
+    real_event = torch.cuda.Event
+    real_cpu = torch.Tensor.cpu
+
+    class CountingEvent(real_event):
+        def synchronize(self):
+            counts["event_waits"] += 1
+            return super().synchronize()
+
+    def counting_cpu(self, *args, **kwargs):
+        if self.is_cuda:
+            counts["sync_copies"] += 1
+        return real_cpu(self, *args, **kwargs)
+
+    per = {}
+    for detector in (False, True):
+        rt = runtime.FastRuntime(cfg, record=True, device=dev)
+        if detector:
+            rt.attach_membership(MembershipService(cfg))
+        torch.cuda.Event = CountingEvent
+        torch.Tensor.cpu = counting_cpu
+        try:
+            rt.run(4)  # every fetch in the ring holds a counting event
+            counts.update(event_waits=0, sync_copies=0)
+            rt.run(20)
+        finally:
+            torch.cuda.Event = real_event
+            torch.Tensor.cpu = real_cpu
+        per[detector] = dict(counts)
+        if detector:
+            age_round, ages = rt.harvested_ages
+            assert age_round == rt.step_idx - 2 and ages.shape == (5, 5)
+            assert len(rt._age_ring) == len(rt._ring) == 1
+    assert per[True] == per[False] == {"event_waits": 20, "sync_copies": 0}

@@ -7,8 +7,12 @@ cell of the table-step probe and the kernel matrix (the analysis
 sub-package, its fixtures and its command line), and a durable, observed
 KVS (obs/, wal/, snapshot.py, chaos/, concurrency.py: a traced put under
 the WAL, a snapshot, a replica restart, a whole-store recovery and the
-report renderer), and the sharded engine (core/group.py, launch.py: a
-sharded KVS put/get on a LocalGroup and a launch run) on the CPU."""
+report renderer), the sharded engine (core/group.py, launch.py: a
+sharded KVS put/get on a LocalGroup and a launch run), and the failure
+detector, fault schedules and elastic drills (membership.py,
+chaos/schedule.py, elastic/: a seeded chaos run with the detector, a
+degraded-mode shed, a rolling restart and a rolling resize) on the
+CPU."""
 
 import pathlib
 import subprocess
@@ -90,6 +94,26 @@ assert sk.run_until([g]) and g.result().value == [3, 4]
 assert group.replica_devices(3, "cpu") == [torch.device("cpu")] * 3
 lrt = launch.run(cfg, 4, device="cpu")
 assert lrt.n_copies == 3 and lrt.step_idx == 4
+from hermes_tpu_torch import chaos, elastic
+from hermes_tpu_torch.membership import MembershipService
+from hermes_tpu_torch.runtime import FastRuntime
+ccfg = HermesConfig(n_replicas=4, n_keys=64, n_sessions=4, replay_slots=4,
+                    ops_per_session=8, value_words=4, lease_steps=4,
+                    pipeline_depth=2, min_healthy_for_writes=3)
+crt = FastRuntime(ccfg, record=True, device="cpu")
+crt.attach_membership(MembershipService(ccfg, confirm_steps=1))
+res = chaos.ChaosRunner(crt, chaos.Schedule.random(ccfg, 3, 30, chaos.ChaosSpec(
+    p_freeze=0.2, p_crash=0.1))).run(30, check=True)
+assert res["drained"] and res["checked_ok"]
+assert elastic.run_rolling_restart(FastRuntime(ccfg, device="cpu"),
+                                   spacing=4)["restarts"] == 4
+dk = KVS(ccfg, device="cpu")
+dk.freeze(1)
+dk.freeze(2)
+assert dk.put(0, 0, 1, [1, 2]).result().kind == "rejected"
+dk.rt.thaw(1)
+dk.rt.thaw(2)
+assert elastic.rolling_resize(dk, hold_steps=2)["resizes"] == 4
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "hermes_tpu" or m.startswith("hermes_tpu."))
@@ -124,6 +148,14 @@ def test_torch_port_sources_name_no_reference_import():
             for n in names:
                 top = n.split(".")[0]
                 assert top not in ("jax", "jaxlib", "hermes_tpu"), (f, n)
+
+
+def test_torch_failure_and_elastic_modules_are_in_the_scan():
+    """The slice's new modules exist where the import scan above reads
+    them."""
+    for rel in ("membership.py", "chaos/schedule.py", "elastic/__init__.py",
+                "elastic/drill.py"):
+        assert (ROOT / "hermes_tpu_torch" / rel).is_file(), rel
 
 
 def test_torch_card_only_tools_name_the_card_without_one():

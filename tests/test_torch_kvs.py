@@ -143,10 +143,19 @@ def test_torch_kvs_put_get_every_replica():
 
 
 def test_torch_kvs_refuses_unported_knobs():
+    """No client knob is refused any more: the last one, degraded mode
+    (``min_healthy_for_writes``), builds a KVS that commits while enough
+    replicas are healthy and sheds writes when they are not
+    (``tests/test_torch_elastic.py`` holds it against the reference)."""
     cfg = HermesConfig(n_replicas=3, n_keys=32, n_sessions=2, replay_slots=2,
                        value_words=4, min_healthy_for_writes=2)
-    with pytest.raises(NotImplementedError, match="A11"):
-        KVS(cfg, device="cpu")
+    kvs = KVS(cfg, device="cpu")
+    p = kvs.put(0, 0, 7, [11, 22])
+    assert kvs.run_until([p]) and p.result().kind == "put"
+    kvs.freeze(1)
+    kvs.freeze(2)
+    assert kvs.put(0, 1, 7, [1, 2]).result().kind == "rejected"
+    assert kvs.shed_writes == 1
 
 
 @pytest.mark.parametrize("knob", ["wal_dir", "op_timeout_rounds",
