@@ -149,11 +149,32 @@ prints no result):
    (``min_healthy_for_writes=5``, four replicas frozen): every write of a
    mixed batch shed, every get answered, writes commit after the thaw,
    ``degraded`` then ``degraded_clear`` traced; the checker passes.
-   Every KVS phase holds ``stats_block``'s launches equal to its rounds.
+17. migrate — ``elastic.migration_drill`` at the KVS bench shape (two
+   recorded stores, a seed load of R x S ops and a standing mix of 8 x R
+   x S, the middle third of the keys moved under the mix): each stage's host
+   seconds (fence, drain with its rounds, snapshot, transfer, restore,
+   flip), the rows moved, the ops rejected at the fence, salvaged,
+   rejected and lost; the destination's reads at lo, the midpoint and
+   hi-1 equal the source's rows, a source get at lo ``rejected``, both
+   checkers green.  Then the same move on the sharded engine (8 copies)
+   with replica 1 of the source frozen across it: every destination copy
+   equal to copy 0 over the range, every replica's read the source's.
+18. fleet — ``fleet.Fleet`` of four groups at the KVS bench shape (4 x
+   2^20 fleet keys; group 3 on the mega round, with 65,536 spare slots):
+   a 262,144-op mix, ``Fleet.migrate`` of 65,536 keys from group 0 to
+   group 3 under a standing batch, a seeded ``fleet_schedules`` run of 64
+   rounds crashing replicas of groups 0 and 2 only, every group's checker
+   and ``verify_fleet``, a save/load round trip; then ``run_fleet_cells``
+   (per-group and concurrent writes/s; on one card the summed per-group
+   rate is no capacity and is printed under a name that says so).
+   Every KVS phase holds ``stats_block``'s launches equal to its rounds
+   (the migrate and fleet phases each store's or group's own, and group
+   3's mega kernels equal to its rounds and replay-scan rounds).
 
-Then the kernels summary line, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``.  Without a card, or without the package
-beside it, the script exits non-zero before any phase.
+Then the whole smoke's seconds, the kernels summary line, the card's name
+and power limit, and last ``{"ok": true, "device": {...}}``.  Without a
+card, or without the package beside it, the script exits non-zero before
+any phase.
 
     python3 chip_smoke.py --kernels mega_route,scan_acc
 
@@ -2587,6 +2608,439 @@ def phase_resize(torch, np, kernels, ch, card):
     return out
 
 
+# -- range migration and the fleet -----------------------------------------
+
+MIGRATE_STAGES = ("fence", "drain", "snapshot", "transfer", "restore",
+                  "flip")
+# the migrate drill's standing mix, in rounds of R x S ops: about half
+# of it still queued when the fence falls (the drill steps 4 rounds)
+MIGRATE_LIVE_ROUNDS = 8
+FLEET_GROUPS = 4
+FLEET_MIX_OPS = 262144  # ops of the fleet's mix, and of its standing batch
+FLEET_MOVE = 65536  # fleet keys moved from group 0 to group 3
+FLEET_CHAOS_ROUNDS = 64
+FLEET_CHAOS_SEED = 2  # draws crashes in groups 0 and 2 (1 and 3 emptied)
+FLEET_CHAOS_OPS = 8192  # fleet-wide ops submitted each chaos round
+FLEET_BENCH_ROUNDS = 20
+
+
+def _metered(counters, rts):
+    """Wrap each runtime's ``dispatch_round``: the launches each kernel
+    made while that runtime's rounds were dispatched, one dict a
+    runtime (the counters are global; this attributes them)."""
+    per = [dict.fromkeys(counters, 0) for _ in rts]
+    for rt, got in zip(rts, per):
+        def metered(*args, _dispatch=rt.dispatch_round, _got=got, **kwargs):
+            before = {n: w.launches for n, w in counters.items()}
+            out = _dispatch(*args, **kwargs)
+            for n, w in counters.items():
+                _got[n] += w.launches - before[n]
+            return out
+
+        rt.dispatch_round = metered
+    return per
+
+
+def _launches_match(cfg, rounds, got):
+    """``got`` (one runtime's metered launches) against
+    ``expected_launches`` over its rounds [0, rounds); kernels the round
+    does not run must have 0."""
+    want = expected_launches(cfg, 0, rounds)
+    return all(got[k] == want.get(k, 0) for k in got), want
+
+
+def _stage_clock(mg, src, dst):
+    """Patch the hooks ``migrate_range`` goes through so that each stage
+    ends in a device sync and a mark: start (``migrate_range`` called),
+    fence (``fence_slots``), drain (the drain rounds, the flush and
+    ``salvage_slots``), snapshot (the normalize and ``save_range``),
+    transfer (read back, re-map, re-mint: until the destination's
+    ``write_rows``), restore (the rows, the version re-anchor,
+    ``record_migration``), flip (until ``migrate_range`` returns).
+    Returns (marks, unpatch)."""
+    marks = []
+    saved = []
+
+    def mark(name):
+        mg.sync()
+        marks.append((name, time.perf_counter()))
+
+    def patch(obj, attr, before=None, after=None):
+        fn = getattr(obj, attr)
+        saved.append((obj, attr, fn if attr in vars(obj) else None))
+
+        def hooked(*args, **kwargs):
+            if before is not None:
+                before(*args)
+            out = fn(*args, **kwargs)
+            if after is not None:
+                after(*args)
+            return out
+
+        setattr(obj, attr, hooked)
+
+    patch(mg.migrate_mod, "migrate_range", before=lambda *a: mark("start"),
+          after=lambda *a: mark("flip"))
+    patch(src, "fence_slots", after=lambda *a: mark("fence"))
+    patch(src, "salvage_slots", after=lambda *a: mark("drain"))
+    patch(mg.snapshot, "save_range", after=lambda *a: mark("snapshot"))
+    patch(mg.snapshot, "write_rows",
+          before=lambda rt, *a: rt is dst.rt and mark("transfer"))
+    patch(dst.rt.recorder, "record_migration",
+          after=lambda *a: mark("restore"))
+
+    def unpatch():
+        for obj, attr, old in reversed(saved):
+            if old is None:
+                delattr(obj, attr)
+            else:
+                setattr(obj, attr, old)
+
+    return marks, unpatch
+
+
+def _timed_steps(sync, kvs):
+    """Wrap ``kvs.step``: each round's host seconds, ending in a device
+    sync, appended to the returned list."""
+    seconds = []
+    step = kvs.step
+
+    def timed():
+        t0 = time.perf_counter()
+        n = step()
+        sync()
+        seconds.append(time.perf_counter() - t0)
+        return n
+
+    kvs.step = timed
+    return seconds
+
+
+def _stage_seconds(marks):
+    return {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
+
+
+def _copy_rows_equal(torch, fst, kvs, lo, hi):
+    """Every table copy of ``kvs`` equal to copy 0 over [lo, hi)."""
+    K = kvs.cfg.n_keys
+    v = fst.copies(kvs.rt.fs.table.vpts, K)[:, lo:hi]
+    b = fst.copies(kvs.rt.fs.table.bank, K)[:, lo:hi]
+    return all(torch.equal(v[j], v[0]) and torch.equal(b[j], b[0])
+               for j in range(1, v.shape[0]))
+
+
+def _tables_equal(torch, fst, a, b):
+    """Two runtimes' tables equal over every copy's key rows (an archive
+    holds no drop row)."""
+    K = a.cfg.n_keys
+    return (torch.equal(fst.copies(a.fs.table.vpts, K),
+                        fst.copies(b.fs.table.vpts, K))
+            and torch.equal(fst.copies(a.fs.table.bank, K),
+                            fst.copies(b.fs.table.bank, K)))
+
+
+def _payload_rows(fst, kvs, keys, replica=0):
+    """The payload words (the value words after the two uid words) of
+    ``replica``'s copy at ``keys``, as lists."""
+    bank = kvs.rt.copy_of(replica)[1]
+    rows = fst._bank_to_i32(bank[list(keys)]).cpu().numpy()
+    return [r[fst.BANK_VAL + 2:].tolist() for r in rows]
+
+
+def phase_migrate(torch, np, counters, mg, card):
+    """``migration_drill`` at the KVS bench shape (8 replicas, 2^20 keys,
+    ``value_words=8``, 65,536 sessions a replica, recorded): a seed load
+    of R x S ops and a standing mix of ``MIGRATE_LIVE_ROUNDS`` x R x S
+    from ``submit_drill_mix``, the middle third ``[K/3, 2K/3)`` moved
+    under the mix.  Each stage's host
+    seconds (ending in a device sync), the drain's rounds, the rows
+    moved, the ops rejected at the fence, salvaged, rejected and lost.
+    Requires: the destination's reads at lo, the midpoint and hi-1 equal
+    the source's last committed rows, a source get at lo ``rejected``,
+    both checkers green, each store's ``stats_block`` launches equal to
+    its rounds.  Then the same move on the sharded engine (8 copies of
+    K+1 rows) with replica 1 of the source frozen across it and a
+    standing mix below the range: the donor is the lowest live, unfrozen
+    copy, every destination copy equals its copy 0 over the range.  Each
+    store's rounds are timed one by one (``round_s``, host seconds ending
+    in a device sync)."""
+    cfg = mg.kvs_cfg()
+    K, R, S = cfg.n_keys, cfg.n_replicas, cfg.n_sessions
+    lo, hi = K // 3, 2 * K // 3
+    load = R * S
+    out = {"phase": "migrate", "nvidia_smi": card, "lo": lo, "hi": hi,
+           "load_ops": load, "live_ops": MIGRATE_LIVE_ROUNDS * load}
+    totals = dict.fromkeys(counters, 0)
+    mg.reset_peak_memory()
+    for backend in ("batched", "sharded"):
+        src = mg.KVS(cfg, backend=backend, record="array", device=mg.device)
+        dst = mg.KVS(cfg, backend=backend, record="array", device=mg.device)
+        per = _metered(counters, [src.rt, dst.rt])
+        round_s = [_timed_steps(mg.sync, src), _timed_steps(mg.sync, dst)]
+        marks, unpatch = _stage_clock(mg, src, dst)
+        t0 = time.perf_counter()
+        try:
+            if backend == "batched":
+                # the drill's own loads; its post-flip checks raise
+                res = mg.elastic.migration_drill(
+                    cfg, record="array", lo=lo, hi=hi, load_ops=load,
+                    live_ops=MIGRATE_LIVE_ROUNDS * load, seed=mg.seed,
+                    check=False, src=src, dst=dst, device=mg.device)
+                probe = [lo, (lo + hi) // 2, hi - 1]
+                reads = res["dst_read_values"]
+            else:
+                seed_bf = mg.elastic.submit_drill_mix(
+                    src, load, seed=mg.seed, read_frac=0.0)
+                if not src.run_batch(seed_bf):
+                    raise AssertionError("sharded seed load did not drain")
+                standing = mg.elastic.submit_drill_mix(
+                    src, load // 4, seed=mg.seed + 1, hi=lo)
+                src.step()
+                src.freeze(1)
+                res = mg.migrate_mod.migrate_range(src, dst, lo, hi)
+                src.rt.thaw(1)
+                if not src.run_batch(standing):
+                    raise AssertionError("the standing mix stranded ops")
+                probe = [lo, (lo + hi) // 2, hi - 1]
+                gets = [dst.get(r, 7, k) for r in range(R) for k in probe]
+                if not dst.run_until(gets):
+                    raise AssertionError("sharded destination reads stalled")
+                reads = [g.result().value for g in gets]
+                if any(g.result().kind != "get" for g in gets):
+                    raise AssertionError("sharded destination reads failed")
+                rej = src.get(0, 0, lo)
+                if rej.result().kind != "rejected":
+                    raise AssertionError("the source served a moved key")
+        finally:
+            unpatch()
+        wall = time.perf_counter() - t0
+        stages = _stage_seconds(marks)
+        want_rows = _payload_rows(mg.fst, src, probe)
+        t1 = time.perf_counter()
+        checks = [src.rt.check(), dst.rt.check()]
+        check_s = time.perf_counter() - t1
+        rounds = [src.rt.step_idx, dst.rt.step_idx]
+        matched = [_launches_match(cfg, n, got)
+                   for n, got in zip(rounds, per)]
+        for got in per:
+            for k in totals:
+                totals[k] += got[k]
+        row = {"rows": res["rows"], "stages_s": stages,
+               "stage_order": [m[0] for m in marks[1:]],
+               "drain_rounds": res["drain_rounds"],
+               "drained": res["drained"],
+               "rejected_at_fence": res["rejected_at_fence"],
+               "salvaged": res["salvaged"], "wall_s": wall,
+               "src_rounds": rounds[0], "dst_rounds": rounds[1],
+               "round_s": round_s,
+               "round_us_median": statistics.median(round_s[0]) * 1e6,
+               "launches": per, "check_ok": [v.ok for v in checks],
+               "keys_checked": [v.keys_checked for v in checks],
+               "check_s": check_s, "probe": probe,
+               "dst_reads_equal_src_rows":
+                   reads[:len(probe)] == want_rows}
+        if backend == "batched":
+            row.update(live_rejected=res["live_rejected"],
+                       live_lost=res["live_lost"],
+                       live_done=res["live_done"])
+        else:
+            row.update(copies=dst.rt.n_copies, frozen_source_replica=1,
+                       dst_copies_equal=_copy_rows_equal(torch, mg.fst, dst,
+                                                         lo, hi),
+                       dst_reads_by_replica_equal=reads == want_rows * R)
+        out[backend] = row
+        if list(stages) != list(MIGRATE_STAGES):
+            raise AssertionError(f"{backend}: stages {list(stages)}")
+        if not row["dst_reads_equal_src_rows"]:
+            raise AssertionError(f"{backend}: destination reads {reads} != "
+                                 f"source rows {want_rows}")
+        if not all(v.ok for v in checks):
+            raise AssertionError(f"{backend}: a checker failed")
+        if not all(ok for ok, _ in matched):
+            raise AssertionError(f"{backend}: launches {per} != rounds "
+                                 f"{rounds}")
+        if backend == "sharded" and not (
+                row["dst_copies_equal"] and row["dst_reads_by_replica_equal"]
+                and res["drained"] and res["salvaged"] == 0):
+            raise AssertionError(f"sharded move: {row}")
+        del src, dst
+    out["launches"] = totals
+    out["peak_memory_bytes"] = mg.peak_memory()
+    emit(out)
+    return out
+
+
+def phase_fleet(torch, np, counters, fl, card):
+    """``Fleet`` of ``FLEET_GROUPS`` groups at the KVS bench shape
+    (recorded; group 3 on the mega round and with ``fl.move`` spare slots
+    beyond its 2^20-key range), on the card: a ``--fleet-ops``-style mix
+    of ``fl.mix_ops`` ops over every group's range through
+    ``submit_batch``/``run_batch``; ``Fleet.migrate`` of ``fl.move`` keys
+    from group 0 to group 3 under a standing batch; a seeded
+    ``fleet_schedules`` run of ``FLEET_CHAOS_ROUNDS`` rounds crashing and
+    restarting replicas of groups 0 and 2 only, ``fl.chaos_ops`` ops
+    submitted each round; every group's checker and ``verify_fleet``; a
+    save/load round trip into a temporary directory; then
+    ``run_fleet_cells`` (bench-a's shape, ``FLEET_BENCH_ROUNDS`` rounds a
+    dispatch).  Requires: checkers and ``verify_fleet`` green, groups 1
+    and 3 never fenced or crashed, the reloaded tables and router equal
+    the saved ones, each group's launches equal to its rounds (group 3's
+    mega kernels too)."""
+    import tempfile
+
+    base = fl.kvs_cfg()
+    K = base.n_keys
+    fcfg = fl.FleetConfig(
+        groups=FLEET_GROUPS, base=base,
+        overrides=(None, None, None,
+                   {"mega_round": True, "n_keys": K + fl.move}))
+    fl.reset_peak_memory()
+    t_all = time.perf_counter()
+    fleet = fl.Fleet(fcfg, device=fl.device, record="array")
+    per = _metered(counters, fleet.runtimes())
+    rng = np.random.default_rng(fl.seed)
+    u = base.value_words - 2
+
+    def mix(n):
+        keys = rng.integers(0, fcfg.total_keys, size=n).astype(np.int64)
+        kinds = np.where(rng.random(n) < base.workload.read_frac,
+                         fleet.GET, fleet.PUT).astype(np.int32)
+        vals = rng.integers(0, 1 << 20, size=(n, u)).astype(np.int32)
+        return kinds, keys, vals
+
+    out = {"phase": "fleet", "nvidia_smi": card, "groups": FLEET_GROUPS,
+           "fleet_keys": fcfg.total_keys, "mix_ops": fl.mix_ops}
+    t0 = time.perf_counter()
+    fb = fleet.submit_batch(*mix(fl.mix_ops))
+    mix_ok = fleet.run_batch(fb)
+    fl.sync()
+    out["mix_s"] = time.perf_counter() - t0
+    out["mix_rounds"] = [g.rt.step_idx for g in fleet.groups]
+    out["mix_codes"] = {int(c): int(n) for c, n in
+                        zip(*np.unique(fb.code, return_counts=True))}
+    # the move, under a standing batch
+    standing = fleet.submit_batch(*mix(fl.mix_ops))
+    mlo = K // 2
+    mhi = mlo + fl.move
+    t0 = time.perf_counter()
+    moved = fleet.migrate(mlo, mhi, 3)
+    fl.sync()
+    out["migrate_s"] = time.perf_counter() - t0
+    standing_ok = fleet.run_batch(standing)
+    out["migrate"] = {k: v for k, v in moved.items() if k != "dest_slots"}
+    out["standing_rejected"] = int((standing.code == fl.C_REJECTED).sum())
+    probe = [mlo, mhi - 1]
+    g0_rows = _payload_rows(fl.fst, fleet.groups[0].kvs, probe)
+    gets = [fleet.get(0, k) for k in probe]
+    fleet.run_until(gets)
+    moved_reads_ok = ([g.result().value for g in gets] == g0_rows
+                      and fleet.router.owner(mlo) == 3
+                      and fleet.router.owner(mlo - 1) == 0
+                      and fleet.router.owner(mhi) == 0)
+    # chaos: crashes in groups 0 and 2 only
+    spec = fl.chaos.ChaosSpec(p_freeze=0.0, p_thaw=0.0, p_join=0.0,
+                              p_crash=0.06, p_skew=0.0,
+                              min_healthy=base.n_replicas - 2)
+    scheds = fl.fleet_schedules(fcfg, FLEET_CHAOS_SEED, FLEET_CHAOS_ROUNDS,
+                                spec)
+    scheds[1] = scheds[3] = fl.chaos.Schedule([])
+    runner = fl.FleetChaosRunner(fleet, scheds, spec=spec)
+    touched = []
+    trickle = []
+
+    def on_step(step):
+        for g in (1, 3):
+            rt = fleet.groups[g].rt
+            touched.append(bool(rt.frozen.any())
+                           or int(rt.live[0]) != rt.cfg.full_mask)
+        trickle.append(fleet.submit_batch(*mix(fl.chaos_ops)))
+
+    runner.on_step = on_step
+    t0 = time.perf_counter()
+    res = runner.run(FLEET_CHAOS_ROUNDS, heal=True)
+    trickle_ok = all(fleet.run_batch(b) for b in trickle)
+    fl.sync()
+    out["chaos_s"] = time.perf_counter() - t0
+    executed = json.loads(runner.log_json())
+    out["chaos"] = {"lost_ops": res["lost_ops"], "drained": res["drained"],
+                    "executed": [[(e["step"], e["kind"],
+                                   e.get("replica")) for e in log]
+                                 for log in executed],
+                    "trickle_ops": fl.chaos_ops * len(trickle)}
+    t0 = time.perf_counter()
+    verdict = fleet.check()
+    out["check_s"] = time.perf_counter() - t0
+    out["check"] = verdict
+    out["rounds"] = [g.rt.step_idx for g in fleet.groups]
+    matched = [_launches_match(g.cfg, g.rt.step_idx, got)
+               for g, got in zip(fleet.groups, per)]
+    out["launches"] = per
+    out["expected_launches"] = [w for _, w in matched]
+    # snapshot scope round trip
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        fleet.save(d)
+        out["save_s"] = time.perf_counter() - t0
+        f2 = fl.Fleet(fcfg, device=fl.device)
+        t0 = time.perf_counter()
+        f2.load(d)
+        fl.sync()
+        out["load_s"] = time.perf_counter() - t0
+        reload_equal = (
+            np.array_equal(f2.router.rr._owner, fleet.router.rr._owner)
+            and np.array_equal(f2.router._local, fleet.router._local)
+            and all(_tables_equal(torch, fl.fst, a.rt, b.rt)
+                    for a, b in zip(fleet.groups, f2.groups)))
+        del f2
+    out["reload_equal"] = reload_equal
+    out["drive_s"] = time.perf_counter() - t_all
+    out["peak_memory_bytes"] = fl.peak_memory()
+    del fleet
+    # bench cells (bench-a's device-generated streams)
+    bcfg = fl.FleetConfig(groups=FLEET_GROUPS, base=fl.cfg(),
+                          overrides=(None, None, None, {"mega_round": True}))
+    before = {n: w.launches for n, w in counters.items()}
+    cells = fl.run_fleet_cells(bcfg, rounds=FLEET_BENCH_ROUNDS,
+                               device=fl.device)
+    bench_launches = {n: w.launches - before[n]
+                      for n, w in counters.items()}
+    n_chunks = 1 + 2 * 2  # warm-up, alone, concurrent (chunks=2 each)
+    bench_rounds = n_chunks * FLEET_BENCH_ROUNDS
+    want_bench = {"stats_block": FLEET_GROUPS * bench_rounds,
+                  "mega_route": bench_rounds, "mega_apply": bench_rounds,
+                  "mega_replay": sum(1 for s in range(bench_rounds)
+                                     if s % bcfg.base.replay_scan_every
+                                     == 0)}
+    out["bench"] = cells
+    out["bench_launches"] = bench_launches
+    out["bench_concurrent_writes_per_s"] = \
+        cells["concurrent"]["writes_per_sec"]
+    out["bench_summed_alone_writes_per_s_not_a_capacity_on_one_card"] = \
+        cells["aggregate_writes_per_sec"]
+    emit(out)
+    if not (mix_ok and standing_ok and trickle_ok):
+        raise AssertionError("a fleet batch stranded ops")
+    if not moved_reads_ok:
+        raise AssertionError("the moved keys do not read group 0's rows "
+                             "through group 3")
+    crashed = {g for g, log in enumerate(executed)
+               if any(e["kind"] == "crash_restart" for e in log)}
+    if crashed != {0, 2} or any(touched) or executed[1] or executed[3]:
+        raise AssertionError(f"chaos crashed groups {crashed}; groups 1/3 "
+                             f"touched {any(touched)}")
+    if not (verdict["ok"] and verdict["fleet_invariants"] == "ok"):
+        raise AssertionError(f"fleet checks failed: {verdict}")
+    if not reload_equal:
+        raise AssertionError("the reloaded fleet differs from the saved one")
+    if not all(ok for ok, _ in matched):
+        raise AssertionError(f"fleet launches {per} != rounds "
+                             f"{out['rounds']}")
+    if bench_launches != want_bench:
+        raise AssertionError(f"bench launches {bench_launches}, want "
+                             f"{want_bench}")
+    return out
+
+
 def main(argv=None):
     import argparse
 
@@ -2639,10 +3093,13 @@ def main(argv=None):
         from hermes_tpu_torch import kvs as kvs_mod
         from hermes_tpu_torch.chaos import recovery
         from hermes_tpu_torch.membership import MembershipService
+        from hermes_tpu_torch import fleet as fleet_lib
+        from hermes_tpu_torch.elastic import migrate as migrate_mod
     except ImportError as e:
         print(f"chip_smoke: cannot import the port next to this script "
               f"({e})", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     try:
         card = nvidia_smi()
         emit({"phase": "device", "nvidia_smi": card,
@@ -2757,6 +3214,36 @@ def main(argv=None):
         phase_detect_cost(torch, ch, card)
         phase_drill(torch, kernels, ch, card)
         phase_resize(torch, np, kernels, ch, card)
+        torch.cuda.empty_cache()
+        store_mem = dict(reset_peak_memory=torch.cuda.reset_peak_memory_stats,
+                         peak_memory=torch.cuda.max_memory_allocated)
+        mg = SimpleNamespace(
+            kvs_cfg=lambda **over: _kvs_cfg(config, **over), device="cuda",
+            KVS=KVS, elastic=elastic, migrate_mod=migrate_mod,
+            snapshot=snapshot, fst=fst, sync=torch.cuda.synchronize,
+            seed=0, **store_mem)
+        migrated = phase_migrate(torch, np, counters, mg, card)
+        torch.cuda.empty_cache()
+        fl = SimpleNamespace(
+            kvs_cfg=lambda **over: _kvs_cfg(config, **over),
+            cfg=lambda **over: config.bench_cfg("a", over=over),
+            device="cuda", Fleet=fleet_lib.Fleet,
+            FleetConfig=config.FleetConfig,
+            FleetChaosRunner=fleet_lib.FleetChaosRunner,
+            fleet_schedules=fleet_lib.fleet_schedules,
+            run_fleet_cells=fleet_lib.run_fleet_cells, chaos=chaos_lib,
+            fst=fst, C_REJECTED=kvs_mod.C_REJECTED,
+            sync=torch.cuda.synchronize, seed=0, move=FLEET_MOVE,
+            mix_ops=FLEET_MIX_OPS, chaos_ops=FLEET_CHAOS_OPS, **store_mem)
+        fleet_run = phase_fleet(torch, np, counters, fl, card)
+        for name, row in rows.items():
+            if name in counters:
+                row["migrate_launches"] = migrated["launches"][name]
+                row["fleet_launches"] = sum(g[name]
+                                            for g in fleet_run["launches"])
+                row["fleet_bench_launches"] = \
+                    fleet_run["bench_launches"][name]
+        emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     except Exception:
         traceback.print_exc()
         return 1

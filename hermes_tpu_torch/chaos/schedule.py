@@ -756,8 +756,8 @@ class ChaosRunner:
         """Everything one scheduled round does EXCEPT stepping the
         target: expire lapsed windows, run the lease rule, apply due
         events.  ``run`` drives this loop for one target; a fleet runner
-        (ROADMAP A11c) ticks one runner per group in lockstep
-        and steps the groups itself."""
+        (``fleet.FleetChaosRunner``) ticks one runner per group in
+        lockstep and steps the groups itself."""
         self._expire_skews(step)
         self._expire_partitions(step)
         if self.load is not None:

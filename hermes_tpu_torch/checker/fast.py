@@ -112,8 +112,9 @@ class ArrayRecorder:
         ``(R, S)`` slot ``mask``) in as maybe_w rows (they may or may not
         have taken effect; the checker lets them linearize optionally).
         Called by ``finalize`` at end of run, by
-        ``chaos.recovery.restart_replica`` at crash time and by the KVS's
-        bounded retry for a salvaged slot."""
+        ``chaos.recovery.restart_replica`` at crash time, by the KVS's
+        bounded retry for a salvaged slot and by a range migration's
+        forced cutover (``KVS.salvage_slots``) for the salvaged slots."""
         status = np.asarray(sess.status)
         op = np.asarray(sess.op)
         sel = (status == t.S_INFL) & ((op == t.OP_WRITE) | (op == t.OP_RMW))
@@ -136,6 +137,28 @@ class ArrayRecorder:
                 cmt=np.full(sel.sum(), -1, np.int64),
             ))
         return int(sel.sum())
+
+    def record_migration(self, keys, uids, vers, fcs, step: int) -> int:
+        """Seed migrated-in keys as committed writes (the semantics of
+        ``HistoryRecorder.record_migration``): one columnar chunk,
+        responding at ``2*(step-1)+1``, strictly before any post-flip
+        completion."""
+        keys = np.asarray(keys, np.int32)
+        uids = np.asarray(uids, np.int32).reshape(-1, 2)
+        n = keys.shape[0]
+        if n == 0:
+            return 0
+        self._chunks.append(dict(
+            code=np.full(n, t.C_WRITE, np.int32),
+            key=keys,
+            wlo=uids[:, 0], whi=uids[:, 1],
+            rlo=np.zeros(n, np.int32), rhi=np.zeros(n, np.int32),
+            ver=np.asarray(vers, np.int64),
+            fc=np.asarray(fcs, np.int64),
+            inv=np.full(n, step - 1, np.int64),
+            cmt=np.full(n, step - 1, np.int64),
+        ))
+        return n
 
     def finalize(self, sess=None) -> "ArrayRecorder":
         """Fold still-in-flight updates in as maybe_w rows (fold_pending);

@@ -106,7 +106,9 @@ class HistoryRecorder:
         must be allowed — but not required — to linearize.  ``finalize``
         calls this once at end of run; ``chaos.recovery.restart_replica``
         at crash time for the dying replica; the KVS's bounded retry for
-        a salvaged slot.  Returns the number of ops folded."""
+        a salvaged slot; a range migration's forced cutover
+        (``KVS.salvage_slots``) with the mask of the salvaged slots.
+        Returns the number of ops folded."""
         status = np.asarray(sess.status)
         op = np.asarray(sess.op)
         key = np.asarray(sess.key)
@@ -130,6 +132,25 @@ class HistoryRecorder:
                        replica=r, session=s)
                 )
                 n += 1
+        return n
+
+    def record_migration(self, keys, uids, vers, fcs, step: int) -> int:
+        """Seed migrated-in keys (``elastic.migrate_range``): each key's
+        current value enters this history as a committed write — the
+        migration IS a write of the transferred value, linearized strictly
+        before any post-flip op (``step`` is the destination round of the
+        flip; the synthetic op responds at ``2*(step-1)+1``, ahead of any
+        completion of round ``step``).  ``uids`` are the re-minted
+        (lo=slot, hi<=-2) migration uids the restored rows now carry, so
+        later reads observe exactly this write.  ``migrate_range`` owns
+        the precondition: the keys are FRESH here (no prior committed ops
+        in this history)."""
+        n = 0
+        for k, (wlo, whi), ver, fc in zip(keys, uids, vers, fcs):
+            self.ops.append(
+                Op("w", int(k), 2.0 * (step - 1), 2.0 * (step - 1) + 1,
+                   wuid=(int(wlo), int(whi)), ts=(int(ver), int(fc))))
+            n += 1
         return n
 
     def finalize(self, sess=None) -> List[Op]:

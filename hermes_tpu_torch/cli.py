@@ -13,6 +13,9 @@
         --detect 3 --check
     python -m hermes_tpu_torch --replicas 4 --value-words 6 --drill resize \\
         --check
+    python -m hermes_tpu_torch --keys 4096 --value-words 6 --drill migrate \\
+        --check
+    python -m hermes_tpu_torch --value-words 6 --fleet-groups 3 --check
 
 The default fast-backend drive of ``hermes_tpu/cli.py``: with ``--steps
 0`` (the default) the run drains every session's op stream; ``--check``
@@ -26,10 +29,13 @@ of ``--freeze`` windows, spans, the summary with its histograms and the
 registry), which ``python -m hermes_tpu_torch.obs.report`` renders.
 ``--detect CONFIRM`` attaches the failure detector; ``--chaos SEED`` or
 ``--chaos-schedule FILE`` drives a fault schedule over ``--steps`` rounds,
-then heals and drains; ``--drill rolling|resize`` runs an elastic drill
-and prints one JSON line (``--drill migrate`` is ROADMAP A11b);
-``--degraded-floor N`` sets ``min_healthy_for_writes`` of the client
-drives.
+then heals and drains; ``--drill rolling|resize|migrate`` runs an
+elastic drill and prints one JSON line; ``--degraded-floor N`` sets
+``min_healthy_for_writes`` of the client drives.  ``--fleet-groups N``
+runs N key-sharded groups behind the routed ``fleet.Fleet`` facade: a
+seeded mix of ``--fleet-ops`` ops over every group's range, one JSON
+line with per-group and fleet counters (``--check``: every group's
+checker and ``verify_fleet``).
 ``--backend fast-sharded`` runs the three drives on the sharded engine
 (one table copy a replica, every replica in this process: a
 ``LocalGroup``).  The run is on the card unless ``--device cpu`` is
@@ -149,11 +155,21 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["rolling", "resize", "migrate"],
                     help="an elastic drill: 'rolling' crash-restarts every "
                          "replica in sequence under load, 'resize' shrinks "
-                         "and grows every replica live through the KVS "
-                         "(needs --value-words >= 3); --check gates each "
-                         "with the checker; one JSON line with the "
-                         "worst-window dip.  'migrate' is not ported "
-                         "(ROADMAP A11b)")
+                         "and grows every replica live through the KVS, "
+                         "'migrate' moves a key range between two stores "
+                         "under load (resize and migrate need --value-words "
+                         ">= 3); --check gates each with the checker; one "
+                         "JSON line")
+    ap.add_argument("--fleet-groups", type=int, default=0, metavar="N",
+                    help="fleet drive: N key-sharded groups of --replicas "
+                         "each behind the routed facade (fleet.Fleet), a "
+                         "seeded get/put mix over every group's range; "
+                         "--check gates every group's history and the "
+                         "fleet invariants (verify_fleet); --steps bounds "
+                         "the drive's rounds.  Needs --value-words >= 3 and "
+                         "--backend fast")
+    ap.add_argument("--fleet-ops", type=int, default=512,
+                    help="ops in the fleet mix (--fleet-groups)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: the card)")
     return ap
@@ -323,7 +339,7 @@ def _run_drill(args, cfg) -> int:
         summary.update(restarts=res["restarts"], drained=res.get("drained"),
                        lost_ops=res["lost_ops"], dip=res["dip"],
                        checked_ok=res.get("checked_ok"))
-    else:  # resize
+    elif args.drill == "resize":
         kvs = KVS(cfg, backend=backend, record=rec, device=args.device)
         # a standing load that outlasts the drill (R cycles of 2 x 8
         # rounds plus each shrink's drain, up to R*S completions a round):
@@ -339,6 +355,51 @@ def _run_drill(args, cfg) -> int:
                        rejected_ops=res["rejected_ops"],
                        load_done=bf.done_count(),
                        checked_ok=res.get("checked_ok"))
+    else:  # migrate
+        res = elastic.migration_drill(cfg, backend=backend, record=rec,
+                                      seed=args.seed, check=args.check,
+                                      device=args.device)
+        ok = (res.get("src_checked_ok", not args.check)
+              and res.get("dst_checked_ok", not args.check))
+        summary.update({k: v for k, v in res.items() if k != "dest_slots"})
+    summary["ok"] = bool(ok)
+    print(json.dumps(summary, default=str))
+    return 0 if ok else 1
+
+
+def _run_fleet(args, cfg) -> int:
+    """The fleet drive: N key-sharded groups behind the routed facade, a
+    seeded get/put mix over every group's range, per-group and fleet
+    counters as one JSON line; ``--check`` runs every group's checker and
+    ``verify_fleet``."""
+    from hermes_tpu_torch.config import FleetConfig
+    from hermes_tpu_torch.fleet import Fleet
+
+    fcfg = FleetConfig(groups=args.fleet_groups, base=cfg)
+    fleet = Fleet(fcfg, record="array" if args.check else False,
+                  device=args.device)
+    rng = np.random.default_rng(args.seed)
+    n = args.fleet_ops
+    keys = rng.integers(0, fcfg.total_keys, size=n).astype(np.int64)
+    kinds = np.where(rng.random(n) < cfg.workload.read_frac,
+                     Fleet.GET, Fleet.PUT).astype(np.int32)
+    values = rng.integers(0, 1 << 20,
+                          size=(n, cfg.value_words - 2)).astype(np.int32)
+    t0 = time.perf_counter()
+    fb = fleet.submit_batch(kinds, keys, values)
+    drained = fleet.run_batch(fb, max_steps=args.steps or 50_000)
+    wall = time.perf_counter() - t0
+    summary = dict(fleet_groups=args.fleet_groups, ops=n,
+                   done=fb.done_count(), drained=bool(drained),
+                   wall_s=round(wall, 3),
+                   ranges=fleet.router.owned_ranges(),
+                   counters=fleet.counters())
+    ok = drained
+    if args.check:
+        verdicts = fleet.check()
+        summary["checked_ok"] = verdicts["ok"]
+        summary["group_verdicts"] = verdicts["groups"]
+        ok = ok and verdicts["ok"]
     summary["ok"] = bool(ok)
     print(json.dumps(summary, default=str))
     return 0 if ok else 1
@@ -392,21 +453,32 @@ def main(argv=None) -> int:
     drives = [name for name, on in (
         ("--reads", args.reads is not None),
         ("--value-bytes", args.value_bytes is not None),
-        ("--drill", bool(args.drill)), ("--chaos", bool(chaos_on))) if on]
+        ("--drill", bool(args.drill)), ("--chaos", bool(chaos_on)),
+        ("--fleet-groups", bool(args.fleet_groups))) if on]
     if args.chaos is not None and args.chaos_schedule:
         ap.error("--chaos and --chaos-schedule are mutually exclusive")
-    if args.drill == "migrate":
-        ap.error("--drill migrate (live key-range migration) is not ported "
-                 "yet: ROADMAP A11b")
     if len(drives) > 1:
         ap.error(f"{' and '.join(drives)} are separate drives; pick one")
     if args.drill:
         if args.freeze:
             ap.error("--drill and --freeze are mutually exclusive (drills "
                      "build their own schedules)")
-        if args.drill == "resize" and args.value_words < 3:
-            ap.error("--drill resize drives the client KVS: needs "
+        if args.drill in ("resize", "migrate") and args.value_words < 3:
+            ap.error(f"--drill {args.drill} drives the client KVS: needs "
                      "--value-words >= 3 (words 0-1 carry the write uid)")
+    if args.fleet_groups:
+        if args.fleet_groups < 1:
+            ap.error("--fleet-groups must be >= 1")
+        if args.backend != "fast":
+            ap.error("--fleet-groups drives the fast batched backend "
+                     "through the KVS facade (hermes_tpu_torch.fleet); "
+                     "sharded fleets are launched via hermes_tpu_torch."
+                     "launch --fleet-groups")
+        if args.value_words < 3:
+            ap.error("--fleet-groups needs --value-words >= 3 (words 0-1 "
+                     "carry the write uid)")
+        if args.freeze:
+            ap.error("--fleet-groups is its own drive; drop --freeze")
     if chaos_on:
         if args.steps <= 0:
             ap.error("--chaos needs a bounded run (--steps > 0)")
@@ -455,6 +527,8 @@ def main(argv=None) -> int:
         return _run_values(args, cfg)
     if args.drill:
         return _run_drill(args, cfg)
+    if args.fleet_groups:
+        return _run_fleet(args, cfg)
     faults = _freeze_faults(ap, args)
     sched = None
     if chaos_on:

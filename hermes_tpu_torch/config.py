@@ -1,11 +1,12 @@
 """Run configuration for the PyTorch port.
 
-A copy of ``hermes_tpu/config.py``'s ``WorkloadConfig`` and
-``HermesConfig`` (fields, validation and properties), so that a config
-built for one package can be rebuilt field for field in the other
-(``HermesConfig(**dataclasses.asdict(ref_cfg))``).  The knobs of
-subsystems the port does not have yet stay declared; the modules that
-would read them refuse loudly when they are set (``kvs.KVS``).
+A copy of ``hermes_tpu/config.py``'s ``WorkloadConfig``,
+``HermesConfig`` and ``FleetConfig`` (fields, validation and
+properties), so that a config built for one package can be rebuilt field
+for field in the other (``HermesConfig(**dataclasses.asdict(ref_cfg))``).
+The knobs of subsystems the port does not have yet stay declared; the
+modules that would read them refuse loudly when they are set
+(``kvs.KVS``).
 
 ``bench_cfg`` is the port's copy of ``bench.py:_cfg`` — the flagship
 bench shape that ``chip_smoke.py`` and the CLI drive.
@@ -14,7 +15,8 @@ bench shape that ``chip_smoke.py`` and the CLI drive.
 from __future__ import annotations
 
 import dataclasses
-from typing import Literal, Optional
+import os
+from typing import Literal, Optional, Tuple
 
 from hermes_tpu_torch.core import layouts
 
@@ -278,6 +280,101 @@ class HermesConfig:
         while hs < min(8 * self.n_sessions, 1 << 19):
             hs <<= 1
         return hs
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetConfig:
+    """Key-sharded fleet shape (``fleet/``): G independent replica groups
+    side by side, each owning a contiguous range of the fleet keyspace,
+    each a full FastRuntime/KVS stack with its own membership service,
+    chaos scope and snapshot scope; nothing is shared between groups but
+    the fleet router.
+
+    ``ranges`` partitions the FLEET keyspace ``[0, total_keys)`` into one
+    contiguous ``[lo, hi)`` per group (default: ``groups`` equal splits of
+    ``groups * base.n_keys``).  A group's range must fit its dense table
+    (``hi - lo <= group n_keys``): fleet key ``k`` lands on local slot
+    ``k - lo`` of its owning group until a migration remaps it.
+
+    ``overrides[g]`` replaces HermesConfig fields for group g.
+    ``vary_seed`` (default) adds the group id to each group's workload
+    seed, so group op streams are distinct but deterministic.  With
+    ``base.wal_dir`` each group logs into its own ``group{g:03d}``
+    subdirectory (an explicit per-group ``wal_dir`` override wins).
+    """
+
+    groups: int = 2
+    base: HermesConfig = dataclasses.field(default_factory=HermesConfig)
+    ranges: Optional[Tuple[Tuple[int, int], ...]] = None
+    overrides: Optional[Tuple[Optional[dict], ...]] = None
+    vary_seed: bool = True
+
+    def __post_init__(self) -> None:
+        if self.groups < 1:
+            raise ValueError("groups must be >= 1")
+        if self.overrides is not None and len(self.overrides) != self.groups:
+            raise ValueError(
+                f"overrides must carry one entry per group "
+                f"({len(self.overrides)} != {self.groups}; use None for "
+                "groups with no overrides)")
+        if self.ranges is not None:
+            if len(self.ranges) != self.groups:
+                raise ValueError(
+                    f"ranges must carry one (lo, hi) per group "
+                    f"({len(self.ranges)} != {self.groups})")
+            cursor = 0
+            for g, (lo, hi) in enumerate(self.ranges):
+                if lo != cursor or hi <= lo:
+                    raise ValueError(
+                        f"ranges must tile the fleet keyspace contiguously "
+                        f"from 0 (group {g} has [{lo}, {hi}), expected "
+                        f"lo={cursor} and hi > lo)")
+                cursor = hi
+        # every group config must build AND hold its range: a bad
+        # per-group override surfaces here, not at the g-th runtime
+        for g in range(self.groups):
+            cfg = self.group_cfg(g)
+            lo, hi = self.group_range(g)
+            if hi - lo > cfg.n_keys:
+                raise ValueError(
+                    f"group {g} owns {hi - lo} fleet keys but its dense "
+                    f"table holds n_keys={cfg.n_keys}; shrink the range or "
+                    "grow the group")
+
+    @property
+    def total_keys(self) -> int:
+        """Fleet keyspace size (the router's slot space)."""
+        if self.ranges is not None:
+            return self.ranges[-1][1]
+        return self.groups * self.base.n_keys
+
+    def group_range(self, g: int) -> Tuple[int, int]:
+        """Fleet-key range ``[lo, hi)`` group ``g`` owns at construction
+        (migrations move ownership afterwards; the fleet router is the
+        live source of truth)."""
+        if not (0 <= g < self.groups):
+            raise ValueError(f"group {g} out of range [0, {self.groups})")
+        if self.ranges is not None:
+            return self.ranges[g]
+        k = self.base.n_keys
+        return (g * k, (g + 1) * k)
+
+    def group_cfg(self, g: int) -> HermesConfig:
+        """The g-th group's HermesConfig (base + overrides + seed vary)."""
+        if not (0 <= g < self.groups):
+            raise ValueError(f"group {g} out of range [0, {self.groups})")
+        over = dict((self.overrides[g] or {})
+                    if self.overrides is not None else {})
+        wl = over.pop("workload", self.base.workload)
+        if self.vary_seed:
+            wl = dataclasses.replace(wl, seed=wl.seed + g)
+        cfg = dataclasses.replace(self.base, workload=wl, **over)
+        # each group logs into its own WAL subdirectory: one group's
+        # recovery must never replay another group's records
+        if cfg.wal_dir is not None and "wal_dir" not in over:
+            cfg = dataclasses.replace(
+                cfg, wal_dir=os.path.join(cfg.wal_dir, f"group{g:03d}"))
+        return cfg
 
 
 def bench_cfg(mix: str = "a", over: Optional[dict] = None) -> HermesConfig:

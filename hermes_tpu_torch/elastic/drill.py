@@ -1,5 +1,5 @@
-"""Elastic drills: rolling restarts and rolling resizes, the port of
-``hermes_tpu/elastic/drill.py`` (the migration drill is ROADMAP A11b).
+"""Elastic drills: rolling restarts, rolling resizes and the migration
+drill, the port of ``hermes_tpu/elastic/drill.py``.
 
 Each is a scripted production exercise of the chaos, recovery and resize
 machinery under load, the checker gating it and the throughput dip
@@ -141,6 +141,89 @@ def submit_drill_mix(kvs, n_ops: int, seed: int = 0,
     u = cfg.value_words - 2
     values = rng.integers(0, 1 << 20, size=(n_ops, u)).astype(np.int32)
     return kvs.submit_batch(kinds, keys, values)
+
+
+def migration_drill(cfg, backend: str = "batched", record=True,
+                    lo: Optional[int] = None, hi: Optional[int] = None,
+                    load_ops: int = 256, seed: int = 0,
+                    drain_steps: int = 2000, check: bool = True,
+                    device="cuda", src=None, dst=None,
+                    live_ops: Optional[int] = None) -> dict:
+    """The live-migration drill (``cli --drill migrate``): two KVS groups
+    and a RangeRouter, a seed load then a standing mix on the source, the
+    middle range migrated under that load, then verified — post-flip
+    reads on the destination answer, mid-drain ops landed as rejected
+    (counted, never dropped), routing is exact at ``lo``/``hi-1``, and
+    BOTH groups' histories pass the checker.  ``load_ops`` sizes the seed
+    load and the standing mix (``live_ops``, when given, the mix alone).
+    ``src``/``dst``: KVSs to use instead of building two from ``cfg`` (the
+    caller's own instrumentation).  Returns the migration summary with the
+    drill's counts and ``dst_read_values`` (the payloads the destination
+    read at ``lo``, the midpoint and ``hi-1``)."""
+    from hermes_tpu_torch import kvs as kvs_lib
+    from hermes_tpu_torch.elastic.migrate import migrate_range
+    from hermes_tpu_torch.keyindex import RangeRouter
+
+    if lo is None:
+        lo = cfg.n_keys // 3
+    if hi is None:
+        hi = 2 * cfg.n_keys // 3
+    if src is None:
+        src = kvs_lib.KVS(cfg, backend=backend, record=record, device=device)
+    if dst is None:
+        dst = kvs_lib.KVS(cfg, backend=backend, record=record, device=device)
+    router = RangeRouter(cfg.n_keys, default_group=0)
+
+    # seed the range with known values, then keep a mixed load running
+    seed_bf = submit_drill_mix(src, load_ops, seed=seed, read_frac=0.0)
+    if not src.run_batch(seed_bf):
+        raise RuntimeError("migration drill: seed load did not drain")
+    live_bf = submit_drill_mix(src, load_ops if live_ops is None else live_ops,
+                               seed=seed + 1)
+    for _ in range(4):
+        src.step()
+
+    res = migrate_range(src, dst, lo, hi, router=router, dst_group=1,
+                        drain_steps=drain_steps)
+    # the standing load keeps issuing around the moved range
+    src.run_batch(live_bf)
+    src.flush()
+
+    codes = np.asarray(live_bf.code)
+    res["live_rejected"] = int((codes == kvs_lib.C_REJECTED).sum())
+    res["live_lost"] = int((codes == kvs_lib.C_LOST).sum())
+    res["live_done"] = int(live_bf.done_count())
+    if not live_bf.all_done():
+        raise RuntimeError("migration drill: standing load stranded "
+                           f"{len(live_bf) - live_bf.done_count()} op(s)")
+
+    # boundary exactness + post-flip service
+    if not (int(router.owner(lo)) == 1 and int(router.owner(hi - 1)) == 1):
+        raise AssertionError("migration drill: the range did not flip")
+    if lo > 0 and int(router.owner(lo - 1)) != 0:
+        raise AssertionError("migration drill: slot lo-1 moved")
+    if hi < cfg.n_keys and int(router.owner(hi)) != 0:
+        raise AssertionError("migration drill: slot hi moved")
+    probe = [lo, (lo + hi) // 2, hi - 1]
+    futs = [dst.get(0, i % cfg.n_sessions, k) for i, k in enumerate(probe)]
+    if not dst.run_until(futs):
+        raise RuntimeError("migration drill: destination reads stalled")
+    res["dst_reads"] = len(probe)
+    res["dst_read_values"] = [f.result().value for f in futs]
+    rej = src.get(0, 0, lo)
+    if not (rej.done() and rej.result().kind == "rejected"):
+        raise AssertionError("migration drill: the source served a "
+                             "migrated key")
+
+    if check and record:
+        for name, g in (("src", src), ("dst", dst)):
+            v = g.rt.check()
+            res[f"{name}_checked_ok"] = bool(v.ok)
+            if not v.ok:
+                res[f"{name}_check_failures"] = [
+                    getattr(f, "reason", str(f))[:200]
+                    for f in (v.failures + v.undecided)[:3]]
+    return res
 
 
 def rolling_resize(kvs, hold_steps: int = 8, window: Optional[int] = None,

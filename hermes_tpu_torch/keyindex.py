@@ -1,6 +1,6 @@
 """Sparse 64-bit client keys -> dense table slots: the port's copy of
 ``hermes_tpu/keyindex.py`` (``KeyspaceFull``, ``_splitmix64``,
-``KeyIndex``; the range router waits for range migration, ROADMAP A11b).
+``KeyIndex``, ``RangeRouter``).
 
 Host code, numpy only: the index lives on the host because the client
 path injects ops into the device stream there, which is exactly where a
@@ -166,3 +166,96 @@ class KeyIndex:
     def __contains__(self, key: int) -> bool:
         return self.slot(key, insert=False) >= 0
 
+
+class RangeRouter:
+    """Key-range -> group routing table with an atomic flip (the elastic
+    range migration, ``elastic/migrate.py``).
+
+    Routes the dense slot space ``[0, n_keys)`` to group ids.  A live
+    key-range migration drives it through three states per range:
+
+      1. ``begin_drain(lo, hi)`` — the range still belongs to its owner but
+         accepts no NEW ops (the owning KVS rejects them loudly,
+         kind='rejected'); in-flight ops drain;
+      2. ``flip(lo, hi, new_group)`` — ownership moves and the drain clears
+         in ONE host-side state update, so no lookup can ever observe the
+         half-flipped state (new owner while still draining, or old owner
+         already released);
+      3. (abort path) ``release(lo, hi)`` — clear the drain without moving
+         ownership.
+
+    Lookups are exact at range boundaries by construction: ``owner``/
+    ``draining`` index a dense per-slot array, so ``lo`` is in the range
+    and ``hi`` is not — there is no interval arithmetic to get off by one.
+    """
+
+    def __init__(self, n_keys: int, default_group: int = 0):
+        self.n_keys = n_keys
+        self._owner = np.full(n_keys, default_group, np.int32)
+        self._drain = np.zeros(n_keys, bool)
+
+    def _check_range(self, lo: int, hi: int) -> None:
+        if not (0 <= lo < hi <= self.n_keys):
+            raise ValueError(
+                f"range [{lo}, {hi}) outside the slot space "
+                f"[0, {self.n_keys})")
+
+    # -- lookups (vectorized; scalars accepted) -----------------------------
+
+    def owner(self, slot) -> np.ndarray:
+        """Group id owning each slot (int32, shape of ``slot``)."""
+        return self._owner[np.asarray(slot)]
+
+    def draining(self, slot) -> np.ndarray:
+        """True where a migration has fenced the slot (reject-new)."""
+        return self._drain[np.asarray(slot)]
+
+    def routable(self, slot, group: int) -> np.ndarray:
+        """True where ``group`` may accept a new op for the slot: it owns
+        the slot AND no drain is in progress."""
+        s = np.asarray(slot)
+        return (self._owner[s] == group) & ~self._drain[s]
+
+    def owned_ranges(self):
+        """The routing table as maximal contiguous ``(lo, hi, group)``
+        runs — the human/report form of the dense per-slot array (fleet
+        summaries, boundary tests).  Exact by construction: derived from
+        the same array lookups consult."""
+        out = []
+        if self.n_keys == 0:
+            return out
+        edges = np.flatnonzero(np.diff(self._owner)) + 1
+        lo = 0
+        for hi in list(edges) + [self.n_keys]:
+            out.append((int(lo), int(hi), int(self._owner[lo])))
+            lo = hi
+        return out
+
+    # -- migration state machine --------------------------------------------
+
+    def assign(self, lo: int, hi: int, group: int) -> None:
+        """Initial ownership assignment (fleet construction): like
+        ``flip`` but refuses to touch a draining slot — assignment is a
+        build-time act, never a way around an in-flight migration."""
+        self._check_range(lo, hi)
+        if self._drain[lo:hi].any():
+            raise RuntimeError(
+                f"assign [{lo}, {hi}) overlaps a draining range; finish "
+                "or release the migration first")
+        self._owner[lo:hi] = group
+
+    def begin_drain(self, lo: int, hi: int) -> None:
+        self._check_range(lo, hi)
+        self._drain[lo:hi] = True
+
+    def flip(self, lo: int, hi: int, new_group: int) -> None:
+        """Atomic cutover: ownership and drain state change in one host
+        update — the migration's linearization point for routing."""
+        self._check_range(lo, hi)
+        self._owner[lo:hi] = new_group
+        self._drain[lo:hi] = False
+
+    def release(self, lo: int, hi: int) -> None:
+        """Abort a drain: the range stays with its current owner."""
+        self._check_range(lo, hi)
+        self._drain[lo:hi] = False

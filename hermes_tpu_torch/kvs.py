@@ -41,7 +41,8 @@ Robustness and durability (ROADMAP A5b and A9):
     (``chaos.recovery``).
 
 ``backend="sharded"`` runs the sharded engine (one table copy a replica,
-``core/group.py``) with every replica in this process, on ``device``:
+``core/group.py``) with every replica in this process, on ``device`` (or
+on the ``LocalGroup`` given as ``group=``, as a fleet places it):
 gets and local reads are served from the serving replica's own copy,
 and the heap GC rewrites the ref words of every copy.
 
@@ -59,8 +60,17 @@ Membership and elastic operations (ROADMAP A11a):
   * ``net_phase``: the active adversary windows a ``ChaosRunner``
     publishes, tagged onto stuck-op diagnostics.
 
-Not ported yet: the fence mask and range migration (A11b) and the
-fleet (A11c).
+Live key-range migration (``elastic.migrate_range``, ROADMAP A11b):
+
+  * ``fence_slots`` marks a dense-slot range draining or migrated away:
+    ops on it (per-op, batch, queued, retried, ``multi_get`` and
+    ``scan``) resolve ``rejected`` instead of entering a store that no
+    longer owns the key; ``release_slots`` is the abort path.
+  * ``range_inflight`` is the drain's poll; ``salvage_slots`` the forced
+    cutover (in-flight updates folded as ``maybe_w``, futures ``lost``,
+    volatile state wiped).
+  * ``drill_phase`` (fence / drain / flip) and, in a fleet, the group
+    label tag stuck-op diagnostics.
 
 Usage::
 
@@ -115,7 +125,10 @@ class StuckOpError(RuntimeError):
             f"{len(diagnostics)} client op(s) stuck past op_timeout_rounds: "
             + "; ".join(
                 f"r{d['replica']}/s{d['session']} {d['kind']} key={d['key']} "
-                f"phase={d['phase']} age={d['age_rounds']}"
+                f"phase={d['phase']}"
+                + (f" drill={d['drill']}" if "drill" in d else "")
+                + (f" net={d['net']}" if "net" in d else "")
+                + f" age={d['age_rounds']}"
                 for d in diagnostics[:4]))
 
 
@@ -296,7 +309,8 @@ class KVS:
 
     def __init__(self, cfg: HermesConfig, backend: str = "batched",
                  record: bool = False, sparse_keys: bool = False,
-                 strict_timeouts: bool = False, device="cuda"):
+                 strict_timeouts: bool = False, device="cuda",
+                 group=None):
         if cfg.value_words < 3:
             raise ValueError("KVS needs value_words >= 3 (2 uid words + payload)")
         if cfg.read_unroll != 1:
@@ -317,7 +331,7 @@ class KVS:
         self._uval = np.zeros((r, s, 1, u), np.int32)
         stream = st.OpStream(op=self._op, key=self._key, uval=self._uval)
         self.rt = FastRuntime(self.cfg, backend=backend, record=record,
-                              stream=stream, device=device)
+                              stream=stream, device=device, group=group)
         # the runtime's rebase drain steps THROUGH this layer so drained
         # completions resolve their futures; its boundaries flush the
         # deferred round of the pipelined mode
@@ -358,6 +372,11 @@ class KVS:
         self._retired: set = set()
         self.rejected_ops = 0
         self.shed_writes = 0
+        # range migration: fenced dense slots (draining or migrated away)
+        # reject new ops; drill_phase tags the active migration stage
+        # (fence / drain / flip) into stuck-op diagnostics
+        self._fence_mask = np.zeros(cfg.n_keys, bool)
+        self.drill_phase: Optional[str] = None
         self._degraded = False
         self.net_phase: Optional[dict] = None
         # sparse-key mode: 64-bit client keys -> dense slots
@@ -471,9 +490,10 @@ class KVS:
             if not (0 <= key < cfg.n_keys):
                 raise ValueError(f"key {key} out of range [0, {cfg.n_keys})")
             client_key, slot = int(key), int(key)
-        if replica in self._retired:
-            # a replica retired by a live shrink: the op never enters the
-            # store, and the client is told now
+        if replica in self._retired or self._fence_mask[slot]:
+            # a replica retired by a live shrink, or a fenced range
+            # (draining or migrated away): the op never enters the store,
+            # and the client is told now
             return self._rejected_future(client_key)
         fut = Future()
         # trace mint: the submit sequence ticks for EVERY accepted
@@ -685,6 +705,14 @@ class KVS:
             if n and not (0 <= kmin and kmax < self.cfg.n_keys):
                 raise ValueError(f"keys out of range [0, {self.cfg.n_keys})")
             slots = keys_arr.astype(np.int32)
+        if self._fence_mask.any():
+            # ops on fenced slots complete at once as C_REJECTED: never
+            # injected, never silently dropped
+            fenced = (bf.code == 0) & self._fence_mask[slots]
+            if fenced.any():
+                bf.code[fenced] = C_REJECTED
+                bf.found[fenced] = False
+                self.rejected_ops += int(fenced.sum())
         pend = np.nonzero(bf.code == 0)[0].astype(np.int32)
         if pend.size:
             self._bat[self._next_bid] = dict(
@@ -761,6 +789,17 @@ class KVS:
                 waiting.add(rs_key)
                 continue
             kind, slot, client_key, value, fut, nretry = q.popleft()
+            if self._fence_mask[slot]:
+                # the range fenced after this op was queued (fence_slots
+                # sweeps the queues; an op enqueued mid-drain lands here):
+                # reject it, keep the slot ready for what sits behind it
+                if not q:
+                    self._queued_slots.discard(rs_key)
+                fut._result = Completion(kind="rejected", key=client_key,
+                                         found=False)
+                self.rejected_ops += 1
+                waiting.add(rs_key)
+                continue
             if not q:
                 self._queued_slots.discard(rs_key)
             r, s = rs_key
@@ -947,6 +986,13 @@ class KVS:
                     age_rounds=int(age[r, s]),
                     at_step=self.rt.step_idx,
                 )
+                if self.rt.fleet_group is not None:
+                    # a fleet's stuck op names its group
+                    diag["group"] = self.rt.fleet_group
+                if self.drill_phase is not None:
+                    # a migration stage is active: the wedged op is
+                    # attributable to it from the timeline alone
+                    diag["drill"] = self.drill_phase
                 if self.net_phase is not None:
                     # an adversary window is active: the diagnostic names
                     # it, so no log cross-reference is needed
@@ -994,7 +1040,7 @@ class KVS:
         volatile wipe so the dead uid never re-mints, staged slot
         cleared) and re-enqueue it on a healthy replica with the SAME
         future; exhausted retries (or no healthy replica) resolve it as
-        ``lost``."""
+        ``lost``, and an op on a range fenced meanwhile as ``rejected``."""
         from hermes_tpu_torch.chaos import recovery as recovery_lib
 
         rt = self.rt
@@ -1018,10 +1064,17 @@ class KVS:
         self._dirty = True
         self._retry_next.pop((r, s), None)
         self._retry_k.pop((r, s), None)
-        if nretry >= self.cfg.op_retry_limit or not healthy:
-            fut._result = Completion(kind="lost", key=ck, found=False)
+        terminal = None
+        if self._fence_mask[slot]:
+            terminal = "rejected"  # the range migrated away mid-wedge
+        elif nretry >= self.cfg.op_retry_limit or not healthy:
+            terminal = "lost"  # retries exhausted, or nowhere to go
+        if terminal is not None:
+            fut._result = Completion(kind=terminal, key=ck, found=False)
+            if terminal == "rejected":
+                self.rejected_ops += 1
             rt._trace("op_retry_exhausted", replica=r, session=s, key=ck,
-                      outcome="lost", retries=nretry)
+                      outcome=terminal, retries=nretry)
         else:
             target = healthy[(r + 1 + nretry) % len(healthy)]
             self.retried_ops += 1
@@ -1268,7 +1321,8 @@ class KVS:
         ``keys`` from the resident table, with no protocol round.  Keys
         the local path must not answer (Invalid, the ``session``'s
         read-your-writes fence unmet, no healthy replica) go through the
-        round path instead of returning stale bytes.  ``session`` is the
+        round path instead of returning stale bytes; keys of a fenced
+        range resolve ``C_REJECTED``.  ``session`` is the
         calling lane or token whose committed writes fence its reads.
         With ``wait`` (default) the fallback batch is driven to the end
         before returning."""
@@ -1298,7 +1352,16 @@ class KVS:
                 raise ValueError(f"keys out of range [0, {self.cfg.n_keys})")
             slots = keys_arr.astype(np.int32)
         pend = res.code == 0
+        if self._fence_mask.any():
+            fenced = pend & self._fence_mask[slots]
+            if fenced.any():
+                res.code[fenced] = C_REJECTED
+                res.found[fenced] = False
+                self.rejected_ops += int(fenced.sum())
+                pend &= ~fenced
         if pend.any():
+            # the ReadAnswer is aligned with the pending subset, the order
+            # _serve_reads consumes
             ans = self._get_reader().multi_get(slots[np.nonzero(pend)[0]])
             self._serve_reads(res, slots, pend, session, ans)
         if wait and res._fallback is not None:
@@ -1312,7 +1375,7 @@ class KVS:
         of the table.  Dense mode echoes slot ids as keys; sparse mode
         clamps to the allocated frontier and echoes each slot's CLIENT key
         (slots allocate in first-write order, so a sparse scan is a
-        write-order scan).  The Valid/RYW fallback rules of
+        write-order scan).  The Valid/RYW fallback and fence rules of
         ``multi_get``."""
         if not (0 <= lo < hi <= self.cfg.n_keys):
             raise ValueError(
@@ -1329,7 +1392,19 @@ class KVS:
         slots = np.arange(lo, hi, dtype=np.int32)
         res = MultiGetResult(keys_arr, u, heap=self.heap)
         pend = np.ones(hi - lo, bool)
+        if self._fence_mask.any():
+            fenced = self._fence_mask[lo:hi]
+            if fenced.any():
+                res.code[fenced] = C_REJECTED
+                res.found[fenced] = False
+                self.rejected_ops += int(fenced.sum())
+                pend &= ~fenced
         ans = self._get_reader().scan(lo, hi)
+        if ans is not None and not pend.all():
+            pi = np.nonzero(pend)[0]  # align with the pending subset
+            ans = type(ans)(valid=np.asarray(ans.valid)[pi],
+                            val=np.asarray(ans.val)[pi],
+                            pts=np.asarray(ans.pts)[pi])
         self._serve_reads(res, slots, pend, session, ans)
         if wait and res._fallback is not None:
             self.run_batch(res._fallback[0], max_steps=max_steps)
@@ -1500,6 +1575,135 @@ class KVS:
         return None if self.heap is None else self.heap.stats()
 
     # -- live resize -------------------------------------------------------------
+
+    # -- range migration (elastic.migrate_range) -----------------------------
+
+    def fence_slots(self, lo: int, hi: int) -> int:
+        """Reject-new over dense slots ``[lo, hi)``, the first step of a
+        key-range migration's drain.  Queued-but-uninjected ops on the
+        range are rejected NOW (their futures resolve 'rejected');
+        in-flight ops keep running (the drain flushes them).  The fence
+        stays until ``release_slots``; after a flip it stays for good on
+        the source: the range has a new owner.  Returns the number of
+        queued ops rejected.  Sparse-key mode requires ``hi <=
+        len(index)``: fresh client keys allocate slots at the dense
+        frontier, and a fence over unallocated slots would let new keys
+        land INSIDE a draining range."""
+        if not (0 <= lo < hi <= self.cfg.n_keys):
+            raise ValueError(f"range [{lo}, {hi}) outside "
+                             f"[0, {self.cfg.n_keys})")
+        if self.index is not None and hi > self.index.n_used:
+            raise ValueError(
+                f"fence [{lo}, {hi}) reaches past the allocated slot "
+                f"frontier ({self.index.n_used}): a fresh sparse key could "
+                "allocate into the draining range; migrate allocated "
+                "ranges only")
+        self._fence_mask[lo:hi] = True
+        rejected = 0
+        # queued per-op traffic on the range
+        for rs_key in list(self._queued_slots):
+            q = self._queues[rs_key]
+            keep = collections.deque()
+            while q:
+                item = q.popleft()
+                if lo <= item[1] < hi:
+                    item[4]._result = Completion(kind="rejected",
+                                                 key=item[2], found=False)
+                    rejected += 1
+                else:
+                    keep.append(item)
+            if keep:
+                self._queues[rs_key] = keep
+            else:
+                self._queued_slots.discard(rs_key)
+        # staged-but-uninjected batch items on the range
+        for bid, b in list(self._bat.items()):
+            n = b["opc"].shape[0]
+            idx = np.arange(n)
+            rej = (idx >= b["cursor"]) & (b["slots"] >= lo) & (b["slots"] < hi)
+            if rej.any():
+                bf: BatchFutures = b["bf"]
+                bf.code[b["gix"][rej]] = C_REJECTED
+                bf.found[b["gix"][rej]] = False
+                rejected += int(rej.sum())
+                keep = ~rej
+                for f in ("opc", "slots", "uval", "gix"):
+                    b[f] = b[f][keep]
+                if b["cursor"] >= b["opc"].shape[0] and bf.all_done():
+                    del self._bat[bid]
+        self.rejected_ops += rejected
+        return rejected
+
+    def release_slots(self, lo: int, hi: int) -> None:
+        """Clear a fence (the migration's abort path; after a flip the
+        source's fence stays: the keys live elsewhere now)."""
+        self._fence_mask[lo:hi] = False
+
+    def range_inflight(self, lo: int, hi: int) -> int:
+        """Client ops in flight whose dense slot is in ``[lo, hi)``: the
+        drain-progress poll of a range migration (host arrays only)."""
+        active = self._kindarr != t.OP_NOP
+        in_range = (self._key[:, :, 0] >= lo) & (self._key[:, :, 0] < hi)
+        return int(np.count_nonzero(active & in_range))
+
+    def salvage_slots(self, lo: int, hi: int) -> int:
+        """Forced cutover: client ops on ``[lo, hi)`` that did NOT drain
+        are salvaged, never silently dropped — the recorder folds the
+        in-flight updates as ``maybe_w`` (their broadcast may yet commit
+        through the replay; the checker may, but need not, linearize
+        them), their futures resolve 'lost' (``C_LOST`` in a batch), and
+        their session and replay slots lose their volatile state exactly
+        as in a crash (``chaos.recovery.wipe_volatile``), so the range's
+        coordination dies with the migration.  Returns the ops
+        salvaged."""
+        from hermes_tpu_torch.chaos import recovery as recovery_lib
+
+        rt = self.rt
+        rt.flush_pipeline()  # land every completion already produced
+        key = self._key[:, :, 0]
+        mask = (self._kindarr != t.OP_NOP) & (key >= lo) & (key < hi)
+        if rt.recorder is not None and mask.any():
+            rt.recorder.fold_pending(rt._sess_view(), mask=mask)
+        # replay slots re-broadcasting range keys die with the cutover: a
+        # post-flip replay commit on the source would change rows the
+        # destination already copied
+        rp_key = rt.fs.replay.key.cpu().numpy()
+        rp_active = rt.fs.replay.active.cpu().numpy()
+        replay_mask = rp_active & (rp_key >= lo) & (rp_key < hi)
+        salvaged = 0
+        if mask.any() or replay_mask.any():
+            recovery_lib.wipe_volatile(rt, mask, replay_mask)
+        if mask.any():
+            for r, s in np.argwhere(mask):
+                r, s = int(r), int(s)
+                if (r, s) in self._inflight:
+                    _kind, fut, ck, _v, _n = self._inflight.pop((r, s))
+                    fut._result = Completion(kind="lost", key=ck, found=False)
+                    salvaged += 1
+                elif self._slot_bid[r, s] >= 0:
+                    bid = int(self._slot_bid[r, s])
+                    b = self._bat.get(bid)
+                    if b is not None:
+                        bf: BatchFutures = b["bf"]
+                        gi = int(self._slot_bix[r, s])
+                        bf.code[gi] = C_LOST
+                        bf.found[gi] = False
+                        if b["cursor"] >= b["opc"].shape[0] and bf.all_done():
+                            del self._bat[bid]
+                    self._slot_bid[r, s] = -1
+                    salvaged += 1
+            rows, cols = np.nonzero(mask)
+            self._op[rows, cols, 0] = t.OP_NOP
+            self._kindarr[rows, cols] = t.OP_NOP
+            self._slot_inject[rows, cols] = -1
+            self._dirty = True
+            # freed slots with queued per-op traffic become injectable
+            # again (the re-ready a crash does): an op queued BEHIND a
+            # salvaged one would otherwise strand
+            for rs_key in self._queued_slots:
+                if mask[rs_key]:
+                    self._ready.add(rs_key)
+        return salvaged
 
     def _replica_busy(self, replica: int) -> bool:
         return (any(rs[0] == replica for rs in self._inflight)

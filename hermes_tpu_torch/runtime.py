@@ -46,8 +46,12 @@ ride the same pinned copy and event (``_HostFetch``), so detection adds
 no synchronous fetch.  ``shrink`` / ``grow`` resize the live group under
 traffic (fence + remove; join with the donor's copy transferred).
 
-Not ported yet: the fleet's group label (A11c) and the reference
-``Runtime`` (A12).
+In a fleet (``fleet/``) ``fleet_group`` labels the runtime: every trace
+event it emits carries ``group``, so one shared obs sink stays
+attributable per group (``rt.group`` is the replica group, a different
+thing).
+
+Not ported yet: the reference ``Runtime`` (A12).
 """
 
 from __future__ import annotations
@@ -233,6 +237,8 @@ class FastRuntime:
         self._wal_heap = None
         self.wal_last_lsn = 0
         self._devwait_s = 0.0
+        # the fleet group this runtime serves (None outside a fleet)
+        self.fleet_group = None
         if record == "array":
             self.recorder = ArrayRecorder(cfg)
         else:
@@ -260,6 +266,8 @@ class FastRuntime:
 
     def _trace(self, name: str, **fields) -> None:
         if self.obs is not None:
+            if self.fleet_group is not None and "group" not in fields:
+                fields["group"] = self.fleet_group
             self.obs.tracer.event(name, step=self.step_idx, **fields)
 
     # -- device-resident control --------------------------------------------

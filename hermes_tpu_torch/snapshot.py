@@ -21,8 +21,17 @@ target is left as it was.
 The sharded engine's archive holds every replica's table copy in the
 reference's ``(R*K,)`` rows, each copy's own drop row cut and re-added;
 it loads only into a sharded runtime (and a batched archive only into a
-batched one), of one process.  The range archives of the elastic
-migration (``save_range`` / ``load_range``) are ROADMAP A11b.
+batched one), of one process.
+
+Scope: every manifest declares what the archive HOLDS — ``scope:
+"full"`` (the whole state, a crash-recovery archive) or ``scope:
+"range:[lo,hi)"`` (just the table rows of a dense key-slot range, the
+transfer archive of a live key-range migration, written by
+``save_range``).  ``load`` refuses a range archive outright and
+``load_range`` / ``read_range`` refuse a full one.  A range archive holds
+the rows as the reference writes them (one copy's rows, no drop row), so
+it too loads in either package.  The table's layout is the runtime's
+(``rt.backend``, ``fst.copies``), never inferred from the shapes.
 """
 
 from __future__ import annotations
@@ -33,10 +42,15 @@ import json
 import os
 
 import numpy as np
+import torch
 
 from hermes_tpu_torch import convert
 from hermes_tpu_torch.core import faststep as fst
 from hermes_tpu_torch.core import state as st
+# the bank rows of a range archive travel as int32 words in the byte order
+# fst._bank_to_i32 defines on the device (transport/codec.py)
+from hermes_tpu_torch.transport.codec import rows_to_words as _rows_to_i32
+from hermes_tpu_torch.transport.codec import words_to_rows as _i32_to_rows
 
 MANIFEST_KEY = "meta.manifest"
 MANIFEST_VERSION = 1
@@ -263,8 +277,10 @@ def _load(z, rt, kvs) -> None:
     if scope != "full":
         raise ValueError(
             f"snapshot is scope={scope!r} — a key-range migration transfer "
-            "archive, not full crash-recovery state; range archives "
-            "restore through the elastic migration (ROADMAP A11b)")
+            "archive (snapshot.save_range), not full crash-recovery state; "
+            "restoring it as a full snapshot would resurrect a runtime "
+            "from a sliver of one table.  Range archives restore through "
+            "snapshot.load_range / hermes_tpu_torch.elastic.migrate_range")
     if manifest.get("config_sha256") != config_fingerprint(rt.cfg):
         raise ValueError(
             "snapshot config fingerprint mismatch (manifest "
@@ -364,3 +380,230 @@ def _load(z, rt, kvs) -> None:
         rt.rebases = int(z["ctl.rebases"])
         rt._next_rebase_at = int(z["ctl.next_rebase_at"])
         rt.quiesce = bool(z["ctl.quiesce"])
+
+
+# -- range archives (the live key-range migration's transfer) -------------
+
+
+def _range_rows(rt, lo: int, hi: int):
+    """(vpts (n,) int32, bank (n, 4*(2+V)) int8) of slots [lo, hi), taken
+    from the lowest live unfrozen replica's table copy (the shared table
+    on the batched backend), one slice of the copies and one copy to the
+    host.  On the sharded engine every OTHER live unfrozen copy must be
+    byte-identical over the range — the drained-range precondition,
+    verified loudly rather than trusted (a range with in-flight
+    coordination is not transferable)."""
+    K = rt.cfg.n_keys
+    vk = fst.copies(rt.fs.table.vpts, K)
+    bk = fst.copies(rt.fs.table.bank, K)
+    if rt.backend == "batched":
+        return vk[0, lo:hi].cpu().numpy(), bk[0, lo:hi].cpu().numpy()
+    cands = rt.healthy_replicas()
+    if not cands:
+        raise RuntimeError("save_range needs at least one live unfrozen "
+                           "replica to donate the range rows")
+    idx = torch.as_tensor([rt.copy_index(r) for r in cands],
+                          device=vk.device)
+    vpts = vk[idx, lo:hi].cpu().numpy()
+    bank = bk[idx, lo:hi].cpu().numpy()
+    for j, r in enumerate(cands[1:], 1):
+        if not (np.array_equal(vpts[j], vpts[0])
+                and np.array_equal(bank[j], bank[0])):
+            raise RuntimeError(
+                f"range [{lo}, {hi}) is not quiesced: replicas {cands[0]} "
+                f"and {r} disagree on its rows — drain the range (reject-new"
+                " + flush in-flight) before snapshotting it")
+    return vpts[0], bank[0]
+
+
+def save_range(path: str, rt, lo: int, hi: int) -> dict:
+    """Snapshot ONLY the table rows of dense slots ``[lo, hi)`` of a
+    FastRuntime (or the runtime under a KVS facade) into a range-scoped
+    archive — the transfer artifact of a live key-range migration
+    (``elastic.migrate_range``).  The range must be DRAINED: in-flight
+    pipeline rounds are flushed here, and on the sharded engine the live
+    replicas' copies of the range are verified byte-identical.  Carries
+    the range's cumulative version-rebase deltas (``ver_base``) so the
+    destination can re-anchor recorded versions into the source's global
+    version space.  Returns the manifest.
+
+    Value heap: when the facade is a heap-mode KVS, the range's live
+    extents travel WITH the rows — per-row byte lengths (-1 = no extent)
+    plus one concatenated blob, under the same checksummed manifest, so a
+    migration moves the bytes the ref words name and the destination
+    re-appends them into ITS log."""
+    kvs, rt = _split(rt)
+    if kvs is not None:
+        kvs.flush()
+    if not (0 <= lo < hi <= rt.cfg.n_keys):
+        raise ValueError(f"range [{lo}, {hi}) outside [0, {rt.cfg.n_keys})")
+    rt.flush_pipeline()
+    vpts, bank = _range_rows(rt, lo, hi)
+    vb = (rt._ver_base[lo:hi].copy() if rt._ver_base is not None
+          else np.zeros(hi - lo, np.int64))
+    arrays = {
+        "range.vpts": vpts,
+        "range.bank": bank,
+        "range.ver_base": vb,
+        "meta.cfg": np.frombuffer(
+            json.dumps(dataclasses.asdict(rt.cfg)).encode(), dtype=np.uint8),
+    }
+    heap = kvs.heap if kvs is not None else None
+    if heap is not None:
+        refs = _rows_to_i32(bank)[:, fst.BANK_VAL + 2]
+        lens = np.full(hi - lo, -1, np.int64)
+        parts = []
+        for i, ref in enumerate(refs):
+            if int(ref):
+                ext = heap.read(int(ref))
+                lens[i] = len(ext)
+                parts.append(np.frombuffer(ext, np.uint8))
+        arrays["range.heap_lens"] = lens
+        arrays["range.heap_blob"] = (
+            np.concatenate(parts) if parts else np.zeros(0, np.uint8))
+    manifest = dict(
+        version=MANIFEST_VERSION,
+        scope=f"range:[{lo},{hi})",
+        lo=int(lo),
+        hi=int(hi),
+        value_words=int(rt.cfg.value_words),
+        config_sha256=config_fingerprint(rt.cfg),
+        step=int(rt.step_idx),
+        arrays={k: _array_sha256(v) for k, v in arrays.items()},
+    )
+    _atomic_savez(path, arrays, manifest)
+    return manifest
+
+
+def read_range(path: str):
+    """Verify and read a range-scoped archive WITHOUT touching any runtime:
+    returns ``(manifest, slots, vpts, rows32, ver_base)`` where ``slots``
+    is the archived ``[lo, hi)`` as an index array and ``rows32`` the bank
+    rows as int32 words ``[pts | sst | val...]`` — the form
+    ``migrate_range`` patches (uid re-mint) before restoring.  Refuses
+    full-scoped archives (the inverse of ``load``'s scope gate)."""
+    with np.load(path) as z:
+        manifest = _verify_npz(z)
+        scope = manifest.get("scope", "full")
+        if not scope.startswith("range:"):
+            raise ValueError(
+                f"archive is scope={scope!r}, not a range transfer; full "
+                "snapshots restore through snapshot.load")
+        missing = [k for k in ("range.vpts", "range.bank", "range.ver_base")
+                   if k not in z]
+        if missing:
+            raise ValueError(
+                f"range archive is incomplete (truncated/corrupt?): "
+                f"missing {missing}")
+        vpts = np.asarray(z["range.vpts"])
+        rows32 = _rows_to_i32(np.asarray(z["range.bank"]))
+        ver_base = np.asarray(z["range.ver_base"]).astype(np.int64)
+    lo, hi = int(manifest["lo"]), int(manifest["hi"])
+    if vpts.shape[0] != hi - lo or rows32.shape[0] != hi - lo:
+        raise ValueError(
+            f"range archive row count {vpts.shape[0]} != declared "
+            f"[{lo}, {hi})")
+    return manifest, np.arange(lo, hi, dtype=np.int64), vpts, rows32, ver_base
+
+
+def read_range_heap(path: str):
+    """The value-heap extents of a range archive: ``(lens, extents)`` —
+    per-row byte lengths (-1 = the row has no extent) and the per-row
+    byte payloads (None where absent) — or None when the archive carries
+    no heap section (a fixed-word source).  Re-verifies the checksums
+    itself, so it cannot get out of step with ``read_range``."""
+    with np.load(path) as z:
+        manifest = _verify_npz(z)
+        if not manifest.get("scope", "full").startswith("range:"):
+            raise ValueError("not a range archive")
+        if "range.heap_lens" not in z:
+            return None
+        lens = np.asarray(z["range.heap_lens"], np.int64)
+        blob = np.asarray(z["range.heap_blob"], np.uint8)
+    have = lens[lens >= 0].sum()
+    if have != blob.shape[0]:
+        raise ValueError(
+            f"range heap blob is {blob.shape[0]} bytes but the lengths "
+            f"declare {int(have)} (truncated/corrupt archive)")
+    out, off = [], 0
+    for ln in lens:
+        if ln < 0:
+            out.append(None)
+        else:
+            out.append(blob[off:off + int(ln)].tobytes())
+            off += int(ln)
+    return lens, out
+
+
+def write_rows(rt, dest_slots, vpts, rows32) -> None:
+    """Write table rows into a FastRuntime at ``dest_slots``, in every
+    table copy (migrated rows arrive converged, exactly as a committed
+    VAL would leave them), in place after the pipeline is flushed (no
+    dispatched round still reads them).  Mechanical: scope checks, uid
+    re-minting and version re-anchoring are the caller's job
+    (``elastic.migrate_range`` / ``load_range``)."""
+    cfg = rt.cfg
+    K = cfg.n_keys
+    dest = np.asarray(dest_slots, np.int64)
+    if dest.size == 0:
+        return
+    if dest.min() < 0 or dest.max() >= K or np.unique(dest).size != dest.size:
+        raise ValueError("dest_slots must be distinct slots in [0, n_keys)")
+    if rows32.shape != (dest.size, 2 + cfg.value_words):
+        raise ValueError(
+            f"rows32 shape {rows32.shape} != ({dest.size}, "
+            f"{2 + cfg.value_words}) — value_words mismatch between the "
+            "archive and the destination config")
+    rt.flush_pipeline()
+    dev = rt.device
+    idx = torch.as_tensor(dest, device=dev)
+    # distinct slots: the put over every copy has no duplicate target
+    fst.copies(rt.fs.table.vpts, K)[:, idx] = torch.as_tensor(
+        np.asarray(vpts, np.int32), device=dev)
+    fst.copies(rt.fs.table.bank, K)[:, idx] = torch.as_tensor(
+        _i32_to_rows(rows32), device=dev)
+
+
+def anchor_ver_base(rt, dest_slots, ver_base) -> None:
+    """Adopt a migrated range's cumulative version-rebase deltas into the
+    destination runtime's re-anchoring table (``load_range`` and
+    ``elastic.migrate_range``): completions recorded for the restored
+    slots must re-anchor into the SOURCE's global version space or the
+    checker's witness order would restart mid-history.  Fresh
+    destination slots (the migration precondition) carry no deltas of
+    their own, so assignment — not addition — is the fold."""
+    ver_base = np.asarray(ver_base, np.int64)
+    if not ver_base.any():
+        return
+    if rt._ver_base is None:
+        rt._ver_base = np.zeros(rt.cfg.n_keys, np.int64)
+    rt._ver_base[np.asarray(dest_slots, np.int64)] = ver_base
+
+
+def load_range(path: str, rt, dest_slots=None) -> dict:
+    """Restore a range-scoped archive into a FastRuntime (or KVS facade)
+    at ``dest_slots`` (default: the archived slots — identity placement).
+    The destination slots must be FRESH (no prior committed writes in the
+    destination's history): migration owns that precondition through
+    routing — a key lives in exactly one group.  Verifies scope and
+    checksums first and re-anchors the destination's ``_ver_base`` over
+    the restored slots with the source's deltas.  Returns the manifest.
+    This mechanical restore keeps the rows' original write uids;
+    recorded destinations migrate through ``elastic.migrate_range``,
+    which re-mints uids and seeds the destination history."""
+    kvs, rt = _split(rt)
+    if kvs is not None:
+        kvs.flush()
+    manifest, slots, vpts, rows32, ver_base = read_range(path)
+    if int(manifest["value_words"]) != rt.cfg.value_words:
+        raise ValueError(
+            f"range archive value_words={manifest['value_words']} != "
+            f"destination {rt.cfg.value_words}; rows are not portable "
+            "across value widths")
+    dest = slots if dest_slots is None else np.asarray(dest_slots, np.int64)
+    if dest.shape != slots.shape:
+        raise ValueError(
+            f"dest_slots count {dest.size} != archived rows {slots.size}")
+    write_rows(rt, dest, vpts, rows32)
+    anchor_ver_base(rt, dest, ver_base)
+    return manifest

@@ -1612,3 +1612,68 @@ def test_detector_ages_add_no_sync_to_the_harvest_on_card():
             assert age_round == rt.step_idx - 2 and ages.shape == (5, 5)
             assert len(rt._age_ring) == len(rt._ring) == 1
     assert per[True] == per[False] == {"event_waits": 20, "sync_copies": 0}
+
+
+def _migrate_on(device, backend, depth):
+    """A seeded range migration ending at slot K-1 (replica 1 of the
+    source frozen across the move), then a cross-group fleet move, on one
+    device: the final states, completions and both checkers."""
+    import numpy as np
+
+    from hermes_tpu_torch import convert, elastic, fleet
+    from hermes_tpu_torch.config import FleetConfig, HermesConfig
+    from hermes_tpu_torch.kvs import KVS
+
+    cfg = HermesConfig(n_replicas=4, n_keys=96, n_sessions=8, value_words=6,
+                       replay_slots=8, pipeline_depth=depth)
+    K, lo = cfg.n_keys, 64
+    src = KVS(cfg, backend=backend, record=True, device=device)
+    dst = KVS(cfg, backend=backend, record=True, device=device)
+    bf = elastic.submit_drill_mix(src, 300, seed=5, read_frac=0.0)
+    assert src.run_batch(bf)
+    src.freeze(1)
+    res = elastic.migrate_range(src, dst, lo, K)
+    src.rt.thaw(1)
+    gets = [dst.get(r, 2, k) for r in range(4) for k in (lo, K - 1)]
+    assert dst.run_until(gets)
+    assert src.rt.check().ok and dst.rt.check().ok
+    fcfg = FleetConfig(groups=2, base=cfg, ranges=((0, 64), (64, 128)))
+    fl = fleet.Fleet(fcfg, backend="batched", record=True,
+                     devices=[device, device])
+    fb = fl.submit_batch(np.full(40, fl.PUT, np.int32),
+                         np.arange(60, 100, dtype=np.int64),
+                         np.ones((40, 2), np.int32))
+    assert fl.run_batch(fb)
+    fres = fl.migrate(64, 80, 0)
+    assert fl.check()["ok"]
+    return dict(
+        summary={k: (v.tolist() if isinstance(v, np.ndarray) else v)
+                 for k, v in res.items()},
+        gets=[(g.result().kind, g.result().value) for g in gets],
+        states=[convert.fast_state_to_numpy(k.rt.fs, n_copies=k.rt.n_copies)
+                for k in (src, dst)] + [
+                    convert.fast_state_to_numpy(g.rt.fs) for g in fl.groups],
+        fleet=(fres["dest_slots"].tolist(), fb.code.tolist(),
+               fl.router.owned_ranges()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend,depth", [("sharded", 1), ("sharded", 2),
+                                           ("batched", 2)])
+def test_range_migration_on_card_matches_cpu(backend, depth):
+    """A migration of a range that ends at K-1 on the card (sharded: one
+    copy a replica, each with its drop row; the donor the lowest live,
+    unfrozen copy) and a fleet's cross-group move give the CPU port's
+    summaries, completions and every state leaf; the destination's copies
+    agree over the range."""
+    dev = _card()
+    want = _migrate_on("cpu", backend, depth)
+    got = _migrate_on(dev, backend, depth)
+    assert got["summary"] == want["summary"] and got["gets"] == want["gets"]
+    assert got["fleet"] == want["fleet"]
+    for a, b in zip(want["states"], got["states"]):
+        _assert_equal_trees(a, b, "state")
+    if backend == "sharded":
+        tbl = got["states"][1].table
+        v = tbl.vpts.reshape(4, 96)[:, 64:]
+        assert (v == v[0]).all() and (v[0] != 0).any()

@@ -11,7 +11,10 @@ report renderer), the sharded engine (core/group.py, launch.py: a
 sharded KVS put/get on a LocalGroup and a launch run), and the failure
 detector, fault schedules and elastic drills (membership.py,
 chaos/schedule.py, elastic/: a seeded chaos run with the detector, a
-degraded-mode shed, a rolling restart and a rolling resize) on the
+degraded-mode shed, a rolling restart and a rolling resize), and the
+range migration and the fleet (elastic/migrate.py, the range archives,
+fleet/, launch.run_fleet: a migration between two KVSs, a fleet put/get
+with a cross-group move and its checks, a sharded fleet run) on the
 CPU."""
 
 import pathlib
@@ -114,6 +117,27 @@ assert dk.put(0, 0, 1, [1, 2]).result().kind == "rejected"
 dk.rt.thaw(1)
 dk.rt.thaw(2)
 assert elastic.rolling_resize(dk, hold_steps=2)["resizes"] == 4
+from hermes_tpu_torch import fleet
+from hermes_tpu_torch.config import FleetConfig
+ms = KVS(cfg, record=True, device="cpu")
+md = KVS(cfg, record=True, device="cpu")
+assert ms.run_until([ms.put(0, 0, k, [k, 1]) for k in range(8, 12)])
+mres = elastic.migrate_range(ms, md, 8, 12)
+g = md.get(0, 0, 9)
+assert mres["rows"] == 4 and md.run_until([g]) and g.result().value == [9, 1]
+assert ms.get(0, 0, 9).result().kind == "rejected"
+assert ms.rt.check().ok and md.rt.check().ok
+fcfg = FleetConfig(groups=2, base=HermesConfig(
+    n_replicas=3, n_keys=48, n_sessions=4, replay_slots=2, value_words=4),
+    ranges=((0, 32), (32, 64)))
+fl = fleet.Fleet(fcfg, record=True, device="cpu")
+assert fl.run_until([fl.put(0, k, [k, 2]) for k in (3, 40)])
+assert fl.migrate(40, 44, 0)["dst_group"] == 0
+g = fl.get(0, 40)
+assert fl.run_until([g]) and g.result().value == [40, 2]
+assert fl.check()["ok"] and fleet.verify_fleet(fl)["migration_uids"] == 4
+frts = launch.run_fleet(FleetConfig(groups=2, base=cfg), 3, device="cpu")
+assert [r.fleet_group for r in frts] == [0, 1] and frts[1].step_idx == 3
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "hermes_tpu" or m.startswith("hermes_tpu."))
@@ -154,7 +178,9 @@ def test_torch_failure_and_elastic_modules_are_in_the_scan():
     """The slice's new modules exist where the import scan above reads
     them."""
     for rel in ("membership.py", "chaos/schedule.py", "elastic/__init__.py",
-                "elastic/drill.py"):
+                "elastic/drill.py", "elastic/migrate.py", "fleet/__init__.py",
+                "fleet/router.py", "fleet/core.py", "fleet/chaos.py",
+                "fleet/bench.py"):
         assert (ROOT / "hermes_tpu_torch" / rel).is_file(), rel
 
 
