@@ -170,6 +170,35 @@ prints no result):
    Every KVS phase holds ``stats_block``'s launches equal to its rounds
    (the migrate and fleet phases each store's or group's own, and group
    3's mega kernels equal to its rounds and replay-scan rounds).
+19. phases — the reference phases engine (``runtime.Runtime``,
+   ``core/phases.py``) at BASELINE configs 1 and 3 at full width
+   (``baseline_cfg``: 3 and 7 replicas, 2^20 keys, 1,024 sessions, 128
+   ops, YCSB-A uniform and Zipfian 0.99): recorded and drained, checked,
+   the device op counters equal to the recorded completions, every key
+   VALID and equal across replicas; an unrecorded runtime over as many
+   rounds (host us a round ending in a sync, its final state equal to the
+   recorded one's); rounds under ``torch.cuda.set_sync_debug_mode
+   ("error")`` (no host sync inside a round); a profiled window (device
+   us and CUDA kernels a round, busy share); peak memory.
+20. phases-sharded — config 1 on ``Runtime(backend="sharded")`` over a
+   ``LocalGroup`` on the card, equal to the batched backend after each of
+   32 rounds and on the round it drained; checked, converged.
+21. sim-wire — config 1 on ``Runtime(backend="sim")`` over
+   ``chaos.net.FaultingTransport(SimTransport(3))``: the wire matrix
+   (drop, delay, duplicate, reorder, corrupt under the frame CRC) and a
+   partition of replica 1's outbound side healed at round 40, drained and
+   checked, nothing applied past the CRC; then a seeded ``ChaosRunner``
+   schedule with wire verbs through ``wire=``, the detector attached.
+22. tcp — config 1 as three processes of ``python -m
+   hermes_tpu_torch.distributed`` sharing the card over loopback TCP,
+   checked, tables equal, every session done, no clean frame dropped;
+   again under corrupt and drop windows, every corrupted frame dropped by
+   the CRC.  Each rank's rounds/s, the run's seconds.
+   The CPU port runs configs 1 (drained) and 3 (to round 512) and both
+   sim-wire drives in a child process beside these phases
+   (``cpu_reference``); ``phases-cpu`` holds the card's states, fault
+   logs and executed chaos log to it byte for byte.  No hand kernel
+   launches across phases 19-22 (their counters must not move).
 
 Then the whole smoke's seconds, the kernels summary line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.  Without a
@@ -189,6 +218,7 @@ designs of a kernel are timed in one call on the same inputs; the
 one-operation rule is this checkout's and is not held there.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -3041,6 +3071,582 @@ def phase_fleet(torch, np, counters, fl, card):
     return out
 
 
+
+# --------------------------------------------------------------------------
+# The reference phases engine (core/phases.py, core/step.py,
+# runtime.Runtime), its transports and the TCP driver
+# --------------------------------------------------------------------------
+
+PHASE_CONFIGS = (1, 3)  # the BASELINE configs the phases phase runs
+PHASES_WARMUP = 8  # rounds before the sync-free and profiled windows
+PHASES_SYNC_ROUNDS = 4  # rounds run under the sync check
+PHASES_PROFILED = 5
+PHASES_SHARDED_ROUNDS = 32  # rounds held equal to the batched backend
+PHASES_DRAIN_LIMIT = 20000
+# the round each config's card run is held to the CPU port's at: config
+# 1 drained (None), config 3 after 512 rounds (its drain takes thousands
+# of rounds, each some 0.1 s on the CPU at this width; PERF.md section 4)
+PHASES_CPU_AT = {1: None, 3: 512}
+# the wire matrix of tests/test_netchaos.py::test_sim_engine_wire_matrix_
+# checked (op, src, dst, from, until, param) and a partition of replica
+# 1's outbound side that the heal at round WIRE_HEAL_AT ends
+WIRE_MATRIX = (("drop", 0, 2, 2, 12, 0), ("delay", 1, -1, 4, 16, 2),
+               ("dup", 2, -1, 6, 14, 0), ("reorder", 0, 1, 3, 18, 3),
+               ("corrupt", 2, 0, 5, 15, 0), ("partition", 1, -1, 20, 80, 0))
+WIRE_HEAL_AT = 40
+WIRE_SEED = 7
+CHAOS_WIRE_SEED = 5  # Schedule.random's seed for the wire schedule
+CHAOS_WIRE_ROUNDS = 64
+CHAOS_WIRE_SPEC = dict(p_wire=0.12, p_partition=0.03)
+TCP_RANKS = 3
+TCP_TIMEOUT_S = 600
+TCP_FAULTS = "corrupt:0:1:4:16;drop:2:0:6:12"
+TCP_FAULT_SLACK = 40  # rounds past the clean drain for the faulted run
+
+
+def baseline_cfg(config, n, scale=1.0):
+    """BASELINE config ``n`` at ``scale``: the port's copy of
+    ``hermes_tpu/acceptance.py:_cfg`` (1: 3 replicas, YCSB-A uniform; 3:
+    7 replicas, YCSB-A Zipfian 0.99; 2: 5 replicas, RMW; 4 and 5: 8
+    replicas), 2^20 keys, 1,024 sessions, 128 ops at 1.0."""
+    def sz(base, s, lo=4):
+        return max(lo, int(base * s))
+
+    keys = sz(1 << 20, scale, lo=64)
+    sessions = sz(1024, scale, lo=8)
+    base = dict(n_keys=keys, n_sessions=sessions,
+                replay_slots=max(8, sessions // 16),
+                ops_per_session=sz(128, min(1.0, scale * 4), lo=8),
+                value_words=8, replay_age=8, replay_scan_every=4)
+    W = config.WorkloadConfig
+    if n == 1:
+        return config.HermesConfig(
+            n_replicas=3, workload=W(read_frac=0.5, seed=1), **base)
+    if n == 2:
+        return config.HermesConfig(
+            n_replicas=5, workload=W(read_frac=0.3, rmw_frac=1.0, seed=2),
+            **base)
+    if n == 3:
+        return config.HermesConfig(
+            n_replicas=7, workload=W(read_frac=0.5, distribution="zipfian",
+                                     zipf_theta=0.99, seed=3), **base)
+    if n in (4, 5):
+        return config.HermesConfig(
+            n_replicas=8, workload=W(read_frac=0.5, seed=n), **base)
+    raise ValueError(f"config {n} not in 1..5")
+
+
+def state_digest(rs):
+    """sha256 of every leaf of a ReplicaState (its host bytes, shape and
+    dtype), one hex digest a part."""
+    import hashlib
+
+    out = {}
+    for part, leaves in zip(rs._fields, rs):
+        h = hashlib.sha256()
+        for x in leaves:
+            a = x.cpu().numpy()
+            h.update(f"{a.shape}{a.dtype}".encode())
+            h.update(a.tobytes())
+        out[part] = h.hexdigest()
+    return out
+
+
+def _wire(ph, R):
+    w = ph.FaultingTransport(ph.SimTransport(R), R, seed=WIRE_SEED)
+    for op, src, dst, lo, hi, param in WIRE_MATRIX:
+        w.add(op, src, dst, lo, hi, param)
+    return w
+
+
+def sim_wire_drive(ph, record=False):
+    """The wire matrix with a partition/heal cycle on the sim engine at
+    config 1, drained; then a seeded ChaosRunner schedule with wire verbs
+    through ``wire=`` (the detector attached), healed, drained.  Returns
+    both runs' results (digests, fault logs, the executed log)."""
+    cfg = ph.cfg(1)
+    R = cfg.n_replicas
+    wire = _wire(ph, R)
+    rt = ph.Runtime(cfg, backend="sim", transport=wire, device=ph.device,
+                    record="array" if record else False)
+    rounds = 0
+    while rounds < PHASES_DRAIN_LIMIT:
+        if rt.step_idx == WIRE_HEAL_AT:
+            wire.heal(rt.step_idx)
+        if rt.step_idx > WIRE_HEAL_AT and int(rt.pending_sessions()) == 0 \
+                and wire.pending() == 0:
+            break
+        rt.step_once()
+        rounds += 1
+    matrix = dict(rounds=rt.step_idx, digest=state_digest(rt.rs),
+                  fault_log=wire.fault_log_json(),
+                  counters=dict(wire.counters), rt=rt, wire=wire)
+    spec = ph.chaos.ChaosSpec(**CHAOS_WIRE_SPEC)
+    sched = ph.chaos.Schedule.random(cfg, CHAOS_WIRE_SEED, CHAOS_WIRE_ROUNDS,
+                                     spec=spec)
+    cwire = ph.FaultingTransport(ph.SimTransport(R), R, seed=CHAOS_WIRE_SEED)
+    crt = ph.Runtime(cfg, backend="sim", transport=cwire, device=ph.device,
+                     record="array" if record else False)
+    crt.attach_membership(ph.MembershipService(cfg, confirm_steps=2))
+    runner = ph.chaos.ChaosRunner(crt, sched, spec=spec, wire=cwire)
+    res = runner.run(CHAOS_WIRE_ROUNDS, drain_steps=PHASES_DRAIN_LIMIT,
+                     check=record)
+    chaos_run = dict(rounds=crt.step_idx, digest=state_digest(crt.rs),
+                     fault_log=cwire.fault_log_json(),
+                     events=runner.log_json(), result=res, rt=crt,
+                     wire=cwire, schedule=sched.format())
+    return matrix, chaos_run
+
+
+def cpu_reference(path, scale=1.0):
+    """The CPU port's runs the card's phases are held against, written
+    as JSON to ``path``: each BASELINE config of PHASE_CONFIGS drained on
+    the batched backend, or run to its PHASES_CPU_AT round (rounds, state
+    digest), and the two sim-wire drives (digests, fault logs, the
+    executed chaos log)."""
+    import torch
+
+    from hermes_tpu_torch import chaos, config
+    from hermes_tpu_torch.chaos.net import FaultingTransport
+    from hermes_tpu_torch.membership import MembershipService
+    from hermes_tpu_torch.runtime import Runtime
+    from hermes_tpu_torch.transport.sim import SimTransport
+
+    torch.set_num_threads(4)
+    ph = SimpleNamespace(cfg=lambda n: baseline_cfg(config, n, scale),
+                         device="cpu", Runtime=Runtime, chaos=chaos,
+                         FaultingTransport=FaultingTransport,
+                         SimTransport=SimTransport,
+                         MembershipService=MembershipService)
+    out = {"phases": {}}
+    t0 = time.perf_counter()
+    for n in PHASE_CONFIGS:
+        rt = Runtime(ph.cfg(n), backend="batched", device="cpu")
+        for _ in range(PHASES_DRAIN_LIMIT):
+            if rt.step_idx == PHASES_CPU_AT[n] or \
+                    int(rt.pending_sessions()) == 0:
+                break
+            rt.step_once()
+        else:
+            raise AssertionError(f"config {n} did not drain on the CPU")
+        out["phases"][str(n)] = dict(rounds=rt.step_idx,
+                                     digest=state_digest(rt.rs))
+        del rt
+    matrix, chaos_run = sim_wire_drive(ph)
+    keep = ("rounds", "digest", "fault_log")
+    out["sim_wire"] = {k: matrix[k] for k in keep}
+    out["chaos_wire"] = {k: chaos_run[k] for k in keep + ("events",
+                                                          "schedule")}
+    out["seconds"] = time.perf_counter() - t0
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def start_cpu_reference(scale=1.0):
+    """``cpu_reference`` in a child process (it runs beside the card's
+    phases); returns (process, output path)."""
+    import tempfile
+
+    path = os.path.join(tempfile.mkdtemp(prefix="hermes_phases_"),
+                        "cpu.json")
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; chip_smoke.cpu_reference(sys.argv[2], "
+            "float(sys.argv[3]))")
+    proc = subprocess.Popen([sys.executable, "-c", code, HERE, path,
+                             str(scale)], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, path
+
+
+def wait_cpu_reference(proc, path, timeout=900):
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the CPU reference runs failed:\n{err[-4000:]}")
+    with open(path) as f:
+        return json.load(f)
+
+
+def _all_replicas_converged(torch, types, rs):
+    """Every key VALID and every replica's table equal to replica 0's."""
+    t = rs.table
+    return bool((t.state == types.VALID).all()) and all(
+        bool((x == x[:1]).all()) for x in (t.ver, t.fc, t.val))
+
+
+@contextlib.contextmanager
+def cuda_sync_check(torch):
+    """Inside: any host sync with the card raises
+    (``torch.cuda.set_sync_debug_mode("error")``)."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _launch_snapshot(counters):
+    return {name: w.launches for name, w in counters.items()}
+
+
+def phase_phases(torch, ph, card, n):
+    """BASELINE config ``n`` on ``Runtime(backend="batched")``: recorded
+    and drained (checker, counters against the recorded completions,
+    convergence; the state at the PHASES_CPU_AT round, or the final one,
+    kept for ``compare_cpu``), then an unrecorded runtime for the
+    numbers: host us a round over the rounds up to that state, ending in
+    a sync, and its state there equal to the recorded run's; rounds
+    under the sync check; a profiled window."""
+    cfg = ph.cfg(n)
+    ph.reset_peak_memory()
+    rt = ph.Runtime(cfg, backend="batched", record="array", device=ph.device)
+    cpu_at = PHASES_CPU_AT.get(n)
+    held = None  # (round, digest) the CPU port's run is held to
+    t0 = time.perf_counter()
+    for _ in range(PHASES_DRAIN_LIMIT):
+        if rt.step_idx == cpu_at:
+            held = (rt.step_idx, state_digest(rt.rs))
+        if int(rt.pending_sessions()) == 0:
+            break
+        rt.step_once()
+    else:
+        raise AssertionError(f"config {n} did not drain")
+    ph.sync()
+    recorded_s = time.perf_counter() - t0
+    rounds = rt.step_idx
+    c = rt.counters()
+    device_ops = int(c["n_read"] + c["n_write"] + c["n_rmw"] + c["n_abort"])
+    recorded = rt.recorder.n_recorded
+    converged = _all_replicas_converged(torch, ph.types, rt.rs)
+    digest = state_digest(rt.rs)
+    if held is None:
+        held = (rounds, digest)
+    t0 = time.perf_counter()
+    v = rt.check()
+    check_s = time.perf_counter() - t0
+    peak = ph.peak_memory()
+    del rt
+
+    # the timed window: the rounds up to the held state, which the
+    # unrecorded run must reach too
+    timed = ph.Runtime(cfg, backend="batched", device=ph.device)
+    ph.sync()
+    t0 = time.perf_counter()
+    timed.run(held[0])
+    ph.sync()
+    host_s = time.perf_counter() - t0
+    same = state_digest(timed.rs) == held[1]
+    del timed
+
+    probe = ph.Runtime(cfg, backend="batched", device=ph.device)
+    probe.run(PHASES_WARMUP)
+    ph.sync()
+    with ph.sync_check():
+        probe.run(PHASES_SYNC_ROUNDS)
+    ph.sync()
+    busy = ph.device_busy(lambda: probe.run(PHASES_PROFILED))
+    del probe
+    out = {"phase": f"phases-config{n}", "card": card,
+           "replicas": cfg.n_replicas, "keys": cfg.n_keys,
+           "sessions": cfg.n_sessions, "ops_per_session": cfg.ops_per_session,
+           "rounds_to_drain": rounds, "recorded_drain_s": recorded_s,
+           "timed_rounds": held[0],
+           "host_us_per_round": host_s / held[0] * 1e6,
+           "device_us_per_round": busy["busy_s"] / PHASES_PROFILED * 1e6,
+           "cuda_kernels_per_round": busy["launches"] / PHASES_PROFILED,
+           "device_busy_share": busy["busy_s"] / busy["wall_s"],
+           "profiled_us_per_round": busy["wall_s"] / PHASES_PROFILED * 1e6,
+           "top_device_us_per_round": [
+               [name, us / PHASES_PROFILED, cnt / PHASES_PROFILED]
+               for us, cnt, name in busy["top"]],
+           "peak_memory_bytes": peak, "device_ops": device_ops,
+           "recorded_ops": recorded, "converged": converged,
+           "check_ok": v.ok, "keys_checked": v.keys_checked,
+           "check_s": check_s, "sync_free_rounds": PHASES_SYNC_ROUNDS,
+           "unrecorded_equal_to_recorded": same, "digest": digest,
+           "cpu_held_round": held[0], "cpu_held_digest": held[1]}
+    emit(out)
+    if not v.ok:
+        raise AssertionError(f"config {n}: linearizability check failed: "
+                             f"{[f.reason[:200] for f in v.failures[:3]]}")
+    if device_ops != recorded:
+        raise AssertionError(f"config {n}: device op counters {device_ops} "
+                             f"!= recorded completions {recorded}")
+    if not converged:
+        raise AssertionError(f"config {n}: the replicas did not converge")
+    if not same:
+        raise AssertionError(f"config {n}: recording changed the state")
+    return out
+
+
+def _states_equal(torch, a, b):
+    return all(torch.equal(x, y) for pa, pb in zip(a, b)
+               for x, y in zip(pa, pb))
+
+
+def phase_phases_sharded(torch, ph, card):
+    """Config 1 on ``Runtime(backend="sharded")`` over a ``LocalGroup`` on
+    the device: equal to the batched backend after each of the first
+    PHASES_SHARDED_ROUNDS rounds, then drained, checked and converged,
+    and equal to the batched backend on the round it drained."""
+    cfg = ph.cfg(1)
+    sh = ph.Runtime(cfg, backend="sharded", group=ph.LocalGroup(ph.device),
+                    record="array", device=ph.device)
+    ba = ph.Runtime(cfg, backend="batched", device=ph.device)
+    for s in range(PHASES_SHARDED_ROUNDS):
+        sh.step_once()
+        ba.step_once()
+        if not _states_equal(torch, sh.rs, ba.rs):
+            raise AssertionError(f"sharded != batched after round {s}")
+    ph.sync()
+    t0 = time.perf_counter()
+    if not sh.drain(PHASES_DRAIN_LIMIT):
+        raise AssertionError("the sharded backend did not drain")
+    ph.sync()
+    drain_s = time.perf_counter() - t0
+    ba.run(sh.step_idx - ba.step_idx)
+    equal = _states_equal(torch, sh.rs, ba.rs)
+    del ba
+    v = sh.check()
+    c = sh.counters()
+    device_ops = int(c["n_read"] + c["n_write"] + c["n_rmw"] + c["n_abort"])
+    out = {"phase": "phases-sharded", "card": card,
+           "rounds_equal_to_batched": PHASES_SHARDED_ROUNDS,
+           "rounds_to_drain": sh.step_idx, "drain_s": drain_s,
+           "check_ok": v.ok, "device_ops": device_ops,
+           "recorded_ops": sh.recorder.n_recorded,
+           "converged": _all_replicas_converged(torch, ph.types, sh.rs),
+           "equal_to_batched_at_drain": equal}
+    emit(out)
+    if not (v.ok and out["converged"] and equal
+            and device_ops == out["recorded_ops"]):
+        raise AssertionError(f"phases-sharded failed: {out}")
+    return out
+
+
+def phase_sim_wire(torch, ph, card):
+    """Config 1 on ``Runtime(backend="sim")`` over ``FaultingTransport(
+    SimTransport(3))``: the wire matrix (drop, delay, duplicate, reorder,
+    corrupt under CRC) and a partition of replica 1's outbound side healed
+    at WIRE_HEAL_AT, recorded and drained; then a seeded ChaosRunner
+    schedule with wire verbs and the detector.  Checkers green, nothing
+    applied past the CRC; each run's fault log, executed log and final
+    state are held to the CPU port's by ``compare_cpu``."""
+    t0 = time.perf_counter()
+    matrix, chaos_run = sim_wire_drive(ph, record=True)
+    ph.sync()
+    seconds = time.perf_counter() - t0
+    rt, wire = matrix["rt"], matrix["wire"]
+    v = rt.check()
+    c = wire.counters
+    res = chaos_run["result"]
+    kinds = sorted({e["kind"] for e in json.loads(chaos_run["events"])})
+    out = {"phase": "sim-wire", "card": card, "seconds": seconds,
+           "matrix_rounds": matrix["rounds"], "check_ok": v.ok,
+           "converged": _all_replicas_converged(torch, ph.types, rt.rs),
+           "wire_counters": dict(c),
+           "fault_log_bytes": len(matrix["fault_log"]),
+           "chaos_rounds": chaos_run["rounds"], "chaos_kinds": kinds,
+           "chaos_drained": res.get("drained"),
+           "chaos_check_ok": res.get("checked_ok"),
+           "chaos_wire_counters": dict(chaos_run["wire"].counters),
+           "membership_events": [
+               (e.kind, e.replica, e.step)
+               for e in chaos_run["rt"].membership.events]}
+    emit(out)
+    wire_ops = {"wire_drop", "wire_delay", "wire_dup", "wire_reorder",
+                "wire_corrupt", "wire_partition", "wire_heal"}
+    if not (v.ok and out["converged"] and wire_ops <= set(c)
+            and c["wire_corrupt_dropped"] == c["wire_corrupt"]
+            and not c.get("wire_corrupt_applied")
+            and res.get("drained") and res.get("checked_ok")
+            and set(kinds) & {"netdrop", "netdelay", "netdup", "netreorder",
+                              "netcorrupt"}):
+        raise AssertionError(f"sim-wire failed: {out}")
+    keep = ("rounds", "digest", "fault_log")
+    return out, {"sim_wire": {k: matrix[k] for k in keep},
+                 "chaos_wire": {k: chaos_run[k] for k in keep + (
+                     "events", "schedule")}}
+
+
+def _free_ports(socket, n):
+    """The first base port of ``n`` consecutive ports free on loopback."""
+    for base in range(29800, 32000, 16):
+        socks = []
+        try:
+            for p in range(base, base + n):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", p))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise RuntimeError(f"no {n} free consecutive ports on loopback")
+
+
+def _tcp_run(ph, tmp, tag, steps, extra=()):
+    """TCP_RANKS processes of ``python -m hermes_tpu_torch.distributed`` on
+    ``ph.device`` over loopback, at config 1's shape; returns (verdict,
+    per-rank results, whole-run seconds)."""
+    import socket
+
+    cfg = ph.cfg(1)
+    wl = cfg.workload
+    base = _free_ports(socket, TCP_RANKS)
+    args = ["--n-ranks", str(TCP_RANKS), "--steps", str(steps),
+            "--base-port", str(base), "--n-keys", str(cfg.n_keys),
+            "--n-sessions", str(cfg.n_sessions),
+            "--ops-per-session", str(cfg.ops_per_session),
+            "--replay-slots", str(cfg.replay_slots),
+            "--value-words", str(cfg.value_words),
+            "--replay-age", str(cfg.replay_age),
+            "--read-frac", str(wl.read_frac), "--rmw-frac", str(wl.rmw_frac),
+            "--seed", str(wl.seed), "--device", ph.device, *extra]
+    env = dict(os.environ, PYTHONPATH=ph.root, OMP_NUM_THREADS="1")
+    outs = [os.path.join(tmp, f"{tag}{r}.pkl") for r in range(TCP_RANKS)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "hermes_tpu_torch.distributed", "--rank",
+         str(r), "--out", outs[r], *args], env=env, cwd=ph.root,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(TCP_RANKS)]
+    errs = []
+    try:
+        for p in procs:
+            _o, e = p.communicate(timeout=TCP_TIMEOUT_S)
+            errs.append(e)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    bad = [(r, p.returncode, errs[r][-2000:]) for r, p in enumerate(procs)
+           if p.returncode != 0]
+    if bad:
+        raise RuntimeError(f"tcp ranks failed: {bad}")
+    verdict, results = ph.combine_and_check(outs)
+    return verdict, results, seconds
+
+
+def phase_tcp(torch, ph, card, drain_rounds):
+    """Config 1 as TCP_RANKS processes of the TCP driver sharing the
+    device, over loopback, for ``drain_rounds`` rounds (config 1's drain
+    on the batched backend, which the lockstep mesh reproduces) plus 8:
+    the combined history checks green, the ranks' tables are equal, every
+    session ends S_DONE, no clean frame fails its CRC.  Then the same with
+    the adversary's corruption and drop windows (TCP_FAULT_SLACK rounds
+    past the drain): every corrupted frame is dropped by the CRC, green
+    again."""
+    import tempfile
+
+    out = {"phase": "tcp", "card": card, "ranks": TCP_RANKS}
+    with tempfile.TemporaryDirectory(prefix="hermes_tcp_") as tmp:
+        for tag, steps, extra in (
+                ("clean", drain_rounds + 8, ()),
+                ("faults", drain_rounds + TCP_FAULT_SLACK,
+                 ("--wire-seed", "5", "--wire-faults", TCP_FAULTS))):
+            verdict, results, seconds = _tcp_run(ph, tmp, tag, steps, extra)
+            import numpy as np
+
+            equal = all(np.array_equal(results[0][k], r[k])
+                        for r in results[1:]
+                        for k in ("table_state", "table_ver", "table_fc",
+                                  "table_val"))
+            done = all(bool((r["sess_status"] == ph.types.S_DONE).all())
+                       for r in results)
+            run = {"steps": steps, "seconds": seconds,
+                   "check_ok": verdict.ok,
+                   "tables_equal": equal, "all_sessions_done": done,
+                   "rounds_per_s": [r["rounds_per_s"] for r in results],
+                   "rank_seconds": [r["seconds"] for r in results],
+                   "corrupt_dropped": [r["corrupt_dropped"] for r in results],
+                   "wire": [r["wire"] for r in results],
+                   "devices": [r["device"] for r in results]}
+            out[tag] = run
+            if not (verdict.ok and equal and done):
+                emit(out)
+                raise AssertionError(f"tcp {tag} run failed: {run}")
+    emit(out)
+    clean, faults = out["clean"], out["faults"]
+    if any(clean["corrupt_dropped"]):
+        raise AssertionError("a clean TCP frame failed its CRC")
+    w = faults["wire"][1]["counters"]
+    if not w.get("wire_corrupt") or \
+            w.get("wire_corrupt_dropped") != w["wire_corrupt"] or \
+            w.get("wire_corrupt_applied"):
+        raise AssertionError(f"the corruption windows were not all caught "
+                             f"by the CRC: {w}")
+    return out
+
+
+def compare_cpu(card_runs, cpu):
+    """The card's runs against the CPU port's (``cpu_reference``): every
+    final state digest and drain round, the fault logs and the executed
+    chaos log byte for byte."""
+    eq = {}
+    for n, got in card_runs["phases"].items():
+        want = cpu["phases"][str(n)]
+        eq[f"config{n}"] = (got["cpu_held_digest"] == want["digest"]
+                            and got["cpu_held_round"] == want["rounds"])
+    for name in ("sim_wire", "chaos_wire"):
+        got, want = card_runs[name], cpu[name]
+        for k in got:
+            eq[f"{name}.{k}"] = got[k] == want[k]
+    out = {"phase": "phases-cpu", "cpu_seconds": cpu["seconds"],
+           "equal": eq}
+    if not all(eq.values()):  # which parts of each differing digest
+        out["digest_parts_equal"] = {
+            name: {p: run["digest"][p] == cpu_run["digest"].get(p)
+                   for p in run["digest"]}
+            for name, run, cpu_run in (
+                [("sim_wire", card_runs["sim_wire"], cpu["sim_wire"]),
+                 ("chaos_wire", card_runs["chaos_wire"], cpu["chaos_wire"])]
+                + [(f"config{n}", {"digest": r["cpu_held_digest"]},
+                    cpu["phases"][str(n)])
+                   for n, r in card_runs["phases"].items()])}
+    emit(out)
+    if not all(eq.values()):
+        raise AssertionError(f"the card's phases engine differs from the "
+                             f"CPU port's: {eq}")
+    return out
+
+
+def run_phases_engine(torch, ph, counters, card):
+    """The phases engine's phases, with the CPU reference runs beside
+    them in a child process: phases (each of PHASE_CONFIGS),
+    phases-sharded, sim-wire, tcp, then the comparison with the CPU.  The
+    hand kernels must not launch across them."""
+    before = _launch_snapshot(counters)
+    t0 = time.perf_counter()
+    proc, path = start_cpu_reference(ph.scale)
+    try:
+        runs = {n: phase_phases(torch, ph, card, n) for n in PHASE_CONFIGS}
+        sharded = phase_phases_sharded(torch, ph, card)
+        wire, logs = phase_sim_wire(torch, ph, card)
+        tcp = phase_tcp(torch, ph, card, runs[1]["rounds_to_drain"])
+        cpu = wait_cpu_reference(proc, path)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        import shutil
+
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    compare_cpu(dict(phases=runs, **logs), cpu)
+    after = _launch_snapshot(counters)
+    moved = {k: after[k] - before[k] for k in after}
+    emit({"phase": "phases-engine", "seconds": time.perf_counter() - t0,
+          "hand_kernel_launches": moved})
+    if any(moved.values()):
+        raise AssertionError(f"the phases engine launched hand kernels: "
+                             f"{moved}")
+    return dict(phases=runs, sharded=sharded, sim_wire=wire, tcp=tcp,
+                launches=moved)
+
+
 def main(argv=None):
     import argparse
 
@@ -3243,6 +3849,27 @@ def main(argv=None):
                                             for g in fleet_run["launches"])
                 row["fleet_bench_launches"] = \
                     fleet_run["bench_launches"][name]
+        torch.cuda.empty_cache()
+        from hermes_tpu_torch.chaos.net import FaultingTransport
+        from hermes_tpu_torch.distributed import combine_and_check
+        from hermes_tpu_torch.runtime import Runtime
+        from hermes_tpu_torch.transport.sim import SimTransport
+
+        ph = SimpleNamespace(
+            cfg=lambda n: baseline_cfg(config, n), scale=1.0,
+            device="cuda", root=HERE, Runtime=Runtime, LocalGroup=LocalGroup,
+            types=types, sync=torch.cuda.synchronize,
+            reset_peak_memory=torch.cuda.reset_peak_memory_stats,
+            peak_memory=torch.cuda.max_memory_allocated,
+            device_busy=device_busy,
+            sync_check=lambda: cuda_sync_check(torch),
+            FaultingTransport=FaultingTransport, SimTransport=SimTransport,
+            chaos=chaos_lib, MembershipService=MembershipService,
+            combine_and_check=combine_and_check)
+        engine = run_phases_engine(torch, ph, counters, card)
+        for name, row in rows.items():
+            if name in counters:
+                row["phases_engine_launches"] = engine["launches"][name]
         emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     except Exception:
         traceback.print_exc()

@@ -16,7 +16,9 @@ use, into ``hermes_tpu_torch/_build/`` (listed in ``.gitignore``).
   skipped.  ``core/dispatch.checked_build`` selects it; nothing selects it
   by itself.  ``BROKEN`` lists the test-only checked builds that leave a
   kernel's own clamp out, for the red tests of the guard.
-* The checker's C++ witness core (``native/checker_core.cpp``): ``g++``.
+* The host C++ libraries (``native/``): the checker's witness core
+  (``checker_core.cpp``) and the TCP mesh (``tcp_transport.cpp``, with
+  ``-pthread``: ``TCP_FLAGS``), each with ``g++``.
 
 Builds write to a temporary name and rename into place, so concurrent
 processes never load a half-written library.
@@ -41,6 +43,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-cudart", "shared")
 CHECKED_FLAGS = NVCC_FLAGS + ("-DHERMES_CHECKED",)
 CXX_FLAGS = ("-O2", "-shared", "-fPIC")
+TCP_FLAGS = CXX_FLAGS + ("-pthread",)  # the mesh's sender threads
 #: test-only checked builds: source name -> the define that breaks it
 BROKEN = {"mega_apply": "HERMES_BROKEN_NO_CLAMP"}
 
@@ -145,11 +148,12 @@ def load_cuda(name: str, checked: bool = False,
     return _loaded[out]
 
 
-def load_cxx(src: pathlib.Path) -> ctypes.CDLL:
-    """The loaded library of a C++ source, built with ``g++`` if needed."""
-    out = _lib_path(src, CXX_FLAGS)
+def load_cxx(src: pathlib.Path, flags=CXX_FLAGS) -> ctypes.CDLL:
+    """The loaded library of a C++ source, built with ``g++`` and
+    ``flags`` if needed."""
+    out = _lib_path(src, flags)
     if out not in _loaded:
         if not out.exists():
-            _finish(_start(["g++", *CXX_FLAGS, str(src)], out), out)
+            _finish(_start(["g++", *flags, str(src)], out), out)
         _loaded[out] = ctypes.CDLL(str(out))
     return _loaded[out]

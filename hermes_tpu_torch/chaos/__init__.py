@@ -7,13 +7,17 @@
     (a killed store back from its WAL) and ``wipe_volatile``.
   * ``schedule.py`` -- declarative, seeded fault programs (``Schedule``,
     ``ChaosEvent``, ``ChaosSpec``) and ``ChaosRunner``, which drives them
-    against a FastRuntime or a KVS with the failure detector
-    (``membership.py``) deciding removals; every event on the obs
-    timeline, the executed log byte-identical to the JAX package's.
-
-Not ported yet: the wire adversary ``chaos/net.py`` and the sim transport
-that carries ``NetChaos`` windows (ROADMAP A12).
+    against a FastRuntime, a KVS or the phases engine's Runtime with the
+    failure detector (``membership.py``) deciding removals; every event on
+    the obs timeline, the executed log byte-identical to the JAX
+    package's.
+  * ``net.py`` -- the wire adversary ``FaultingTransport``: seeded drop /
+    delay / duplicate / reorder / corrupt / partition windows per
+    directed peer pair over any host transport, corruption caught by the
+    frame CRC.
 """
+
+from hermes_tpu_torch.chaos.net import WIRE_OPS, FaultingTransport, WireWindow
 
 from hermes_tpu_torch.chaos.recovery import (
     recover_store,
@@ -30,6 +34,7 @@ from hermes_tpu_torch.chaos.schedule import (
 )
 
 __all__ = [
-    "EVENT_KINDS", "ChaosEvent", "ChaosRunner", "ChaosSpec", "NetChaos",
-    "Schedule", "recover_store", "restart_replica", "wipe_volatile",
+    "EVENT_KINDS", "ChaosEvent", "ChaosRunner", "ChaosSpec",
+    "FaultingTransport", "NetChaos", "Schedule", "WIRE_OPS", "WireWindow",
+    "recover_store", "restart_replica", "wipe_volatile",
 ]

@@ -16,7 +16,8 @@ the port of ``hermes_tpu/chaos/schedule.py``.
     from ``np.random.default_rng(seed)`` (the same seed gives the
     reference's program), its targets left to pre-drawn uniforms the
     runner resolves against eligibility at run time.
-  * ``ChaosRunner`` -- drives a FastRuntime or a KVS through a schedule:
+  * ``ChaosRunner`` -- drives a FastRuntime, a KVS or the phases
+    engine's ``Runtime`` through a schedule:
     applies each due event if legal (the healthy floor, target
     eligibility), steps the workload, heals the cluster at the end,
     drains, and returns the run log.  Every applied event lands on the
@@ -27,13 +28,19 @@ the port of ``hermes_tpu/chaos/schedule.py``.
     ``partition`` acts through the detector (``MembershipService.sever``)
     and ``hb_skew`` biases its observed ages.
   * ``NetChaos`` -- the window bookkeeping of the sim transport's drop /
-    delay / duplicate schedule (the transport itself is ROADMAP A12).
+    delay / duplicate schedule, installed as a ``SimTransport``'s
+    schedule.
 
-Verbs whose carrier is not ported are refused when the runner is built,
-never dropped: the wire verbs (``netdrop`` ... ``netcorrupt``) and the
-legacy ``net_*`` verbs without a ``NetChaos`` need ``chaos/net.py``'s
-interposer (A12), ``overload`` a load shaper (A13), ``powercut`` a
-caller's kill carrier.
+Verbs without a carrier are refused when the runner is built, never
+dropped (the reference's ``_check_net_faults_routable``): the wire verbs
+(``netdrop`` ... ``netcorrupt``) need ``wire=``, a
+``chaos.net.FaultingTransport`` over the target's host transport; the
+legacy ``net_*`` verbs ``net=`` (a ``NetChaos``) or ``wire=``;
+``partition`` ``wire=`` or an attached detector; ``overload`` a load
+shaper (the serving slice, A13); ``powercut`` a caller's kill carrier.
+On the phases engine's ``Runtime`` a ``crash_restart`` is skipped and
+logged (``chaos.recovery`` restarts the fast engines' state), as in the
+reference.
 """
 
 from __future__ import annotations
@@ -301,9 +308,10 @@ class Schedule:
 
 
 class NetChaos:
-    """Window-driven adversarial schedule for the sim transport (ROADMAP
-    A12): active windows drop / delay / duplicate messages on matching
-    directed edges.  The runner opens windows from net_* events and
+    """Window-driven adversarial schedule for the sim transport
+    (``transport.sim.SimTransport(R, schedule=NetChaos())``): active
+    windows drop / delay / duplicate messages on matching directed
+    edges.  The runner opens windows from net_* events and
     ``clear()``s them when healing."""
 
     def __init__(self):
@@ -346,11 +354,11 @@ class NetChaos:
 class ChaosRunner:
     """Drive a workload target through a fault schedule (module docstring).
 
-    ``target``: a FastRuntime or a KVS facade.
+    ``target``: a FastRuntime, a KVS facade or a phases ``Runtime``.
     ``net``: the NetChaos installed in the target's SimTransport (sim
     engine only).
     ``wire``: the chaos.net.FaultingTransport interposer wrapping the
-    target's HostTransport (ROADMAP A12) — carries the netdrop/netdelay/
+    target's HostTransport — carries the netdrop/netdelay/
     netdup/netreorder/netcorrupt/partition verbs (and the legacy net_*
     verbs when ``net`` is absent).  Schedules with net-fault lines are
     REFUSED at construction when no carrier is attached (the error names
@@ -535,6 +543,10 @@ class ChaosRunner:
         elif e.kind == "crash_restart":
             from hermes_tpu_torch.chaos import recovery
 
+            if not hasattr(rt, "fs"):
+                self._note(step, "skipped", event=e.kind,
+                           reason="phases runtime")
+                return
             cands = ([e.replica] if e.replica >= 0 else
                      [r for r in healthy if r not in self._frozen_since])
             if len(healthy) <= self.spec.min_healthy or not cands:

@@ -1,4 +1,4 @@
-"""CLI: run a replicated-KVS workload on the port's fast engine.
+"""CLI: run a replicated-KVS workload on the port's engines.
 
     python -m hermes_tpu_torch --replicas 8 --keys $((1<<20)) \\
         --sessions 1024 --arb-mode sort --chain-writes 128 --check
@@ -16,6 +16,8 @@
     python -m hermes_tpu_torch --keys 4096 --value-words 6 --drill migrate \\
         --check
     python -m hermes_tpu_torch --value-words 6 --fleet-groups 3 --check
+    python -m hermes_tpu_torch --backend sim --keys 512 --sessions 16 \
+        --check
 
 The default fast-backend drive of ``hermes_tpu/cli.py``: with ``--steps
 0`` (the default) the run drains every session's op stream; ``--check``
@@ -38,8 +40,15 @@ line with per-group and fleet counters (``--check``: every group's
 checker and ``verify_fleet``).
 ``--backend fast-sharded`` runs the three drives on the sharded engine
 (one table copy a replica, every replica in this process: a
-``LocalGroup``).  The run is on the card unless ``--device cpu`` is
-given.
+``LocalGroup``).  ``--backend batched|sharded|sim`` runs the reference
+phases engine (``runtime.Runtime``): the R replicas in one process, the
+blocks through a ``LocalGroup``, or through the deterministic
+``SimTransport``; the default drive, ``--freeze``, ``--detect``,
+``--check`` and ``--metrics-out`` apply, the client drives, the drills,
+``--chaos`` and ``--wal-dir`` are the fast engines' (as in the
+reference).  ``--wal-dir DIR`` taps the fast drive's harvest into a
+write-ahead log (``--wal-sync``).  The run is on the card unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -62,11 +71,15 @@ VALUES_UTIL_FLOOR = 0.75
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="hermes_tpu_torch", description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
-    ap.add_argument("--backend", choices=["fast", "fast-sharded"],
+    ap.add_argument("--backend",
+                    choices=["fast", "fast-sharded", "batched", "sharded",
+                             "sim"],
                     default="fast",
                     help="fast: the batched engine (one shared table); "
                          "fast-sharded: one table copy a replica, real "
-                         "INV/ACK/VAL exchange")
+                         "INV/ACK/VAL exchange; batched/sharded/sim: the "
+                         "reference phases engine (sim: host-mediated, "
+                         "deterministic)")
     ap.add_argument("--replicas", type=int, default=3)
     ap.add_argument("--keys", type=int, default=1 << 16)
     ap.add_argument("--value-words", type=int, default=2)
@@ -170,9 +183,20 @@ def build_parser() -> argparse.ArgumentParser:
                          "--backend fast")
     ap.add_argument("--fleet-ops", type=int, default=512,
                     help="ops in the fleet mix (--fleet-groups)")
+    ap.add_argument("--wal-dir", type=str, default=None, metavar="DIR",
+                    help="append every committed write of the fast drive "
+                         "to a CRC-framed write-ahead log under DIR "
+                         "(created if missing); recover a killed store "
+                         "with chaos.recover_store")
+    ap.add_argument("--wal-sync", choices=["commit", "round", "off"],
+                    default="commit",
+                    help="WAL durability mode (with --wal-dir)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: the card)")
     return ap
+
+
+FAST = ("fast", "fast-sharded")
 
 
 def _backend(args) -> str:
@@ -445,7 +469,7 @@ def main(argv=None) -> int:
     from hermes_tpu_torch import stats as stats_lib
     from hermes_tpu_torch.checker.fast import default_record
     from hermes_tpu_torch.config import HermesConfig, WorkloadConfig
-    from hermes_tpu_torch.runtime import FastRuntime
+    from hermes_tpu_torch.runtime import FastRuntime, Runtime
 
     ap = build_parser()
     args = ap.parse_args(argv)
@@ -457,6 +481,28 @@ def main(argv=None) -> int:
         ("--fleet-groups", bool(args.fleet_groups))) if on]
     if args.chaos is not None and args.chaos_schedule:
         ap.error("--chaos and --chaos-schedule are mutually exclusive")
+    if args.backend not in FAST:
+        # the reference CLI's refusals on its phases backends
+        if args.arb_mode != "race" or args.chain_writes or args.mega_round:
+            ap.error("--arb-mode/--chain-writes/--mega-round only affect "
+                     "the fast backends (core/faststep.py / "
+                     "runtime.FastRuntime); use --backend fast or "
+                     "fast-sharded")
+        for flag, on in (("--drill", bool(args.drill)),
+                         ("--chaos/--chaos-schedule", bool(chaos_on))):
+            if on:
+                ap.error(f"{flag} drive the fast runtimes; use --backend "
+                         "fast or fast-sharded")
+        for flag, on in (("--fleet-groups", bool(args.fleet_groups)),
+                         ("--reads", args.reads is not None),
+                         ("--value-bytes", args.value_bytes is not None)):
+            if on:
+                ap.error(f"{flag} drives the fast batched backend through "
+                         "the KVS facade")
+        if args.wal_dir is not None:
+            ap.error("--wal-dir rides the fast engines' harvest path; "
+                     f"the {args.backend!r} backend has no WAL tap "
+                     "(use --backend fast or fast-sharded)")
     if len(drives) > 1:
         ap.error(f"{' and '.join(drives)} are separate drives; pick one")
     if args.drill:
@@ -518,6 +564,8 @@ def main(argv=None) -> int:
         mega_round=args.mega_round,
         trace_sample=args.trace_sample,
         min_healthy_for_writes=args.degraded_floor,
+        wal_dir=args.wal_dir,
+        wal_sync=args.wal_sync,
         workload=WorkloadConfig(distribution=args.distribution,
                                 zipf_theta=args.zipf_theta, seed=args.seed),
     )
@@ -539,8 +587,19 @@ def main(argv=None) -> int:
                 sched = chaos_lib.Schedule.parse(f.read())
         else:
             sched = chaos_lib.Schedule.random(cfg, args.chaos, args.steps)
-    rt = FastRuntime(cfg, backend=_backend(args),
-                     record=default_record(args.check), device=args.device)
+    if args.backend in FAST:
+        rt = FastRuntime(cfg, backend=_backend(args),
+                         record=default_record(args.check),
+                         device=args.device)
+        if cfg.use_wal:
+            from hermes_tpu_torch.wal import GroupCommitWal
+
+            rt.attach_wal(GroupCommitWal(cfg))
+        meta_of = lambda: rt.fs.meta
+    else:
+        rt = Runtime(cfg, backend=args.backend, record=args.check,
+                     device=args.device)
+        meta_of = lambda: rt.rs.meta
     obs = None
     if args.metrics_out:
         from hermes_tpu_torch.obs import Observability
@@ -556,7 +615,7 @@ def main(argv=None) -> int:
 
     def report(s):
         if args.report_every and (s + 1) % args.report_every == 0:
-            rec = stats_lib.summarize(rt.fs.meta, time.perf_counter() - t0,
+            rec = stats_lib.summarize(meta_of(), time.perf_counter() - t0,
                                       s + 1)
             print(rec, file=sys.stderr)
             if obs:
@@ -577,29 +636,42 @@ def main(argv=None) -> int:
             report(s)
     elif not rt.drain():
         print("WARNING: did not drain", file=sys.stderr)
+    if rt.wal is not None:
+        # the drive's last rounds are on disk before the summary claims
+        # them committed
+        rt.wal.sync()
+        w = rt.wal.stats()
+        print(f"wal: {w['records']} record(s), {w['fsyncs']} fsync(s), "
+              f"{w['bytes']} byte(s), {w['segments']} segment(s), "
+              f"sync={w['sync']}", file=sys.stderr)
+        rt.wal.close()
     if rt.device.type == "cuda":
         import torch
 
         torch.cuda.synchronize(rt.device)
     wall = time.perf_counter() - t0
-    rec = stats_lib.summarize(rt.fs.meta, wall, rt.step_idx,
+    rec = stats_lib.summarize(meta_of(), wall, rt.step_idx,
                               hists=obs is not None)
     if obs:
         obs.summary(rec)
         obs.registry_snapshot()
-        obs.close()
         rec = {k: v for k, v in rec.items()
                if k not in ("lat_hist", "qwait_hist")}
     print(rec)
-    if args.check:
-        v = rt.check(max_keys=CHECK_KEYS)
-        print(f"linearizability: {'PASS' if v.ok else 'FAIL'} "
-              f"({v.keys_checked} keys)")
-        if not v.ok:
-            for f in v.failures[:5]:
-                print("  ", f.reason[:200])
-            return 1
-    return 0
+    try:
+        if args.check:
+            # the verdict is a trace event: the run log closes after it
+            v = rt.check(max_keys=CHECK_KEYS)
+            print(f"linearizability: {'PASS' if v.ok else 'FAIL'} "
+                  f"({v.keys_checked} keys)")
+            if not v.ok:
+                for f in v.failures[:5]:
+                    print("  ", f.reason[:200])
+                return 1
+        return 0
+    finally:
+        if obs:
+            obs.close()
 
 
 if __name__ == "__main__":

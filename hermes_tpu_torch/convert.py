@@ -11,6 +11,10 @@ reference's ``(n*K,)`` rows) converts the same way, each copy's own drop
 row cut and re-added.  Together they start both packages from the same
 mid-run state.  ``meta_from_numpy`` converts the Meta alone; an op stream with
 numpy leaves goes through ``core.faststep.prep_stream``.
+
+``replica_state_from_numpy`` / ``replica_state_to_numpy`` do the same for
+the phases engine's ``ReplicaState`` (leading R axis, the reference's
+shapes; the table leaves get their hidden drop rows on the way in).
 """
 
 from __future__ import annotations
@@ -87,3 +91,35 @@ def fast_state_to_numpy(fs: fst.FastState, n_copies: int = 1
         replay=fst.FastReplay(*(h(x) for x in fs.replay)),
         meta=st.Meta(*(h(x) for x in fs.meta)),
     )
+
+
+_BOOL_LEAVES = {("sess", "superseded"), ("replay", "active")}
+
+
+def replica_state_from_numpy(cfg: HermesConfig, tree,
+                             device) -> st.ReplicaState:
+    """The phases engine's ReplicaState on ``device`` from a numpy tree
+    with the reference's field names and its batched (R, ...) shapes."""
+    def leaf(part, f):
+        dtype = torch.bool if (part, f) in _BOOL_LEAVES else torch.int32
+        return _t(getattr(getattr(tree, part), f), device, dtype)
+
+    r = np.asarray(tree.table.state).shape[0]
+    want = (r, cfg.n_keys)
+    if np.asarray(tree.table.state).shape != want:
+        raise ValueError(f"table shape {np.asarray(tree.table.state).shape} "
+                         f"is not {want}")
+    return st.ReplicaState(
+        table=st.KeyTable(*(st.with_drop_row(leaf("table", f))
+                            for f in st.KeyTable._fields)),
+        sess=st.Sessions(*(leaf("sess", f) for f in st.Sessions._fields)),
+        replay=st.ReplaySlots(*(leaf("replay", f)
+                                for f in st.ReplaySlots._fields)),
+        meta=meta_from_numpy(tree.meta, device))
+
+
+def replica_state_to_numpy(rs: st.ReplicaState) -> st.ReplicaState:
+    """The phases engine's state as a ReplicaState of numpy copies."""
+    h = lambda part: type(part)(*(x.cpu().numpy().copy() for x in part))
+    return st.ReplicaState(table=h(rs.table), sess=h(rs.sess),
+                           replay=h(rs.replay), meta=h(rs.meta))

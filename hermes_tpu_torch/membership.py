@@ -24,7 +24,9 @@ completion fetch that already overlaps the card's execution) whenever they
 are fresh, so an attached service adds no synchronous fetch to the
 dispatch path.  The fallback, a synchronous copy of ``meta.last_seen``, is
 traced as ``membership_fetch``: a pipelined run must show none.  Ages read
-from the ring are up to ``pipeline_depth - 1`` rounds old.
+from the ring are up to ``pipeline_depth - 1`` rounds old.  The phases
+engine's ``runtime.Runtime`` harvests no ages, so there the detector
+always reads ``meta.last_seen`` (as the reference's does).
 """
 
 from __future__ import annotations
@@ -125,7 +127,8 @@ class MembershipService:
         trace = getattr(rt, "_trace", None)
         if trace is not None:
             trace("membership_fetch")
-        last_seen = rt.fs.meta.last_seen.cpu().numpy()
+        state = getattr(rt, "fs", None) or rt.rs  # FastRuntime | Runtime
+        last_seen = state.meta.last_seen.cpu().numpy()
         return rt.step_idx, np.maximum(rt.step_idx - last_seen, 0)
 
     # -- the suspicion state machine -------------------------------------------

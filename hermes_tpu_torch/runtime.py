@@ -51,7 +51,19 @@ event it emits carries ``group``, so one shared obs sink stays
 attributable per group (``rt.group`` is the replica group, a different
 thing).
 
-Not ported yet: the reference ``Runtime`` (A12).
+``Runtime`` is the port of the reference's ``Runtime``: the phases engine
+(``core/phases.py``, ``core/step.py``) on three backends, ``batched`` (R
+replicas in one process), ``sharded`` (the blocks through a replica
+group, ``core/group.py``) and ``sim`` (the blocks through a host
+transport, ``transport/``: the deterministic ``SimTransport`` by default,
+any ``HostTransport`` such as ``chaos.net.FaultingTransport`` on
+request).  It shares the freeze/thaw/remove/join surface, the obs hooks
+(``_ObsHooks``) and the live resize (``_ElasticResize``) with
+``FastRuntime``.  Its round keeps the host out of the way on the
+``batched`` and ``sharded`` backends: nothing in ``step_once`` waits for
+the device unless completions are recorded or a detector is attached.
+The ``sim`` backend copies each round's INV, ACK and VAL blocks to the
+host and back, as the reference's does.
 """
 
 from __future__ import annotations
@@ -70,6 +82,7 @@ from hermes_tpu_torch.checker.history import HistoryRecorder
 from hermes_tpu_torch.config import HermesConfig
 from hermes_tpu_torch.core import faststep as fst
 from hermes_tpu_torch.core import state as st
+from hermes_tpu_torch.core import step as step_lib
 from hermes_tpu_torch.core.group import LocalGroup
 from hermes_tpu_torch.core import types as t
 from hermes_tpu_torch.workload import ycsb
@@ -147,7 +160,386 @@ def meta_to_numpy(meta: st.Meta) -> st.Meta:
     return st.Meta(*(x.cpu().numpy() for x in meta))
 
 
-class FastRuntime:
+class _ObsHooks:
+    """The obs and WAL hooks both runtimes share: ``attach_obs`` installs
+    the run's Observability context, ``attach_wal`` the write-ahead log
+    tap (fed only by the fast engine's harvest), ``_trace`` emits a point
+    event (labelled with ``fleet_group`` in a fleet) and
+    ``healthy_replicas`` names the live, unfrozen replicas.  Everything is
+    a no-op while nothing is attached."""
+
+    obs = None
+    wal = None
+    _wal_heap = None
+    wal_last_lsn = 0
+    # the fleet group this runtime serves (None outside a fleet)
+    fleet_group = None
+
+    def attach_obs(self, obs):
+        """Install the run's Observability context (a late attach still
+        feeds an attached WAL's fsync-latency and dirty-window series)."""
+        self.obs = obs
+        if self.wal is not None:
+            self.wal.obs = obs
+        return obs
+
+    def attach_wal(self, wal, heap=None):
+        """Install the write-ahead log tap: every committed write
+        ``harvest_comp`` surfaces is appended to ``wal`` (with its extent
+        bytes read from ``heap`` in heap mode)."""
+        self.wal = wal
+        self._wal_heap = heap
+        if wal.obs is None and self.obs is not None:
+            wal.obs = self.obs
+        return wal
+
+    def _trace(self, name: str, **fields) -> None:
+        if self.obs is not None:
+            if self.fleet_group is not None and "group" not in fields:
+                fields["group"] = self.fleet_group
+            self.obs.tracer.event(name, step=self.step_idx, **fields)
+
+    def healthy_replicas(self) -> list:
+        """Replicas that are live AND unfrozen: the set that can serve
+        and ack right now."""
+        live = int(self.live[0])
+        return [r for r in range(self.cfg.n_replicas)
+                if (live >> r) & 1 and not self.frozen[r]]
+
+
+class _ElasticResize:
+    """Live group resize shared by both runtimes: ``shrink`` fences and
+    removes a replica, ``grow`` re-admits one through the join with a
+    donor's copy; both harvest the completion pipeline first (where the
+    runtime has one) and land on the obs timeline."""
+
+    def shrink(self, replica: int) -> None:
+        """Resize out: fence + remove ``replica`` from every quorum, after
+        harvesting every completion of the old membership.  An attached
+        detector logs it as ``shrink``, not as its own ``remove``."""
+        if not (int(self.live[0]) >> replica) & 1:
+            raise ValueError(f"replica {replica} is not live")
+        if hasattr(self, "flush_pipeline"):
+            self.flush_pipeline()
+        self.remove(replica)
+        if self.membership is not None:
+            self.membership.note_shrink(self, replica)
+        self._trace("shrink", replica=replica, live_mask=int(self.live[0]))
+
+    def grow(self, replica: int, from_replica: Optional[int] = None) -> None:
+        """Resize in: re-admit ``replica`` through the join (its copy
+        value-synced from ``from_replica``, default the lowest live,
+        unfrozen replica)."""
+        if (int(self.live[0]) >> replica) & 1 and not self.frozen[replica]:
+            raise ValueError(f"replica {replica} is already live")
+        if from_replica is None:
+            cands = [d for d in self.healthy_replicas() if d != replica]
+            if not cands:
+                raise RuntimeError("grow needs a live unfrozen donor; "
+                                   "none left")
+            from_replica = cands[0]
+        if hasattr(self, "flush_pipeline"):
+            self.flush_pipeline()
+        self.join(replica, from_replica)
+        self._trace("grow", replica=replica, donor=from_replica,
+                    live_mask=int(self.live[0]))
+
+
+def _prep_phases_stream(raw, device) -> st.OpStream:
+    """An op stream (numpy or tensors, (R, S, G)) as int32 tensors on
+    ``device`` (``uval`` as int32 words)."""
+    def t32(x):
+        return None if x is None else torch.tensor(
+            np.asarray(x.cpu() if torch.is_tensor(x) else x),
+            dtype=torch.int32, device=device)
+    return st.OpStream(op=t32(raw.op), key=t32(raw.key),
+                       uval=t32(getattr(raw, "uval", None)))
+
+
+def _block_to_host(block):
+    """One exchange block (a NamedTuple of tensors) as numpy copies."""
+    return type(block)(*(x.cpu().numpy().copy() for x in block))
+
+
+class Runtime(_ObsHooks, _ElasticResize):
+    """Runs the reference's phases engine (module docstring).
+
+    ``backend``: ``batched`` (all R replicas on ``device``), ``sharded``
+    (the blocks through ``group``, default a ``LocalGroup`` on
+    ``device``; a ``DistGroup`` rank holds its R/W replicas) or ``sim``
+    (the blocks through ``transport``, default a ``SimTransport(R)``).
+    ``record``: False | True (the Python op recorder) | "array" (the
+    columnar recorder and the native witness checker, for large
+    histories)."""
+
+    def __init__(self, cfg: HermesConfig, backend: str = "batched",
+                 transport=None, record=False,
+                 stream: Optional[st.OpStream] = None, device="cuda",
+                 group=None):
+        if backend not in ("batched", "sharded", "sim"):
+            raise ValueError(f"unknown backend {backend!r}")
+        if group is not None and backend != "sharded":
+            raise ValueError("a replica group is for the sharded backend")
+        if transport is not None and backend != "sim":
+            raise ValueError("a host transport is for the sim backend")
+        if backend == "sharded" and group is None:
+            group = LocalGroup(device)
+        self.cfg = cfg
+        self.backend = backend
+        self.group = group
+        self.device = (group.device if group is not None
+                       else device_lib.resolve(device))
+        r = cfg.n_replicas
+        self.n_copies = r if group is None else group.n_local(r)
+        self._first = 0 if group is None else group.first(r)
+        self._rows = slice(self._first, self._first + self.n_copies)
+        if record and group is not None and group.world > 1:
+            raise ValueError("history recording is single-process only "
+                             "(a DistGroup holds some replicas' rows)")
+        raw = stream if stream is not None else ycsb.make_streams(cfg)
+        self.rs = st.init_replica_state(cfg, self.device, self.n_copies)
+        full = _prep_phases_stream(raw, "cpu")
+        self.stream = st.OpStream(*(
+            None if x is None else x[self._rows].to(self.device).contiguous()
+            for x in full))
+
+        self.step_idx = 0
+        self.epoch = np.zeros((r,), np.int32)
+        self.live = np.full((r,), cfg.full_mask, np.int32)
+        self.frozen = np.zeros((r,), bool)
+        # the membership rows on the device, re-uploaded only when a
+        # freeze/thaw/set_live/remove/join dirtied them
+        self._ctl_dev = None
+        self._ctl_dirty = True
+        if record == "array":
+            self.recorder = ArrayRecorder(cfg)
+        else:
+            self.recorder = HistoryRecorder(cfg) if record else None
+        self.membership = None
+        if backend == "batched":
+            self._step = step_lib.build_step_batched(cfg)
+        elif backend == "sharded":
+            self._step = step_lib.build_step_sharded(cfg, group)
+        else:
+            from hermes_tpu_torch.transport.sim import SimTransport
+
+            self._step = None
+            self.transport = (transport if transport is not None
+                              else SimTransport(r))
+            self._ph = step_lib.phase_fns(cfg)
+
+    # -- control -------------------------------------------------------------
+
+    def _ctl(self):
+        """The round's StepCtl: the cached membership rows (the local
+        replicas'; copied, never aliased to the host arrays) and this
+        round's step."""
+        if self._ctl_dirty:
+            dev, rows = self.device, self._rows
+            self._ctl_dev = step_lib.StepCtl(
+                step=0,
+                epoch=torch.tensor(self.epoch[rows], device=dev),
+                live_mask=torch.tensor(self.live[rows], device=dev),
+                frozen=torch.tensor(self.frozen[rows], device=dev))
+            self._ctl_dirty = False
+            self._trace("ctl_upload", epoch=int(self.epoch[0]),
+                        live_mask=int(self.live[0]))
+        return self._ctl_dev._replace(step=self.step_idx)
+
+    def freeze(self, replica: int) -> None:
+        """Failure injection: the replica stops processing and emitting."""
+        self.frozen[replica] = True
+        self._ctl_dirty = True
+        self._trace("freeze", replica=replica)
+
+    def thaw(self, replica: int) -> None:
+        self.frozen[replica] = False
+        self._ctl_dirty = True
+        self._trace("thaw", replica=replica)
+
+    def set_live(self, mask: int) -> None:
+        """Membership change: new live bitmap, epoch bump everywhere."""
+        self.live[:] = mask
+        self.epoch += 1
+        self._ctl_dirty = True
+
+    def remove(self, replica: int) -> None:
+        """Remove from membership AND fence (a removed replica must stop
+        serving reads at once)."""
+        self.frozen[replica] = True
+        self.set_live(int(self.live[0]) & ~(1 << replica))
+        self._trace("remove", replica=replica, live_mask=int(self.live[0]))
+
+    def join(self, replica: int, from_replica: int) -> None:
+        """Re-admit ``replica`` with the donor's table: its WRITE, TRANS
+        and REPLAY keys (the donor's own coordination) enter as INVALID,
+        every row's step is this round (the live coordinator's VAL or the
+        replay scan validates them)."""
+        tbl = self.rs.table
+        donor = self._donor_rows(from_replica)
+        state = donor[0]
+        folded = torch.where(
+            (state == t.WRITE) | (state == t.TRANS) | (state == t.REPLAY),
+            t.INVALID, state).to(torch.int32)
+        j = replica - self._first
+        if 0 <= j < self.n_copies:
+            tbl.state[j].copy_(folded)
+            tbl.ver[j].copy_(donor[1])
+            tbl.fc[j].copy_(donor[2])
+            tbl.val[j].copy_(donor[3])
+            tbl.inv_step[j].fill_(self.step_idx)
+        self.frozen[replica] = False
+        self.set_live(int(self.live[0]) | (1 << replica))
+        self._trace("join", replica=replica, from_replica=from_replica,
+                    live_mask=int(self.live[0]))
+        if self.membership is not None:
+            self.membership.note_join(self, replica)
+
+    def _donor_rows(self, replica: int):
+        """(state, ver, fc, val) of ``replica``'s table (fetched from its
+        rank on a DistGroup), as copies."""
+        tbl = self.rs.table
+        fields = (tbl.state, tbl.ver, tbl.fc, tbl.val)
+        if self.group is not None and self.group.world > 1:
+            return [self.group.fetch_row(x, replica) for x in fields]
+        return [x[replica - self._first].clone() for x in fields]
+
+    def attach_membership(self, service) -> None:
+        """Attach the failure detector (``membership.MembershipService``):
+        it polls ``meta.last_seen`` after every round.  One process only."""
+        if self.group is not None and self.group.world > 1:
+            raise ValueError("the failure detector is single-process only "
+                             "(a DistGroup rank holds some replicas' rows)")
+        self.membership = service
+
+    # -- stepping -------------------------------------------------------------
+
+    def step_once(self) -> None:
+        ctl = self._ctl()
+        obs = self.obs
+        trace = obs is not None and obs.trace_steps
+        if trace:
+            td = obs.tracer.span_begin("step_dispatch", step=self.step_idx)
+        if self._step is not None:
+            self.rs, comp = self._step(self.rs, self.stream, ctl)
+        else:
+            self.rs, comp = self._host_step(ctl)
+        if trace:
+            obs.tracer.span_end("step_dispatch", td)
+        if self.recorder is not None:
+            if trace:
+                tr = obs.tracer.span_begin("readback", step=self.step_idx)
+            comp_np = st.Completions(*(x.cpu().numpy() for x in comp))
+            if trace:
+                obs.tracer.span_end("readback", tr)
+            self.recorder.record_step(comp_np)
+        self.step_idx += 1
+        if self.membership is not None:
+            self.membership.poll(self)
+
+    def _host_step(self, ctl):
+        """One round through ``step._step_core`` with the exchanges made
+        by the host transport: each block copied to the host, exchanged,
+        and the inbound block copied back."""
+        step = self.step_idx
+        dev = self.device
+
+        def to_dev(block):
+            # torch.tensor makes every bool byte 0 or 1 (a CRC-less wire
+            # can deliver others)
+            return type(block)(*(torch.tensor(np.asarray(x), device=dev)
+                                 for x in block))
+
+        def ex(fn):
+            return lambda blk: to_dev(fn(_block_to_host(blk), step))
+
+        tr = self.transport
+        return step_lib._step_core(self.cfg, self._ph, ex(tr.exchange_inv),
+                                   ex(tr.exchange_ack), ex(tr.exchange_val),
+                                   self.rs, self.stream,
+                                   step_lib._per_replica_ctl(self.cfg, ctl))
+
+    def run(self, n_steps: int) -> None:
+        for _ in range(n_steps):
+            self.step_once()
+
+    def _psum(self, x):
+        """Sum of a device scalar over every rank of the group."""
+        if self.group is None or self.group.world == 1:
+            return x
+        return self.group.psum(x.reshape(1, 1))[0, 0]
+
+    def pending_sessions(self):
+        """Sessions not yet S_DONE on live, unfrozen replicas (a device
+        scalar, summed over the group's ranks)."""
+        ctl = self._ctl()
+        ids = torch.arange(self._first, self._first + self.n_copies,
+                           dtype=torch.int32, device=self.device)
+        active = (((ctl.live_mask >> ids) & 1) == 1) & ~ctl.frozen
+        undone = (self.rs.sess.status != t.S_DONE).to(torch.int32)
+        return self._psum(torch.where(active[:, None], undone, 0).sum(
+            dtype=torch.int32))
+
+    def drain(self, max_steps: int = 10_000) -> bool:
+        """Step until every session on a live, unfrozen replica finished
+        its stream and the network is empty; False if max_steps ran out
+        first."""
+        if self.obs is not None:
+            with self.obs.tracer.span("drain", step=self.step_idx):
+                return self._drain(max_steps)
+        return self._drain(max_steps)
+
+    def _drain(self, max_steps: int) -> bool:
+        for _ in range(max_steps):
+            undone = int(self.pending_sessions())
+            net = getattr(self, "transport", None)
+            net_empty = net.pending() == 0 if net is not None else True
+            if undone == 0 and net_empty:
+                return True
+            self.step_once()
+        return False
+
+    # -- observability ----------------------------------------------------------
+
+    def _global_meta(self) -> st.Meta:
+        meta = self.rs.meta
+        if self.group is not None and self.group.world > 1:
+            meta = st.Meta(*(self.group.gather_src(x) for x in meta))
+        return meta
+
+    def counters(self) -> dict:
+        return _sum_meta_counters(meta_to_numpy(self._global_meta()))
+
+    def _sess_view(self) -> st.Sessions:
+        return st.Sessions(*(x.cpu().numpy() for x in self.rs.sess))
+
+    def history_ops(self):
+        if self.recorder is None:
+            raise RuntimeError("construct Runtime(record=True)")
+        rec = self.recorder.finalize(self._sess_view())
+        return rec.to_ops() if isinstance(rec, ArrayRecorder) else rec
+
+    def check(self, max_keys: Optional[int] = None) -> lin.Verdict:
+        """Finalize the history and run the linearizability gate."""
+        if self.recorder is None:
+            raise RuntimeError("construct Runtime(record=True)")
+        if isinstance(self.recorder, ArrayRecorder):
+            self.recorder.finalize(self._sess_view())
+            v = check_arrays(self.recorder, max_keys=max_keys)
+        else:
+            ops = self.history_ops()
+            if max_keys is not None:
+                ops = lin.sample_keys(ops, max_keys=max_keys)
+            v = lin.check_history(ops,
+                                  aborted_uids=self.recorder.aborted_uids)
+        self._trace("checker_verdict", ok=v.ok, keys_checked=v.keys_checked)
+        if not v.ok and self.obs is not None:
+            self.obs.flight_dump("checker_red",
+                                 extra=dict(keys_checked=v.keys_checked))
+        return v
+
+
+class FastRuntime(_ObsHooks, _ElasticResize):
     """Runs the fast round: the same membership / failure-injection /
     history-recording surface as the reference, over a FastState of
     tensors on ``device`` (batched) or on the group's device (sharded;
@@ -244,32 +636,6 @@ class FastRuntime:
         else:
             self.recorder = HistoryRecorder(cfg) if record else None
 
-    # -- observability and the WAL tap ---------------------------------------
-
-    def attach_obs(self, obs):
-        """Install the run's Observability context (a late attach still
-        feeds an attached WAL's fsync-latency and dirty-window series)."""
-        self.obs = obs
-        if self.wal is not None:
-            self.wal.obs = obs
-        return obs
-
-    def attach_wal(self, wal, heap=None):
-        """Install the write-ahead log tap: every committed write
-        ``harvest_comp`` surfaces is appended to ``wal`` (with its extent
-        bytes read from ``heap`` in heap mode)."""
-        self.wal = wal
-        self._wal_heap = heap
-        if wal.obs is None and self.obs is not None:
-            wal.obs = self.obs
-        return wal
-
-    def _trace(self, name: str, **fields) -> None:
-        if self.obs is not None:
-            if self.fleet_group is not None and "group" not in fields:
-                fields["group"] = self.fleet_group
-            self.obs.tracer.event(name, step=self.step_idx, **fields)
-
     # -- device-resident control --------------------------------------------
 
     @property
@@ -360,37 +726,6 @@ class FastRuntime:
                              "(a DistGroup rank holds some replicas' rows)")
         self.membership = service
 
-    # -- live resize -------------------------------------------------------------
-
-    def shrink(self, replica: int) -> None:
-        """Resize out: fence + remove ``replica`` from every quorum, after
-        harvesting every completion of the old membership.  An attached
-        detector logs it as ``shrink``, not as its own ``remove``."""
-        if not (int(self.live[0]) >> replica) & 1:
-            raise ValueError(f"replica {replica} is not live")
-        self.flush_pipeline()
-        self.remove(replica)
-        if self.membership is not None:
-            self.membership.note_shrink(self, replica)
-        self._trace("shrink", replica=replica, live_mask=int(self.live[0]))
-
-    def grow(self, replica: int, from_replica: Optional[int] = None) -> None:
-        """Resize in: re-admit ``replica`` through the join (its copy
-        value-synced from ``from_replica``, default the lowest live,
-        unfrozen replica)."""
-        if (int(self.live[0]) >> replica) & 1 and not self.frozen[replica]:
-            raise ValueError(f"replica {replica} is already live")
-        if from_replica is None:
-            cands = [d for d in self.healthy_replicas() if d != replica]
-            if not cands:
-                raise RuntimeError("grow needs a live unfrozen donor; "
-                                   "none left")
-            from_replica = cands[0]
-        self.flush_pipeline()
-        self.join(replica, from_replica)
-        self._trace("grow", replica=replica, donor=from_replica,
-                    live_mask=int(self.live[0]))
-
     def _transfer_copy(self, replica: int, from_replica: int) -> None:
         K = self.cfg.n_keys
         vk = fst.copies(self.fs.table.vpts, K)
@@ -429,13 +764,6 @@ class FastRuntime:
         if self.group is None or self.group.world == 1:
             return per_replica.sum()
         return self.group.psum(per_replica.reshape(-1, 1))[0, 0]
-
-    def healthy_replicas(self) -> list:
-        """Replicas that are live AND unfrozen: the set that can serve
-        and ack right now."""
-        live = int(self.live[0])
-        return [r for r in range(self.cfg.n_replicas)
-                if (live >> r) & 1 and not self.frozen[r]]
 
     # -- stepping ---------------------------------------------------------------
 

@@ -1,2 +1,20 @@
-"""Host byte codecs of the port (``transport.codec``); the wire codecs
-wait for the serving slice (ROADMAP A13)."""
+"""The port's transport layer (``hermes_tpu/transport``): the
+host-mediated exchange of the phases engine's message blocks.
+
+  * ``base``  — the ``HostTransport`` interface and the zero-delay
+    ``LockstepHostTransport``;
+  * ``sim``   — the deterministic adversarial ``SimTransport``;
+  * ``tcp``   — the C++ full-mesh socket exchanger (``native/
+    tcp_transport.cpp``) and ``TcpHostTransport`` over it, one process a
+    replica (``distributed.py``);
+  * ``rdma``  — the interface stub (no NIC in scope);
+  * ``codec`` — the block, frame (CRC) and byte codecs.
+
+The serving wire codecs and ``shm.py`` wait for the serving slice
+(ROADMAP A13).
+"""
+
+from hermes_tpu_torch.transport.base import (HostTransport,
+                                             LockstepHostTransport)
+
+__all__ = ["HostTransport", "LockstepHostTransport"]

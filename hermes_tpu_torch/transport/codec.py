@@ -1,6 +1,13 @@
-"""Host codecs: the port's copy of the checksummed frame layer
-(``frame_pack``, ``frame_unpack``, ``wire_crc``) and of ``rows_to_words``
-/ ``words_to_rows`` from ``hermes_tpu/transport/codec.py``.
+"""Host codecs: the port's copy of the block layer (``block_nbytes``,
+``frame_nbytes``, ``pack``, ``unpack``, ``stack``), the checksummed frame
+layer (``frame_pack``, ``frame_unpack``, ``wire_crc``) and
+``rows_to_words`` / ``words_to_rows`` from
+``hermes_tpu/transport/codec.py``.
+
+A block (``state.Invs`` / ``Acks`` / ``Vals`` of numpy arrays, or a bare
+tuple of arrays) serializes to a fixed byte length: its fields
+concatenated in definition order, raveled, raw little-endian bytes (bool
+one byte, int32 four), the layout both ends derive from one config.
 
 A frame is ``[magic u16 | algo u8 | pad u8 | length u32 | crc u32] +
 payload``; the write-ahead log (``wal/``) stores its records as frames,
@@ -48,11 +55,56 @@ def wire_crc(payload: bytes, algo: int = _ALGO) -> int:
         if _crc32c is None:
             raise FrameCorrupt(
                 "frame uses crc32c but no crc32c module is available on "
-                "this end")
+                "this end — install it or have the sender use the crc32 "
+                "fallback (algo=0)")
         return _crc32c(payload) & 0xFFFFFFFF
     if algo == 0:
         return zlib.crc32(payload) & 0xFFFFFFFF
     raise FrameCorrupt(f"unknown frame checksum algo {algo}")
+
+
+def block_nbytes(template) -> int:
+    return sum(np.asarray(f).nbytes for f in template)
+
+
+def frame_nbytes(template) -> int:
+    """On-the-wire size of a framed block (header + payload)."""
+    return FRAME_OVERHEAD + block_nbytes(template)
+
+
+def pack(block) -> np.ndarray:
+    """Serialize a block to a 1-D uint8 array."""
+    parts = [np.ascontiguousarray(np.asarray(f)).view(np.uint8).ravel()
+             for f in block]
+    return np.concatenate(parts) if parts else np.zeros(0, np.uint8)
+
+
+def unpack(template, buf: np.ndarray):
+    """Deserialize ``buf`` (uint8, ``block_nbytes(template)`` long) into a
+    block shaped like ``template`` (a NamedTuple block, or a bare tuple of
+    arrays)."""
+    need = block_nbytes(template)
+    if buf.nbytes != need:
+        raise ValueError(f"wire size mismatch: {buf.nbytes} bytes for a "
+                         f"{need}-byte block")
+    out = []
+    off = 0
+    for f in template:
+        f = np.asarray(f)
+        n = f.nbytes
+        out.append(buf[off:off + n].view(f.dtype).reshape(f.shape))
+        off += n
+    if hasattr(template, "_fields"):
+        return type(template)(*out)
+    return tuple(out)
+
+
+def stack(blocks):
+    """Stack per-source blocks into an inbound block with a leading R
+    axis."""
+    first = blocks[0]
+    return type(first)(*[np.stack([np.asarray(b[i]) for b in blocks])
+                         for i in range(len(first))])
 
 
 def frame_pack(payload: np.ndarray) -> np.ndarray:
@@ -80,8 +132,9 @@ def frame_unpack(buf: np.ndarray) -> np.ndarray:
                            f"got {payload.nbytes}")
     got = wire_crc(payload.tobytes(), algo)
     if got != crc:
-        raise FrameCorrupt(f"frame checksum mismatch: header 0x{crc:08x} "
-                           f"!= payload 0x{got:08x}")
+        raise FrameCorrupt(
+            f"frame checksum mismatch: header 0x{crc:08x} != payload "
+            f"0x{got:08x} (algo={'crc32c' if algo == 1 else 'crc32'})")
     return payload
 
 

@@ -323,7 +323,7 @@ def test_torch_runner_refuses_verbs_without_a_carrier(line, msg):
 
 def test_torch_runner_takes_legacy_net_verbs_with_a_netchaos():
     """With a ``NetChaos`` the legacy verbs open its windows (the sim
-    transport that reads them is ROADMAP A12)."""
+    transport reads them: ``tests/test_torch_netchaos.py``)."""
     _, cfg = _cfgs(n_replicas=3)
     net = chaos.NetChaos()
     runner = chaos.ChaosRunner(FastRuntime(cfg, device="cpu"),

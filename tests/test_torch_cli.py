@@ -283,3 +283,86 @@ def test_torch_cli_chaos_and_drill_refuse_bad_flags(argv, msg):
         [sys.executable, "-m", "hermes_tpu_torch", "--device", "cpu", *argv],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert r.returncode == 2 and msg in r.stderr, r.stderr
+
+
+PHASES = ["--replicas", "3", "--keys", "96", "--sessions", "6",
+          "--replay-slots", "6", "--ops-per-session", "16", "--check"]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--backend", "batched"],
+    ["--backend", "sharded"],
+    ["--backend", "sim"],
+    ["--backend", "sim", "--steps", "40", "--freeze", "2:5:12",
+     "--detect", "3", "--distribution", "zipfian"],
+    ["--backend", "batched", "--steps", "30", "--freeze", "1:4:20",
+     "--report-every", "10"],
+])
+def test_torch_cli_phases_backends_match_reference_summary(capsys, argv):
+    """``--backend batched|sharded|sim``: the reference phases engine
+    (``runtime.Runtime``) drained or stepped, with freeze windows and the
+    detector; the summary record equals the reference CLI's."""
+    got, _ = _summary_pair(capsys, PHASES + argv)
+    assert got["n_read"] > 0 and got["commits"] > 0
+
+
+def test_torch_cli_phases_backend_metrics_out(tmp_path):
+    """``--metrics-out`` on a phases backend: the run log carries the
+    freeze window's events, the interval records and the summary."""
+    import json
+
+    path = tmp_path / "run.jsonl"
+    r = subprocess.run(
+        [sys.executable, "-m", "hermes_tpu_torch", *PHASES, "--backend",
+         "sim", "--steps", "24", "--freeze", "1:3:9", "--report-every", "8",
+         "--metrics-out", str(path), "--device", "cpu"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    recs = [json.loads(ln) for ln in path.read_text().splitlines()]
+    names = {rec.get("name") for rec in recs}
+    assert {"freeze", "thaw", "ctl_upload"} <= names, names
+    assert any(rec.get("kind") == "summary" for rec in recs)
+
+
+@pytest.mark.parametrize("argv,msg", [
+    (["--backend", "sim", "--chaos", "1", "--steps", "9"],
+     "drive the fast runtimes"),
+    (["--backend", "batched", "--drill", "rolling"],
+     "drive the fast runtimes"),
+    (["--backend", "sharded", "--reads", "10", "--value-words", "4"],
+     "through the KVS facade"),
+    (["--backend", "sim", "--wal-dir", "x"], "has no WAL tap"),
+    (["--backend", "batched", "--arb-mode", "sort"],
+     "only affect the fast backends"),
+])
+def test_torch_cli_phases_backends_refuse_fast_only_flags(argv, msg):
+    r = subprocess.run(
+        [sys.executable, "-m", "hermes_tpu_torch", "--device", "cpu", *argv],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 2 and msg in r.stderr, r.stderr
+
+
+def test_torch_cli_wal_dir_logs_the_fast_drive(capsys, tmp_path):
+    """``--wal-dir`` on the fast drive: the log's record count equals the
+    reference CLI's on the same arguments, and the summary is unchanged."""
+    argv = ["--replicas", "3", "--keys", "64", "--sessions", "6",
+            "--ops-per-session", "12", "--check"]
+    got, _ = _summary_pair(capsys, argv)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    r = subprocess.run(
+        [sys.executable, "-m", "hermes_tpu_torch", *argv, "--wal-dir",
+         str(tmp_path / "port"), "--device", "cpu"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    strip = lambda d: {k: v for k, v in d.items() if k not in WALL_FIELDS}
+    assert strip(ast.literal_eval(r.stdout.splitlines()[0])) == strip(got)
+    from hermes_tpu import cli as ref_cli
+
+    capsys.readouterr()
+    assert ref_cli.main(argv + ["--wal-dir", str(tmp_path / "ref")]) == 0
+    want = [ln for ln in capsys.readouterr().err.splitlines()
+            if ln.startswith("wal:")]
+    line = [ln for ln in r.stderr.splitlines() if ln.startswith("wal:")]
+    assert line and want
+    assert line[0].split(",")[0] == want[0].split(",")[0]
+    assert int(line[0].split()[1]) == got["commits"]

@@ -1677,3 +1677,162 @@ def test_range_migration_on_card_matches_cpu(backend, depth):
         tbl = got["states"][1].table
         v = tbl.vpts.reshape(4, 96)[:, 64:]
         assert (v == v[0]).all() and (v[0] != 0).any()
+
+
+# ---------------------------------------------------------------------------
+# The reference phases engine (core/phases.py, runtime.Runtime) on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_phases_apply_inv_duplicate_targets_write_identical_rows_on_card(
+        monkeypatch):
+    """``apply_inv``'s set-scatters could name one key from several lanes
+    that carry the same winning timestamp (a coordinator's INV and a
+    replay of it); ``index_put_`` on the card leaves their order open.
+    At BASELINE config 3 (7 replicas, Zipfian 0.99, full width) with
+    replica 1 frozen across rounds 8-40 (replays of stuck keys), every
+    round's beating lanes are grouped by target: duplicates occur, carry
+    equal (state, ver, fc, value) rows, and the lanes kept for the
+    scatters (``beats``) name every target once, its last lane."""
+    from hermes_tpu_torch import config
+    from hermes_tpu_torch.core import phases
+    from hermes_tpu_torch.runtime import Runtime
+
+    _card()
+    cfg = chip_smoke.baseline_cfg(config, 3)
+    K = cfg.n_keys
+    seen = []
+    real = phases.inv_winners
+
+    def groups(w, beats):
+        """(target, lane) of the given lanes, sorted by target then lane;
+        targets of other lanes are -1 (first)."""
+        n, m = w.key.shape
+        base = torch.arange(n, device=w.key.device)[:, None] * (K + 1)
+        j = torch.where(w.key < 0, w.key + K, w.key)
+        tgt = torch.where(beats, base + j, -1).reshape(-1)
+        order = torch.argsort(tgt, stable=True)
+        return tgt[order], order
+
+    def inv_winners(*args):
+        w = real(*args)
+        row = torch.cat([w.new_state[..., None], w.ver[..., None],
+                         w.fc[..., None], w.val], dim=-1)
+        row = row.reshape(-1, row.shape[-1])
+        t, order = groups(w, w.beats_all)
+        r = row[order]
+        dup = (t[1:] == t[:-1]) & (t[1:] >= 0)
+        differ = dup & (r[1:] != r[:-1]).any(dim=1)
+        # each target's last lane (order holds flat lanes, ascending
+        # within a target) against the lanes kept for the scatters
+        end = torch.cat([t[1:] != t[:-1], t.new_ones(1, dtype=torch.bool)])
+        end &= t >= 0
+        kt, korder = groups(w, w.beats)
+        keep = kt >= 0
+        same = (torch.equal(t[end], kt[keep])
+                and torch.equal(order[end], korder[keep]))
+        seen.append(torch.stack([dup.sum(), differ.sum(),
+                                 torch.tensor(int(not same),
+                                              device=dup.device)]))
+        return w
+
+    monkeypatch.setattr(phases, "inv_winners", inv_winners)
+    rt = Runtime(cfg, backend="batched", device="cuda")
+    for s in range(48):
+        if s == 8:
+            rt.freeze(1)
+        if s == 40:
+            rt.thaw(1)
+        rt.step_once()
+    torch.cuda.synchronize()
+    dup, differ, not_last = torch.stack(seen).sum(0).tolist()
+    assert len(seen) == 48
+    assert dup > 0, "no duplicated target: the check saw nothing"
+    assert differ == 0 and not_last == 0, (dup, differ, not_last)
+
+
+@pytest.mark.gpu
+def test_phases_replay_selection_matches_nonzero_on_card():
+    """The replay scan's sync-free selection (``phases._first_true``)
+    against ``torch.nonzero`` on the card, on the stuck-key mask of a
+    config-3 table with replica 1 frozen, and on masks with fewer, as
+    many and more true rows than slots."""
+    from hermes_tpu_torch import config
+    from hermes_tpu_torch.core import phases
+    from hermes_tpu_torch.core import types as t
+    from hermes_tpu_torch.runtime import Runtime
+
+    dev = _card()
+    cfg = chip_smoke.baseline_cfg(config, 3)
+    rt = Runtime(cfg, backend="batched", device="cuda")
+    for s in range(30):
+        if s == 4:
+            rt.freeze(1)
+        rt.step_once()
+    tbl = rt.rs.table
+    stuck = (((tbl.state == t.INVALID) | (tbl.state == t.TRANS))
+             & (rt.step_idx - tbl.inv_step > 0))
+    g = torch.Generator(device="cpu").manual_seed(5)
+    masks = [stuck, torch.zeros_like(stuck), torch.ones_like(stuck),
+             (torch.rand(stuck.shape, generator=g) < 1e-4).to(dev)]
+    assert bool(stuck.any()), "no stuck key to select"
+    for m in masks:
+        for size, fill in ((cfg.replay_slots, cfg.n_keys), (3, -1)):
+            got = phases._first_true(m, size, fill)
+            for r in range(m.shape[0]):
+                nz = torch.nonzero(m[r]).flatten()[:size].to(torch.int32)
+                want = torch.full((size,), fill, dtype=torch.int32,
+                                  device=dev)
+                want[:nz.numel()] = nz
+                assert torch.equal(got[r], want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["batched", "sharded"])
+def test_phases_round_is_sync_free_on_card(backend):
+    """After the first round (the control rows' upload), an unrecorded
+    ``Runtime.step_once`` makes no host sync at config 1's full width:
+    ``torch.cuda.set_sync_debug_mode("error")`` raises on any."""
+    from hermes_tpu_torch import config
+    from hermes_tpu_torch.runtime import Runtime
+
+    _card()
+    rt = Runtime(chip_smoke.baseline_cfg(config, 1), backend=backend,
+                 device="cuda")
+    rt.run(2)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rt.run(6)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert rt.step_idx == 8
+
+
+@pytest.mark.gpu
+def test_phases_runtime_raises_without_a_visible_card():
+    """On the card's machine with the card hidden
+    (``CUDA_VISIBLE_DEVICES=""``): ``Runtime`` asked for the card, and the
+    TCP driver without ``--device``, raise; nothing falls back to the
+    CPU."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    _card()
+    root = pathlib.Path(__file__).resolve().parent.parent
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    code = ("from hermes_tpu_torch import HermesConfig\n"
+            "from hermes_tpu_torch.runtime import Runtime\n"
+            "Runtime(HermesConfig(n_keys=64, n_sessions=4))\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0 and "is_available" in r.stderr, r.stderr
+    r = subprocess.run([sys.executable, "-m", "hermes_tpu_torch.distributed",
+                        "--rank", "0", "--n-ranks", "2", "--steps", "1"],
+                       cwd=root, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode != 0 and "is_available" in r.stderr, r.stderr

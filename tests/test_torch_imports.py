@@ -14,8 +14,13 @@ chaos/schedule.py, elastic/: a seeded chaos run with the detector, a
 degraded-mode shed, a rolling restart and a rolling resize), and the
 range migration and the fleet (elastic/migrate.py, the range archives,
 fleet/, launch.run_fleet: a migration between two KVSs, a fleet put/get
-with a cross-group move and its checks, a sharded fleet run) on the
-CPU."""
+with a cross-group move and its checks, a sharded fleet run), and the
+reference phases engine (core/timestamps.py, core/phases.py,
+core/step.py, runtime.Runtime on its three backends, transport/ base,
+sim, tcp, rdma and the codec's block layer, chaos/net.py and a wired
+ChaosRunner, distributed.py's helpers) on the CPU.  The TCP driver's
+child processes (``python -m hermes_tpu_torch.distributed``) are probed
+after a real two-rank run over loopback."""
 
 import pathlib
 import subprocess
@@ -138,6 +143,34 @@ assert fl.run_until([g]) and g.result().value == [40, 2]
 assert fl.check()["ok"] and fleet.verify_fleet(fl)["migration_uids"] == 4
 frts = launch.run_fleet(FleetConfig(groups=2, base=cfg), 3, device="cpu")
 assert [r.fleet_group for r in frts] == [0, 1] and frts[1].step_idx == 3
+from hermes_tpu_torch.runtime import Runtime
+from hermes_tpu_torch.core import phases, step as step_lib, timestamps
+from hermes_tpu_torch.transport import base, codec as tcodec, rdma, sim, tcp
+from hermes_tpu_torch.chaos.net import FaultingTransport
+from hermes_tpu_torch import distributed
+pcfg = HermesConfig(n_replicas=3, n_keys=32, n_sessions=4, replay_slots=2,
+                    ops_per_session=6, lease_steps=4)
+for be in ("batched", "sharded", "sim"):
+    prt = Runtime(pcfg, backend=be, record=True, device="cpu")
+    assert prt.drain(200) and prt.check().ok
+wire = FaultingTransport(sim.SimTransport(3), 3, seed=1)
+wire.add("corrupt", 0, 1, 0, 6)
+wrt = Runtime(pcfg, backend="sim", record=True, transport=wire, device="cpu")
+wres = chaos.ChaosRunner(wrt, chaos.Schedule.parse("@1 netdrop 0 dst=2 until=5\n"),
+                         wire=wire).run(8, check=True)
+assert wres["drained"] and wres["checked_ok"] and wire.counters["wire_drop"]
+class _Echo:
+    registry = None
+    def exchange(self, out):
+        return out.copy()
+tt = tcp.TcpHostTransport(pcfg, 0, 3, mesh=_Echo())
+inv = phases.st.empty_invs(pcfg)
+got = tt.exchange_inv(inv, 0)
+assert got.valid.shape == (3, pcfg.n_lanes) and tt.corrupt_dropped == 0
+raw = tcodec.pack(got)
+assert tcodec.unpack(got, raw).key.shape == got.key.shape
+assert distributed.parse_wire_faults("drop:0:1:2:3") == [("drop", 0, 1, 2, 3, 0)]
+assert timestamps.ts_gt(2, 0, 1, 5)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "hermes_tpu" or m.startswith("hermes_tpu."))
@@ -197,3 +230,44 @@ def test_torch_card_only_tools_name_the_card_without_one():
         r = subprocess.run([sys.executable, *cmd], cwd=ROOT,
                            capture_output=True, text=True, timeout=300)
         assert r.returncode != 0 and "needs a CUDA card" in r.stderr, r
+
+
+def test_torch_phases_engine_modules_are_in_the_scan():
+    """The reference engine's modules exist where the import scan reads
+    them, and the TCP library's source is in the package."""
+    for rel in ("core/timestamps.py", "core/phases.py", "core/step.py",
+                "transport/base.py", "transport/sim.py", "transport/tcp.py",
+                "transport/rdma.py", "transport/codec.py", "chaos/net.py",
+                "distributed.py", "native/tcp_transport.cpp"):
+        assert (ROOT / "hermes_tpu_torch" / rel).is_file(), rel
+
+
+CHILD = r"""
+import runpy, sys
+sys.argv = ["hermes_tpu_torch.distributed"] + sys.argv[1:]
+runpy.run_module("hermes_tpu_torch.distributed", run_name="__main__")
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "hermes_tpu" or m.startswith("hermes_tpu."))
+print("LEAKED", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_torch_distributed_children_import_neither_jax_nor_reference(
+        tmp_path):
+    """Two ranks of ``python -m hermes_tpu_torch.distributed`` over
+    loopback TCP, each probed after its run."""
+    from torch_refpair import free_base_port
+
+    port = free_base_port(2)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", CHILD, "--rank", str(r), "--n-ranks", "2",
+         "--steps", "6", "--base-port", str(port), "--device", "cpu",
+         "--out", str(tmp_path / f"r{r}.pkl")], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    for p in procs:
+        out, err = p.communicate(timeout=240)
+        assert p.returncode == 0, out + err
+        assert "LEAKED []" in out
