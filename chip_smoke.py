@@ -199,6 +199,39 @@ prints no result):
    (``cpu_reference``); ``phases-cpu`` holds the card's states, fault
    logs and executed chaos log to it byte for byte.  No hand kernel
    launches across phases 19-22 (their counters must not move).
+23. serve — the serving front end (``serving.Frontend``) over a recorded
+   ``KVS`` at the reads shape: ``run_open_loop`` of 4,000 requests at
+   24 a virtual round, deadlines of 4 rounds, an envelope the load
+   overruns (the store takes 32 ops at a time) and
+   ``Schedule.overload_storm`` through ``ChaosRunner(load=arrivals)``,
+   twice: ``verify_serving``, the checker, the ops handed to the store =
+   the device op counters = the recorded completions, refusals,
+   deadlines and commits all present, one response log between the two
+   runs; the same drive at a small shape on the card and on the CPU
+   port: one response log.  Inside, any host sync with the card outside
+   the store's rounds raises (``frontend_sync_free``).
+24. serve-columnar, serve-columnar-mega — ``run_columnar_soak`` of 2^22
+   ops at the reads shape, unrecorded, 393,216 arrivals a round (the
+   lane budget), fused and with ``mega_round=True``: every request
+   answered ok, ops/s and host us a round, the lanes holding an op each
+   round, each kernel launched once a round (``mega_replay`` on the
+   replay-scan rounds); then a soak of two rounds of arrivals over a
+   fresh store traced by ``torch.profiler``: device us and CUDA kernels
+   a round, the card's busy and idle shares.
+25. serve-socket — ``serving.bench.run_serve_bench``'s capacity probe
+   (500 requests), latency (2,000, open loop) and throughput (4,000)
+   points through a localhost ``TcpRpcServer``
+   at ``host_cfg(mode, on_card=True)``: client-socket p50/p99 and ops/s,
+   every request answered, no cell with an error.
+26. serve-one-store — first the host (``serve-host``: SO_REUSEPORT on
+   two listeners, the size of /dev/shm), then ``run_one_store_cell``:
+   two torch-free shm front-end processes feeding one store on the card,
+   four client processes: every row answered once (rows in = rows out =
+   rows sent, requests = responses), ops/s.
+   Each serving phase holds ``stats_block``'s launches equal to its
+   store rounds; the kernels line carries them as ``serve_launches``,
+   ``serve_columnar_launches`` (and B2-B4's of the mega run),
+   ``serve_socket_launches`` and ``serve_one_store_launches``.
 
 Then the whole smoke's seconds, the kernels summary line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.  Without a
@@ -3646,6 +3679,374 @@ def run_phases_engine(torch, ph, counters, card):
     return dict(phases=runs, sharded=sharded, sim_wire=wire, tcp=tcp,
                 launches=moved)
 
+# --------------------------------------------------------------------------
+# The serving front end: Frontend and ColumnarFrontend over a KVS on the
+# card, the socket servers and the shm one-store plane
+# --------------------------------------------------------------------------
+
+SERVE_OPS = 4000  # open-loop requests of one serve run
+SERVE_RATE = 24_000.0  # a virtual second: 24 arrivals a 1,000-us round
+SERVE_DEADLINE_US = 4_000
+SERVE_SEED = 19
+SERVE_STORM = (5, 60)  # Schedule.overload_storm seed, steps
+# an envelope the open loop overruns: the store takes 32 ops at a time,
+# so the intake queue fills and the shed ladder, the quotas, the buckets
+# and the deadlines all act
+SERVE_ENVELOPE = dict(tenant_rate_per_s=12_000.0, tenant_burst=64.0,
+                      tenant_quota=48, queue_cap=192, store_inflight_cap=32,
+                      hot_keys=(0, 1, 2, 3), round_us=1000)
+# tests/test_serving.py's store, at depth 2: the card against the CPU port
+SERVE_SMALL = dict(n_replicas=3, n_keys=64, n_sessions=4, replay_slots=6,
+                   ops_per_session=96, value_words=6, replay_age=6,
+                   replay_scan_every=4, rebroadcast_every=2, lease_steps=6,
+                   pipeline_depth=2)
+COLUMNAR_OPS = 1 << 22
+# arrivals a 1,000-us virtual round: the lane budget (3/4 of the 65,536
+# sessions of each of 8 replicas); an op holds its lane about one round
+COLUMNAR_PER_ROUND = 393216
+COLUMNAR_SEED = 23
+# rounds of arrivals of the traced columnar soak: ~3 store rounds, ~2,000
+# CUDA kernels, under the ~3,000 at which a trace comes back short
+COLUMNAR_TRACED = 2
+COLUMNAR_ENVELOPE = dict(tenant_rate_per_s=1e12, tenant_burst=1e12,
+                         tenant_quota=1 << 22, queue_cap=1 << 21,
+                         resp_meta_cap=1 << 22, round_us=1000)
+ONE_STORE_WORKERS = 2
+# run_serve_bench's n: the latency point's requests (its p99 the 20th
+# largest), 2n at the throughput point, n / 4 for the capacity probe
+SOCKET_N = 2000
+
+
+@contextlib.contextmanager
+def frontend_sync_free(torch, on_card, store, runner=None):
+    """Inside: a host sync with the card raises anywhere but in the
+    store's own rounds (``step``, ``flush``, ``rt.flush_pipeline``: the
+    harvest) and the chaos runner's tick, which run with the check off.
+    So the serving front end itself reads nothing back from the card."""
+    if not on_card:
+        yield
+        return
+    saved = []
+
+    def exempt(obj, attr):
+        saved.append((obj, attr, vars(obj).get(attr)))
+        fn = getattr(obj, attr)
+
+        def unchecked(*args, **kwargs):
+            torch.cuda.set_sync_debug_mode("default")
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+
+        setattr(obj, attr, unchecked)
+
+    for obj, attr in ((store, "step"), (store, "flush"),
+                      (store.rt, "flush_pipeline"), (runner, "tick")):
+        if obj is not None:
+            exempt(obj, attr)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        for obj, attr, old in reversed(saved):
+            if old is None:
+                delattr(obj, attr)
+            else:
+                setattr(obj, attr, old)
+
+
+def serve_drive(torch, sv, cfg, device):
+    """One ``run_open_loop`` over a recorded KVS under an overload storm
+    (``ChaosRunner(load=arrivals)``): (summary, store, wall seconds)."""
+    store = sv.KVS(cfg, record="array", device=device)
+    arrivals = sv.ShapedArrivals(SERVE_RATE, SERVE_OPS, SERVE_SEED)
+    runner = sv.chaos.ChaosRunner(
+        store, sv.chaos.Schedule.overload_storm(*SERVE_STORM), load=arrivals)
+    scfg = sv.ServingConfig(**SERVE_ENVELOPE)
+    on_card = str(device).startswith("cuda")
+    sv.sync()
+    t0 = time.perf_counter()
+    with frontend_sync_free(torch, on_card, store, runner):
+        res = sv.run_open_loop(
+            store, scfg, sv.MixSpec(tenants=4), rate_per_s=SERVE_RATE,
+            n=SERVE_OPS, seed=SERVE_SEED, deadline_us=SERVE_DEADLINE_US,
+            chaos_runner=runner, arrivals=arrivals)
+    sv.sync()
+    return res, store, time.perf_counter() - t0
+
+
+def phase_serve(torch, sv, card):
+    """The serving front end at the reads shape on the card: two recorded
+    open-loop runs under an overload storm, each held to
+    ``verify_serving`` (inside ``run_open_loop``), the checker and counter
+    conservation (the ops the front end handed the store = the device op
+    counters = the recorded completions), one response log between them;
+    then the same drive at ``SERVE_SMALL`` on the card and on the CPU
+    port: one response log.  No host sync outside the store's rounds."""
+    sv.kernels.stats_block.launches = 0
+    t0 = time.perf_counter()
+    runs, rounds = [], 0
+    for _ in range(2):
+        res, store, wall = serve_drive(torch, sv, sv.kvs_cfg(), sv.device)
+        fe = res["_frontend"]
+        c = store.rt.counters()
+        device_ops = int(c["n_read"] + c["n_write"] + c["n_rmw"]
+                         + c["n_abort"])
+        tc = time.perf_counter()
+        v = store.rt.check()
+        rounds += store.rt.step_idx
+        runs.append(dict(
+            sha=res["response_log_sha"], rounds=store.rt.step_idx,
+            wall_s=wall, host_us_per_round=wall / store.rt.step_idx * 1e6,
+            answered_per_s=res["ops_offered"] / wall,
+            completed_per_s=res["completed"] / wall,
+            check_ok=v.ok, check_s=time.perf_counter() - tc,
+            issued=sum(fe._lane_seq.values()), device_ops=device_ops,
+            recorded=store.rt.recorder.n_recorded,
+            summary={k: res[k] for k in (
+                "sent", "statuses", "admitted", "completed", "retry_after",
+                "shed", "deadline", "lost", "rejected", "p50_latency_us",
+                "p99_latency_us", "virtual_seconds")}))
+        del store, res, fe
+    small = {}
+    for dev in dict.fromkeys((str(sv.device), "cpu")):
+        cfg = sv.HermesConfig(**SERVE_SMALL)
+        res, store, _ = serve_drive(torch, sv, cfg, dev)
+        if dev == str(sv.device):
+            rounds += store.rt.step_idx
+        small[str(dev)] = dict(sha=res["response_log_sha"],
+                               check_ok=store.rt.check().ok,
+                               rounds=store.rt.step_idx)
+    launches = sv.kernels.stats_block.launches
+    emit({"phase": "serve", "nvidia_smi": card, "runs": runs,
+          "small": small, "stats_block_launches": launches,
+          "rounds": rounds, "seconds": time.perf_counter() - t0})
+    a, b = runs
+    if a["sha"] != b["sha"] or a["summary"] != b["summary"]:
+        raise AssertionError("two serve runs on the card gave different "
+                             "response logs")
+    if len({r["sha"] for r in small.values()}) != 1:
+        raise AssertionError(f"the card's small serve run differs from the "
+                             f"CPU port's: {small}")
+    for r in runs + list(small.values()):
+        if not r["check_ok"]:
+            raise AssertionError("serve: the checker failed")
+    for r in runs:
+        if not r["issued"] == r["device_ops"] == r["recorded"]:
+            raise AssertionError(f"serve: ops issued {r['issued']}, device "
+                                 f"ops {r['device_ops']}, recorded "
+                                 f"{r['recorded']}")
+        s = r["summary"]
+        if not (s["retry_after"] and s["deadline"] and s["completed"]):
+            raise AssertionError(f"serve: the envelope did not act: {s}")
+    if launches != rounds:
+        raise AssertionError(f"stats_block launches {launches} != serve "
+                             f"rounds {rounds}")
+    return dict(launches={"stats_block": launches})
+
+
+def columnar_drive(torch, sv, store, n=None):
+    """One unrecorded ``run_columnar_soak`` of ``n`` (``COLUMNAR_OPS``)
+    ops at ``COLUMNAR_PER_ROUND`` arrivals a round over ``store``:
+    (summary, wall seconds, the lanes holding an op in each round)."""
+    busy = []
+    round_once = store.rt.step_once  # the KVS's round at depth 1
+    nop = sv.types.OP_NOP
+
+    def counted():
+        busy.append(int((store._kindarr != nop).sum()))
+        return round_once()
+
+    store.rt.step_once = counted
+    scfg = sv.ServingConfig(**COLUMNAR_ENVELOPE)
+    on_card = str(sv.device).startswith("cuda")
+    sv.sync()
+    t0 = time.perf_counter()
+    with frontend_sync_free(torch, on_card, store):
+        res = sv.run_columnar_soak(
+            store, scfg, sv.MixSpec(tenants=4),
+            rate_per_s=COLUMNAR_PER_ROUND / 1e-3,
+            n=COLUMNAR_OPS if n is None else n, seed=COLUMNAR_SEED,
+            deadline_us=0)
+    sv.sync()
+    wall = time.perf_counter() - t0
+    del store.rt.step_once
+    return res, wall, busy
+
+
+def phase_serve_columnar(torch, sv, counters, card):
+    """The columnar data plane at the reads shape, unrecorded, at a rate
+    that keeps most lanes busy: once on the fused round, once with
+    ``mega_round=True``.  Each passes ``verify_columnar`` (inside the
+    soak), answers every request, and launches each kernel of its round
+    once a round (``mega_replay`` on the replay-scan rounds).  On the
+    card a second, shorter soak of ``COLUMNAR_TRACED`` arrival rounds
+    over a fresh store runs under ``torch.profiler``: the device time a
+    round and the card's idle share while the front end feeds it."""
+    on_card = str(sv.device).startswith("cuda")
+    out, total = [], dict.fromkeys(counters, 0)
+    for mega_round in (False, True):
+        cfg = sv.kvs_cfg(mega_round=mega_round)
+        for w in counters.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        store = sv.KVS(cfg, device=sv.device)
+        res, wall, busy = columnar_drive(torch, sv, store)
+        launches = {n: w.launches for n, w in counters.items()}
+        rounds = store.rt.step_idx
+        want = expected_launches(cfg, 0, rounds)
+        lanes = cfg.n_replicas * cfg.n_sessions
+        answered = sum(res["statuses"].values())
+        row = dict(mega_round=mega_round, ops=res["ops_offered"],
+                   answered=answered, statuses=res["statuses"],
+                   rounds=rounds, wall_s=wall,
+                   ops_per_s=answered / wall,
+                   host_us_per_round=wall / rounds * 1e6,
+                   lanes=lanes, busy_mean=sum(busy) / max(1, len(busy)),
+                   busy_peak=max(busy, default=0),
+                   busy_share_mean=sum(busy) / max(1, len(busy)) / lanes,
+                   launches={k: launches[k] for k in want})
+        del store, res
+        if on_card:
+            row["traced"] = trace_columnar(torch, sv, cfg)
+        row["seconds"] = time.perf_counter() - t0
+        emit(dict({"phase": "serve-columnar-mega" if mega_round
+                   else "serve-columnar", "nvidia_smi": card}, **row))
+        if answered != row["ops"] or \
+                row["statuses"].get("ok", 0) != answered:
+            raise AssertionError(f"serve-columnar: {row['statuses']}")
+        if {k: launches[k] for k in want} != want or any(
+                launches[k] for k in counters if k not in want):
+            raise AssertionError(f"serve-columnar launches {launches}, "
+                                 f"want {want}")
+        for k in counters:
+            total[k] += launches[k]
+        out.append(row)
+    return dict(launches=total, runs=out)
+
+
+def trace_columnar(torch, sv, cfg):
+    """A columnar soak of ``COLUMNAR_TRACED`` rounds of arrivals over a
+    fresh store, traced whole by ``torch.profiler`` (the store is built
+    before the trace): device us and CUDA kernels a round, and the
+    card's busy and idle shares of the traced wall time (the profiler's
+    own host cost included).  Raises if the trace holds no device time
+    or a request went unanswered."""
+    from hermes_tpu_torch.profiling import device_busy
+
+    store = sv.KVS(cfg, device=sv.device)
+    first = store.rt.step_idx
+    got = []
+    prof = device_busy(lambda: got.append(columnar_drive(
+        torch, sv, store, n=COLUMNAR_TRACED * COLUMNAR_PER_ROUND)))
+    res = got[0][0]
+    rounds = store.rt.step_idx - first
+    answered = sum(res["statuses"].values())
+    if answered != res["ops_offered"]:
+        raise AssertionError(f"serve-columnar traced: {res['statuses']}")
+    share = prof["busy_s"] / prof["wall_s"]
+    return dict(ops=res["ops_offered"], rounds=rounds,
+                wall_s=prof["wall_s"],
+                host_us_per_round=prof["wall_s"] / rounds * 1e6,
+                device_us_per_round=prof["busy_s"] / rounds * 1e6,
+                cuda_kernels_per_round=prof["launches"] / rounds,
+                device_busy_share=share, device_idle_share=1.0 - share,
+                top_device_us_per_round=[
+                    [name, us / rounds, cnt / rounds]
+                    for us, cnt, name in prof["top"]])
+
+
+def serve_host(socket):
+    """What the serving plane needs of the host: SO_REUSEPORT (two
+    listeners on one port) and the size of /dev/shm."""
+    from hermes_tpu_torch.transport.tcp import serving_listener
+
+    a = serving_listener("127.0.0.1", 0, reuseport=True)
+    b = serving_listener("127.0.0.1", a.getsockname()[1], reuseport=True)
+    a.close()
+    b.close()
+    st = os.statvfs("/dev/shm")
+    return dict(so_reuseport=True, dev_shm_bytes=st.f_blocks * st.f_frsize,
+                dev_shm_free_bytes=st.f_bavail * st.f_frsize)
+
+
+def phase_serve_socket(torch, sv, card):
+    """``run_serve_bench``'s latency and throughput points through a real
+    localhost ``TcpRpcServer`` at ``host_cfg(mode, on_card=True)``:
+    client-socket p50/p99 and ops/s; every request answered, every cell
+    without error, ``stats_block`` once a store round."""
+    sv.kernels.stats_block.launches = 0
+    t0 = time.perf_counter()
+    out = sv.run_serve_bench(n=SOCKET_N, device=sv.device,
+                             scenarios=False, columnar=False)
+    cells = dict(out["cells"], capacity_probe=out["capacity_probe"])
+    launches = sv.kernels.stats_block.launches
+    rounds = sum(c["rounds"] for c in cells.values())
+    keep = ("ops", "answered", "wall_s", "ops_per_sec", "statuses",
+            "p50_us", "p99_us", "p50_all_us", "p99_all_us", "rate_per_s",
+            "window", "pipeline_depth", "rounds", "error")
+    emit({"phase": "serve-socket", "nvidia_smi": card,
+          "cells": {n: {k: c.get(k) for k in keep} for n, c in cells.items()},
+          "latency_p50_improves": out["latency_p50_improves"],
+          "device": out["device"], "stats_block_launches": launches,
+          "rounds": rounds, "seconds": time.perf_counter() - t0})
+    for n, c in cells.items():
+        if c["error"] is not None or c["answered"] != c["ops"]:
+            raise AssertionError(f"serve-socket cell {n}: answered "
+                                 f"{c['answered']} of {c['ops']}, error "
+                                 f"{c['error']}")
+    if out.get("errors"):
+        raise AssertionError(f"serve-socket: {out['errors']}")
+    if launches != rounds:
+        raise AssertionError(f"stats_block launches {launches} != socket "
+                             f"cells' rounds {rounds}")
+    return dict(launches={"stats_block": launches})
+
+
+def phase_serve_one_store(torch, sv, card):
+    """``run_one_store_cell``: ``ONE_STORE_WORKERS`` shm front-end
+    processes (no torch in them) feeding one store on the card, client
+    processes driving closed-loop columnar batches.  Every row answered
+    exactly once (the owner's rows in = rows out = the clients' rows, the
+    front end's requests = responses), no error."""
+    import socket
+
+    host = serve_host(socket)
+    emit({"phase": "serve-host", **host})
+    sv.kernels.stats_block.launches = 0
+    t0 = time.perf_counter()
+    c = sv.run_one_store_cell(ONE_STORE_WORKERS, device=sv.device)
+    launches = sv.kernels.stats_block.launches
+    rows = c["clients"] * (c["ops"] // c["clients"] + c["batch"])
+    emit({"phase": "serve-one-store", "nvidia_smi": card, **c,
+          "rows_sent": rows, "stats_block_launches": launches,
+          "seconds": time.perf_counter() - t0})
+    if c["error"] is not None:
+        raise AssertionError(f"serve-one-store: {c['error']}")
+    ipc = c["ipc"]
+    if not (c["answered"] == c["ops"] == sum(c["statuses"].values())
+            and ipc["rows_in"] == ipc["rows_out"] == rows
+            and c["requests"] == c["responses"] == rows
+            and not ipc["dead_drop_rows"] and not ipc["dead_workers"]):
+        raise AssertionError(f"serve-one-store: rows not answered exactly "
+                             f"once: {c}")
+    if launches != c["rounds"]:
+        raise AssertionError(f"stats_block launches {launches} != one-store "
+                             f"rounds {c['rounds']}")
+    return dict(launches={"stats_block": launches})
+
+
+def run_serving(torch, sv, counters, card):
+    """The four serving phases; the kernels line's ``serve_*_launches``."""
+    return {"serve": phase_serve(torch, sv, card)["launches"],
+            "serve_columnar": phase_serve_columnar(
+                torch, sv, counters, card)["launches"],
+            "serve_socket": phase_serve_socket(torch, sv, card)["launches"],
+            "serve_one_store": phase_serve_one_store(
+                torch, sv, card)["launches"]}
+
 
 def main(argv=None):
     import argparse
@@ -3870,6 +4271,28 @@ def main(argv=None):
         for name, row in rows.items():
             if name in counters:
                 row["phases_engine_launches"] = engine["launches"][name]
+        torch.cuda.empty_cache()
+        from hermes_tpu_torch import serving
+        from hermes_tpu_torch.serving import bench as serve_bench
+        from hermes_tpu_torch.serving import soak as serve_soak
+        from hermes_tpu_torch.workload import openloop
+
+        sv = SimpleNamespace(
+            kvs_cfg=lambda **over: _kvs_cfg(config, **over),
+            HermesConfig=config.HermesConfig, device="cuda", KVS=KVS,
+            kernels=kernels, types=types, chaos=chaos_lib,
+            ShapedArrivals=openloop.ShapedArrivals, MixSpec=openloop.MixSpec,
+            ServingConfig=serving.ServingConfig,
+            run_open_loop=serving.run_open_loop,
+            run_columnar_soak=serve_soak.run_columnar_soak,
+            run_serve_bench=serve_bench.run_serve_bench,
+            run_one_store_cell=serve_bench.run_one_store_cell,
+            sync=torch.cuda.synchronize)
+        served = run_serving(torch, sv, counters, card)
+        for name, row in rows.items():
+            for tag, got in served.items():
+                if name in got:
+                    row[f"{tag}_launches"] = got[name]
         emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     except Exception:
         traceback.print_exc()

@@ -12,11 +12,38 @@ Entry points run on the card unless the caller passes ``device="cpu"``:
     rt = FastRuntime(HermesConfig(n_keys=512, n_sessions=16), record=True)
     assert rt.drain(500) and rt.check().ok
 
-This package imports ``torch`` and never ``jax`` or ``hermes_tpu``.
+This package imports ``torch`` and never ``jax`` or ``hermes_tpu``.  The
+top-level exports resolve lazily (module ``__getattr__``): importing the
+package, or a torch-free module under it (``serving.ipc``,
+``transport.shm``, ``serving.wire``), loads no ``torch`` — the serving
+front-end worker processes depend on that.
 """
 
-from hermes_tpu_torch.config import HermesConfig, WorkloadConfig
-from hermes_tpu_torch.kvs import KVS
-from hermes_tpu_torch.runtime import FastRuntime
+import importlib
 
-__all__ = ["HermesConfig", "WorkloadConfig", "FastRuntime", "KVS"]
+__all__ = ["HermesConfig", "WorkloadConfig", "FleetConfig", "FastRuntime",
+           "Runtime", "KVS", "MultiGetResult", "KeyIndex", "RangeRouter",
+           "Fleet", "FleetRouter", "Frontend", "ServingConfig"]
+
+# the module each export lives in, imported on first use
+_HOME = {
+    "HermesConfig": "config", "WorkloadConfig": "config",
+    "FleetConfig": "config", "KVS": "kvs", "MultiGetResult": "kvs",
+    "KeyIndex": "keyindex", "RangeRouter": "keyindex", "Fleet": "fleet",
+    "FleetRouter": "fleet.router", "FastRuntime": "runtime",
+    "Runtime": "runtime", "Frontend": "serving.server",
+    "ServingConfig": "serving.server",
+}
+
+
+def __getattr__(name):
+    # resolved names are cached in module globals, so this runs once a name
+    if name not in _HOME:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    obj = getattr(importlib.import_module(f"{__name__}.{_HOME[name]}"), name)
+    globals()[name] = obj
+    return obj
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

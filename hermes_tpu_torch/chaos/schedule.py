@@ -37,7 +37,9 @@ dropped (the reference's ``_check_net_faults_routable``): the wire verbs
 ``chaos.net.FaultingTransport`` over the target's host transport; the
 legacy ``net_*`` verbs ``net=`` (a ``NetChaos``) or ``wire=``;
 ``partition`` ``wire=`` or an attached detector; ``overload`` a load
-shaper (the serving slice, A13); ``powercut`` a caller's kill carrier.
+shaper (``load=``, a ``workload.openloop.ShapedArrivals`` that
+``serving.soak.run_open_loop`` consumes); ``powercut`` a caller's kill
+carrier.
 On the phases engine's ``Runtime`` a ``crash_restart`` is skipped and
 logged (``chaos.recovery`` restarts the fast engines' state), as in the
 reference.

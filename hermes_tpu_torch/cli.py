@@ -18,6 +18,8 @@
     python -m hermes_tpu_torch --value-words 6 --fleet-groups 3 --check
     python -m hermes_tpu_torch --backend sim --keys 512 --sessions 16 \
         --check
+    python -m hermes_tpu_torch --value-words 6 --serve 2000 --check
+    python -m hermes_tpu_torch --value-words 6 --bench-latency
 
 The default fast-backend drive of ``hermes_tpu/cli.py``: with ``--steps
 0`` (the default) the run drains every session's op stream; ``--check``
@@ -37,7 +39,13 @@ elastic drill and prints one JSON line; ``--degraded-floor N`` sets
 runs N key-sharded groups behind the routed ``fleet.Fleet`` facade: a
 seeded mix of ``--fleet-ops`` ops over every group's range, one JSON
 line with per-group and fleet counters (``--check``: every group's
-checker and ``verify_fleet``).
+checker and ``verify_fleet``).  ``--serve N`` drives N open-loop Poisson
+ops (``--serve-rate``, ``--serve-deadline-us``) through the serving front
+end's byte-honest loopback over the KVS and prints one JSON line
+(``--check``: the checker; the serving invariants always hold or the run
+raises); ``--trace-sample`` and ``--metrics-out`` trace it and
+``--wal-dir`` logs it.  ``--bench-latency`` measures the serving latency
+point from a real client socket (one JSON line).
 ``--backend fast-sharded`` runs the three drives on the sharded engine
 (one table copy a replica, every replica in this process: a
 ``LocalGroup``).  ``--backend batched|sharded|sim`` runs the reference
@@ -183,6 +191,29 @@ def build_parser() -> argparse.ArgumentParser:
                          "--backend fast")
     ap.add_argument("--fleet-ops", type=int, default=512,
                     help="ops in the fleet mix (--fleet-groups)")
+    ap.add_argument("--serve", type=int, default=None, metavar="N",
+                    help="serving front-end drive (hermes_tpu_torch."
+                         "serving): N open-loop Poisson ops through the "
+                         "byte-honest loopback RPC server over the KVS "
+                         "(admission, deadlines, backpressure, the shed "
+                         "ladder), one JSON summary line; --check also "
+                         "gates the checker.  Needs --value-words >= 3; "
+                         "fast batched backend")
+    ap.add_argument("--serve-rate", type=float, default=8000.0,
+                    help="open-loop arrival rate (ops per virtual second) "
+                         "of --serve")
+    ap.add_argument("--serve-deadline-us", type=int, default=50_000,
+                    metavar="US",
+                    help="client deadline of --serve ops (virtual "
+                         "microseconds; 0 = none)")
+    ap.add_argument("--bench-latency", action="store_true",
+                    help="measure the serving latency operating point "
+                         "end to end from a real client socket (framed "
+                         "RPC over localhost TCP) and print one JSON line "
+                         "with p50/p99")
+    ap.add_argument("--locklint", action="store_true",
+                    help="the dynamic lock-order sanitizer of the serving "
+                         "drives: not ported yet (ROADMAP A16), refused")
     ap.add_argument("--wal-dir", type=str, default=None, metavar="DIR",
                     help="append every committed write of the fast drive "
                          "to a CRC-framed write-ahead log under DIR "
@@ -429,6 +460,88 @@ def _run_fleet(args, cfg) -> int:
     return 0 if ok else 1
 
 
+def _run_serve(args, cfg) -> int:
+    """The serving drive: N open-loop Poisson ops through the loopback
+    RPC path over the KVS (admission, deadlines, backpressure, shedding)
+    as one JSON summary line; ``verify_serving`` runs inside
+    ``run_open_loop`` (it raises on a broken invariant), ``--check``
+    adds the checker."""
+    from hermes_tpu_torch.kvs import KVS
+    from hermes_tpu_torch.serving import ServingConfig, run_open_loop
+    from hermes_tpu_torch.workload.openloop import MixSpec
+
+    kvs = KVS(cfg, record="array" if args.check else False,
+              device=args.device)
+    obs = None
+    if args.metrics_out or args.trace_sample:
+        # the traced serving drive: spans and series ride the run log;
+        # the report renders the per-op critical path
+        from hermes_tpu_torch.obs import Observability
+
+        obs = kvs.rt.attach_obs(Observability(path=args.metrics_out,
+                                              trace_steps=args.trace_steps))
+    scfg = ServingConfig(trace_sample=args.trace_sample,
+                         trace_seed=args.seed)
+    spec = MixSpec(name=cfg.workload.distribution,
+                   distribution=cfg.workload.distribution,
+                   zipf_theta=cfg.workload.zipf_theta,
+                   read_frac=cfg.workload.read_frac)
+    res = run_open_loop(
+        kvs, scfg, spec,
+        rate_per_s=args.serve_rate, n=args.serve, seed=args.seed,
+        deadline_us=args.serve_deadline_us)
+    if kvs.wal is not None:
+        kvs.wal.sync()
+        kvs.wal.close()
+    summary = {k: v for k, v in res.items() if not k.startswith("_")}
+    ok = True
+    if args.check:
+        # the verdict is a trace event: the run log closes after it
+        v = kvs.rt.check(max_keys=CHECK_KEYS)
+        summary["checked_ok"] = bool(v.ok)
+        ok = ok and v.ok
+    if obs is not None:
+        obs.series_snapshot()
+        obs.close()
+    summary["ok"] = bool(ok)
+    print(json.dumps(summary, default=str))
+    return 0 if ok else 1
+
+
+def _run_bench_latency(args) -> int:
+    """The serving latency point measured end to end from a real client
+    socket: a closed-loop capacity probe, then open loop at 0.2x it (a
+    fixed rate above this machine's service rate would measure queueing
+    delay, not service latency)."""
+    from hermes_tpu_torch.device import resolve
+    from hermes_tpu_torch.serving.bench import (DISPATCH_LOOP_P50_MS,
+                                                host_cfg,
+                                                improves_dispatch_loop,
+                                                run_socket_cell)
+    from hermes_tpu_torch.serving.server import ServingConfig
+    from hermes_tpu_torch.workload.openloop import MixSpec
+
+    on_card = resolve(args.device).type == "cuda"
+    scfg = ServingConfig(tenant_rate_per_s=1e6, tenant_burst=1e5,
+                         tenant_quota=64, queue_cap=256)
+    cfg = host_cfg("latency", on_card)
+    probe = run_socket_cell(cfg, scfg, MixSpec(), n=32, mode="closed",
+                            window=8, seed=args.seed, device=args.device)
+    cell = run_socket_cell(cfg, scfg, MixSpec(), n=64, mode="open",
+                           rate_per_s=max(10.0,
+                                          0.2 * probe["ops_per_sec"]),
+                           seed=args.seed, device=args.device)
+    cell["capacity_probe_ops_per_sec"] = probe["ops_per_sec"]
+    cell["dispatch_loop_p50_ms"] = DISPATCH_LOOP_P50_MS
+    cell["improves_dispatch_loop"] = improves_dispatch_loop(cell["p50_us"])
+    # a cell that lost its server or part of its answers is not a pass,
+    # however good the answered-prefix percentiles look
+    cell["ok"] = (bool(cell["improves_dispatch_loop"])
+                  and cell["error"] is None and probe["error"] is None)
+    print(json.dumps(cell, default=str))
+    return 0 if cell["ok"] else 1
+
+
 def _freeze_faults(ap, args):
     """The --freeze windows as (step, replica, action) in firing order,
     thaw before freeze at one step; argument errors leave before any
@@ -478,9 +591,36 @@ def main(argv=None) -> int:
         ("--reads", args.reads is not None),
         ("--value-bytes", args.value_bytes is not None),
         ("--drill", bool(args.drill)), ("--chaos", bool(chaos_on)),
-        ("--fleet-groups", bool(args.fleet_groups))) if on]
+        ("--fleet-groups", bool(args.fleet_groups)),
+        ("--serve", args.serve is not None),
+        ("--bench-latency", args.bench_latency)) if on]
+    if args.locklint:
+        ap.error("--locklint (the dynamic lock-order sanitizer, the "
+                 "reference's analysis/lockgraph.py) is not ported yet: "
+                 "ROADMAP A16")
     if args.chaos is not None and args.chaos_schedule:
         ap.error("--chaos and --chaos-schedule are mutually exclusive")
+    # the serving drives' refusals, in the reference CLI's words
+    others = bool(args.drill or args.fleet_groups or chaos_on
+                  or args.freeze)
+    if args.serve is not None:
+        if args.serve < 1:
+            ap.error("--serve wants a positive op count")
+        if args.bench_latency:
+            ap.error("--serve and --bench-latency are separate drives; "
+                     "pick one")
+        if args.backend != "fast":
+            ap.error("--serve drives the fast batched backend through the "
+                     "KVS facade (hermes_tpu_torch/serving)")
+        if args.value_words < 3:
+            ap.error("--serve needs --value-words >= 3 (words 0-1 carry "
+                     "the write uid)")
+        if others:
+            ap.error("--serve is its own drive; drop --acceptance/--drill/"
+                     "--fleet-groups/--chaos/--freeze")
+    if args.bench_latency and others:
+        ap.error("--bench-latency is its own drive; drop --acceptance/"
+                 "--drill/--fleet-groups/--chaos/--freeze")
     if args.backend not in FAST:
         # the reference CLI's refusals on its phases backends
         if args.arb_mode != "race" or args.chain_writes or args.mega_round:
@@ -577,6 +717,10 @@ def main(argv=None) -> int:
         return _run_drill(args, cfg)
     if args.fleet_groups:
         return _run_fleet(args, cfg)
+    if args.serve is not None:
+        return _run_serve(args, cfg)
+    if args.bench_latency:
+        return _run_bench_latency(args)
     faults = _freeze_faults(ap, args)
     sched = None
     if chaos_on:

@@ -128,6 +128,9 @@ class StuckOpError(RuntimeError):
                 f"phase={d['phase']}"
                 + (f" drill={d['drill']}" if "drill" in d else "")
                 + (f" net={d['net']}" if "net" in d else "")
+                + (f" tenant={d['tenant']}" if "tenant" in d else "")
+                + (f" deadline_left_us={d['deadline_left_us']}"
+                   if "deadline_left_us" in d else "")
                 + f" age={d['age_rounds']}"
                 for d in diagnostics[:4]))
 
@@ -379,6 +382,11 @@ class KVS:
         self.drill_phase: Optional[str] = None
         self._degraded = False
         self.net_phase: Optional[dict] = None
+        # a serving front end that drives this KVS installs a per-op
+        # diagnostics hook: the watchdog calls it with the stuck
+        # (replica, session) and merges what it returns (tenant, the
+        # deadline budget left) into the diagnostic
+        self.diag_hook = None
         # sparse-key mode: 64-bit client keys -> dense slots
         self.index: Optional[KeyIndex] = (KeyIndex(cfg.n_keys) if sparse_keys
                                           else None)
@@ -430,6 +438,9 @@ class KVS:
         else:
             self._sampler = None
         self._trace_seq = 0
+        # an id minted upstream (the serving front end, off the wire
+        # field), taken by the next _enqueue instead of a sampled one
+        self._staged_trace = 0
         self._op_tracer_cache = None
 
     def _op_tracer(self):
@@ -496,13 +507,15 @@ class KVS:
             # and the client is told now
             return self._rejected_future(client_key)
         fut = Future()
-        # trace mint: the submit sequence ticks for EVERY accepted
+        # trace mint: adopt an id staged by the serving layer, else
+        # sample one; the submit sequence ticks for EVERY accepted
         # submission, so replays sample the same ops
-        if self._sampler is not None:
+        trace, self._staged_trace = self._staged_trace, 0
+        if not trace and self._sampler is not None:
             trace = self._sampler.sample(self._trace_seq)
-            if trace:
-                fut._trace = trace
-                fut._trace_r0 = self.rt.step_idx
+        if trace:
+            fut._trace = trace
+            fut._trace_r0 = self.rt.step_idx
         self._trace_seq += 1
         self._queues[(replica, session)].append(
             (kind, slot, client_key, value, fut, 0))
@@ -997,6 +1010,12 @@ class KVS:
                     # an adversary window is active: the diagnostic names
                     # it, so no log cross-reference is needed
                     diag["net"] = self.net_phase
+                if self.diag_hook is not None:
+                    # a serving front end is attached: tag the op's
+                    # tenant and the deadline budget it has left
+                    extra = self.diag_hook(r, s)
+                    if extra:
+                        diag.update(extra)
                 new_diags.append(diag)
                 self.stuck_ops.append(diag)
                 self.rt._trace("stuck_op", **diag)

@@ -25,8 +25,19 @@ cards; on one card they all share it), and ``group_of_rank`` names the
 fleet groups a rank serves when a multi-process run lays the (groups,
 replicas) grid row-major over its ranks.  ``run_fleet`` runs one
 process; a fleet group spread over several ranks would need a
-``torch.distributed`` subgroup a fleet group and is not ported.  The
-serving workers (A13) are not ported.
+``torch.distributed`` subgroup a fleet group and is not ported.
+
+The serving topologies (``hermes_tpu_torch.serving``):
+``start_serve_workers`` starts N columnar serving worker processes that
+shard TCP accepts on one SO_REUSEPORT port, each with a PRIVATE store
+(on the card: a CUDA context each); ``start_one_store`` keeps ONE store
+in this process and starts N torch-free shm front-end processes feeding
+it over shared-memory column rings.  Both use ``spawn``: a forked child
+of a process with a CUDA context cannot use CUDA.
+
+    # four shm front ends feeding one store on the card, for 30 s:
+    python -m hermes_tpu_torch.launch --serve-workers 4 --one-store \
+        --serve-seconds 30
 """
 
 from __future__ import annotations
@@ -40,7 +51,8 @@ from hermes_tpu_torch.core.group import (DistGroup, LocalGroup, local_card,
                                          replica_devices)
 
 __all__ = ["init_distributed", "replica_devices", "make_group", "run",
-           "fleet_replica_groups", "group_of_rank", "run_fleet"]
+           "fleet_replica_groups", "group_of_rank", "run_fleet",
+           "ServeWorkers", "start_serve_workers", "start_one_store"]
 
 
 def init_distributed(init_method: Optional[str] = None, world_size: int = 1,
@@ -146,6 +158,133 @@ def run_fleet(fcfg, steps: int, init_method: Optional[str] = None,
     return rts
 
 
+class ServeWorkers:
+    """Handle over an accept-sharded serving fleet: N worker processes,
+    one SO_REUSEPORT listener each on ``addr``, started by
+    ``start_serve_workers`` and joined by ``stop()``."""
+
+    def __init__(self, procs, stop_ev, addr):
+        self.procs = procs
+        self.addr = addr
+        self._stop_ev = stop_ev
+
+    def alive(self) -> int:
+        return sum(p.is_alive() for p in self.procs)
+
+    def stop(self, timeout_s: float = 10.0) -> None:
+        self._stop_ev.set()
+        for p in self.procs:
+            p.join(timeout=timeout_s)
+        for p in self.procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=2.0)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
+
+
+def start_serve_workers(n_workers: int, cfg=None, scfg=None,
+                        host: str = "127.0.0.1", port: int = 0,
+                        ready_timeout_s: float = 120.0,
+                        device="cuda") -> ServeWorkers:
+    """Start ``n_workers`` columnar serving worker PROCESSES sharing one
+    port via SO_REUSEPORT accept sharding (``serving.rpc.
+    serve_worker_main``): each worker owns its own KVS on ``device``,
+    ColumnarFrontend and GIL; the kernel balances client connections
+    across them.  Blocks until every worker is accepting (or raises if
+    one dies during boot)."""
+    import multiprocessing as mp
+
+    from hermes_tpu_torch.config import HermesConfig
+    from hermes_tpu_torch.device import resolve
+    from hermes_tpu_torch.serving.ipc import claim_port, spawn_workers
+    from hermes_tpu_torch.serving.rpc import serve_worker_main
+    from hermes_tpu_torch.serving.server import ServingConfig
+
+    if n_workers < 1:
+        raise ValueError("need at least one serve worker")
+    resolve(device)  # refuse a missing card here, not in every worker
+    cfg = cfg or HermesConfig(n_replicas=4, n_keys=1 << 10, n_sessions=64,
+                              value_words=6)
+    scfg = scfg or ServingConfig()
+    port = port or claim_port(host)
+    stop_ev = mp.get_context("spawn").Event()
+    procs = spawn_workers(
+        serve_worker_main,
+        lambda w, ready_q: (w, host, port, cfg, scfg, ready_q, stop_ev,
+                            str(device)),
+        n_workers, ready_timeout_s, "serve worker",
+        lambda procs: ServeWorkers(procs, stop_ev, (host, port)).stop())
+    fleet = ServeWorkers(procs, stop_ev, (host, port))
+    return fleet
+
+
+def start_one_store(n_workers: int, cfg=None, scfg=None,
+                    host: str = "127.0.0.1", port: int = 0,
+                    nslots: int = 8, slot_rows: int = 512,
+                    ready_timeout_s: float = 120.0, device="cuda"):
+    """Start the ONE-STORE topology (``serving.ipc``): THIS process owns
+    the single KVS on ``device``, its ColumnarFrontend and the owner pump
+    thread; ``n_workers`` torch-free shm front-end processes shard TCP
+    accepts on one SO_REUSEPORT port and feed it over zero-copy column
+    rings.  Returns the ``OneStoreServer`` handle (``.addr``,
+    ``.alive()``, ``.close()``, context manager)."""
+    from hermes_tpu_torch.config import HermesConfig
+    from hermes_tpu_torch.kvs import KVS
+    from hermes_tpu_torch.serving.ipc import OneStoreServer
+    from hermes_tpu_torch.serving.server import ServingConfig
+
+    if n_workers < 1:
+        raise ValueError("need at least one shm worker")
+    cfg = cfg or HermesConfig(n_replicas=4, n_keys=1 << 10,
+                              n_sessions=64, value_words=6)
+    scfg = scfg or ServingConfig()
+    store = KVS(cfg, device=device)
+    return OneStoreServer(store, scfg, host=host, port=port,
+                          n_workers=n_workers, nslots=nslots,
+                          slot_rows=slot_rows,
+                          ready_timeout_s=ready_timeout_s)
+
+
+def _serve(a) -> int:
+    """``--serve-workers N`` [``--one-store``]: serve until
+    ``--serve-seconds`` pass (or ^C, or the fleet dies)."""
+    import time as _time
+
+    from hermes_tpu_torch.config import HermesConfig
+
+    cfg = HermesConfig(n_replicas=a.replicas, n_keys=a.keys,
+                       n_sessions=a.sessions, value_words=6)
+    if a.one_store:
+        srv = start_one_store(a.serve_workers, cfg=cfg, port=a.serve_port,
+                              device=a.device)
+        up = lambda: srv.alive() and srv.pump_error is None
+        stop = srv.close
+    else:
+        srv = start_serve_workers(a.serve_workers, cfg=cfg,
+                                  port=a.serve_port, device=a.device)
+        up = srv.alive
+        stop = srv.stop
+    print(json.dumps({"serving": list(srv.addr),
+                      "workers": a.serve_workers,
+                      "one_store": bool(a.one_store)}), flush=True)
+    try:
+        if a.serve_seconds > 0:
+            _time.sleep(a.serve_seconds)
+        else:
+            while up():
+                _time.sleep(0.5)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        stop()
+    return 0
+
+
 def main(argv=None) -> int:
     from hermes_tpu_torch.config import HermesConfig
 
@@ -165,7 +304,27 @@ def main(argv=None) -> int:
                     help="run a key-sharded fleet: N groups of --replicas "
                     "each, one replica group a fleet group, in one "
                     "process; prints one JSON line a group")
+    ap.add_argument("--serve-workers", type=int, default=0,
+                    help="instead of a protocol run: start N columnar "
+                    "serving worker processes sharding accepts on one "
+                    "port (SO_REUSEPORT) and serve until interrupted")
+    ap.add_argument("--serve-port", type=int, default=0,
+                    help="shared serving port (0 = pick a free one)")
+    ap.add_argument("--serve-seconds", type=float, default=0.0,
+                    help="serve for this long then exit (0 = until ^C)")
+    ap.add_argument("--one-store", action="store_true",
+                    help="with --serve-workers: the workers are thin shm "
+                    "front ends (serving/ipc.py) feeding ONE store owned "
+                    "by this process over zero-copy column rings, "
+                    "instead of each worker owning a private store")
     a = ap.parse_args(argv)
+    if a.one_store and a.serve_workers < 1:
+        ap.error("--one-store needs --serve-workers N")
+    if a.serve_workers > 0:
+        if a.world_size > 1 or a.fleet_groups > 1:
+            ap.error("--serve-workers is its own run; drop --world-size/"
+                     "--fleet-groups")
+        return _serve(a)
     cfg = HermesConfig(n_replicas=a.replicas, n_keys=a.keys,
                        n_sessions=a.sessions, wrap_stream=True)
     if a.fleet_groups > 1:

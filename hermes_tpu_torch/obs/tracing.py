@@ -11,8 +11,9 @@ Span records ride the ordinary obs JSONL stream (kind ``span_end``):
 
   * ``op_queue``  — KVS submit -> slot injection (client-queue wait);
   * ``op_rounds`` — injection round -> resolution round (device rounds);
-  * ``fe_queue`` / ``fe_resolve`` — the serving front end's spans (its
-    port is ROADMAP A13; the names stay so the report reads both).
+  * ``fe_queue`` / ``fe_resolve`` — the serving front end's spans
+    (``serving.server``: admission -> store issue, admission ->
+    resolution).
 
 Round indices ride ``r0``/``r1``.  ``canonical_span_bytes`` is the
 replay-gate projection: the span stream minus its wall-clock fields,

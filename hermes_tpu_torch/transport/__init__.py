@@ -8,10 +8,12 @@ host-mediated exchange of the phases engine's message blocks.
     tcp_transport.cpp``) and ``TcpHostTransport`` over it, one process a
     replica (``distributed.py``);
   * ``rdma``  — the interface stub (no NIC in scope);
-  * ``codec`` — the block, frame (CRC) and byte codecs.
+  * ``codec`` — the block, frame (CRC), byte and columnar record codecs;
+  * ``shm``   — the zero-copy SPSC column rings over shared memory that
+    the serving plane's shm front ends feed one store through
+    (``serving.ipc``).
 
-The serving wire codecs and ``shm.py`` wait for the serving slice
-(ROADMAP A13).
+The serving wire codecs live in ``serving/wire.py``.
 """
 
 from hermes_tpu_torch.transport.base import (HostTransport,

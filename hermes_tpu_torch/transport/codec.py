@@ -1,8 +1,10 @@
 """Host codecs: the port's copy of the block layer (``block_nbytes``,
 ``frame_nbytes``, ``pack``, ``unpack``, ``stack``), the checksummed frame
-layer (``frame_pack``, ``frame_unpack``, ``wire_crc``) and
-``rows_to_words`` / ``words_to_rows`` from
-``hermes_tpu/transport/codec.py``.
+layer (``frame_pack``, ``frame_unpack``, ``wire_crc``), the byte/word
+codecs (``rows_to_words`` / ``words_to_rows``, ``bytes_to_words`` /
+``words_to_bytes``) and the columnar record primitives of the serving
+wire (``gather_records`` / ``scatter_records``, ``ragged_gather`` /
+``ragged_scatter``) from ``hermes_tpu/transport/codec.py``.
 
 A block (``state.Invs`` / ``Acks`` / ``Vals`` of numpy arrays, or a bare
 tuple of arrays) serializes to a fixed byte length: its fields
@@ -16,7 +18,7 @@ when the ``crc32c`` module is importable, else zlib's CRC32; the ``algo``
 byte records which, and a frame is never verified with the other
 polynomial.
 
-They are the numpy mirrors of ``core.faststep._bank_to_i32`` /
+The byte/word codecs are the numpy mirrors of ``core.faststep._bank_to_i32`` /
 ``_i32_to_bank``: little-endian byte composition, each byte reinterpreted
 as unsigned (a numpy view between same-width integer types keeps the
 bits, whatever the host's byte order), never an ``astype`` of a signed
@@ -154,3 +156,91 @@ def words_to_rows(rows32: np.ndarray) -> np.ndarray:
                      axis=-1).astype(np.uint8)
     b = parts.reshape(rows32.shape[:-1] + (4 * rows32.shape[-1],))
     return b.view(np.int8)
+
+
+def bytes_to_words(data, n_words=None) -> np.ndarray:
+    """Ragged bytes -> zero-padded little-endian int32 words.  ``n_words``
+    fixes the output width (the config-width discipline: both ends derive
+    it from the same config); default is the tightest fit.  Byte-exact
+    round trip with ``words_to_bytes`` for EVERY length including 0 and
+    non-word-multiples — the tail bytes ride a zero-padded buffer view,
+    never a sign-extending arithmetic conversion."""
+    raw = bytes(data)
+    need = (len(raw) + 3) // 4
+    if n_words is None:
+        n_words = need
+    elif need > n_words:
+        raise ValueError(f"{len(raw)} bytes exceed {n_words} int32 words")
+    buf = np.zeros(4 * n_words, np.uint8)
+    buf[:len(raw)] = np.frombuffer(raw, np.uint8)
+    return buf.view(np.dtype("<i4")).copy()
+
+
+def words_to_bytes(words, length=None) -> bytes:
+    """int32 words -> the first ``length`` bytes (little-endian); default
+    the full word span.  Inverse of ``bytes_to_words``."""
+    w = np.ascontiguousarray(np.asarray(words, np.int32).ravel())
+    raw = w.astype(np.dtype("<i4"), copy=False).tobytes()
+    if length is None:
+        return raw
+    if length > len(raw):
+        raise ValueError(f"length {length} exceeds the {len(raw)}-byte span")
+    return raw[:length]
+
+
+# Columnar record primitives: the columnar wire codec (serving/wire.py)
+# decodes a whole drained socket buffer in one numpy pass.  Fixed-stride
+# record streams are one reshape; heap-mode streams have variable
+# strides, so it gathers K fixed-size heads at arbitrary byte offsets and
+# moves ragged payload extents between a record stream and one blob —
+# fancy-index passes over uint8 views, no per-row Python.
+
+
+def _ragged_index(starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """Flat byte indices addressing ``lens[i]`` consecutive bytes from each
+    ``starts[i]`` — the one index pattern behind ragged gather/scatter.
+    Length-0 rows contribute nothing (np.repeat drops them)."""
+    starts = np.asarray(starts, np.int64)
+    lens = np.asarray(lens, np.int64)
+    total = int(lens.sum())
+    if total == 0:
+        return np.zeros(0, np.int64)
+    # position-within-row = global arange minus each row's exclusive cumsum
+    excl = np.concatenate(([0], np.cumsum(lens)[:-1]))
+    return (np.repeat(starts, lens)
+            + (np.arange(total, dtype=np.int64) - np.repeat(excl, lens)))
+
+
+def gather_records(buf8: np.ndarray, offs: np.ndarray, nbytes: int) -> np.ndarray:
+    """(K, nbytes) uint8 matrix of the fixed-size record heads at byte
+    offsets ``offs`` in ``buf8`` — the variable-stride decode primitive
+    (a fixed-stride stream is just ``buf8.reshape(k, stride)``)."""
+    offs = np.asarray(offs, np.int64)
+    if offs.size == 0:
+        return np.zeros((0, nbytes), np.uint8)
+    return buf8[offs[:, None] + np.arange(nbytes, dtype=np.int64)]
+
+
+def scatter_records(out8: np.ndarray, offs: np.ndarray,
+                    mat: np.ndarray) -> None:
+    """Inverse of ``gather_records``: write each row of ``mat`` at its
+    record's byte offset in ``out8`` (in place)."""
+    offs = np.asarray(offs, np.int64)
+    if offs.size == 0:
+        return
+    out8[offs[:, None] + np.arange(mat.shape[1], dtype=np.int64)] = mat
+
+
+def ragged_gather(buf8: np.ndarray, starts: np.ndarray,
+                  lens: np.ndarray) -> np.ndarray:
+    """Concatenate the ragged extents ``buf8[starts[i]:starts[i]+lens[i]]``
+    into one contiguous uint8 blob (one fancy-index pass)."""
+    return buf8[_ragged_index(starts, lens)]
+
+
+def ragged_scatter(out8: np.ndarray, starts: np.ndarray, lens: np.ndarray,
+                   blob8: np.ndarray) -> None:
+    """Inverse of ``ragged_gather``: scatter a contiguous blob back out to
+    ragged extents at ``starts`` (in place)."""
+    idx = _ragged_index(starts, lens)
+    out8[idx] = blob8[:idx.size]

@@ -1,20 +1,96 @@
-"""The op mix of a client drive: the port's copy of ``MixSpec`` and
-``make_mix`` from ``hermes_tpu/workload/openloop.py`` (the arrival
-schedules wait for the serving slice, ROADMAP A13).
+"""Client load shapes of the serving front end: the port of
+``hermes_tpu/workload/openloop.py``.
 
-Every column is seeded: the same seed and spec give byte-identical
-columns (``tobytes()`` equality, held against the reference by
-``tests/test_torch_workload.py``).
+Every generator is seeded and replay-deterministic: the same seed and
+parameters give a byte-identical arrival schedule and op mix
+(``tobytes()`` equality, held against the reference by
+``tests/test_torch_workload.py`` and ``tests/test_torch_serving.py``),
+so an overload soak replays exactly like a chaos schedule does.
+
+  * ``poisson_arrivals`` — open-loop arrival times: the client sends on
+    ITS schedule whatever the server's progress (a closed loop
+    self-throttles and can never overrun the server);
+  * ``ShapedArrivals`` — the same schedule through a live rate shaper:
+    the chaos ``overload x=N`` verb (``ChaosRunner(load=arrivals)``)
+    compresses the remaining inter-arrival gaps by N;
+  * ``make_mix`` — the op mix beside the arrivals: kinds by read
+    fraction, keys uniform / zipfian(theta) / hot-key / latest, tenants
+    round-robin, payload words seeded;
+  * ``scenario_matrix`` — the serving bench scenarios, seed anchored to
+    the CHECKED_ZIPFIAN.json data file when present;
+  * ``ClosedLoop`` — the capacity-measurement load.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+from typing import List, Optional
 
 import numpy as np
 
 from hermes_tpu_torch.workload.ycsb import (latest_ages, scrambled_zipfian,
                                             value_sizes)
+
+
+def poisson_arrivals(rate_per_s: float, n: int, seed: int) -> np.ndarray:
+    """``n`` open-loop arrival times (seconds, float64, strictly
+    cumulative) of a Poisson process at ``rate_per_s``.  Same seed =>
+    byte-identical schedule."""
+    if rate_per_s <= 0:
+        raise ValueError("rate_per_s must be > 0")
+    rng = np.random.default_rng(
+        (int(seed) * 0x9E3779B97F4A7C15 + 1) & 0xFFFFFFFFFFFFFFFF)
+    gaps = rng.exponential(1.0 / rate_per_s, size=n)
+    return np.cumsum(gaps)
+
+
+class ShapedArrivals:
+    """An arrival schedule with a live, deterministic rate shaper.
+
+    Base inter-arrival gaps come from ``poisson_arrivals``; a chaos
+    ``overload`` window calls ``set_rate_x(x)`` and every gap consumed
+    AFTER that point is divided by ``x`` (x > 1 = burst, x < 1 = lull).
+    Because the multiplier applies to the deterministic gap stream at a
+    deterministic cursor, the executed schedule replays byte-identically
+    given the same seed and the same (seeded) window program."""
+
+    def __init__(self, rate_per_s: float, n: int, seed: int):
+        base = poisson_arrivals(rate_per_s, n, seed)
+        self._gaps = np.diff(np.concatenate([[0.0], base]))
+        self._i = 0
+        self._t = 0.0
+        self.rate_x = 1.0
+        self._next: Optional[float] = None
+
+    def set_rate_x(self, x: float) -> None:
+        if x <= 0:
+            raise ValueError("rate multiplier must be > 0")
+        self.rate_x = float(x)
+
+    def __len__(self) -> int:
+        return self._gaps.shape[0]
+
+    def peek(self) -> Optional[float]:
+        """Next arrival time, None when exhausted."""
+        if self._next is None:
+            if self._i >= self._gaps.shape[0]:
+                return None
+            self._t += self._gaps[self._i] / self.rate_x
+            self._next = self._t
+            self._i += 1
+        return self._next
+
+    def due(self, now: float) -> int:
+        """Arrivals due at ``now`` (consumes them); returns the count."""
+        k = 0
+        while True:
+            t = self.peek()
+            if t is None or t > now:
+                return k
+            self._next = None
+            k += 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,3 +168,84 @@ def make_mix(spec: MixSpec, n_keys: int, n: int, seed: int,
             dict(n=n, max_bytes=spec.value_bytes, theta=spec.size_theta),
             seed)
     return mix
+
+
+def hot_set(spec: MixSpec) -> tuple:
+    """The keys the shed ladder's rung 2 keeps serving for this mix."""
+    if spec.distribution == "hotkey":
+        return tuple(range(spec.hot_keys))
+    return ()
+
+
+_ANCHOR = "CHECKED_ZIPFIAN.json"
+
+
+def scenario_seed(repo_root: Optional[str] = None) -> int:
+    """Scenario-matrix seed, anchored to the committed CHECKED_ZIPFIAN
+    data file at the repo root (read as data): the matrix is pinned to a
+    recorded run, not to an arbitrary constant.  Falls back to a fixed
+    seed when the file is absent."""
+    root = repo_root or os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
+    path = os.path.join(root, _ANCHOR)
+    try:
+        with open(path) as f:
+            art = json.load(f)
+        return int(art.get("writes_committed", 0)) % (1 << 31) or 14
+    except (OSError, ValueError):
+        return 14
+
+
+def scenario_matrix(tenants: int = 4, value_bytes: int = 0) -> List[MixSpec]:
+    """The serving bench scenarios: uniform, zipfian hot-rank and
+    explicit hot-key mixes (the anchored seed picks the draws; the
+    SHAPES are fixed), plus the read-heavy YCSB B/C/D cells
+    (ycsb.READ_MIXES — B = 95/5 zipfian, C = read-only zipfian, D = 95/5
+    latest-distribution reads).  ``value_bytes > 0`` (heap-mode stores)
+    appends the memcached-shaped variable-size value scenario."""
+    from hermes_tpu_torch.workload.ycsb import READ_MIXES
+
+    out = [
+        MixSpec(name="uniform", distribution="uniform", tenants=tenants),
+        MixSpec(name="zipfian", distribution="zipfian", zipf_theta=0.99,
+                tenants=tenants),
+        MixSpec(name="hotkey", distribution="hotkey", hot_frac=0.8,
+                hot_keys=4, tenants=tenants),
+    ]
+    for name, kw in READ_MIXES.items():
+        out.append(MixSpec(name=f"ycsb_{name}", tenants=tenants, **kw))
+    if value_bytes > 0:
+        out.append(MixSpec(name="values", distribution="zipfian",
+                           zipf_theta=0.99, tenants=tenants,
+                           value_bytes=value_bytes))
+    return out
+
+
+class ClosedLoop:
+    """Closed-loop load: the next op is drawn (deterministically) when
+    the previous resolves or the door refuses — ops offered as fast as
+    the server's admission refills, so throughput is service-bound,
+    never arrival-bound (``serving.soak.measure_capacity`` drives it)."""
+
+    def __init__(self, spec: MixSpec, n_keys: int, n: int, seed: int,
+                 value_words: int = 1):
+        self.mix = make_mix(spec, n_keys, n, seed, value_words)
+        self.n = n
+        self.cursor = 0
+        self._seed = int(seed)
+
+    def next_op(self) -> Optional[dict]:
+        if self.cursor >= self.n:
+            return None
+        i = self.cursor
+        self.cursor += 1
+        m = self.mix
+        op = dict(kind=("get", "put", "rmw")[int(m["kind"][i])],
+                  key=int(m["key"][i]), tenant=int(m["tenant"][i]),
+                  value=m["value"][i].tolist())
+        if "vlen" in m:
+            # heap mode: the op's byte payload, derived not stored
+            from hermes_tpu_torch.workload.ycsb import value_payload
+
+            op["data"] = value_payload(self._seed, i, int(m["vlen"][i]))
+        return op

@@ -53,6 +53,14 @@ def scrambled_zipfian(
     return perm[ranks]
 
 
+# The read-heavy YCSB mixes (B, C, D), the one table the serving
+# scenario matrix (workload.openloop.scenario_matrix) reads.
+READ_MIXES = {
+    "b": dict(read_frac=0.95, rmw_frac=0.0, distribution="zipfian"),
+    "c": dict(read_frac=1.0, rmw_frac=0.0, distribution="zipfian"),
+    "d": dict(read_frac=0.95, rmw_frac=0.0, distribution="latest"),
+}
+
 # The recency horizon of the 'latest' draw (YCSB-D): reads rank the last
 # this-many writes by a Zipfian(theta) over age.
 LATEST_WINDOW = 1024

@@ -366,3 +366,111 @@ def test_torch_cli_wal_dir_logs_the_fast_drive(capsys, tmp_path):
     assert line and want
     assert line[0].split(",")[0] == want[0].split(",")[0]
     assert int(line[0].split()[1]) == got["commits"]
+
+
+# -- the serving drives: --serve and --bench-latency ---------------------------
+
+SERVE = ["--replicas", "3", "--keys", "64", "--sessions", "4",
+         "--replay-slots", "6", "--value-words", "6", "--serve", "300",
+         "--check"]
+
+
+@pytest.mark.parametrize("extra", [
+    [],
+    ["--serve-rate", "20000", "--serve-deadline-us", "3000", "--seed", "4"],
+    ["--trace-sample", "4", "--distribution", "zipfian"],
+])
+def test_torch_cli_serve_drive_matches_reference(capsys, extra):
+    """``--serve N --check``: the open-loop soak through the loopback RPC
+    path; every count, the virtual-clock percentiles and the response
+    log's sha equal the reference CLI's on the same arguments."""
+    got = _drive_summaries(capsys, SERVE + extra)
+    assert got["ok"] and got["checked_ok"]
+    assert sum(got["statuses"].values()) == got["ops_offered"] == 300
+
+
+def test_torch_cli_serve_drive_logs_and_traces(capsys, tmp_path):
+    """``--serve`` with ``--metrics-out``: the same summary as without it
+    and the fe_queue/fe_resolve spans in the run log; with ``--wal-dir``
+    (``wal_sync=commit``: a write answers once durable, so its rounds
+    follow the flusher's clock and the bytes are not compared) the
+    checker passes and the log holds the committed writes."""
+    import json
+
+    got = _drive_summaries(capsys, SERVE + ["--trace-sample", "2"])
+    path = tmp_path / "run.jsonl"
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    lines = []
+    for extra in (["--metrics-out", str(path)],
+                  ["--wal-dir", str(tmp_path / "w")]):
+        r = subprocess.run(
+            [sys.executable, "-m", "hermes_tpu_torch", *SERVE,
+             "--trace-sample", "2", *extra, "--device", "cpu"],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        assert r.returncode == 0, r.stdout + r.stderr
+        lines.append(json.loads(r.stdout.strip().splitlines()[-1]))
+    assert {k: v for k, v in lines[0].items()
+            if k not in DRIVE_WALL_FIELDS} == got
+    names = {json.loads(ln).get("name") for ln in path.read_text().splitlines()}
+    assert {"fe_queue", "fe_resolve", "op_rounds"} <= names, names
+    assert lines[1]["ok"] and lines[1]["checked_ok"]
+    assert sum(lines[1]["statuses"].values()) == 300
+    assert any((tmp_path / "w").iterdir())
+
+
+@pytest.mark.parametrize("argv", [
+    ["--serve", "0", "--value-words", "6"],
+    ["--serve", "5", "--bench-latency", "--value-words", "6"],
+    ["--serve", "5"],
+    ["--serve", "5", "--value-words", "6", "--drill", "rolling"],
+    ["--serve", "5", "--value-words", "6", "--chaos", "1", "--steps", "9"],
+    ["--bench-latency", "--drill", "rolling"],
+    ["--bench-latency", "--fleet-groups", "2", "--value-words", "6"],
+    ["--bench-latency", "--freeze", "1:2:3", "--steps", "9"],
+])
+def test_torch_cli_serving_refusals_match_reference(capsys, argv):
+    """The serving drives' refusals: the port's error line is the
+    reference CLI's, word for word."""
+    from hermes_tpu import cli as ref_cli
+
+    r = subprocess.run(
+        [sys.executable, "-m", "hermes_tpu_torch", "--device", "cpu", *argv],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    capsys.readouterr()
+    with pytest.raises(SystemExit) as ei:
+        ref_cli.main(argv)
+    assert ei.value.code == 2
+    want = capsys.readouterr().err.strip().splitlines()[-1]
+    assert r.returncode == 2
+    got = r.stderr.strip().splitlines()[-1]
+    assert got.replace("hermes_tpu_torch", "hermes_tpu") == want, (got, want)
+
+
+@pytest.mark.parametrize("argv,msg", [
+    (["--serve", "5", "--value-words", "6", "--backend", "fast-sharded"],
+     "--serve drives the fast batched backend"),
+    (["--serve", "5", "--value-words", "6", "--backend", "sim"],
+     "--serve drives the fast batched backend"),
+    (["--locklint"], "ROADMAP A16"),
+])
+def test_torch_cli_serving_refuses_what_is_not_its_own(argv, msg):
+    r = subprocess.run(
+        [sys.executable, "-m", "hermes_tpu_torch", "--device", "cpu", *argv],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 2 and msg in r.stderr, r.stderr
+
+
+def test_torch_cli_bench_latency_answers_every_op():
+    """``--bench-latency`` on the CPU: a real localhost TcpRpcServer, every
+    request answered, no error in the cell."""
+    import json
+
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    r = subprocess.run(
+        [sys.executable, "-m", "hermes_tpu_torch", "--bench-latency",
+         "--device", "cpu"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    cell = json.loads(r.stdout.strip().splitlines()[-1])
+    assert cell["error"] is None and cell["answered"] == cell["ops"] == 64
+    assert cell["p50_us"] > 0 and cell["capacity_probe_ops_per_sec"] > 0
+    assert r.returncode == (0 if cell["ok"] else 1)

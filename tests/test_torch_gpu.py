@@ -1836,3 +1836,88 @@ def test_phases_runtime_raises_without_a_visible_card():
                        cwd=root, env=env, capture_output=True, text=True,
                        timeout=300)
     assert r.returncode != 0 and "is_available" in r.stderr, r.stderr
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [1, 2])
+def test_serve_soak_on_card_matches_cpu(depth):
+    """``run_open_loop`` under an overload storm over a KVS on the card
+    gives the CPU port's response log, counters and a green checker;
+    the front end reads nothing back from the card outside the store's
+    rounds (``chip_smoke.frontend_sync_free``)."""
+    from hermes_tpu_torch import chaos, serving
+    from hermes_tpu_torch.config import HermesConfig, WorkloadConfig
+    from hermes_tpu_torch.kvs import KVS
+    from hermes_tpu_torch.workload import openloop
+
+    dev = _card()
+    cfg = HermesConfig(n_replicas=3, n_keys=64, n_sessions=4,
+                       replay_slots=6, ops_per_session=96, value_words=6,
+                       pipeline_depth=depth,
+                       workload=WorkloadConfig(read_frac=0.5, seed=7))
+    out = {}
+    for d in ("cpu", dev):
+        store = KVS(cfg, record="array", device=d)
+        arrivals = openloop.ShapedArrivals(6000.0, 300, 17)
+        runner = chaos.ChaosRunner(
+            store, chaos.Schedule.overload_storm(5, 60), load=arrivals)
+        scfg = serving.ServingConfig(tenant_quota=6, queue_cap=24,
+                                     tenant_rate_per_s=1e6,
+                                     tenant_burst=1e4)
+        with chip_smoke.frontend_sync_free(torch, d != "cpu", store,
+                                           runner):
+            res = serving.run_open_loop(
+                store, scfg, openloop.MixSpec(tenants=3), 6000.0, 300, 17,
+                9000, chaos_runner=runner, arrivals=arrivals)
+        assert store.rt.check().ok
+        out[str(d)] = {k: v for k, v in res.items() if not k.startswith("_")}
+    assert out[str(dev)] == out["cpu"]
+    assert out["cpu"]["retry_after"] > 0
+
+
+@pytest.mark.gpu
+def test_columnar_tcp_server_round_trip_on_card():
+    """A ``ColumnarTcpServer`` over a KVS on the card: puts then gets
+    through framed columnar batches over localhost, every row answered,
+    the values read back."""
+    import numpy as np
+
+    from hermes_tpu_torch.config import HermesConfig
+    from hermes_tpu_torch.kvs import KVS
+    from hermes_tpu_torch.serving import (ColumnarClient, ColumnarFrontend,
+                                          ColumnarTcpServer, ServingConfig,
+                                          wire)
+
+    dev = _card()
+    cfg = HermesConfig(n_replicas=4, n_keys=1 << 10, n_sessions=64,
+                       value_words=6, pipeline_depth=2)
+    fe = ColumnarFrontend(KVS(cfg, device=dev), ServingConfig(
+        tenant_rate_per_s=1e9, tenant_burst=1e9, tenant_quota=1024,
+        queue_cap=1024))
+    srv = ColumnarTcpServer(fe)
+    try:
+        cl = ColumnarClient(srv.addr, fe.u)
+        k = 256
+        keys = np.arange(k, dtype=np.int64) * 3
+        val = np.arange(k * fe.u, dtype=np.int32).reshape(k, fe.u)
+
+        def batch(kind, value=None):
+            return wire.ReqBatch(
+                kind=np.full(k, kind, np.uint8), req_id=cl.next_ids(k),
+                tenant=np.zeros(k, np.uint16), trace=np.zeros(k, np.uint16),
+                deadline_us=np.zeros(k, np.uint32), key=keys,
+                value=value if value is not None
+                else np.zeros((k, fe.u), np.int32))
+
+        puts = cl.call_batch(batch(wire.K_PUT, val))
+        assert all(r.status_name == "ok" for r in puts.values())
+        gb = batch(wire.K_GET)
+        gets = cl.call_batch(gb)
+        for i, rid in enumerate(gb.req_id.tolist()):
+            assert gets[rid].status_name == "ok"
+            assert gets[rid].value == val[i].tolist()
+        cl.close()
+    finally:
+        srv.close()
+    assert srv.pump_error is None
+    assert fe.requests == fe.responses == 2 * k

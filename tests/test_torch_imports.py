@@ -18,7 +18,10 @@ with a cross-group move and its checks, a sharded fleet run), and the
 reference phases engine (core/timestamps.py, core/phases.py,
 core/step.py, runtime.Runtime on its three backends, transport/ base,
 sim, tcp, rdma and the codec's block layer, chaos/net.py and a wired
-ChaosRunner, distributed.py's helpers) on the CPU.  The TCP driver's
+ChaosRunner, distributed.py's helpers), and the serving front end
+(serving/, transport/shm.py, workload/openloop.py: an open-loop soak
+under an overload storm, a columnar soak, an shm soak and a TCP round
+trip) on the CPU.  The TCP driver's
 child processes (``python -m hermes_tpu_torch.distributed``) are probed
 after a real two-rank run over loopback."""
 
@@ -171,12 +174,74 @@ raw = tcodec.pack(got)
 assert tcodec.unpack(got, raw).key.shape == got.key.shape
 assert distributed.parse_wire_faults("drop:0:1:2:3") == [("drop", 0, 1, 2, 3, 0)]
 assert timestamps.ts_gt(2, 0, 1, 5)
+from hermes_tpu_torch import serving
+from hermes_tpu_torch.serving import bench as sbench, ipc, soak
+from hermes_tpu_torch.transport import shm
+scfg = serving.ServingConfig(tenant_rate_per_s=1e6, tenant_burst=1e4)
+scv = KVS(HermesConfig(n_replicas=3, n_keys=64, n_sessions=4, value_words=6),
+          record="array", device="cpu")
+arr = openloop.ShapedArrivals(4000.0, 40, 3)
+srun = chaos.ChaosRunner(scv, chaos.Schedule.overload_storm(3, 20), load=arr)
+sres = serving.run_open_loop(scv, scfg, openloop.MixSpec(), 4000.0, 40, 3,
+                             20_000, chaos_runner=srun, arrivals=arr)
+assert sres["sent"] == 40 and scv.rt.check().ok
+cres = soak.run_columnar_soak(KVS(HermesConfig(n_replicas=3, n_keys=64,
+                                               n_sessions=4, value_words=6),
+                                  device="cpu"), scfg, openloop.MixSpec(),
+                              4000.0, 40, 3, 20_000)
+assert sum(cres["statuses"].values()) == 40
+assert ipc.run_shm_soak(n_workers=2, ops_per_worker=32, batch=16,
+                        device="cpu")["ok"]
+tfe = serving.Frontend(KVS(HermesConfig(n_replicas=3, n_keys=64, n_sessions=4,
+                                        value_words=6), device="cpu"), scfg)
+tsrv = serving.TcpRpcServer(tfe)
+tcl = serving.RpcClient(tsrv.addr, tfe.u)
+assert tcl.call("put", 3, value=[1]).status == serving.wire.S_OK
+tcl.close()
+tsrv.close()
+assert sbench.host_cfg("latency").n_replicas == 4
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "hermes_tpu" or m.startswith("hermes_tpu."))
 print("LEAKED", bad)
 sys.exit(1 if bad else 0)
 """
+
+
+def test_torch_serving_modules_are_in_the_scan():
+    """The serving slice's modules exist where the import scan reads
+    them."""
+    for rel in ("serving/__init__.py", "serving/wire.py",
+                "serving/admission.py", "serving/server.py",
+                "serving/rpc.py", "serving/soak.py", "serving/ipc.py",
+                "serving/bench.py", "transport/shm.py",
+                "workload/openloop.py"):
+        assert (ROOT / "hermes_tpu_torch" / rel).is_file(), rel
+
+
+SHM_WORKER = r"""
+import sys
+import hermes_tpu_torch
+import hermes_tpu_torch.serving.ipc as ipc
+import hermes_tpu_torch.transport.shm as shm
+from hermes_tpu_torch.serving import wire
+req, rsp = ipc.create_ring_pair(4, 2, 8, 0)
+req.close()
+rsp.close()
+assert ipc.shm_worker_main and wire.req_nbytes(4)
+print("TORCH", sorted(m for m in sys.modules
+                      if m == "torch" or m.startswith("torch.")))
+"""
+
+
+def test_torch_shm_worker_import_chain_loads_no_torch():
+    """A fresh interpreter that imports what an shm front-end worker runs
+    (``serving.ipc``, ``transport.shm``, the wire) loads no ``torch``:
+    only the store process touches the card."""
+    r = subprocess.run([sys.executable, "-c", SHM_WORKER], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "TORCH []" in r.stdout, r.stdout
 
 
 def test_torch_port_imports_neither_jax_nor_reference():
