@@ -232,6 +232,40 @@ prints no result):
    store rounds; the kernels line carries them as ``serve_launches``,
    ``serve_columnar_launches`` (and B2-B4's of the mega run),
    ``serve_socket_launches`` and ``serve_one_store_launches``.
+27. census (run right after the build, first of all phases: torch.profiler
+   keeps fewer of a round's device records the older the process is —
+   787 fresh, 736 after the whole smoke, while the host's 777 launch
+   calls and 844 aten ops stay the same) —
+   ``obs.profile.measure`` at the bench shape: one round 0 (a
+   replay-scan round) of bench-a, bench-a-mega, sharded and sharded-mega
+   on a fresh state, counted under a ``TorchDispatchMode`` (aten ops,
+   sparse ops, the group's collectives, each hand-kernel call as one op)
+   and traced by torch.profiler (``kernel_total``, two agreeing traces),
+   and the read and heap censuses: every field held to
+   ``hermes_tpu_torch/obs/op_budget.json`` (its ``card`` section for
+   ``kernel_total``), the aten census equal to the CPU port's at the
+   gate's cut shape.
+28. acceptance — BASELINE configs 1, 2, 2r, 3, 3c, 4 and 5 through
+   ``acceptance.run_config`` at scale 1.0 (2^20 keys, 1,024 sessions, 128
+   ops, recorded, ``check_keys=512``): each drained and checked, config
+   4's stall detected, ``stats_block`` launched once a round and no mega
+   kernel; seconds, rounds and counters of each.  Then configs 1-5 at
+   scale 0.01 on the card and on the CPU port: equal counters and rounds.
+29. graft — ``probe.probe_backend`` (a child process makes a CUDA context
+   under a bound), then ``graft.entry()``'s round on the card and on the
+   CPU port from the same inputs: every state leaf and completion column
+   equal, the hand kernels launched as often as the CPU run called them.
+30. locklint (run right after the serving phases) — the socket serving
+   drives under ``HERMES_LOCKLINT=1``, every lock an ObsLock, at the
+   serving phases' shapes on the card: the serve-socket phase's
+   throughput cell (a ``TcpRpcServer``, 8 replicas, 2^20 keys x 4,096
+   sessions, 4,000 closed-loop requests), then the serve-columnar
+   phase's store (8 x 65,536 sessions) behind a ``ColumnarTcpServer``
+   (``analysis.hostlint.leg_soak``: 10 batches of 393,216 requests over
+   TCP).  Each: every request answered, no lock-order cycle, every
+   lock's hold p99 within 10 mean store rounds of its drive.
+   The kernels line carries ``census_calls``, ``acceptance_launches``,
+   ``graft_launches`` and ``locklint_launches``.
 
 Then the whole smoke's seconds, the kernels summary line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.  Without a
@@ -249,6 +283,15 @@ does the same for the ``hermes_tpu_torch`` of another checkout in DIR
 (say the parent commit's, unpacked with ``git archive``), so that two
 designs of a kernel are timed in one call on the same inputs; the
 one-operation rule is this checkout's and is not held there.
+
+    python3 chip_smoke.py --census-each FILE
+
+runs the whole smoke and, after every phase, traces one bench-a round on
+a fresh state (two agreeing traces) and counts its aten ops: a
+``census-each`` line with its CUDA kernels, the host's launch calls and
+the aten ops, and in FILE (JSONL) the kernels and calls by name beside
+the process's global torch settings, to find a phase after which a
+round launches, or a trace keeps, other kernels.
 """
 
 import contextlib
@@ -3138,35 +3181,13 @@ TCP_FAULT_SLACK = 40  # rounds past the clean drain for the faulted run
 
 
 def baseline_cfg(config, n, scale=1.0):
-    """BASELINE config ``n`` at ``scale``: the port's copy of
-    ``hermes_tpu/acceptance.py:_cfg`` (1: 3 replicas, YCSB-A uniform; 3:
-    7 replicas, YCSB-A Zipfian 0.99; 2: 5 replicas, RMW; 4 and 5: 8
-    replicas), 2^20 keys, 1,024 sessions, 128 ops at 1.0."""
-    def sz(base, s, lo=4):
-        return max(lo, int(base * s))
+    """BASELINE config ``n`` at ``scale``: the port's
+    ``acceptance._cfg`` (1: 3 replicas, YCSB-A uniform; 2: 5 replicas,
+    RMW; 3: 7 replicas, YCSB-A Zipfian 0.99; 4 and 5: 8 replicas), 2^20
+    keys, 1,024 sessions, 128 ops at 1.0.  ``config`` is unused."""
+    from hermes_tpu_torch import acceptance
 
-    keys = sz(1 << 20, scale, lo=64)
-    sessions = sz(1024, scale, lo=8)
-    base = dict(n_keys=keys, n_sessions=sessions,
-                replay_slots=max(8, sessions // 16),
-                ops_per_session=sz(128, min(1.0, scale * 4), lo=8),
-                value_words=8, replay_age=8, replay_scan_every=4)
-    W = config.WorkloadConfig
-    if n == 1:
-        return config.HermesConfig(
-            n_replicas=3, workload=W(read_frac=0.5, seed=1), **base)
-    if n == 2:
-        return config.HermesConfig(
-            n_replicas=5, workload=W(read_frac=0.3, rmw_frac=1.0, seed=2),
-            **base)
-    if n == 3:
-        return config.HermesConfig(
-            n_replicas=7, workload=W(read_frac=0.5, distribution="zipfian",
-                                     zipf_theta=0.99, seed=3), **base)
-    if n in (4, 5):
-        return config.HermesConfig(
-            n_replicas=8, workload=W(read_frac=0.5, seed=n), **base)
-    raise ValueError(f"config {n} not in 1..5")
+    return acceptance._cfg(n, scale)
 
 
 def state_digest(rs):
@@ -4048,6 +4069,371 @@ def run_serving(torch, sv, counters, card):
                 torch, sv, card)["launches"]}
 
 
+# --------------------------------------------------------------------------
+# The census, the acceptance runs, the entry points and the lock sanitizer
+# --------------------------------------------------------------------------
+
+#: BASELINE configs run at full width on the card, and at scale 0.01 on
+#: the card and on the CPU port (their counters must be equal)
+ACCEPTANCE_CONFIGS = (1, 2, "2r", 3, "3c", 4, 5)
+ACCEPTANCE_SMALL = 0.01
+ACCEPTANCE_SMALL_CONFIGS = (1, 2, 3, 4, 5)
+PROBE_TIMEOUT_S = 180.0
+
+
+def _census_diff(a, b, keys):
+    return {k: (a.get(k), b.get(k)) for k in keys if a.get(k) != b.get(k)}
+
+
+def phase_census(torch, ac, card):
+    """The op census of one round of bench-a, bench-a-mega, sharded and
+    sharded-mega at the bench shape on the card (``obs.profile.measure``:
+    aten ops, sparse ops, collectives, hand-kernel calls and, from
+    torch.profiler, ``kernel_total``), and the read and heap censuses;
+    held to ``op_budget.json`` (its ``card`` section too), and the aten
+    census equal to the CPU port's at the gate's cut shape (the census
+    does not depend on the shape).  Returns the hand-kernel calls of the
+    four rounds by name."""
+    t0 = time.perf_counter()
+    prof = ac.prof
+    got = prof.measure(ac.device)
+    cpu = prof.measure("cpu")
+    budget, card_budget = prof.load_budget()
+    failures = prof.check_budget(got, budget)
+    if ac.on_card:
+        if sorted(card_budget) != sorted(prof.ENGINES):
+            failures.append(f"op_budget.json's card section covers "
+                            f"{sorted(card_budget)}, want {prof.ENGINES}")
+        failures += prof.check_card(got, card_budget)
+    diffs = {}
+    for sec, cen in got.items():
+        keys = (set(cen) | set(cpu[sec])) - {"kernel_total"} \
+            if sec in prof.ENGINES else set(budget[sec])
+        d = _census_diff(cen, cpu[sec], sorted(keys))
+        if d:
+            diffs[sec] = d
+    calls = {}
+    for sec in prof.ENGINES:
+        for k, v in got[sec].items():
+            if k.startswith("kernel:"):
+                calls[k[7:]] = calls.get(k[7:], 0) + v
+    emit({"phase": "census", "seconds": time.perf_counter() - t0,
+          "shape": prof.census_shape(prof.gate_cfg(small=not ac.on_card)),
+          "census": {sec: {k: v for k, v in cen.items() if k != "aten_ops"}
+                     for sec, cen in got.items()},
+          "budget_failures": failures, "cpu_diff": diffs,
+          "hand_kernel_calls": calls, "nvidia_smi": card})
+    if failures or diffs:
+        raise AssertionError(f"census: budget {failures}, against the CPU "
+                             f"port {diffs}")
+    return calls
+
+
+def phase_acceptance(torch, ac, counters, card):
+    """BASELINE configs ``ACCEPTANCE_CONFIGS`` through
+    ``acceptance.run_config`` at ``ac.scale`` (full width on the card:
+    2^20 keys, 1,024 sessions, 128 ops, recorded, ``check_keys=512``):
+    each drained and checked, config 4's stall detected, ``stats_block``
+    launched once a round and no mega kernel; wall seconds (host clock
+    ending in the checker, which syncs), rounds and counters of each.
+    Then configs 1-5 at scale 0.01 on ``ac.device`` and on the CPU port:
+    equal counters and rounds.  Returns the launches over the first
+    part."""
+    made = []
+    base = ac.acceptance.FastRuntime
+
+    class Kept(base):
+        """The scenario's runtime, kept for its round count."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    ac.acceptance.FastRuntime = Kept
+    t_all = time.perf_counter()
+    start = _launch_snapshot(counters)
+    rows = []
+    try:
+        for n in ac.configs:
+            before = _launch_snapshot(counters)
+            t0 = time.perf_counter()
+            c, v = ac.acceptance.run_config(n, scale=ac.scale,
+                                            max_steps=ac.max_steps,
+                                            device=ac.device)
+            ac.sync()
+            wall = time.perf_counter() - t0
+            rounds = made[-1].step_idx
+            moved = {k: w.launches - before[k] for k, w in counters.items()}
+            row = dict(config=n, seconds=wall, rounds=rounds,
+                       us_per_round=wall / rounds * 1e6, counters=c,
+                       checked_ok=v.ok, keys_checked=v.keys_checked,
+                       launches=moved)
+            emit({"phase": "acceptance", **row})
+            rows.append(row)
+            made.clear()
+            if not (c["drained"] and v.ok):
+                raise AssertionError(f"config {n}: drained "
+                                     f"{c['drained']}, checker {v.ok}")
+            if n == 4 and not c["failure_detected"]:
+                raise AssertionError("config 4: the stall was not detected")
+            if (moved["stats_block"] != rounds
+                    or any(moved[k] for k in moved if k != "stats_block")):
+                raise AssertionError(f"config {n}: launches {moved} in "
+                                     f"{rounds} rounds")
+        launched = {k: w.launches - start[k] for k, w in counters.items()}
+        small = {}
+        for n in ACCEPTANCE_SMALL_CONFIGS:
+            here = ac.acceptance.run_config(n, scale=ACCEPTANCE_SMALL,
+                                            device=ac.device)
+            r_here = made[-1].step_idx
+            cpu = ac.acceptance.run_config(n, scale=ACCEPTANCE_SMALL,
+                                           device="cpu")
+            r_cpu = made[-1].step_idx
+            made.clear()
+            small[n] = dict(counters=here[0], rounds=r_here,
+                            equal=here[0] == cpu[0] and r_here == r_cpu)
+            if not small[n]["equal"] or not (here[1].ok and cpu[1].ok):
+                raise AssertionError(
+                    f"config {n} at scale {ACCEPTANCE_SMALL}: "
+                    f"{here[0]} in {r_here} rounds here, {cpu[0]} in "
+                    f"{r_cpu} on the CPU port")
+    finally:
+        ac.acceptance.FastRuntime = base
+    emit({"phase": "acceptance-small", "scale": ACCEPTANCE_SMALL,
+          "configs": small,
+          "seconds_all": time.perf_counter() - t_all, "nvidia_smi": card})
+    return dict(rows=rows, launches=launched)
+
+
+def phase_graft(torch, ac, counters, card):
+    """The entry points: ``probe.probe_backend`` (a child process makes a
+    CUDA context under a bound), then ``graft.entry()``'s round once on
+    ``ac.device`` and once on the CPU port from the same inputs: every
+    state leaf and completion column equal, the hand kernels launched as
+    often as the CPU run called them."""
+    t0 = time.perf_counter()
+    ok, info = ac.probe.probe_backend(PROBE_TIMEOUT_S, device=ac.device)
+    if not ok:
+        raise AssertionError(f"probe_backend: {info}")
+    before = _launch_snapshot(counters)
+    old = os.environ.get("HERMES_ENTRY_PROBE")
+    os.environ["HERMES_ENTRY_PROBE"] = "0"  # probed just above
+    try:
+        fn, ex = ac.graft.entry(ac.device)
+        fs, comp = fn(*ex)
+        ac.sync()
+    finally:
+        if old is None:
+            os.environ.pop("HERMES_ENTRY_PROBE")
+        else:
+            os.environ["HERMES_ENTRY_PROBE"] = old
+    moved = {k: w.launches - before[k] for k, w in counters.items()}
+    fn_c, ex_c = ac.graft.entry("cpu")
+    with ac.dispatch.count_hand_kernels() as calls:
+        fs_c, comp_c = fn_c(*ex_c)
+    a = ac.convert.fast_state_to_numpy(fs)
+    b = ac.convert.fast_state_to_numpy(fs_c)
+    bad = [f"{part}.{f}" for part in ("table", "sess", "replay", "meta")
+           for f in getattr(a, part)._fields
+           if not (getattr(getattr(a, part), f)
+                   == getattr(getattr(b, part), f)).all()]
+    bad += [f"comp[{i}]" for i, (x, y) in enumerate(zip(_flat(comp),
+                                                       _flat(comp_c)))
+            if not torch.equal(x.cpu(), y.cpu())]
+    emit({"phase": "graft", "seconds": time.perf_counter() - t0,
+          "probe": info, "launches": moved, "cpu_calls": calls,
+          "differs": bad})
+    if bad:
+        raise AssertionError(f"graft entry: {bad} differ from the CPU port")
+    if ac.on_card and {k: v for k, v in moved.items() if v} != calls:
+        raise AssertionError(f"graft entry launched {moved}, the CPU run "
+                             f"called {calls}")
+    return moved
+
+
+#: a lock's hold p99 may reach this many mean store rounds of its drive:
+#: the servers' pumps hold their lock for one store round, and rounds
+#: differ (the replay-scan rounds, a fresh store's first rounds; the
+#: socket cell's mean spreads its measured wall over its warm-up's rounds
+#: too); a lock held across rounds (a send or a wait under it) goes far
+#: beyond
+LOCKLINT_HOLD_ROUNDS = 10
+
+
+def _locks_over(rep, wall_s, rounds):
+    """The bound on a lock's hold p99 (``LOCKLINT_HOLD_ROUNDS`` mean store
+    rounds of the drive) and the locks whose hold p99 exceeds it."""
+    bound = LOCKLINT_HOLD_ROUNDS * wall_s / max(1, rounds) * 1e6
+    return bound, {n: st.get("hold_p99_us") for n, st in rep["locks"].items()
+                   if (st.get("hold_p99_us") or 0) > bound}
+
+
+def phase_locklint(torch, sv, ac, counters, card):
+    """The socket serving drives under ``HERMES_LOCKLINT=1`` (every
+    ``make_lock`` lock an ObsLock, minted fresh), their stores on
+    ``sv.device`` at the serving phases' shapes: the serve-socket phase's
+    throughput cell (``run_socket_cell`` at ``host_cfg("throughput")``,
+    a ``TcpRpcServer``, 2 x ``SOCKET_N`` closed-loop requests, window
+    64), then the serve-columnar phase's store behind a
+    ``ColumnarTcpServer`` (``hostlint.leg_soak``: ``COLUMNAR_OPS //
+    COLUMNAR_PER_ROUND`` batches of ``COLUMNAR_PER_ROUND`` requests over
+    TCP after one warm-up batch).  Each: every request answered, no
+    lock-order cycle, every lock's hold p99 within
+    ``LOCKLINT_HOLD_ROUNDS`` mean store rounds of its drive, no mega
+    kernel launched."""
+    from hermes_tpu_torch.serving import bench
+
+    t0 = time.perf_counter()
+    before = _launch_snapshot(counters)
+    env = ac.concurrency.LOCKLINT_ENV
+    old = os.environ.get(env)
+    os.environ[env] = "1"
+    try:
+        graph = ac.lockgraph.reset_global()
+        scfg = sv.ServingConfig(tenant_rate_per_s=1e6, tenant_burst=1e5,
+                                tenant_quota=64, queue_cap=256)
+        cell = bench.run_socket_cell(
+            bench.host_cfg("throughput", str(sv.device).startswith("cuda")),
+            scfg, sv.MixSpec(name="uniform"), 2 * SOCKET_N, mode="closed",
+            window=64, seed=bench.scenario_seed(), device=sv.device)
+        rep = graph.report()
+        socket_bound, socket_over = _locks_over(rep, cell["wall_s"],
+                                                cell["rounds"])
+        socket = dict(ops=cell["ops"], answered=cell["answered"],
+                      error=cell["error"], rounds=cell["rounds"],
+                      wall_s=cell["wall_s"], cycles=len(rep["cycles"]),
+                      n_edges=rep["n_edges"], locks=rep["locks"],
+                      hold_bound_us=socket_bound, over=socket_over,
+                      findings=[f.message for f in graph.findings()])
+        col = ac.hostlint.leg_soak(
+            batches=COLUMNAR_OPS // COLUMNAR_PER_ROUND, warmup=1,
+            max_hold_p99_us=None, device=sv.device, cfg=sv.kvs_cfg(),
+            scfg=sv.ServingConfig(**COLUMNAR_ENVELOPE),
+            rows=COLUMNAR_PER_ROUND)
+        col["hold_bound_us"], col["over"] = _locks_over(
+            col, col["wall_s"], col["rounds"])
+    finally:
+        if old is None:
+            os.environ.pop(env)
+        else:
+            os.environ[env] = old
+        ac.lockgraph.reset_global()
+    moved = {k: w.launches - before[k] for k, w in counters.items()}
+    emit({"phase": "locklint", "seconds": time.perf_counter() - t0,
+          "nvidia_smi": card, "launches": moved, "socket": socket,
+          "columnar_tcp": col})
+    if socket["error"] is not None or socket["answered"] != socket["ops"]:
+        raise AssertionError(f"locklint socket drive: answered "
+                             f"{socket['answered']} of {socket['ops']}, "
+                             f"error {socket['error']}")
+    for name, r in (("socket", socket), ("columnar_tcp", col)):
+        if r["cycles"] or r["over"] or not r["locks"]:
+            raise AssertionError(f"locklint {name}: {r['cycles']} cycles, "
+                                 f"holds over {r['hold_bound_us']} us "
+                                 f"{r['over']}, locks {list(r['locks'])}, "
+                                 f"findings {r['findings']}")
+    if not col["ok"]:
+        raise AssertionError(f"locklint columnar_tcp: {col}")
+    if any(moved[k] for k in moved if k != "stats_block"):
+        raise AssertionError(f"locklint launched {moved}")
+    return moved
+
+
+def run_acceptance_slice(torch, ac, counters, card):
+    """acceptance and graft; the kernels line's ``acceptance_launches``
+    and ``graft_launches``.  (The census runs first of all phases, the
+    locklint phase after the serving phases.)"""
+    return {"acceptance_launches": phase_acceptance(
+                torch, ac, counters, card)["launches"],
+            "graft_launches": phase_graft(torch, ac, counters, card)}
+
+
+#: the phases ``--census-each`` traces a round after, in the smoke's order
+CENSUS_EACH_PHASES = (
+    "phase_census", "phase_kernels", "phase_sanitizer", "phase_probe",
+    "phase_reference", "phase_main", "phase_ab", "phase_checked",
+    "phase_sharded", "phase_checked_sharded", "phase_kvs", "phase_reads",
+    "phase_values", "phase_durable", "phase_restart", "phase_observed",
+    "phase_chaos", "phase_detect_cost", "phase_drill", "phase_resize",
+    "phase_migrate", "phase_fleet", "phase_phases", "phase_phases_sharded",
+    "phase_sim_wire", "phase_tcp", "run_phases_engine", "phase_serve",
+    "phase_serve_columnar", "phase_serve_socket", "phase_serve_one_store",
+    "phase_locklint", "phase_acceptance", "phase_graft")
+
+
+def round_kernels(torch, cfg, backend="batched"):
+    """One round of ``cfg`` on a fresh state, traced until two
+    torch.profiler traces agree (``profiling._trace``, the sentinel left
+    out): (its CUDA kernels by name, its host launch calls by API); the
+    hand kernels' launch counters put back."""
+    from hermes_tpu_torch import profiling
+    from hermes_tpu_torch.obs import profile as prof
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    last = None
+    with prof._launches_kept():
+        for _ in range(10):
+            args = prof._round_args(cfg, backend, dev, None)
+            out = profiling._trace(
+                lambda: prof._run_round(cfg, backend, *args))
+            got = (out["names"], out["launch_calls"])
+            if last is not None and got == last:
+                return got
+            last = got
+    raise RuntimeError("torch.profiler gave no two agreeing traces of a "
+                       "round")
+
+
+def census_after_each_phase(torch, path):
+    """Wrap every phase of ``CENSUS_EACH_PHASES`` so that a bench-a
+    round is traced (``round_kernels``) and counted (``count_ops``) after
+    it: one ``census-each`` line each, and a JSONL record in ``path``
+    with the kernels and launch calls by name and the global torch
+    settings."""
+    from hermes_tpu_torch.config import bench_cfg
+
+    t_start = time.perf_counter()
+    open(path, "w").close()
+
+    from hermes_tpu_torch.obs import profile as prof
+
+    cfg = bench_cfg("a")
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def trace(after):
+        names, calls = round_kernels(torch, cfg)
+        args = prof._round_args(cfg, "batched", dev, None)
+        aten = prof.count_ops(lambda mode: prof._run_round(
+            cfg, "batched", *args))["aten_total"]
+        line = {"phase": "census-each", "after": after,
+                "kernel_total": sum(names.values()),
+                "launch_calls": sum(calls.values()), "aten_total": aten,
+                "t": time.perf_counter() - t_start}
+        emit(line)
+        settings = dict(
+            deterministic=torch.are_deterministic_algorithms_enabled(),
+            sync_debug_mode=torch.cuda.get_sync_debug_mode(),
+            grad_enabled=torch.is_grad_enabled(),
+            num_threads=torch.get_num_threads(),
+            default_dtype=str(torch.get_default_dtype()),
+            hermes_env={k: v for k, v in os.environ.items()
+                        if k.startswith("HERMES")})
+        with open(path, "a") as f:
+            f.write(json.dumps(dict(line, settings=settings, kernels=names,
+                                    launch_apis=calls)) + "\n")
+
+    def wrap(fn, name):
+        def traced(*a, **k):
+            try:
+                return fn(*a, **k)
+            finally:
+                trace(name)
+        return traced
+
+    for name in CENSUS_EACH_PHASES:
+        globals()[name] = wrap(globals()[name], name)
+
+
 def main(argv=None):
     import argparse
 
@@ -4061,8 +4447,14 @@ def main(argv=None):
                     "hermes_tpu_torch in DIR (another checkout, e.g. the "
                     "parent commit's) instead of the one beside this "
                     "script; the one-operation rule is not held there")
+    ap.add_argument("--census-each", default=None, metavar="FILE",
+                    help="after every phase, trace the CUDA kernels of one "
+                    "bench-a round: a census-each line each, their names "
+                    "and counts in FILE (JSONL)")
     ns = ap.parse_args(argv)
     only = ns.kernels.split(",") if ns.kernels else None
+    if ns.census_each is not None and only is not None:
+        ap.error("--census-each runs the whole smoke: not with --kernels")
     if ns.root is not None and only is None:
         ap.error("--root needs --kernels")
     try:
@@ -4108,6 +4500,8 @@ def main(argv=None):
         return 2
     t_start = time.perf_counter()
     try:
+        if ns.census_each is not None:
+            census_after_each_phase(torch, ns.census_each)
         card = nvidia_smi()
         emit({"phase": "device", "nvidia_smi": card,
               "name": torch.cuda.get_device_name(0),
@@ -4123,6 +4517,21 @@ def main(argv=None):
                     "mega_route": mega.mega_route,
                     "mega_apply": mega.mega_apply,
                     "mega_replay": mega.mega_replay}
+        if only is None:
+            # first of all phases: the profiler keeps fewer of a round's
+            # device records as the process ages (PERF.md section 6)
+            from hermes_tpu_torch import acceptance, concurrency, graft, probe
+            from hermes_tpu_torch.analysis import hostlint, lockgraph
+            from hermes_tpu_torch.core import dispatch
+            from hermes_tpu_torch.obs import profile as prof
+
+            ac = SimpleNamespace(
+                device="cuda", on_card=True, sync=torch.cuda.synchronize,
+                prof=prof, acceptance=acceptance, configs=ACCEPTANCE_CONFIGS,
+                scale=1.0, max_steps=20000, probe=probe, graft=graft,
+                convert=convert, dispatch=dispatch, hostlint=hostlint,
+                lockgraph=lockgraph, concurrency=concurrency)
+            census_calls = phase_census(torch, ac, card)
         port = SimpleNamespace(config=config, fst=fst, mega=mega, pk=pk,
                                probe=table_probe, fk=fk, kernels=kernels,
                                types=types, FastRuntime=FastRuntime)
@@ -4289,10 +4698,18 @@ def main(argv=None):
             run_one_store_cell=serve_bench.run_one_store_cell,
             sync=torch.cuda.synchronize)
         served = run_serving(torch, sv, counters, card)
+        served["locklint"] = phase_locklint(torch, sv, ac, counters, card)
         for name, row in rows.items():
             for tag, got in served.items():
                 if name in got:
                     row[f"{tag}_launches"] = got[name]
+        torch.cuda.empty_cache()
+        sliced = run_acceptance_slice(torch, ac, counters, card)
+        sliced["census_calls"] = census_calls
+        for name, row in rows.items():
+            for tag, got in sliced.items():
+                if name in got:
+                    row[tag] = got[name]
         emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     except Exception:
         traceback.print_exc()

@@ -15,15 +15,42 @@ have no jaxpr, so in the port those guarantees come from two places:
   inside its declared output bound (``analysis/seeds.py``).
 
 ``analysis/fixture_kernels.py`` holds the scan-accumulate sentinel and the
-fixture kernels the red tests are built on.  The engine-level passes and
-the host lint of the reference are not ported.
+fixture kernels the red tests are built on.  The host half of the
+reference's concurrency analysis is here too: ``hostlint.py`` (the static
+lint against ``hermes_tpu_torch/concurrency.py``'s registry) and
+``lockgraph.py`` (the dynamic lock-order sanitizer behind
+``HERMES_LOCKLINT=1``).  The engine-level passes are not ported.
 
     python -m hermes_tpu_torch.analysis --kernels [--device cpu]
+
+Exports resolve lazily (module ``__getattr__``): ``lockgraph`` is loaded
+by the torch-free shm worker processes, which must not load ``torch``
+through this package.
 """
 
-from hermes_tpu_torch.analysis.diffcheck import (  # noqa: F401
-    KernelCell, analyze_kernel, cell_by_name, diff_check, kernel_cells,
-    run_kernel_matrix)
-from hermes_tpu_torch.analysis.domain import AbsVal, iv  # noqa: F401
-from hermes_tpu_torch.analysis.findings import (  # noqa: F401
-    ERROR, GATING, INFO, WARN, Finding, export_findings)
+import importlib
+
+# the module each export lives in, imported on first use
+_HOME = {
+    "KernelCell": "diffcheck", "analyze_kernel": "diffcheck",
+    "cell_by_name": "diffcheck", "diff_check": "diffcheck",
+    "kernel_cells": "diffcheck", "run_kernel_matrix": "diffcheck",
+    "AbsVal": "domain", "iv": "domain",
+    "ERROR": "findings", "GATING": "findings", "INFO": "findings",
+    "WARN": "findings", "Finding": "findings",
+    "export_findings": "findings",
+}
+__all__ = sorted(_HOME)
+
+
+def __getattr__(name):
+    # resolved names are cached in module globals, so this runs once a name
+    if name not in _HOME:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    obj = getattr(importlib.import_module(f"{__name__}.{_HOME[name]}"), name)
+    globals()[name] = obj
+    return obj
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

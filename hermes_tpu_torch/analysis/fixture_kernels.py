@@ -38,8 +38,9 @@ from typing import NamedTuple
 
 import torch
 
-from hermes_tpu_torch.core.dispatch import (CLUSTER_MAX, SMS, cdiv, launch,
-                                            need, on_card, out)
+from hermes_tpu_torch.core.dispatch import (CLUSTER_MAX, SMS, cdiv,
+                                            hand_kernel, launch, need,
+                                            on_card, out)
 from hermes_tpu_torch.core.probe_kernels import (probe_serial_plain,
                                                  row_index)
 
@@ -104,6 +105,7 @@ def scan_acc_plan(M: int, W: int, aligned: bool = True) -> ScanPlan:
     return ScanPlan(vec, tpr, cdiv(M, rows), tiles, rows)
 
 
+@hand_kernel
 def scan_acc(x):
     """``out[0, w] = sum_i x[i, w]`` for ``x`` (M, W) int32; returns the
     (1, W) int32 sums.
@@ -147,6 +149,7 @@ def pack_access(a, b, packed) -> int:
         t.data_ptr() % 16 == 0 for t in (a, b, packed)))
 
 
+@hand_kernel
 def fx_pack(a, b):
     """``(a << 29) | b`` elementwise on two int32 tensors of one shape:
     the pack whose fields overlap when ``b`` reaches 2^29.  Replaces
@@ -181,6 +184,7 @@ def fx_store_at_plain(idx, v):
     return stored
 
 
+@hand_kernel
 def fx_store_at(idx, v):
     """``out = 0; out[idx] = v[0]`` for ``v`` (rows, W) int32 and ``idx``
     a one-element int32 tensor on ``v``'s device (the counterpart of the
@@ -263,6 +267,7 @@ def acc_revisit_plan(R: int, C: int, aligned: bool = True) -> AccPlan:
     return AccPlan(vec, cdiv(C, cols), cols)
 
 
+@hand_kernel
 def fx_acc_revisit(x, init=True):
     """The (R, 1) int32 row sums of ``x`` (R, C) int32, R <= 32, added to
     a zero output (``init``) or to whatever the output held
@@ -324,6 +329,7 @@ def block_copy_access(x, copied) -> int:
                and copied.data_ptr() % 16 == 0)
 
 
+@hand_kernel
 def fx_block_copy(x, offset=0):
     """``out[:, (j + offset) block] = x[:, j block]`` for every 128-column
     block j of ``x`` (R, C) int32.  Replaces the blocked copy ``_kern``
@@ -358,6 +364,7 @@ fx_block_copy.launches = 0
 fx_serial_scan_plain = probe_serial_plain
 
 
+@hand_kernel
 def fx_serial_scan(table, keys, rows):
     """``for i: table[keys[i]] = rows[i]`` on ``table`` (K, W), ``keys``
     (M,) and ``rows`` (M, W), all int32, in place; returns ``table``.
@@ -399,6 +406,7 @@ def fx_async_copy_plain(x):
     return x.clone()
 
 
+@hand_kernel
 def fx_async_copy(x):
     """A copy of ``x`` (int32, a multiple of 4 elements, 16-byte aligned)
     made with the card's Tensor Memory Accelerator: a CTA a 4 KB tile, one
@@ -449,6 +457,7 @@ def loop_inc_access(acc) -> int:
 store_at_access = loop_inc_access
 
 
+@hand_kernel
 def fx_loop_inc(x, times=10):
     """``out = 0``, then ``out += 1`` ``times`` times, shaped as the int32
     tensor ``x`` (whose values the function, as the Pallas ``_kern`` it

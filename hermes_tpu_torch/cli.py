@@ -20,6 +20,8 @@
         --check
     python -m hermes_tpu_torch --value-words 6 --serve 2000 --check
     python -m hermes_tpu_torch --value-words 6 --bench-latency
+    python -m hermes_tpu_torch --acceptance all --scale 0.01
+    python -m hermes_tpu_torch --value-words 6 --serve 2000 --locklint
 
 The default fast-backend drive of ``hermes_tpu/cli.py``: with ``--steps
 0`` (the default) the run drains every session's op stream; ``--check``
@@ -55,21 +57,28 @@ blocks through a ``LocalGroup``, or through the deterministic
 ``--check`` and ``--metrics-out`` apply, the client drives, the drills,
 ``--chaos`` and ``--wal-dir`` are the fast engines' (as in the
 reference).  ``--wal-dir DIR`` taps the fast drive's harvest into a
-write-ahead log (``--wal-sync``).  The run is on the card unless
-``--device cpu`` is given.
+write-ahead log (``--wal-sync``).  ``--acceptance N|all|all+variants``
+runs the BASELINE scenarios (``acceptance.py``) at ``--scale``, one
+``config N: PASS|FAIL {counters}`` line each.  ``--profile DIR`` writes a
+torch.profiler trace of the fast or phases drive, ``--profile-out FILE``
+the run config's op census (``obs/profile.py``).  ``--locklint`` runs
+``--serve`` or ``--bench-latency`` under the lock-order sanitizer
+(``HERMES_LOCKLINT=1``) and adds its report to the JSON line.
+``--no-donate`` (no copying round to select) and ``--analyze`` (the
+jaxpr analyzer's counterpart is not ported) are refused.  The run is on
+the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import sys
 import time
 
 import numpy as np
-
-# keys the --check gate samples (the reference CLI's --check-keys default)
-CHECK_KEYS = 512
 
 #: --value-bytes --check: post-compaction utilization floor (live bytes
 #: over the allocated log prefix); granule rounding is the only slack
@@ -212,8 +221,12 @@ def build_parser() -> argparse.ArgumentParser:
                          "RPC over localhost TCP) and print one JSON line "
                          "with p50/p99")
     ap.add_argument("--locklint", action="store_true",
-                    help="the dynamic lock-order sanitizer of the serving "
-                         "drives: not ported yet (ROADMAP A16), refused")
+                    help="run the serving drive (--serve, --bench-latency) "
+                         "under the dynamic lock-order sanitizer "
+                         "(HERMES_LOCKLINT=1: every serving-tier lock is an "
+                         "instrumented analysis.lockgraph.ObsLock) and add "
+                         "the held-before graph's report to the JSON line; "
+                         "a lock-order cycle fails the run")
     ap.add_argument("--wal-dir", type=str, default=None, metavar="DIR",
                     help="append every committed write of the fast drive "
                          "to a CRC-framed write-ahead log under DIR "
@@ -222,6 +235,59 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--wal-sync", choices=["commit", "round", "off"],
                     default="commit",
                     help="WAL durability mode (with --wal-dir)")
+    ap.add_argument("--acceptance", default=None,
+                    choices=["1", "2", "2r", "3", "3c", "4", "5", "all",
+                             "all+variants"],
+                    help="run BASELINE acceptance config N (1-5, or the "
+                         "2r/3c variants); 'all' = configs 1-5 (the exit "
+                         "code covers exactly those), 'all+variants' also "
+                         "runs 2r and 3c; ignores most other flags")
+    ap.add_argument("--scale", type=float, default=0.01,
+                    help="acceptance size scale (1.0 = the full 2^20-key "
+                         "shape)")
+    ap.add_argument("--lane-budget", type=int, default=None,
+                    help="outbound-lane compaction budget of the fast round")
+    ap.add_argument("--wrap-stream", action="store_true",
+                    help="cycle op streams forever (use --steps)")
+    ap.add_argument("--rmw-retries", type=int, default=0,
+                    help="RMW nack retry-in-place budget (0 = abort on nack)")
+    ap.add_argument("--pipeline-depth", type=int, default=1,
+                    help="in-flight dispatch ring depth: >= 2 overlaps the "
+                         "completion readback with the next round; fast "
+                         "backends only; with --acceptance, runs the "
+                         "scenarios pipelined")
+    ap.add_argument("--no-auto-rebase", action="store_true",
+                    help="no automatic version rebase at counter polls (the "
+                         "packed-ts overflow error is the only budget "
+                         "behaviour)")
+    ap.add_argument("--no-donate", action="store_true",
+                    help="refused: the reference's copying A/B baseline of "
+                         "state donation; the port updates the table in "
+                         "place and has no copying round to select")
+    ap.add_argument("--check-keys", type=int, default=512,
+                    help="keys the --check gate samples")
+    ap.add_argument("--metrics-jsonl", type=str, default=None,
+                    help="legacy interval-metrics JSONL (see --metrics-out)")
+    ap.add_argument("--op-timeout", type=int, default=0, metavar="ROUNDS",
+                    help="stuck-op watchdog budget (cfg.op_timeout_rounds); "
+                         "0 disables")
+    ap.add_argument("--op-retries", type=int, default=0, metavar="N",
+                    help="bounded client retry (cfg.op_retry_limit) of ops "
+                         "wedged on a fenced replica; needs --op-timeout; 0 "
+                         "disables")
+    ap.add_argument("--profile", type=str, default=None, metavar="DIR",
+                    help="write a torch.profiler trace of the run "
+                         "(trace.json, Chrome format) into DIR")
+    ap.add_argument("--profile-out", type=str, default=None,
+                    metavar="PROFILE_JSONL",
+                    help="write the run config's round op census as obs "
+                         "profile records (obs.profile.round_record; fast "
+                         "backends only; a fresh state, apart from the run)")
+    ap.add_argument("--analyze", type=str, default=None,
+                    metavar="FINDINGS_JSONL",
+                    help="refused: the static round analyzer walks a jaxpr; "
+                         "its PyTorch counterpart is not ported (the engine "
+                         "half of ROADMAP A16)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: the card)")
     return ap
@@ -295,7 +361,7 @@ def _run_values(args, cfg) -> int:
                    post_gc_util=round(util, 4) if util else None)
     ok = exact
     if args.check:
-        v = kvs.rt.check(max_keys=CHECK_KEYS)
+        v = kvs.rt.check(max_keys=args.check_keys)
         stale = lin.stale_read(kvs.rt.history_ops())
         summary["checked_ok"] = bool(v.ok)
         summary["stale_read"] = [repr(e) for e in stale[:4]]
@@ -358,7 +424,7 @@ def _run_reads(args, cfg) -> int:
                    **kvs.read_stats())
     ok = True
     if args.check:
-        v = kvs.rt.check(max_keys=CHECK_KEYS)
+        v = kvs.rt.check(max_keys=args.check_keys)
         stale = lin.stale_read(kvs.rt.history_ops())
         summary["checked_ok"] = bool(v.ok)
         summary["stale_read"] = [repr(e) for e in stale[:4]]
@@ -497,12 +563,14 @@ def _run_serve(args, cfg) -> int:
     ok = True
     if args.check:
         # the verdict is a trace event: the run log closes after it
-        v = kvs.rt.check(max_keys=CHECK_KEYS)
+        v = kvs.rt.check(max_keys=args.check_keys)
         summary["checked_ok"] = bool(v.ok)
         ok = ok and v.ok
     if obs is not None:
         obs.series_snapshot()
         obs.close()
+    if args.locklint:
+        ok = _append_locklint(summary) and ok
     summary["ok"] = bool(ok)
     print(json.dumps(summary, default=str))
     return 0 if ok else 1
@@ -538,8 +606,42 @@ def _run_bench_latency(args) -> int:
     # however good the answered-prefix percentiles look
     cell["ok"] = (bool(cell["improves_dispatch_loop"])
                   and cell["error"] is None and probe["error"] is None)
+    if args.locklint:
+        cell["ok"] = _append_locklint(cell) and cell["ok"]
     print(json.dumps(cell, default=str))
     return 0 if cell["ok"] else 1
+
+
+def _run_acceptance(args) -> int:
+    """The BASELINE acceptance scenarios: one line a config, ``config N:
+    PASS|FAIL {counters}``; exit 1 if any failed."""
+    from hermes_tpu_torch import acceptance
+
+    # 'all' is the judged set 1-5: its exit code covers exactly those
+    which = ([1, 2, 3, 4, 5] if args.acceptance == "all"
+             else [1, 2, "2r", 3, "3c", 4, 5]
+             if args.acceptance == "all+variants"
+             else [args.acceptance if args.acceptance in ("2r", "3c")
+                   else int(args.acceptance)])
+    rc = 0
+    for n in which:
+        counters, verdict = acceptance.run_config(
+            n, scale=args.scale, pipeline_depth=args.pipeline_depth,
+            log=lambda s: print(s, file=sys.stderr), device=args.device)
+        ok = counters["drained"] and (verdict is None or verdict.ok)
+        print(f"config {n}: {'PASS' if ok else 'FAIL'} {counters}")
+        rc |= 0 if ok else 1
+    return rc
+
+
+def _append_locklint(summary: dict) -> bool:
+    """Add the lock sanitizer's held-before graph report to a drive's
+    summary; a cycle (a potential deadlock) fails the run."""
+    from hermes_tpu_torch.analysis import lockgraph
+
+    rep = lockgraph.global_graph().report()
+    summary["locklint"] = rep
+    return not rep["cycles"]
 
 
 def _freeze_faults(ap, args):
@@ -595,14 +697,45 @@ def main(argv=None) -> int:
         ("--serve", args.serve is not None),
         ("--bench-latency", args.bench_latency)) if on]
     if args.locklint:
-        ap.error("--locklint (the dynamic lock-order sanitizer, the "
-                 "reference's analysis/lockgraph.py) is not ported yet: "
-                 "ROADMAP A16")
+        # before any serving or transport object mints its locks
+        # (concurrency.make_lock reads the switch at mint time)
+        os.environ["HERMES_LOCKLINT"] = "1"
+    if args.no_donate:
+        ap.error("--no-donate selects the reference's copying baseline of "
+                 "state donation; the port updates the table in place and "
+                 "has no copying round")
+    if args.analyze:
+        ap.error("--analyze runs the static round analyzer over a jaxpr; "
+                 "its PyTorch counterpart (a pass framework over the "
+                 "round's graph) is not ported: ROADMAP A16, engine half")
+    if ((args.no_auto_rebase or args.rmw_retries)
+            and args.backend not in FAST):
+        ap.error("--arb-mode/--chain-writes/--mega-round/--no-auto-rebase/"
+                 "--rmw-retries only affect the fast backends "
+                 "(core/faststep.py / runtime.FastRuntime); use --backend "
+                 "fast or fast-sharded")
+    if args.pipeline_depth < 1:
+        ap.error("--pipeline-depth must be >= 1")
+    if args.pipeline_depth > 1 and args.backend not in FAST:
+        ap.error("--pipeline-depth/--no-donate only affect the fast "
+                 "backends (runtime.FastRuntime's harvest ring / donated "
+                 "state); use --backend fast or fast-sharded")
+    if args.profile_out and args.backend not in FAST:
+        ap.error("--profile-out censuses the fast round (core/faststep.py); "
+                 "use --backend fast or fast-sharded")
+    if args.profile_out and args.acceptance:
+        ap.error("--profile-out does not apply to acceptance runs (they "
+                 "build their own configs); census a run config instead")
+    if args.profile and args.acceptance:
+        ap.error("--profile traces the run drive; acceptance runs build "
+                 "their own runtimes, trace a run config instead")
     if args.chaos is not None and args.chaos_schedule:
         ap.error("--chaos and --chaos-schedule are mutually exclusive")
+    if args.drill and args.acceptance:
+        ap.error("--drill and --acceptance are mutually exclusive")
     # the serving drives' refusals, in the reference CLI's words
-    others = bool(args.drill or args.fleet_groups or chaos_on
-                  or args.freeze)
+    others = bool(args.acceptance or args.drill or args.fleet_groups
+                  or chaos_on or args.freeze)
     if args.serve is not None:
         if args.serve < 1:
             ap.error("--serve wants a positive op count")
@@ -663,14 +796,19 @@ def main(argv=None) -> int:
         if args.value_words < 3:
             ap.error("--fleet-groups needs --value-words >= 3 (words 0-1 "
                      "carry the write uid)")
-        if args.freeze:
-            ap.error("--fleet-groups is its own drive; drop --freeze")
+        if args.acceptance or args.freeze:
+            ap.error("--fleet-groups is its own drive; drop --acceptance/"
+                     "--drill/--chaos/--freeze")
     if chaos_on:
         if args.steps <= 0:
             ap.error("--chaos needs a bounded run (--steps > 0)")
         if args.freeze:
             ap.error("--chaos and --freeze are mutually exclusive (put "
                      "freeze windows in the schedule instead)")
+    if args.acceptance and (args.reads is not None
+                            or args.value_bytes is not None):
+        ap.error("--reads/--value-bytes are their own drives; drop "
+                 "--acceptance")
     if args.reads is not None:
         if args.reads < 1:
             ap.error("--reads wants a positive op count")
@@ -692,6 +830,8 @@ def main(argv=None) -> int:
     if args.mega_round and args.arb_mode != "sort":
         ap.error("--mega-round needs --arb-mode sort (the mega route "
                  "kernel consumes the fused sort's verdicts)")
+    if args.acceptance:
+        return _run_acceptance(args)
     cfg = HermesConfig(
         n_replicas=args.replicas,
         n_keys=args.keys,
@@ -699,9 +839,16 @@ def main(argv=None) -> int:
         n_sessions=args.sessions,
         replay_slots=args.replay_slots,
         ops_per_session=args.ops_per_session,
+        lane_budget_cfg=args.lane_budget,
+        wrap_stream=args.wrap_stream,
         arb_mode=args.arb_mode,
         chain_writes=args.chain_writes,
         mega_round=args.mega_round,
+        rmw_retries=args.rmw_retries,
+        auto_rebase=not args.no_auto_rebase,
+        pipeline_depth=args.pipeline_depth,
+        op_timeout_rounds=args.op_timeout,
+        op_retry_limit=args.op_retries,
         trace_sample=args.trace_sample,
         min_healthy_for_writes=args.degraded_floor,
         wal_dir=args.wal_dir,
@@ -744,6 +891,11 @@ def main(argv=None) -> int:
         rt = Runtime(cfg, backend=args.backend, record=args.check,
                      device=args.device)
         meta_of = lambda: rt.rs.meta
+    logger = None
+    if args.metrics_jsonl:
+        from hermes_tpu_torch.obs.metrics import JsonlExporter
+
+        logger = JsonlExporter(open(args.metrics_jsonl, "w"))
     obs = None
     if args.metrics_out:
         from hermes_tpu_torch.obs import Observability
@@ -762,24 +914,36 @@ def main(argv=None) -> int:
             rec = stats_lib.summarize(meta_of(), time.perf_counter() - t0,
                                       s + 1)
             print(rec, file=sys.stderr)
+            if logger:
+                logger.write(dict(rec))
             if obs:
                 obs.interval(rec)
 
-    if sched is not None:
-        runner = chaos_lib.ChaosRunner(rt, sched, on_step=report)
-        res = runner.run(args.steps)
-        print(f"chaos: {len(runner.log)} event(s) applied, "
-              f"lost_ops={res['lost_ops']}, drained={res['drained']}",
-              file=sys.stderr)
-    elif args.steps > 0:
-        for s in range(args.steps):
-            while faults and faults[0][0] <= s:
-                _, r, action = faults.pop(0)
-                getattr(rt, action)(r)
-            rt.step_once()
-            report(s)
-    elif not rt.drain():
-        print("WARNING: did not drain", file=sys.stderr)
+    trace = None
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        trace = profile(activities=[ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if rt.device.type == "cuda" else []))
+    with trace if trace is not None else contextlib.nullcontext():
+        if sched is not None:
+            runner = chaos_lib.ChaosRunner(rt, sched, on_step=report)
+            res = runner.run(args.steps)
+            print(f"chaos: {len(runner.log)} event(s) applied, "
+                  f"lost_ops={res['lost_ops']}, drained={res['drained']}",
+                  file=sys.stderr)
+        elif args.steps > 0:
+            for s in range(args.steps):
+                while faults and faults[0][0] <= s:
+                    _, r, action = faults.pop(0)
+                    getattr(rt, action)(r)
+                rt.step_once()
+                report(s)
+        elif not rt.drain():
+            print("WARNING: did not drain", file=sys.stderr)
+    if trace is not None:
+        os.makedirs(args.profile, exist_ok=True)
+        trace.export_chrome_trace(os.path.join(args.profile, "trace.json"))
     if rt.wal is not None:
         # the drive's last rounds are on disk before the summary claims
         # them committed
@@ -802,10 +966,19 @@ def main(argv=None) -> int:
         rec = {k: v for k, v in rec.items()
                if k not in ("lat_hist", "qwait_hist")}
     print(rec)
+    if logger:
+        logger.write(dict(rec))
+        logger.fp.close()
+    if args.profile_out:
+        from hermes_tpu_torch.obs import profile as prof
+
+        eng = _backend(args)
+        prof.export_profile(args.profile_out, [prof.round_record(
+            prof.op_census(cfg, eng, device=args.device), backend=eng)])
     try:
         if args.check:
             # the verdict is a trace event: the run log closes after it
-            v = rt.check(max_keys=CHECK_KEYS)
+            v = rt.check(max_keys=args.check_keys)
             print(f"linearizability: {'PASS' if v.ok else 'FAIL'} "
                   f"({v.keys_checked} keys)")
             if not v.ok:

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import re
 from typing import List, Optional
 
@@ -192,6 +193,57 @@ def out(shape, dtype, device):
     if _checked is None:
         return torch.empty(shape, dtype=dtype, device=device)
     return torch.full(shape, poison(dtype), dtype=dtype, device=device)
+
+
+# --------------------------------------------------------------------------
+# hand-kernel calls, as the op census (obs/profile.py) counts them
+# --------------------------------------------------------------------------
+
+#: every wrapper marked with ``hand_kernel``, by name
+HAND_KERNELS: dict = {}
+_depth = 0  # wrapper calls in progress on this process
+_calls: Optional[dict] = None  # name -> outermost calls, while counted
+
+
+def hand_kernel(fn):
+    """Mark ``fn`` as a hand-kernel wrapper: a call counts as ONE op of
+    the census, named after the kernel, on both devices.  While it runs,
+    ``in_hand_kernel()`` is True, so the census skips the torch ops it
+    makes (the plain version's on the CPU, the outputs' allocation on the
+    card).  A wrapper called from inside another counts nothing."""
+    name = fn.__name__
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        global _depth
+        if _depth == 0 and _calls is not None:
+            _calls[name] = _calls.get(name, 0) + 1
+        _depth += 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _depth -= 1
+
+    HAND_KERNELS[name] = call
+    return call
+
+
+def in_hand_kernel() -> bool:
+    return _depth > 0
+
+
+@contextlib.contextmanager
+def count_hand_kernels():
+    """Yield a dict that counts, by name, the hand-kernel calls made
+    inside the block (outermost calls only).  Blocks do not nest."""
+    global _calls
+    if _calls is not None:
+        raise RuntimeError("count_hand_kernels blocks do not nest")
+    _calls = got = {}
+    try:
+        yield got
+    finally:
+        _calls = None
 
 
 _entry: dict = {}  # release: entry name -> its typed C entry point

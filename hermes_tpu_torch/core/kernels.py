@@ -37,7 +37,8 @@ from hermes_tpu_torch import build
 from hermes_tpu_torch.core import layouts
 from hermes_tpu_torch.core import state as st
 from hermes_tpu_torch.core import types as t
-from hermes_tpu_torch.core.dispatch import CLUSTER_MAX, SMS, cdiv, launch, out
+from hermes_tpu_torch.core.dispatch import (CLUSTER_MAX, SMS, cdiv,
+                                            hand_kernel, launch, out)
 
 CTR_READ = layouts.STATS_CTR.row("read")
 CTR_WRITE = layouts.STATS_CTR.row("write")
@@ -175,6 +176,7 @@ def _stats_block_cuda(step, sess_op, invoke_step, commit, abort, read_done):
     return code, ctr, hist
 
 
+@hand_kernel
 def stats_block(step, sess_op, invoke_step, commit, abort, read_done):
     """Fused completion codes + counters + latency histogram.
 

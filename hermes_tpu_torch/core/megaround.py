@@ -44,7 +44,8 @@ import torch
 from hermes_tpu_torch.core import layouts
 from hermes_tpu_torch.core import types as t
 from hermes_tpu_torch.core.dispatch import (CLUSTER_MAX, SMEM_BYTES_MAX, SMS,
-                                            cdiv, launch, need, on_card, out)
+                                            cdiv, hand_kernel, launch, need,
+                                            on_card, out)
 
 I32 = torch.int32
 I32_MIN = -(1 << 31)
@@ -152,6 +153,7 @@ def route_plan(R: int, L: int, C: int, cluster=None) -> RoutePlan:
     return min(plans, key=lambda plan: plan.passes)
 
 
+@hand_kernel
 def mega_route(cfg, si, word, srank):
     """Per-lane verdict route-back and slot ownership of the fused sort:
     returns ``(lane_word (R, L), slot_lane (R, C))`` from the (R, L) int32
@@ -214,6 +216,7 @@ APPLY_THREADS = 256
 APPLY_HELD = 2
 
 
+@hand_kernel
 def mega_apply(cfg, vpts, keys, pts, mask):
     """The arbiter core: phase 0 scatter-MAXes every masked (key, pts) row
     into the (K,) int32 column ``vpts`` (in place), phase 1 reads the
@@ -367,6 +370,7 @@ def replay_access(bank, val, nval, active):
     return words, vec
 
 
+@hand_kernel
 def mega_replay(cfg, step, frozen, table_vpts, table_bank, replay):
     """The gated replay scan (run every ``replay_scan_every`` rounds):
     ``step`` the round as a one-element int32 tensor on the table's device

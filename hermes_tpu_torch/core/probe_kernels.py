@@ -27,7 +27,8 @@ from __future__ import annotations
 
 import torch
 
-from hermes_tpu_torch.core.dispatch import launch, need, on_card, out
+from hermes_tpu_torch.core.dispatch import (hand_kernel, launch, need,
+                                            on_card, out)
 
 I32 = torch.int32
 
@@ -95,6 +96,7 @@ def win_column(device, stream: int, K: int):
     return col
 
 
+@hand_kernel
 def probe_serial(table, keys, rows):
     """The serial probe step: writes ``rows`` (M, W) int32 into ``table``
     (K, W) int32 at ``keys`` (M,) int32, in place, as the ordered loop
@@ -152,6 +154,7 @@ def vgather_access(table, rows):
     return int(vec_ld), int(rows.data_ptr() % 16 == 0)
 
 
+@hand_kernel
 def probe_vgather(keys, table):
     """The gather probe step: ``out[m] = table[row_index(keys[m])]`` from
     ``keys`` (M,) int32 and ``table`` (K, W) int32; returns ``out`` (M, W)

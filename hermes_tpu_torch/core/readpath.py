@@ -37,8 +37,8 @@ linearizability.stale_read`` checks the property on recorded histories.
 Where the port differs: PyTorch compiles nothing, so there are no batch
 buckets to pad to; a multi-get gathers exactly its ``n`` rows.
 ``batch_bucket`` stays as the reference defines it, for callers that
-size their batches by it.  ``read_census``/``scan_census`` (the op
-census) wait for ROADMAP A14.
+size their batches by it.  ``read_census``/``scan_census`` run one
+dispatch under the op census (``obs/profile.py``).
 """
 
 from __future__ import annotations
@@ -115,6 +115,37 @@ def build_scan(cfg: HermesConfig):
         return _answer_rows(table.bank[off + lo:off + hi])
 
     return scan
+
+
+def _census_table(cfg: HermesConfig, backend: str, device):
+    from hermes_tpu_torch import device as device_lib
+
+    n = cfg.n_replicas if backend == "sharded" else None
+    return fst.init_fast_state(cfg, device_lib.resolve(device),
+                               n_copies=n).table
+
+
+def read_census(cfg: HermesConfig, backend: str = "batched",
+                batch: int = 4096, device="cuda") -> dict:
+    """The op census of ONE multi-get dispatch of ``batch`` keys on a
+    fresh table (``obs/profile.py``; the ``read_path`` budget)."""
+    from hermes_tpu_torch.obs.profile import count_ops
+
+    table = _census_table(cfg, backend, device)
+    fn = build_multi_get(cfg)
+    slots = np.arange(batch, dtype=np.int64) % cfg.n_keys
+    return count_ops(lambda mode: fn(table, slots))
+
+
+def scan_census(cfg: HermesConfig, backend: str = "batched",
+                size: int = 4096, device="cuda") -> dict:
+    """The census of one range-scan dispatch of ``size`` rows (the
+    ``read_scan`` budget)."""
+    from hermes_tpu_torch.obs.profile import count_ops
+
+    table = _census_table(cfg, backend, device)
+    fn = build_scan(cfg)
+    return count_ops(lambda mode: fn(table, 0, min(size, cfg.n_keys)))
 
 
 class LocalReader:

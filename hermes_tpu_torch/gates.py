@@ -1,0 +1,197 @@
+"""The port's gate runner: the counterpart of ``scripts/run_gates.py``.
+
+    python -m hermes_tpu_torch.gates [--only census,hostlint] [--force]
+        [--timeout S] [--out DIR]
+
+Gates (each a process of its own, on the CPU):
+
+  * ``census``     — ``python -m hermes_tpu_torch.obs.profile --check``:
+    the round, read and heap censuses against ``obs/op_budget.json``;
+  * ``hostlint``   — ``python -m hermes_tpu_torch.analysis.hostlint``:
+    the static pass over the port against its empty baseline, the red
+    legs, and a short serving soak under ``HERMES_LOCKLINT=1`` with no
+    lock-order cycle;
+  * ``acceptance`` — ``python -m hermes_tpu_torch --acceptance all``:
+    BASELINE configs 1 to 5 at scale 0.01, each drained and checked.
+
+The rules of the reference's runner hold:
+
+  * the gates run one at a time, in this order, each in its own process
+    group: one that outlasts ``--timeout`` is killed with its whole group
+    and recorded ``timed_out``;
+  * a live pytest in this checkout (a process whose working directory
+    lies in it) aborts the run up front (``--force`` overrides): a
+    parallel suite's load disturbs what a gate times, and a suite of
+    another checkout is none of this run's business;
+  * every gate runs with the flight recorder armed (``HERMES_FLIGHT_DIR``
+    under ``--out``), and a failed gate carries the archives dumped
+    while it ran.
+
+One JSON summary line is printed; the whole summary goes to
+``DIR/gates_summary.json`` under ``--out`` (a fresh temporary directory
+by default).  Exit 1 if any gate failed, 2 if refused.
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import json
+import os
+import signal
+import subprocess
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+GATES = (
+    ("census", ("-m", "hermes_tpu_torch.obs.profile", "--check",
+                "--device", "cpu")),
+    ("hostlint", ("-m", "hermes_tpu_torch.analysis.hostlint",
+                  "--device", "cpu")),
+    ("acceptance", ("-m", "hermes_tpu_torch", "--acceptance", "all",
+                    "--scale", "0.01", "--device", "cpu")),
+)
+
+
+def pytest_running() -> list:
+    """The pids of live pytest processes whose working directory lies in
+    this checkout (Linux /proc; a process this user cannot read is
+    skipped)."""
+    root = os.path.realpath(ROOT)
+    hits = []
+    for cmdline in glob.glob("/proc/[0-9]*/cmdline"):
+        pid = cmdline.split("/")[2]
+        try:
+            with open(cmdline, "rb") as f:
+                argv = f.read().split(b"\0")
+            if not any(b"pytest" in a for a in argv):
+                continue
+            cwd = os.path.realpath(os.readlink(f"/proc/{pid}/cwd"))
+        except OSError:
+            continue
+        if cwd == root or cwd.startswith(root + os.sep):
+            hits.append(pid)
+    return hits
+
+
+def gate_env(flight_dir: str) -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    env["HERMES_FLIGHT_DIR"] = flight_dir
+    return env
+
+
+def _dumps(flight_dir: str) -> set:
+    return set(glob.glob(os.path.join(flight_dir, "flight_*.json")))
+
+
+def _report(out: str):
+    """The gate's last JSON line, else its last lines of text."""
+    lines = out.strip().splitlines()
+    for line in reversed(lines):
+        try:
+            return json.loads(line)
+        except json.JSONDecodeError:
+            continue
+    return {"stdout_tail": lines[-8:]}
+
+
+def run_gate(name: str, argv, timeout: int, flight_dir: str) -> dict:
+    t0 = time.perf_counter()
+    before = _dumps(flight_dir)
+    # its own process group: on a timeout the whole group is killed, so a
+    # gate wedged in a grandchild cannot stall the run or leak processes
+    proc = subprocess.Popen([sys.executable, *argv], cwd=ROOT,
+                            env=gate_env(flight_dir), start_new_session=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        out_b, err_b = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            proc.kill()
+        out_b, err_b = proc.communicate()
+        dumps = sorted(_dumps(flight_dir) - before)
+        return dict(gate=name, ok=False, rc=-9, timed_out=True,
+                    seconds=round(time.perf_counter() - t0, 2),
+                    error=f"timed out after {timeout}s (process group "
+                          "killed)",
+                    stderr_tail=err_b.decode(errors="replace")[-1500:],
+                    **({"flight_dumps": dumps} if dumps else {}))
+    rc = proc.returncode
+    dumps = sorted(_dumps(flight_dir) - before)
+    return dict(gate=name, ok=rc == 0, rc=rc,
+                seconds=round(time.perf_counter() - t0, 2),
+                report=_report(out_b.decode(errors="replace")),
+                **({"flight_dumps": dumps} if dumps else {}),
+                **({} if rc == 0 else
+                   {"stderr_tail": err_b.decode(errors="replace")[-1500:]}))
+
+
+def main(argv=None, gates=GATES) -> int:
+    """Run ``gates`` (name, python argv) as the flags say; the summary
+    line on stdout, exit 0 / 1 / 2."""
+    ap = argparse.ArgumentParser(prog="python -m hermes_tpu_torch.gates",
+                                 description=__doc__.splitlines()[0])
+    names = [g[0] for g in gates]
+    ap.add_argument("--only", default=None,
+                    help=f"comma-separated subset of {names}")
+    ap.add_argument("--timeout", type=int, default=1200,
+                    help="a gate's time limit in seconds")
+    ap.add_argument("--force", action="store_true",
+                    help="run even while a pytest is live")
+    ap.add_argument("--out", default=None, metavar="DIR",
+                    help="where the summary and the flight dumps go "
+                         "(default: a fresh temporary directory)")
+    args = ap.parse_args(argv)
+    only = None
+    if args.only:
+        only = [s.strip() for s in args.only.split(",") if s.strip()]
+        unknown = [s for s in only if s not in names]
+        if unknown:
+            ap.error(f"unknown gate(s) {unknown}; want a subset of {names}")
+    pids = pytest_running()
+    if pids and not args.force:
+        print(json.dumps(dict(
+            ok=False, error=f"pytest is running (pid {', '.join(pids)}): "
+            "the gates must not run beside a test suite; wait for it or "
+            "pass --force")))
+        return 2
+    out_dir = args.out or tempfile.mkdtemp(prefix="hermes_gates_")
+    flight_dir = os.path.join(out_dir, "flight_dumps")
+    os.makedirs(flight_dir, exist_ok=True)
+    results = []
+    for name, gate_argv in gates:
+        if only is not None and name not in only:
+            continue
+        print(f"[gates] {name} ...", file=sys.stderr, flush=True)
+        r = run_gate(name, gate_argv, args.timeout, flight_dir)
+        print(f"[gates] {name}: {'ok' if r['ok'] else 'FAIL'} in "
+              f"{r['seconds']}s", file=sys.stderr, flush=True)
+        results.append(r)
+    summary = dict(
+        ok=all(r["ok"] for r in results),
+        gates={r["gate"]: dict(ok=r["ok"], seconds=r["seconds"],
+                               **({"timed_out": True} if r.get("timed_out")
+                                  else {}),
+                               **({"flight_dumps": r["flight_dumps"]}
+                                  if not r["ok"] and r.get("flight_dumps")
+                                  else {}))
+               for r in results},
+        total_seconds=round(sum(r["seconds"] for r in results), 2),
+        results=results, out=out_dir)
+    with open(os.path.join(out_dir, "gates_summary.json"), "w") as f:
+        json.dump(summary, f, indent=1, sort_keys=True)
+        f.write("\n")
+    print(json.dumps(dict(ok=summary["ok"], gates=summary["gates"],
+                          total_seconds=summary["total_seconds"],
+                          out=out_dir)))
+    return 0 if summary["ok"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

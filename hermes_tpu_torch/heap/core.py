@@ -24,9 +24,10 @@ completion resolved.
 
 Where the port differs: the device log is a ``uint8`` tensor, built with
 a COPY of the mirror (``torch.tensor``), so appends reach it only through
-the dirty-tail sync; and there are no batch buckets to pad to.  The op
-census (``gather_census``, ``append_census``) waits for ROADMAP A14 and
-``analyze_gather`` for A16.
+the dirty-tail sync; and there are no batch buckets to pad to.
+``gather_census`` and ``append_census`` run one dispatch under the op
+census (``obs/profile.py``); ``analyze_gather`` waits for the engine half
+of ROADMAP A16.
 """
 
 from __future__ import annotations
@@ -106,6 +107,32 @@ def build_append(heap_bytes: int, chunk: int):
         return log
 
     return append
+
+
+def gather_census(cfg: HermesConfig, batch: int = 1024,
+                  device="cuda") -> dict:
+    """The op census of ONE extent-gather dispatch of ``batch`` refs on a
+    zero log (``obs/profile.py``; the ``heap_path`` budget)."""
+    from hermes_tpu_torch.obs.profile import count_ops
+
+    dev = device_lib.resolve(device)
+    log = torch.zeros((cfg.heap_bytes,), dtype=torch.uint8, device=dev)
+    refs = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    fn = build_extent_gather(cfg.heap_bytes, cap_bytes(cfg))
+    return count_ops(lambda mode: fn(log, refs))
+
+
+def append_census(cfg: HermesConfig, chunk: int = 4096,
+                  device="cuda") -> dict:
+    """The census of one log-append dispatch of ``chunk`` bytes (the
+    ``heap_append`` budget: dense only)."""
+    from hermes_tpu_torch.obs.profile import count_ops
+
+    dev = device_lib.resolve(device)
+    log = torch.zeros((cfg.heap_bytes,), dtype=torch.uint8, device=dev)
+    data = torch.zeros((chunk,), dtype=torch.uint8, device=dev)
+    fn = build_append(cfg.heap_bytes, chunk)
+    return count_ops(lambda mode: fn(log, data, 0))
 
 
 class ValueHeap:

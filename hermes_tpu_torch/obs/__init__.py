@@ -1,6 +1,7 @@
 """hermes_tpu_torch.obs: the port's observability, a copy of the host
-modules of ``hermes_tpu/obs`` (the JAX package's ``profile.py``, which
-walks jaxprs, has no counterpart here).
+modules of ``hermes_tpu/obs``; ``profile.py`` is the port's own op census
+(what one real round dispatches, in place of the reference's count of a
+lowered program).
 
   1. **Device-side phase metrics**: the Meta columns the round sums per
      step (``core/state.Meta``), read by ``stats.summarize``.

@@ -24,7 +24,9 @@ SENTINEL = "spin_kernel"
 
 def _trace(run):
     """Device busy time (sum of CUDA kernel time), kernel count, wall time,
-    the top kernels of ``run()`` and the top host operators by the device
+    the top kernels of ``run()``, every kernel's count by name
+    (``names``), the host's launch calls by API (``launch_calls``, the
+    sentinel's two among them) and the top host operators by the device
     time of the kernels each launched itself (``top_ops``: which PyTorch
     call a kernel name stands for), from torch.profiler."""
     from torch.autograd import DeviceType
@@ -41,20 +43,24 @@ def _trace(run):
         wall = time.perf_counter() - t0
         torch.cuda._sleep(1)
         torch.cuda.synchronize()
-    busy_us, n, top, ops = 0.0, 0, [], []
+    busy_us, n, top, ops, names, api = 0.0, 0, [], [], {}, {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0.0)
         if e.device_type == DeviceType.CUDA and SENTINEL not in e.key:
             busy_us += us
             n += e.count
             top.append((us, e.count, e.key[:60]))
+            names[e.key] = names.get(e.key, 0) + e.count
         elif e.device_type == DeviceType.CPU and us > 0 and (
                 "_sleep" not in e.key):
             ops.append((us, e.count, e.key[:60]))
+        if e.device_type == DeviceType.CPU and e.key.startswith(
+                ("cudaLaunch", "cuLaunch")):
+            api[e.key] = api.get(e.key, 0) + e.count
     top.sort(reverse=True)
     ops.sort(reverse=True)
     return dict(wall_s=wall, busy_s=busy_us / 1e6, launches=n, top=top[:8],
-                top_ops=ops[:8])
+                top_ops=ops[:8], names=names, launch_calls=api)
 
 
 def device_busy(run):
@@ -74,6 +80,14 @@ def device_busy(run):
 # after a refused one to let the episode pass.
 _TRACES = 10
 _PAUSE_S = 0.25
+# Besides, the older the process, the fewer of a burst's device records a
+# trace keeps, the same ones in consecutive traces: one bench-a round
+# traced after every phase of the chip smoke kept 787 records fresh and
+# 736 at the end, while its host launch calls (``launch_calls``: 777,
+# the sentinel's two among them) and aten ops stayed the same (H100,
+# PERF.md section 6).  A count held exactly is taken early in a fresh
+# process.
+
 # A trace of some 3,000 launches or more comes back short every time (an
 # H100: 3,074 of 3,075, 20,497 to 20,499 of 20,500), so a burst is cut to
 # hold at most this many launches, or one call.
@@ -112,6 +126,28 @@ def device_split(call, n=20):
     raise RuntimeError(f"torch.profiler gave no two agreeing traces of {n} "
                        f"calls in {_TRACES}: the last held "
                        f"{out['launches']} launches and {out['busy_s']} s")
+
+
+def device_launches(prepare, run):
+    """The CUDA kernels ``run(prepare())`` launches, with ``prepare()``
+    outside the trace (a fresh input a trace): traced until two
+    consecutive traces agree (at most ``_TRACES``), refusing a trace with
+    no device time as ``device_split`` does.  Raises if none agree."""
+    last = None
+    for _ in range(_TRACES):
+        args = prepare()
+        out = _trace(lambda: run(args))
+        if out["busy_s"] <= 0:
+            print(f"profiling: refused a trace of {out['launches']} launches "
+                  "and no device time", file=sys.stderr, flush=True)
+            last = None
+            time.sleep(_PAUSE_S)
+        elif out["launches"] == last:
+            return last
+        else:
+            last = out["launches"]
+    raise RuntimeError(f"torch.profiler gave no two agreeing traces in "
+                       f"{_TRACES}: the last held {out['launches']} launches")
 
 
 def device_per_call(call, n=20):

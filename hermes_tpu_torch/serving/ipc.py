@@ -147,7 +147,7 @@ class ShmWorker:
         self.push_timeout_s = push_timeout_s
         self.retry_after_us = retry_after_us
         self._FramedSocket = FramedSocket
-        # minted via make_lock (the lock sanitizer's hook, ROADMAP A16).
+        # minted via make_lock: ObsLocks under HERMES_LOCKLINT=1.
         # _ring_lock serializes the reader threads on the request ring
         # (collectively one producer); _map_lock guards conn bookkeeping.
         self._ring_lock = make_lock("ShmWorker._ring_lock")

@@ -100,7 +100,7 @@ class TcpRpcServer:
         self.u = frontend.u
         self.vbytes = frontend.vbytes
         self._FramedSocket = FramedSocket
-        # minted via make_lock (the lock sanitizer's hook, ROADMAP A16)
+        # minted via make_lock: ObsLocks under HERMES_LOCKLINT=1
         self._lock = make_lock("TcpRpcServer._lock")
         # lock-fairness split: ``_lock`` guards the Frontend
         # itself (submit/pump — held for a full store round at a time);
@@ -416,7 +416,7 @@ class ColumnarTcpServer:
         self.u = frontend.u
         self.vbytes = frontend.vbytes
         self._FramedSocket = FramedSocket
-        # minted via make_lock (the lock sanitizer's hook, ROADMAP A16)
+        # minted via make_lock: ObsLocks under HERMES_LOCKLINT=1
         self._lock = make_lock("ColumnarTcpServer._lock")
         self._map_lock = make_lock("ColumnarTcpServer._map_lock")
         self._next_cid = 1

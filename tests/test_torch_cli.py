@@ -451,7 +451,7 @@ def test_torch_cli_serving_refusals_match_reference(capsys, argv):
      "--serve drives the fast batched backend"),
     (["--serve", "5", "--value-words", "6", "--backend", "sim"],
      "--serve drives the fast batched backend"),
-    (["--locklint"], "ROADMAP A16"),
+    (["--analyze", "findings.jsonl"], "ROADMAP A16"),
 ])
 def test_torch_cli_serving_refuses_what_is_not_its_own(argv, msg):
     r = subprocess.run(
@@ -474,3 +474,125 @@ def test_torch_cli_bench_latency_answers_every_op():
     assert cell["error"] is None and cell["answered"] == cell["ops"] == 64
     assert cell["p50_us"] > 0 and cell["capacity_probe_ops_per_sec"] > 0
     assert r.returncode == (0 if cell["ok"] else 1)
+
+
+# -- the acceptance drive, the census output, the run flags and locklint -------
+
+def test_torch_cli_acceptance_prints_the_reference_lines(capsys):
+    """``--acceptance all --scale 0.01``: one ``config N: PASS {...}``
+    line a config, the reference CLI's lines word for word."""
+    from hermes_tpu import cli as ref_cli
+
+    argv = ["--acceptance", "all", "--scale", "0.01"]
+    r = subprocess.run(
+        [sys.executable, "-m", "hermes_tpu_torch", *argv, "--device", "cpu"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    capsys.readouterr()
+    assert ref_cli.main(argv) == 0
+    want = capsys.readouterr().out.splitlines()
+    assert r.stdout.splitlines() == want
+    assert [ln.split(":")[0] for ln in want] == [f"config {n}"
+                                                 for n in range(1, 6)]
+
+
+RUN_FLAGS = ["--replicas", "3", "--keys", "64", "--sessions", "8",
+             "--replay-slots", "4", "--ops-per-session", "12",
+             "--arb-mode", "sort", "--chain-writes", "2", "--check"]
+
+
+@pytest.mark.parametrize("extra", [
+    ["--lane-budget", "6", "--rmw-retries", "2"],
+    ["--pipeline-depth", "2", "--check-keys", "16", "--no-auto-rebase"],
+    ["--wrap-stream", "--steps", "40", "--op-timeout", "8",
+     "--op-retries", "1"],
+])
+def test_torch_cli_run_flags_match_reference_summary(capsys, extra):
+    """The ported run flags build the reference's config: the drive's
+    summary record (every counter) equals the reference CLI's."""
+    _summary_pair(capsys, RUN_FLAGS + extra)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--profile-out", "p.jsonl", "--backend", "sim"],
+    ["--profile-out", "p.jsonl", "--acceptance", "1"],
+    ["--pipeline-depth", "0"],
+    ["--pipeline-depth", "2", "--backend", "batched"],
+    ["--rmw-retries", "2", "--backend", "sim"],
+    ["--no-auto-rebase", "--backend", "sharded"],
+    ["--drill", "rolling", "--acceptance", "1"],
+])
+def test_torch_cli_run_flag_refusals_match_reference(capsys, argv):
+    from hermes_tpu import cli as ref_cli
+
+    r = subprocess.run(
+        [sys.executable, "-m", "hermes_tpu_torch", "--device", "cpu", *argv],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    capsys.readouterr()
+    with pytest.raises(SystemExit) as ei:
+        ref_cli.main(argv)
+    assert ei.value.code == 2
+    want = capsys.readouterr().err.strip().splitlines()[-1]
+    assert r.returncode == 2
+    got = r.stderr.strip().splitlines()[-1]
+    assert got.replace("hermes_tpu_torch", "hermes_tpu") == want, (got, want)
+
+
+@pytest.mark.parametrize("argv,msg", [
+    (["--no-donate"], "has no copying round"),
+    (["--profile", "d", "--acceptance", "1"], "--profile traces the run"),
+    (["--acceptance", "1", "--reads", "8", "--value-words", "6"],
+     "drop --acceptance"),
+])
+def test_torch_cli_refuses_what_the_port_does_not_carry(argv, msg):
+    r = subprocess.run(
+        [sys.executable, "-m", "hermes_tpu_torch", "--device", "cpu", *argv],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 2 and msg in r.stderr, r.stderr
+
+
+def test_torch_cli_profile_outputs(tmp_path, capsys):
+    """``--profile-out`` writes the run config's census as the reference's
+    record (same keys and kinds); ``--profile`` a torch.profiler trace;
+    ``--metrics-jsonl`` the legacy interval records."""
+    import json
+
+    from hermes_tpu import cli as ref_cli
+
+    port_out, ref_out = tmp_path / "port.jsonl", tmp_path / "ref.jsonl"
+    argv = RUN_FLAGS[:-1] + ["--steps", "6", "--report-every", "3"]
+    r = subprocess.run(
+        [sys.executable, "-m", "hermes_tpu_torch", *argv, "--device", "cpu",
+         "--profile-out", str(port_out), "--profile", str(tmp_path / "tr"),
+         "--metrics-jsonl", str(tmp_path / "m.jsonl")],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert ref_cli.main(argv + ["--profile-out", str(ref_out)]) == 0
+    capsys.readouterr()
+    (got,) = [json.loads(x) for x in port_out.read_text().splitlines()]
+    (want,) = [json.loads(x) for x in ref_out.read_text().splitlines()]
+    assert sorted(got) == sorted(want)
+    assert (got["kind"], got["record"], got["backend"]) == (
+        want["kind"], want["record"], want["backend"])
+    assert got["census"]["kernel:stats_block"] == 1
+    assert got["modeled_sparse_ms"] is None
+    trace = json.loads((tmp_path / "tr" / "trace.json").read_text())
+    assert trace["traceEvents"]
+    recs = [json.loads(x) for x in
+            (tmp_path / "m.jsonl").read_text().splitlines()]
+    assert [r["kind"] for r in recs] == ["metrics"] * 3
+
+
+def test_torch_cli_serve_drive_under_locklint(capsys):
+    """``--serve N --locklint``: the drive under the lock sanitizer, its
+    report in the summary, no cycle."""
+    import json
+
+    r = subprocess.run(
+        [sys.executable, "-m", "hermes_tpu_torch", "--value-words", "6",
+         "--keys", "256", "--sessions", "8", "--serve", "200", "--locklint",
+         "--device", "cpu"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    summary = json.loads(r.stdout.strip().splitlines()[-1])
+    assert summary["ok"] and summary["locklint"]["cycles"] == []

@@ -1,0 +1,128 @@
+"""The port's gate runner (``hermes_tpu_torch/gates.py``) on stub gates:
+serial runs, the summary under ``--out`` only, the process-group kill on
+a timeout, the flight dumps of a failed gate, and the refusal beside a
+pytest of this checkout (and only of this checkout)."""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import pytest
+
+from hermes_tpu_torch import gates
+
+OK = ("-c", "import json; print(json.dumps({'ok': True, 'n': 3}))")
+FAIL = ("-c", "import sys; print('no json here'); sys.exit(1)")
+
+
+def _alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            state = f.read().rsplit(")", 1)[1].split()[0]
+    except OSError:
+        return False
+    return state not in ("Z", "X")
+
+
+def _summary_line(capsys) -> dict:
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def test_torch_gates_run_serially_and_write_the_summary_under_out(
+        tmp_path, capsys):
+    root_summary = os.path.join(gates.ROOT, "GATES_SUMMARY.json")
+    before = (open(root_summary, "rb").read()
+              if os.path.exists(root_summary) else None)
+    rc = gates.main(["--force", "--out", str(tmp_path)],
+                    gates=(("first", OK), ("second", FAIL)))
+    assert rc == 1
+    line = _summary_line(capsys)
+    assert line["ok"] is False and line["out"] == str(tmp_path)
+    assert line["gates"]["first"]["ok"] and not line["gates"]["second"]["ok"]
+    doc = json.loads((tmp_path / "gates_summary.json").read_text())
+    assert [r["gate"] for r in doc["results"]] == ["first", "second"]
+    assert doc["results"][0]["report"] == {"ok": True, "n": 3}
+    assert doc["results"][1]["report"] == {"stdout_tail": ["no json here"]}
+    assert doc["results"][1]["rc"] == 1
+    after = (open(root_summary, "rb").read()
+             if os.path.exists(root_summary) else None)
+    assert after == before  # the reference's artifact is never written
+
+
+def test_torch_gates_only_selects_and_refuses_unknown_names(tmp_path,
+                                                            capsys):
+    rc = gates.main(["--force", "--only", "second", "--out", str(tmp_path)],
+                    gates=(("first", FAIL), ("second", OK)))
+    assert rc == 0
+    assert list(_summary_line(capsys)["gates"]) == ["second"]
+    with pytest.raises(SystemExit):
+        gates.main(["--force", "--only", "nope"], gates=(("first", OK),))
+
+
+def test_torch_gates_timeout_kills_the_whole_process_group(tmp_path,
+                                                           capsys):
+    pidfile = tmp_path / "grandchild.pid"
+    wedged = ("-c", "import subprocess, sys, time; "
+              "p = subprocess.Popen([sys.executable, '-c', "
+              "'import time; time.sleep(120)']); "
+              f"open({str(pidfile)!r}, 'w').write(str(p.pid)); "
+              "time.sleep(120)")
+    t0 = time.perf_counter()
+    rc = gates.main(["--force", "--timeout", "3", "--out", str(tmp_path)],
+                    gates=(("wedged", wedged),))
+    assert rc == 1 and time.perf_counter() - t0 < 60
+    line = _summary_line(capsys)
+    assert line["gates"]["wedged"] == dict(ok=False, seconds=line["gates"][
+        "wedged"]["seconds"], timed_out=True)
+    doc = json.loads((tmp_path / "gates_summary.json").read_text())
+    assert doc["results"][0]["rc"] == -9
+    pid = int(pidfile.read_text())
+    deadline = time.time() + 10
+    while _alive(pid) and time.time() < deadline:
+        time.sleep(0.1)
+    assert not _alive(pid), "the gate's grandchild outlived the timeout"
+
+
+def test_torch_gates_a_failed_gate_carries_its_flight_dumps(tmp_path,
+                                                           capsys):
+    dumping = ("-c", "import os, sys; d = os.environ['HERMES_FLIGHT_DIR']; "
+               "open(os.path.join(d, 'flight_1.json'), 'w').write('{}'); "
+               "sys.exit(3)")
+    rc = gates.main(["--force", "--out", str(tmp_path)],
+                    gates=(("dumping", dumping), ("fine", OK)))
+    assert rc == 1
+    line = _summary_line(capsys)
+    want = [str(tmp_path / "flight_dumps" / "flight_1.json")]
+    assert line["gates"]["dumping"]["flight_dumps"] == want
+    assert "flight_dumps" not in line["gates"]["fine"]
+
+
+def test_torch_gates_refuse_beside_a_pytest_unless_forced(tmp_path,
+                                                         monkeypatch,
+                                                         capsys):
+    monkeypatch.setattr(gates, "pytest_running", lambda: ["4242"])
+    rc = gates.main(["--out", str(tmp_path)], gates=(("first", OK),))
+    assert rc == 2
+    line = _summary_line(capsys)
+    assert line["ok"] is False and "4242" in line["error"]
+    assert not (tmp_path / "gates_summary.json").exists()
+    assert gates.main(["--force", "--out", str(tmp_path)],
+                      gates=(("first", OK),)) == 0
+    assert (tmp_path / "gates_summary.json").exists()
+
+
+@pytest.mark.parametrize("in_checkout", [True, False])
+def test_torch_gates_pytest_scan_is_this_checkouts(in_checkout):
+    """A process with "pytest" on its command line counts only when its
+    working directory lies in the checkout."""
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import time; time.sleep(60)", "pytest"],
+        cwd=gates.ROOT if in_checkout else os.path.dirname(gates.ROOT))
+    try:
+        time.sleep(0.2)
+        assert (str(proc.pid) in gates.pytest_running()) is in_checkout
+    finally:
+        proc.kill()
+        proc.wait()

@@ -1921,3 +1921,54 @@ def test_columnar_tcp_server_round_trip_on_card():
         srv.close()
     assert srv.pump_error is None
     assert fe.requests == fe.responses == 2 * k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["batched", "sharded"])
+@pytest.mark.parametrize("mega", [False, True])
+def test_round_census_on_card_equals_cpu(backend, mega):
+    """The op census of one round at a small shape on the card equals
+    the CPU's (a hand-kernel call is one op on both devices), with a
+    kernel_total from the profiler; the launch counters are put back."""
+    from hermes_tpu_torch.config import bench_cfg
+    from hermes_tpu_torch.core import megaround as mega_mod
+    from hermes_tpu_torch.obs import profile as prof
+
+    _card()
+    cfg = bench_cfg("a", over=dict(n_keys=1 << 12, n_sessions=256,
+                                   replay_slots=16, mega_round=mega))
+    before = (kernels.stats_block.launches, mega_mod.mega_route.launches)
+    got = prof.op_census(cfg, backend, device="cuda")
+    want = prof.op_census(cfg, backend, device="cpu")
+    assert (kernels.stats_block.launches,
+            mega_mod.mega_route.launches) == before
+    assert got.pop("kernel_total") > got["hand_kernel_calls"]
+    assert got == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 4, 5])
+def test_acceptance_small_on_card_equals_cpu(n):
+    from hermes_tpu_torch import acceptance
+
+    _card()
+    c, v = acceptance.run_config(n, scale=0.01, device="cuda")
+    want, wv = acceptance.run_config(n, scale=0.01, device="cpu")
+    assert c == want and v.ok and wv.ok
+
+
+@pytest.mark.gpu
+def test_graft_entry_on_card_equals_cpu(monkeypatch):
+    from hermes_tpu_torch import convert, graft
+
+    _card()
+    monkeypatch.setenv("HERMES_ENTRY_PROBE", "0")
+    fn, ex = graft.entry("cuda")
+    fs, _ = fn(*ex)
+    fn_c, ex_c = graft.entry("cpu")
+    fs_c, _ = fn_c(*ex_c)
+    a, b = convert.fast_state_to_numpy(fs), convert.fast_state_to_numpy(fs_c)
+    for part in ("table", "sess", "replay", "meta"):
+        for f in getattr(a, part)._fields:
+            assert (getattr(getattr(a, part), f)
+                    == getattr(getattr(b, part), f)).all(), f"{part}.{f}"

@@ -21,7 +21,11 @@ sim, tcp, rdma and the codec's block layer, chaos/net.py and a wired
 ChaosRunner, distributed.py's helpers), and the serving front end
 (serving/, transport/shm.py, workload/openloop.py: an open-loop soak
 under an overload storm, a columnar soak, an shm soak and a TCP round
-trip) on the CPU.  The TCP driver's
+trip), and the census, the acceptance scenarios, the entry points and the
+host lock analysis (obs/profile.py, acceptance.py, graft.py, probe.py,
+gates.py, analysis/hostlint.py and lockgraph.py: a sharded round's
+census, config 4 drained and checked, the entry round, the package's
+lint, an instrumented lock) on the CPU.  The TCP run's
 child processes (``python -m hermes_tpu_torch.distributed``) are probed
 after a real two-rank run over loopback."""
 
@@ -200,6 +204,23 @@ assert tcl.call("put", 3, value=[1]).status == serving.wire.S_OK
 tcl.close()
 tsrv.close()
 assert sbench.host_cfg("latency").n_replicas == 4
+from hermes_tpu_torch import acceptance, gates, graft, probe
+from hermes_tpu_torch.analysis import hostlint, lockgraph
+from hermes_tpu_torch.obs import profile as prof
+from hermes_tpu_torch.config import bench_cfg
+cen = prof.op_census(bench_cfg("a", over=dict(n_keys=1 << 10, n_sessions=64,
+                                              replay_slots=8)),
+                     "sharded", device="cpu")
+assert cen["collective_total"] == 4 and cen["kernel:stats_block"] == 1
+ac, av = acceptance.run_config(4, scale=0.004, device="cpu")
+assert ac["failure_detected"] and av.ok
+gfn, gargs = graft.entry("cpu")
+gfn(*gargs)
+assert probe.probe_backend(1.0, device="cpu") == (True, "cpu")
+assert hostlint.key_counts(hostlint.lint_package()["findings"]) == {}
+with lockgraph.ObsLock("probe.A"):
+    pass
+assert gates.GATES
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "hermes_tpu" or m.startswith("hermes_tpu."))
@@ -242,6 +263,44 @@ def test_torch_shm_worker_import_chain_loads_no_torch():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "TORCH []" in r.stdout, r.stdout
+
+
+SHM_WORKER_LOCKLINT = r"""
+import sys
+import hermes_tpu_torch.serving.ipc as ipc
+from hermes_tpu_torch import concurrency
+from hermes_tpu_torch.analysis import lockgraph
+lk = concurrency.make_lock("ShmWorker._ring_lock")
+assert isinstance(lk, lockgraph.ObsLock)
+with lk:
+    pass
+assert lockgraph.global_graph().report()["locks"]
+req, rsp = ipc.create_ring_pair(4, 2, 8, 0)
+req.close()
+rsp.close()
+print("TORCH", sorted(m for m in sys.modules
+                      if m == "torch" or m.startswith("torch.")))
+"""
+
+
+def test_torch_shm_worker_under_locklint_loads_no_torch():
+    """With ``HERMES_LOCKLINT=1`` an shm front-end worker's locks are
+    ObsLocks (concurrency.py, analysis/lockgraph.py), and it still loads
+    no ``torch``."""
+    import os
+
+    env = dict(os.environ, HERMES_LOCKLINT="1")
+    r = subprocess.run([sys.executable, "-c", SHM_WORKER_LOCKLINT], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "TORCH []" in r.stdout, r.stdout
+
+
+def test_torch_census_and_entry_modules_are_in_the_scan():
+    for rel in ("obs/profile.py", "obs/op_budget.json", "acceptance.py",
+                "graft.py", "probe.py", "gates.py", "analysis/hostlint.py",
+                "analysis/lockgraph.py", "analysis/hostlint_baseline.json"):
+        assert (ROOT / "hermes_tpu_torch" / rel).is_file(), rel
 
 
 def test_torch_port_imports_neither_jax_nor_reference():
