@@ -266,6 +266,18 @@ prints no result):
    lock's hold p99 within 10 mean store rounds of its drive.
    The kernels line carries ``census_calls``, ``acceptance_launches``,
    ``graft_launches`` and ``locklint_launches``.
+31. analysis (run last: it needs no profiler) — the static round analysis
+   (``hermes_tpu_torch.analysis``): the ``analysis`` gate's four configs
+   (default, bench, bench-rmw, bench-mega at the bench shape) on both
+   engines, fused and split, traced with fake tensors on the card's
+   device: no error or warn finding, every finding at a port
+   ``file:line``, the seven audit tags present, the four hand kernels each
+   one node in the mega programs and ``stats_block`` in every program,
+   every program's nodes and finding keys equal to the CPU port's; each
+   program's nodes and seconds.  Then ``python -m hermes_tpu_torch
+   --analyze FILE`` (``cli.main`` in this process) at bench-a-mega's shape
+   for 8 rounds: the findings file clean and the run's launches those of
+   its rounds (the kernels line's ``analysis_launches``).
 
 Then the whole smoke's seconds, the kernels summary line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.  Without a
@@ -4129,6 +4141,112 @@ def phase_census(torch, ac, card):
     return calls
 
 
+#: the tags of the audited sites of the round (core/faststep.py,
+#: core/kernels.py, core/megaround.py) that every gate config must report
+AUDIT_TAGS = ("replay-mark-dup-oob-dropped",
+              "pts-mint-ver-bounded-by-watermark",
+              "winner-row-dup-writes-identical",
+              "stats-ctr-hist-grid-accumulate", "mega-route-unique-targets",
+              "mega-apply-two-phase-revisit", "mega-replay-stream-accumulate")
+ANALYZE_ROUNDS = 8  # rounds of the --analyze run (round 0 scans)
+#: the --analyze run's command line: bench-a-mega's shape on the CLI's
+#: host stream (4 ops a session, wrapped)
+ANALYZE_ARGV = ("--replicas", "8", "--keys", str(1 << 20), "--value-words",
+                "8", "--sessions", "65536", "--lane-budget", "49152",
+                "--replay-slots", "256", "--ops-per-session", "4",
+                "--wrap-stream", "--arb-mode", "sort", "--chain-writes",
+                "128", "--mega-round", "--steps", str(ANALYZE_ROUNDS))
+
+
+def _finding_keys(reports):
+    out = {}
+    for r in reports:
+        for f in r["findings"]:
+            out[f.key + "|" + f.severity] = \
+                out.get(f.key + "|" + f.severity, 0) + f.count
+    return out
+
+
+def phase_analysis(torch, an, counters, card):
+    """The static round analysis on the card: the gate's four configs
+    (``analysis.gate.gate_configs``: default, bench, bench-rmw and
+    bench-mega, at the bench shape) on both engines, fused and split,
+    traced with fake tensors on the card's device; no error or warn
+    finding, the seven audit tags present with port sites, the four hand
+    kernels each one node in the mega programs and ``stats_block`` in
+    every program, and every program's finding keys equal to the CPU
+    port's.  Then ``python -m hermes_tpu_torch --analyze FILE`` (its
+    ``cli.main``, in this process) at bench-a-mega's shape for
+    ``ANALYZE_ROUNDS`` rounds: the findings file written, clean, and the
+    run's launches those of its rounds.  Returns the run's launches."""
+    t0 = time.perf_counter()
+    programs, bad, tags, diffs = {}, [], set(), {}
+    for cname, cfg in an.gate.gate_configs().items():
+        card_reps = an.ana.analyze_config(cfg, device=an.device)
+        cpu_reps = an.ana.analyze_config(cfg, device="cpu")
+        for r, rc in zip(card_reps, cpu_reps):
+            name = f"{cname}:{r['engine']}"
+            programs[name] = dict(nodes=r["n_eqns"], seconds=r["seconds"],
+                                  trace_seconds=r["trace_seconds"],
+                                  kernels=r["kernels"])
+            bad += [f"{name} {f.severity} {f.pass_name}/{f.code} {f.site}"
+                    for f in r["findings"] if f.severity in an.ana.GATING]
+            bad += [f"{name} site {f.site}" for f in r["findings"]
+                    if not f.file.startswith("hermes_tpu_torch/")]
+            tags |= {f.audit for f in r["findings"] if f.audit}
+            want = ({"stats_block": 1} if not cfg.use_mega_round
+                    or r["engine"].endswith("split") else None)
+            if want is not None and r["kernels"] != want:
+                bad.append(f"{name} kernel nodes {r['kernels']}")
+            elif want is None and set(r["kernels"]) != set(counters):
+                bad.append(f"{name} kernel nodes {r['kernels']}")
+            a, b = _finding_keys([r]), _finding_keys([rc])
+            if a != b or r["n_eqns"] != rc["n_eqns"]:
+                diffs[name] = dict(nodes=(r["n_eqns"], rc["n_eqns"]),
+                                   keys={k: (a.get(k), b.get(k))
+                                         for k in set(a) | set(b)
+                                         if a.get(k) != b.get(k)})
+    missing = sorted(set(AUDIT_TAGS) - tags)
+    t_run = time.perf_counter()
+    before = _launch_snapshot(counters)
+    for w in counters.values():
+        w.launches = 0
+    out = os.path.join(an.tmp, "analysis_findings.jsonl")
+    with contextlib.redirect_stdout(an.io.StringIO()) as text:
+        rc = an.cli.main(["--analyze", out, "--device", an.device,
+                          *ANALYZE_ARGV])
+    launches = {k: w.launches for k, w in counters.items()}
+    for k, w in counters.items():
+        w.launches = before[k] + launches[k]
+    want = expected_launches(SimpleNamespace(
+        use_mega_round=True, replay_scan_every=an.cfg_scan), 0,
+        ANALYZE_ROUNDS)
+    with open(out) as f:
+        recs = [json.loads(line) for line in f]
+    head = [r for r in recs if r.get("record") == "program"]
+    said = [line for line in text.getvalue().splitlines()
+            if line.startswith("analysis:")]
+    emit({"phase": "analysis", "seconds": time.perf_counter() - t0,
+          "programs": programs, "audit_tags": sorted(tags),
+          "missing_tags": missing, "gating_or_siteless": bad,
+          "cpu_diff": diffs, "run": dict(
+              rc=rc, seconds=time.perf_counter() - t_run, said=said,
+              program=head, launches=launches, want=want),
+          "nvidia_smi": card})
+    if bad or missing or diffs:
+        raise AssertionError(f"analysis: {bad}, missing tags {missing}, "
+                             f"against the CPU port {diffs}")
+    if (rc != 0 or len(head) != 1 or said != [
+            f"analysis: 0 gating finding(s) -> {out}"]
+            or head[0]["by_severity"]["error"]
+            or head[0]["by_severity"]["warn"]):
+        raise AssertionError(f"--analyze run: rc {rc}, {said}, {head}")
+    if launches != {k: want.get(k, 0) for k in counters}:
+        raise AssertionError(f"--analyze run launched {launches} in "
+                             f"{ANALYZE_ROUNDS} rounds, want {want}")
+    return launches
+
+
 def phase_acceptance(torch, ac, counters, card):
     """BASELINE configs ``ACCEPTANCE_CONFIGS`` through
     ``acceptance.run_config`` at ``ac.scale`` (full width on the card:
@@ -4706,6 +4824,21 @@ def main(argv=None):
         torch.cuda.empty_cache()
         sliced = run_acceptance_slice(torch, ac, counters, card)
         sliced["census_calls"] = census_calls
+        # last: it runs no profiler, and the kernels phase's exact
+        # profiler counts come right after the census in a young process
+        import io
+        import tempfile
+
+        from hermes_tpu_torch import cli
+        from hermes_tpu_torch import analysis as ana
+        from hermes_tpu_torch.analysis import gate
+
+        an = SimpleNamespace(
+            ana=ana, gate=gate, cli=cli, io=io, device="cuda",
+            tmp=tempfile.mkdtemp(prefix="chip_smoke_analysis_"),
+            cfg_scan=config.HermesConfig().replay_scan_every)
+        sliced["analysis_launches"] = phase_analysis(torch, an, counters,
+                                                     card)
         for name, row in rows.items():
             for tag, got in sliced.items():
                 if name in got:

@@ -1,6 +1,9 @@
-"""The finding records of the kernel analysis, in the reference's shape
-(``hermes_tpu/analysis/passes.py:Finding``) and with its codes, made from
-what the bound-checked build records (``core/dispatch.CheckedBuild``):
+"""The finding records of the analysis, in the reference's shape
+(``hermes_tpu/analysis/passes.py:Finding``), the baseline currency of the
+``analysis`` gate (``key_counts``, ``diff_baseline``, ``load_baseline``,
+the reference's ``hermes_tpu/analysis/__init__.py``), and the findings the
+kernel matrix makes from what the bound-checked build records
+(``core/dispatch.CheckedBuild``):
 
 * ``oob-block-store`` / ``oob-block-load`` (error): a guarded access left
   its extent; the finding names the kernel and the ``.cu`` file and line of
@@ -24,7 +27,8 @@ from typing import Iterable, List, Optional
 from hermes_tpu_torch import build
 
 ERROR, WARN, INFO = "error", "warn", "info"
-GATING = (ERROR, WARN)
+GATING = (ERROR, WARN)  # severities that fail a gate
+SEV_RANK = {ERROR: 2, WARN: 1, INFO: 0}
 PASS_NAME = "refhazard"
 
 
@@ -127,11 +131,55 @@ def uninit_finding(engine: str, fn: str, lib: str, out_index: int,
                 f"read or kept memory it never initialised")
 
 
+def findings_of(reports: Iterable[dict]) -> List[Finding]:
+    out: List[Finding] = []
+    for r in reports:
+        out.extend(r["findings"])
+    return out
+
+
+def key_counts(findings: Iterable[Finding]) -> dict:
+    """Stable multiset of gating finding keys (the baseline currency).  The
+    key leads with the finding's ``engine`` field: callers analyzing
+    several configs stamp it ``"<config>:<engine>"`` first (as the gate
+    does), so a finding grandfathered at one shape cannot silently excuse
+    the same site at another."""
+    counts: dict = {}
+    for f in findings:
+        if f.severity not in GATING:
+            continue
+        counts[f.key] = counts.get(f.key, 0) + f.count
+    return counts
+
+
+def diff_baseline(measured: dict, baseline: dict) -> tuple:
+    """(new, stale): keys exceeding their grandfathered count, and baseline
+    keys the code no longer produces (stale entries are reported but do
+    not fail the gate; ``--update`` prunes them)."""
+    new = {k: c - baseline.get(k, 0) for k, c in measured.items()
+           if c > baseline.get(k, 0)}
+    stale = {k: c for k, c in baseline.items() if measured.get(k, 0) < c}
+    return new, stale
+
+
+def load_baseline(path) -> dict:
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+    except FileNotFoundError:
+        return {}
+    g = doc.get("grandfathered", {})
+    return {k: (v["count"] if isinstance(v, dict) else int(v))
+            for k, v in g.items()}
+
+
 def export_findings(path: str, reports: Iterable[dict],
                     extra: Optional[dict] = None) -> None:
     """Write analysis reports as run-log JSONL (``{"t": ..., "kind":
-    "analysis", ...}``): one ``program`` record per report, one record per
-    finding, in the reference's schema."""
+    "analysis", ...}``): one ``program`` record per report (with its
+    ``n_eqns``, the graph nodes of a round, or ``n_sites``, the guard sites
+    of a kernel cell), one record per finding, in the reference's
+    schema."""
     t0 = time.perf_counter()
     extra = extra or {}
     with open(path, "w") as fp:
@@ -139,8 +187,9 @@ def export_findings(path: str, reports: Iterable[dict],
             fp.write(json.dumps({"t": round(time.perf_counter() - t0, 6),
                                  "kind": "analysis", **extra, **rec}) + "\n")
         for r in reports:
-            write(dict(record="program", engine=r["engine"],
-                       n_sites=r["n_sites"], proved=r["proved"],
+            size = {k: r[k] for k in ("n_eqns", "n_sites") if k in r}
+            write(dict(record="program", engine=r["engine"], **size,
+                       proved=r["proved"],
                        n_findings=len(r["findings"]),
                        by_severity={s: sum(1 for f in r["findings"]
                                            if f.severity == s)

@@ -45,7 +45,9 @@ import os
 from typing import Dict, List, Optional, Tuple
 
 from hermes_tpu_torch import concurrency as conc
-from hermes_tpu_torch.analysis.findings import ERROR, INFO, WARN, Finding
+from hermes_tpu_torch.analysis import findings as findings_lib
+from hermes_tpu_torch.analysis.findings import (ERROR, INFO, WARN, Finding,
+                                                diff_baseline, key_counts)
 
 #: blocking callees (join and wait too: the same deadlock class)
 BLOCKING_CALLS = frozenset({
@@ -631,37 +633,10 @@ BASELINE_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "hostlint_baseline.json")
 
 
-def key_counts(findings) -> dict:
-    """The multiset of gating finding keys (error and warn)."""
-    from hermes_tpu_torch.analysis.findings import GATING
-
-    counts: dict = {}
-    for f in findings:
-        if f.severity in GATING:
-            counts[f.key] = counts.get(f.key, 0) + f.count
-    return counts
-
-
-def diff_baseline(measured: dict, baseline: dict) -> tuple:
-    """(new, stale): keys above their grandfathered count, and baseline
-    keys the code no longer produces (reported, never failing)."""
-    new = {k: c - baseline.get(k, 0) for k, c in measured.items()
-           if c > baseline.get(k, 0)}
-    stale = {k: c for k, c in baseline.items() if measured.get(k, 0) < c}
-    return new, stale
-
-
 def load_baseline(path: str = BASELINE_PATH) -> dict:
-    """{key: count} of a baseline file; {} when there is none."""
-    import json
-
-    try:
-        with open(path) as f:
-            doc = json.load(f)
-    except FileNotFoundError:
-        return {}
-    return {k: (v["count"] if isinstance(v, dict) else int(v))
-            for k, v in doc.get("grandfathered", {}).items()}
+    """{key: count} of a baseline file (by default the port's); {} when
+    there is none."""
+    return findings_lib.load_baseline(path)
 
 
 # --------------------------------------------------------------------------

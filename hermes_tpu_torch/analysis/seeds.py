@@ -9,10 +9,24 @@ kernel's jaxpr.  The port walks nothing: each ``out_*`` below states the
 bound, worked out by hand from the kernel's arithmetic and the layouts
 tables, as tight as that proves and never tighter, with the derivation in
 its docstring.  The differential sanitizer (``analysis/diffcheck.py``)
-holds every concrete output inside them.
+holds every concrete output inside them, and the round analysis
+(``analysis/passes.py``, ``HandKernelPass``) holds every hand-kernel call
+of a traced round to them through ``KERNELS``.
+
+The round seeds (``seed_round_args``) are the port's copy of the
+reference's: one ``AbsVal`` per tensor leaf of the round's ``(fs, stream,
+ctl)``, mirroring the state containers field by field, so a renamed or
+added state field breaks the structure match loudly.  Facts that are
+PROTOCOL invariants rather than config facts (a winner-row pts mirror
+holds a watermark-bounded ts) are deliberately not seeded: the engine
+audits those sites (``layouts.audited``), so the assumption shows in the
+findings.  A leaf that is a host value (``FastCtl.host_step``,
+``quiesce``) is fixed by the trace and seeded ``HOST``.
 """
 
 from __future__ import annotations
+
+from typing import Callable, NamedTuple
 
 import numpy as np
 
@@ -23,8 +37,12 @@ from hermes_tpu_torch.core import types as t
 
 I32_TOP = top(np.int32)
 I8_TOP = top(np.int8)
+U8_TOP = top(np.uint8)
 BOOL = iv(0, 1)
 I32_MAX = (1 << 31) - 1
+COUNTER = iv(0, I32_MAX)  # monotone device counters (non-negative)
+#: the seed of a round argument leaf that is a host value, not a tensor
+HOST = "host"
 
 
 def pts_seed(cfg: HermesConfig) -> AbsVal:
@@ -38,6 +56,101 @@ def step_seed(cfg: HermesConfig) -> AbsVal:
     """The round counter, bounded by the declared SST step field (2^28
     rounds)."""
     return iv(0, layouts.MAX_STEPS - 1)
+
+
+def op_idx_seed(cfg: HermesConfig) -> AbsVal:
+    """Per-session op counter.  Clip mode tops out at ops_per_session;
+    wrap mode grows until the write-uid formula op_idx*S + s would leave
+    int31, the budget the config documents and validates."""
+    if cfg.wrap_stream:
+        return iv(0, max(cfg.ops_per_session,
+                         (1 << 31) // max(1, cfg.n_sessions) - 1))
+    return iv(0, cfg.ops_per_session)
+
+
+# --------------------------------------------------------------------------
+# the round's arguments
+# --------------------------------------------------------------------------
+
+
+def seed_fast_state(cfg: HermesConfig):
+    """A ``FastState`` of seeds, one per leaf (either table layout: the
+    bounds do not depend on it)."""
+    from hermes_tpu_torch.core import faststep as fst
+    from hermes_tpu_torch.core import state as st
+
+    key = iv(0, cfg.n_keys - 1)
+    pts = pts_seed(cfg)
+    stp = step_seed(cfg)
+    acks = iv(0, cfg.full_mask)
+    meta = st.Meta(
+        last_seen=stp, suspect_age=stp, n_read=COUNTER, n_write=COUNTER,
+        n_rmw=COUNTER, n_abort=COUNTER, lat_sum=COUNTER, lat_cnt=COUNTER,
+        lat_hist=COUNTER, max_pts=pts, n_inv=COUNTER, n_rebcast=COUNTER,
+        n_nack=COUNTER, n_retry=COUNTER,
+        replay_peak=iv(0, cfg.replay_slots), qwait_sum=COUNTER,
+        qwait_hist=COUNTER,
+    )
+    return fst.FastState(
+        table=fst.FastTable(vpts=pts, bank=I8_TOP),
+        sess=fst.FastSess(
+            status=iv(t.S_IDLE, t.S_DONE),
+            op=iv(t.OP_NOP, t.OP_RMW),
+            op_idx=op_idx_seed(cfg),
+            key=key,
+            val=I8_TOP,
+            pts=pts,
+            acks=acks,
+            rd_val=I8_TOP,
+            invoke_step=stp,
+            retries=iv(0, max(1, cfg.rmw_retries)),
+            issue_step=stp,
+        ),
+        replay=fst.FastReplay(active=BOOL, key=key, pts=pts, val=I8_TOP,
+                              acks=acks),
+        meta=meta,
+    )
+
+
+def seed_stream(cfg: HermesConfig, has_uval: bool = False):
+    from hermes_tpu_torch.core import state as st
+
+    return st.OpStream(op=iv(t.OP_NOP, t.OP_RMW), key=iv(0, cfg.n_keys - 1),
+                       uval=I8_TOP if has_uval else None)
+
+
+def seed_fast_ctl(cfg: HermesConfig):
+    from hermes_tpu_torch.core import faststep as fst
+
+    return fst.FastCtl(
+        step=step_seed(cfg),
+        host_step=HOST,
+        my_cid=iv(0, cfg.n_replicas - 1),
+        epoch=iv(0, layouts.BLOCK_META.field("epoch").cap - 1),
+        live_mask=iv(0, cfg.full_mask),
+        frozen=BOOL,
+        quiesce=HOST,
+    )
+
+
+def seed_round_args(cfg: HermesConfig, has_uval: bool = False) -> tuple:
+    """(fs, stream, ctl) seed trees, structure-matched to the round's
+    arguments."""
+    return (seed_fast_state(cfg), seed_stream(cfg, has_uval),
+            seed_fast_ctl(cfg))
+
+
+def seed_heap_gather(cfg: HermesConfig, batch: int = 1024) -> list:
+    """Bounds for the extent gather (``heap/core.build_extent_gather``'s
+    ``(log, refs)``): the log bytes are opaque (the port's log is uint8,
+    so U8_TOP where the reference's int8 log has I8_TOP) and the refs span
+    the FULL declared HEAP_REF word: refs arrive from table rows a wire
+    could have corrupted, so the gather must clamp every derived byte
+    index into the log, and the analysis proves its index in bounds from
+    exactly this hull."""
+    hi = (layouts.HEAP_REF.field("gran").mask
+          | layouts.HEAP_REF.field("len").mask)
+    return [U8_TOP, iv(0, hi)]
 
 
 # --------------------------------------------------------------------------
@@ -160,3 +273,62 @@ def out_mega_replay(cfg: HermesConfig) -> list:
     packed-timestamp bound; ``acks`` the old bitmap or 0, [0, full_mask]."""
     return [I8_TOP, BOOL, iv(0, cfg.n_keys - 1), pts_seed(cfg),
             iv(0, cfg.full_mask), I8_TOP]
+
+
+# --------------------------------------------------------------------------
+# the hand kernels of the round, as the round analysis checks them
+# --------------------------------------------------------------------------
+
+
+class KernelDecl(NamedTuple):
+    """What the round analysis holds a hand-kernel node to
+    (``analysis/passes.py``, ``HandKernelPass``).  ``seeds(cfg)`` and
+    ``outs(cfg, shapes)`` give one bound per tensor argument and output of
+    the node, in the node's order (``analysis/graph.py``); ``shapes`` are
+    the argument shapes.  ``hazard`` is ``(code, what)``: the access
+    pattern of the kernel that its call site must declare with
+    ``layouts.audited`` (the reference's ``grid-revisit-accumulator``
+    discipline for its ``pallas_call`` sites)."""
+
+    seeds: Callable
+    outs: Callable
+    hazard: tuple
+
+
+KERNELS = {
+    "stats_block": KernelDecl(
+        lambda cfg: seed_stats_block(),
+        lambda cfg, shapes: out_stats_block(shapes[1][1]),
+        ("grid-revisit-accumulator",
+         "ctr and hist are accumulated across the CTAs of each replica's "
+         "cluster")),
+    "mega_route": KernelDecl(
+        seed_mega_route, lambda cfg, shapes: out_mega_route(cfg),
+        ("scatter-set-not-injective",
+         "the route-back stores each lane's word and each slot's lane at "
+         "data-dependent targets: a repeated target keeps any one writer")),
+    "mega_apply": KernelDecl(
+        seed_mega_apply, lambda cfg, shapes: out_mega_apply(cfg),
+        ("grid-revisit-accumulator",
+         "vpts is max-accumulated in phase 0 and read back in phase 1 "
+         "across a grid barrier")),
+    "mega_replay": KernelDecl(
+        seed_mega_replay, lambda cfg, shapes: out_mega_replay(cfg),
+        ("grid-revisit-accumulator",
+         "the stuck-row counts are accumulated across the table's spans and "
+         "each span ranks its rows after the counts before it")),
+}
+
+
+#: The value an audited scope produces, where its audit states a bound: the
+#: interpreter gives each node of the scope whose value leaves the scope
+#: this bound (met with what it derived), so the audited assumption flows
+#: on instead of a TOP, and reports it as an ``audited-bound`` info
+#: finding.  A minted packed timestamp is a legal one: its ver is bounded
+#: by the ``max_pts`` watermark and the rebase, and an inbound one was
+#: minted so by its source (the sharded round decodes it from wire bytes,
+#: which keep no bound).
+AUDIT_BOUNDS = {
+    "pts-mint-ver-bounded-by-watermark": pts_seed,
+    "wire-pts-minted-under-watermark": pts_seed,
+}

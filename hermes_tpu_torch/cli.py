@@ -64,9 +64,13 @@ torch.profiler trace of the fast or phases drive, ``--profile-out FILE``
 the run config's op census (``obs/profile.py``).  ``--locklint`` runs
 ``--serve`` or ``--bench-latency`` under the lock-order sanitizer
 (``HERMES_LOCKLINT=1``) and adds its report to the JSON line.
-``--no-donate`` (no copying round to select) and ``--analyze`` (the
-jaxpr analyzer's counterpart is not ported) are refused.  The run is on
-the card unless ``--device cpu`` is given.
+``--analyze FILE`` traces the run config's round on the run's backend
+(``analysis/engines.py``, fake tensors: no device work), writes the
+findings as run-log analysis records and prints the gating count, then
+runs the config as usual; as in the reference it takes the fast backends
+only and no acceptance run.  ``--no-donate`` (no copying round to select:
+the port updates the table in place) is refused.  The run is on the card
+unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -285,9 +289,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "backends only; a fresh state, apart from the run)")
     ap.add_argument("--analyze", type=str, default=None,
                     metavar="FINDINGS_JSONL",
-                    help="refused: the static round analyzer walks a jaxpr; "
-                         "its PyTorch counterpart is not ported (the engine "
-                         "half of ROADMAP A16)")
+                    help="run the static round analysis "
+                         "(hermes_tpu_torch.analysis) on the run config's "
+                         "round and write the findings as obs analysis "
+                         "records, then run (fast backends only; traced "
+                         "with fake tensors: no device work)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: the card)")
     return ap
@@ -704,10 +710,6 @@ def main(argv=None) -> int:
         ap.error("--no-donate selects the reference's copying baseline of "
                  "state donation; the port updates the table in place and "
                  "has no copying round")
-    if args.analyze:
-        ap.error("--analyze runs the static round analyzer over a jaxpr; "
-                 "its PyTorch counterpart (a pass framework over the "
-                 "round's graph) is not ported: ROADMAP A16, engine half")
     if ((args.no_auto_rebase or args.rmw_retries)
             and args.backend not in FAST):
         ap.error("--arb-mode/--chain-writes/--mega-round/--no-auto-rebase/"
@@ -726,6 +728,12 @@ def main(argv=None) -> int:
     if args.profile_out and args.acceptance:
         ap.error("--profile-out does not apply to acceptance runs (they "
                  "build their own configs); census a run config instead")
+    if args.analyze and args.backend not in FAST:
+        ap.error("--analyze traces the fast round (core/faststep.py); "
+                 "use --backend fast or fast-sharded")
+    if args.analyze and args.acceptance:
+        ap.error("--analyze does not apply to acceptance runs (they build "
+                 "their own configs); analyze a run config instead")
     if args.profile and args.acceptance:
         ap.error("--profile traces the run drive; acceptance runs build "
                  "their own runtimes, trace a run config instead")
@@ -878,6 +886,15 @@ def main(argv=None) -> int:
                 sched = chaos_lib.Schedule.parse(f.read())
         else:
             sched = chaos_lib.Schedule.random(cfg, args.chaos, args.steps)
+    if args.analyze:
+        from hermes_tpu_torch import analysis as ana
+
+        reports = [ana.analyze_program(ana.trace_program(
+            cfg, _backend(args), device=args.device))]
+        ana.export_findings(args.analyze, reports)
+        n_gating = sum(1 for r in reports for f in r["findings"]
+                       if f.severity in ana.GATING)
+        print(f"analysis: {n_gating} gating finding(s) -> {args.analyze}")
     if args.backend in FAST:
         rt = FastRuntime(cfg, backend=_backend(args),
                          record=default_record(args.check),

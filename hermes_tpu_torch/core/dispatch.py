@@ -32,6 +32,7 @@ from typing import List, Optional
 import torch
 
 from hermes_tpu_torch import build
+from hermes_tpu_torch.core import layouts
 
 # The card the launch plans are made for (an H100 SXM): its streaming
 # multiprocessors, the shared memory one CTA may take (227 KB, above 48 KB
@@ -203,19 +204,36 @@ def out(shape, dtype, device):
 HAND_KERNELS: dict = {}
 _depth = 0  # wrapper calls in progress on this process
 _calls: Optional[dict] = None  # name -> outermost calls, while counted
+#: set by ``analysis/graph.py`` while it traces a round: called as
+#: ``_trace(name, args, kwargs)`` in place of an outermost wrapper call
+_trace = None
 
 
-def hand_kernel(fn):
+def hand_kernel(fn=None, *, audit: Optional[str] = None):
     """Mark ``fn`` as a hand-kernel wrapper: a call counts as ONE op of
     the census, named after the kernel, on both devices.  While it runs,
     ``in_hand_kernel()`` is True, so the census skips the torch ops it
     makes (the plain version's on the CPU, the outputs' allocation on the
-    card).  A wrapper called from inside another counts nothing."""
+    card).  A wrapper called from inside another counts nothing.
+
+    Inside an analysis trace (``analysis/graph.py``) an outermost call
+    runs neither the plain version nor the kernel: it becomes one opaque
+    node of the graph, named after the kernel, in a
+    ``layouts.audited(audit)`` scope when ``audit`` names the reviewed
+    invariant the kernel relies on (the reference audits its
+    ``pallas_call`` sites)."""
+    if fn is None:
+        return functools.partial(hand_kernel, audit=audit)
     name = fn.__name__
 
     @functools.wraps(fn)
     def call(*args, **kwargs):
         global _depth
+        if _trace is not None and _depth == 0:
+            if audit is None:
+                return _trace(name, args, kwargs)
+            with layouts.audited(audit):
+                return _trace(name, args, kwargs)
         if _depth == 0 and _calls is not None:
             _calls[name] = _calls.get(name, 0) + 1
         _depth += 1

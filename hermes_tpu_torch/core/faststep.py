@@ -477,10 +477,12 @@ def _replay_scan(cfg: HermesConfig, ctl: FastCtl, table: FastTable,
     # within a replica; across replicas the same candidate row of the one
     # batched table is marked with identical bytes (each sharded replica
     # marks its own copy), so duplicate indices cannot disagree.  Masked
-    # rows go to the copy's drop row.
+    # rows go to the copy's drop row.  Audited: the analysis cannot prove
+    # take-injectivity.
     rows = torch.where(take_ok, crow, _rows(_full(ck, K), base)
                        ).reshape(-1)
-    bank.index_put_((rows,), mark.reshape(rows.shape[0], -1))
+    with layouts.audited("replay-mark-dup-oob-dropped"):
+        bank.index_put_((rows,), mark.reshape(rows.shape[0], -1))
     return table, new_replay
 
 
@@ -745,7 +747,12 @@ def _coordinate(cfg: HermesConfig, ctl: FastCtl, fs: FastState, stream,
             packed = torch.sort(packed_own, dim=1).values
             slot_lane = packed[:, :C] & ((1 << lb) - 1)
             taken_lane = lane_elig & (packed_own <= packed[:, C - 1: C])
-    new_pts = pack_pts(pts_ver(k_vpts) + 1 + chain_rank, fc)
+    # The minted ts packs a ver read from the winner-row mirror, whose
+    # bound is a protocol invariant (the Meta.max_pts watermark and the
+    # rebase), not a config fact: audited, so the analysis reports the
+    # assumption instead of an unprovable overflow.
+    with layouts.audited("pts-mint-ver-bounded-by-watermark"):
+        new_pts = pack_pts(pts_ver(k_vpts) + 1 + chain_rank, fc)
 
     # fresh issues that won arbitration AND hold a slot happen; the rest
     # revert (stay S_ISSUE) and retry next round
@@ -832,7 +839,10 @@ def _winner_row_scatter(ctl: FastCtl, table: FastTable, keys, pts, vals,
     if drop is None:
         drop = table.bank.shape[0] - 1
     rows = torch.where(write0, keys, drop).reshape(-1).long()
-    table.bank.index_put_((rows,), upd8.reshape(rows.shape[0], -1))
+    # audited: injectivity is a protocol invariant, not provable from the
+    # config's bounds
+    with layouts.audited("winner-row-dup-writes-identical"):
+        table.bank.index_put_((rows,), upd8.reshape(rows.shape[0], -1))
     return table
 
 
@@ -1018,6 +1028,15 @@ def fast_round_batched(cfg: HermesConfig, ctl: FastCtl, fs: FastState, stream):
 # --------------------------------------------------------------------------
 
 
+#: The audit of the sharded round's reads and writes through ``slot_lane``:
+#: its C entries are DISTINCT lane ids in [0, n_lanes) per replica (the
+#: fused sort's slot rank is a bijection onto the lanes, the split sort's
+#: low bits are the lane index, and with C == L it is the lane index), a
+#: protocol fact the interval analysis cannot derive.  The reference needs
+#: no audit there: its scatter is a max and its index modes clip or drop.
+SLOT_LANE_AUDIT = "slot-lane-distinct-lane-ids"
+
+
 def _copy_base(R: int, K: int, device):
     """(R, 1) first row of each local replica's table copy."""
     return (torch.arange(R, dtype=I32, device=device) * (K + 1))[:, None]
@@ -1034,8 +1053,10 @@ def _compact_out_inv(ctl: FastCtl, lanes: LaneBlock, slot_lane, taken_lane):
     rows8 = torch.cat([head8, lanes.val], dim=-1)  # (R, L, 8+4V)
     idx = slot_lane.long()[..., None].expand(
         slot_lane.shape + rows8.shape[-1:])
+    with layouts.audited(SLOT_LANE_AUDIT):
+        rows8 = torch.gather(rows8, 1, idx)
     return FastInv(
-        rows8=torch.gather(rows8, 1, idx),
+        rows8=rows8,
         meta=(ctl.epoch << META_EPOCH_SHIFT) | (~ctl.frozen).to(I32),
     )
 
@@ -1054,7 +1075,11 @@ def _apply_inv(cfg: HermesConfig, ctl: FastCtl, fs: FastState,
     Rsrc, C)."""
     K = cfg.n_keys
     R = replay_key.shape[0]
-    key0, pts0 = inv_src.key, inv_src.pts
+    key0 = inv_src.key
+    # an inbound ts was minted by its source under the max_pts watermark
+    # (``pts-mint-ver-bounded-by-watermark``); its bytes do not show it
+    with layouts.audited("wire-pts-minted-under-watermark"):
+        pts0 = inv_src.pts
     v_ok = inv_src.valid[None] & (
         inv_src.epoch[None, :] == ctl.epoch[:, None])[..., None]
     in_k = key0 < K
@@ -1130,9 +1155,10 @@ def _slot_to_lane_acks(cfg: HermesConfig, gained_slot, nacked_slot,
     nmask = layouts.SLOT_ACK.field("nacked").mask
     packed = ((gained_slot.to(torch.int64) << gshift)
               | nacked_slot.to(torch.int64))
-    lanes = torch.zeros((R, cfg.n_lanes), dtype=torch.int64,
-                        device=packed.device).scatter_(
-                            1, slot_lane.long(), packed)
+    with layouts.audited(SLOT_LANE_AUDIT):
+        lanes = torch.zeros((R, cfg.n_lanes), dtype=torch.int64,
+                            device=packed.device).scatter_(
+                                1, slot_lane.long(), packed)
     return (lanes >> gshift).to(I32), (lanes & nmask) != 0
 
 
@@ -1184,7 +1210,8 @@ def fast_round_sharded(cfg: HermesConfig, ctl: FastCtl, fs: FastState,
                                           replay_post=replay_post)
     # VAL phase: a per-slot commit bit over THIS round's INV slots; the
     # receivers rebuild (key, ts) from the INV block they hold
-    commit_at_slot = torch.gather(commit_lane, 1, slot_lane.long())
+    with layouts.audited(SLOT_LANE_AUDIT):
+        commit_at_slot = torch.gather(commit_lane, 1, slot_lane.long())
     val_bits = group.gather_src(commit_at_slot)
     fs = _apply_commit(cfg, ctl, fs, inv_src, win0, val_bits,
                        inv_src.epoch, base)

@@ -176,7 +176,7 @@ def _stats_block_cuda(step, sess_op, invoke_step, commit, abort, read_done):
     return code, ctr, hist
 
 
-@hand_kernel
+@hand_kernel(audit="stats-ctr-hist-grid-accumulate")
 def stats_block(step, sess_op, invoke_step, commit, abort, read_done):
     """Fused completion codes + counters + latency histogram.
 

@@ -4,9 +4,9 @@ A copy of ``hermes_tpu/core/layouts.py``: the port keeps its own table so
 that it imports nothing of the JAX package, and the tests hold the two
 tables equal field by field.  The engine (``core/faststep.py``), the config
 validation and the ``stats_block`` kernel derive every shift and mask from
-these declarations.  The reference's ``audited``/``unaudited`` scopes
-annotate traced JAX programs for its static analyzer and have no
-counterpart here.
+these declarations.  ``audited``/``unaudited`` are the reference's audit
+scopes: they mark the ops an analysis trace records inside them
+(``hermes_tpu_torch/analysis/graph.py``) and do nothing outside one.
 
 Every layout targets a 32-bit word.  ``word_bits=31`` means the sign bit
 must stay clear (the word is compared or max-scattered as a SIGNED int32 —
@@ -17,7 +17,8 @@ that may use all 32 bits.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import contextlib
+from typing import List, NamedTuple, Optional, Tuple
 
 
 class Field(NamedTuple):
@@ -207,3 +208,54 @@ MAX_HEAP_BYTES = HEAP_GRANULE * HEAP_REF.field("gran").cap
 #: ``(step % n) * ROT_STRIDE + n`` inside int32.
 ROT_STRIDE = 127
 ROT_CAP = (1 << 31) // (ROT_STRIDE + 1)
+
+
+# --------------------------------------------------------------------------
+# Audit annotations (consumed by hermes_tpu_torch/analysis)
+# --------------------------------------------------------------------------
+
+AUDIT_PREFIX = "hermes_audit"
+
+#: the open audit scopes' tags, innermost last, while an analysis trace
+#: records (``analysis/graph.py`` sets a list); None outside a trace
+_AUDITS: Optional[List[str]] = None
+_NO_SCOPE = contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def _scope(tag: str):
+    _AUDITS.append(tag)
+    try:
+        yield
+    finally:
+        _AUDITS.pop()
+
+
+def audited(tag: str):
+    """Audit annotation: marks the ops made inside the scope as REVIEWED
+    exceptions to a static-analysis rule, with ``tag`` naming the
+    invariant that justifies them (e.g. a set-scatter whose duplicate
+    indices provably write identical rows).  While an analysis trace
+    records, every graph node made in the scope carries the tag, and the
+    analysis downgrades its findings there to ``info`` with the tag in the
+    record, so every suppression stays visible.  Outside a trace the scope
+    does nothing and makes no op."""
+    if not tag or any(c in tag for c in "[]"):
+        raise ValueError("audit tag must be a non-empty string without "
+                         "square brackets")
+    if _AUDITS is None:
+        return _NO_SCOPE
+    return _scope(tag)
+
+
+def current_audit() -> Optional[str]:
+    """The innermost open audit tag of the trace in progress, if any."""
+    return _AUDITS[-1] if _AUDITS else None
+
+
+@contextlib.contextmanager
+def unaudited():
+    """Test hook: a no-op scope with the same surface as ``audited()``;
+    monkeypatching ``audited`` to this must make the analysis flag the
+    previously audited sites (the mutation test of the audits)."""
+    yield

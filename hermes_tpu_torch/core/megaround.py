@@ -153,7 +153,7 @@ def route_plan(R: int, L: int, C: int, cluster=None) -> RoutePlan:
     return min(plans, key=lambda plan: plan.passes)
 
 
-@hand_kernel
+@hand_kernel(audit="mega-route-unique-targets")
 def mega_route(cfg, si, word, srank):
     """Per-lane verdict route-back and slot ownership of the fused sort:
     returns ``(lane_word (R, L), slot_lane (R, C))`` from the (R, L) int32
@@ -216,7 +216,7 @@ APPLY_THREADS = 256
 APPLY_HELD = 2
 
 
-@hand_kernel
+@hand_kernel(audit="mega-apply-two-phase-revisit")
 def mega_apply(cfg, vpts, keys, pts, mask):
     """The arbiter core: phase 0 scatter-MAXes every masked (key, pts) row
     into the (K,) int32 column ``vpts`` (in place), phase 1 reads the
@@ -370,7 +370,7 @@ def replay_access(bank, val, nval, active):
     return words, vec
 
 
-@hand_kernel
+@hand_kernel(audit="mega-replay-stream-accumulate")
 def mega_replay(cfg, step, frozen, table_vpts, table_bank, replay):
     """The gated replay scan (run every ``replay_scan_every`` rounds):
     ``step`` the round as a one-element int32 tensor on the table's device

@@ -7,6 +7,10 @@ Gates (each a process of its own, on the CPU):
 
   * ``census``     — ``python -m hermes_tpu_torch.obs.profile --check``:
     the round, read and heap censuses against ``obs/op_budget.json``;
+  * ``analysis``   — ``python -m hermes_tpu_torch.analysis.gate``: the
+    static round analysis of the default, bench, bench-rmw and bench-mega
+    configs on both engines, fused and split, and the kernel matrix,
+    against the empty ``analysis/analysis_baseline.json``;
   * ``hostlint``   — ``python -m hermes_tpu_torch.analysis.hostlint``:
     the static pass over the port against its empty baseline, the red
     legs, and a short serving soak under ``HERMES_LOCKLINT=1`` with no
@@ -49,6 +53,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GATES = (
     ("census", ("-m", "hermes_tpu_torch.obs.profile", "--check",
                 "--device", "cpu")),
+    ("analysis", ("-m", "hermes_tpu_torch.analysis.gate", "--device",
+                  "cpu")),
     ("hostlint", ("-m", "hermes_tpu_torch.analysis.hostlint",
                   "--device", "cpu")),
     ("acceptance", ("-m", "hermes_tpu_torch", "--acceptance", "all",

@@ -26,8 +26,11 @@ Where the port differs: the device log is a ``uint8`` tensor, built with
 a COPY of the mirror (``torch.tensor``), so appends reach it only through
 the dirty-tail sync; and there are no batch buckets to pad to.
 ``gather_census`` and ``append_census`` run one dispatch under the op
-census (``obs/profile.py``); ``analyze_gather`` waits for the engine half
-of ROADMAP A16.
+census (``obs/profile.py``); ``analyze_gather`` runs the static analysis
+(``hermes_tpu_torch/analysis``) over the gather's graph from the declared
+ref bound and proves its one gather in bounds: the clamp of every byte
+index into the log is JAX's own gather semantics, and the analysis is what
+shows it is enough.
 """
 
 from __future__ import annotations
@@ -133,6 +136,35 @@ def append_census(cfg: HermesConfig, chunk: int = 4096,
     data = torch.zeros((chunk,), dtype=torch.uint8, device=dev)
     fn = build_append(cfg.heap_bytes, chunk)
     return count_ops(lambda mode: fn(log, data, 0))
+
+
+def analyze_gather(cfg: HermesConfig, batch: int = 1024,
+                   device="cuda") -> list:
+    """Run the static analysis over the extent gather of ``batch`` refs,
+    traced with fake tensors on ``device``, from the declared ref bound
+    (``analysis/seeds.seed_heap_gather``: the whole HEAP_REF word, since a
+    ref is untrusted): the bitpack pass checks the field unpacks and the
+    scatter pass proves the gather index inside the log.  Returns the
+    findings (engine ``heap/gather``; none that gates = clean)."""
+    from hermes_tpu_torch.analysis import graph, seeds
+    from hermes_tpu_torch.analysis.interp import Ctx, eval_graph
+    from hermes_tpu_torch.analysis.passes import (default_passes,
+                                                  interp_findings)
+
+    dev = device_lib.resolve(device)
+    with graph.fake_mode():
+        log = torch.empty((cfg.heap_bytes,), dtype=torch.uint8, device=dev)
+        refs = torch.empty((batch,), dtype=torch.int32, device=dev)
+    gm, _ = graph.trace(build_extent_gather(cfg.heap_bytes, cap_bytes(cfg)),
+                        (log, refs))
+    passes = default_passes()
+    ctx = Ctx(cfg=cfg, mesh_axes={}, passes=passes)
+    eval_graph(gm, list(seeds.seed_heap_gather(cfg, batch)), ctx)
+    findings = [f for p in passes for f in p.results()]
+    findings += interp_findings(ctx)
+    for f in findings:
+        f.engine = "heap/gather"
+    return findings
 
 
 class ValueHeap:

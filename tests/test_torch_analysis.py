@@ -1183,8 +1183,8 @@ def test_torch_kernels_flag_runs_matrix(capsys, tmp_path):
 
 
 def test_torch_kernels_cli_red_and_refusals(capsys, monkeypatch):
-    """A violated cell fails the run; without ``--kernels`` the command
-    says what is ported."""
+    """A violated cell fails the run; a config the command does not know
+    is refused."""
     cell = dc.cell_by_name("synthetic/scan-accumulate")
     cell.out_avs[0] = D.iv(0, 100)  # one pass of the loop body, unwidened
     monkeypatch.setattr(dc, "kernel_cells", lambda: [cell])
@@ -1193,7 +1193,7 @@ def test_torch_kernels_cli_red_and_refusals(capsys, monkeypatch):
     assert json.loads(io.out.strip().splitlines()[-1])["ok"] is False
     assert "ESCAPE" in io.err and "ref-read-before-init" in io.err
     with pytest.raises(SystemExit):
-        cli.main(["--device", "cpu"])
+        cli.main(["--config", "nope", "--device", "cpu"])
 
 
 def test_torch_kernels_cli_needs_card():

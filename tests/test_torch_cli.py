@@ -451,7 +451,8 @@ def test_torch_cli_serving_refusals_match_reference(capsys, argv):
      "--serve drives the fast batched backend"),
     (["--serve", "5", "--value-words", "6", "--backend", "sim"],
      "--serve drives the fast batched backend"),
-    (["--analyze", "findings.jsonl"], "ROADMAP A16"),
+    (["--analyze", "findings.jsonl", "--backend", "sim"],
+     "--analyze traces the fast round"),
 ])
 def test_torch_cli_serving_refuses_what_is_not_its_own(argv, msg):
     r = subprocess.run(

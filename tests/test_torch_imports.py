@@ -25,7 +25,10 @@ trip), and the census, the acceptance scenarios, the entry points and the
 host lock analysis (obs/profile.py, acceptance.py, graft.py, probe.py,
 gates.py, analysis/hostlint.py and lockgraph.py: a sharded round's
 census, config 4 drained and checked, the entry round, the package's
-lint, an instrumented lock) on the CPU.  The TCP run's
+lint, an instrumented lock), and the static round analysis
+(analysis/graph.py, interp.py, passes.py, engines.py, gate.py,
+heap.analyze_gather: a mega config's four programs and the extent
+gather analyzed) on the CPU.  The TCP run's
 child processes (``python -m hermes_tpu_torch.distributed``) are probed
 after a real two-rank run over loopback."""
 
@@ -221,6 +224,18 @@ assert hostlint.key_counts(hostlint.lint_package()["findings"]) == {}
 with lockgraph.ObsLock("probe.A"):
     pass
 assert gates.GATES
+from hermes_tpu_torch.analysis import engines, gate, graph, interp, passes
+from hermes_tpu_torch.heap import core as heap_core
+areps = analysis.analyze_config(HermesConfig(n_replicas=3, n_keys=64,
+                                             n_sessions=4, replay_slots=2,
+                                             arb_mode="sort", mega_round=True),
+                                device="cpu")
+assert len(areps) == 4 and not [f for r in areps for f in r["findings"]
+                                if f.severity in analysis.GATING]
+assert areps[0]["kernels"]["mega_route"] == 1 and gate.gate_configs()
+assert not heap_core.analyze_gather(HermesConfig(
+    n_replicas=3, n_keys=64, n_sessions=4, value_words=3,
+    max_value_bytes=64, heap_bytes=1 << 12), batch=8, device="cpu")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "hermes_tpu" or m.startswith("hermes_tpu."))
@@ -292,6 +307,35 @@ def test_torch_shm_worker_under_locklint_loads_no_torch():
     env = dict(os.environ, HERMES_LOCKLINT="1")
     r = subprocess.run([sys.executable, "-c", SHM_WORKER_LOCKLINT], cwd=ROOT,
                        env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "TORCH []" in r.stdout, r.stdout
+
+
+def test_torch_round_analysis_modules_are_in_the_scan():
+    """The static round analysis's modules exist where the import scan
+    reads them, beside its empty baseline."""
+    for rel in ("analysis/graph.py", "analysis/interp.py",
+                "analysis/passes.py", "analysis/engines.py",
+                "analysis/gate.py", "analysis/analysis_baseline.json"):
+        assert (ROOT / "hermes_tpu_torch" / rel).is_file(), rel
+
+
+ANALYSIS_ALONE = r"""
+import sys
+import hermes_tpu_torch.analysis as ana
+assert "analyze_config" in ana.__all__ and "lint_package" in dir(ana)
+from hermes_tpu_torch.analysis import lockgraph
+print("TORCH", sorted(m for m in sys.modules
+                      if m == "torch" or m.startswith("torch.")))
+"""
+
+
+def test_torch_analysis_package_alone_loads_no_torch():
+    """Importing ``hermes_tpu_torch.analysis`` (its exports resolve
+    lazily) and its lock graph loads no ``torch``: the shm workers load
+    ``lockgraph`` through this package."""
+    r = subprocess.run([sys.executable, "-c", ANALYSIS_ALONE], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "TORCH []" in r.stdout, r.stdout
 
