@@ -259,16 +259,18 @@ prints no result):
    drives under ``HERMES_LOCKLINT=1``, every lock an ObsLock, at the
    serving phases' shapes on the card: the serve-socket phase's
    throughput cell (a ``TcpRpcServer``, 8 replicas, 2^20 keys x 4,096
-   sessions, 4,000 closed-loop requests), then the serve-columnar
+   sessions, 2,000 closed-loop requests), then the serve-columnar
    phase's store (8 x 65,536 sessions) behind a ``ColumnarTcpServer``
-   (``analysis.hostlint.leg_soak``: 10 batches of 393,216 requests over
-   TCP).  Each: every request answered, no lock-order cycle, every
+   (``analysis.hostlint.leg_soak``: 5 batches of 393,216 requests over
+   TCP); half the depth of the serving phases' own drives of the same
+   cell and store.  Each: every request answered, no lock-order cycle, every
    lock's hold p99 within 10 mean store rounds of its drive.
    The kernels line carries ``census_calls``, ``acceptance_launches``,
    ``graft_launches`` and ``locklint_launches``.
-31. analysis (run last: it needs no profiler) — the static round analysis
-   (``hermes_tpu_torch.analysis``): the ``analysis`` gate's four configs
-   (default, bench, bench-rmw, bench-mega at the bench shape) on both
+31. analysis (run after every profiled phase: it needs no profiler) —
+   the static round analysis (``hermes_tpu_torch.analysis``): the
+   ``analysis`` gate's four configs (default, bench, bench-rmw,
+   bench-mega at the bench shape) on both
    engines, fused and split, traced with fake tensors on the card's
    device: no error or warn finding, every finding at a port
    ``file:line``, the seven audit tags present, the four hand kernels each
@@ -278,6 +280,20 @@ prints no result):
    --analyze FILE`` (``cli.main`` in this process) at bench-a-mega's shape
    for 8 rounds: the findings file clean and the run's launches those of
    its rounds (the kernels line's ``analysis_launches``).
+
+32. gates (run last, after the analysis: run right after the census, its
+   processes left this one's torch.profiler keeping 7 records of 20
+   launches in the kernels phase) — the seven gates ported in
+   queue A15b (``obs-overhead``, ``pipeline``, ``chaos``, ``elastic``,
+   ``netchaos``, ``heap``, ``durability``: ``hermes_tpu_torch/checks/``)
+   through ``python -m hermes_tpu_torch.gates --device cuda --only ...``
+   in a process of their own at the JAX package's gate shapes: every gate
+   ``ok`` on ``cuda``, ``stats_block`` launched in each, the three mega
+   kernels in the heap gate's census rounds; each gate's seconds and
+   launches.  Then the obs-overhead timing at the bench shape
+   (``checks.obs_overhead --shape bench``): phase metrics on against off,
+   record-only, its ratio, medians and per-rep samples beside the card.
+   The kernels line carries ``gates_launches`` (the seven gates' sum).
 
 Then the whole smoke's seconds, the kernels summary line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.  Without a
@@ -4158,6 +4174,96 @@ ANALYZE_ARGV = ("--replicas", "8", "--keys", str(1 << 20), "--value-words",
                 "128", "--mega-round", "--steps", str(ANALYZE_ROUNDS))
 
 
+GATES_PORTED = ("obs-overhead", "pipeline", "chaos", "elastic", "netchaos",
+                "heap", "durability")
+GATE_TIMEOUT_S = 300  # one gate's limit in the runner
+MEGA = ("mega_route", "mega_apply", "mega_replay")
+
+
+def phase_gates(torch, gt, card):
+    """The gates of ``gt.gates`` through the port's runner on
+    ``gt.device`` (with ``gt.runner_args``: none on the card), each green, each launching ``stats_block`` (the heap
+    gate also the mega kernels) when ``gt.device`` is the card; then the
+    obs-overhead timing at ``gt.obs_shape``.  Returns the launches by
+    kernel, summed over the gates."""
+    import shutil
+    import tempfile
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_gates_")
+    try:
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "hermes_tpu_torch.gates", "--device",
+             gt.device, "--only", ",".join(gt.gates), "--out", out,
+             "--timeout", str(GATE_TIMEOUT_S), *gt.runner_args],
+            cwd=gt.root, capture_output=True, text=True,
+            timeout=GATE_TIMEOUT_S * len(gt.gates) + 60)
+        seconds = time.perf_counter() - t0
+        summary_path = os.path.join(out, "gates_summary.json")
+        if not os.path.exists(summary_path):
+            raise AssertionError(f"the gate runner exited {p.returncode} "
+                                 f"with no summary\n{p.stdout[-2000:]}"
+                                 f"\n{p.stderr[-3000:]}")
+        with open(summary_path) as f:
+            summary = json.load(f)
+        gates, total = {}, {}
+        for r in summary["results"]:
+            rep = r.get("report", {})
+            launches = rep.get("launches", {})
+            gates[r["gate"]] = {"ok": r["ok"], "seconds": r["seconds"],
+                                "device": rep.get("device"),
+                                "launches": launches}
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+        emit({"phase": "gates", "nvidia_smi": card, "seconds": seconds,
+              "gates": gates})
+        bad = [g for g, r in gates.items() if not r["ok"]]
+        if bad or p.returncode != 0:
+            tails = {r["gate"]: (r.get("report", {}).get("error")
+                                 or r.get("stderr_tail", "")[-1500:])
+                     for r in summary["results"] if not r["ok"]}
+            raise AssertionError(f"gates {bad} failed (runner exit "
+                                 f"{p.returncode}): {tails}")
+        if [r["gate"] for r in summary["results"]] != list(gt.gates):
+            raise AssertionError(f"the runner ran {list(gates)}, want "
+                                 f"{list(gt.gates)}")
+        for g, r in gates.items():
+            if r["device"] != torch.device(gt.device).type:
+                raise AssertionError(f"gate {g} ran on {r['device']}")
+            if gt.device == "cuda":
+                need = ("stats_block",) + (MEGA if g == "heap" else ())
+                idle = [k for k in need if not r["launches"].get(k)]
+                if idle:
+                    raise AssertionError(f"gate {g} launched no {idle}")
+        bench = os.path.join(out, "obs_overhead_bench.json")
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "hermes_tpu_torch.checks.obs_overhead",
+             "--device", gt.device, "--shape", gt.obs_shape, "--out",
+             bench], cwd=gt.root, capture_output=True, text=True,
+            timeout=GATE_TIMEOUT_S, env=dict(os.environ, PYTHONPATH=gt.root))
+        if p.returncode != 0 or not os.path.exists(bench):
+            raise AssertionError(f"obs-overhead at the {gt.obs_shape} shape "
+                                 f"exited {p.returncode}\n{p.stdout[-2000:]}"
+                                 f"\n{p.stderr[-3000:]}")
+        with open(bench) as f:
+            rep = json.load(f)
+        emit({"phase": "obs-overhead-bench", "nvidia_smi": card,
+              "shape": rep["shape"], "rounds": rep["rounds"],
+              "reps": rep["reps"], "overhead_frac": rep["overhead_frac"],
+              "ratio": (rep["wall_s_instrumented"]
+                        / rep["wall_s_uninstrumented"]),
+              "median_s_on": rep["wall_s_instrumented"],
+              "median_s_off": rep["wall_s_uninstrumented"],
+              "times_on": rep["times_instrumented"],
+              "times_off": rep["times_uninstrumented"],
+              "commits": rep["commits"], "launches": rep["launches"],
+              "seconds": time.perf_counter() - t0})
+        return total
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
 def _finding_keys(reports):
     out = {}
     for r in reports:
@@ -4391,11 +4497,14 @@ def phase_locklint(torch, sv, ac, counters, card):
     ``make_lock`` lock an ObsLock, minted fresh), their stores on
     ``sv.device`` at the serving phases' shapes: the serve-socket phase's
     throughput cell (``run_socket_cell`` at ``host_cfg("throughput")``,
-    a ``TcpRpcServer``, 2 x ``SOCKET_N`` closed-loop requests, window
-    64), then the serve-columnar phase's store behind a
-    ``ColumnarTcpServer`` (``hostlint.leg_soak``: ``COLUMNAR_OPS //
-    COLUMNAR_PER_ROUND`` batches of ``COLUMNAR_PER_ROUND`` requests over
-    TCP after one warm-up batch).  Each: every request answered, no
+    a ``TcpRpcServer``, ``SOCKET_N`` closed-loop requests, window 64),
+    then the serve-columnar phase's store behind a ``ColumnarTcpServer``
+    (``hostlint.leg_soak``: ``COLUMNAR_OPS // COLUMNAR_PER_ROUND // 2``
+    batches of ``COLUMNAR_PER_ROUND`` requests over TCP after one warm-up
+    batch).  Both at half the depth they had before the gates phase came
+    (2 x ``SOCKET_N`` requests, all the batches): the serve-socket phase
+    drives the same cell at 2 x ``SOCKET_N`` and serve-columnar the same
+    store over all of ``COLUMNAR_OPS``.  Each: every request answered, no
     lock-order cycle, every lock's hold p99 within
     ``LOCKLINT_HOLD_ROUNDS`` mean store rounds of its drive, no mega
     kernel launched."""
@@ -4412,7 +4521,7 @@ def phase_locklint(torch, sv, ac, counters, card):
                                 tenant_quota=64, queue_cap=256)
         cell = bench.run_socket_cell(
             bench.host_cfg("throughput", str(sv.device).startswith("cuda")),
-            scfg, sv.MixSpec(name="uniform"), 2 * SOCKET_N, mode="closed",
+            scfg, sv.MixSpec(name="uniform"), SOCKET_N, mode="closed",
             window=64, seed=bench.scenario_seed(), device=sv.device)
         rep = graph.report()
         socket_bound, socket_over = _locks_over(rep, cell["wall_s"],
@@ -4424,7 +4533,7 @@ def phase_locklint(torch, sv, ac, counters, card):
                       hold_bound_us=socket_bound, over=socket_over,
                       findings=[f.message for f in graph.findings()])
         col = ac.hostlint.leg_soak(
-            batches=COLUMNAR_OPS // COLUMNAR_PER_ROUND, warmup=1,
+            batches=COLUMNAR_OPS // COLUMNAR_PER_ROUND // 2, warmup=1,
             max_hold_p99_us=None, device=sv.device, cfg=sv.kvs_cfg(),
             scfg=sv.ServingConfig(**COLUMNAR_ENVELOPE),
             rows=COLUMNAR_PER_ROUND)
@@ -4824,8 +4933,9 @@ def main(argv=None):
         torch.cuda.empty_cache()
         sliced = run_acceptance_slice(torch, ac, counters, card)
         sliced["census_calls"] = census_calls
-        # last: it runs no profiler, and the kernels phase's exact
-        # profiler counts come right after the census in a young process
+        # after every profiled phase: it runs no profiler, and the kernels
+        # phase's exact profiler counts come right after the census in a
+        # young process
         import io
         import tempfile
 
@@ -4839,6 +4949,13 @@ def main(argv=None):
             cfg_scan=config.HermesConfig().replay_scan_every)
         sliced["analysis_launches"] = phase_analysis(torch, an, counters,
                                                      card)
+        # after every profiled phase: run between the census and the
+        # kernels phase, the gates' processes left this process's
+        # profiler keeping 7 records of 20 launches (PERF.md section 6)
+        torch.cuda.empty_cache()
+        gt = SimpleNamespace(device="cuda", root=HERE, gates=GATES_PORTED,
+                             obs_shape="bench", runner_args=())
+        sliced["gates_launches"] = phase_gates(torch, gt, card)
         for name, row in rows.items():
             for tag, got in sliced.items():
                 if name in got:

@@ -1,22 +1,40 @@
 """The port's gate runner: the counterpart of ``scripts/run_gates.py``.
 
-    python -m hermes_tpu_torch.gates [--only census,hostlint] [--force]
-        [--timeout S] [--out DIR]
+    python -m hermes_tpu_torch.gates [--device cuda|cpu]
+        [--only census,hostlint] [--force] [--timeout S] [--out DIR]
 
-Gates (each a process of its own, on the CPU):
+Gates, in the reference's order (its ``fleet`` and ``serving`` gates are
+not ported yet), each a process of its own on ``--device`` (default the
+card, like every entry point; ``--device cpu`` on a machine without one):
 
-  * ``census``     — ``python -m hermes_tpu_torch.obs.profile --check``:
+  * ``census``       — ``python -m hermes_tpu_torch.obs.profile --check``:
     the round, read and heap censuses against ``obs/op_budget.json``;
-  * ``analysis``   — ``python -m hermes_tpu_torch.analysis.gate``: the
+  * ``obs-overhead`` — ``checks/obs_overhead.py``: phase metrics and
+    per-op tracing change no outcome and cost under a host bound;
+  * ``analysis``     — ``python -m hermes_tpu_torch.analysis.gate``: the
     static round analysis of the default, bench, bench-rmw and bench-mega
     configs on both engines, fused and split, and the kernel matrix,
     against the empty ``analysis/analysis_baseline.json``;
-  * ``hostlint``   — ``python -m hermes_tpu_torch.analysis.hostlint``:
+  * ``pipeline``     — ``checks/pipeline.py``: depth 1 against depth 3,
+    a depth-2 KVS, the in-place round, one control upload a transition;
+  * ``chaos``        — ``checks/chaos.py``: the seeded soak, its replay,
+    torn snapshots, net chaos on the sim engine;
+  * ``elastic``      — ``checks/elastic.py``: rolling restart, resize,
+    range migration;
+  * ``netchaos``     — ``checks/netchaos.py``: the wire matrix, the CRC,
+    partitions at depth 2;
+  * ``heap``         — ``checks/heap.py``: GC, byte-exact reads, a fleet
+    move, torn heap snapshots, the heap census equal to the fixed-word
+    one;
+  * ``hostlint``     — ``python -m hermes_tpu_torch.analysis.hostlint``:
     the static pass over the port against its empty baseline, the red
     legs, and a short serving soak under ``HERMES_LOCKLINT=1`` with no
     lock-order cycle;
-  * ``acceptance`` — ``python -m hermes_tpu_torch --acceptance all``:
-    BASELINE configs 1 to 5 at scale 0.01, each drained and checked.
+  * ``durability``   — ``checks/durability.py``: a store killed by its
+    own powercut loses no committed write;
+  * ``acceptance``   — ``python -m hermes_tpu_torch --acceptance all``:
+    BASELINE configs 1 to 5 at scale 0.01, each drained and checked (the
+    port's own gate, last).
 
 The rules of the reference's runner hold:
 
@@ -50,16 +68,29 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+#: (name, python argv without ``--device``): ``main`` appends
+#: ``--device DEVICE`` to every gate's argv
 GATES = (
-    ("census", ("-m", "hermes_tpu_torch.obs.profile", "--check",
-                "--device", "cpu")),
-    ("analysis", ("-m", "hermes_tpu_torch.analysis.gate", "--device",
-                  "cpu")),
-    ("hostlint", ("-m", "hermes_tpu_torch.analysis.hostlint",
-                  "--device", "cpu")),
+    ("census", ("-m", "hermes_tpu_torch.obs.profile", "--check")),
+    ("obs-overhead", ("-m", "hermes_tpu_torch.checks.obs_overhead")),
+    ("analysis", ("-m", "hermes_tpu_torch.analysis.gate")),
+    ("pipeline", ("-m", "hermes_tpu_torch.checks.pipeline")),
+    ("chaos", ("-m", "hermes_tpu_torch.checks.chaos")),
+    ("elastic", ("-m", "hermes_tpu_torch.checks.elastic")),
+    ("netchaos", ("-m", "hermes_tpu_torch.checks.netchaos")),
+    ("heap", ("-m", "hermes_tpu_torch.checks.heap")),
+    ("hostlint", ("-m", "hermes_tpu_torch.analysis.hostlint")),
+    ("durability", ("-m", "hermes_tpu_torch.checks.durability")),
     ("acceptance", ("-m", "hermes_tpu_torch", "--acceptance", "all",
-                    "--scale", "0.01", "--device", "cpu")),
+                    "--scale", "0.01")),
 )
+
+
+def _runs_pytest(argv) -> bool:
+    """True when an argument of ``argv`` is pytest itself (``-m pytest``,
+    a ``pytest`` or ``py.test`` executable), not a longer string that
+    names it (a shell's ``-c`` script)."""
+    return any(os.path.basename(a) in (b"pytest", b"py.test") for a in argv)
 
 
 def pytest_running() -> list:
@@ -73,7 +104,7 @@ def pytest_running() -> list:
         try:
             with open(cmdline, "rb") as f:
                 argv = f.read().split(b"\0")
-            if not any(b"pytest" in a for a in argv):
+            if not _runs_pytest(argv):
                 continue
             cwd = os.path.realpath(os.readlink(f"/proc/{pid}/cwd"))
         except OSError:
@@ -144,6 +175,9 @@ def main(argv=None, gates=GATES) -> int:
     ap = argparse.ArgumentParser(prog="python -m hermes_tpu_torch.gates",
                                  description=__doc__.splitlines()[0])
     names = [g[0] for g in gates]
+    ap.add_argument("--device", default="cuda",
+                    help="passed to every gate: cuda (default; a gate "
+                    "raises without a card) or cpu")
     ap.add_argument("--only", default=None,
                     help=f"comma-separated subset of {names}")
     ap.add_argument("--timeout", type=int, default=1200,
@@ -175,12 +209,13 @@ def main(argv=None, gates=GATES) -> int:
         if only is not None and name not in only:
             continue
         print(f"[gates] {name} ...", file=sys.stderr, flush=True)
-        r = run_gate(name, gate_argv, args.timeout, flight_dir)
+        r = run_gate(name, (*gate_argv, "--device", args.device),
+                     args.timeout, flight_dir)
         print(f"[gates] {name}: {'ok' if r['ok'] else 'FAIL'} in "
               f"{r['seconds']}s", file=sys.stderr, flush=True)
         results.append(r)
     summary = dict(
-        ok=all(r["ok"] for r in results),
+        ok=all(r["ok"] for r in results), device=args.device,
         gates={r["gate"]: dict(ok=r["ok"], seconds=r["seconds"],
                                **({"timed_out": True} if r.get("timed_out")
                                   else {}),
@@ -193,7 +228,8 @@ def main(argv=None, gates=GATES) -> int:
     with open(os.path.join(out_dir, "gates_summary.json"), "w") as f:
         json.dump(summary, f, indent=1, sort_keys=True)
         f.write("\n")
-    print(json.dumps(dict(ok=summary["ok"], gates=summary["gates"],
+    print(json.dumps(dict(ok=summary["ok"], device=args.device,
+                          gates=summary["gates"],
                           total_seconds=summary["total_seconds"],
                           out=out_dir)))
     return 0 if summary["ok"] else 1

@@ -155,12 +155,13 @@ def _launches_kept():
             w.launches = saved[n]
 
 
-def count_ops(run) -> dict:
+def count_ops(run, keep_launches: bool = False) -> dict:
     """The census of what ``run(mode)`` dispatches (``mode`` wraps a
     replica group: ``_CountedGroup(group, mode)``), with the launch
-    counters put back."""
+    counters put back unless ``keep_launches``."""
     mode = _Census()
-    with _launches_kept(), dispatch.count_hand_kernels() as kernels:
+    kept = contextlib.nullcontext() if keep_launches else _launches_kept()
+    with kept, dispatch.count_hand_kernels() as kernels:
         with mode:
             run(mode)
     return _census_dict(mode, kernels)
@@ -212,18 +213,21 @@ def _run_round(cfg, backend, fs, stream, ctl, group):
 
 
 def op_census(cfg, backend: str = "batched", device="cuda",
-              group=None) -> dict:
+              group=None, count_kernels: bool = True,
+              keep_launches: bool = False) -> dict:
     """The census of ONE round of ``cfg`` on ``backend`` (``"batched"``
     or ``"sharded"``; ``group`` defaults to a ``LocalGroup``), run on a
-    fresh state on ``device``; on the card with ``kernel_total``."""
+    fresh state on ``device``; on the card with ``kernel_total`` unless
+    not ``count_kernels``.  ``keep_launches`` leaves the round's kernel
+    launches on the wrappers' counters."""
     from hermes_tpu_torch import device as device_lib
 
     dev = device_lib.resolve(device)
     fs, stream, ctl, grp = _round_args(cfg, backend, dev, group)
     cen = count_ops(lambda mode: _run_round(
         cfg, backend, fs, stream, ctl,
-        grp and _CountedGroup(grp, mode)))
-    if dev.type == "cuda":
+        grp and _CountedGroup(grp, mode)), keep_launches)
+    if dev.type == "cuda" and count_kernels:
         cen["kernel_total"] = kernel_total(cfg, backend, dev, group)
     return cen
 

@@ -75,11 +75,15 @@ def device_busy(run):
 # 100 ms, a few seconds to a quarter of a minute apart, consecutive traces
 # come back short or empty (PyTorch's own kernels as well as the port's,
 # with or without a pause inside the trace's ends; once six traces in a
-# row, about two seconds).  A burst is therefore traced until two traces
-# in a row hold the same whole number of launches per call, with a pause
-# after a refused one to let the episode pass.
-_TRACES = 10
+# row, about two seconds; in one chip smoke ten in a row, one record
+# of 20 short each).  A burst is therefore traced until two traces in a
+# row hold the same whole number of launches per call, with a pause after
+# a refused one to let the episode pass, twice as long after each refused
+# trace in a row (at most ``_PAUSE_MAX_S``): some 80 s of episode before
+# a burst gives up.
+_TRACES = 24
 _PAUSE_S = 0.25
+_PAUSE_MAX_S = 4.0
 # Besides, the older the process, the fewer of a burst's device records a
 # trace keeps, the same ones in consecutive traces: one bench-a round
 # traced after every phase of the chip smoke kept 787 records fresh and
@@ -105,7 +109,7 @@ def device_split(call, n=20):
     so on stderr.  Raises if no two traces agree.  The operations are
     ``[name, seconds per call, launches per call]``, the longest first (at
     most eight)."""
-    last = None
+    last, pause = None, _PAUSE_S
     for _ in range(_TRACES):
         out = _trace(lambda: [call() for _ in range(n)])
         if out["launches"] > _LAUNCHES_MAX and n > 1:
@@ -116,7 +120,8 @@ def device_split(call, n=20):
                   f"and {out['busy_s']} s for {n} calls", file=sys.stderr,
                   flush=True)
             last = None
-            time.sleep(_PAUSE_S)
+            time.sleep(pause)
+            pause = min(2 * pause, _PAUSE_MAX_S)
         elif out["launches"] == last:
             ops = [[name, us / 1e6 / n, cnt / n] for us, cnt, name
                    in out["top"]]
@@ -133,7 +138,7 @@ def device_launches(prepare, run):
     outside the trace (a fresh input a trace): traced until two
     consecutive traces agree (at most ``_TRACES``), refusing a trace with
     no device time as ``device_split`` does.  Raises if none agree."""
-    last = None
+    last, pause = None, _PAUSE_S
     for _ in range(_TRACES):
         args = prepare()
         out = _trace(lambda: run(args))
@@ -141,7 +146,8 @@ def device_launches(prepare, run):
             print(f"profiling: refused a trace of {out['launches']} launches "
                   "and no device time", file=sys.stderr, flush=True)
             last = None
-            time.sleep(_PAUSE_S)
+            time.sleep(pause)
+            pause = min(2 * pause, _PAUSE_MAX_S)
         elif out["launches"] == last:
             return last
         else:

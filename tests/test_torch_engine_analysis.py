@@ -757,14 +757,15 @@ def test_torch_analysis_gate_pass_fail_update(tmp_path, monkeypatch, capsys):
     assert run() == 0
     assert run("--configs", "nope") == 2
     capsys.readouterr()
-    # the shipped baseline is empty and the gate runs third... second in
-    # the port's runner: after the census, before hostlint
+    # the shipped baseline is empty and the gate runs third in the port's
+    # runner, as in the reference's: after the census and obs-overhead
     assert json.loads(pathlib.Path(gate_mod.BASELINE_PATH).read_text())[
         "grandfathered"] == {}
     from hermes_tpu_torch import gates
 
-    assert [g[0] for g in gates.GATES] == ["census", "analysis", "hostlint",
-                                           "acceptance"]
+    names = [g[0] for g in gates.GATES]
+    assert names[:3] == ["census", "obs-overhead", "analysis"]
+    assert names.index("analysis") < names.index("hostlint")
 
 
 def test_torch_analysis_gate_kernel_matrix_leg(capsys):

@@ -126,3 +126,100 @@ def test_torch_gates_pytest_scan_is_this_checkouts(in_checkout):
     finally:
         proc.kill()
         proc.wait()
+
+
+def test_torch_gates_pytest_scan_skips_a_shell_that_names_pytest():
+    """A shell whose ``-c`` script mentions pytest (``cd X && python3
+    chip_smoke.py; python -m pytest ...``) runs no pytest itself."""
+    proc = subprocess.Popen(
+        ["bash", "-c", "sleep 60; echo python -m pytest tests/x.py"],
+        cwd=gates.ROOT)
+    try:
+        time.sleep(0.2)
+        assert str(proc.pid) not in gates.pytest_running()
+    finally:
+        proc.kill()
+        proc.wait()
+    assert gates._runs_pytest([b"/usr/bin/python3", b"-m", b"pytest"])
+    assert gates._runs_pytest([b"/venv/bin/py.test", b"tests"])
+
+
+# -- the gates themselves ------------------------------------------------------
+
+PORTED = ("census", "obs-overhead", "analysis", "pipeline", "chaos",
+          "elastic", "netchaos", "heap", "hostlint", "durability",
+          "acceptance")
+
+
+def test_torch_gates_list_the_eleven_in_the_references_order():
+    """The reference's twelve in its order, without the two not ported
+    (fleet, serving), then the port's own acceptance gate."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "run_gates_reference_under_test",
+        os.path.join(gates.ROOT, "scripts", "run_gates.py"))
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    names = tuple(g[0] for g in gates.GATES)
+    assert names == PORTED
+    assert names[:-1] == tuple(n for n, _ in ref.GATES
+                               if n not in ("fleet", "serving"))
+    for name, argv in gates.GATES:
+        assert "--device" not in argv, name  # the runner adds it
+
+
+ARGV = ("-c", "import json, sys; print(json.dumps({'argv': sys.argv[1:]}))")
+
+
+@pytest.mark.parametrize("device", [None, "cpu"])
+def test_torch_gates_pass_the_device_to_every_gate(tmp_path, capsys,
+                                                    device):
+    flags = ["--force", "--out", str(tmp_path)]
+    if device:
+        flags += ["--device", device]
+    rc = gates.main(flags, gates=(("one", ARGV), ("two", ARGV)))
+    assert rc == 0
+    assert _summary_line(capsys)["device"] == (device or "cuda")
+    doc = json.loads((tmp_path / "gates_summary.json").read_text())
+    for r in doc["results"]:
+        assert r["report"]["argv"] == ["--device", device or "cuda"]
+
+
+def test_torch_gates_real_run_writes_no_reference_artifact(tmp_path,
+                                                          capsys):
+    from torch_gatepair import artifacts
+
+    before = artifacts()
+    rc = gates.main(["--device", "cpu", "--force", "--only",
+                     "pipeline,obs-overhead", "--out", str(tmp_path)])
+    assert rc == 0, capsys.readouterr()
+    assert artifacts() == before
+    line = _summary_line(capsys)
+    assert list(line["gates"]) == ["obs-overhead", "pipeline"]
+    doc = json.loads((tmp_path / "gates_summary.json").read_text())
+    assert all(r["report"]["device"] == "cpu" for r in doc["results"])
+    assert sorted(os.listdir(tmp_path)) == ["flight_dumps",
+                                           "gates_summary.json"]
+
+
+def test_torch_chip_smoke_gates_rehearsal(capsys):
+    """``chip_smoke.phase_gates`` on the CPU with one gate and the
+    obs-overhead timing at the gate shape (on the card: the seven gates,
+    the bench shape, no ``--force``)."""
+    from types import SimpleNamespace
+
+    import torch
+
+    import chip_smoke as cs
+
+    gt = SimpleNamespace(device="cpu", root=gates.ROOT, gates=("pipeline",),
+                         obs_shape="gate", runner_args=("--force",))
+    total = cs.phase_gates(torch, gt, "cpu")
+    assert total["stats_block"] == 0  # a wrapper counts CUDA launches only
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()
+             if x.startswith("{")]
+    assert [d["phase"] for d in lines] == ["gates", "obs-overhead-bench"]
+    assert lines[0]["gates"]["pipeline"]["ok"]
+    assert lines[1]["shape"] == "gate" and len(lines[1]["times_on"]) == 9
+    assert set(cs.GATES_PORTED) < set(PORTED)

@@ -344,7 +344,7 @@ def test_torch_hostlint_gate_fails_on_a_new_finding(tmp_path, monkeypatch):
 
 def test_torch_chip_smoke_locklint_rehearsal(monkeypatch):
     """``chip_smoke.phase_locklint`` on the CPU at a cut shape (2^12 keys,
-    64 sessions; 4 columnar batches of 384 requests; 200 socket
+    64 sessions; 2 columnar batches of 384 requests; 100 socket
     requests): both socket drives answer everything under the sanitizer
     with no cycle and holds within the bound, and no mega kernel runs."""
     from types import SimpleNamespace

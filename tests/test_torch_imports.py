@@ -439,3 +439,44 @@ def test_torch_distributed_children_import_neither_jax_nor_reference(
         out, err = p.communicate(timeout=240)
         assert p.returncode == 0, out + err
         assert "LEAKED []" in out
+
+
+def test_torch_gate_modules_are_in_the_scan():
+    """The seven gates' modules exist where the source scan above reads
+    them."""
+    for rel in ("checks/__init__.py", "checks/obs_overhead.py",
+                "checks/pipeline.py", "checks/chaos.py", "checks/elastic.py",
+                "checks/netchaos.py", "checks/heap.py",
+                "checks/durability.py", "checks/durability_soak.py"):
+        assert (ROOT / "hermes_tpu_torch" / rel).is_file(), rel
+
+
+CHECKS = r"""
+import sys
+import torch
+torch.set_num_threads(1)
+from hermes_tpu_torch import gates
+from hermes_tpu_torch.checks import (chaos, durability, durability_soak,
+                                     elastic, heap, netchaos, obs_overhead,
+                                     pipeline)
+rep = {}
+pipeline.check_ctl_uploads(rep, device="cpu")
+chaos.check_torn_snapshot(rep, device="cpu")
+netchaos.check_crc_red(rep, device="cpu")
+heap.check_torn_snapshot(rep, device="cpu")
+assert len(rep) == 6 and all(rep.values()), rep
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "hermes_tpu" or m.startswith("hermes_tpu."))
+print("LEAKED", bad)
+"""
+
+
+def test_torch_gate_modules_import_neither_jax_nor_reference():
+    """``hermes_tpu_torch/checks/`` and the runner, imported and four of
+    their legs run in a fresh interpreter, load nothing of jax or of the
+    JAX package."""
+    r = subprocess.run([sys.executable, "-c", CHECKS], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "LEAKED []" in r.stdout
