@@ -137,10 +137,10 @@ prints no result):
    the same on the sharded engine with ``mega_round=True``, each join's
    copy held against its donor's (equal but for the folded states).
 14. detect-cost — bench-a at depth 2 with completions harvested, without
-   and with the detector, 60-round windows in turns off on on off: host
+   and with the detector, 30-round windows in turns off on on off: host
    us/round and a profiled window's busy share of each.
 15. drill   — ``elastic.run_rolling_restart`` on bench-a at depth 2,
-   recorded, a restart every 6 rounds (58 rounds): 8 restarts, each
+   recorded, a restart every 3 rounds (31 rounds): 8 restarts, each
    restart's seconds, the dip and the lost ops; quiesced, checked.
 16. resize  — ``elastic.rolling_resize`` (``hold_steps=8``) on a KVS at the
    reads shape with ``RESIZE_SESSIONS`` sessions a replica under the
@@ -194,7 +194,7 @@ prints no result):
    checked, tables equal, every session done, no clean frame dropped;
    again under corrupt and drop windows, every corrupted frame dropped by
    the CRC.  Each rank's rounds/s, the run's seconds.
-   The CPU port runs configs 1 (drained) and 3 (to round 512) and both
+   The CPU port runs configs 1 (drained) and 3 (to round 256) and both
    sim-wire drives in a child process beside these phases
    (``cpu_reference``); ``phases-cpu`` holds the card's states, fault
    logs and executed chaos log to it byte for byte.  No hand kernel
@@ -210,7 +210,7 @@ prints no result):
    runs; the same drive at a small shape on the card and on the CPU
    port: one response log.  Inside, any host sync with the card outside
    the store's rounds raises (``frontend_sync_free``).
-24. serve-columnar, serve-columnar-mega — ``run_columnar_soak`` of 2^22
+24. serve-columnar, serve-columnar-mega — ``run_columnar_soak`` of 2^21
    ops at the reads shape, unrecorded, 393,216 arrivals a round (the
    lane budget), fused and with ``mega_round=True``: every request
    answered ok, ops/s and host us a round, the lanes holding an op each
@@ -219,7 +219,7 @@ prints no result):
    fresh store traced by ``torch.profiler``: device us and CUDA kernels
    a round, the card's busy and idle shares.
 25. serve-socket — ``serving.bench.run_serve_bench``'s capacity probe
-   (500 requests), latency (2,000, open loop) and throughput (4,000)
+   (100 requests), latency (400, open loop) and throughput (800)
    points through a localhost ``TcpRpcServer``
    at ``host_cfg(mode, on_card=True)``: client-socket p50/p99 and ops/s,
    every request answered, no cell with an error.
@@ -228,10 +228,26 @@ prints no result):
    two torch-free shm front-end processes feeding one store on the card,
    four client processes: every row answered once (rows in = rows out =
    rows sent, requests = responses), ops/s.
+   serve-fleet — a two-group ``fleet.Fleet`` at the reads shape (each
+   group a recorded store) behind ``Frontend``, driven as the serve phase
+   drives one store (4,000 open-loop requests under the overload storm,
+   its envelope, a ``ChaosRunner`` over group 0 carrying the storm): the
+   mix spans both groups, ``verify_serving`` and ``verify_fleet``, every
+   group's checker, ``committed_write_lost == []`` against the uids the
+   client saw, the ops handed to the fleet = the groups' device op
+   counters = their recorded completions; the same drive at a small
+   shape on the card and on the CPU port: one response log.
+   serve-workers — ``run_columnar_worker_cell`` at 1, 2 and 4 worker
+   processes (each a private store on the card), the columnar loopback
+   cell (``measure_columnar_floor``) and ``run_one_store_cell`` at 4 shm
+   workers: every row answered, no cell with an error, the topology
+   labels; each cell's ops/s beside the card.
    Each serving phase holds ``stats_block``'s launches equal to its
    store rounds; the kernels line carries them as ``serve_launches``,
    ``serve_columnar_launches`` (and B2-B4's of the mega run),
-   ``serve_socket_launches`` and ``serve_one_store_launches``.
+   ``serve_socket_launches``, ``serve_one_store_launches``,
+   ``serve_fleet_launches`` and ``serve_workers_launches`` (this
+   process's stores only: the worker processes count their own).
 27. census (run right after the build, first of all phases: torch.profiler
    keeps fewer of a round's device records the older the process is —
    787 fresh, 736 after the whole smoke, while the host's 777 launch
@@ -259,9 +275,9 @@ prints no result):
    drives under ``HERMES_LOCKLINT=1``, every lock an ObsLock, at the
    serving phases' shapes on the card: the serve-socket phase's
    throughput cell (a ``TcpRpcServer``, 8 replicas, 2^20 keys x 4,096
-   sessions, 2,000 closed-loop requests), then the serve-columnar
+   sessions, 400 closed-loop requests), then the serve-columnar
    phase's store (8 x 65,536 sessions) behind a ``ColumnarTcpServer``
-   (``analysis.hostlint.leg_soak``: 5 batches of 393,216 requests over
+   (``analysis.hostlint.leg_soak``: 2 batches of 393,216 requests over
    TCP); half the depth of the serving phases' own drives of the same
    cell and store.  Each: every request answered, no lock-order cycle, every
    lock's hold p99 within 10 mean store rounds of its drive.
@@ -283,17 +299,22 @@ prints no result):
 
 32. gates (run last, after the analysis: run right after the census, its
    processes left this one's torch.profiler keeping 7 records of 20
-   launches in the kernels phase) — the seven gates ported in
-   queue A15b (``obs-overhead``, ``pipeline``, ``chaos``, ``elastic``,
-   ``netchaos``, ``heap``, ``durability``: ``hermes_tpu_torch/checks/``)
-   through ``python -m hermes_tpu_torch.gates --device cuda --only ...``
-   in a process of their own at the JAX package's gate shapes: every gate
-   ``ok`` on ``cuda``, ``stats_block`` launched in each, the three mega
-   kernels in the heap gate's census rounds; each gate's seconds and
-   launches.  Then the obs-overhead timing at the bench shape
-   (``checks.obs_overhead --shape bench``): phase metrics on against off,
-   record-only, its ratio, medians and per-rep samples beside the card.
-   The kernels line carries ``gates_launches`` (the seven gates' sum).
+   launches in the kernels phase) — the nine gates of
+   ``hermes_tpu_torch/checks/`` (``obs-overhead``, ``pipeline``,
+   ``chaos``, ``elastic``, ``netchaos``, ``fleet``, ``serving``, ``heap``,
+   ``durability``) through ``python -m hermes_tpu_torch.gates --device
+   cuda --only ...`` in a process of their own at the JAX package's gate
+   shapes: every gate ``ok`` on ``cuda``, ``stats_block`` launched in
+   each, the three mega kernels in the heap gate's census rounds; each
+   gate's seconds and launches, and the gates' tracked cells: the
+   columnar floor (at least 50 x the pinned 351.8 ops/s scalar cell, the
+   port's own scalar cell beside it), the one-store floor (at least 2 x
+   the loopback cell) and the fleet's ``scaleout_x`` (at least 3).  Then
+   the obs-overhead timing at the bench shape (``checks.obs_overhead
+   --shape bench --chunks 1 --reps 5``, 20 rounds a run): phase metrics
+   on against off, record-only, its
+   ratio, medians and per-rep samples beside the card.  The kernels line
+   carries ``gates_launches`` (the nine gates' sum).
 
 Then the whole smoke's seconds, the kernels summary line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.  Without a
@@ -970,7 +991,8 @@ def check_kernel(torch, wrapper, plain, args, label, timing_args=None,
     (default ``args``) are the inputs of the repeated timed calls, which
     must do the same work every call.  ``library(*card_args)``, if given,
     returns a call of one PyTorch operation computing the same function,
-    whose device time is taken the same way.  The call also runs in the
+    whose device time is taken the same way (or, if the profiler gives up
+    on it, from CUDA events, ``library_timed_by``).  The call also runs in the
     bound-checked build, where its outputs must again be the
     plain version's and no guard may fire, and times it there (the poison
     fills of its outputs and the report's pointer copy included).  With
@@ -1024,8 +1046,21 @@ def check_kernel(torch, wrapper, plain, args, label, timing_args=None,
                plain_call_us=cuda_ms(torch, plain_call) * 1e3,
                plain_device_us=p_s * 1e6, plain_device_launches=p_n)
     if library is not None:
-        l_s, l_n = device_per_call(library(*dev_args))
-        out.update(library_device_us=l_s * 1e6, library_device_launches=l_n)
+        lib_call = library(*dev_args)
+        try:
+            l_s, l_n = device_per_call(lib_call)
+            out.update(library_device_us=l_s * 1e6,
+                       library_device_launches=l_n)
+        except RuntimeError as e:
+            # a profiler episode on the yardstick (PERF.md sections 6-7:
+            # fx_store_at's 64 MB zeros_like, records falling 19 -> 14 of
+            # 20 over 24 traces): its device time from CUDA events behind
+            # a spin kernel instead, said in the row
+            ms = queued_ms(torch, lib_call, label + " library")
+            out.update(library_device_us=(
+                ms if ms is not None else cuda_ms(torch, lib_call)) * 1e3,
+                library_device_launches=None,
+                library_timed_by="cuda_events", library_profiler_error=str(e))
     with dispatch.checked_build() as chk:
         got = _flat(wrapper(*_to(torch, args, "cuda")))
         c_s, c_n = device_per_call(call)
@@ -2364,7 +2399,10 @@ CHAOS_SCHEDULE = """
 CHAOS_KINDS = ("freeze", "thaw", "join", "crash_restart", "hb_skew",
                "partition")
 DETECT_ORDER = ("off", "on", "on", "off")
-DRILL_SPACING = 6  # rounds between two restarts: 4 + 6 * 8 + 6 rounds
+DETECT_ROUNDS = 30  # a window's rounds (cut from 60: PERF.md §4)
+# rounds between two restarts: 4 + 3 * 8 + 3 rounds (cut from 6 for the
+# fleet and serving phases' room, PERF.md §4)
+DRILL_SPACING = 3
 RESIZE_HOLD = 8
 RESIZE_SESSIONS = 16384  # a replica; the reads shape's 65,536, cut (PERF §4)
 RESIZE_RETIRED_PUTS = 4  # per-op puts sent to each replica while retired
@@ -2522,8 +2560,9 @@ def phase_chaos(torch, counters, ch, card, sharded=False):
 
 def phase_detect_cost(torch, ch, card):
     """What the detector costs: bench-a at depth 2 with completions
-    harvested, one runtime without a detector and one with, 60-round
-    windows in turns off on on off; host us/round of each window and a
+    harvested, one runtime without a detector and one with,
+    ``ch.rounds``-round windows in turns off on on off; host us/round of
+    each window and a
     profiled window's device busy share of each setting."""
     cfg = ch.cfg(pipeline_depth=2)
     rts = {}
@@ -3188,9 +3227,10 @@ PHASES_PROFILED = 5
 PHASES_SHARDED_ROUNDS = 32  # rounds held equal to the batched backend
 PHASES_DRAIN_LIMIT = 20000
 # the round each config's card run is held to the CPU port's at: config
-# 1 drained (None), config 3 after 512 rounds (its drain takes thousands
-# of rounds, each some 0.1 s on the CPU at this width; PERF.md section 4)
-PHASES_CPU_AT = {1: None, 3: 512}
+# 1 drained (None), config 3 after 256 rounds (its drain takes thousands
+# of rounds, each some 0.1 s on the CPU at this width; cut from 512:
+# PERF.md section 4).  Config 3's recorded drain on the card stays whole
+PHASES_CPU_AT = {1: None, 3: 256}
 # the wire matrix of tests/test_netchaos.py::test_sim_engine_wire_matrix_
 # checked (op, src, dst, from, until, param) and a partition of replica
 # 1's outbound side that the heal at round WIRE_HEAL_AT ends
@@ -3568,15 +3608,13 @@ def _free_ports(socket, n):
     raise RuntimeError(f"no {n} free consecutive ports on loopback")
 
 
-def _tcp_run(ph, tmp, tag, steps, extra=()):
-    """TCP_RANKS processes of ``python -m hermes_tpu_torch.distributed`` on
-    ``ph.device`` over loopback, at config 1's shape; returns (verdict,
-    per-rank results, whole-run seconds)."""
-    import socket
-
+def _tcp_start(ph, tmp, tag, steps, base, extra=()):
+    """Start TCP_RANKS processes of ``python -m
+    hermes_tpu_torch.distributed`` on ``ph.device`` over loopback, ranks
+    listening from port ``base``, at config 1's shape: (processes, their
+    result files, start time)."""
     cfg = ph.cfg(1)
     wl = cfg.workload
-    base = _free_ports(socket, TCP_RANKS)
     args = ["--n-ranks", str(TCP_RANKS), "--steps", str(steps),
             "--base-port", str(base), "--n-keys", str(cfg.n_keys),
             "--n-sessions", str(cfg.n_sessions),
@@ -3588,12 +3626,17 @@ def _tcp_run(ph, tmp, tag, steps, extra=()):
             "--seed", str(wl.seed), "--device", ph.device, *extra]
     env = dict(os.environ, PYTHONPATH=ph.root, OMP_NUM_THREADS="1")
     outs = [os.path.join(tmp, f"{tag}{r}.pkl") for r in range(TCP_RANKS)]
-    t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, "-m", "hermes_tpu_torch.distributed", "--rank",
          str(r), "--out", outs[r], *args], env=env, cwd=ph.root,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for r in range(TCP_RANKS)]
+    return procs, outs, time.perf_counter()
+
+
+def _tcp_finish(ph, procs, outs, t0):
+    """Wait for a run of ``_tcp_start``: (verdict, per-rank results,
+    whole-run seconds)."""
     errs = []
     try:
         for p in procs:
@@ -3613,44 +3656,65 @@ def _tcp_run(ph, tmp, tag, steps, extra=()):
     return verdict, results, seconds
 
 
+def _tcp_verdict(ph, np, steps, verdict, results, seconds):
+    """One TCP run's row: the checker, the ranks' tables equal, every
+    session done (``ok`` all three), rates, CRC drops and wire
+    counters."""
+    equal = all(np.array_equal(results[0][k], r[k]) for r in results[1:]
+                for k in ("table_state", "table_ver", "table_fc",
+                          "table_val"))
+    done = all(bool((r["sess_status"] == ph.types.S_DONE).all())
+               for r in results)
+    return {"steps": steps, "seconds": seconds, "check_ok": verdict.ok,
+            "tables_equal": equal, "all_sessions_done": done,
+            "ok": verdict.ok and equal and done,
+            "rounds_per_s": [r["rounds_per_s"] for r in results],
+            "rank_seconds": [r["seconds"] for r in results],
+            "corrupt_dropped": [r["corrupt_dropped"] for r in results],
+            "wire": [r["wire"] for r in results],
+            "devices": [r["device"] for r in results]}
+
+
 def phase_tcp(torch, ph, card, drain_rounds):
     """Config 1 as TCP_RANKS processes of the TCP driver sharing the
     device, over loopback, for ``drain_rounds`` rounds (config 1's drain
     on the batched backend, which the lockstep mesh reproduces) plus 8:
     the combined history checks green, the ranks' tables are equal, every
-    session ends S_DONE, no clean frame fails its CRC.  Then the same with
-    the adversary's corruption and drop windows (TCP_FAULT_SLACK rounds
-    past the drain): every corrupted frame is dropped by the CRC, green
-    again."""
+    session ends S_DONE, no clean frame fails its CRC.  Beside it, at
+    the same time on other ports, the same with the adversary's
+    corruption and drop windows (TCP_FAULT_SLACK rounds past the drain):
+    every corrupted frame is dropped by the CRC, green again."""
+    import socket
     import tempfile
 
-    out = {"phase": "tcp", "card": card, "ranks": TCP_RANKS}
-    with tempfile.TemporaryDirectory(prefix="hermes_tcp_") as tmp:
-        for tag, steps, extra in (
-                ("clean", drain_rounds + 8, ()),
-                ("faults", drain_rounds + TCP_FAULT_SLACK,
-                 ("--wire-seed", "5", "--wire-faults", TCP_FAULTS))):
-            verdict, results, seconds = _tcp_run(ph, tmp, tag, steps, extra)
-            import numpy as np
+    import numpy as np
 
-            equal = all(np.array_equal(results[0][k], r[k])
-                        for r in results[1:]
-                        for k in ("table_state", "table_ver", "table_fc",
-                                  "table_val"))
-            done = all(bool((r["sess_status"] == ph.types.S_DONE).all())
-                       for r in results)
-            run = {"steps": steps, "seconds": seconds,
-                   "check_ok": verdict.ok,
-                   "tables_equal": equal, "all_sessions_done": done,
-                   "rounds_per_s": [r["rounds_per_s"] for r in results],
-                   "rank_seconds": [r["seconds"] for r in results],
-                   "corrupt_dropped": [r["corrupt_dropped"] for r in results],
-                   "wire": [r["wire"] for r in results],
-                   "devices": [r["device"] for r in results]}
-            out[tag] = run
-            if not (verdict.ok and equal and done):
-                emit(out)
-                raise AssertionError(f"tcp {tag} run failed: {run}")
+    out = {"phase": "tcp", "card": card, "ranks": TCP_RANKS}
+    base = _free_ports(socket, 2 * TCP_RANKS)
+    with tempfile.TemporaryDirectory(prefix="hermes_tcp_") as tmp:
+        # the two meshes run at once, on disjoint ports (PERF.md section 4)
+        runs = (("clean", drain_rounds + 8, ()),
+                ("faults", drain_rounds + TCP_FAULT_SLACK,
+                 ("--wire-seed", "5", "--wire-faults", TCP_FAULTS)))
+        started = []
+        try:
+            for i, (tag, steps, extra) in enumerate(runs):
+                started.append(_tcp_start(ph, tmp, tag, steps,
+                                          base + i * TCP_RANKS, extra))
+            for (tag, steps, _), run_procs in zip(runs, started):
+                verdict, results, seconds = _tcp_finish(ph, *run_procs)
+                out[tag] = _tcp_verdict(ph, np, steps, verdict, results,
+                                        seconds)
+                if not out[tag]["ok"]:
+                    emit(out)
+                    raise AssertionError(f"tcp {tag} run failed: "
+                                         f"{out[tag]}")
+        finally:
+            for procs, _outs, _t0 in started:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
     emit(out)
     clean, faults = out["clean"], out["faults"]
     if any(clean["corrupt_dropped"]):
@@ -3749,7 +3813,7 @@ SERVE_SMALL = dict(n_replicas=3, n_keys=64, n_sessions=4, replay_slots=6,
                    ops_per_session=96, value_words=6, replay_age=6,
                    replay_scan_every=4, rebroadcast_every=2, lease_steps=6,
                    pipeline_depth=2)
-COLUMNAR_OPS = 1 << 22
+COLUMNAR_OPS = 1 << 21  # cut from 2^22 (PERF.md section 4)
 # arrivals a 1,000-us virtual round: the lane budget (3/4 of the 65,536
 # sessions of each of 8 replicas); an op holds its lane about one round
 COLUMNAR_PER_ROUND = 393216
@@ -3761,16 +3825,18 @@ COLUMNAR_ENVELOPE = dict(tenant_rate_per_s=1e12, tenant_burst=1e12,
                          tenant_quota=1 << 22, queue_cap=1 << 21,
                          resp_meta_cap=1 << 22, round_us=1000)
 ONE_STORE_WORKERS = 2
-# run_serve_bench's n: the latency point's requests (its p99 the 20th
+# run_serve_bench's n: the latency point's requests (its p99 the 4th
 # largest), 2n at the throughput point, n / 4 for the capacity probe
-SOCKET_N = 2000
+# (cut from 2,000: PERF.md section 4)
+SOCKET_N = 400
 
 
 @contextlib.contextmanager
 def frontend_sync_free(torch, on_card, store, runner=None):
     """Inside: a host sync with the card raises anywhere but in the
     store's own rounds (``step``, ``flush``, ``rt.flush_pipeline``: the
-    harvest) and the chaos runner's tick, which run with the check off.
+    harvest; a fleet's ``step`` and ``flush``) and the chaos runner's
+    tick, which run with the check off.
     So the serving front end itself reads nothing back from the card."""
     if not on_card:
         yield
@@ -3790,8 +3856,11 @@ def frontend_sync_free(torch, on_card, store, runner=None):
 
         setattr(obj, attr, unchecked)
 
-    for obj, attr in ((store, "step"), (store, "flush"),
-                      (store.rt, "flush_pipeline"), (runner, "tick")):
+    # a Fleet's step and flush are its groups' rounds and harvests
+    pipeline = () if hasattr(store, "groups") else (
+        (store.rt, "flush_pipeline"),)
+    for obj, attr in ((store, "step"), (store, "flush"), *pipeline,
+                      (runner, "tick")):
         if obj is not None:
             exempt(obj, attr)
     torch.cuda.set_sync_debug_mode("error")
@@ -3806,13 +3875,22 @@ def frontend_sync_free(torch, on_card, store, runner=None):
                 setattr(obj, attr, old)
 
 
-def serve_drive(torch, sv, cfg, device):
-    """One ``run_open_loop`` over a recorded KVS under an overload storm
-    (``ChaosRunner(load=arrivals)``): (summary, store, wall seconds)."""
-    store = sv.KVS(cfg, record="array", device=device)
+def serve_drive(torch, sv, cfg, device, groups=0):
+    """One ``run_open_loop`` over a recorded KVS (or, with ``groups``, a
+    recorded ``Fleet`` of that many groups of ``cfg``) under an overload
+    storm (``ChaosRunner(load=arrivals)``, over group 0's store for a
+    fleet: the storm acts on the arrivals alone): (summary, store, wall
+    seconds)."""
+    if groups:
+        store = sv.Fleet(sv.FleetConfig(groups=groups, base=cfg),
+                         record="array", device=device)
+        target = store.groups[0].kvs
+    else:
+        store = target = sv.KVS(cfg, record="array", device=device)
     arrivals = sv.ShapedArrivals(SERVE_RATE, SERVE_OPS, SERVE_SEED)
     runner = sv.chaos.ChaosRunner(
-        store, sv.chaos.Schedule.overload_storm(*SERVE_STORM), load=arrivals)
+        target, sv.chaos.Schedule.overload_storm(*SERVE_STORM),
+        load=arrivals)
     scfg = sv.ServingConfig(**SERVE_ENVELOPE)
     on_card = str(device).startswith("cuda")
     sv.sync()
@@ -3893,6 +3971,101 @@ def phase_serve(torch, sv, card):
     if launches != rounds:
         raise AssertionError(f"stats_block launches {launches} != serve "
                              f"rounds {rounds}")
+    return dict(launches={"stats_block": launches})
+
+
+SERVE_FLEET_GROUPS = 2
+
+
+def phase_serve_fleet(torch, sv, card):
+    """The serve phase's drive through a ``Fleet`` of
+    ``SERVE_FLEET_GROUPS`` groups at the reads shape behind ``Frontend``:
+    the mix spans every group, ``verify_serving`` (inside the drive) and
+    ``verify_fleet``, every group's checker, no write the client saw
+    commit lost from the groups' histories, the ops handed to the fleet =
+    the groups' device op counters = their recorded completions, the
+    envelope acting; then the drive at ``SERVE_SMALL`` on the card and on
+    the CPU port: one response log.  No host sync outside the groups'
+    rounds; ``stats_block`` once a group round."""
+    import numpy as np
+
+    sv.kernels.stats_block.launches = 0
+    t0 = time.perf_counter()
+    res, fleet, wall = serve_drive(torch, sv, sv.kvs_cfg(), sv.device,
+                                   groups=SERVE_FLEET_GROUPS)
+    fe = res["_frontend"]
+    mix = sv.make_mix(sv.MixSpec(tenants=4), fe.n_keys, SERVE_OPS,
+                      SERVE_SEED, value_words=fe.u)
+    gids, _ = fleet.router.locate(np.asarray(mix["key"], np.int64))
+    spanned = sorted(set(np.asarray(gids).tolist()))
+    counters = [g.rt.counters() for g in fleet.groups]
+    device_ops = sum(int(c["n_read"] + c["n_write"] + c["n_rmw"]
+                         + c["n_abort"]) for c in counters)
+    recorded = sum(g.rt.recorder.n_recorded for g in fleet.groups)
+    issued = sum(fe._lane_seq.values())
+    rounds = [g.rt.step_idx for g in fleet.groups]
+    tc = time.perf_counter()
+    verdicts = fleet.check()
+    invariants = sv.verify_fleet(fleet)
+    aborted = set()
+    for g in fleet.groups:
+        aborted |= set(g.rt.recorder.aborted_uids)
+    uids = sv.committed_uids(fe, res["_server"])
+    lost = sv.lin.committed_write_lost(
+        uids, [o for g in fleet.groups for o in g.rt.history_ops()],
+        aborted)
+    check_s = time.perf_counter() - tc
+    summary = {k: res[k] for k in (
+        "sent", "statuses", "admitted", "completed", "retry_after", "shed",
+        "deadline", "lost", "rejected", "p50_latency_us", "p99_latency_us",
+        "virtual_seconds")}
+    sha = res["response_log_sha"]
+    del fleet, fe, res
+    all_rounds = sum(rounds)
+    small = {}
+    for dev in dict.fromkeys((str(sv.device), "cpu")):
+        r, f, _ = serve_drive(torch, sv, sv.HermesConfig(**SERVE_SMALL), dev,
+                              groups=SERVE_FLEET_GROUPS)
+        small[dev] = dict(sha=r["response_log_sha"],
+                          check_ok=f.check()["ok"],
+                          rounds=[g.rt.step_idx for g in f.groups])
+        if dev == str(sv.device):
+            all_rounds += sum(small[dev]["rounds"])
+    launches = sv.kernels.stats_block.launches
+    emit({"phase": "serve-fleet", "nvidia_smi": card,
+          "groups": SERVE_FLEET_GROUPS, "spanned": spanned, "sha": sha,
+          "wall_s": wall, "rounds": rounds,
+          "host_us_per_round": wall / max(rounds) * 1e6,
+          "answered_per_s": summary["sent"] / wall,
+          "completed_per_s": summary["completed"] / wall,
+          "issued": issued, "device_ops": device_ops, "recorded": recorded,
+          "client_committed_uids": len(uids), "committed_write_lost": lost,
+          "group_verdicts": verdicts["groups"], "invariants": invariants,
+          "check_s": check_s, "summary": summary, "small": small,
+          "stats_block_launches": launches,
+          "seconds": time.perf_counter() - t0})
+    if spanned != list(range(SERVE_FLEET_GROUPS)):
+        raise AssertionError(f"serve-fleet: the mix spanned groups "
+                             f"{spanned}")
+    if not verdicts["ok"] or lost:
+        raise AssertionError(f"serve-fleet: checker {verdicts}, committed "
+                             f"writes lost {lost[:4]}")
+    if not uids:
+        raise AssertionError("serve-fleet: no write the client saw commit")
+    if not issued == device_ops == recorded:
+        raise AssertionError(f"serve-fleet: ops issued {issued}, device ops "
+                             f"{device_ops}, recorded {recorded}")
+    if not (summary["retry_after"] and summary["deadline"]
+            and summary["completed"]):
+        raise AssertionError(f"serve-fleet: the envelope did not act: "
+                             f"{summary}")
+    if len({r["sha"] for r in small.values()}) != 1 or not all(
+            r["check_ok"] for r in small.values()):
+        raise AssertionError(f"serve-fleet: the card's small run differs "
+                             f"from the CPU port's: {small}")
+    if launches != all_rounds:
+        raise AssertionError(f"stats_block launches {launches} != the "
+                             f"groups' rounds {all_rounds}")
     return dict(launches={"stats_block": launches})
 
 
@@ -4074,11 +4247,7 @@ def phase_serve_one_store(torch, sv, card):
           "seconds": time.perf_counter() - t0})
     if c["error"] is not None:
         raise AssertionError(f"serve-one-store: {c['error']}")
-    ipc = c["ipc"]
-    if not (c["answered"] == c["ops"] == sum(c["statuses"].values())
-            and ipc["rows_in"] == ipc["rows_out"] == rows
-            and c["requests"] == c["responses"] == rows
-            and not ipc["dead_drop_rows"] and not ipc["dead_workers"]):
+    if not _one_store_rows_once(c):
         raise AssertionError(f"serve-one-store: rows not answered exactly "
                              f"once: {c}")
     if launches != c["rounds"]:
@@ -4087,13 +4256,84 @@ def phase_serve_one_store(torch, sv, card):
     return dict(launches={"stats_block": launches})
 
 
+WORKER_CELLS = (1, 2, 4)  # run_columnar_worker_cell's worker counts
+ONE_STORE_WIDE = 4  # the one-store cell beside serve-one-store's 2
+
+
+def _one_store_rows_once(c):
+    """Whether a one-store cell answered every row exactly once."""
+    ipc = c["ipc"]
+    rows = c["clients"] * (c["ops"] // c["clients"] + c["batch"])
+    return (c["answered"] == c["ops"] == sum(c["statuses"].values())
+            and ipc["rows_in"] == ipc["rows_out"] == rows
+            and c["requests"] == c["responses"] == rows
+            and not ipc["dead_drop_rows"] and not ipc["dead_workers"])
+
+
+def phase_serve_workers(torch, sv, card):
+    """The serving cells of the accept-sharded planes:
+    ``run_columnar_worker_cell`` at ``WORKER_CELLS`` worker processes
+    (each a private store on ``sv.device``), the columnar loopback cell
+    (``measure_columnar_floor``, this process) and ``run_one_store_cell``
+    at ``ONE_STORE_WIDE`` torch-free shm workers feeding one store here.
+    Every row answered, no cell carrying an error, the topology labels
+    (``private-store-per-worker``, ``one-store``); each cell's ops/s.
+    ``stats_block`` once a round of the one-store cell's store."""
+    t0 = time.perf_counter()
+    cells = {}
+    for w in WORKER_CELLS:
+        cells[f"columnar_workers_{w}"] = sv.run_columnar_worker_cell(
+            w, device=sv.device)
+    sv.kernels.stats_block.launches = 0
+    loopback = sv.measure_columnar_floor(device=sv.device)
+    floor_launches = sv.kernels.stats_block.launches
+    cells["columnar_loopback"] = loopback
+    sv.kernels.stats_block.launches = 0
+    wide = sv.run_one_store_cell(ONE_STORE_WIDE, device=sv.device)
+    launches = sv.kernels.stats_block.launches
+    cells[f"one_store_workers_{ONE_STORE_WIDE}"] = wide
+    keep = ("workers", "clients", "ops", "answered", "batch", "wall_s",
+            "ops_per_sec", "topology", "rounds", "statuses", "error")
+    emit({"phase": "serve-workers", "nvidia_smi": card,
+          "cells": {n: {k: c.get(k) for k in keep} for n, c in cells.items()},
+          "one_store_ipc": wide.get("ipc"),
+          "stats_block_launches": floor_launches + launches,
+          "seconds": time.perf_counter() - t0})
+    for n, c in cells.items():
+        if c.get("error") is not None or \
+                c.get("answered", c["ops"]) != c["ops"]:
+            raise AssertionError(f"serve-workers cell {n}: {c}")
+    for w in WORKER_CELLS:
+        c = cells[f"columnar_workers_{w}"]
+        if c["topology"] != "private-store-per-worker" or \
+                not c["ops_per_sec"]:
+            raise AssertionError(f"serve-workers: columnar_workers_{w} "
+                                 f"{c}")
+    if not (loopback["ops_per_sec"] > 0
+            and loopback["retried"] < loopback["ops"]):
+        raise AssertionError(f"serve-workers: the loopback cell {loopback}")
+    if wide["topology"] != "one-store" or not _one_store_rows_once(wide):
+        raise AssertionError(f"serve-workers: one_store_workers_"
+                             f"{ONE_STORE_WIDE}: rows not answered exactly "
+                             f"once, or the label: {wide}")
+    if launches != wide["rounds"] or not floor_launches:
+        raise AssertionError(f"stats_block launches {launches} != one-store "
+                             f"rounds {wide['rounds']} (loopback "
+                             f"{floor_launches})")
+    return dict(launches={"stats_block": floor_launches + launches},
+                cells=cells)
+
+
 def run_serving(torch, sv, counters, card):
-    """The four serving phases; the kernels line's ``serve_*_launches``."""
+    """The six serving phases; the kernels line's ``serve_*_launches``."""
     return {"serve": phase_serve(torch, sv, card)["launches"],
             "serve_columnar": phase_serve_columnar(
                 torch, sv, counters, card)["launches"],
             "serve_socket": phase_serve_socket(torch, sv, card)["launches"],
             "serve_one_store": phase_serve_one_store(
+                torch, sv, card)["launches"],
+            "serve_fleet": phase_serve_fleet(torch, sv, card)["launches"],
+            "serve_workers": phase_serve_workers(
                 torch, sv, card)["launches"]}
 
 
@@ -4175,15 +4415,63 @@ ANALYZE_ARGV = ("--replicas", "8", "--keys", str(1 << 20), "--value-words",
 
 
 GATES_PORTED = ("obs-overhead", "pipeline", "chaos", "elastic", "netchaos",
-                "heap", "durability")
+                "fleet", "serving", "heap", "durability")
 GATE_TIMEOUT_S = 300  # one gate's limit in the runner
+# obs-overhead-bench: chunks of 20 rounds a run and interleaved reps a
+# variant (cut from 2 and 9, PERF.md §4)
+OBS_BENCH_CHUNKS, OBS_BENCH_REPS = 1, 5
 MEGA = ("mega_route", "mega_apply", "mega_replay")
+# the bars of the gates' tracked cells (hermes_tpu_torch/checks/): the
+# columnar floor is 50 x the JAX package's pinned scalar cell of 351.8
+# ops/s (a CPU host's figure, not the card's)
+COLUMNAR_FLOOR_OPS = 50 * 351.8
+ONE_STORE_FLOOR_X = 2.0
+SCALEOUT_X = 3.0
+
+
+def gate_floors(summary):
+    """The gates' tracked cells of a runner summary: the serving gate's
+    floors (the ``gates`` block's cells) and the fleet gate's scale-out
+    cells (its report); a failed bar's message, or None."""
+    reports = {r["gate"]: r.get("report") or {} for r in summary["results"]}
+    out, bad = {}, []
+    serving = summary["gates"].get("serving")
+    if serving is not None:
+        col = serving.get("columnar_floor", {})
+        one = serving.get("one_store_floor", {})
+        out.update(
+            columnar_floor_ops_per_s=col.get("ops_per_sec"),
+            columnar_floor_required=col.get("required_ops_per_sec"),
+            scalar_ops_per_s=col.get("current_scalar_ops_per_sec"),
+            columnar_vs_scalar=col.get("speedup_vs_current_scalar"),
+            one_store_ops_per_s=one.get("ops_per_sec"),
+            loopback_ops_per_s=one.get("loopback_ops_per_sec"),
+            one_store_ratio=one.get("speedup_vs_loopback"),
+            shm_replay_identical=serving.get("shm_replay_identical"),
+            one_store_kill_leg=serving.get("one_store_kill_leg"))
+        if (col.get("ops_per_sec") or 0) < COLUMNAR_FLOOR_OPS:
+            bad.append(f"columnar floor {col}")
+        if (one.get("speedup_vs_loopback") or 0) < ONE_STORE_FLOOR_X:
+            bad.append(f"one-store floor {one}")
+    if "fleet" in reports:
+        cells = reports["fleet"].get("scaleout", {})
+        out.update(
+            scaleout_x=cells.get("scaleout_x"),
+            fleet_summed_alone_writes_per_s_not_a_capacity_on_one_card=(
+                cells.get("aggregate_writes_per_sec")),
+            fleet_concurrent_writes_per_s=(
+                cells.get("concurrent", {}).get("writes_per_sec")))
+        if (cells.get("scaleout_x") or 0) < SCALEOUT_X:
+            bad.append(f"scaleout_x {cells.get('scaleout_x')}")
+    return out, ("; ".join(bad) or None)
 
 
 def phase_gates(torch, gt, card):
     """The gates of ``gt.gates`` through the port's runner on
-    ``gt.device`` (with ``gt.runner_args``: none on the card), each green, each launching ``stats_block`` (the heap
-    gate also the mega kernels) when ``gt.device`` is the card; then the
+    ``gt.device`` (with ``gt.runner_args``: none on the card), each
+    green, each launching ``stats_block`` (the heap gate also the mega
+    kernels) when ``gt.device`` is the card, the tracked cells of the
+    serving and fleet gates at their bars (``gate_floors``); then the
     obs-overhead timing at ``gt.obs_shape``.  Returns the launches by
     kernel, summed over the gates."""
     import shutil
@@ -4215,8 +4503,9 @@ def phase_gates(torch, gt, card):
                                 "launches": launches}
             for k, v in launches.items():
                 total[k] = total.get(k, 0) + v
+        floors, missed = gate_floors(summary)
         emit({"phase": "gates", "nvidia_smi": card, "seconds": seconds,
-              "gates": gates})
+              "gates": gates, "floors": floors})
         bad = [g for g, r in gates.items() if not r["ok"]]
         if bad or p.returncode != 0:
             tails = {r["gate"]: (r.get("report", {}).get("error")
@@ -4227,6 +4516,8 @@ def phase_gates(torch, gt, card):
         if [r["gate"] for r in summary["results"]] != list(gt.gates):
             raise AssertionError(f"the runner ran {list(gates)}, want "
                                  f"{list(gt.gates)}")
+        if missed:
+            raise AssertionError(f"gate cells under their bars: {missed}")
         for g, r in gates.items():
             if r["device"] != torch.device(gt.device).type:
                 raise AssertionError(f"gate {g} ran on {r['device']}")
@@ -4239,7 +4530,9 @@ def phase_gates(torch, gt, card):
         t0 = time.perf_counter()
         p = subprocess.run(
             [sys.executable, "-m", "hermes_tpu_torch.checks.obs_overhead",
-             "--device", gt.device, "--shape", gt.obs_shape, "--out",
+             "--device", gt.device, "--shape", gt.obs_shape,
+             "--chunks", str(OBS_BENCH_CHUNKS), "--reps",
+             str(OBS_BENCH_REPS), "--out",
              bench], cwd=gt.root, capture_output=True, text=True,
             timeout=GATE_TIMEOUT_S, env=dict(os.environ, PYTHONPATH=gt.root))
         if p.returncode != 0 or not os.path.exists(bench):
@@ -4845,7 +5138,7 @@ def main(argv=None):
             MembershipService=MembershipService,
             Observability=Observability, fst=fst, types=types,
             sync=torch.cuda.synchronize, device_busy=device_busy,
-            rounds=MAIN_ROUNDS, seed=0)
+            rounds=DETECT_ROUNDS, seed=0)
         chaos_runs = {
             "chaos": phase_chaos(torch, counters, ch, card),
             "chaos_sharded_mega": phase_chaos(torch, counters, ch, card,
@@ -4923,7 +5216,12 @@ def main(argv=None):
             run_columnar_soak=serve_soak.run_columnar_soak,
             run_serve_bench=serve_bench.run_serve_bench,
             run_one_store_cell=serve_bench.run_one_store_cell,
-            sync=torch.cuda.synchronize)
+            run_columnar_worker_cell=serve_bench.run_columnar_worker_cell,
+            measure_columnar_floor=serve_soak.measure_columnar_floor,
+            Fleet=fleet_lib.Fleet, FleetConfig=config.FleetConfig,
+            verify_fleet=fleet_lib.verify_fleet, lin=lin,
+            committed_uids=serve_soak.committed_uids,
+            make_mix=openloop.make_mix, sync=torch.cuda.synchronize)
         served = run_serving(torch, sv, counters, card)
         served["locklint"] = phase_locklint(torch, sv, ac, counters, card)
         for name, row in rows.items():

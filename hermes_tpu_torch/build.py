@@ -17,8 +17,8 @@ use, into ``hermes_tpu_torch/_build/`` (listed in ``.gitignore``).
   by itself.  ``BROKEN`` lists the test-only checked builds that leave a
   kernel's own clamp out, for the red tests of the guard.
 * The host C++ libraries (``native/``): the checker's witness core
-  (``checker_core.cpp``) and the TCP mesh (``tcp_transport.cpp``, with
-  ``-pthread``: ``TCP_FLAGS``), each with ``g++``.
+  (``checker_core.cpp``) and the TCP mesh (``tcp_transport.cpp``), both
+  threaded (``-pthread``: ``THREAD_FLAGS``), each with ``g++``.
 
 Builds write to a temporary name and rename into place, so concurrent
 processes never load a half-written library.
@@ -43,7 +43,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-cudart", "shared")
 CHECKED_FLAGS = NVCC_FLAGS + ("-DHERMES_CHECKED",)
 CXX_FLAGS = ("-O2", "-shared", "-fPIC")
-TCP_FLAGS = CXX_FLAGS + ("-pthread",)  # the mesh's sender threads
+#: sources that start threads: the mesh's senders, the checker's workers
+THREAD_FLAGS = CXX_FLAGS + ("-pthread",)
 #: test-only checked builds: source name -> the define that breaks it
 BROKEN = {"mega_apply": "HERMES_BROKEN_NO_CLAMP"}
 

@@ -7,7 +7,9 @@ C++ witness core (``hermes_tpu_torch/native/checker_core.cpp``), built with
   * ``ArrayRecorder`` — drop-in for checker.history.HistoryRecorder that
     stores completions as packed numpy columns (vectorized per step).
   * ``check_arrays`` — runs the O(n log n) timestamp-witness check in the
-    C++ core over all keys at once; only keys the witness cannot certify
+    C++ core over all keys at once (split over up to ``WITNESS_THREADS``
+    threads by key on a history of ``THREADED_OPS`` ops or more; the keys
+    are independent); only keys the witness cannot certify
     fall back to the exact Python search (checker/linearizability.py), so
     verdicts are identical to the pure Python path — FAILs are always
     confirmed by the exact checker.
@@ -16,6 +18,7 @@ C++ witness core (``hermes_tpu_torch/native/checker_core.cpp``), built with
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import List, Optional
 
 import numpy as np
@@ -34,6 +37,19 @@ _I64_MAX = np.iinfo(np.int64).max
 # kind codes shared with the C++ core
 K_READ, K_WRITE, K_RMW, K_MAYBE_W = 0, 1, 2, 3
 
+#: the witness's worker threads on a long history: at most this many, and
+#: at most the cores this process may run on
+WITNESS_THREADS = 8
+THREADED_OPS = 1 << 16
+
+
+def witness_threads(n: int) -> int:
+    """Worker threads for a history of ``n`` ops (1 below
+    ``THREADED_OPS``)."""
+    if n < THREADED_OPS:
+        return 1
+    return max(1, min(WITNESS_THREADS, len(os.sched_getaffinity(0))))
+
 
 def default_record(check: bool = True):
     """The recorder kind a checked run should use: ``"array"`` (columnar
@@ -51,7 +67,7 @@ _lib = None
 def _core():
     global _lib
     if _lib is None:
-        lib = build.load_cxx(_SRC)
+        lib = build.load_cxx(_SRC, build.THREAD_FLAGS)
         lib.hc_check_witness.restype = ctypes.c_int64
         lib.hc_check_witness.argtypes = [
             ctypes.c_int64,
@@ -63,6 +79,7 @@ def _core():
             np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
             np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
             np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+            ctypes.c_int64,
             ctypes.c_int64,
         ]
         _lib = lib
@@ -283,7 +300,7 @@ def check_arrays(rec: ArrayRecorder, max_keys: Optional[int] = None,
         np.ascontiguousarray(cols["wuid"], np.int64),
         np.ascontiguousarray(cols["ruid"], np.int64),
         np.ascontiguousarray(cols["ts"], np.int64),
-        out, max_out,
+        out, max_out, witness_threads(n),
     )
     if ns < 0:
         raise RuntimeError("hc_check_witness: invalid arguments")

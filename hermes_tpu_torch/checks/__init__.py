@@ -12,6 +12,13 @@ script's own name, run by ``hermes_tpu_torch/gates.py``.
     resize and range migration;
   * ``netchaos``     -- ``scripts/check_netchaos.py``: the wire adversary,
     the frame CRC, partitions at pipeline depth 2;
+  * ``fleet``        -- ``scripts/check_fleet.py``: a four-group fleet's
+    soak on both engines, a one-group rolling drill, the fleet chaos
+    replay, the scale-out cells;
+  * ``serving``      -- ``scripts/check_serving.py``: overload soaks at
+    twice the probed capacity, the fleet facade, an overload storm, the
+    read soak, the columnar and shm planes and their two floors, measured
+    in the gate's own run;
   * ``heap``         -- ``scripts/check_heap.py``: the value heap's GC,
     byte-exact reads, a fleet move, torn heap snapshots, the census;
   * ``durability``   -- ``scripts/check_durability.py``: a store killed by

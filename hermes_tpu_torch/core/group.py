@@ -78,9 +78,13 @@ class LocalGroup:
 
 class DistGroup:
     """R/W contiguous replicas on each of the W ranks of
-    ``process_group`` (None: the default group), on ``device``."""
+    ``process_group`` (None: the default group), on ``device``.  On CUDA
+    the ranks' cards are compared over ``side_group``, a gloo group of
+    the same ranks; without one it is made here, which every rank of the
+    default group must then enter (a fleet over ranks makes them all
+    beforehand: ``launch.run_fleet``)."""
 
-    def __init__(self, process_group=None, device="cuda"):
+    def __init__(self, process_group=None, device="cuda", side_group=None):
         import torch.distributed as dist
 
         if not dist.is_initialized():
@@ -98,7 +102,7 @@ class DistGroup:
                                  f"the group has {backend!r}")
             # the ranks' cards are compared over a gloo side group: NCCL
             # itself may refuse or hang with two ranks on one card
-            side = dist.new_group(
+            side = side_group or dist.new_group(
                 ranks=None if process_group is None
                 else dist.get_process_group_ranks(process_group),
                 backend="gloo")

@@ -3,8 +3,8 @@
     python -m hermes_tpu_torch.gates [--device cuda|cpu]
         [--only census,hostlint] [--force] [--timeout S] [--out DIR]
 
-Gates, in the reference's order (its ``fleet`` and ``serving`` gates are
-not ported yet), each a process of its own on ``--device`` (default the
+Gates, the reference's twelve in its order and then the port's own
+``acceptance``, each a process of its own on ``--device`` (default the
 card, like every entry point; ``--device cpu`` on a machine without one):
 
   * ``census``       — ``python -m hermes_tpu_torch.obs.profile --check``:
@@ -23,6 +23,13 @@ card, like every entry point; ``--device cpu`` on a machine without one):
     range migration;
   * ``netchaos``     — ``checks/netchaos.py``: the wire matrix, the CRC,
     partitions at depth 2;
+  * ``fleet``        — ``checks/fleet.py``: a four-group fleet's soak on
+    both engines, a one-group rolling drill, its replay, the scale-out
+    cells;
+  * ``serving``      — ``checks/serving.py``: overload soaks at twice the
+    probed capacity, the fleet facade, an overload storm, the read soak,
+    the columnar plane and its floor, the shm plane and its one-store
+    floor;
   * ``heap``         — ``checks/heap.py``: GC, byte-exact reads, a fleet
     move, torn heap snapshots, the heap census equal to the fixed-word
     one;
@@ -51,7 +58,10 @@ The rules of the reference's runner hold:
 
 One JSON summary line is printed; the whole summary goes to
 ``DIR/gates_summary.json`` under ``--out`` (a fresh temporary directory
-by default).  Exit 1 if any gate failed, 2 if refused.
+by default).  Its ``gates`` block carries, beside each gate's verdict and
+seconds, the cells the reference's summary tracks (``gate_cells``): the
+hostlint legs, the durability gate's kill legs and WAL tax, the serving
+floors and shm verdicts.  Exit 1 if any gate failed, 2 if refused.
 """
 
 from __future__ import annotations
@@ -78,6 +88,8 @@ GATES = (
     ("chaos", ("-m", "hermes_tpu_torch.checks.chaos")),
     ("elastic", ("-m", "hermes_tpu_torch.checks.elastic")),
     ("netchaos", ("-m", "hermes_tpu_torch.checks.netchaos")),
+    ("fleet", ("-m", "hermes_tpu_torch.checks.fleet")),
+    ("serving", ("-m", "hermes_tpu_torch.checks.serving")),
     ("heap", ("-m", "hermes_tpu_torch.checks.heap")),
     ("hostlint", ("-m", "hermes_tpu_torch.analysis.hostlint")),
     ("durability", ("-m", "hermes_tpu_torch.checks.durability")),
@@ -169,6 +181,66 @@ def run_gate(name: str, argv, timeout: int, flight_dir: str) -> dict:
                    {"stderr_tail": err_b.decode(errors="replace")[-1500:]}))
 
 
+def _pick(cell: dict, keep) -> dict:
+    return {k: cell[k] for k in keep if k in cell}
+
+
+def gate_cells(r: dict) -> dict:
+    """The tracked cells of gate result ``r`` that the summary's ``gates``
+    block carries beside its verdict: the counterpart of the reference
+    runner's ``_gate_cells``, key for key."""
+    rep = r.get("report")
+    if not isinstance(rep, dict):
+        return {}
+    if r["gate"] == "serving":
+        out = {}
+        cell = rep.get("columnar_floor")
+        if isinstance(cell, dict):
+            out["columnar_floor"] = _pick(cell, (
+                "ops_per_sec", "required_ops_per_sec",
+                "scalar_baseline_ops_per_sec", "speedup_vs_scalar",
+                "current_scalar_ops_per_sec", "speedup_vs_current_scalar"))
+        cell = rep.get("one_store_floor")
+        if isinstance(cell, dict):
+            out["one_store_floor"] = _pick(cell, (
+                "ops_per_sec", "loopback_ops_per_sec",
+                "speedup_vs_loopback", "required_speedup", "workers"))
+        if "shm_replay_identical" in rep:
+            out["shm_replay_identical"] = rep["shm_replay_identical"]
+        topo = rep.get("one_store_topology")
+        if isinstance(topo, dict):
+            out["one_store_kill_leg"] = dict(
+                survived=topo.get("kill_survived"), eof=topo.get("kill_eof"))
+        return out
+    if r["gate"] == "hostlint":
+        legs = rep.get("legs")
+        if not isinstance(legs, dict):
+            return {}
+        return {"legs": {name: dict(ok=leg.get("ok"),
+                                    seconds=leg.get("seconds"))
+                         for name, leg in legs.items()
+                         if isinstance(leg, dict)}}
+    if r["gate"] == "durability":
+        out = {}
+        for leg in ("kill_batched", "kill_sharded"):
+            cell = rep.get(leg)
+            if isinstance(cell, dict):
+                out[leg] = dict(
+                    lost=len(cell.get("committed_write_lost", [])),
+                    committed_witnessed=cell.get("committed_witnessed"),
+                    recovery_s=cell.get("recovery_s"))
+        cell = rep.get("wal_overhead")
+        if isinstance(cell, dict):
+            out["wal_overhead"] = dict(
+                on_vs_off=cell.get("on_vs_off"),
+                wal_on_writes_per_s=(cell.get("wal_on") or {}).get(
+                    "writes_per_s"),
+                wal_off_writes_per_s=(cell.get("wal_off") or {}).get(
+                    "writes_per_s"))
+        return out
+    return {}
+
+
 def main(argv=None, gates=GATES) -> int:
     """Run ``gates`` (name, python argv) as the flags say; the summary
     line on stdout, exit 0 / 1 / 2."""
@@ -221,7 +293,8 @@ def main(argv=None, gates=GATES) -> int:
                                   else {}),
                                **({"flight_dumps": r["flight_dumps"]}
                                   if not r["ok"] and r.get("flight_dumps")
-                                  else {}))
+                                  else {}),
+                               **gate_cells(r))
                for r in results},
         total_seconds=round(sum(r["seconds"] for r in results), 2),
         results=results, out=out_dir)

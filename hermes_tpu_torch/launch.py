@@ -23,9 +23,15 @@ A fleet's layout is a partition of replica groups: ``fleet_replica_groups``
 gives one ``LocalGroup`` a fleet group (round-robin over the visible
 cards; on one card they all share it), and ``group_of_rank`` names the
 fleet groups a rank serves when a multi-process run lays the (groups,
-replicas) grid row-major over its ranks.  ``run_fleet`` runs one
-process; a fleet group spread over several ranks would need a
-``torch.distributed`` subgroup a fleet group and is not ported.
+replicas) grid row-major over its ranks.  ``run_fleet`` runs one process
+holding every group, or W ranks: then each fleet group is a
+``torch.distributed`` subgroup over the ranks its replicas sit on
+(``fleet_rank_layout``), each rank holding an equal contiguous block of
+the group's replicas as a ``DistGroup`` over that subgroup.
+
+    # two fleet groups of four replicas over four ranks on the CPU:
+    python -m hermes_tpu_torch.launch --fleet-groups 2 --replicas 4 \\
+        --world-size 4 --rank $RANK --init file:///tmp/rdv --device cpu
 
 The serving topologies (``hermes_tpu_torch.serving``):
 ``start_serve_workers`` starts N columnar serving worker processes that
@@ -51,7 +57,8 @@ from hermes_tpu_torch.core.group import (DistGroup, LocalGroup, local_card,
                                          replica_devices)
 
 __all__ = ["init_distributed", "replica_devices", "make_group", "run",
-           "fleet_replica_groups", "group_of_rank", "run_fleet",
+           "fleet_replica_groups", "group_of_rank", "fleet_rank_layout",
+           "run_fleet",
            "ServeWorkers", "start_serve_workers", "start_one_store"]
 
 
@@ -131,30 +138,95 @@ def group_of_rank(n_groups: int, n_replicas: int, world_size: int = 1,
             if g * n_replicas < hi and (g + 1) * n_replicas > lo]
 
 
+def fleet_rank_layout(n_groups: int, n_replicas: int,
+                      world_size: int) -> list:
+    """The ranks of each fleet group in a ``world_size``-process run (the
+    grid of ``group_of_rank``): ``layout[g]`` lists, in rank order, the
+    ranks holding group g's replicas.  Raises on a layout in which a
+    group's replicas split unevenly over its ranks: a ``DistGroup`` holds
+    an equal contiguous block of its group on each of its ranks."""
+    layout = [[] for _ in range(n_groups)]
+    for r in range(world_size):
+        for g in group_of_rank(n_groups, n_replicas, world_size, r):
+            layout[g].append(r)
+    per = n_groups * n_replicas // world_size
+    for g, ranks in enumerate(layout):
+        shares = [min((r + 1) * per, (g + 1) * n_replicas)
+                  - max(r * per, g * n_replicas) for r in ranks]
+        if len(set(shares)) != 1:
+            raise ValueError(
+                f"{n_groups} groups of {n_replicas} replicas over "
+                f"{world_size} ranks: group {g}'s replicas split "
+                f"{shares} over ranks {ranks}; each rank of a group must "
+                "hold an equal share of it")
+    return layout
+
+
+def _fleet_subgroups(layout, device):
+    """One ``torch.distributed`` subgroup a fleet group, made by EVERY
+    rank in group order (torch requires each rank to enter each
+    ``new_group``, member or not); on the card also the gloo side group
+    a ``DistGroup`` compares its ranks' cards over.  A rank gets
+    ``GroupMember.NON_GROUP_MEMBER`` for a group it is not in."""
+    import torch
+    import torch.distributed as dist
+
+    cuda = torch.device(device).type == "cuda"
+    out = []
+    for ranks in layout:
+        pg = dist.new_group(ranks=ranks)
+        side = dist.new_group(ranks=ranks, backend="gloo") if cuda else None
+        out.append((pg, side))
+    return out
+
+
 def run_fleet(fcfg, steps: int, init_method: Optional[str] = None,
               world_size: int = 1, rank: int = 0, device="cuda"):
-    """Run a sharded FLEET: G independent group runtimes, one replica
-    group each (``fleet_replica_groups``), stepped in lockstep, each
-    labeled with its group.  Returns the per-group runtimes (group g =
-    rts[g]).  One process: a fleet group spread over several ranks needs
-    a ``torch.distributed`` subgroup a group, which is not ported."""
+    """Run a sharded FLEET: G independent group runtimes stepped in
+    lockstep, each labeled with its group (``rt.fleet_group``).  One
+    process: every group on a ``LocalGroup`` (``fleet_replica_groups``),
+    group g = rts[g].  ``world_size`` > 1: boot the process group, make
+    one subgroup a fleet group (``fleet_rank_layout``) and step, in group
+    order, a ``DistGroup`` runtime for each group this rank serves
+    (``group_of_rank``); the runtimes of those groups, in group order,
+    after a barrier of every rank."""
     from hermes_tpu_torch.runtime import FastRuntime
 
-    if world_size > 1:
-        raise NotImplementedError(
-            "a fleet across processes needs a torch.distributed subgroup "
-            "per fleet group; run_fleet runs one process (group_of_rank "
-            "gives the layout)")
-    groups = fleet_replica_groups(fcfg.groups, device)
+    if world_size <= 1:
+        local = fleet_replica_groups(fcfg.groups, device)
+        served = list(range(fcfg.groups))
+    else:
+        R = fcfg.base.n_replicas
+        odd = [g for g in range(fcfg.groups)
+               if fcfg.group_cfg(g).n_replicas != R]
+        if odd:
+            raise ValueError(f"groups {odd} override n_replicas: a fleet "
+                             "over ranks lays out groups of one size")
+        layout = fleet_rank_layout(fcfg.groups, R, world_size)
+        if not 0 <= rank < world_size:
+            raise ValueError(f"rank {rank} outside [0, {world_size})")
+        init_distributed(init_method, world_size, rank, device)
+        import torch
+
+        if torch.device(device).type == "cuda":
+            device = torch.device("cuda", local_card(rank))
+        subgroups = _fleet_subgroups(layout, device)
+        served = group_of_rank(fcfg.groups, R, world_size, rank)
     rts = []
-    for g in range(fcfg.groups):
-        rt = FastRuntime(fcfg.group_cfg(g), backend="sharded",
-                         group=groups[g])
+    for g in served:
+        group = (local[g] if world_size <= 1 else
+                 DistGroup(subgroups[g][0], device,
+                           side_group=subgroups[g][1]))
+        rt = FastRuntime(fcfg.group_cfg(g), backend="sharded", group=group)
         rt.fleet_group = g
         rts.append(rt)
     for _ in range(steps):
         for rt in rts:
             rt.step_once()
+    if world_size > 1:
+        import torch.distributed as dist
+
+        dist.barrier()
     return rts
 
 
@@ -302,8 +374,9 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--fleet-groups", type=int, default=1,
                     help="run a key-sharded fleet: N groups of --replicas "
-                    "each, one replica group a fleet group, in one "
-                    "process; prints one JSON line a group")
+                    "each, one replica group a fleet group (with "
+                    "--world-size: a subgroup of ranks a fleet group); "
+                    "prints one JSON line a group this rank serves")
     ap.add_argument("--serve-workers", type=int, default=0,
                     help="instead of a protocol run: start N columnar "
                     "serving worker processes sharding accepts on one "
@@ -330,17 +403,24 @@ def main(argv=None) -> int:
     if a.fleet_groups > 1:
         from hermes_tpu_torch.config import FleetConfig
 
-        if a.world_size > 1:
-            ap.error("--fleet-groups runs one process (a fleet across "
-                     "ranks is not ported)")
         rts = run_fleet(FleetConfig(groups=a.fleet_groups, base=cfg),
-                        a.steps, device=a.device)
-        for g, rt in enumerate(rts):
+                        a.steps, a.init, a.world_size, a.rank, a.device)
+        layout = (fleet_rank_layout(a.fleet_groups, cfg.n_replicas,
+                                    a.world_size) if a.world_size > 1
+                  else [[0]] * a.fleet_groups)
+        for rt in rts:  # counters gather over the group: in group order
+            g = rt.fleet_group
             c = rt.counters()
             print(json.dumps(dict(
-                group=g, rounds=rt.step_idx, replicas=cfg.n_replicas,
+                group=g, rank=a.rank, world_size=a.world_size,
+                ranks=layout[g], rounds=rt.step_idx,
+                replicas=cfg.n_replicas, local_copies=rt.n_copies,
                 **{k: int(c[k]) for k in ("n_read", "n_write", "n_rmw",
                                           "n_abort")})), flush=True)
+        if a.world_size > 1:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
         return 0
     rt = run(cfg, a.steps, a.init, a.world_size, a.rank, a.device)
     c = rt.counters()

@@ -8,7 +8,12 @@
 // not apply — are returned as "suspects" for the exact (Wing&Gong) Python
 // search, so the shortcut can never produce a false PASS or a false FAIL.
 //
-// Build: g++ -O2 -shared -fPIC -o libhermes_checker.so checker_core.cpp
+// Keys are independent, so the keys are split over ``threads`` workers by
+// key modulo the count; each builds and checks its own keys' groups.  The
+// suspect SET does not depend on the split (their order does).
+//
+// Build: g++ -O2 -shared -fPIC -pthread -o libhermes_checker.so
+//        checker_core.cpp
 // ABI (ctypes, checker/fast.py):
 //   kind: 0=read, 1=write, 2=rmw, 3=maybe_w (incomplete update)
 //   inv/resp: doubled step times (read resp=2s, update resp=2s+1),
@@ -18,6 +23,7 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <thread>
 #include <unordered_map>
 #include <unordered_set>
 #include <vector>
@@ -30,25 +36,19 @@ struct Group {
   std::vector<int64_t> ops;  // indices into the column arrays
 };
 
-}  // namespace
-
-extern "C" {
-
-// Returns the number of suspect keys (written to out_keys, up to max_out;
-// the count may exceed max_out — callers should size generously).
-// A negative return value signals invalid arguments.
-int64_t hc_check_witness(int64_t n, const int32_t* key, const int8_t* kind,
-                         const int64_t* inv, const int64_t* resp,
-                         const int64_t* wuid, const int64_t* ruid,
-                         const int64_t* ts, int32_t* out_keys,
-                         int64_t max_out) {
-  if (n < 0 || max_out < 0) return -1;
-
+// The witness over the keys with ``key mod shards == shard`` (a key's
+// ops in index order, as in one pass); appends the suspect keys.
+void check_shard(int64_t n, const int32_t* key, const int8_t* kind,
+                 const int64_t* inv, const int64_t* resp,
+                 const int64_t* wuid, const int64_t* ruid,
+                 const int64_t* ts, int64_t shard, int64_t shards,
+                 std::vector<int32_t>* suspects) {
   std::unordered_map<int32_t, Group> by_key;
-  by_key.reserve(static_cast<size_t>(n) / 4 + 16);
-  for (int64_t i = 0; i < n; ++i) by_key[key[i]].ops.push_back(i);
-
-  std::vector<int32_t> suspects;
+  by_key.reserve(static_cast<size_t>(n / shards) / 4 + 16);
+  for (int64_t i = 0; i < n; ++i) {
+    int64_t m = key[i] % shards;
+    if ((m < 0 ? m + shards : m) == shard) by_key[key[i]].ops.push_back(i);
+  }
 
   for (auto& [k, g] : by_key) {
     bool suspect = false;
@@ -132,12 +132,44 @@ int64_t hc_check_witness(int64_t n, const int32_t* key, const int8_t* kind,
       }
     }
 
-    if (suspect) suspects.push_back(k);
+    if (suspect) suspects->push_back(k);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Returns the number of suspect keys (written to out_keys, up to max_out;
+// the count may exceed max_out — callers should size generously).
+// ``threads`` workers split the keys (1: one pass in this thread).
+// A negative return value signals invalid arguments.
+int64_t hc_check_witness(int64_t n, const int32_t* key, const int8_t* kind,
+                         const int64_t* inv, const int64_t* resp,
+                         const int64_t* wuid, const int64_t* ruid,
+                         const int64_t* ts, int32_t* out_keys,
+                         int64_t max_out, int64_t threads) {
+  if (n < 0 || max_out < 0 || threads < 1) return -1;
+
+  std::vector<std::vector<int32_t>> found(threads);
+  if (threads == 1) {
+    check_shard(n, key, kind, inv, resp, wuid, ruid, ts, 0, 1, &found[0]);
+  } else {
+    std::vector<std::thread> pool;
+    for (int64_t t = 0; t < threads; ++t)
+      pool.emplace_back(check_shard, n, key, kind, inv, resp, wuid, ruid,
+                        ts, t, threads, &found[t]);
+    for (auto& th : pool) th.join();
   }
 
-  int64_t n_out = std::min<int64_t>(suspects.size(), max_out);
-  for (int64_t i = 0; i < n_out; ++i) out_keys[i] = suspects[i];
-  return static_cast<int64_t>(suspects.size());
+  int64_t total = 0;
+  for (const auto& f : found) {
+    for (int32_t k : f) {
+      if (total < max_out) out_keys[total] = k;
+      ++total;
+    }
+  }
+  return total;
 }
 
 }  // extern "C"

@@ -440,6 +440,7 @@ class StoreOwner:
         self.stride = wire.req_nbytes(fe.u)
         self.dead = [False] * len(rings)
         self.rows_in = 0          # rows merged out of request rings
+        self.rows_by_worker = [0] * len(rings)  # the same, by worker
         self.rows_out = 0         # rows scattered into response rings
         self.dead_drop_rows = 0   # response rows for a dead worker
         self.torn_slots = 0       # dead producers' tombstone slots
@@ -485,6 +486,7 @@ class StoreOwner:
                 polled.append(req_ring)
                 n = slot.count
                 if n:
+                    self.rows_by_worker[w] += n
                     mats.append(slot.cols["raw"][:n])
                     conns.append(slot.cols["conn"][:n].astype(np.int32)
                                  + np.int32(w << CONN_BITS))

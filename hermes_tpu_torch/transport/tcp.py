@@ -29,7 +29,7 @@ _SRC = pathlib.Path(__file__).resolve().parent.parent / "native" / "tcp_transpor
 
 def _load():
     """The mesh library, built from the checkout's source if needed."""
-    return build.load_cxx(_SRC, build.TCP_FLAGS)
+    return build.load_cxx(_SRC, build.THREAD_FLAGS)
 
 
 def serving_listener(host: str, port: int, reuseport: bool = False,

@@ -556,7 +556,8 @@ def test_torch_group_of_rank_partitions_the_grid():
 def test_torch_run_fleet_equals_reference_counters():
     """``run_fleet``: G sharded group runtimes stepped in lockstep, each
     labeled with its group, counters equal to the reference's on its CPU
-    fleet grid (2 groups of 4 replicas over the 8 CPU devices)."""
+    fleet grid (2 groups of 4 replicas over the 8 CPU devices); a fleet
+    over ranks without a rendezvous, or split unevenly, is refused."""
     rb = RefConfig(n_replicas=4, n_keys=64, n_sessions=8,
                    ops_per_session=32, wrap_stream=True)
     rfc = RefFleetConfig(groups=2, base=rb)
@@ -569,8 +570,14 @@ def test_torch_run_fleet_equals_reference_counters():
         ca, cb = a.counters(), b.counters()
         assert {k: int(ca[k]) for k in ("n_read", "n_write", "n_rmw")} == \
             {k: int(cb[k]) for k in ("n_read", "n_write", "n_rmw")}
-    with pytest.raises(NotImplementedError, match="subgroup"):
+    # over ranks (tests/test_torch_fleet_ranks.py runs it): a rendezvous
+    # is needed, and a group split unevenly over its ranks is refused
+    # before any process group is made
+    with pytest.raises(ValueError, match="init_method"):
         launch.run_fleet(pfc, 1, world_size=2, device="cpu")
+    with pytest.raises(ValueError, match="equal share"):
+        launch.run_fleet(FleetConfig(groups=4, base=dataclasses.replace(
+            pfc.base, n_replicas=3)), 1, world_size=6, device="cpu")
 
 
 def test_torch_fleet_bench_cells_equal_reference_commits():

@@ -147,26 +147,90 @@ def test_torch_gates_pytest_scan_skips_a_shell_that_names_pytest():
 # -- the gates themselves ------------------------------------------------------
 
 PORTED = ("census", "obs-overhead", "analysis", "pipeline", "chaos",
-          "elastic", "netchaos", "heap", "hostlint", "durability",
-          "acceptance")
+          "elastic", "netchaos", "fleet", "serving", "heap", "hostlint",
+          "durability", "acceptance")
+
+
+def _reference_runner():
+    from torch_gatepair import load_script
+
+    return load_script("run_gates")
 
 
 def test_torch_gates_list_the_eleven_in_the_references_order():
-    """The reference's twelve in its order, without the two not ported
-    (fleet, serving), then the port's own acceptance gate."""
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location(
-        "run_gates_reference_under_test",
-        os.path.join(gates.ROOT, "scripts", "run_gates.py"))
-    ref = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(ref)
+    """The reference's twelve gates in its order (since the fleet and
+    serving gates were ported: all of them), then the port's own
+    acceptance gate."""
+    ref = _reference_runner()
     names = tuple(g[0] for g in gates.GATES)
     assert names == PORTED
-    assert names[:-1] == tuple(n for n, _ in ref.GATES
-                               if n not in ("fleet", "serving"))
+    assert names[:-1] == tuple(n for n, _ in ref.GATES)
     for name, argv in gates.GATES:
         assert "--device" not in argv, name  # the runner adds it
+
+
+#: reports of the gates whose cells the summary carries, with the fields
+#: the reference's ``_gate_cells`` reads, and one field it leaves out
+CELL_REPORTS = {
+    "serving": dict(
+        ok=True, columnar_floor=dict(
+            ops_per_sec=21000.5, required_ops_per_sec=17590.0,
+            scalar_baseline_ops_per_sec=351.8, speedup_vs_scalar=59.7,
+            current_scalar_ops_per_sec=1935.8,
+            speedup_vs_current_scalar=10.8, seconds=0.3),
+        one_store_floor=dict(ops_per_sec=97599.2,
+                             loopback_ops_per_sec=25113.5,
+                             speedup_vs_loopback=3.89, required_speedup=2.0,
+                             workers=2, statuses={"ok": 9}),
+        shm_replay_identical=True,
+        one_store_topology=dict(kill_survived=3, kill_eof=1, workers=2)),
+    "hostlint": dict(ok=True, legs=dict(
+        static=dict(ok=True, seconds=1.5, findings=0),
+        locklint=dict(ok=True, seconds=4.25), note="not a leg")),
+    "durability": dict(
+        ok=True,
+        kill_batched=dict(committed_write_lost=[], committed_witnessed=640,
+                          recovery_s=0.5),
+        kill_sharded=dict(committed_write_lost=[[1, 2]],
+                          committed_witnessed=512, recovery_s=0.75),
+        wal_overhead=dict(on_vs_off=0.91, wal_on=dict(writes_per_s=100.0),
+                          wal_off=dict(writes_per_s=110.0))),
+    "fleet": dict(ok=True, scaleout=dict(scaleout_x=3.9)),
+}
+
+
+def test_torch_gates_summary_carries_the_references_cells(tmp_path, capsys,
+                                                          monkeypatch):
+    """The port's runner on stub gates printing these reports: its
+    summary's ``gates`` block, but for the seconds, equals what the
+    reference's runner (its ``_gate_cells``) writes for the same results
+    (the reference run with its root in tmp_path)."""
+    stubs = tuple((name, ("-c", f"print({json.dumps(rep)!r})"))
+                  for name, rep in CELL_REPORTS.items())
+    assert gates.main(["--force", "--out", str(tmp_path / "port")],
+                      gates=stubs) == 0
+    got = _summary_line(capsys)["gates"]
+    ref = _reference_runner()
+    ref_dir = tmp_path / "ref"
+    ref_dir.mkdir()
+    monkeypatch.setattr(ref, "REPO", str(ref_dir))
+    monkeypatch.setattr(ref, "GATES", tuple((n, n) for n in CELL_REPORTS))
+    monkeypatch.setattr(ref, "pytest_running", lambda: [])
+    monkeypatch.setattr(ref, "run_gate", lambda name, *a: dict(
+        gate=name, ok=True, rc=0, seconds=1.0, report=CELL_REPORTS[name]))
+    monkeypatch.setattr(sys, "argv", ["run_gates.py"])
+    assert ref.main() == 0
+    want = json.loads((ref_dir / "GATES_SUMMARY.json").read_text())["gates"]
+    assert sorted(got) == sorted(want) == sorted(CELL_REPORTS)
+    for name in want:
+        assert {k: v for k, v in got[name].items() if k != "seconds"} == \
+            {k: v for k, v in want[name].items() if k != "seconds"}, name
+    assert got["serving"]["one_store_kill_leg"] == dict(survived=3, eof=1)
+    assert got["durability"]["kill_sharded"]["lost"] == 1
+    assert set(got["hostlint"]["legs"]) == {"static", "locklint"}
+    assert set(got["fleet"]) == {"ok", "seconds"}
+    for name in CELL_REPORTS:  # a report without cells adds none
+        assert gates.gate_cells(dict(gate=name, report=None)) == {}
 
 
 ARGV = ("-c", "import json, sys; print(json.dumps({'argv': sys.argv[1:]}))")
@@ -205,8 +269,8 @@ def test_torch_gates_real_run_writes_no_reference_artifact(tmp_path,
 
 def test_torch_chip_smoke_gates_rehearsal(capsys):
     """``chip_smoke.phase_gates`` on the CPU with one gate and the
-    obs-overhead timing at the gate shape (on the card: the seven gates,
-    the bench shape, no ``--force``)."""
+    obs-overhead timing at the gate shape, at the smoke's reps (on the
+    card: the nine gates, the bench shape, no ``--force``)."""
     from types import SimpleNamespace
 
     import torch
@@ -221,5 +285,38 @@ def test_torch_chip_smoke_gates_rehearsal(capsys):
              if x.startswith("{")]
     assert [d["phase"] for d in lines] == ["gates", "obs-overhead-bench"]
     assert lines[0]["gates"]["pipeline"]["ok"]
-    assert lines[1]["shape"] == "gate" and len(lines[1]["times_on"]) == 9
+    assert lines[1]["shape"] == "gate"
+    assert len(lines[1]["times_on"]) == cs.OBS_BENCH_REPS == 5
     assert set(cs.GATES_PORTED) < set(PORTED)
+
+
+def test_torch_chip_smoke_gate_floors_hold_the_bars():
+    """``chip_smoke.gate_floors`` reads the serving floors from the
+    summary's cells and the fleet's ``scaleout_x`` from its report, and
+    names each cell under its bar."""
+    import chip_smoke as cs
+
+    def summary(col, ratio, scaleout):
+        cells = gates.gate_cells(dict(gate="serving", report=dict(
+            CELL_REPORTS["serving"],
+            columnar_floor=dict(CELL_REPORTS["serving"]["columnar_floor"],
+                                ops_per_sec=col),
+            one_store_floor=dict(CELL_REPORTS["serving"]["one_store_floor"],
+                                 speedup_vs_loopback=ratio))))
+        fleet = dict(ok=True, scaleout=dict(
+            scaleout_x=scaleout, aggregate_writes_per_sec=4.0,
+            concurrent=dict(writes_per_sec=1.5)))
+        return dict(gates=dict(serving=dict(ok=True, **cells),
+                               fleet=dict(ok=True)),
+                    results=[dict(gate="serving", report={}),
+                             dict(gate="fleet", report=fleet)])
+
+    floors, missed = cs.gate_floors(summary(21000.5, 3.89, 3.9))
+    assert missed is None
+    assert floors["columnar_floor_ops_per_s"] == 21000.5
+    assert floors["one_store_ratio"] == 3.89 and floors["scaleout_x"] == 3.9
+    assert floors["one_store_kill_leg"] == dict(survived=3, eof=1)
+    _, missed = cs.gate_floors(summary(17000.0, 1.9, 2.5))
+    assert "columnar floor" in missed and "one-store floor" in missed
+    assert "scaleout_x 2.5" in missed
+    assert cs.gate_floors(dict(gates={}, results=[])) == ({}, None)

@@ -442,12 +442,13 @@ def test_torch_distributed_children_import_neither_jax_nor_reference(
 
 
 def test_torch_gate_modules_are_in_the_scan():
-    """The seven gates' modules exist where the source scan above reads
+    """The nine gates' modules exist where the source scan above reads
     them."""
     for rel in ("checks/__init__.py", "checks/obs_overhead.py",
                 "checks/pipeline.py", "checks/chaos.py", "checks/elastic.py",
-                "checks/netchaos.py", "checks/heap.py",
-                "checks/durability.py", "checks/durability_soak.py"):
+                "checks/netchaos.py", "checks/fleet.py", "checks/serving.py",
+                "checks/heap.py", "checks/durability.py",
+                "checks/durability_soak.py"):
         assert (ROOT / "hermes_tpu_torch" / rel).is_file(), rel
 
 
@@ -457,14 +458,16 @@ import torch
 torch.set_num_threads(1)
 from hermes_tpu_torch import gates
 from hermes_tpu_torch.checks import (chaos, durability, durability_soak,
-                                     elastic, heap, netchaos, obs_overhead,
-                                     pipeline)
+                                     elastic, fleet, heap, netchaos,
+                                     obs_overhead, pipeline, serving)
 rep = {}
 pipeline.check_ctl_uploads(rep, device="cpu")
 chaos.check_torn_snapshot(rep, device="cpu")
 netchaos.check_crc_red(rep, device="cpu")
 heap.check_torn_snapshot(rep, device="cpu")
-assert len(rep) == 6 and all(rep.values()), rep
+fleet.check_replay(rep, device="cpu")
+serving.check_overload_storm(rep, device="cpu")
+assert len(rep) == 9 and all(rep.values()), rep
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "hermes_tpu" or m.startswith("hermes_tpu."))
@@ -473,7 +476,7 @@ print("LEAKED", bad)
 
 
 def test_torch_gate_modules_import_neither_jax_nor_reference():
-    """``hermes_tpu_torch/checks/`` and the runner, imported and four of
+    """``hermes_tpu_torch/checks/`` and the runner, imported and six of
     their legs run in a fresh interpreter, load nothing of jax or of the
     JAX package."""
     r = subprocess.run([sys.executable, "-c", CHECKS], cwd=ROOT,

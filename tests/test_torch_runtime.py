@@ -145,3 +145,66 @@ def test_torch_runtime_defaults_to_the_card():
     assert rt.device.type == "cpu" and rt.n_copies == 2
     with pytest.raises(ValueError, match="unknown backend"):
         FastRuntime(cfg, backend="phases", device="cpu")
+
+
+def test_torch_native_witness_threads_find_the_same_suspects():
+    """The witness core split over threads by key: on a recorded history
+    past ``THREADED_OPS`` with faults planted in some keys (reads of a
+    value never written, a duplicate update timestamp), every thread
+    count flags the same suspect keys as one thread, and
+    ``check_arrays`` gives the reference's ``check_arrays`` verdict on
+    the same columns."""
+    import copy
+
+    from hermes_tpu_torch.checker import fast
+
+    rc = RefConfig(n_replicas=3, n_keys=512, n_sessions=1024,
+                   replay_slots=8, ops_per_session=32, device_stream=True,
+                   workload=RefWL(read_frac=0.5, rmw_frac=0.1, seed=21))
+    cfg = HermesConfig(**dataclasses.asdict(rc))
+    rt = FastRuntime(cfg, record="array", device="cpu")
+    for _ in range(40):
+        rt.step_once()
+    rt.flush_pipeline()
+    cols = rt.recorder.columns()
+    n = len(cols["kind"])
+    assert n >= fast.THREADED_OPS
+    rng = np.random.default_rng(5)
+    reads = np.nonzero(cols["kind"] == fast.K_READ)[0]
+    updates = np.nonzero(cols["kind"] == fast.K_WRITE)[0]
+    bad = dict(cols)
+    bad["ruid"] = cols["ruid"].copy()
+    bad["ts"] = cols["ts"].copy()
+    for i in rng.choice(reads, 5, replace=False):
+        bad["ruid"][i] = 0x7EADBEEF  # a value no update wrote
+    by_key = {}
+    for i in updates:
+        by_key.setdefault(int(cols["key"][i]), []).append(int(i))
+    twin = next(v for v in by_key.values() if len(v) > 1)
+    bad["ts"][twin[1]] = bad["ts"][twin[0]]  # duplicate timestamps
+    lib = fast._core()
+
+    def suspects(c, threads):
+        out = np.zeros(n + 1, np.int32)
+        got = lib.hc_check_witness(
+            n, *(np.ascontiguousarray(c[f], dt) for f, dt in (
+                ("key", np.int32), ("kind", np.int8), ("inv", np.int64),
+                ("resp", np.int64), ("wuid", np.int64), ("ruid", np.int64),
+                ("ts", np.int64))), out, n + 1, threads)
+        return sorted(out[:got].tolist())
+
+    one = suspects(bad, 1)
+    assert len(one) >= 6
+    for threads in (2, 3, 8):
+        assert suspects(bad, threads) == one
+    assert suspects(cols, 8) == suspects(cols, 1) == []
+    # the verdict on the faulted columns, against the reference's
+    rec = copy.copy(rt.recorder)
+    rec.columns = lambda: bad
+    ref_rec = RefArrayRecorder(rc)
+    ref_rec.columns = lambda: bad
+    ref_rec.aborted_uids = rt.recorder.aborted_uids
+    got, want = fast.check_arrays(rec), ref_check_arrays(ref_rec)
+    assert not got.ok and not want.ok
+    assert sorted(f.key for f in got.failures) == sorted(
+        f.key for f in want.failures)

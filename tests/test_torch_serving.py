@@ -721,3 +721,27 @@ def test_torch_chip_smoke_serving_rehearsal(monkeypatch):
     assert col["runs"][0]["busy_share_mean"] > 0.5
     sock = cs.phase_serve_socket(torch, sv, "cpu")
     assert sock["launches"]["stats_block"] > 0
+
+
+def test_torch_chip_smoke_serve_fleet_rehearsal(monkeypatch, capsys):
+    """``chip_smoke.phase_serve_fleet`` on the CPU at a cut shape: a
+    two-group fleet behind ``Frontend`` under the overload storm, every
+    check it makes on the card (both groups spanned, the checkers,
+    ``verify_fleet``, no client-seen commit lost, ops issued = device ops
+    = recorded, the envelope acting, ``stats_block`` once a group
+    round)."""
+    import json
+
+    import torch
+
+    import chip_smoke as cs
+    from torch_servepair import smoke_namespace
+
+    sv = smoke_namespace(monkeypatch)
+    out = cs.phase_serve_fleet(torch, sv, "cpu")
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "serve-fleet" and line["spanned"] == [0, 1]
+    assert line["committed_write_lost"] == []
+    assert line["issued"] == line["device_ops"] == line["recorded"] > 0
+    assert out["launches"]["stats_block"] == sum(line["rounds"]) + sum(
+        line["small"]["cpu"]["rounds"])

@@ -342,3 +342,29 @@ def test_torch_one_store_survives_worker_kill():
         srv.close()
     assert srv.owner.dead[0] and not srv.owner.dead[1]
     assert srv.fe.requests == srv.fe.responses
+
+
+def test_torch_chip_smoke_serve_workers_rehearsal(monkeypatch, capsys):
+    """``chip_smoke.phase_serve_workers`` on the CPU: worker processes
+    with private stores at 1, 2 and 4 workers, the loopback cell and the
+    4-worker one-store cell, each answered in full, without error, under
+    its topology label."""
+    import json
+
+    import torch
+
+    import chip_smoke as cs
+    from torch_servepair import smoke_namespace
+
+    torch.set_num_threads(1)
+    out = cs.phase_serve_workers(torch, smoke_namespace(monkeypatch), "cpu")
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    cells = line["cells"]
+    assert sorted(cells) == ["columnar_loopback", "columnar_workers_1",
+                             "columnar_workers_2", "columnar_workers_4",
+                             "one_store_workers_4"]
+    assert all(c["error"] is None and c["ops_per_sec"] > 0
+               for c in cells.values())
+    assert cells["one_store_workers_4"]["topology"] == "one-store"
+    assert out["launches"]["stats_block"] > cells["one_store_workers_4"][
+        "rounds"]

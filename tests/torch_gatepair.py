@@ -18,7 +18,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 #: the JAX package's gate artifacts at the root of the repo
 ARTIFACTS = ("OBS_OVERHEAD.json", "CHAOS_SOAK.json", "ELASTIC_SOAK.json",
              "NETCHAOS_SOAK.json", "HEAP_SOAK.json", "DURABILITY_SOAK.json",
-             "GATES_SUMMARY.json", "OP_BUDGET.json", "ANALYSIS_BASELINE.json")
+             "GATES_SUMMARY.json", "OP_BUDGET.json", "ANALYSIS_BASELINE.json",
+             "FLEET_SOAK.json", "SERVING_SOAK.json", "BENCH_LATENCY.json")
 
 
 def load_script(name: str):

@@ -112,3 +112,42 @@ def same(fn):
 
 def replace(c, **kw):
     return dataclasses.replace(c, **kw)
+
+
+def smoke_namespace(monkeypatch):
+    """The namespace ``chip_smoke.main`` hands its serving phases, on the
+    CPU at a cut shape (2^12 keys, 64 sessions a replica), with
+    ``stats_block``'s plain version counted as its wrapper's launch (on
+    the CPU a wrapper counts CUDA launches only)."""
+    from types import SimpleNamespace
+
+    from hermes_tpu_torch import chaos, config, fleet, serving
+    from hermes_tpu_torch.checker import linearizability as lin
+    from hermes_tpu_torch.core import kernels, types
+    from hermes_tpu_torch.kvs import KVS
+    from hermes_tpu_torch.serving import bench, soak
+    from hermes_tpu_torch.workload import openloop
+
+    def counted(*a, _p=kernels.stats_block_plain, **k):
+        kernels.stats_block.launches += 1
+        return _p(*a, **k)
+
+    monkeypatch.setattr(kernels, "stats_block_plain", counted)
+    return SimpleNamespace(
+        kvs_cfg=lambda **over: config.bench_cfg("a", over=dict(
+            device_stream=False, read_unroll=1, n_keys=1 << 12,
+            n_sessions=64, **over)),
+        HermesConfig=config.HermesConfig, device="cpu", KVS=KVS,
+        kernels=kernels, types=types, chaos=chaos,
+        ShapedArrivals=openloop.ShapedArrivals, MixSpec=openloop.MixSpec,
+        ServingConfig=serving.ServingConfig,
+        run_open_loop=serving.run_open_loop,
+        run_columnar_soak=soak.run_columnar_soak,
+        run_serve_bench=bench.run_serve_bench,
+        run_one_store_cell=bench.run_one_store_cell,
+        run_columnar_worker_cell=bench.run_columnar_worker_cell,
+        measure_columnar_floor=soak.measure_columnar_floor,
+        Fleet=fleet.Fleet, FleetConfig=config.FleetConfig,
+        verify_fleet=fleet.verify_fleet, lin=lin,
+        committed_uids=soak.committed_uids, make_mix=openloop.make_mix,
+        sync=lambda: None)
