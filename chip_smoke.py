@@ -409,7 +409,14 @@ FX_SHAPES = {  # rows, columns (fx_serial_scan: K, M; W = 10)
 FX_W = 10
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line carries ``at_s``, the seconds since
+    the script started (the smoke's time by phase)."""
+    if "phase" in obj:
+        obj = dict(obj, at_s=time.perf_counter() - _T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -440,34 +447,22 @@ def cuda_ms(torch, fn, samples=25, inner=10):
     return statistics.median(out)
 
 
-def queued_ms(torch, fn, label, inner=20, spin_cycles=1 << 24):
-    """The device time of a call in ms with the host out of the way: the
-    ``inner`` calls are enqueued behind a spin kernel that outlasts their
-    enqueueing, so they run back to back on the device between two CUDA
-    events.  For wrappers whose host work outlasts their kernel, where
-    ``cuda_ms`` measures the host and the profiler loses records.  None
-    (not measured, said on stderr) if the spin ended before the last call
-    was enqueued, four times over at a spin four times longer each time:
-    a call that waits on the device cannot be queued."""
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(4):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(spin_cycles)
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        hidden = not a.query()
-        b.synchronize()
-        if hidden:
-            return a.elapsed_time(b) / inner
-        spin_cycles *= 4
-    print("chip_smoke: a call could not be queued behind the spin kernel "
-          f"({label}): queued time not measured",
-          file=sys.stderr)
-    return None
+def queued_ms(torch, fn, label, inner=20, spin_cycles=1 << 24, tries=4):
+    """The device time of a call in ms with the host out of the way
+    (``profiling.queued_s``: ``inner`` calls enqueued behind a spin kernel
+    that outlasts their enqueueing, timed between two CUDA events; the
+    spin four times longer at each of ``tries``).  For wrappers whose
+    host work outlasts their kernel, where ``cuda_ms`` measures the host.
+    None (not measured, said on stderr) for a call that cannot be queued
+    (it waits on the device, or enqueues slower than the longest spin)."""
+    from hermes_tpu_torch.profiling import queued_s
+
+    got = queued_s(fn, inner, spin_cycles, tries)
+    if got is None:
+        print("chip_smoke: a call could not be queued behind the spin "
+              f"kernel ({label}): queued time not measured", file=sys.stderr)
+        return None
+    return got * 1e3
 
 
 def _us(ms):
@@ -755,9 +750,10 @@ def route_cluster_us(torch, port, shape, seed):
     """``mega_route`` at ``shape`` with clusters of each of
     ``ROUTE_CLUSTERS``, on the kernels phase's inputs and on slot ranks
     shaped as the round's (``round_srank``): exact against the plain
-    version, and the device time of a call.  The module's own setting is
-    restored after."""
-    from hermes_tpu_torch.profiling import device_per_call
+    version, and the device time of a call (queued, ``device_us``) and
+    its device operations (``profiling.graph_ops``).  The module's own
+    setting is restored after."""
+    from hermes_tpu_torch.profiling import graph_ops
 
     mega = port.mega
     args, _t, _info = route_case(torch, port, shape, seed)
@@ -778,8 +774,10 @@ def route_cluster_us(torch, port, shape, seed):
                            for w, g in zip(want, got)):
                     raise AssertionError(f"mega_route with clusters of {q} "
                                          "disagrees with its plain version")
-                s, n = device_per_call(lambda: mega.mega_route(*dev_args))
-                row[kind] = dict(device_us=s * 1e6, device_launches=n)
+                call = lambda: mega.mega_route(*dev_args)
+                us, how = device_us(torch, call, "mega_route clusters")
+                row[kind] = dict(device_us=us, timed_by=how,
+                                 device_launches=graph_ops(call)["total"])
             out[str(q)] = row
     finally:
         mega.ROUTE_CLUSTER = keep
@@ -793,10 +791,11 @@ REPLAY_ROUND = 32  # the replay-scan round whose mega_replay inputs are kept
 CHECKED_FREEZE_AT = 8
 
 
-def _kept_args(torch, calls, run, device):
+def _kept_args(torch, calls, rt, run, device):
     """The arguments each wrapper of ``calls`` ((module, name) pairs) gets
-    while ``run()`` runs, as copies made on the stream before the call
-    (before any in-place update)."""
+    while ``run()`` runs ``rt``'s round, as copies made on the stream
+    before the call (before any in-place update).  The round runs
+    eagerly (``rt._step.eager()``): a graph replay calls no wrapper."""
     got = {}
 
     def keep(module, name):
@@ -812,7 +811,8 @@ def _kept_args(torch, calls, run, device):
     try:
         for m, name, _fn, call in saved:
             setattr(m, name, call)
-        run()
+        with rt._step.eager():
+            run()
     finally:
         for m, name, fn, call in saved:
             setattr(m, name, fn)
@@ -836,13 +836,13 @@ def round_inputs(torch, port, replay=True, device="cuda"):
     rt.fetch_completions = False
     rt.run(ROUND_WARMUP)
     got = {name: {"round": args} for name, args in _kept_args(
-        torch, ((kernels, "stats_block"), (mega, "mega_apply")),
+        torch, ((kernels, "stats_block"), (mega, "mega_apply")), rt,
         lambda: rt.run(1), device).items()}
     if not replay:
         return got
     rt.run(REPLAY_ROUND - rt.step_idx)
     got["mega_replay"] = {"round": _kept_args(
-        torch, ((mega, "mega_replay"),), lambda: rt.run(1),
+        torch, ((mega, "mega_replay"),), rt, lambda: rt.run(1),
         device)["mega_replay"]}
     del rt
     rt = port.FastRuntime(cfg, record="array", device=device)
@@ -851,7 +851,8 @@ def round_inputs(torch, port, replay=True, device="cuda"):
             rt.freeze(1)
         rt.step_once()
     got["mega_replay"]["round_frozen"] = _kept_args(
-        torch, ((mega, "mega_replay"),), rt.step_once, device)["mega_replay"]
+        torch, ((mega, "mega_replay"),), rt, rt.step_once,
+        device)["mega_replay"]
     return got
 
 
@@ -982,26 +983,72 @@ def _to(torch, args, dev):
     return [one(x) for x in args]
 
 
+def device_us(torch, fn, label, tries=4):
+    """``(us, how)``: the device time of a call, queued behind a spin
+    kernel (``queued_ms``: CUDA events, nothing lost, how ``"queued"``),
+    or, for a call that cannot be queued (it waits on the device), the
+    CUDA-event time on the stream (``cuda_ms``, how ``"stream"``)."""
+    ms = queued_ms(torch, fn, label, tries=tries)
+    if ms is not None:
+        return ms * 1e3, "queued"
+    return cuda_ms(torch, fn) * 1e3, "stream"
+
+
+def device_busy(torch, run, label, rts=()):
+    """The host seconds of ``run()`` (``wall_s``) and its device seconds
+    (``busy_s``) from CUDA events, nothing from torch.profiler: with the
+    runtimes ``rts``, the events their compiled rounds record around each
+    replay (``Compiled.timed``: a graph runs without a host gap, so this
+    holds for a run that waits on the device), else a second run queued
+    behind a spin kernel (``queued_ms``; None if ``run`` cannot be
+    queued); ``busy_by`` says which.  Then the CUDA kernels of one more
+    run by name from torch.profiler (``launches``, ``top``, ``top_ops``):
+    a report, which a trace that loses records shows short."""
+    from hermes_tpu_torch import profiling
+
+    torch.cuda.synchronize()
+    with contextlib.ExitStack() as stack:
+        spans = [stack.enter_context(rt._step.timed()) for rt in rts]
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if rts:
+        busy = sum(a.elapsed_time(b) for sp in spans for a, b in sp) / 1e3
+        how = "graph_events"
+    else:
+        ms = queued_ms(torch, run, label, inner=1)
+        busy = None if ms is None else ms / 1e3
+        how = "queued"
+    tr = profiling._trace(run)
+    return dict(wall_s=wall, busy_s=busy, busy_by=how,
+                launches=tr["launches"], top=tr["top"], top_ops=tr["top_ops"])
+
+
+def _per(x, n):
+    return None if x is None else x / n
+
+
 def check_kernel(torch, wrapper, plain, args, label, timing_args=None,
-                 library=None, trace=True):
+                 library=None):
     """The kernel against its plain version on the same inputs (on the
-    CPU and on the card), bit-exact, and its times: per call on the
-    stream (CUDA events) and on the device (torch.profiler, the kernels
-    one call enqueues, ``profiling.device_per_call``).  ``timing_args``
-    (default ``args``) are the inputs of the repeated timed calls, which
-    must do the same work every call.  ``library(*card_args)``, if given,
-    returns a call of one PyTorch operation computing the same function,
-    whose device time is taken the same way (or, if the profiler gives up
-    on it, from CUDA events, ``library_timed_by``).  The call also runs in the
-    bound-checked build, where its outputs must again be the
-    plain version's and no guard may fire, and times it there (the poison
-    fills of its outputs and the report's pointer copy included).  With
-    ``trace=False`` the profiler is not asked (``device_us`` None): the
-    times are the CUDA events' per call on the stream (``call_us``,
-    ``plain_call_us``, ``checked_call_us``) and per call queued behind a
-    spin kernel (``queued_us``, ``plain_queued_us``: ``queued_ms``)."""
+    CPU and on the card), bit-exact; the device operations one call
+    enqueues, counted off a CUDA graph the call is captured into
+    (``profiling.graph_ops``: ``device_launches``, ``device_ops`` by
+    kind); its times from CUDA events: per call on the stream
+    (``call_us``) and queued behind a spin kernel (``device_us``,
+    ``device_us``'s ``timed_by``), the same for the plain version.
+    ``timing_args`` (default ``args``) are the inputs of the repeated
+    timed calls, which must do the same work every call.
+    ``library(*card_args)``, if given, returns a call of one PyTorch
+    operation computing the same function, timed the same way.  The call
+    also runs in the bound-checked build, where its outputs must again be
+    the plain version's and no guard may fire, and is timed there (the
+    poison fills of its outputs and the report's pointer copy
+    included).  No time or count here rests on torch.profiler keeping
+    its records."""
     from hermes_tpu_torch.core import dispatch
-    from hermes_tpu_torch.profiling import device_per_call, device_split
+    from hermes_tpu_torch.profiling import graph_ops
 
     want = _flat(plain(*_to(torch, args, "cpu")))
     before = wrapper.launches
@@ -1020,57 +1067,30 @@ def check_kernel(torch, wrapper, plain, args, label, timing_args=None,
     dev_args = _to(torch, timing_args or args, "cuda")
     call = lambda: wrapper(*dev_args)
     plain_call = lambda: plain(*dev_args)
-    if not trace:
-        out = dict(exact=True, max_abs_err=err, counted_launches=counted,
-                   call_us=cuda_ms(torch, call) * 1e3, device_us=None,
-                   queued_us=_us(queued_ms(torch, call, label)),
-                   plain_call_us=cuda_ms(torch, plain_call) * 1e3,
-                   plain_queued_us=_us(queued_ms(torch, plain_call,
-                                                     label + " plain")))
-        with dispatch.checked_build() as chk:
-            got = _flat(wrapper(*_to(torch, args, "cuda")))
-            out["checked_call_us"] = cuda_ms(torch, call) * 1e3
-        if not all(torch.equal(g.cpu(), w) for w, g in zip(want, got)):
-            raise AssertionError(f"{label} in the checked build disagrees "
-                                 "with its plain version")
-        if chk.violations:
-            raise AssertionError(f"{label}: the guard fired on inputs in "
-                                 f"bounds: {chk.violations[:2]}")
-        return out
-    k_s, k_n, k_ops = device_split(call)
-    p_s, p_n = device_per_call(plain_call)
+    ops = graph_ops(call)
+    k_us, k_how = device_us(torch, call, label)
+    # a plain version that syncs is known after two spins
+    p_us, p_how = device_us(torch, plain_call, label + " plain", tries=2)
     out = dict(exact=True, max_abs_err=err, counted_launches=counted,
-               call_us=cuda_ms(torch, call) * 1e3, device_us=k_s * 1e6,
-               device_launches=k_n,
-               device_ops=[[name, s * 1e6, c] for name, s, c in k_ops],
+               call_us=cuda_ms(torch, call) * 1e3, device_us=k_us,
+               timed_by=k_how, queued_us=k_us if k_how == "queued" else None,
+               device_launches=ops["total"], device_ops=ops,
                plain_call_us=cuda_ms(torch, plain_call) * 1e3,
-               plain_device_us=p_s * 1e6, plain_device_launches=p_n)
+               plain_device_us=p_us, plain_timed_by=p_how)
     if library is not None:
-        lib_call = library(*dev_args)
-        try:
-            l_s, l_n = device_per_call(lib_call)
-            out.update(library_device_us=l_s * 1e6,
-                       library_device_launches=l_n)
-        except RuntimeError as e:
-            # a profiler episode on the yardstick (PERF.md sections 6-7:
-            # fx_store_at's 64 MB zeros_like, records falling 19 -> 14 of
-            # 20 over 24 traces): its device time from CUDA events behind
-            # a spin kernel instead, said in the row
-            ms = queued_ms(torch, lib_call, label + " library")
-            out.update(library_device_us=(
-                ms if ms is not None else cuda_ms(torch, lib_call)) * 1e3,
-                library_device_launches=None,
-                library_timed_by="cuda_events", library_profiler_error=str(e))
+        l_us, l_how = device_us(torch, library(*dev_args), label + " library")
+        out.update(library_device_us=l_us, library_timed_by=l_how)
     with dispatch.checked_build() as chk:
         got = _flat(wrapper(*_to(torch, args, "cuda")))
-        c_s, c_n = device_per_call(call)
+        c_us, c_how = device_us(torch, call, label + " checked")
+        out.update(checked_device_us=c_us, checked_timed_by=c_how,
+                   checked_call_us=cuda_ms(torch, call) * 1e3)
     if not all(torch.equal(g.cpu(), w) for w, g in zip(want, got)):
         raise AssertionError(f"{label} in the checked build disagrees with "
                              "its plain version")
     if chk.violations:
         raise AssertionError(f"{label}: the guard fired on inputs in "
                              f"bounds: {chk.violations[:2]}")
-    out.update(checked_device_us=c_s * 1e6, checked_device_launches=c_n)
     return out
 
 
@@ -1446,8 +1466,6 @@ def phase_main(torch, counters, config, FastRuntime, card, mega_round=False,
                fused=None):
     """Throughput window of bench-a; returns its numbers (with the launch
     count of each kernel over the timed window) and the runtime."""
-    from hermes_tpu_torch.profiling import device_busy
-
     cfg = config.bench_cfg("a", over=dict(mega_round=mega_round))
     rt = FastRuntime(cfg, device="cuda")
     rt.fetch_completions = False  # throughput drive: counters only
@@ -1463,13 +1481,13 @@ def phase_main(torch, counters, config, FastRuntime, card, mega_round=False,
         raise AssertionError(f"kernel launches {launches} in {rounds} "
                              f"main-path rounds, want {want}")
     prof_rounds = 5
-    busy = device_busy(lambda: rt.run(prof_rounds))
+    busy = device_busy(torch, lambda: rt.run(prof_rounds), "main", (rt,))
     out = {"phase": "main-mega" if mega_round else "main", "card": card,
            "rounds": rounds, "writes_per_s": commits / wall,
            "us_per_round": wall / rounds * 1e6, "commits": commits,
            "launches": {k: launches[k] for k in want},
            "reads": d["n_read"], "aborts": d["n_abort"]}
-    out.update(profiled_rounds=prof_rounds,
+    out.update(profiled_rounds=prof_rounds, busy_by=busy["busy_by"],
                device_busy_share=busy["busy_s"] / busy["wall_s"],
                device_us_per_round=busy["busy_s"] / prof_rounds * 1e6,
                cuda_kernels_per_round=busy["launches"] / prof_rounds,
@@ -1613,14 +1631,14 @@ def sharded_site_inputs(torch, sh, rt):
     that the writes waiting on its ack age into the scan, which takes
     slots."""
     mega = sh.mega
-    got = {"mega_apply": _kept_args(torch, ((mega, "mega_apply"),),
+    got = {"mega_apply": _kept_args(torch, ((mega, "mega_apply"),), rt,
                                     lambda: rt.run(1), sh.device)[
                                         "mega_apply"]}
     rt.freeze(1)
     # the first scan round by which a write stalled now is past the age
     every, first = rt.cfg.replay_scan_every, rt.step_idx + rt.cfg.replay_age + 2
     rt.run(-(-first // every) * every - rt.step_idx)
-    got["mega_replay"] = _kept_args(torch, ((mega, "mega_replay"),),
+    got["mega_replay"] = _kept_args(torch, ((mega, "mega_replay"),), rt,
                                     lambda: rt.run(1), sh.device)[
                                         "mega_replay"]
     return got
@@ -1656,12 +1674,9 @@ def sharded_site_rows(torch, sh, rt):
             n_cand = min(info["stuck_rows_timed"], RS)
             info.update(bound(4 * rows_k + 2 * R * RS * (17 + 4 * V)
                               + n_cand * (8 + 4 * V) + R + 4, 8 * rows_k))
-        # timed with CUDA events alone, the calls also queued behind a
-        # spin kernel: torch.profiler dropped 2 of every 20 mega_apply
-        # launches and 3 of every 20 mega_replay launches at these shapes
         rows[name] = dict(info, **sh.check_kernel(
             torch, getattr(mega, name), getattr(mega, name + "_plain"),
-            args, name, timing, trace=False))
+            args, name, timing))
     return rows
 
 
@@ -1688,7 +1703,8 @@ def phase_sharded(torch, counters, sh, card, mega_round=False):
     if {k: launches[k] for k in want} != want:
         raise AssertionError(f"kernel launches {launches} in {sh.rounds} "
                              f"sharded rounds, want {want}")
-    busy = sh.device_busy(lambda: rt.run(SHARDED_PROFILED))
+    busy = sh.device_busy(torch, lambda: rt.run(SHARDED_PROFILED),
+                          "sharded", (rt,))
     n = SHARDED_PROFILED
     out = {"phase": "sharded-mega" if mega_round else "sharded",
            "card": card, "copies": rt.n_copies, "rounds": sh.rounds,
@@ -1697,7 +1713,7 @@ def phase_sharded(torch, counters, sh, card, mega_round=False):
            "launches": {k: launches[k] for k in want},
            "rounds_timed": rt.step_idx - first - n,
            "reads": d["n_read"], "aborts": d["n_abort"],
-           "profiled_rounds": n,
+           "profiled_rounds": n, "busy_by": busy["busy_by"],
            "device_busy_share": busy["busy_s"] / busy["wall_s"],
            "device_us_per_round": busy["busy_s"] / n * 1e6,
            "cuda_kernels_per_round": busy["launches"] / n,
@@ -1715,6 +1731,208 @@ def phase_sharded(torch, counters, sh, card, mega_round=False):
         raise AssertionError("the sharded path committed nothing")
     del rt
     return out, sites
+
+
+GRAPH_ROUNDS = 64  # crosses the replay-scan rounds 0 and 32
+GRAPH_FREEZE = (8, 36)  # replica 1 frozen over the round-32 scan
+GRAPH_SET_LIVE_AT = 20  # a membership change (an epoch bump)
+GRAPH_QUIESCE = (44, 47)  # quiesced rounds: a variant captured mid-run
+GRAPH_DROP_AT = 52  # the graphed round's graphs dropped: captured again
+GRAPH_KVS_OPS = 1 << 18  # the KVS drive's op mix
+GRAPH_LAUNCH_CALLS_MAX = 16  # host launch calls of a graphed round
+
+
+def _graph_hooks(rt, s):
+    """The graph phase's scripted faults before round ``s``."""
+    if s == GRAPH_FREEZE[0]:
+        rt.freeze(1)
+    if s == GRAPH_FREEZE[1]:
+        rt.thaw(1)
+    if s == GRAPH_SET_LIVE_AT:
+        rt.set_live(int(rt.live[0]))
+    rt.quiesce = GRAPH_QUIESCE[0] <= s <= GRAPH_QUIESCE[1]
+
+
+def _same_leaves(torch, a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _state_leaves(gr, rt):
+    """Every state leaf of ``rt``, the table's as its copies' key rows
+    (the drop rows, which masked scatters write in any order, left out)."""
+    K = rt.cfg.n_keys
+    t = rt.fs.table
+    return ([gr.fst.copies(t.vpts, K), gr.fst.copies(t.bank, K)]
+            + gr.graphs.flatten(rt.fs[1:])[0])
+
+
+def graph_pair(torch, gr, counters, make, copies=1):
+    """A graphed runtime and an explicitly eager one (``rt._step.graph =
+    False``: the round function is called each round, with the same bound
+    state and ring) from ``make()``, driven together over
+    ``GRAPH_ROUNDS`` rounds through ``_graph_hooks`` and a drop of the
+    graphed round's graphs: completions equal every round, state trees
+    equal at the end, the graphed runtime's launches by kernel (counted
+    around its own rounds) those of an eager round each.  Returns (the
+    two runtimes, the graphed launches, the launches a replay of every
+    variant captured, by variant)."""
+    graphed, eager = make(), make()
+    eager._step.graph = False
+    got = {k: 0 for k in counters}
+    seen = {}
+    for s in range(GRAPH_ROUNDS):
+        for rt in (graphed, eager):
+            _graph_hooks(rt, s)
+        if s == GRAPH_DROP_AT:
+            seen.update(graphed._step._variants)
+            graphed._step.drop()
+        before = {k: w.launches for k, w in counters.items()}
+        cg = graphed.dispatch_round()
+        for k, w in counters.items():
+            got[k] += w.launches - before[k]
+        ce = eager.dispatch_round()
+        if not _same_leaves(torch, _flat(cg), _flat(ce)):
+            raise AssertionError(f"graphed and eager completions differ at "
+                                 f"round {s}")
+    if not _same_leaves(torch, _state_leaves(gr, graphed),
+                        _state_leaves(gr, eager)):
+        raise AssertionError("graphed and eager states differ after "
+                             f"{GRAPH_ROUNDS} rounds")
+    cfg = graphed.cfg
+    want = sharded_expected_launches(cfg, 0, GRAPH_ROUNDS, copies)
+    if {k: got[k] for k in want} != want:
+        raise AssertionError(f"the graphed rounds launched {got}, want "
+                             f"{want}")
+    comp = graphed._step
+    # scan, plain and quiesce before the drop, plain after it: each run
+    # eagerly once, captured at its second call, replayed after
+    if comp.captures < 4 or comp.replays + comp.warmups != GRAPH_ROUNDS:
+        raise AssertionError(f"{comp.captures} captures, {comp.warmups} "
+                             f"warm-ups and {comp.replays} replays in "
+                             f"{GRAPH_ROUNDS} rounds")
+    seen.update(graphed._step._variants)
+    return graphed, eager, {k: got[k] for k in want}, {
+        k: v.launches for k, v in seen.items()}
+
+
+def graph_timing(torch, gr, rt):
+    """Host us a round (a throughput window, counters only, after two
+    replay-scan rounds have run: every variant of a compiled round
+    captured), device us a round (the same rounds queued behind a spin
+    kernel: CUDA events), their busy share, and the host launch calls of
+    one round with its harvest (torch.profiler's host API records, the
+    sentinel's two left out)."""
+    rt.quiesce = False
+    rt.fetch_completions = False
+    rt.run(2 * rt.cfg.replay_scan_every)
+    wall, commits, _ = timed_window(torch, rt, MAIN_ROUNDS)
+    dev_s = gr.profiling.queued_s(lambda: rt.run(1), inner=10,
+                                  spin_cycles=1 << 26)
+    rt.fetch_completions = True
+    calls = gr.profiling._trace(rt.step_once)["launch_calls"]
+    host_us = wall / MAIN_ROUNDS * 1e6
+    dev_us = None if dev_s is None else dev_s * 1e6
+    return {"host_us_per_round": host_us, "device_us_per_round": dev_us,
+            "busy_share": None if dev_us is None else dev_us / host_us,
+            "host_launch_calls": sum(calls.values()) - 2,
+            "launch_calls": calls, "writes_per_s": commits / wall}
+
+
+def kvs_graph_pair(torch, gr, counters):
+    """Two KVSs at the KVS bench shape and depth 2, graphed and explicitly
+    eager, under one seeded op mix with a freeze, a thaw and a
+    ``set_live`` mid-run: every batch future's columns and the state
+    trees equal."""
+    cfg = gr.kvs_cfg(pipeline_depth=2)
+    np = gr.np
+    rng = np.random.default_rng(GRAPH_ROUNDS)
+    keys = rng.integers(0, cfg.n_keys, GRAPH_KVS_OPS)
+    is_get = rng.random(GRAPH_KVS_OPS) < 0.5
+    kinds = np.where(is_get, gr.KVS.GET, gr.KVS.PUT).astype(np.int32)
+    values = rng.integers(-2**31, 2**31, (GRAPH_KVS_OPS, cfg.value_words - 2),
+                          dtype=np.int64).astype(np.int32)
+    stores, batches = [], []
+    for graphed in (True, False):
+        kv = gr.KVS(cfg, device="cuda")
+        kv.rt._step.graph = graphed
+        stores.append(kv)
+        batches.append(kv.submit_batch(kinds, keys, values))
+    for s in range(GRAPH_ROUNDS):
+        for kv in stores:
+            _graph_hooks(kv.rt, s)
+            kv.rt.quiesce = False
+            kv.step()
+    for kv in stores:
+        kv.flush()
+    a, b = batches
+    for col in ("code", "value", "uid", "step", "tsv", "tsf"):
+        if not np.array_equal(getattr(a, col), getattr(b, col)):
+            raise AssertionError(f"graphed and eager KVS batches differ in "
+                                 f"{col}")
+    if not _same_leaves(torch, _state_leaves(gr, stores[0].rt),
+                        _state_leaves(gr, stores[1].rt)):
+        raise AssertionError("graphed and eager KVS states differ")
+    done = a.done_count()
+    if done == 0 or stores[0].rt._step.captures == 0:
+        raise AssertionError(f"the KVS drive completed {done} ops in "
+                             f"{stores[0].rt._step.captures} captures")
+    return {"ops_done": done, "rounds": stores[0].rt.step_idx,
+            "captures": stores[0].rt._step.captures,
+            "rebinds": stores[0].rt._step.rebinds}
+
+
+def phase_graph(torch, gr, counters, card):
+    """The compiled round against the eager round (``graph_pair``) for
+    bench-a, bench-a-mega, sharded and sharded-mega (``LocalGroup``) at
+    full width, then each one's host and device us a round, busy share
+    and host launch calls graphed and eager in this call
+    (``graph_timing``), then the KVS drive (``kvs_graph_pair``).  A
+    graphed bench-a round makes at most ``GRAPH_LAUNCH_CALLS_MAX`` host
+    launch calls.  Returns the graphed launches by engine."""
+    engines = (("bench-a", "batched", False), ("bench-a-mega", "batched",
+                                               True),
+               ("sharded", "sharded", False), ("sharded-mega", "sharded",
+                                               True))
+    out, launches = {}, {}
+    for name, backend, mega_round in engines:
+        cfg = gr.cfg(mega_round=mega_round)
+        if backend == "batched":
+            make = lambda: gr.FastRuntime(cfg, device="cuda")
+        else:
+            make = lambda: gr.FastRuntime(cfg, backend="sharded",
+                                          group=gr.LocalGroup("cuda"))
+        t0 = time.perf_counter()
+        copies = cfg.n_replicas if backend == "sharded" else 1
+        graphed, eager, got, variants = graph_pair(torch, gr, counters,
+                                                   make, copies)
+        launches[name] = got
+        if mega_round:
+            scan = [v for k, v in variants.items() if k[0]]
+            if not scan or not (scan[0].get("mega_apply")
+                                and scan[0].get("mega_replay") == copies):
+                raise AssertionError("no captured scan round holds both "
+                                     f"cooperative kernels: {variants}")
+        row = {"identical": True, "rounds": GRAPH_ROUNDS,
+               "captures": graphed._step.captures,
+               "replays": graphed._step.replays, "launches": got,
+               "variant_launches": {str(k): v for k, v in variants.items()},
+               "graphed": graph_timing(torch, gr, graphed),
+               "eager": graph_timing(torch, gr, eager),
+               "seconds": time.perf_counter() - t0}
+        out[name] = row
+        emit(dict({"phase": "graph", "engine": name, "card": card}, **row))
+        del graphed, eager
+        torch.cuda.empty_cache()
+    calls = out["bench-a"]["graphed"]["host_launch_calls"]
+    if calls > GRAPH_LAUNCH_CALLS_MAX:
+        raise AssertionError(f"a graphed bench-a round made {calls} host "
+                             f"launch calls, want <= "
+                             f"{GRAPH_LAUNCH_CALLS_MAX}")
+    t0 = time.perf_counter()
+    kv = kvs_graph_pair(torch, gr, counters)
+    emit(dict({"phase": "graph-kvs", "card": card, "identical": True,
+               "seconds": time.perf_counter() - t0}, **kv))
+    return launches
 
 
 def _bank_equal_but_steps(torch, sh, bank):
@@ -2582,7 +2800,8 @@ def phase_detect_cost(torch, ch, card):
         us[name].append(wall / ch.rounds * 1e6)
     busy = {}
     for name, rt in rts.items():
-        b = ch.device_busy(lambda rt=rt: rt.run(SHARDED_PROFILED))
+        b = ch.device_busy(torch, lambda rt=rt: rt.run(SHARDED_PROFILED),
+                           "detect-cost", (rt,))
         busy[name] = {"busy_share": b["busy_s"] / b["wall_s"],
                       "device_us_per_round":
                           b["busy_s"] / SHARDED_PROFILED * 1e6,
@@ -3465,7 +3684,8 @@ def phase_phases(torch, ph, card, n):
     with ph.sync_check():
         probe.run(PHASES_SYNC_ROUNDS)
     ph.sync()
-    busy = ph.device_busy(lambda: probe.run(PHASES_PROFILED))
+    busy = ph.device_busy(torch, lambda: probe.run(PHASES_PROFILED),
+                          f"phases-config{n}")
     del probe
     out = {"phase": f"phases-config{n}", "card": card,
            "replicas": cfg.n_replicas, "keys": cfg.n_keys,
@@ -3473,9 +3693,11 @@ def phase_phases(torch, ph, card, n):
            "rounds_to_drain": rounds, "recorded_drain_s": recorded_s,
            "timed_rounds": held[0],
            "host_us_per_round": host_s / held[0] * 1e6,
-           "device_us_per_round": busy["busy_s"] / PHASES_PROFILED * 1e6,
+           "device_us_per_round": _per(busy["busy_s"],
+                                       PHASES_PROFILED / 1e6),
            "cuda_kernels_per_round": busy["launches"] / PHASES_PROFILED,
-           "device_busy_share": busy["busy_s"] / busy["wall_s"],
+           "device_busy_share": _per(busy["busy_s"], busy["wall_s"]),
+           "busy_by": busy["busy_by"],
            "profiled_us_per_round": busy["wall_s"] / PHASES_PROFILED * 1e6,
            "top_device_us_per_round": [
                [name, us / PHASES_PROFILED, cnt / PHASES_PROFILED]
@@ -4151,20 +4373,18 @@ def phase_serve_columnar(torch, sv, counters, card):
 
 def trace_columnar(torch, sv, cfg):
     """A columnar soak of ``COLUMNAR_TRACED`` rounds of arrivals over a
-    fresh store, traced whole by ``torch.profiler`` (the store is built
-    before the trace): device us and CUDA kernels a round, and the
-    card's busy and idle shares of the traced wall time (the profiler's
-    own host cost included).  Raises if the trace holds no device time
-    or a request went unanswered."""
-    from hermes_tpu_torch.profiling import device_busy
-
+    fresh store (built before the timing), timed by the CUDA events its
+    compiled rounds record (``device_busy``): device us a round, and the
+    card's busy and idle shares of the wall time; then another soak
+    traced by torch.profiler for its kernels by name (a report).  Raises
+    if a request went unanswered."""
     store = sv.KVS(cfg, device=sv.device)
-    first = store.rt.step_idx
     got = []
-    prof = device_busy(lambda: got.append(columnar_drive(
-        torch, sv, store, n=COLUMNAR_TRACED * COLUMNAR_PER_ROUND)))
-    res = got[0][0]
-    rounds = store.rt.step_idx - first
+    prof = device_busy(torch, lambda: got.append(columnar_drive(
+        torch, sv, store, n=COLUMNAR_TRACED * COLUMNAR_PER_ROUND)),
+        "serve-columnar", (store.rt,))
+    res, _wall, lanes = got[0]
+    rounds = len(lanes)
     answered = sum(res["statuses"].values())
     if answered != res["ops_offered"]:
         raise AssertionError(f"serve-columnar traced: {res['statuses']}")
@@ -4466,36 +4686,82 @@ def gate_floors(summary):
     return out, ("; ".join(bad) or None)
 
 
-def phase_gates(torch, gt, card):
+#: gates with no timed bar: run by a runner of their own beside the
+#: phases engine (``start_gates``); the timed ones (obs-overhead's host
+#: bound, the fleet's scale-out, the serving floors) and durability (it
+#: holds the card's free memory across its killed child) run alone after
+GATES_BESIDE = ("pipeline", "chaos", "elastic", "netchaos", "heap")
+
+
+def start_gates(gt, gates):
+    """Start the port's runner on ``gates`` (``gt.device``, with
+    ``gt.runner_args``) as a process of its own, in a session of its own
+    (``stop_gates`` kills the group); returns its handle."""
+    import tempfile
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_gates_")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "hermes_tpu_torch.gates", "--device",
+         gt.device, "--only", ",".join(gates), "--out", out,
+         "--timeout", str(GATE_TIMEOUT_S), *gt.runner_args],
+        cwd=gt.root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True)
+    return SimpleNamespace(proc=proc, out=out, gates=tuple(gates),
+                           t0=time.perf_counter())
+
+
+def stop_gates(run) -> None:
+    """Kill a runner still running (the smoke failed before it ended)."""
+    import shutil
+
+    if run.proc.poll() is None:
+        os.killpg(run.proc.pid, 9)
+        run.proc.wait()
+    shutil.rmtree(run.out, ignore_errors=True)
+
+
+def _gates_summary(run):
+    """Wait for a runner; ``(its summary, exit code, seconds)``."""
+    try:
+        stdout, stderr = run.proc.communicate(
+            timeout=GATE_TIMEOUT_S * len(run.gates) + 60)
+    except subprocess.TimeoutExpired:
+        stop_gates(run)
+        raise
+    seconds = time.perf_counter() - run.t0
+    summary_path = os.path.join(run.out, "gates_summary.json")
+    if not os.path.exists(summary_path):
+        raise AssertionError(f"the gate runner exited {run.proc.returncode} "
+                             f"with no summary\n{stdout[-2000:]}"
+                             f"\n{stderr[-3000:]}")
+    with open(summary_path) as f:
+        return json.load(f), run.proc.returncode, seconds
+
+
+def phase_gates(torch, gt, card, beside=None):
     """The gates of ``gt.gates`` through the port's runner on
     ``gt.device`` (with ``gt.runner_args``: none on the card), each
     green, each launching ``stats_block`` (the heap gate also the mega
     kernels) when ``gt.device`` is the card, the tracked cells of the
     serving and fleet gates at their bars (``gate_floors``); then the
-    obs-overhead timing at ``gt.obs_shape``.  Returns the launches by
-    kernel, summed over the gates."""
-    import shutil
-    import tempfile
-
-    out = tempfile.mkdtemp(prefix="chip_smoke_gates_")
+    obs-overhead timing at ``gt.obs_shape``.  ``beside``: a runner
+    started earlier (``start_gates``) on some of the gates, which this
+    waits for; the others run now.  Returns the launches by kernel,
+    summed over the gates."""
+    runs = [] if beside is None else [beside]
+    runs.append(start_gates(gt, [g for g in gt.gates
+                                 if beside is None or g not in beside.gates]))
     try:
-        t0 = time.perf_counter()
-        p = subprocess.run(
-            [sys.executable, "-m", "hermes_tpu_torch.gates", "--device",
-             gt.device, "--only", ",".join(gt.gates), "--out", out,
-             "--timeout", str(GATE_TIMEOUT_S), *gt.runner_args],
-            cwd=gt.root, capture_output=True, text=True,
-            timeout=GATE_TIMEOUT_S * len(gt.gates) + 60)
-        seconds = time.perf_counter() - t0
-        summary_path = os.path.join(out, "gates_summary.json")
-        if not os.path.exists(summary_path):
-            raise AssertionError(f"the gate runner exited {p.returncode} "
-                                 f"with no summary\n{p.stdout[-2000:]}"
-                                 f"\n{p.stderr[-3000:]}")
-        with open(summary_path) as f:
-            summary = json.load(f)
+        results, cells, rcs, seconds = [], {}, [], {}
+        for run in runs:
+            summary, rc, secs = _gates_summary(run)
+            results += summary["results"]
+            cells.update(summary["gates"])
+            rcs.append(rc)
+            seconds[",".join(run.gates)] = secs
+        summary = dict(results=results, gates=cells)
         gates, total = {}, {}
-        for r in summary["results"]:
+        for r in results:
             rep = r.get("report", {})
             launches = rep.get("launches", {})
             gates[r["gate"]] = {"ok": r["ok"], "seconds": r["seconds"],
@@ -4507,14 +4773,16 @@ def phase_gates(torch, gt, card):
         emit({"phase": "gates", "nvidia_smi": card, "seconds": seconds,
               "gates": gates, "floors": floors})
         bad = [g for g, r in gates.items() if not r["ok"]]
-        if bad or p.returncode != 0:
+        if bad or any(rcs):
             tails = {r["gate"]: (r.get("report", {}).get("error")
                                  or r.get("stderr_tail", "")[-1500:])
-                     for r in summary["results"] if not r["ok"]}
-            raise AssertionError(f"gates {bad} failed (runner exit "
-                                 f"{p.returncode}): {tails}")
-        if [r["gate"] for r in summary["results"]] != list(gt.gates):
-            raise AssertionError(f"the runner ran {list(gates)}, want "
+                     for r in results if not r["ok"]}
+            raise AssertionError(f"gates {bad} failed (runner exits "
+                                 f"{rcs}): {tails}")
+        want = [g for run in runs for g in run.gates]
+        if [r["gate"] for r in results] != want or sorted(want) != sorted(
+                gt.gates):
+            raise AssertionError(f"the runners ran {list(gates)}, want "
                                  f"{list(gt.gates)}")
         if missed:
             raise AssertionError(f"gate cells under their bars: {missed}")
@@ -4526,7 +4794,7 @@ def phase_gates(torch, gt, card):
                 idle = [k for k in need if not r["launches"].get(k)]
                 if idle:
                     raise AssertionError(f"gate {g} launched no {idle}")
-        bench = os.path.join(out, "obs_overhead_bench.json")
+        bench = os.path.join(runs[-1].out, "obs_overhead_bench.json")
         t0 = time.perf_counter()
         p = subprocess.run(
             [sys.executable, "-m", "hermes_tpu_torch.checks.obs_overhead",
@@ -4554,7 +4822,8 @@ def phase_gates(torch, gt, card):
               "seconds": time.perf_counter() - t0})
         return total
     finally:
-        shutil.rmtree(out, ignore_errors=True)
+        for run in runs:
+            stop_gates(run)
 
 
 def _finding_keys(reports):
@@ -5002,7 +5271,6 @@ def main(argv=None):
         from hermes_tpu_torch.kvs import KVS
         from hermes_tpu_torch.runtime import FastRuntime
         from hermes_tpu_torch.core.group import LocalGroup
-        from hermes_tpu_torch.profiling import device_busy
         from hermes_tpu_torch import snapshot
         from hermes_tpu_torch.chaos import recover_store, restart_replica
         from hermes_tpu_torch.obs import (Observability,
@@ -5019,6 +5287,7 @@ def main(argv=None):
               f"({e})", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    beside = None  # the runner of the gates run beside the phases engine
     try:
         if ns.census_each is not None:
             census_after_each_phase(torch, ns.census_each)
@@ -5113,6 +5382,18 @@ def main(argv=None):
                 row["max_abs_err"] = max(row["max_abs_err"],
                                          site["max_abs_err"])
         phase_checked_sharded(torch, counters, sh, types)
+        from hermes_tpu_torch.core import graphs
+        from hermes_tpu_torch import profiling
+
+        gr = SimpleNamespace(
+            cfg=sh.cfg, FastRuntime=FastRuntime, LocalGroup=LocalGroup,
+            KVS=KVS, kvs_cfg=lambda **over: _kvs_cfg(config, **over),
+            graphs=graphs, profiling=profiling, np=np, fst=fst)
+        graphed = phase_graph(torch, gr, counters, card)
+        for name, row in rows.items():
+            if name in counters:
+                row["graph_launches"] = graphed[
+                    "bench-a-mega"].get(name, 0)
         phase_kvs(torch, kernels, config, KVS)
         phase_reads(torch, np, kernels, types, config, KVS, lin, card, sh)
         phase_values(torch, np, kernels, types, config, KVS, layouts, ycsb,
@@ -5196,6 +5477,11 @@ def main(argv=None):
             FaultingTransport=FaultingTransport, SimTransport=SimTransport,
             chaos=chaos_lib, MembershipService=MembershipService,
             combine_and_check=combine_and_check)
+        # the gates without a timed bar run beside the phases engine (a
+        # host-bound eager round, no timed verdict) in a runner of their own
+        gt = SimpleNamespace(device="cuda", root=HERE, gates=GATES_PORTED,
+                             obs_shape="bench", runner_args=())
+        beside = start_gates(gt, GATES_BESIDE)
         engine = run_phases_engine(torch, ph, counters, card)
         for name, row in rows.items():
             if name in counters:
@@ -5251,9 +5537,7 @@ def main(argv=None):
         # kernels phase, the gates' processes left this process's
         # profiler keeping 7 records of 20 launches (PERF.md section 6)
         torch.cuda.empty_cache()
-        gt = SimpleNamespace(device="cuda", root=HERE, gates=GATES_PORTED,
-                             obs_shape="bench", runner_args=())
-        sliced["gates_launches"] = phase_gates(torch, gt, card)
+        sliced["gates_launches"] = phase_gates(torch, gt, card, beside)
         for name, row in rows.items():
             for tag, got in sliced.items():
                 if name in got:
@@ -5261,6 +5545,8 @@ def main(argv=None):
         emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     except Exception:
         traceback.print_exc()
+        if beside is not None:
+            stop_gates(beside)
         return 1
     emit({"kernels": list(rows.values())})
     print(card, flush=True)

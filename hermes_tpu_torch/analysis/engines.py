@@ -104,6 +104,8 @@ def trace_program(cfg: HermesConfig, engine: str = "batched",
             args = (fst.init_fast_state(cfg, dev), fst.prep_stream(raw, dev),
                     ctl)
 
+            # the round function itself, not a compiled round: FX traces
+            # the ops it dispatches
             def fn(fs, stream, ctl):
                 return fst.fast_round_batched(cfg, ctl, fs, stream)
 

@@ -13,7 +13,9 @@ harvest ring must be invisible to what the store computes.
      selects nothing and the CLI refuses ``--no-donate``), so what
      donation protected (no copy of the table a round) is checked
      directly: ``data_ptr()`` of ``fs.table.vpts`` and of the bank are
-     unchanged across ``step_once()``.  The analysis half stands as it
+     unchanged across ``step_once()``, and the compiled round
+     (``core/graphs.py``) copied neither back: the round function
+     returned the table it was given.  The analysis half stands as it
      is: ``analysis.analyze_config(HermesConfig(), engines=("batched",),
      variants="as-is")`` gives no gating finding, and
      ``analysis/analysis_baseline.json`` grandfathers nothing;
@@ -89,8 +91,10 @@ def check_in_place_and_analysis(report: dict, device="cuda") -> None:
     before = (rt.fs.table.vpts.data_ptr(), rt.fs.table.bank.data_ptr())
     rt.step_once()
     after = (rt.fs.table.vpts.data_ptr(), rt.fs.table.bank.data_ptr())
-    assert before == after, (
-        f"the round moved the table (vpts, bank) from {before} to {after}: "
+    copied = [i for i in rt._step.copied_back if i < len(rt.fs.table)]
+    assert before == after and not copied, (
+        f"the round moved the table (vpts, bank) from {before} to {after}"
+        f" or returned new table leaves {copied}, copied back each round: "
         "it must write the table in place")
     report["table_in_place"] = True
 

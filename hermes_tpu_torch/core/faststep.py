@@ -25,9 +25,11 @@ tests/test_torch_faststep.py, round by round, bit for bit):
 
 * **In-place table.**  JAX donates the state tree to the compiled round;
   here the two table arrays (``vpts``, ``bank``) are updated in place by
-  their scatters.  Session, replay and Meta leaves are rebuilt each round
-  (never mutated), so a round's Completions — which alias session
-  tensors — stay valid while later rounds run.
+  their scatters.  Session, replay and Meta leaves are rebuilt by the
+  round function; the compiled round (``core/graphs.py``) copies them
+  back into the state it was given, so a compiled round's state is the
+  same tensors round after round, and its Completions sit in a ring of
+  their own.
 * **Dropped scatters.**  The reference sends masked rows to an
   out-of-range index with ``mode="drop"``; torch index ops raise on that.
   The table therefore carries ONE extra trailing row, the drop row (row
@@ -59,9 +61,12 @@ kernels of ``core/megaround.py`` at the reference's three sites —
 K-row view), ``mega_route`` for the fused sort's route-back scatter,
 ``mega_apply`` for the arbiter scatter-max and the verdict gather of
 ``_derived_acks`` (sharded: ``_apply_inv``'s, one launch over the flat
-table of every copy).  ``jax.jit`` has no counterpart —
-the round runs eagerly — and ``lax.scan`` in ``build_fast_scan`` is a
-Python loop.
+table of every copy).  ``jax.jit`` is a CUDA graph here:
+``build_fast_batched``, ``build_fast_sharded`` (on a ``LocalGroup``) and
+``build_fast_scan`` return rounds compiled by ``core/graphs.py``, captured
+once a variant and replayed on the card (called eagerly on the CPU, with
+the same bound state); a ``build_fast_scan`` chunk of rounds is one graph,
+the counterpart of ``lax.scan``.
 """
 
 from __future__ import annotations
@@ -72,7 +77,7 @@ import numpy as np
 import torch
 
 from hermes_tpu_torch.config import HermesConfig
-from hermes_tpu_torch.core import kernels, layouts, megaround
+from hermes_tpu_torch.core import graphs, kernels, layouts, megaround
 from hermes_tpu_torch.core import state as st
 from hermes_tpu_torch.core import types as t
 from hermes_tpu_torch.workload import ycsb
@@ -1239,8 +1244,37 @@ def prep_stream(stream, device) -> st.OpStream:
     return st.OpStream(op=as_i32(stream.op), key=as_i32(stream.key), uval=uval)
 
 
+def copy_stream(dst: st.OpStream, src) -> bool:
+    """Write ``src`` (numpy or tensor leaves, as ``prep_stream`` takes)
+    into the placed stream ``dst`` in place: the tensors a compiled round
+    bound stay its inputs.  False, and nothing written, when a shape or
+    the payload's presence differs (place a new stream then)."""
+    uval = getattr(src, "uval", None)
+    if (tuple(dst.op.shape) != tuple(np.shape(src.op))
+            or tuple(dst.key.shape) != tuple(np.shape(src.key))
+            or (uval is None) != (dst.uval is None)
+            or (uval is not None
+                and tuple(dst.uval.shape) != tuple(np.shape(uval))[:-1]
+                + (4 * np.shape(uval)[-1],))):
+        return False
+
+    def host(a):
+        return (a if isinstance(a, torch.Tensor)
+                else torch.from_numpy(np.ascontiguousarray(a, np.int32)))
+
+    dst.op.copy_(host(src.op))
+    dst.key.copy_(host(src.key))
+    if uval is not None:
+        dst.uval.copy_(_i32_to_bank(host(uval).to(dst.uval.device, I32)))
+    return True
+
+
 def make_fast_ctl(cfg: HermesConfig, step: int, device,
                   quiesce: bool = False) -> FastCtl:
+    """Round ``step``'s FastCtl with every replica live and unfrozen.  A
+    caller that keeps feeding one compiled round passes the same ctl
+    again, its step advanced by the round itself (``ctl.step.fill_``
+    re-seeds it) and ``host_step`` set with ``_replace``."""
     r = cfg.n_replicas
     return FastCtl(
         step=torch.tensor(step, dtype=I32, device=device),
@@ -1253,12 +1287,6 @@ def make_fast_ctl(cfg: HermesConfig, step: int, device,
     )
 
 
-def bump_step(step):
-    """Device-side round-counter increment: the runtime's step never
-    rides a host upload in the steady state."""
-    return step + 1
-
-
 def pending_sessions(status, live_mask, frozen):
     """Sessions not yet S_DONE on live, unfrozen replicas, as a 0-dim
     device tensor (the drain poll reads one scalar)."""
@@ -1268,21 +1296,29 @@ def pending_sessions(status, live_mask, frozen):
     return torch.where(active[:, None], undone, 0).sum(dtype=I32)
 
 
-def build_fast_batched(cfg: HermesConfig):
-    """The round as a function ``(fs, stream, ctl) -> (fs, comp)``; the
-    table of ``fs`` is updated in place."""
+def build_fast_batched(cfg: HermesConfig, ring: int = 2):
+    """The round as a compiled function ``(fs, stream, ctl) -> (fs,
+    comp)`` (``graphs.Compiled``: a CUDA graph a variant on the card, the
+    reference's ``jax.jit``); ``fs`` is the bound state, updated in place,
+    ``comp`` the completions in the next of ``ring`` slots."""
 
     def step(fs, stream, ctl):
         return fast_round_batched(cfg, ctl, fs, stream)
 
-    return step
+    return graphs.Compiled(step, cfg.replay_scan_every, ring=ring,
+                           name="fast_round_batched")
 
 
-def build_fast_sharded(cfg: HermesConfig, group):
-    """The sharded round over ``group``'s local replicas as a function
-    ``(fs, stream, ctl) -> (fs, comp)`` (the reference's
+def build_fast_sharded(cfg: HermesConfig, group, ring: int = 2):
+    """The sharded round over ``group``'s local replicas as a compiled
+    function ``(fs, stream, ctl) -> (fs, comp)`` (the reference's
     ``build_fast_sharded`` at ``rounds=1``; shard_map has no counterpart:
-    the round runs over the leading local-replica axis)."""
+    the round runs over the leading local-replica axis).  On a
+    ``LocalGroup`` it is a CUDA graph a variant on the card; a
+    ``DistGroup``'s collectives leave the device, so its round is called
+    eagerly, with the same bound state and ring."""
+    from hermes_tpu_torch.core.group import LocalGroup
+
     if cfg.n_replicas % group.world:
         raise ValueError(f"{cfg.n_replicas} replicas do not split over the "
                          f"group's {group.world} ranks")
@@ -1290,7 +1326,9 @@ def build_fast_sharded(cfg: HermesConfig, group):
     def step(fs, stream, ctl):
         return fast_round_sharded(cfg, ctl, fs, stream, group)
 
-    return step
+    return graphs.Compiled(step, cfg.replay_scan_every, ring=ring,
+                           graph=isinstance(group, LocalGroup),
+                           name="fast_round_sharded")
 
 
 def place_fast_sharded(cfg: HermesConfig, group, stream):
@@ -1305,8 +1343,11 @@ def place_fast_sharded(cfg: HermesConfig, group, stream):
 
 
 def build_fast_scan(cfg: HermesConfig, rounds: int):
-    """``rounds`` rounds per call, completions dropped (the throughput
-    loop); the reference's ``lax.scan`` is a Python loop here."""
+    """``rounds`` rounds a call, completions dropped (the throughput
+    loop): the reference's ``lax.scan`` under one ``jax.jit``, here one
+    compiled chunk (one CUDA graph a pattern of scan rounds at its
+    offsets).  Returns the bound state; the chunk adds ``rounds`` to the
+    step it bound."""
 
     def chunk(fs, stream, ctl):
         for off in range(rounds):
@@ -1315,7 +1356,8 @@ def build_fast_scan(cfg: HermesConfig, rounds: int):
                                   host_step=ctl.host_step + off), fs, stream)
         return fs
 
-    return chunk
+    return graphs.Compiled(chunk, cfg.replay_scan_every, rounds=rounds,
+                           comps=False, name="fast_scan")
 
 
 # --------------------------------------------------------------------------

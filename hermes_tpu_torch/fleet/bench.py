@@ -75,12 +75,14 @@ def run_fleet_cells(fcfg, rounds: int = 20, chunks: int = 2,
         dev = devs[g % len(devs)]
         fs, stream, chunk = _chunks(cfg, rounds, dev)
         states.append(dict(g=g, cfg=cfg, dev=dev, fs=fs, stream=stream,
-                           chunk=chunk))
+                           chunk=chunk, ctl=fst.make_fast_ctl(cfg, 0, dev)))
 
     def dispatch(st, c):
+        # one ctl a group: its compiled chunk bound the step and advances
+        # it, so the step is only re-seeded in place
+        st["ctl"].step.fill_(c * rounds)
         st["fs"] = st["chunk"](st["fs"], st["stream"],
-                               fst.make_fast_ctl(st["cfg"], c * rounds,
-                                                 st["dev"]))
+                               st["ctl"]._replace(host_step=c * rounds))
 
     for st in states:  # warm every group (first build, first chunk)
         for c in range(warmup_chunks):

@@ -97,7 +97,7 @@ from hermes_tpu_torch.core import state as st
 from hermes_tpu_torch.core import types as t
 from hermes_tpu_torch.heap import HeapFull, ValueHeap
 from hermes_tpu_torch.keyindex import KeyIndex
-from hermes_tpu_torch.runtime import FastRuntime
+from hermes_tpu_torch.runtime import FastRuntime, host_copies
 
 # client-level completion code for ops LOST to a replica crash
 # (chaos.recovery.restart_replica) or a retry with nowhere to go: the
@@ -838,12 +838,14 @@ class KVS:
         self._ready |= waiting
 
     def _sync_stream(self) -> None:
-        """Push the staged host op arrays to the device-side stream."""
+        """Push the staged host op arrays to the device-side stream: into
+        the stream the compiled round bound, in place (a new stream only
+        when a shape changed)."""
         if not self._dirty:
             return
-        self.rt.stream = fst.prep_stream(
-            st.OpStream(op=self._op, key=self._key, uval=self._uval),
-            self.rt.device)
+        staged = st.OpStream(op=self._op, key=self._key, uval=self._uval)
+        if not fst.copy_stream(self.rt.stream, staged):
+            self.rt.stream = fst.prep_stream(staged, self.rt.device)
         self._dirty = False
 
     def _done_mask(self, code: np.ndarray, ckey: np.ndarray) -> np.ndarray:
@@ -1142,7 +1144,8 @@ class KVS:
         self._inject_ready()
         if self._bat:
             self._inject_batches()
-        code, ckey = comp.code.cpu().numpy(), comp.key.cpu().numpy()
+        # copies (on the CPU too): the ring slot is written again later
+        code, ckey = (x.numpy() for x in host_copies([comp.code, comp.key]))
         done_mask = self._done_mask(code, ckey)
         self._retire(done_mask)
         self._pending = (k, comp, done_mask, code)

@@ -19,9 +19,10 @@ program holds the scan) and counts what it dispatches:
   CPU, the CUDA kernel on the card.  So the aten census is the same on
   both devices (the counterpart of the reference's
   ``pallas_ledger_of_jaxpr``);
-* on the card also ``kernel_total``: the CUDA kernels one round
-  launches, from ``torch.profiler`` (two agreeing traces,
-  ``profiling.device_launches``).
+* on the card also ``kernel_total``: the device operations one round
+  enqueues, counted off a CUDA graph the round is captured into
+  (``profiling.graph_ops``; the census's round itself runs eagerly, on
+  purpose: its ops are what is counted).
 
 The census leaves no trace: it builds its own state and puts back the
 wrappers' ``launches`` counters.  The reference's kernel-interior fields
@@ -205,6 +206,8 @@ def _round_args(cfg, backend: str, dev, group=None):
 
 
 def _run_round(cfg, backend, fs, stream, ctl, group):
+    """The round function itself, eagerly (not a compiled round's graph
+    replay): the census counts the ops it dispatches."""
     from hermes_tpu_torch.core import faststep as fst
 
     if backend == "batched":
@@ -233,14 +236,16 @@ def op_census(cfg, backend: str = "batched", device="cuda",
 
 
 def kernel_total(cfg, backend: str, dev, group=None) -> int:
-    """The CUDA kernels one round launches on the card (a fresh state a
-    trace, built outside it), the launch counters put back."""
-    from hermes_tpu_torch.profiling import device_launches
+    """The device operations (kernels, copies, fills) one round 0 of a
+    fresh state enqueues on the card, the round run eagerly once and then
+    captured into a CUDA graph whose nodes are counted
+    (``profiling.graph_ops``: nothing is lost, as a profiler trace can
+    lose records); the launch counters put back."""
+    from hermes_tpu_torch.profiling import graph_ops
 
     with _launches_kept():
-        return device_launches(
-            lambda: _round_args(cfg, backend, dev, group),
-            lambda a: _run_round(cfg, backend, *a))
+        args = _round_args(cfg, backend, dev, group)
+        return graph_ops(lambda: _run_round(cfg, backend, *args))["total"]
 
 
 # --------------------------------------------------------------------------
@@ -367,8 +372,8 @@ def check_card(census_by_engine: dict, card: dict) -> list:
     """The card section's rule: each engine's ``kernel_total`` must EQUAL
     the recorded count, since one round on a fresh state launches the same
     kernels every time; a count above it is a launch that crept onto the
-    round, one below it a lost profiler record or a state left behind by
-    earlier work that changes what a round launches.  Returns the
+    round, one below it a state left behind by earlier work that changes
+    what a round launches.  Returns the
     failures (``check_budget``'s, and every count below its record)."""
     failures = check_budget(census_by_engine, card)
     for engine, limits in sorted(card.items()):

@@ -1,6 +1,10 @@
-"""Device time on the card from ``torch.profiler``: the busy time of a run
-(the round's device metric) and the device time of one call (the kernels'
-and the probe's).
+"""Device time and device operations on the card.  What no lost record
+can change: ``graph_ops`` (the device operations of a call, the nodes of
+a CUDA graph it is captured into) and ``queued_s`` (the device time of
+calls queued behind a spin kernel, from CUDA events).  From
+``torch.profiler``, which loses records in episodes: ``_trace`` (kernels
+by name, host launch calls) and ``device_split`` / ``device_per_call``
+(``launch_floor.py``).
 
     python -m hermes_tpu_torch.profiling [--traces 250] [--calls 80]
 
@@ -22,11 +26,19 @@ import torch
 SENTINEL = "spin_kernel"
 
 
+#: the host API calls that enqueue device work, as ``launch_calls``
+#: counts them: kernel launches, graph launches, copies and fills
+HOST_LAUNCH_APIS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
+                    "cuGraphLaunch", "cudaMemcpy", "cuMemcpy", "cudaMemset",
+                    "cuMemset")
+
+
 def _trace(run):
     """Device busy time (sum of CUDA kernel time), kernel count, wall time,
     the top kernels of ``run()``, every kernel's count by name
-    (``names``), the host's launch calls by API (``launch_calls``, the
-    sentinel's two among them) and the top host operators by the device
+    (``names``), the host's launch calls by API (``launch_calls``:
+    ``HOST_LAUNCH_APIS``, the sentinel's two among them) and the top host
+    operators by the device
     time of the kernels each launched itself (``top_ops``: which PyTorch
     call a kernel name stands for), from torch.profiler."""
     from torch.autograd import DeviceType
@@ -55,20 +67,12 @@ def _trace(run):
                 "_sleep" not in e.key):
             ops.append((us, e.count, e.key[:60]))
         if e.device_type == DeviceType.CPU and e.key.startswith(
-                ("cudaLaunch", "cuLaunch")):
+                HOST_LAUNCH_APIS):
             api[e.key] = api.get(e.key, 0) + e.count
     top.sort(reverse=True)
     ops.sort(reverse=True)
     return dict(wall_s=wall, busy_s=busy_us / 1e6, launches=n, top=top[:8],
                 top_ops=ops[:8], names=names, launch_calls=api)
-
-
-def device_busy(run):
-    """``_trace(run)``; raises when the trace shows no device time."""
-    out = _trace(run)
-    if out["busy_s"] <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return out
 
 
 # torch.profiler on an H100 loses device records in episodes: for some
@@ -133,27 +137,89 @@ def device_split(call, n=20):
                        f"{out['launches']} launches and {out['busy_s']} s")
 
 
-def device_launches(prepare, run):
-    """The CUDA kernels ``run(prepare())`` launches, with ``prepare()``
-    outside the trace (a fresh input a trace): traced until two
-    consecutive traces agree (at most ``_TRACES``), refusing a trace with
-    no device time as ``device_split`` does.  Raises if none agree."""
-    last, pause = None, _PAUSE_S
-    for _ in range(_TRACES):
-        args = prepare()
-        out = _trace(lambda: run(args))
-        if out["busy_s"] <= 0:
-            print(f"profiling: refused a trace of {out['launches']} launches "
-                  "and no device time", file=sys.stderr, flush=True)
-            last = None
-            time.sleep(pause)
-            pause = min(2 * pause, _PAUSE_MAX_S)
-        elif out["launches"] == last:
-            return last
-        else:
-            last = out["launches"]
-    raise RuntimeError(f"torch.profiler gave no two agreeing traces in "
-                       f"{_TRACES}: the last held {out['launches']} launches")
+#: the CUDA driver's graph node types (``CUgraphNodeType``)
+NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph",
+              5: "empty", 6: "wait_event", 7: "event_record",
+              8: "ext_semas_signal", 9: "ext_semas_wait", 10: "mem_alloc",
+              11: "mem_free", 12: "batch_mem_op", 13: "conditional"}
+
+
+def graph_ops(call) -> dict:
+    """The device operations one ``call()`` enqueues, by kind
+    (``NODE_KINDS``; ``total`` their sum): ``call`` is run once on a
+    stream of its own (its first-use state), then captured into a CUDA
+    graph on that stream, which runs nothing, and the graph's nodes are
+    counted through the driver.  Nothing is lost, as a profiler trace can
+    lose records.  Raises if the call cannot be captured (it syncs, or
+    copies from pageable host memory)."""
+    import ctypes
+
+    import gc
+
+    from hermes_tpu_torch.core import graphs
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+        # no garbage collection frees device memory inside the capture
+        # (core/graphs.py)
+        graphs.make_room(torch.cuda.current_device())
+        collecting = gc.isenabled()
+        gc.disable()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            call()
+        finally:
+            graph.capture_end()
+            if collecting:
+                gc.enable()
+    torch.cuda.current_stream().wait_stream(side)
+    drv = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if drv.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * max(n.value, 1))()
+    if drv.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    out = {}
+    for i in range(n.value):
+        kind = ctypes.c_int(-1)
+        if drv.cuGraphNodeGetType(ctypes.c_void_p(nodes[i]),
+                                  ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        name = NODE_KINDS.get(kind.value, f"type{kind.value}")
+        out[name] = out.get(name, 0) + 1
+    out["total"] = n.value
+    return out
+
+
+def queued_s(call, inner=20, spin_cycles=1 << 24, tries=4):
+    """Device seconds a call with the host out of the way: ``inner``
+    calls enqueued behind a spin kernel that outlasts their enqueueing,
+    so they run back to back on the device between two CUDA events
+    (nothing is lost, as a profiler trace can lose records).  None if the
+    spin ended before the last call was enqueued, ``tries`` times over at
+    a spin four times longer each time: a call that waits on the device
+    cannot be queued."""
+    call()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin_cycles)
+        a.record()
+        for _ in range(inner):
+            call()
+        b.record()
+        hidden = not a.query()
+        b.synchronize()
+        if hidden:
+            return a.elapsed_time(b) / inner / 1e3
+        spin_cycles *= 4
+    return None
 
 
 def device_per_call(call, n=20):

@@ -12,12 +12,20 @@ Port of ``hermes_tpu/runtime.py:FastRuntime``, both backends:
   ``torch.distributed`` group, whose rows of the state this runtime then
   holds (``n_copies`` of them; recording is single-process only).
 
-The round counter lives on the device and is bumped there, so the
-steady-state round uploads no control data.  Membership rows are
-uploaded only when a freeze/thaw/remove/join dirties them; on the
-sharded backend they are the local replicas' rows.
+The round is compiled (``core/graphs.py``, the reference's ``jax.jit``):
+its first call binds the runtime's state, op stream, control rows and
+round counter, and on the card each later round is one CUDA graph replay
+that also advances the counter on the device, so the steady-state round
+uploads no control data.  Membership rows are copied into the bound
+control rows (through a pinned staging buffer on the card) only when a
+freeze/thaw/remove/join dirties them; on the sharded backend they are
+the local replicas' rows.  Whatever replaces ``rt.fs`` or ``rt.stream``
+with tensors of the same shapes is copied in at the next round; a new
+shape drops the graphs and the next round captures again.
 
-Completions of a round are device tensors until harvested.  At
+Completions of a round sit in the compiled round's ring of
+``max(pipeline_depth, 1) + 1`` slots until harvested (a harvest of a
+slot a later round overwrote raises).  At
 ``cfg.pipeline_depth >= 2`` a dispatched round's completions start an
 asynchronous copy to pinned host memory right after the round is
 enqueued, and the harvest later waits only for that copy — so the host's
@@ -97,18 +105,37 @@ def _subs(comp):
     return comp if _is_multi(comp) else (comp,)
 
 
+def host_copies(xs, non_blocking: bool = False) -> list:
+    """Host copies of tensors ``xs``: ONE copy of the buffer they all view
+    when they cover most of it (a compiled round's ring slot), else one
+    each; a CPU tensor is copied too (a ring slot is written again)."""
+    base = xs[0]._base
+    if (base is not None and all(x._base is base for x in xs)
+            and 2 * sum(x.numel() for x in xs) >= base.numel()):
+        hb = (base.clone() if base.device.type == "cpu"
+              else base.to("cpu", non_blocking=non_blocking))
+        off = base.storage_offset()
+        return [hb.as_strided(x.shape, x.stride(), x.storage_offset() - off)
+                for x in xs]
+    return [x.clone() if x.device.type == "cpu"
+            else x.to("cpu", non_blocking=non_blocking) for x in xs]
+
+
 class _HostFetch:
     """An in-flight device->host copy of one round's completions (and,
-    with a detector attached, its suspect-age columns): the copies are
-    enqueued (pinned, non-blocking) right behind the round under one
-    event, and ``wait`` blocks only until they land."""
+    with a detector attached, its suspect-age columns): one copy of the
+    ring slot they sit in, enqueued (pinned, non-blocking) right behind
+    the round under one event; ``wait`` blocks only until it lands."""
 
     def __init__(self, comp, ages=None):
-        self._comp = tuple(type(c)(*(x.to("cpu", non_blocking=True)
-                                     for x in c)) for c in _subs(comp))
+        subs = _subs(comp)
+        leaves = [x for c in subs for x in c]
+        host = host_copies(leaves + ([] if ages is None else [ages]),
+                            non_blocking=True)
+        it = iter(host)
+        self._comp = tuple(type(c)(*(next(it) for _ in c)) for c in subs)
         self._multi = _is_multi(comp)
-        self._ages = (None if ages is None
-                      else ages.to("cpu", non_blocking=True))
+        self._ages = None if ages is None else next(it)
         self._event = torch.cuda.Event()
         self._event.record()
         self._landed = False
@@ -132,14 +159,16 @@ def _ages_to_host(handle) -> np.ndarray:
     """One ring entry's suspect-age columns as numpy."""
     if isinstance(handle, _HostFetch):
         return handle.ages()
-    return handle.cpu().numpy()
+    return host_copies([handle])[0].numpy()
 
 
 def _to_host(comp):
-    """Completions (or a tuple of them) as numpy leaves."""
+    """Completions (or a tuple of them) as numpy leaves (copies)."""
     if isinstance(comp, _HostFetch):
         return comp.wait()
-    out = tuple(type(c)(*(x.cpu().numpy() for x in c)) for c in _subs(comp))
+    subs = _subs(comp)
+    it = iter(host_copies([x for c in subs for x in c]))
+    out = tuple(type(c)(*(next(it).numpy() for _ in c)) for c in subs)
     return out if _is_multi(comp) else out[0]
 
 
@@ -580,13 +609,15 @@ class FastRuntime(_ObsHooks, _ElasticResize):
             raw = ycsb.stub_stream(cfg)
         else:
             raw = stream if stream is not None else ycsb.make_streams(cfg)
+        # the compiled round; its ring outlives every unharvested round
+        ring = max(cfg.pipeline_depth, 1) + 1
         if group is None:
             self.fs = fst.init_fast_state(cfg, self.device)
             self.stream = fst.prep_stream(raw, self.device)
-            self._step = fst.build_fast_batched(cfg)
+            self._step = fst.build_fast_batched(cfg, ring=ring)
         else:
             self.fs, self.stream = fst.place_fast_sharded(cfg, group, raw)
-            self._step = fst.build_fast_sharded(cfg, group)
+            self._step = fst.build_fast_sharded(cfg, group, ring=ring)
 
         self.step_idx = 0  # also seeds the device-resident round counter
         self.epoch = np.zeros((r,), np.int32)
@@ -594,6 +625,9 @@ class FastRuntime(_ObsHooks, _ElasticResize):
         self.frozen = np.zeros((r,), bool)
         self._ctl_dev = None
         self._ctl_dirty = True
+        self._ctl_rows = None  # the bound (epoch, live, frozen) rows
+        self._ctl_stage = None  # their pinned staging rows (the card)
+        self._ctl_event = None  # the last upload out of them
         # in-flight completions of dispatched-but-unharvested rounds, FIFO
         self._ring: collections.deque = collections.deque()
         # a client layer that defers its own completion handling (kvs.KVS)
@@ -644,34 +678,62 @@ class FastRuntime(_ObsHooks, _ElasticResize):
 
     @step_idx.setter
     def step_idx(self, v: int) -> None:
-        # external assignment re-seeds the device counter; the per-round
-        # increment bypasses this (dispatch_round)
+        # external assignment re-seeds the device counter in place (the
+        # compiled round bound it); the per-round increment is the
+        # round's own (dispatch_round)
         self._step_idx = int(v)
-        self._step_dev = torch.tensor(self._step_idx, dtype=torch.int32,
-                                      device=self.device)
+        dev_step = getattr(self, "_step_dev", None)
+        if dev_step is None:
+            self._step_dev = torch.tensor(self._step_idx, dtype=torch.int32,
+                                          device=self.device)
+        else:
+            dev_step.fill_(self._step_idx)
 
     def _ctl(self) -> fst.FastCtl:
-        """Per-round FastCtl: the membership rows are re-uploaded only when
-        a hook dirtied them; the step rides the device-side increment and
-        its host mirror gates the replay scan."""
+        """Per-round FastCtl over the same device rows every round: the
+        membership rows are copied in only when a hook dirtied them; the
+        step rides the round's own increment and its host mirror gates
+        the replay scan."""
         if self._ctl_dirty:
-            # the local replicas' rows (all R but on a DistGroup rank)
-            dev, rows = self.device, self._rows
-            self._ctl_dev = fst.FastCtl(
-                step=self._step_dev,
-                host_step=self._step_idx,
-                my_cid=torch.arange(rows.start, rows.stop, dtype=torch.int32,
-                                    device=dev),
-                epoch=torch.as_tensor(self.epoch[rows]).to(dev),
-                live_mask=torch.as_tensor(self.live[rows]).to(dev),
-                frozen=torch.as_tensor(self.frozen[rows]).to(dev),
-            )
+            self._upload_ctl()
             self._ctl_dirty = False
             self._trace("ctl_upload", epoch=int(self.epoch[0]),
                         live_mask=int(self.live[0]))
         return self._ctl_dev._replace(step=self._step_dev,
                                       host_step=self._step_idx,
                                       quiesce=self.quiesce)
+
+    def _upload_ctl(self) -> None:
+        """Copy the local replicas' (epoch, live, frozen) rows into the
+        device rows the compiled round bound: on the card through a
+        pinned staging buffer, the previous upload waited for first."""
+        dev, rows = self.device, self._rows
+        host = np.stack([self.epoch[rows], self.live[rows],
+                         self.frozen[rows].astype(np.int32)])
+        n = host.shape[1]
+        if self._ctl_dev is None or self._ctl_dev.frozen.shape[0] != n:
+            dev_rows = torch.empty((3, n), dtype=torch.int32, device=dev)
+            self._ctl_dev = fst.FastCtl(
+                step=self._step_dev, host_step=self._step_idx,
+                my_cid=torch.arange(rows.start, rows.stop, dtype=torch.int32,
+                                    device=dev),
+                epoch=dev_rows[0], live_mask=dev_rows[1],
+                frozen=torch.empty((n,), dtype=torch.bool, device=dev))
+            self._ctl_rows = dev_rows
+            if dev.type == "cuda":
+                self._ctl_stage = torch.empty((3, n), dtype=torch.int32,
+                                              pin_memory=True)
+                self._ctl_event = None
+        if dev.type == "cuda":
+            if self._ctl_event is not None:
+                self._ctl_event.synchronize()  # the last copy left it
+            self._ctl_stage.numpy()[:] = host
+            self._ctl_rows.copy_(self._ctl_stage, non_blocking=True)
+            self._ctl_event = torch.cuda.Event()
+            self._ctl_event.record()
+        else:
+            self._ctl_rows.copy_(torch.from_numpy(host))
+        self._ctl_dev.frozen.copy_(self._ctl_rows[2])
 
     # -- membership / failure injection ---------------------------------------
 
@@ -774,16 +836,17 @@ class FastRuntime(_ObsHooks, _ElasticResize):
         trace = obs is not None and obs.trace_steps
         if trace:
             td = obs.tracer.span_begin("step_dispatch", step=self.step_idx)
+        # one replay on the card; the round advances the bound step
         self.fs, comp = self._step(self.fs, self.stream, self._ctl())
-        self._step_dev = fst.bump_step(self._step_dev)
+        self._step_dev = self._step.step
         if trace:
             obs.tracer.span_end("step_dispatch", td)
         self._step_idx += 1
         if self.membership is not None:
             if self.fetch_completions or self.recorder is not None:
-                # the detector's input rides the harvest of this round
-                self._age_ring.append(
-                    (self._step_idx - 1, self.fs.meta.suspect_age))
+                # the detector's input rides the harvest of this round: its
+                # ages sit in the round's ring slot beside the completions
+                self._age_ring.append((self._step_idx - 1, self._step.ages))
             else:
                 # a run that never harvests: the synchronous poll
                 self.membership.poll(self)
@@ -799,6 +862,11 @@ class FastRuntime(_ObsHooks, _ElasticResize):
             tr = obs.tracer.span_begin("readback", step=self.step_idx,
                                        round=round_idx)
         t0 = time.perf_counter() if obs is not None else 0.0
+        if round_idx is not None and self._step.stale(comp, round_idx):
+            raise RuntimeError(
+                f"the completions of round {round_idx} were overwritten by "
+                f"a later round: harvest within {self._step.ring_size} "
+                "rounds of the dispatch")
         comp_np = _to_host(comp)
         if obs is not None:
             dt = time.perf_counter() - t0

@@ -6,7 +6,8 @@ rounds and, over the whole call (the store's build and the warm-up
 batch included), the host
 milliseconds a round and the share of them the round's dispatch takes
 (``FastRuntime.dispatch_round`` on the host clock); then the card's busy
-share over one more run traced by torch.profiler.
+share over one more run, from the CUDA events around each of its
+compiled rounds' replays (``graphs.timed_all``).
 
     python -m hermes_tpu_torch.serving.floor_probe [--runs 10] [--device cpu]
 
@@ -56,12 +57,19 @@ def probe(runs: int = 10, device="cuda") -> dict:
                dispatch_share=[c["dispatch_s"] / c["call_s"]
                                for c in cells])
     if dev.type == "cuda":
-        from hermes_tpu_torch.profiling import device_busy
+        import torch
 
-        prof = device_busy(lambda: measure_columnar_floor(device=device))
-        out["traced"] = dict(busy_s=prof["busy_s"], wall_s=prof["wall_s"],
-                             launches=prof["launches"],
-                             busy_share=prof["busy_s"] / prof["wall_s"])
+        from hermes_tpu_torch.core import graphs
+
+        torch.cuda.synchronize()
+        with graphs.timed_all() as spans:
+            t0 = time.perf_counter()
+            measure_columnar_floor(device=device)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+        out["timed"] = dict(busy_s=busy, wall_s=wall, rounds=len(spans),
+                            busy_share=busy / wall)
     return out
 
 

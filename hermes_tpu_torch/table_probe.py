@@ -25,7 +25,7 @@ Run (the device defaults to the card, and the probe raises without one):
 One JSON object goes to stdout.  Each cell carries ``s_per_call`` (the
 slope between two counts of eager calls, each timed as the median of 5
 runs, host enqueue included) and ``device_s_per_call`` (the device time
-``torch.profiler`` records, per call).  On the CPU the probe checks
+a call queued behind a spin kernel, from CUDA events).  On the CPU the probe checks
 function only: the host clock and two short runs, and no device time.
 Each cell also carries the reference's analysis fields
 (``analysis_clean``, ``analysis_findings``; ``analyze_step``): one step of
@@ -49,7 +49,7 @@ from hermes_tpu_torch.analysis import findings as F
 from hermes_tpu_torch.analysis.domain import iv, top
 from hermes_tpu_torch.core.probe_kernels import probe_serial, probe_vgather
 from hermes_tpu_torch.device import resolve
-from hermes_tpu_torch.profiling import device_per_call
+from hermes_tpu_torch.profiling import queued_s
 
 W = 10  # int32 words per table row ([pts | sst | 8 val words], bench shape)
 I32 = torch.int32
@@ -238,7 +238,9 @@ def _time(fn, args, n_lo=20, n_hi=100, samples=5):
     each count timed as the median of ``samples`` runs with CUDA events
     (the host's enqueue included: a call that enqueues slower than the
     card runs it is timed at its enqueue); ``device_s_per_call``, the
-    device time torch.profiler records per call (``device_per_call``).
+    device time per call of calls queued behind a spin kernel
+    (``profiling.queued_s``: CUDA events, nothing lost; None where the
+    step's enqueue outlasts the spin).
     On the CPU: the host clock, one run of 1 and 2 calls, no device time.
     ``calls`` counts every call made, the warm-up one included."""
     state, rest = args[0], args[1:]
@@ -274,8 +276,7 @@ def _time(fn, args, n_lo=20, n_hi=100, samples=5):
     s_per_call = (per_count(n_hi) - per_count(n_lo)) / (n_hi - n_lo)
     out = dict(s_per_call=s_per_call, device_s_per_call=None)
     if card:
-        dev_s, launches = device_per_call(lambda: steps(1))
-        out.update(device_s_per_call=dev_s, device_launches_per_call=launches)
+        out["device_s_per_call"] = queued_s(lambda: steps(1))
     out["calls"] = calls
     return out
 

@@ -290,6 +290,34 @@ def test_torch_chip_smoke_gates_rehearsal(capsys):
     assert set(cs.GATES_PORTED) < set(PORTED)
 
 
+def test_torch_chip_smoke_gates_beside_rehearsal(capsys):
+    """The smoke's split gates phase on the CPU: one gate started early by
+    a runner of its own (``start_gates``, as the smoke does beside the
+    phases engine), the other run by ``phase_gates``, which waits for the
+    first and reports both in the runners' order; the gates the smoke
+    runs early are the ported gates but the three timed ones and
+    durability (it reads the card's free memory)."""
+    from types import SimpleNamespace
+
+    import torch
+
+    import chip_smoke as cs
+
+    gt = SimpleNamespace(device="cpu", root=gates.ROOT,
+                         gates=("pipeline", "heap"), obs_shape="gate",
+                         runner_args=("--force",))
+    beside = cs.start_gates(gt, ("heap",))
+    cs.phase_gates(torch, gt, "cpu", beside)
+    assert beside.proc.returncode == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()
+             if x.startswith("{")]
+    assert [d["phase"] for d in lines] == ["gates", "obs-overhead-bench"]
+    assert list(lines[0]["gates"]) == ["heap", "pipeline"]
+    assert all(g["ok"] for g in lines[0]["gates"].values())
+    assert set(cs.GATES_BESIDE) == set(cs.GATES_PORTED) - {
+        "obs-overhead", "fleet", "serving", "durability"}
+
+
 def test_torch_chip_smoke_gate_floors_hold_the_bars():
     """``chip_smoke.gate_floors`` reads the serving floors from the
     summary's cells and the fleet's ``scaleout_x`` from its report, and

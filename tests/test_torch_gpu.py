@@ -57,11 +57,12 @@ def test_stats_block_cuda_matches_plain(R, S, checked):
 
 
 def _device_ops(call):
-    from hermes_tpu_torch.profiling import device_split
+    """The device operations one call enqueues: the nodes of a CUDA graph
+    it is captured into (``profiling.graph_ops``; no profiler record can
+    be lost)."""
+    from hermes_tpu_torch.profiling import graph_ops
 
-    call()
-    torch.cuda.synchronize()
-    return device_split(call)[1]
+    return graph_ops(call)["total"]
 
 
 @pytest.mark.gpu
@@ -72,7 +73,8 @@ def _device_ops(call):
                                   "fx_async_copy", "fx_loop_inc"])
 def test_kernel_call_is_one_device_operation(name):
     """At the bench shape a call enqueues exactly one device operation
-    (torch.profiler): no fill, no memset, no second launch
+    (a node of the CUDA graph it is captured into): no fill, no memset,
+    no second launch
     (``probe_serial`` after its first call, which fills its winner
     column); the fixtures at chip_smoke.py's last shape (4.1 MB for
     ``fx_async_copy``, the word path for ``fx_loop_inc`` and
@@ -1929,7 +1931,8 @@ def test_columnar_tcp_server_round_trip_on_card():
 def test_round_census_on_card_equals_cpu(backend, mega):
     """The op census of one round at a small shape on the card equals
     the CPU's (a hand-kernel call is one op on both devices), with a
-    kernel_total from the profiler; the launch counters are put back."""
+    kernel_total from a CUDA graph of the round; the launch counters are
+    put back."""
     from hermes_tpu_torch.config import bench_cfg
     from hermes_tpu_torch.core import megaround as mega_mod
     from hermes_tpu_torch.obs import profile as prof
@@ -1972,3 +1975,120 @@ def test_graft_entry_on_card_equals_cpu(monkeypatch):
         for f in getattr(a, part)._fields:
             assert (getattr(getattr(a, part), f)
                     == getattr(getattr(b, part), f)).all(), f"{part}.{f}"
+
+
+def _graph_namespace(**over):
+    """What ``chip_smoke.graph_pair`` / ``kvs_graph_pair`` take, at a small
+    shape on the card."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from hermes_tpu_torch import profiling
+    from hermes_tpu_torch.config import HermesConfig, WorkloadConfig
+    from hermes_tpu_torch.core import faststep as fst
+    from hermes_tpu_torch.core import graphs
+    from hermes_tpu_torch.core.group import LocalGroup
+    from hermes_tpu_torch.kvs import KVS
+    from hermes_tpu_torch.runtime import FastRuntime
+
+    def cfg(mega_round=False, **more):
+        return HermesConfig(**dict(dict(
+            n_replicas=4, n_keys=4096, n_sessions=256, replay_slots=8,
+            ops_per_session=32, arb_mode="sort", chain_writes=4,
+            wrap_stream=True, device_stream=True, read_unroll=2,
+            replay_age=2, replay_scan_every=32, mega_round=mega_round,
+            workload=WorkloadConfig(read_frac=0.4, rmw_frac=0.2, seed=5)),
+            **over, **more))
+
+    return SimpleNamespace(
+        cfg=cfg, FastRuntime=FastRuntime, LocalGroup=LocalGroup, KVS=KVS,
+        kvs_cfg=lambda **o: cfg(device_stream=False, read_unroll=1,
+                                value_words=6, **o),
+        graphs=graphs, profiling=profiling, np=np, fst=fst)
+
+
+def _round_counters():
+    from hermes_tpu_torch.core import megaround
+
+    return {"stats_block": kernels.stats_block,
+            "mega_route": megaround.mega_route,
+            "mega_apply": megaround.mega_apply,
+            "mega_replay": megaround.mega_replay}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["fused", "mega", "sharded",
+                                    "sharded-mega"])
+def test_graphed_round_equals_the_eager_round(engine):
+    """The compiled round (a CUDA graph a variant, replayed) against the
+    round function called each round, from one seed over 64 rounds with
+    a freeze, a thaw, a set_live, a quiesce window and the graphs dropped
+    mid-run: completions every round and the state trees bit-identical,
+    the graphed launches by kernel those of an eager round each
+    (``chip_smoke.graph_pair``).  The mega scan variant's one graph holds
+    both cooperative kernels, ``mega_apply`` and ``mega_replay``."""
+    _card()
+    gr = _graph_namespace()
+    cfg = gr.cfg(mega_round=engine.endswith("mega"))
+    if engine.startswith("sharded"):
+        make = lambda: gr.FastRuntime(cfg, backend="sharded",
+                                      group=gr.LocalGroup("cuda"))
+        copies = cfg.n_replicas
+    else:
+        make = lambda: gr.FastRuntime(cfg, device="cuda")
+        copies = 1
+    _graphed, _eager, got, variants = chip_smoke.graph_pair(
+        torch, gr, _round_counters(), make, copies)
+    assert got["stats_block"] == chip_smoke.GRAPH_ROUNDS
+    if engine.endswith("mega"):
+        scan = [v for k, v in variants.items() if k[0]]
+        assert scan and scan[0]["mega_apply"] >= 1
+        assert scan[0]["mega_replay"] == copies
+
+
+@pytest.mark.gpu
+def test_graphed_kvs_equals_the_eager_kvs_at_depth_2():
+    """Two KVSs at depth 2, graphed and eager, under one op mix with a
+    freeze, a thaw and a set_live: every batch column and the states
+    equal (``chip_smoke.kvs_graph_pair``)."""
+    _card()
+    got = chip_smoke.kvs_graph_pair(torch, _graph_namespace(),
+                                    _round_counters())
+    assert got["ops_done"] > 0 and got["captures"] >= 2
+
+
+@pytest.mark.gpu
+def test_a_failed_capture_raises_naming_the_op():
+    """A round that syncs the host cannot be captured: at its second call
+    (the first runs eagerly) the compiled round raises, naming the op,
+    and runs nothing eagerly instead."""
+    from hermes_tpu_torch.core import graphs
+
+    _card()
+
+    def syncing(fs, stream, ctl):
+        int(fs.meta.n_read.sum())  # a host sync inside the round
+        return fs
+
+    gr = _graph_namespace()
+    rt = gr.FastRuntime(gr.cfg(), device="cuda")
+    comp = graphs.Compiled(syncing, 32, comps=False)
+    comp(rt.fs, rt.stream, rt._ctl())  # the first call runs eagerly
+    with pytest.raises(RuntimeError, match="capture of variant .* failed; "
+                       "the last op dispatched was aten._local_scalar_dense"):
+        comp(rt.fs, rt.stream, rt._ctl())
+    assert comp.captures == 0 and comp.warmups == 1
+
+
+@pytest.mark.gpu
+def test_graph_ops_counts_one_kernel_a_hand_kernel_call():
+    """``profiling.graph_ops`` counts the device operations of a call off
+    a CUDA graph it captures: one kernel node a ``stats_block`` call."""
+    from hermes_tpu_torch import profiling
+
+    dev = _card()
+    args = chip_smoke._to(torch, chip_smoke.stats_inputs(torch, 8, 65536, 1),
+                          dev)
+    assert profiling.graph_ops(lambda: kernels.stats_block(*args)) == {
+        "kernel": 1, "total": 1}

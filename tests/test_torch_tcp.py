@@ -195,11 +195,12 @@ def test_torch_chip_smoke_phases_engine_rehearsal():
     from hermes_tpu_torch.runtime import Runtime
     from hermes_tpu_torch.transport.sim import SimTransport
 
-    def busy(run):
+    def busy(torch, run, label, rts=()):
         t0 = time.perf_counter()
         run()
         wall = time.perf_counter() - t0
-        return dict(busy_s=wall / 2, wall_s=wall, launches=1, top=[])
+        return dict(busy_s=wall / 2, wall_s=wall, busy_by="queued",
+                    launches=1, top=[])
 
     counters = {"stats_block": kernels.stats_block,
                 "mega_route": megaround.mega_route,
