@@ -180,6 +180,18 @@ prints no result):
    recorded one's); rounds under ``torch.cuda.set_sync_debug_mode
    ("error")`` (no host sync inside a round); a profiled window (device
    us and CUDA kernels a round, busy share); peak memory.
+   The phases round is compiled (``core/step.py``'s builders: a CUDA
+   graph a round after its second call).  phases-graph (run first): for
+   config 1 and config 3 batched and config 1 sharded (a ``LocalGroup``),
+   a graphed runtime and one whose round runs under ``Compiled.eager()``
+   driven together through a freeze, a thaw, a remove and a join, every
+   state leaf and completion column equal every round; then each one's
+   host us a round (a window ending in a sync), device us a round (the
+   rounds queued behind a spin kernel, CUDA events), busy share and host
+   launch calls of one round (graphed: one replay by the compiled round's
+   own count, at most ``PHASES_LAUNCH_CALLS`` host launch calls);
+   and the compiled chunks (``build_step_scan``,
+   ``build_step_sharded_scan``) equal to the graphed round loop.
 20. phases-sharded — config 1 on ``Runtime(backend="sharded")`` over a
    ``LocalGroup`` on the card, equal to the batched backend after each of
    32 rounds and on the round it drained; checked, converged.
@@ -1820,8 +1832,7 @@ def graph_timing(torch, gr, rt):
     replay-scan rounds have run: every variant of a compiled round
     captured), device us a round (the same rounds queued behind a spin
     kernel: CUDA events), their busy share, and the host launch calls of
-    one round with its harvest (torch.profiler's host API records, the
-    sentinel's two left out)."""
+    one round with its harvest (``launch_calls``)."""
     rt.quiesce = False
     rt.fetch_completions = False
     rt.run(2 * rt.cfg.replay_scan_every)
@@ -1829,12 +1840,12 @@ def graph_timing(torch, gr, rt):
     dev_s = gr.profiling.queued_s(lambda: rt.run(1), inner=10,
                                   spin_cycles=1 << 26)
     rt.fetch_completions = True
-    calls = gr.profiling._trace(rt.step_once)["launch_calls"]
+    calls = launch_calls(rt.step_once)
     host_us = wall / MAIN_ROUNDS * 1e6
     dev_us = None if dev_s is None else dev_s * 1e6
     return {"host_us_per_round": host_us, "device_us_per_round": dev_us,
             "busy_share": None if dev_us is None else dev_us / host_us,
-            "host_launch_calls": sum(calls.values()) - 2,
+            "host_launch_calls": sum(calls.values()),
             "launch_calls": calls, "writes_per_s": commits / wall}
 
 
@@ -3722,6 +3733,179 @@ def phase_phases(torch, ph, card, n):
     return out
 
 
+# the phases-graph cells: (name, BASELINE config, backend)
+PHASES_GRAPH_CELLS = (("config1", 1, "batched"), ("config3", 3, "batched"),
+                      ("config1-sharded", 1, "sharded"))
+PHASES_GRAPH_ROUNDS = 32  # rounds a graphed and an eager runtime run together
+# round: (method, arguments) of the membership changes between them
+PHASES_GRAPH_EVENTS = {6: ("freeze", (1,)), 12: ("thaw", (1,)),
+                       18: ("remove", (2,)), 24: ("join", (2, 0))}
+PHASES_GRAPH_TIMED = 40  # graphed rounds of the host-us window
+PHASES_EAGER_TIMED = 8  # eager rounds of theirs
+PHASES_SCAN_ROUNDS = 4  # rounds a compiled chunk
+PHASES_SCAN_CHUNKS = 3
+PHASES_SCAN_FROM = 5  # the chunks' first round: not a multiple of 4
+PHASES_LAUNCH_CALLS = 2  # a graphed phases round: the graph's launch and
+# the ring slot's copy
+
+
+def phases_runtime(ph, n, backend, **kw):
+    """``Runtime`` of BASELINE config ``n`` on ``backend`` on the card."""
+    group = ph.LocalGroup(ph.device) if backend == "sharded" else None
+    return ph.Runtime(ph.cfg(n), backend=backend, group=group,
+                      device=ph.device, **kw)
+
+
+def phases_graph_pair(torch, make):
+    """A graphed runtime and one whose compiled round runs under
+    ``Compiled.eager()`` (the round function called each round, with the
+    same binding, ring and step) from ``make()``, driven together over
+    ``PHASES_GRAPH_ROUNDS`` rounds through ``PHASES_GRAPH_EVENTS``: every
+    state leaf (the table's drop rows left out) and completion column
+    equal every round, the graphed one one capture and a replay a later
+    round.  Returns both."""
+    graphed, eager = make(), make()
+    for s in range(PHASES_GRAPH_ROUNDS):
+        if s in PHASES_GRAPH_EVENTS:
+            act, args = PHASES_GRAPH_EVENTS[s]
+            for rt in (graphed, eager):
+                getattr(rt, act)(*args)
+        cg = graphed.step_once()
+        with eager._step.eager():
+            ce = eager.step_once()
+        if not _same_leaves(torch, _flat(cg), _flat(ce)):
+            raise AssertionError(f"graphed and eager phases completions "
+                                 f"differ at round {s}")
+        if not _same_leaves(torch, _flat(graphed.rs), _flat(eager.rs)):
+            raise AssertionError(f"graphed and eager phases states differ "
+                                 f"after round {s}")
+    comp = graphed._step
+    if (comp.captures, comp.replays, comp.rebinds) != (
+            1, PHASES_GRAPH_ROUNDS - 1, 0) or int(comp.step) != \
+            PHASES_GRAPH_ROUNDS:
+        raise AssertionError(f"{comp.captures} captures, {comp.replays} "
+                             f"replays, {comp.rebinds} rebinds, step "
+                             f"{int(comp.step)} in {PHASES_GRAPH_ROUNDS} "
+                             f"rounds")
+    return graphed, eager
+
+
+def phases_graph_timing(ph, rt, eager):
+    """Host us a round over ``PHASES_GRAPH_TIMED`` (graphed) or
+    ``PHASES_EAGER_TIMED`` (``eager``: under ``Compiled.eager()``) rounds
+    ending in a sync, device us a round (``ph.queued_s``: ten rounds
+    queued behind a spin kernel, CUDA events; None where they cannot be
+    queued), their busy share, and the host launch calls of one round
+    (``ph.launch_calls``) with the compiled round's own count of what that
+    round was (``round_calls``: replays, warm-ups and captures)."""
+    rounds = PHASES_EAGER_TIMED if eager else PHASES_GRAPH_TIMED
+    with rt._step.eager() if eager else contextlib.nullcontext():
+        rt.run(2)
+        ph.sync()
+        t0 = time.perf_counter()
+        rt.run(rounds)
+        ph.sync()
+        host_us = (time.perf_counter() - t0) / rounds * 1e6
+        dev_s = ph.queued_s(lambda: rt.run(1), inner=10,
+                            spin_cycles=1 << 26)
+        comp = rt._step
+        before = (comp.replays, comp.warmups, comp.captures)
+        calls = ph.launch_calls(rt.step_once)
+        after = (comp.replays, comp.warmups, comp.captures)
+    dev_us = None if dev_s is None else dev_s * 1e6
+    return {"host_us_per_round": host_us, "device_us_per_round": dev_us,
+            "busy_share": None if dev_us is None else dev_us / host_us,
+            "host_launch_calls": sum(calls.values()),
+            "launch_calls": calls, "timed_rounds": rounds,
+            "round_calls": dict(zip(("replays", "warmups", "captures"),
+                                    (a - b for a, b in zip(after, before))))}
+
+
+def check_graphed_phases_round(name, timing):
+    """A graphed phases round (``phases_graph_timing``) is one replay of
+    its graph by the compiled round's own count, so it makes
+    ``PHASES_LAUNCH_CALLS`` host launch calls; the profiler's count may
+    not exceed them (a lost record can only lower it)."""
+    got = timing["round_calls"]
+    if got != {"replays": 1, "warmups": 0, "captures": 0}:
+        raise AssertionError(f"a graphed phases round ({name}) was not one "
+                             f"replay: {got}")
+    calls = timing["host_launch_calls"]
+    if calls > PHASES_LAUNCH_CALLS:
+        raise AssertionError(f"a graphed phases round ({name}) made {calls} "
+                             f"host launch calls, want <= "
+                             f"{PHASES_LAUNCH_CALLS}")
+
+
+def launch_calls(run):
+    """The host's launch calls of ``run()`` by API (torch.profiler's host
+    API records, the sentinel's two taken off ``cudaLaunchKernel``)."""
+    from hermes_tpu_torch import profiling
+
+    calls = profiling._trace(run)["launch_calls"]
+    calls["cudaLaunchKernel"] = calls.get("cudaLaunchKernel", 0) - 2
+    return {k: v for k, v in calls.items() if v}
+
+
+def phases_scan_equal(torch, ph, n, backend):
+    """``PHASES_SCAN_CHUNKS`` compiled chunks of ``PHASES_SCAN_ROUNDS``
+    rounds (``build_step_scan``, or ``build_step_sharded_scan`` over the
+    runtime's group) from round ``PHASES_SCAN_FROM`` against as many
+    graphed rounds of a runtime: every state leaf equal; the chunk
+    captured once and stepped on the device."""
+    from hermes_tpu_torch.core import step as step_lib
+
+    loop, chunked = (phases_runtime(ph, n, backend) for _ in range(2))
+    rounds = PHASES_SCAN_ROUNDS * PHASES_SCAN_CHUNKS
+    loop.step_idx = chunked.step_idx = PHASES_SCAN_FROM
+    loop.run(rounds)
+    cfg = chunked.cfg
+    chunk = (step_lib.build_step_scan(cfg, PHASES_SCAN_ROUNDS)
+             if backend == "batched" else step_lib.build_step_sharded_scan(
+                 cfg, chunked.group, PHASES_SCAN_ROUNDS))
+    ctl = chunked._ctl()
+    for _ in range(PHASES_SCAN_CHUNKS):
+        chunk(chunked.rs, chunked.stream, ctl)
+    if not _same_leaves(torch, _flat(loop.rs), _flat(chunked.rs)):
+        raise AssertionError(f"config {n} {backend}: the compiled chunks "
+                             "differ from the round loop")
+    if (chunk.captures, chunk.replays) != (1, PHASES_SCAN_CHUNKS - 1) or \
+            int(chunk.step) != PHASES_SCAN_FROM + rounds:
+        raise AssertionError(f"the chunk: {chunk.captures} captures, "
+                             f"{chunk.replays} replays, step "
+                             f"{int(chunk.step)}")
+    return True
+
+
+def phase_phases_graph(torch, ph, card):
+    """The compiled phases round against the eager one for each of
+    ``PHASES_GRAPH_CELLS`` at full width (``phases_graph_pair``), then
+    each one's host and device us a round, busy share and host launch
+    calls graphed and eager in this call (``phases_graph_timing``), and
+    the compiled chunks against the round loop (``phases_scan_equal``).
+    A graphed round is one replay (``check_graphed_phases_round``).
+    Returns the rows by cell."""
+    out = {}
+    for name, n, backend in PHASES_GRAPH_CELLS:
+        t0 = time.perf_counter()
+        graphed, eager = phases_graph_pair(
+            torch, lambda: phases_runtime(ph, n, backend))
+        row = {"identical": True, "rounds": PHASES_GRAPH_ROUNDS,
+               "captures": graphed._step.captures,
+               "replays": graphed._step.replays,
+               "graphed": phases_graph_timing(ph, graphed, False),
+               "eager": phases_graph_timing(ph, eager, True)}
+        del graphed, eager
+        row["scan_equal"] = phases_scan_equal(torch, ph, n, backend)
+        row["seconds"] = time.perf_counter() - t0
+        out[name] = row
+        emit(dict({"phase": "phases-graph", "cell": name, "card": card},
+                  **row))
+        check_graphed_phases_round(name, row["graphed"])
+        torch.cuda.empty_cache()
+    return out
+
+
 def _states_equal(torch, a, b):
     return all(torch.equal(x, y) for pa, pb in zip(a, b)
                for x, y in zip(pa, pb))
@@ -3984,13 +4168,14 @@ def compare_cpu(card_runs, cpu):
 
 def run_phases_engine(torch, ph, counters, card):
     """The phases engine's phases, with the CPU reference runs beside
-    them in a child process: phases (each of PHASE_CONFIGS),
-    phases-sharded, sim-wire, tcp, then the comparison with the CPU.  The
-    hand kernels must not launch across them."""
+    them in a child process: phases-graph, phases (each of
+    PHASE_CONFIGS), phases-sharded, sim-wire, tcp, then the comparison
+    with the CPU.  The hand kernels must not launch across them."""
     before = _launch_snapshot(counters)
     t0 = time.perf_counter()
     proc, path = start_cpu_reference(ph.scale)
     try:
+        graphed = phase_phases_graph(torch, ph, card)
         runs = {n: phase_phases(torch, ph, card, n) for n in PHASE_CONFIGS}
         sharded = phase_phases_sharded(torch, ph, card)
         wire, logs = phase_sim_wire(torch, ph, card)
@@ -4011,8 +4196,8 @@ def run_phases_engine(torch, ph, counters, card):
     if any(moved.values()):
         raise AssertionError(f"the phases engine launched hand kernels: "
                              f"{moved}")
-    return dict(phases=runs, sharded=sharded, sim_wire=wire, tcp=tcp,
-                launches=moved)
+    return dict(graph=graphed, phases=runs, sharded=sharded, sim_wire=wire,
+                tcp=tcp, launches=moved)
 
 # --------------------------------------------------------------------------
 # The serving front end: Frontend and ColumnarFrontend over a KVS on the
@@ -5474,11 +5659,12 @@ def main(argv=None):
             peak_memory=torch.cuda.max_memory_allocated,
             device_busy=device_busy,
             sync_check=lambda: cuda_sync_check(torch),
+            queued_s=profiling.queued_s, launch_calls=launch_calls,
             FaultingTransport=FaultingTransport, SimTransport=SimTransport,
             chaos=chaos_lib, MembershipService=MembershipService,
             combine_and_check=combine_and_check)
-        # the gates without a timed bar run beside the phases engine (a
-        # host-bound eager round, no timed verdict) in a runner of their own
+        # the gates without a timed bar run beside the phases engine (no
+        # verdict of its rests on a time) in a runner of their own
         gt = SimpleNamespace(device="cuda", root=HERE, gates=GATES_PORTED,
                              obs_shape="bench", runner_args=())
         beside = start_gates(gt, GATES_BESIDE)

@@ -1305,7 +1305,9 @@ def build_fast_batched(cfg: HermesConfig, ring: int = 2):
     def step(fs, stream, ctl):
         return fast_round_batched(cfg, ctl, fs, stream)
 
-    return graphs.Compiled(step, cfg.replay_scan_every, ring=ring,
+    return graphs.Compiled(step, graphs.fast_variant(cfg.replay_scan_every,
+                                                     1),
+                           ring=ring, extra=graphs.suspect_ages,
                            name="fast_round_batched")
 
 
@@ -1326,7 +1328,9 @@ def build_fast_sharded(cfg: HermesConfig, group, ring: int = 2):
     def step(fs, stream, ctl):
         return fast_round_sharded(cfg, ctl, fs, stream, group)
 
-    return graphs.Compiled(step, cfg.replay_scan_every, ring=ring,
+    return graphs.Compiled(step, graphs.fast_variant(cfg.replay_scan_every,
+                                                     1),
+                           ring=ring, extra=graphs.suspect_ages,
                            graph=isinstance(group, LocalGroup),
                            name="fast_round_sharded")
 
@@ -1356,8 +1360,9 @@ def build_fast_scan(cfg: HermesConfig, rounds: int):
                                   host_step=ctl.host_step + off), fs, stream)
         return fs
 
-    return graphs.Compiled(chunk, cfg.replay_scan_every, rounds=rounds,
-                           comps=False, name="fast_scan")
+    return graphs.Compiled(chunk, graphs.fast_variant(cfg.replay_scan_every,
+                                                      rounds),
+                           rounds=rounds, comps=False, name="fast_scan")
 
 
 # --------------------------------------------------------------------------

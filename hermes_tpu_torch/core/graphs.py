@@ -1,16 +1,22 @@
-"""The counterpart of ``jax.jit`` for the fast round: one CUDA graph a
-round, and one a ``build_fast_scan`` chunk.
+"""The counterpart of ``jax.jit`` for both engines: one CUDA graph a
+round, and one a chunk of rounds.
 
 The JAX package compiles a round once and sends it to the device as one
 program: ``build_fast_batched`` is ``jax.jit(step, donate_argnums=...)``
 (``hermes_tpu/core/faststep.py:1630-1636``) and ``build_fast_scan`` a
-``lax.scan`` of rounds under one ``jax.jit`` (:1639-1654).  Run eagerly,
-the port's round makes some 400 kernel launches and 800 aten ops on the
-host; here it is captured once into a ``torch.cuda.CUDAGraph`` and each
-later round is one replay.
+``lax.scan`` of rounds under one ``jax.jit`` (:1639-1654); the phases
+engine's ``build_step_batched`` / ``build_step_scan`` /
+``build_step_sharded`` / ``build_step_sharded_scan`` are ``jax.jit``s
+too (``hermes_tpu/core/step.py:142``, ``:167``, ``:225``, ``:264``).  Run
+eagerly, the port's fast round makes some 400 kernel launches and 800
+aten ops on the host, a phases round some 1,000 launches; here a round is
+captured once into a ``torch.cuda.CUDAGraph`` and each later round is one
+replay.
 
 ``Compiled`` wraps a round ``fn(fs, stream, ctl) -> (fs, comp)`` (or, with
-``comps=False``, a chunk of rounds ``fn(fs, stream, ctl) -> fs``):
+``comps=False``, a chunk of rounds ``fn(fs, stream, ctl) -> fs``); ``fs``
+is a ``FastState`` or a phases ``ReplicaState`` (both lead with the
+table), ``ctl`` a ``FastCtl`` or a phases ``StepCtl``:
 
 * **Bound inputs.**  The first call binds the tensors it is given — the
   ``FastState`` leaves, the op stream and the ctl rows, the 0-dim step
@@ -18,20 +24,26 @@ later round is one replay.
   tensors costs nothing.  A tensor of the bound one's shape, dtype and
   device in its place is copied in; any other change (a shape, a dtype,
   the tree) rebinds and drops every graph, and the next call captures
-  again.
+  again.  The ctl's fields that are tensors are bound (``ctl_tensors``),
+  the step first.
 * **Outputs.**  Inside the graph, every state leaf the round returns as a
   new tensor is copied back into the bound leaf (the table is updated in
   place by the round itself), so the state returned IS the bound state.
-  The completions and the round's ``Meta.suspect_age`` go to one int32
-  buffer, which is copied after the replay into the next of ``ring``
-  slots: a round dispatched but not yet harvested is not overwritten
-  until ``ring`` more rounds have run (``stale`` tells).  The graph then
-  adds ``rounds`` to the bound step in place.
-* **One graph a variant.**  The round reads two host values:
+  The completions and the ``extra`` column of the returned state (the
+  fast round's ``Meta.suspect_age``; none for the phases round) go to one
+  int32 buffer, which is copied after the replay into the next of
+  ``ring`` slots: a round dispatched but not yet harvested is not
+  overwritten until ``ring`` more rounds have run (``stale`` tells: each
+  call hands out a new tree of its slot's views).  The graph then adds
+  ``rounds`` to the bound step in place.
+* **One graph a variant.**  ``variant(ctl)`` keys a call by the host
+  values its round reads.  The fast round reads two (``fast_variant``):
   ``ctl.host_step % cfg.replay_scan_every == 0`` (the replay scan) and
-  ``ctl.quiesce``.  Each pair (a chunk: each pattern of scan rounds at its
-  offsets, and quiesce) gets its own graph, chosen on the host each call;
-  all of them share one memory pool.  Their outputs all live outside it.
+  ``ctl.quiesce``; each pair (a chunk: each pattern of scan rounds at its
+  offsets, and quiesce) gets its own graph, chosen on the host each
+  call.  The phases round reads none (``one_variant``).
+  All of a call's graphs share one memory pool; their outputs all live
+  outside it.
 * **Capture.**  A variant's first call runs the function once on a side
   stream (the warm-up, which is that call's real work); its second call
   captures it into a ``torch.cuda.CUDAGraph`` on a stream of its own and
@@ -48,9 +60,11 @@ later round is one replay.
   step; calling the function takes the place of the replay.
 
 Who runs a round eagerly, and says so: the census
-(``obs/profile.py``), the analysis (``analysis/graph.py`` traces the
-round function) and the smoke's comparison of graphed and eager rounds:
-they call ``faststep.fast_round_batched`` / ``fast_round_sharded``."""
+(``obs/profile.py``) and the analysis (``analysis/graph.py`` traces the
+round function) call ``faststep.fast_round_batched`` /
+``fast_round_sharded``; the smoke's comparisons of graphed and eager
+rounds run a compiled round under ``Compiled.eager()`` (the phases
+engine's) or with ``graph = False`` (the fast engine's)."""
 
 from __future__ import annotations
 
@@ -102,8 +116,34 @@ def unflatten(spec, leaves):
     return build(spec)
 
 
-#: the ctl fields that are tensors, in the order they are bound
-CTL_TENSORS = ("step", "my_cid", "epoch", "live_mask", "frozen")
+def ctl_tensors(ctl) -> tuple:
+    """The names of ``ctl``'s fields that are tensors, in order (the step
+    first): what a compiled call binds."""
+    return tuple(f for f in ctl._fields if torch.is_tensor(getattr(ctl, f)))
+
+
+def fast_variant(scan_every: int, rounds: int):
+    """The fast round's variant key of a call: which of its ``rounds``
+    rounds run the replay scan, and quiesce."""
+
+    def key(ctl) -> tuple:
+        h = ctl.host_step
+        if rounds == 1:
+            return (h % scan_every == 0, bool(ctl.quiesce))
+        return (tuple((h + o) % scan_every == 0 for o in range(rounds)),
+                bool(ctl.quiesce))
+
+    return key
+
+
+def one_variant(_ctl) -> tuple:
+    """The variant key of a round that reads no host value: one graph."""
+    return ()
+
+
+def suspect_ages(fs):
+    """The fast round's extra output column: its ``Meta.suspect_age``."""
+    return fs.meta.suspect_age
 
 
 def launch_counts() -> dict:
@@ -172,17 +212,20 @@ def timed_all():
 
 class Compiled:
     """A round (or a chunk of ``rounds`` rounds) compiled as above.
-    ``scan_every`` is ``cfg.replay_scan_every``; ``ring`` the completion
-    slots (``max(pipeline_depth, 1) + 1`` in the runtime); ``graph``
-    False keeps every call eager (still bound, ringed and stepped)."""
+    ``variant`` keys a call (``fast_variant``, ``one_variant``); ``ring``
+    the completion slots (``max(pipeline_depth, 1) + 1`` in the fast
+    runtime); ``graph`` False keeps every call eager (still bound, ringed
+    and stepped); ``extra`` the returned state's extra output column
+    (``suspect_ages``), if any."""
 
-    def __init__(self, fn, scan_every: int, *, rounds: int = 1,
-                 comps: bool = True, ring: int = 2, graph: bool = True,
-                 name: str = "round"):
+    def __init__(self, fn, variant, *, rounds: int = 1, comps: bool = True,
+                 ring: int = 2, graph: bool = True, name: str = "round",
+                 extra=None):
         if rounds < 1 or ring < 1:
             raise ValueError(f"{name}: rounds and ring must be >= 1")
         self.fn = fn
-        self.scan_every = scan_every
+        self.key = variant
+        self.extra = extra
         self.rounds = rounds
         self.comps = comps
         self.ring_size = ring
@@ -210,10 +253,11 @@ class Compiled:
         self._pool = None
         self._flat = None  # the graph's completion buffer
         self._ring: list = []  # (flat slot, comp views, ages view)
-        self._slot_round: list = []
+        self._handed: list = []  # the tree a slot's last call handed out
+        self._ctl_fields: tuple = ()
         self._comp_spec = None
         self._next = 0
-        self.ages = None  # the last call's suspect-age columns
+        self.ages = None  # the last call's extra column (suspect ages)
         # the state leaves (flattened order: vpts, bank, sess, ...) the
         # function returned anew and the body copied back, at its last run
         self.copied_back: list = []
@@ -257,14 +301,15 @@ class Compiled:
                     else unflatten(spec, bound))
         self._stream = stream
         self._stream_leaves, self._stream_spec = flatten(stream)
+        fields = ctl_tensors(ctl)
         step = ctl.step
-        if (not isinstance(step, torch.Tensor) or step.dim() != 0
-                or step.dtype != I32):
-            raise TypeError(f"{self.name}: ctl.step must be a 0-dim int32 "
-                            "tensor")
+        if fields[:1] != ("step",) or step.dim() != 0 or step.dtype != I32:
+            raise TypeError(f"{self.name}: ctl.step must be its first field, "
+                            "a 0-dim int32 tensor")
         if step.untyped_storage().data_ptr() in seen:
             step = step.clone()
-        self._ctl = [step] + [getattr(ctl, f) for f in CTL_TENSORS[1:]]
+        self._ctl_fields = fields
+        self._ctl = [step] + [getattr(ctl, f) for f in fields[1:]]
         self.device = step.device
 
     def _same(self, got, bound) -> bool:
@@ -299,7 +344,7 @@ class Compiled:
                         self._bind(fs, stream, ctl)
                         return
                     copies.append((b, x))
-        for f, b in zip(CTL_TENSORS, self._ctl):
+        for f, b in zip(self._ctl_fields, self._ctl):
             x = getattr(ctl, f)
             if x is not b:
                 if not self._same(x, b):
@@ -311,20 +356,11 @@ class Compiled:
 
     # -- the body ----------------------------------------------------------------
 
-    def key(self, ctl) -> tuple:
-        """The variant of a call: which of its rounds run the replay scan,
-        and quiesce."""
-        h, every = ctl.host_step, self.scan_every
-        if self.rounds == 1:
-            return (h % every == 0, bool(ctl.quiesce))
-        return (tuple((h + o) % every == 0 for o in range(self.rounds)),
-                bool(ctl.quiesce))
-
     def _body(self, ctl):
         """The function over the bound inputs with ``ctl``'s host values,
         its outputs copied back into the bound leaves and its completions
         into the completion buffer, then the step advanced."""
-        bctl = ctl._replace(**dict(zip(CTL_TENSORS, self._ctl)))
+        bctl = ctl._replace(**dict(zip(self._ctl_fields, self._ctl)))
         fs_in, stream = self._fs, self._stream
         # a weak reference: the body is kept in ``_variants``, and a cycle
         # would keep a dropped runtime's graphs and their pool until a
@@ -335,7 +371,8 @@ class Compiled:
             out = me.fn(fs_in, stream, bctl)
             if me.comps:
                 fs_out, comp = out
-                me._write_comps(comp, fs_out.meta.suspect_age)
+                me._write_comps(comp, None if me.extra is None
+                                else me.extra(fs_out))
             else:
                 fs_out = out
             me._copy_back(fs_out)
@@ -343,9 +380,9 @@ class Compiled:
 
         return body
 
-    def _write_comps(self, comp, ages) -> None:
+    def _write_comps(self, comp, extra) -> None:
         leaves, spec = flatten(comp)
-        leaves = leaves + [ages]
+        leaves = leaves + ([] if extra is None else [extra])
         if self._flat is None:
             self._layout(spec, leaves)
         elif spec != self._comp_spec:
@@ -373,9 +410,9 @@ class Compiled:
                 for shape, n in sizes:
                     views.append(slot[at:at + n].view(shape))
                     at += n
-                self._ring.append((slot, unflatten(spec, views[:-1]),
-                                   views[-1]))
-                self._slot_round.append(None)
+                extra = None if self.extra is None else views.pop()
+                self._ring.append((slot, views, extra))
+                self._handed.append(None)
 
     def _copy_back(self, fs_out) -> None:
         outs, spec = flatten(fs_out)
@@ -446,9 +483,9 @@ class Compiled:
         if self.comps:
             i = self._next
             self._next = (i + 1) % self.ring_size
-            slot, comp, ages = self._ring[i]
+            slot, views, ages = self._ring[i]
             slot.copy_(self._flat)
-            self._slot_round[i] = ctl.host_step
+            comp = self._handed[i] = unflatten(self._comp_spec, views)
             self.ages = ages
         if span is not None:
             span[1].record()
@@ -529,11 +566,14 @@ class Compiled:
         self.captures += 1
         return var
 
-    def stale(self, comp, round_idx) -> bool:
+    def stale(self, comp) -> bool:
         """True when ``comp`` is a ring slot's completions and a later
-        round has since written that slot."""
-        for i, (_slot, c, _ages) in enumerate(self._ring):
-            if c is comp:
-                return self._slot_round[i] != round_idx
+        call has since written that slot (handed out another tree)."""
+        if not isinstance(comp, tuple):
+            return False  # a host fetch, enqueued behind its round
+        ptr = flatten(comp)[0][0].untyped_storage().data_ptr()
+        for (slot, _views, _ages), handed in zip(self._ring, self._handed):
+            if slot.untyped_storage().data_ptr() == ptr:
+                return handed is not comp
         return False
 

@@ -19,9 +19,19 @@ step body every backend runs, parameterised over them:
 * the host-mediated transports (``transport/``) run the same body with
   exchanges through the host (``runtime.Runtime``, ``distributed.py``).
 
-``build_step_scan`` / ``build_step_sharded_scan`` run ``rounds`` rounds
-in one call and drop the completions (the reference's ``lax.scan``; here
-a loop).  Nothing here syncs the host.
+The four builders return compiled calls (``core/graphs.py``), as the
+reference's return ``jax.jit``s: ``build_step_batched`` and
+``build_step_sharded`` a round ``(rs, stream, ctl) -> (rs, comp)``,
+``build_step_scan`` / ``build_step_sharded_scan`` a chunk of ``rounds``
+rounds that drops the completions (the reference's ``lax.scan``).  On
+the card each is a CUDA graph after its second call; the round reads no
+host value, so it has one variant.  The first call binds the state, the
+stream and the ctl rows; the table is updated in place and every other
+leaf copied back into its bound leaf, so the state returned IS the bound
+state, and a call adds its rounds to the bound step on the device.  A
+``DistGroup``'s round stays eager (its collectives leave the device),
+with the same binding and step.  ``step_round`` / ``sharded_round`` are
+the uncompiled round functions.  Nothing here syncs the host.
 """
 
 from __future__ import annotations
@@ -32,17 +42,18 @@ from typing import NamedTuple
 import torch
 
 from hermes_tpu_torch.config import HermesConfig
-from hermes_tpu_torch.core import phases
+from hermes_tpu_torch.core import graphs, phases
 from hermes_tpu_torch.core import state as st
 from hermes_tpu_torch.core import types as t
 
 
 class StepCtl(NamedTuple):
-    """Per-round control: the round ``step`` (an int) and the membership
-    rows ``epoch`` / ``live_mask`` (R,) int32 and ``frozen`` (R,) bool,
-    on the state's device."""
+    """Per-round control, on the state's device: the round ``step`` (a
+    0-dim int32 tensor, as the reference's ``jnp.int32``) and the
+    membership rows ``epoch`` / ``live_mask`` (R,) int32 and ``frozen``
+    (R,) bool."""
 
-    step: int
+    step: torch.Tensor
     epoch: torch.Tensor
     live_mask: torch.Tensor
     frozen: torch.Tensor
@@ -51,7 +62,7 @@ class StepCtl(NamedTuple):
 def make_ctl(cfg: HermesConfig, step: int, device="cpu") -> StepCtl:
     r = cfg.n_replicas
     return StepCtl(
-        step=int(step),
+        step=torch.tensor(int(step), dtype=torch.int32, device=device),
         epoch=torch.zeros((r,), dtype=torch.int32, device=device),
         live_mask=torch.full((r,), cfg.full_mask, dtype=torch.int32,
                              device=device),
@@ -65,7 +76,7 @@ def _per_replica_ctl(cfg: HermesConfig, ctl: StepCtl, first: int = 0,
     n = cfg.n_replicas if n is None else n
     dev = ctl.epoch.device
     return st.Ctl(
-        step=torch.full((n,), ctl.step, dtype=torch.int32, device=dev),
+        step=ctl.step.expand(n),
         my_cid=torch.arange(first, first + n, dtype=torch.int32, device=dev),
         epoch=ctl.epoch, live_mask=ctl.live_mask, frozen=ctl.frozen)
 
@@ -136,10 +147,10 @@ def _step_core(cfg: HermesConfig, ph, exchange_inv, exchange_ack,
     return st.ReplicaState(table, k.sess, k.replay, meta), comp
 
 
-def build_step_batched(cfg: HermesConfig):
-    """The R-replica step in one process: ``(rs, stream, ctl) -> (rs,
-    comp)``, every leaf with its leading R axis (the table updated in
-    place)."""
+def step_round(cfg: HermesConfig):
+    """The R-replica round in one process, uncompiled: ``(rs, stream,
+    ctl) -> (rs, comp)``, every leaf with its leading R axis (the table
+    updated in place)."""
     ph = phase_fns(cfg)
 
     def step(rs: st.ReplicaState, stream: st.OpStream, ctl: StepCtl):
@@ -150,22 +161,10 @@ def build_step_batched(cfg: HermesConfig):
     return step
 
 
-def build_step_scan(cfg: HermesConfig, rounds: int):
-    """``rounds`` batched rounds in one call from round ``ctl.step``, the
-    membership constant, the completions dropped; returns the state."""
-    step = build_step_batched(cfg)
-
-    def chunk(rs: st.ReplicaState, stream: st.OpStream, ctl: StepCtl):
-        for off in range(rounds):
-            rs, _comp = step(rs, stream, ctl._replace(step=ctl.step + off))
-        return rs
-
-    return chunk
-
-
-def build_step_sharded(cfg: HermesConfig, group):
-    """The step over a replica group: the state holds the group's local
-    replicas (``place_sharded``), ``ctl`` their membership rows."""
+def sharded_round(cfg: HermesConfig, group):
+    """The round over a replica group, uncompiled: the state holds the
+    group's local replicas (``place_sharded``), ``ctl`` their membership
+    rows."""
     bcast, route_back = group_exchanges(group)
     ph = phase_fns(cfg)
     n = group.n_local(cfg.n_replicas)
@@ -178,9 +177,9 @@ def build_step_sharded(cfg: HermesConfig, group):
     return step
 
 
-def build_step_sharded_scan(cfg: HermesConfig, group, rounds: int):
-    """``rounds`` sharded rounds in one call (as ``build_step_scan``)."""
-    step = build_step_sharded(cfg, group)
+def _scan(step, rounds: int):
+    """``rounds`` rounds of ``step`` from round ``ctl.step``, the
+    membership constant, the completions dropped."""
 
     def chunk(rs: st.ReplicaState, stream: st.OpStream, ctl: StepCtl):
         for off in range(rounds):
@@ -188,6 +187,46 @@ def build_step_sharded_scan(cfg: HermesConfig, group, rounds: int):
         return rs
 
     return chunk
+
+
+def _compiled(fn, name: str, group=None, **kw) -> graphs.Compiled:
+    """``fn`` as a compiled call of one variant; a CUDA graph on the card
+    unless ``group`` is a ``DistGroup``."""
+    from hermes_tpu_torch.core.group import LocalGroup
+
+    return graphs.Compiled(fn, graphs.one_variant, name=name,
+                           graph=group is None or isinstance(group,
+                                                             LocalGroup),
+                           **kw)
+
+
+def build_step_batched(cfg: HermesConfig):
+    """The R-replica round compiled (the reference's ``jax.jit`` of the
+    batched step): ``(rs, stream, ctl) -> (rs, comp)``, ``rs`` the bound
+    state, ``comp`` the completions in the next of the ring's slots."""
+    return _compiled(step_round(cfg), "step_batched")
+
+
+def build_step_scan(cfg: HermesConfig, rounds: int):
+    """``rounds`` batched rounds in one compiled call from round
+    ``ctl.step``, the membership constant, the completions dropped;
+    returns the bound state and adds ``rounds`` to the bound step."""
+    return _compiled(_scan(step_round(cfg), rounds), "step_scan",
+                     rounds=rounds, comps=False)
+
+
+def build_step_sharded(cfg: HermesConfig, group):
+    """The round over a replica group compiled (as
+    ``build_step_batched``); a ``DistGroup``'s is called eagerly."""
+    return _compiled(sharded_round(cfg, group), "step_sharded", group)
+
+
+def build_step_sharded_scan(cfg: HermesConfig, group, rounds: int):
+    """``rounds`` sharded rounds in one compiled call (as
+    ``build_step_scan``)."""
+    return _compiled(_scan(sharded_round(cfg, group), rounds),
+                     "step_sharded_scan", group, rounds=rounds,
+                     comps=False)
 
 
 def _local(x, rows, device):

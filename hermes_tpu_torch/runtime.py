@@ -66,12 +66,19 @@ group, ``core/group.py``) and ``sim`` (the blocks through a host
 transport, ``transport/``: the deterministic ``SimTransport`` by default,
 any ``HostTransport`` such as ``chaos.net.FaultingTransport`` on
 request).  It shares the freeze/thaw/remove/join surface, the obs hooks
-(``_ObsHooks``) and the live resize (``_ElasticResize``) with
-``FastRuntime``.  Its round keeps the host out of the way on the
-``batched`` and ``sharded`` backends: nothing in ``step_once`` waits for
-the device unless completions are recorded or a detector is attached.
-The ``sim`` backend copies each round's INV, ACK and VAL blocks to the
-host and back, as the reference's does.
+(``_ObsHooks``), the live resize (``_ElasticResize``) and the
+device-resident round counter (``_DeviceStep``) with ``FastRuntime``.
+On the ``batched`` and ``sharded`` backends its round is compiled too
+(``core/step.py``'s builders, the reference's ``jax.jit``): the first
+round binds the state, the op stream, the membership rows and the round
+counter, and on the card each later round is one CUDA graph replay that
+advances the counter; a freeze/thaw/set_live/remove/join writes the
+bound membership rows in place, a join the bound table.  Nothing in
+``step_once`` waits for the device unless completions are recorded (one
+copy of the round's ring slot) or a detector is attached.  A
+``DistGroup``'s round is called eagerly, with the same binding.  The
+``sim`` backend copies each round's INV, ACK and VAL blocks to the host
+and back, as the reference's does, and runs uncompiled.
 """
 
 from __future__ import annotations
@@ -290,7 +297,30 @@ def _block_to_host(block):
     return type(block)(*(x.cpu().numpy().copy() for x in block))
 
 
-class Runtime(_ObsHooks, _ElasticResize):
+class _DeviceStep:
+    """The round counter both runtimes keep on the device (``_step_dev``,
+    a 0-dim int32 tensor the compiled round binds and advances) beside
+    its host mirror ``step_idx``."""
+
+    @property
+    def step_idx(self) -> int:
+        return self._step_idx
+
+    @step_idx.setter
+    def step_idx(self, v: int) -> None:
+        # external assignment re-seeds the device counter in place (the
+        # compiled round bound it); the per-round increment is the
+        # round's own
+        self._step_idx = int(v)
+        dev_step = getattr(self, "_step_dev", None)
+        if dev_step is None:
+            self._step_dev = torch.tensor(self._step_idx, dtype=torch.int32,
+                                          device=self.device)
+        else:
+            dev_step.fill_(self._step_idx)
+
+
+class Runtime(_ObsHooks, _ElasticResize, _DeviceStep):
     """Runs the reference's phases engine (module docstring).
 
     ``backend``: ``batched`` (all R replicas on ``device``), ``sharded``
@@ -332,11 +362,12 @@ class Runtime(_ObsHooks, _ElasticResize):
             None if x is None else x[self._rows].to(self.device).contiguous()
             for x in full))
 
-        self.step_idx = 0
+        self.step_idx = 0  # also seeds the device-resident round counter
         self.epoch = np.zeros((r,), np.int32)
         self.live = np.full((r,), cfg.full_mask, np.int32)
         self.frozen = np.zeros((r,), bool)
-        # the membership rows on the device, re-uploaded only when a
+        # the membership rows on the device (the compiled round binds
+        # them), rewritten in place only when a
         # freeze/thaw/set_live/remove/join dirtied them
         self._ctl_dev = None
         self._ctl_dirty = True
@@ -360,20 +391,25 @@ class Runtime(_ObsHooks, _ElasticResize):
     # -- control -------------------------------------------------------------
 
     def _ctl(self):
-        """The round's StepCtl: the cached membership rows (the local
-        replicas'; copied, never aliased to the host arrays) and this
-        round's step."""
+        """The round's StepCtl over the same device tensors every round:
+        the membership rows (the local replicas'; copied, never aliased
+        to the host arrays), rewritten in place when a hook dirtied them
+        (stream-ordered after the rounds already enqueued), and the
+        device round counter."""
         if self._ctl_dirty:
-            dev, rows = self.device, self._rows
-            self._ctl_dev = step_lib.StepCtl(
-                step=0,
-                epoch=torch.tensor(self.epoch[rows], device=dev),
-                live_mask=torch.tensor(self.live[rows], device=dev),
-                frozen=torch.tensor(self.frozen[rows], device=dev))
+            rows = self._rows
+            host = (self.epoch[rows], self.live[rows], self.frozen[rows])
+            if self._ctl_dev is None:
+                self._ctl_dev = step_lib.StepCtl(
+                    self._step_dev,
+                    *(torch.tensor(x, device=self.device) for x in host))
+            else:
+                for d, x in zip(self._ctl_dev[1:], host):
+                    d.copy_(torch.from_numpy(x))
             self._ctl_dirty = False
             self._trace("ctl_upload", epoch=int(self.epoch[0]),
                         live_mask=int(self.live[0]))
-        return self._ctl_dev._replace(step=self.step_idx)
+        return self._ctl_dev._replace(step=self._step_dev)
 
     def freeze(self, replica: int) -> None:
         """Failure injection: the replica stops processing and emitting."""
@@ -443,14 +479,19 @@ class Runtime(_ObsHooks, _ElasticResize):
 
     # -- stepping -------------------------------------------------------------
 
-    def step_once(self) -> None:
+    def step_once(self):
+        """One protocol round; returns its completions on the device (on
+        the batched and sharded backends the compiled round's ring slot:
+        read it before the next round)."""
         ctl = self._ctl()
         obs = self.obs
         trace = obs is not None and obs.trace_steps
         if trace:
             td = obs.tracer.span_begin("step_dispatch", step=self.step_idx)
         if self._step is not None:
+            # one replay on the card; the round advances the bound step
             self.rs, comp = self._step(self.rs, self.stream, ctl)
+            self._step_dev = self._step.step
         else:
             self.rs, comp = self._host_step(ctl)
         if trace:
@@ -458,19 +499,25 @@ class Runtime(_ObsHooks, _ElasticResize):
         if self.recorder is not None:
             if trace:
                 tr = obs.tracer.span_begin("readback", step=self.step_idx)
-            comp_np = st.Completions(*(x.cpu().numpy() for x in comp))
+            # one copy of the round's ring slot
+            comp_np = st.Completions(*(x.numpy()
+                                       for x in host_copies(list(comp))))
             if trace:
                 obs.tracer.span_end("readback", tr)
             self.recorder.record_step(comp_np)
-        self.step_idx += 1
+        if self._step is not None:
+            self._step_idx += 1
+        else:
+            self.step_idx += 1  # the sim round's device counter too
         if self.membership is not None:
             self.membership.poll(self)
+        return comp
 
     def _host_step(self, ctl):
         """One round through ``step._step_core`` with the exchanges made
         by the host transport: each block copied to the host, exchanged,
         and the inbound block copied back."""
-        step = self.step_idx
+        step = self.step_idx  # the transports' host mirror
         dev = self.device
 
         def to_dev(block):
@@ -568,7 +615,7 @@ class Runtime(_ObsHooks, _ElasticResize):
         return v
 
 
-class FastRuntime(_ObsHooks, _ElasticResize):
+class FastRuntime(_ObsHooks, _ElasticResize, _DeviceStep):
     """Runs the fast round: the same membership / failure-injection /
     history-recording surface as the reference, over a FastState of
     tensors on ``device`` (batched) or on the group's device (sharded;
@@ -671,23 +718,6 @@ class FastRuntime(_ObsHooks, _ElasticResize):
             self.recorder = HistoryRecorder(cfg) if record else None
 
     # -- device-resident control --------------------------------------------
-
-    @property
-    def step_idx(self) -> int:
-        return self._step_idx
-
-    @step_idx.setter
-    def step_idx(self, v: int) -> None:
-        # external assignment re-seeds the device counter in place (the
-        # compiled round bound it); the per-round increment is the
-        # round's own (dispatch_round)
-        self._step_idx = int(v)
-        dev_step = getattr(self, "_step_dev", None)
-        if dev_step is None:
-            self._step_dev = torch.tensor(self._step_idx, dtype=torch.int32,
-                                          device=self.device)
-        else:
-            dev_step.fill_(self._step_idx)
 
     def _ctl(self) -> fst.FastCtl:
         """Per-round FastCtl over the same device rows every round: the
@@ -862,7 +892,7 @@ class FastRuntime(_ObsHooks, _ElasticResize):
             tr = obs.tracer.span_begin("readback", step=self.step_idx,
                                        round=round_idx)
         t0 = time.perf_counter() if obs is not None else 0.0
-        if round_idx is not None and self._step.stale(comp, round_idx):
+        if self._step.stale(comp):
             raise RuntimeError(
                 f"the completions of round {round_idx} were overwritten by "
                 f"a later round: harvest within {self._step.ring_size} "

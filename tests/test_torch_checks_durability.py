@@ -6,11 +6,12 @@ The gate runs green on the CPU.  Its kill legs' deterministic fields
 equal the reference's at the same seed (the witnessed commits, the keys
 served, the post-recovery commits, nothing lost); the port's child and
 the reference's, each killed by its own powercut, witness the same
-(wave, key) commits; and the two recovered stores serve the same value
-for every key the killed wave never wrote and no wave wrote twice (which
-put of a wave lands first, and its uid, follow the flusher's clock).  The
-drive loop is the reference's: in process, four waves commit the same
-uids.  Red: a witnessed commit that is missing from the log, and a child
+(wave, key) commits; and the two recovered stores serve the seed's
+value, so the same value, for every key the killed wave never wrote and
+no wave wrote twice (which put of a wave lands first, and its uid,
+follow the flusher's clock).  The reference's child and its recovered
+store run with their rounds settled (ROADMAP C).  The drive loop is the
+reference's: in process, four waves commit the same uids.  Red: a witnessed commit that is missing from the log, and a child
 that exits without its powercut, turn the gate red."""
 
 import os
@@ -25,7 +26,7 @@ import torch
 from hermes_tpu_torch.checks import durability as gate
 from hermes_tpu_torch.checks import durability_soak as soak
 from torch_gatepair import (ROOT, drop, run_port_gate,  # noqa: F401
-                            temp_in_tmp_path)
+                            settled_reference, temp_in_tmp_path)
 
 torch.set_num_threads(1)
 
@@ -41,15 +42,65 @@ def test_torch_durability_gate_green_on_cpu(tmp_path):
     assert rep["wal_overhead"]["wal_on"]["fsyncs"] > 0
 
 
+#: runs the reference's soak child with its rounds settled: each
+#: dispatched round completes before host code goes on, as
+#: ``torch_gatepair.settled_reference`` settles an in-process reference
+#: (ROADMAP C: at depth 2 a host rewrite after a dispatch can leak into
+#: the dispatched round, so what the child logs would follow the load)
+SETTLED_CHILD = """
+import runpy, sys
+import jax
+from hermes_tpu import runtime
+dispatch = runtime.FastRuntime.dispatch_round
+def settled(self, *args, **kwargs):
+    comp = dispatch(self, *args, **kwargs)
+    jax.block_until_ready((comp, self.fs))
+    return comp
+runtime.FastRuntime.dispatch_round = settled
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+"""
+
+
 def _ref_child(d, backend):
     wal_dir, commits = os.path.join(d, "wal"), os.path.join(d, "commits")
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH="")
     p = subprocess.run(
-        [sys.executable, str(ROOT / "scripts" / "_durability_soak.py"),
-         wal_dir, backend, commits, str(gate.KILL_WAVE)], cwd=ROOT,
+        [sys.executable, "-c", SETTLED_CHILD,
+         str(ROOT / "scripts" / "_durability_soak.py"), wal_dir, backend,
+         commits, str(gate.KILL_WAVE)], cwd=ROOT,
         env=env, capture_output=True, text=True, timeout=300)
     assert p.returncode == -signal.SIGKILL, p.stderr[-2000:]
     return wal_dir, gate._read_commits(commits)
+
+
+def _seed_payloads(waves):
+    """Each wave's keys and payload words as ``soak.run_waves`` draws
+    them from the seed: (keys (n,), payload (n, PAYLOAD_WORDS))."""
+    rng = np.random.default_rng(soak.SEED)
+    n = 2 * soak.N_REPLICAS * soak.soak_cfg(None).n_sessions
+    out = []
+    for wave in range(waves):
+        keys = rng.integers(0, 128, n)
+        vals = np.empty((n, soak.PAYLOAD_WORDS), np.int32)
+        vals[:, 0] = wave
+        vals[:, 1] = np.arange(n)
+        vals[:, 2:] = rng.integers(0, 1 << 20, (n, soak.PAYLOAD_WORDS - 2))
+        out.append((keys, vals))
+    return out
+
+
+def _seed_values(keys, waves):
+    """The payload the seed decides for each of ``keys`` (none written
+    twice in one wave, none written by the killed wave): its put of the
+    last of ``waves`` waves that wrote it, zeros if none did."""
+    want = np.zeros((len(keys), soak.PAYLOAD_WORDS), np.int32)
+    for wkeys, vals in _seed_payloads(waves):
+        for i, k in enumerate(keys):
+            hit = np.nonzero(wkeys == k)[0]
+            if hit.size:
+                want[i] = vals[hit[-1]]
+    return want
 
 
 def _wave4_keys(records) -> set:
@@ -60,7 +111,7 @@ def _wave4_keys(records) -> set:
 
 
 def test_torch_durability_witness_and_recovery_equal_the_reference(
-        tmp_path):
+        tmp_path, settled_reference):
     from hermes_tpu.chaos.recovery import recover_store as ref_recover
     from hermes_tpu.wal import replay as ref_replay
     from hermes_tpu_torch.chaos.recovery import recover_store
@@ -91,6 +142,12 @@ def test_torch_durability_witness_and_recovery_equal_the_reference(
     kvs, _ = recover_store(soak.soak_cfg(wal), device="cpu")
     got, want = kvs.multi_get(keys), ref_kvs.multi_get(keys)
     assert got.all_done() and want.all_done()
+    # each store's values are the seed's, then the two equal
+    seed = _seed_values(keys, gate.KILL_WAVE)
+    np.testing.assert_array_equal(np.asarray(want.value), seed,
+                                  err_msg="the reference's recovered store")
+    np.testing.assert_array_equal(got.value, seed,
+                                  err_msg="the port's recovered store")
     np.testing.assert_array_equal(got.value, np.asarray(want.value))
     assert len(keys) > 16
     kvs.wal.close()

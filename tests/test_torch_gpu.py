@@ -1696,7 +1696,8 @@ def test_phases_apply_inv_duplicate_targets_write_identical_rows_on_card(
     replica 1 frozen across rounds 8-40 (replays of stuck keys), every
     round's beating lanes are grouped by target: duplicates occur, carry
     equal (state, ver, fc, value) rows, and the lanes kept for the
-    scatters (``beats``) name every target once, its last lane."""
+    scatters (``beats``) name every target once, its last lane.  The
+    rounds run under ``Compiled.eager()``."""
     from hermes_tpu_torch import config
     from hermes_tpu_torch.core import phases
     from hermes_tpu_torch.runtime import Runtime
@@ -1741,12 +1742,15 @@ def test_phases_apply_inv_duplicate_targets_write_identical_rows_on_card(
 
     monkeypatch.setattr(phases, "inv_winners", inv_winners)
     rt = Runtime(cfg, backend="batched", device="cuda")
-    for s in range(48):
-        if s == 8:
-            rt.freeze(1)
-        if s == 40:
-            rt.thaw(1)
-        rt.step_once()
+    # the compiled round eager: the patched phase runs (and syncs) in
+    # every round, which a graph's replay would not
+    with rt._step.eager():
+        for s in range(48):
+            if s == 8:
+                rt.freeze(1)
+            if s == 40:
+                rt.thaw(1)
+            rt.step_once()
     torch.cuda.synchronize()
     dup, differ, not_last = torch.stack(seen).sum(0).tolist()
     assert len(seen) == 48
@@ -2073,7 +2077,7 @@ def test_a_failed_capture_raises_naming_the_op():
 
     gr = _graph_namespace()
     rt = gr.FastRuntime(gr.cfg(), device="cuda")
-    comp = graphs.Compiled(syncing, 32, comps=False)
+    comp = graphs.Compiled(syncing, graphs.fast_variant(32, 1), comps=False)
     comp(rt.fs, rt.stream, rt._ctl())  # the first call runs eagerly
     with pytest.raises(RuntimeError, match="capture of variant .* failed; "
                        "the last op dispatched was aten._local_scalar_dense"):
@@ -2092,3 +2096,74 @@ def test_graph_ops_counts_one_kernel_a_hand_kernel_call():
                           dev)
     assert profiling.graph_ops(lambda: kernels.stats_block(*args)) == {
         "kernel": 1, "total": 1}
+
+
+def _phases_namespace(scale=0.01):
+    """What ``chip_smoke``'s phases-graph helpers take: BASELINE configs
+    at ``scale`` on the card."""
+    from types import SimpleNamespace
+
+    from hermes_tpu_torch import config, profiling
+    from hermes_tpu_torch.core.group import LocalGroup
+    from hermes_tpu_torch.runtime import Runtime
+
+    return SimpleNamespace(
+        cfg=lambda n: chip_smoke.baseline_cfg(config, n, scale),
+        device="cuda", Runtime=Runtime, LocalGroup=LocalGroup,
+        sync=torch.cuda.synchronize, queued_s=profiling.queued_s,
+        launch_calls=chip_smoke.launch_calls)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,backend", [(1, "batched"), (3, "batched"),
+                                       (1, "sharded")])
+def test_graphed_phases_round_equals_the_eager_round(n, backend):
+    """The compiled phases round (a CUDA graph, replayed) against the
+    round function called each round under ``Compiled.eager()``, through
+    a freeze, a thaw, a remove and a join: every state leaf and
+    completion column equal every round (``chip_smoke.phases_graph_pair``);
+    the compiled chunks equal to the graphed round loop
+    (``phases_scan_equal``)."""
+    _card()
+    ph = _phases_namespace()
+    chip_smoke.phases_graph_pair(
+        torch, lambda: chip_smoke.phases_runtime(ph, n, backend))
+    assert chip_smoke.phases_scan_equal(torch, ph, n, backend)
+
+
+@pytest.mark.gpu
+def test_graphed_phases_round_makes_a_few_host_launch_calls():
+    """A graphed phases round is one replay: a graph launch and the ring
+    slot's copy (``chip_smoke.check_graphed_phases_round``), the eager
+    one some thousand launches."""
+    _card()
+    ph = _phases_namespace()
+    rt = chip_smoke.phases_runtime(ph, 1, "batched")
+    graphed = chip_smoke.phases_graph_timing(ph, rt, False)
+    eager = chip_smoke.phases_graph_timing(ph, rt, True)
+    chip_smoke.check_graphed_phases_round("config 1", graphed)
+    assert eager["host_launch_calls"] > 100
+    assert rt._step.captures == 1 and rt._step.rebinds == 0
+
+
+@pytest.mark.gpu
+def test_membership_change_between_replays_reaches_the_phases_graph():
+    """Once the round is captured, a freeze made between two replays
+    stops replica 1's op intake in the replays that follow (its
+    ``op_idx`` row stands while replica 0's moves), and a thaw starts it
+    again: the membership rows the graph reads are the ones the runtime
+    writes."""
+    _card()
+    rt = chip_smoke.phases_runtime(_phases_namespace(0.25), 1, "batched")
+    rt.run(3)  # the warm-up, the capture, a replay
+    rt.freeze(1)
+    rt.run(1)
+    op_idx = rt.rs.sess.op_idx.clone()
+    rt.run(4)
+    assert torch.equal(rt.rs.sess.op_idx[1], op_idx[1])
+    assert not torch.equal(rt.rs.sess.op_idx[0], op_idx[0])
+    rt.thaw(1)
+    rt.run(4)
+    assert not torch.equal(rt.rs.sess.op_idx[1], op_idx[1])
+    assert rt._step.captures == 1 and rt._step.rebinds == 0
+    assert rt._step.replays == rt.step_idx - 1

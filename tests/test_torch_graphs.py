@@ -231,7 +231,7 @@ def test_torch_compiled_runtime_keeps_its_tensors():
     rt.run(3)
     assert all(a is b for a, b in zip(leaves, graphs.flatten(rt.fs)[0]))
     now = rt._ctl()
-    for f in graphs.CTL_TENSORS:
+    for f in graphs.ctl_tensors(ctl):
         assert getattr(now, f) is getattr(ctl, f), f
     assert int(rt._step_dev) == rt.step_idx == 43
     assert rt._step.rebinds == 0
@@ -246,7 +246,8 @@ def test_torch_compiled_round_copies_in_and_rebinds():
     step = graphs.Compiled(
         lambda fs, stream, ctl: fst.fast_round_batched(
             by_width[fs.sess.status.shape[1]], ctl, fs, stream),
-        cfg.replay_scan_every, ring=2)
+        graphs.fast_variant(cfg.replay_scan_every, 1), ring=2,
+        extra=graphs.suspect_ages)
     fs = fst.init_fast_state(cfg, CPU)
     stream = fst.prep_stream(ycsb.make_streams(cfg), CPU)
     ctl = fst.make_fast_ctl(cfg, 1, CPU)

@@ -55,7 +55,8 @@ def _ctls(jc, pc, a):
 
     jctl = jstep._per_replica_ctl(jc, a._ctl())
     pctl = step_lib._per_replica_ctl(pc, step_lib.StepCtl(
-        step=a.step_idx, epoch=torch.tensor(a.epoch),
+        step=torch.tensor(a.step_idx, dtype=torch.int32),
+        epoch=torch.tensor(a.epoch),
         live_mask=torch.tensor(a.live), frozen=torch.tensor(a.frozen)))
     return jctl, pctl
 

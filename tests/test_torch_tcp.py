@@ -175,10 +175,12 @@ def test_torch_rdma_stub_raises():
 
 
 def test_torch_chip_smoke_phases_engine_rehearsal():
-    """``chip_smoke.run_phases_engine`` (the smoke's phases 19-22) on the
-    CPU at scale 0.01: the card's device and the profiler stubbed, the
-    CPU reference child, the sharded and sim-wire drives and six TCP
-    processes real; every comparison equal and no hand kernel launched."""
+    """``chip_smoke.run_phases_engine`` (the smoke's phases 19-22 and
+    phases-graph) on the CPU at scale 0.01: the card's device and the
+    profiler stubbed, the graphed-against-eager pairs, the compiled
+    chunks, the CPU reference child, the sharded and sim-wire drives and
+    six TCP processes real; every comparison equal and no hand kernel
+    launched."""
     import contextlib
     import time
     from types import SimpleNamespace
@@ -202,6 +204,10 @@ def test_torch_chip_smoke_phases_engine_rehearsal():
         return dict(busy_s=wall / 2, wall_s=wall, busy_by="queued",
                     launches=1, top=[])
 
+    def no_launch_calls(run):
+        run()
+        return {}
+
     counters = {"stats_block": kernels.stats_block,
                 "mega_route": megaround.mega_route,
                 "mega_apply": megaround.mega_apply,
@@ -212,10 +218,13 @@ def test_torch_chip_smoke_phases_engine_rehearsal():
         types=types, sync=lambda: None, reset_peak_memory=lambda: None,
         peak_memory=lambda: 0, device_busy=busy,
         sync_check=contextlib.nullcontext,
+        queued_s=lambda call, **kw: None, launch_calls=no_launch_calls,
         FaultingTransport=FaultingTransport, SimTransport=SimTransport,
         chaos=chaos, MembershipService=MembershipService,
         combine_and_check=combine_and_check)
     out = cs.run_phases_engine(torch, ph, counters, "cpu")
     assert not any(out["launches"].values())
+    assert {r["identical"] and r["scan_equal"] for r in
+            out["graph"].values()} == {True}
     assert out["tcp"]["clean"]["all_sessions_done"]
     assert out["sim_wire"]["chaos_check_ok"]
